@@ -8,11 +8,13 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Environment and build: the card's name and power limit (nvidia-smi),
    torch/CUDA versions, and the time to build every kernel (one nvcc
-   per source, all at once).
+   per source, all at once), with ptxas's registers and spills.
 2. Kernels vs their plain PyTorch versions on the card, at the stated
    tolerances, with kernel / plain / library timings (CUDA events, L2
-   flushed before each launch) at the shapes the main path gives them.
-3. The main path at full width: GPT-2 124M (12 layers, 768 units, 12
+   flushed before each launch) at the shapes the main paths give them:
+   B1 flash forward, B2/B3 flash backward (dQ; dK and dV, also held to
+   repeat bit for bit), B4 paged attention.
+3. The serving path at full width: GPT-2 124M (12 layers, 768 units, 12
    heads, vocab 50257, 1024 positions; random weights from a seed)
    served by ``InferenceEngine`` with paged KV and the paged-attention
    kernel: 8 requests of 300-500 prompt tokens (the 512 seq bucket, so
@@ -22,7 +24,15 @@ Phases (any failure exits non-zero and prints no result line):
    the model level; the whole phase repeats with int8 KV pages.  Then
    ``torch.profiler`` shows where one prefill and 8 decode steps spend
    their time (wall, device-busy share, top kernels).
-4. A ``{"kernels": [...]}`` line, the card line again, and the last
+4. The training path at full width: the same GPT-2 124M (float32, seed
+   0, dropout 0) takes Adam steps through ``parallel.ShardedTrainer``
+   with ``gpt2_lm_loss`` on 16 x 1024 tokens: one warm-up step, then 5
+   timed steps on the same batch.  B1, B2 and B3 must each launch 12
+   times per step, every loss must be finite and the last below the
+   first.  Before it, one step's loss and every gradient at batch 4 are
+   held to the same step with ``impl='ref'`` attention.  Then
+   ``torch.profiler`` shows where one step spends its time.
+5. A ``{"kernels": [...]}`` line, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -46,16 +56,36 @@ TOL_INT8 = 1e-4
 # full-width logits, kernel read arm vs gather arm over the same pages:
 # 12 layers of reassociated attention sums in float32
 TOL_LOGITS = 1e-3
+# B2/B3 are held as max-abs error over the plain version's max-abs:
+# gradients reach O(10) at T = 1024, so a fixed absolute bound would
+# loosen or tighten with the shape.  float32: the kernels reassociate
+# the float32 sums only (1e-4); bf16: both sides round P and dS to bf16
+# at the same places, but a product one ulp (2**-8 = 3.9e-3) apart can
+# land on another rounding of dS (2e-2)
+TOL_BWD = {"float32": 1e-4, "bfloat16": 2e-2}
+# full-width loss and gradients, flash kernels vs impl='ref' attention,
+# each gradient's max-abs error over its own max-abs: 12 layers of
+# float32 sums taken in another order, forward and backward
+TOL_GRAD = 1e-3
+TOL_LOSS = 1e-5
+
+# the training path: bench.py's chip configuration for GPT-2 124M
+TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 16, 1024, 5, 1e-4
 
 # H100 SXM published peaks (dense): HBM bytes/s, float32 on the CUDA
 # cores, bf16 on the tensor cores
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
-# where each kernel's Pallas original lives
+# every kernel of the port, and where its Pallas original lives
+KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "paged_attention")
 REPLACES = {"flash_fwd": "mxnet_tpu/ops/flash.py:100",
+            "flash_dq": "mxnet_tpu/ops/flash.py:265",
+            "flash_dkv": "mxnet_tpu/ops/flash.py:318",
             "paged_attention": "mxnet_tpu/ops/paged.py:82"}
 SOURCES = {"flash_fwd": "mxnet_tpu_torch/csrc/flash_fwd.cu",
+           "flash_dq": "mxnet_tpu_torch/csrc/flash_bwd.cu",
+           "flash_dkv": "mxnet_tpu_torch/csrc/flash_bwd.cu",
            "paged_attention": "mxnet_tpu_torch/csrc/paged_attention.cu"}
 
 
@@ -71,9 +101,14 @@ def maxabs(a, b) -> float:
     return float((a.float() - b.float()).abs().max().item())
 
 
+def relerr(a, ref) -> float:
+    """max-abs error of ``a`` over the max-abs of ``ref``."""
+    return maxabs(a, ref) / max(float(ref.float().abs().max()), 1e-30)
+
+
 def check(name, err, tol):
     ok = err <= tol
-    print(f"  {name}: max_abs_err={err:.3e} tol={tol:g} "
+    print(f"  {name}: err={err:.3e} tol={tol:g} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"{name}: max-abs error {err} > {tol}")
@@ -113,6 +148,21 @@ def bound(bytes_moved, flops, dtype):
 
 # ------------------------------------------------------------- kernels
 
+def attended(torch, dev, b, t, causal, seg):
+    """Segment ids (None, or packed rows of three documents of ragged
+    lengths, the same in every row) and the (T, T) mask of attended
+    (query, key) pairs they and ``causal`` leave."""
+    keep = torch.ones((t, t), dtype=torch.bool, device=dev)
+    if causal:
+        keep = torch.tril(keep)
+    if not seg:
+        return None, keep
+    cuts = torch.tensor([t // 3, t // 3 + t // 4], device=dev)
+    qseg = (torch.arange(t, device=dev)[:, None] >= cuts).sum(1)
+    qseg = qseg.to(torch.int32)[None].expand(b, t).contiguous()
+    return qseg, keep & (qseg[0][:, None] == qseg[0][None, :])
+
+
 def flash_cases(torch, dev, timer, card):
     """B1 against its plain version in every configuration the port
     takes; returns the main-path case's numbers."""
@@ -123,16 +173,7 @@ def flash_cases(torch, dev, timer, card):
     def run(tag, b, t, h, d, dtype, causal, seg=False, tol=TOL_F32):
         q, k, v = (torch.randn((b, t, h, d), generator=g, device=dev)
                    .to(dtype) for _ in range(3))
-        keep = torch.ones((t, t), dtype=torch.bool, device=dev)
-        if causal:
-            keep = torch.tril(keep)
-        qseg = None
-        if seg:
-            # packed rows: three documents of ragged lengths per row
-            cuts = torch.tensor([t // 3, t // 3 + t // 4], device=dev)
-            qseg = (torch.arange(t, device=dev)[:, None] >= cuts).sum(1)
-            qseg = qseg.to(torch.int32)[None].expand(b, t).contiguous()
-            keep = keep & (qseg[0][:, None] == qseg[0][None, :])
+        qseg, keep = attended(torch, dev, b, t, causal, seg)
         scale = d ** -0.5
         o, lse = F.flash_fwd(q, k, v, qseg, qseg, causal=causal,
                              scale=scale)
@@ -171,9 +212,114 @@ def flash_cases(torch, dev, timer, card):
     run("full B2 T256 H4 D128 f32", 2, 256, 4, 128, torch.float32, False)
     run("causal B1 T256 H2 D256 bf16", 1, 256, 2, 256, torch.bfloat16, True,
         tol=TOL_BF16)
-    # the main path's prefill shape: 8 prompts in the 512 bucket, f32
-    return run("main-path causal B8 T512 H12 D64 f32", 8, 512, 12, 64,
-               torch.float32, True)
+    # the serving path's prefill shape: 8 prompts in the 512 bucket, f32
+    run("serving-path causal B8 T512 H12 D64 f32", 8, 512, 12, 64,
+        torch.float32, True)
+    # the training path's shape, the one the kernels line reports (its
+    # launches are the training path's)
+    return run(f"training-path causal B{TRAIN_B} T{TRAIN_T} H12 D64 f32",
+               TRAIN_B, TRAIN_T, 12, 64, torch.float32, True)
+
+
+def flash_bwd_cases(torch, dev, timer, card):
+    """B2 (dQ) and B3 (dK, dV) against their plain versions in every
+    configuration the port takes, each held to repeat bit for bit;
+    returns the main-path case's numbers for each kernel."""
+    from mxnet_tpu_torch.ops import flash as F
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 2)
+
+    def run(tag, b, t, h, d, dtype, causal, seg=False):
+        dname = str(dtype).split(".")[1]
+        q, k, v, do = (torch.randn((b, t, h, d), generator=g, device=dev)
+                       .to(dtype) for _ in range(4))
+        qseg, keep = attended(torch, dev, b, t, causal, seg)
+        scale = d ** -0.5
+        o, lse = F.flash_fwd(q, k, v, qseg, qseg, causal=causal,
+                             scale=scale)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+            .reshape(b * h, 1, t).contiguous()
+        args = (q, k, v, do, lse, delta, qseg, qseg)
+        kw = dict(causal=causal, scale=scale)
+        dq = F.flash_dq(*args, **kw)
+        dk, dv = F.flash_dkv(*args, **kw)
+        torch.cuda.synchronize()
+        dq_ref = F._dq_plain(*args, causal, scale)
+        dk_ref, dv_ref = F._dkv_plain(*args, causal, scale)
+        rel = {"flash_dq": relerr(dq, dq_ref),
+               "flash_dkv": max(relerr(dk, dk_ref), relerr(dv, dv_ref))}
+        absd = {"flash_dq": maxabs(dq, dq_ref),
+                "flash_dkv": max(maxabs(dk, dk_ref), maxabs(dv, dv_ref))}
+        for name in rel:
+            check(f"{name} {tag} (over plain max-abs)", rel[name],
+                  TOL_BWD[dname])
+        dk2, dv2 = F.flash_dkv(*args, **kw)
+        if not (torch.equal(dq, F.flash_dq(*args, **kw))
+                and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+            raise AssertionError(f"flash_dq/flash_dkv {tag}: a second "
+                                 "launch gave other bits")
+        ms = {"flash_dq": timer(lambda: F.flash_dq(*args, **kw)),
+              "flash_dkv": timer(lambda: F.flash_dkv(*args, **kw))}
+        plain = {"flash_dq": timer(lambda: F._dq_plain(*args, causal,
+                                                       scale)),
+                 "flash_dkv": timer(lambda: F._dkv_plain(*args, causal,
+                                                         scale))}
+        lib_ms = None
+        if not seg:
+            # the library yardstick: SDPA's backward, dQ, dK and dV in one
+            # call (timed here only; the port never calls it)
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            out = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal)
+            dot = do.transpose(1, 2)
+            lib_ms = timer(lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dot, retain_graph=True))
+        # operations per attended (query, key) pair: B2 computes S, dP
+        # and dQ (3 products, 6*D), B3 S, dP, dV and dK (8*D), the whole
+        # backward the five distinct products (10*D); bytes: q, k, v, dO
+        # (and O for the whole backward) read once, lse and delta, the
+        # segment ids, each output written once (delta is no input of
+        # the whole backward, which reads O instead)
+        pairs = b * h * int(keep.sum())
+        n = b * t * h * d * q.element_size()
+        rows = 2 * b * h * t * 4 + (2 * b * t * 4 if seg else 0)
+        work = {"flash_dq": (5 * n + rows, 6 * d * pairs),
+                "flash_dkv": (6 * n + rows, 8 * d * pairs),
+                "whole backward": (8 * n + rows - b * h * t * 4,
+                                   10 * d * pairs)}
+        out = {}
+        for name, (nbytes, flops) in work.items():
+            b_ms, b_by = bound(nbytes, flops, dname)
+            if name in ms:
+                out[name] = dict(max_abs_err=absd[name], rel_err=rel[name],
+                                 ms=ms[name], plain_ms=plain[name],
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=lib_ms)
+                print(f"    {name}: kernel {ms[name]:.4f} ms, plain "
+                      f"{plain[name]:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
+                      f"[{card}]", flush=True)
+            else:
+                lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "n/a"
+                print(f"    whole backward: B2+B3 "
+                      f"{ms['flash_dq'] + ms['flash_dkv']:.4f} ms, sdpa "
+                      f"backward {lib}, bound {b_ms:.4f} ms ({b_by}) "
+                      f"[{card}]", flush=True)
+        return out
+
+    print("B2 flash_dq / B3 flash_dkv vs plain (T = 300: ragged tiles):",
+          flush=True)
+    for causal, seg, d in ((True, False, 64), (False, False, 128),
+                           (True, True, 64), (True, False, 256)):
+        for dtype in (torch.float32, torch.bfloat16):
+            kind = ("causal+segments" if seg else
+                    "causal" if causal else "full")
+            run(f"{kind} B2 T300 H3 D{d} {str(dtype).split('.')[1]}", 2,
+                300, 3, d, dtype, causal, seg)
+    # the training path's shape: GPT-2 124M at batch 16 x 1024, float32
+    return run(f"training-path causal B{TRAIN_B} T{TRAIN_T} H12 D64 "
+               "float32",
+               TRAIN_B, TRAIN_T, 12, 64, torch.float32, True)
 
 
 def engine_table(lens, max_new, ps, npt):
@@ -288,8 +434,24 @@ def make_prompts():
             for n in rs.randint(300, 501, size=8)]
 
 
-def serve(torch, net, prompts, card, **kw):
+def _wrappers():
     from mxnet_tpu_torch.ops import flash, paged
+    return {"flash_fwd": flash.flash_fwd, "flash_dq": flash.flash_dq,
+            "flash_dkv": flash.flash_dkv,
+            "paged_attention": paged.paged_attention}
+
+
+def reset_launches():
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def serve(torch, net, prompts, card, **kw):
     from mxnet_tpu_torch.serving import InferenceEngine
     eng = InferenceEngine(net, kv_layout="paged", num_slots=8, max_batch=8,
                           page_size=16, seq_buckets=(64, 128, 256, 512),
@@ -297,15 +459,13 @@ def serve(torch, net, prompts, card, **kw):
     n_warm = eng.warmup()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash.flash_fwd.launches = 0
-    paged.paged_attention.launches = 0
+    reset_launches()
     t0 = time.monotonic()
     futs = [eng.submit(p, max_new_tokens=32) for p in prompts]
     eng.start()
     outs = [f.result(600) for f in futs]
     wall = time.monotonic() - t0
-    launches = {"flash_fwd": flash.flash_fwd.launches,
-                "paged_attention": paged.paged_attention.launches}
+    launches = read_launches()
     eng.stop()
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     s = eng.stats()
@@ -403,12 +563,32 @@ def _device_rows(torch, prof):
     return sorted(rows, key=lambda r: -r[1])
 
 
+def report_profile(torch, name, wall, prof, card, marks=()):
+    """Print wall time, device-busy time and share, each kernel of
+    ``marks`` (substrings of kernel names) with its share, and the
+    kernels that took the most device time."""
+    rows = _device_rows(torch, prof)
+    busy = sum(ms for _k, ms in rows)
+    if not rows:
+        print(f"  {name}: wall {wall:.3f} ms; the profiler recorded no "
+              f"device time [{card}]", flush=True)
+        return
+    print(f"  {name}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"({busy / wall:.1%}; idle {1 - busy / wall:.1%}) [{card}]",
+          flush=True)
+    for mark in marks:
+        ms = sum(t for k, t in rows if mark in k)
+        print(f"    {mark}: {ms:.3f} ms, {ms / busy:.1%} of busy",
+              flush=True)
+    for key, ms in rows[:8]:
+        print(f"    {ms:9.3f} ms {ms / busy:6.1%}  {key[:100]}", flush=True)
+
+
 def profile_steps(torch, net, prompts, card):
-    """Where the main path's time goes: torch.profiler over one prefill
-    of the 8 prompts in the 512 bucket, then 8 decode steps of the
-    kernel arm, each ending in a host read of its tokens as the
-    engine's steps do.  Prints wall time, device-busy time and share,
-    and the kernels that took the most device time."""
+    """Where the serving path's time goes: torch.profiler over one
+    prefill of the 8 prompts in the 512 bucket, then 8 decode steps of
+    the kernel arm, each ending in a host read of its tokens as the
+    engine's steps do."""
     from torch.profiler import ProfilerActivity, profile
     pb = PagedBatch(torch, net, prompts)
     s = len(prompts)
@@ -432,18 +612,7 @@ def profile_steps(torch, net, prompts, card):
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        rows = _device_rows(torch, prof)
-        busy = sum(ms for _k, ms in rows)
-        if not rows:
-            print(f"  {name}: wall {wall:.3f} ms; the profiler recorded "
-                  f"no device time [{card}]", flush=True)
-            continue
-        print(f"  {name}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
-              f"({busy / wall:.1%}; idle {1 - busy / wall:.1%}) [{card}]",
-              flush=True)
-        for key, ms in rows[:8]:
-            print(f"    {ms:9.3f} ms {ms / busy:6.1%}  {key[:100]}",
-                  flush=True)
+        report_profile(torch, name, wall, prof, card)
 
 
 def main_path(torch, card, prompts):
@@ -455,9 +624,9 @@ def main_path(torch, card, prompts):
     print(f"  prompt lengths {[len(p) for p in prompts]}", flush=True)
     outs, launches = serve(torch, net, prompts, card,
                            paged_attention="kernel")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"main path never launched {name}")
+    for name in ("flash_fwd", "paged_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"serving path never launched {name}")
     outs_g, _ = serve(torch, net, prompts, card, paged_attention="gather")
     same = np.mean([np.mean(a[len(p):] == b[len(p):])
                     for a, b, p in zip(outs, outs_g, prompts)])
@@ -475,6 +644,113 @@ def main_path(torch, card, prompts):
     return launches
 
 
+# -------------------------------------------------------- training path
+
+def grad_parity(torch, net, toks, labels):
+    """One step's loss and every parameter's gradient with the flash
+    kernels, against the same step with ``impl='ref'`` attention (the
+    dispatch patched for this check only)."""
+    import functools
+
+    from mxnet_tpu_torch.base import training_mode
+    from mxnet_tpu_torch.models import gpt2_lm_loss, transformer
+    params = list(net.parameters())
+    t, lab = (torch.from_numpy(x).to(net.device) for x in (toks, labels))
+
+    def step():
+        reset_launches()
+        with training_mode(True):
+            loss = gpt2_lm_loss(net(t), lab)
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        return loss.detach(), grads, read_launches()
+
+    loss_k, g_k, n_k = step()
+    orig = transformer.dot_product_attention
+    transformer.dot_product_attention = functools.partial(orig, impl="ref")
+    try:
+        loss_r, g_r, n_r = step()
+    finally:
+        transformer.dot_product_attention = orig
+    n_layers = len(net.blocks)
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        if n_k[name] != n_layers or n_r[name] != 0:
+            raise AssertionError(f"grad parity: {name} launched "
+                                 f"{n_k[name]} / {n_r[name]} times")
+    check(f"loss B{t.shape[0]} T{t.shape[1]} kernels vs impl='ref' "
+          "(relative)", abs(float(loss_k) - float(loss_r)) /
+          abs(float(loss_r)), TOL_LOSS)
+    # k_proj.bias adds the same q.b to every score of a row, which the
+    # softmax cancels: its gradient is zero in exact arithmetic and both
+    # runs return rounding noise, so it is held against the largest
+    # gradient of the model instead of its own
+    names = list(net.collect_params())
+    top = max(float(g.abs().max()) for g in g_r)
+    errs = [maxabs(a, b) / (top if n.endswith("k_proj.bias") else
+                            max(float(b.abs().max()), 1e-30))
+            for n, a, b in zip(names, g_k, g_r)]
+    worst = int(np.argmax(errs))
+    check(f"{len(errs)} gradients kernels vs impl='ref' (worst "
+          f"{names[worst]}, over its max-abs)", errs[worst], TOL_GRAD)
+
+
+def train_path(torch, card):
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.models import get_gpt2, gpt2_lm_loss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    net = get_gpt2("gpt2_124m", dropout=0.0)
+    net.initialize(seed=SEED)
+    rs = np.random.RandomState(SEED)
+    toks, labels = (rs.randint(0, VOCAB, (TRAIN_B, TRAIN_T)).astype(np.int32)
+                    for _ in range(2))
+    print(f"training GPT-2 124M, batch {TRAIN_B} x {TRAIN_T} tokens, Adam "
+          f"lr {TRAIN_LR}, float32:", flush=True)
+    grad_parity(torch, net, toks[:4], labels[:4])
+    trainer = ShardedTrainer(net, "adam", loss=gpt2_lm_loss,
+                             optimizer_params={"learning_rate": TRAIN_LR})
+    losses = [trainer.step(toks, labels)]        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.monotonic()
+    for _ in range(TRAIN_STEPS):
+        losses.append(trainer.step(toks, labels))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses = [float(x) for x in losses]
+    per_step = {n: c / TRAIN_STEPS for n, c in launches.items()}
+    print(f"  losses {losses}", flush=True)
+    print(f"  {TRAIN_STEPS} steps in {wall:.3f} s: "
+          f"{wall / TRAIN_STEPS * 1e3:.1f} ms/step, "
+          f"{TRAIN_STEPS * TRAIN_B * TRAIN_T / wall:.1f} tokens/s, peak "
+          f"memory {peak:.0f} MiB, launches per step {per_step} [{card}]",
+          flush=True)
+    n_layers = len(net.blocks)
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        if per_step[name] != n_layers:
+            raise AssertionError(f"training path launched {name} "
+                                 f"{per_step[name]} times per step, not "
+                                 f"{n_layers}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses not finite and falling: "
+                             f"{losses}")
+    print("where the time goes (one training step):", flush=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(toks, labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(torch, f"train step B{TRAIN_B} T{TRAIN_T}", wall_ms, prof,
+                   card, marks=("flash_fwd_kernel", "flash_dq_kernel",
+                                "flash_dkv_kernel"))
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -483,6 +759,7 @@ def main() -> int:
     from mxnet_tpu_torch.utils import native
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.monotonic()
     dev = torch.device("cuda", 0)
     card = card_line()
     print(card, flush=True)
@@ -496,12 +773,21 @@ def main() -> int:
     timer = Timer(torch, dev)
     prompts = make_prompts()
     record = {"flash_fwd": flash_cases(torch, dev, timer, card),
+              **flash_bwd_cases(torch, dev, timer, card),
               "paged_attention": paged_cases(torch, dev, timer, card,
                                              [len(p) for p in prompts])}
-    launches = main_path(torch, card, prompts)
+    by_path = {"serve": main_path(torch, card, prompts),
+               "train": train_path(torch, card)}
+    # each kernel's launches on the path that is its own: the training
+    # path for the flash kernels, the serving path for paged attention
+    own = {name: "serve" if name == "paged_attention" else "train"
+           for name in KERNELS}
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
-                    replaces=REPLACES[name], launches=launches[name],
-                    **record[name]) for name in native.KERNELS]
+                    replaces=REPLACES[name],
+                    launches=by_path[own[name]][name],
+                    launches_by_path={p: c[name] for p, c in by_path.items()},
+                    **record[name]) for name in KERNELS]
+    print(f"chip_smoke: {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

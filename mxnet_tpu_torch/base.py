@@ -1,14 +1,16 @@
-"""Foundational pieces the serving slice uses: the framework error type
-and the training-mode flag (counterpart of ``mxnet_tpu/base.py``)."""
+"""Foundational pieces (counterpart of ``mxnet_tpu/base.py``): the
+framework error type, the name → class registries and the training-mode
+flag."""
 from __future__ import annotations
 
 import contextlib
 import threading
+from typing import Any, Dict, Optional
 
 import torch
 
-__all__ = ["MXNetError", "is_training", "set_training", "training_mode",
-           "torch_dtype"]
+__all__ = ["MXNetError", "registry", "is_training", "set_training",
+           "training_mode", "torch_dtype"]
 
 
 class MXNetError(RuntimeError):
@@ -28,6 +30,42 @@ def torch_dtype(dtype) -> torch.dtype:
         return _DTYPES[str(dtype)]
     except KeyError:
         raise MXNetError(f"unsupported dtype {dtype!r}") from None
+
+
+class _Registry:
+    """Name → object registry (optimizers, later initializers and
+    metrics); keys are lower-cased."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        self._entries: Dict[str, Any] = {}
+
+    def register(self, name: Optional[str] = None, obj: Any = None):
+        """``register(name, obj)``, or ``@register()`` / ``@register(name)``
+        as a decorator (default key: the object's ``__name__``)."""
+        def _do(o):
+            key = (name or getattr(o, "__name__", None) or str(o)).lower()
+            self._entries[key] = o
+            return o
+
+        return _do(obj) if obj is not None else _do
+
+    def get(self, name: str):
+        try:
+            return self._entries[name.lower()]
+        except KeyError:
+            raise MXNetError(f"Unknown {self.kind} '{name}'. Registered: "
+                             f"{sorted(self._entries)}") from None
+
+
+_REGISTRIES: Dict[str, _Registry] = {}
+
+
+def registry(kind: str) -> _Registry:
+    """The process-wide registry of ``kind``, created on first use."""
+    if kind not in _REGISTRIES:
+        _REGISTRIES[kind] = _Registry(kind)
+    return _REGISTRIES[kind]
 
 
 _STATE = threading.local()

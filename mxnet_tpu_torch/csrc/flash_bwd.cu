@@ -1,0 +1,473 @@
+// Backward flash attention for Hopper (sm_90a): two kernels, dQ and dK/dV,
+// each behind a plain C interface.
+//
+// Replaces: mxnet_tpu/ops/flash.py `_dq_kernel` and `_dkv_kernel` (both
+// launched by `_bwd_impl`), the Pallas TPU kernels of the training
+// backward.  Same function: the probabilities are recomputed from the
+// forward's per-row logsumexp, P = exp(S - lse) (zero where S is masked),
+// dP = dO.V^T, dS = P * (dP - delta) * scale with delta = rowsum(dO * O)
+// computed by the caller; then dQ = dS.K (kernel 1) and dV = P^T.dO,
+// dK = dS^T.Q (kernel 2).  Causal and packed segment-id masks are the
+// forward's; tiles above the diagonal and tiles whose segment ranges cannot
+// meet are skipped.  A masked pair has P = 0 and skips its exp, which is the
+// reference's masked-safe exp (`where(s <= _MASK/2, 0, exp(s - lse))`):
+// a row with no valid key (lse = -1e30) gives dQ = 0 and adds nothing to
+// dK/dV, and nothing becomes inf or NaN.
+//
+// Rounding follows the reference: dS is rounded to k's dtype before the dS.K
+// product and to q's dtype before dS^T.Q, P to dO's dtype before P^T.dO; all
+// sums are float32; outputs are in the input dtype.
+//
+// No atomics: kernel 1 runs one block per (batch*head, query tile) and loops
+// over key tiles; kernel 2 one block per (batch*head, key tile) and loops
+// over query tiles.  Each output element is summed by one thread in a fixed
+// order, so gradients repeat bit for bit.  The TPU grid carried these sums
+// across an "arbitrary" grid axis in scratch memory; here the loop inside
+// the block takes its place.  Causal skip differs per kernel: kernel 1 stops
+// its key loop at the diagonal, kernel 2 starts its query loop at the first
+// query tile that reaches its key tile.
+//
+// What bounds it on an H100: per attended (query, key) pair kernel 1 does
+// 3*D multiply-adds (S, dP, dQ) and kernel 2 4*D (S, dP, dV, dK), against
+// 8*D input bytes per row, so at training shapes (T = 1024, D = 64) the
+// bound is operations, by two orders of magnitude.  This first version is
+// built to be right, not to reach that bound: every product is a float32 FMA
+// on the CUDA cores with two shared-memory loads each, as in flash_fwd.cu,
+// so it sits far below the tensor-core bound (PERF.md has the measured
+// gap).  What the design does about the bound today: S, P and dS never leave
+// shared memory (no T*T matrix in device memory); each staged tile is read
+// by all 256 threads of the block; causal and segment skips drop the tiles
+// that hold no attended pair.  The next step is wgmma on bf16 tiles fed by
+// TMA.
+//
+// Layout: q, k, v, dO are read and dQ, dK, dV written in (B, T, H, D) in
+// place through the row stride H*D; lse and delta are (B*H, T) float32;
+// segment ids (B, T) int32.
+//
+// Tiles: the block owns BR rows (queries in kernel 1, keys in kernel 2) and
+// loops over tiles of BC rows of the other side; TPR = 256 / BR threads
+// share an owned row, each holding D / TPR accumulator columns in registers
+// (two sets in kernel 2).  BR = BC = 64 for D <= 128 and 32 for D = 256, so
+// the staged tiles (float32, one padding column so rows fall in distinct
+// banks) take at most 166 KB of the 227 KB a block may use.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <climits>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// min/max of vals[0..n) over one warp; every lane gets the result
+__device__ __forceinline__ void warp_minmax(const int* vals, int n, int* mn,
+                                            int* mx) {
+  int lo = INT_MAX, hi = INT_MIN;
+  for (int i = threadIdx.x % 32; i < n; i += 32) {
+    lo = min(lo, vals[i]);
+    hi = max(hi, vals[i]);
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  *mn = lo;
+  *mx = hi;
+}
+
+// Stage rows [r0, r0 + n) of one head of a (B, T, H, D) tensor as float32
+// into dst (rows x (D + 1)); rows past n are zero.
+template <typename T, int D>
+__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+                                      size_t base, size_t rs, int r0, int n,
+                                      int rows) {
+  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    dst[r * (D + 1) + c] = r < n ? to_f(src[base + size_t(r0 + r) * rs + c])
+                                 : 0.f;
+  }
+}
+
+template <int D>
+__device__ __forceinline__ float dot(const float* a, const float* b) {
+  float s = 0.f;
+#pragma unroll 16
+  for (int d = 0; d < D; ++d) s += a[d] * b[d];
+  return s;
+}
+
+template <int D, int BR, int BC>
+constexpr size_t dq_smem() {
+  return (2 * size_t(BR) * (D + 1) + 2 * size_t(BC) * (D + 1) +
+          size_t(BR) * (BC + 1)) * sizeof(float) +
+         (BR + BC + 4) * sizeof(int);
+}
+
+template <int D, int BR, int BC>
+constexpr size_t dkv_smem() {
+  return (2 * size_t(BR) * (D + 1) + 2 * size_t(BC) * (D + 1) +
+          2 * size_t(BR) * (BC + 1) + 2 * size_t(BC)) * sizeof(float) +
+         (BR + BC + 4) * sizeof(int);
+}
+
+// Kernel 1 (B2): dQ for BR queries of one (batch, head), looping over key
+// tiles of BC.
+template <typename T, int D, int BR, int BC>
+__global__ void __launch_bounds__(kThreads)
+    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const int* __restrict__ qseg, const int* __restrict__ kseg,
+                    T* __restrict__ dq, int seq, int heads, int causal,
+                    float scale) {
+  constexpr int TPR = kThreads / BR;  // threads per query row
+  constexpr int LD = D + 1;
+  constexpr int LS = BC + 1;
+  constexpr int DPT = D / TPR;   // dQ columns per thread
+  constexpr int CPT = BC / TPR;  // key columns per thread
+  extern __shared__ float smem[];
+  float* sQ = smem;             // BR x LD
+  float* sO = sQ + BR * LD;     // dO, BR x LD
+  float* sK = sO + BR * LD;     // BC x LD
+  float* sV = sK + BC * LD;     // BC x LD
+  float* sS = sV + BC * LD;     // dS, BR x LS
+  int* sQseg = reinterpret_cast<int*>(sS + BR * LS);  // BR
+  int* sKseg = sQseg + BR;                             // BC
+  int* sFlag = sKseg + BC;  // [0] run this tile, [1] q-seg min, [2] max
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int q0 = blockIdx.x * BR;
+  const int tid = threadIdx.x;
+  const int row = tid / TPR;
+  const int lane = tid % TPR;
+  const size_t rs = size_t(heads) * D;
+  const size_t base = size_t(b) * seq * rs + size_t(h) * D;
+  const bool has_seg = qseg != nullptr;
+  const int nq = min(BR, seq - q0);
+
+  stage<T, D>(sQ, q, base, rs, q0, nq, BR);
+  stage<T, D>(sO, dout, base, rs, q0, nq, BR);
+  if (has_seg) {
+    for (int i = tid; i < nq; i += kThreads)
+      sQseg[i] = qseg[size_t(b) * seq + q0 + i];
+  }
+  __syncthreads();
+  if (has_seg && tid < 32) {
+    int mn, mx;
+    warp_minmax(sQseg, nq, &mn, &mx);
+    if (tid == 0) {
+      sFlag[1] = mn;
+      sFlag[2] = mx;
+    }
+  }
+
+  const int qi = q0 + row;
+  const bool live = row < nq;
+  const float row_lse = live ? lse[size_t(bh) * seq + qi] : 0.f;
+  const float row_delta = live ? delta[size_t(bh) * seq + qi] : 0.f;
+  float acc[DPT];
+#pragma unroll
+  for (int j = 0; j < DPT; ++j) acc[j] = 0.f;
+
+  int n_kt = (seq + BC - 1) / BC;
+  if (causal) n_kt = min(n_kt, (q0 + BR + BC - 1) / BC);  // to the diagonal
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BC;
+    const int nk = min(BC, seq - k0);
+    __syncthreads();  // the previous tile's sK/sV/sS reads are done
+    stage<T, D>(sK, k, base, rs, k0, nk, BC);
+    stage<T, D>(sV, v, base, rs, k0, nk, BC);
+    if (has_seg) {
+      for (int i = tid; i < nk; i += kThreads)
+        sKseg[i] = kseg[size_t(b) * seq + k0 + i];
+    }
+    __syncthreads();
+    if (has_seg) {
+      // segment-disjoint tile skip (flash.py `_run_pred`)
+      if (tid < 32) {
+        int mn, mx;
+        warp_minmax(sKseg, nk, &mn, &mx);
+        if (tid == 0) sFlag[0] = (mn <= sFlag[2]) && (mx >= sFlag[1]);
+      }
+      __syncthreads();
+      if (!sFlag[0]) continue;  // uniform across the block
+    }
+
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int c = lane + TPR * j;
+      const int key = k0 + c;
+      bool keep = live && c < nk;
+      if (causal) keep = keep && key <= qi;
+      if (has_seg) keep = keep && sQseg[row] == sKseg[c];
+      float ds = 0.f;  // a masked pair has P = 0 (flash.py `p = where(...)`)
+      if (keep) {
+        const float s = dot<D>(sQ + row * LD, sK + c * LD) * scale;
+        const float dp = dot<D>(sO + row * LD, sV + c * LD);
+        ds = expf(s - row_lse) * (dp - row_delta) * scale;
+      }
+      sS[row * LS + c] = round_to<T>(ds);  // ds.astype(k.dtype)
+    }
+    __syncwarp();  // the row's threads share one warp
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) {
+      const int d = lane + TPR * j;
+      float sum = 0.f;
+#pragma unroll 16
+      for (int c = 0; c < BC; ++c) sum += sS[row * LS + c] * sK[c * LD + d];
+      acc[j] += sum;
+    }
+  }
+
+  if (live) {
+    const size_t ob = base + size_t(qi) * rs;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) dq[ob + lane + TPR * j] = from_f<T>(acc[j]);
+  }
+}
+
+// Kernel 2 (B3): dK and dV for BR keys of one (batch, head), looping over
+// query tiles of BC.
+template <typename T, int D, int BR, int BC>
+__global__ void __launch_bounds__(kThreads)
+    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     const int* __restrict__ qseg,
+                     const int* __restrict__ kseg, T* __restrict__ dk,
+                     T* __restrict__ dv, int seq, int heads, int causal,
+                     float scale) {
+  constexpr int TPR = kThreads / BR;  // threads per key row
+  constexpr int LD = D + 1;
+  constexpr int LS = BC + 1;
+  constexpr int DPT = D / TPR;   // dK and dV columns per thread
+  constexpr int RPT = BC / TPR;  // query columns per thread
+  extern __shared__ float smem[];
+  float* sK = smem;             // BR x LD
+  float* sV = sK + BR * LD;     // BR x LD
+  float* sQ = sV + BR * LD;     // BC x LD
+  float* sO = sQ + BC * LD;     // dO, BC x LD
+  float* sP = sO + BC * LD;     // P^T, BR x LS
+  float* sS = sP + BR * LS;     // dS^T, BR x LS
+  float* sLse = sS + BR * LS;   // BC
+  float* sDelta = sLse + BC;    // BC
+  int* sKseg = reinterpret_cast<int*>(sDelta + BC);  // BR
+  int* sQseg = sKseg + BR;                            // BC
+  int* sFlag = sQseg + BC;  // [0] run this tile, [1] k-seg min, [2] max
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int k0 = blockIdx.x * BR;
+  const int tid = threadIdx.x;
+  const int row = tid / TPR;
+  const int lane = tid % TPR;
+  const size_t rs = size_t(heads) * D;
+  const size_t base = size_t(b) * seq * rs + size_t(h) * D;
+  const bool has_seg = qseg != nullptr;
+  const int nk = min(BR, seq - k0);
+
+  stage<T, D>(sK, k, base, rs, k0, nk, BR);
+  stage<T, D>(sV, v, base, rs, k0, nk, BR);
+  if (has_seg) {
+    for (int i = tid; i < nk; i += kThreads)
+      sKseg[i] = kseg[size_t(b) * seq + k0 + i];
+  }
+  __syncthreads();
+  if (has_seg && tid < 32) {
+    int mn, mx;
+    warp_minmax(sKseg, nk, &mn, &mx);
+    if (tid == 0) {
+      sFlag[1] = mn;
+      sFlag[2] = mx;
+    }
+  }
+
+  const int key = k0 + row;
+  const bool live = row < nk;
+  float acc_k[DPT], acc_v[DPT];
+#pragma unroll
+  for (int j = 0; j < DPT; ++j) acc_k[j] = acc_v[j] = 0.f;
+
+  const int n_qt = (seq + BC - 1) / BC;
+  // causal: the first query tile holding a row >= k0
+  const int qt0 = causal ? k0 / BC : 0;
+
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int q0 = qt * BC;
+    const int nq = min(BC, seq - q0);
+    __syncthreads();  // the previous tile's reads are done
+    stage<T, D>(sQ, q, base, rs, q0, nq, BC);
+    stage<T, D>(sO, dout, base, rs, q0, nq, BC);
+    for (int i = tid; i < nq; i += kThreads) {
+      sLse[i] = lse[size_t(bh) * seq + q0 + i];
+      sDelta[i] = delta[size_t(bh) * seq + q0 + i];
+      if (has_seg) sQseg[i] = qseg[size_t(b) * seq + q0 + i];
+    }
+    __syncthreads();
+    if (has_seg) {
+      if (tid < 32) {
+        int mn, mx;
+        warp_minmax(sQseg, nq, &mn, &mx);
+        if (tid == 0) sFlag[0] = (mn <= sFlag[2]) && (mx >= sFlag[1]);
+      }
+      __syncthreads();
+      if (!sFlag[0]) continue;  // uniform across the block
+    }
+
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      const int r = lane + TPR * j;
+      bool keep = live && r < nq;
+      if (causal) keep = keep && key <= q0 + r;
+      if (has_seg) keep = keep && sQseg[r] == sKseg[row];
+      float p = 0.f, ds = 0.f;  // a masked pair has P = 0
+      if (keep) {
+        const float s = dot<D>(sQ + r * LD, sK + row * LD) * scale;
+        const float dp = dot<D>(sO + r * LD, sV + row * LD);
+        p = expf(s - sLse[r]);
+        ds = p * (dp - sDelta[r]) * scale;
+      }
+      sP[row * LS + r] = round_to<T>(p);   // p.astype(do.dtype)
+      sS[row * LS + r] = round_to<T>(ds);  // ds.astype(q.dtype)
+    }
+    __syncwarp();  // the row's threads share one warp
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) {
+      const int d = lane + TPR * j;
+      float sv = 0.f, sk = 0.f;
+#pragma unroll 16
+      for (int r = 0; r < BC; ++r) {
+        sv += sP[row * LS + r] * sO[r * LD + d];
+        sk += sS[row * LS + r] * sQ[r * LD + d];
+      }
+      acc_v[j] += sv;
+      acc_k[j] += sk;
+    }
+  }
+
+  if (live) {
+    const size_t ob = base + size_t(key) * rs;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) {
+      dk[ob + lane + TPR * j] = from_f<T>(acc_k[j]);
+      dv[ob + lane + TPR * j] = from_f<T>(acc_v[j]);
+    }
+  }
+}
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  const int *qseg, *kseg;
+  void *d0, *d1;  // dQ (kernel 1); dK, dV (kernel 2)
+  int batch, seq, heads, causal;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D, int BR, int BC>
+cudaError_t launch_dq(const Args& a) {
+  constexpr size_t smem = dq_smem<D, BR, BC>();
+  auto kern = flash_dq_kernel<T, D, BR, BC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.seq + BR - 1) / BR, a.batch * a.heads);
+  kern<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, a.qseg, a.kseg, static_cast<T*>(a.d0), a.seq, a.heads,
+      a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D, int BR, int BC>
+cudaError_t launch_dkv(const Args& a) {
+  constexpr size_t smem = dkv_smem<D, BR, BC>();
+  auto kern = flash_dkv_kernel<T, D, BR, BC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.seq + BR - 1) / BR, a.batch * a.heads);
+  kern<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, a.qseg, a.kseg, static_cast<T*>(a.d0), static_cast<T*>(a.d1),
+      a.seq, a.heads, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+template <typename T, bool DKV>
+cudaError_t dispatch_d(int d, const Args& a) {
+  switch (d) {
+    case 64:
+      return DKV ? launch_dkv<T, 64, 64, 64>(a) : launch_dq<T, 64, 64, 64>(a);
+    case 128:
+      return DKV ? launch_dkv<T, 128, 64, 64>(a)
+                 : launch_dq<T, 128, 64, 64>(a);
+    case 256:
+      return DKV ? launch_dkv<T, 256, 32, 32>(a)
+                 : launch_dq<T, 256, 32, 32>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <bool DKV>
+int dispatch(int dtype, int head_dim, const Args& a) {
+  if (dtype == 0) return dispatch_d<float, DKV>(head_dim, a);
+  if (dtype == 1) return dispatch_d<__nv_bfloat16, DKV>(head_dim, a);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Each returns the cudaError_t of its launch (0 on success).  dtype: 0
+// float32, 1 bfloat16.  qseg/kseg are (B, T) int32 or both null; lse and
+// delta (B*H, T) float32.
+extern "C" int mxt_flash_dq(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, const int* qseg,
+                            const int* kseg, void* dq, int batch, int seq,
+                            int heads, int head_dim, int causal, float scale,
+                            int dtype, void* stream) {
+  const Args a{q,     k,    v,    dout,  lse,    delta,
+               qseg,  kseg, dq,   nullptr, batch, seq,
+               heads, causal, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch<false>(dtype, head_dim, a);
+}
+
+extern "C" int mxt_flash_dkv(const void* q, const void* k, const void* v,
+                             const void* dout, const float* lse,
+                             const float* delta, const int* qseg,
+                             const int* kseg, void* dk, void* dv, int batch,
+                             int seq, int heads, int head_dim, int causal,
+                             float scale, int dtype, void* stream) {
+  const Args a{q,     k,    v,    dout, lse,   delta,
+               qseg,  kseg, dk,   dv,   batch, seq,
+               heads, causal, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch<true>(dtype, head_dim, a);
+}

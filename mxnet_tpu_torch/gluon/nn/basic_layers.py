@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ... import base as _base
+from ... import random as _random
 from ...base import MXNetError
 from ..block import HybridBlock
 
@@ -76,13 +77,20 @@ class GELU(HybridBlock):
 
 
 class Dropout(HybridBlock):
-    """Inverted dropout, active only in training mode."""
+    """Inverted dropout, active only in training mode: keep each element
+    with probability ``1 - rate`` and scale it by ``1 / (1 - rate)``
+    (``ndarray/ops.py:1301-1316``).  The mask is drawn from the device's
+    generator in :mod:`mxnet_tpu_torch.random`, so ``mx.random.seed``
+    repeats it."""
 
     def __init__(self, rate):
         super().__init__()
         self._rate = float(rate)
 
     def forward(self, x):
-        if _base.is_training():
-            return F.dropout(x, self._rate, training=True)
-        return x
+        if not _base.is_training() or self._rate <= 0:
+            return x
+        draw = torch.rand(x.shape, generator=_random.generator(x.device),
+                          device=x.device)
+        return torch.where(draw < 1.0 - self._rate, x / (1.0 - self._rate),
+                           torch.zeros_like(x))

@@ -16,7 +16,7 @@ from ..gluon.block import HybridBlock
 from ..gluon.nn import Dropout, Embedding, LayerNorm
 from .transformer import TransformerBlock, run_blocks
 
-__all__ = ["GPT2Model", "get_gpt2"]
+__all__ = ["GPT2Model", "get_gpt2", "gpt2_lm_loss"]
 
 _CONFIGS = {
     # name: (layers, units, heads)
@@ -200,6 +200,19 @@ class GPT2Model(HybridBlock):
             tok = sample_tokens(logits, temp, topk, topp, seeds, [t] * b)
             out.append(tok[:, None])
         return torch.cat(out, dim=1)
+
+
+def gpt2_lm_loss(logits, labels):
+    """Next-token cross entropy; ``labels`` (B, T) already shifted.  The
+    mean over tokens of ``logsumexp(logits) - logits[label]`` in float32,
+    as the reference computes it (``gpt2.py:525``) without a full
+    log-softmax; labels clip to the vocabulary (``pick(mode='clip')``).
+    Dense models only: the reference's MoE router aux losses are not
+    ported."""
+    x = logits.float()
+    idx = labels.long().clamp(0, x.shape[-1] - 1)
+    picked = x.gather(-1, idx[..., None])[..., 0]
+    return (torch.logsumexp(x, dim=-1) - picked).mean()
 
 
 def get_gpt2(name="gpt2_124m", device=None, **kwargs):

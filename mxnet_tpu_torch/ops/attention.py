@@ -1,12 +1,14 @@
 """Attention dispatch (counterpart of ``mxnet_tpu/ops/attention.py``):
 the reference attention in plain PyTorch, and the routing that sends
-long self-attention on the card to the flash kernel.
+long self-attention on the card to the flash kernels.
 
 ``_use_flash`` keeps the reference's shape rule (``attention.py:74``:
 self-attention, no mask, T >= 256, T % 128 == 0, D in {64, 128, 256})
 and replaces "platform is a TPU" with "the tensor is on CUDA".  On the
-CPU the reference path runs.  Attention dropout is not ported (GPT-2
-serving runs none).
+CPU the reference path runs.  The flash route is differentiable (B1
+forward, B2/B3 backward through ``flash._FlashAttention``), so a
+training forward takes it too.  Attention dropout is not ported (the
+port's GPT-2 runs none).
 """
 from __future__ import annotations
 
@@ -60,12 +62,18 @@ def flash_attention(q, k, v, *, causal=False, scale=None):
 
 def dot_product_attention(query, key, value, *, causal=False, mask=None,
                           segment_ids=None, kv_segment_ids=None,
-                          scale=None):
+                          scale=None, impl="auto"):
     """Multi-head attention on tensors: (B, T, H, D) → (B, T, H, D).
 
+    ``impl``: ``'auto'`` takes the flash kernels where they apply (see
+    ``_use_flash``) and the reference path elsewhere; ``'flash'`` raises
+    where they do not apply; ``'ref'`` always takes the reference path.
     ``segment_ids`` (B, Tq) enables sequence packing (``kv_segment_ids``
     (B, Tk) defaults to it).  A query whose keys are all masked returns
     zeros on both paths."""
+    if impl not in ("auto", "flash", "ref"):
+        raise MXNetError(f"impl={impl!r}: expected 'auto', 'flash' or "
+                         "'ref'")
     q_seg = kv_seg = None
     if segment_ids is not None:
         q_seg = torch.as_tensor(segment_ids, device=query.device)
@@ -79,7 +87,17 @@ def dot_product_attention(query, key, value, *, causal=False, mask=None,
                 f"{tuple(q_seg.shape)} / {tuple(kv_seg.shape)}")
     elif kv_segment_ids is not None:
         raise MXNetError("kv_segment_ids requires segment_ids")
-    if _use_flash(query, key, mask):
+    if impl == "flash" and mask is not None:
+        raise MXNetError("impl='flash' does not support an explicit mask "
+                         "— use impl='auto'/'ref'")
+    if impl == "flash" and not _use_flash(query, key, mask):
+        raise MXNetError(
+            f"impl='flash' requested but the flash kernels do not take "
+            f"this configuration (shape={tuple(query.shape)}, key shape="
+            f"{tuple(key.shape)}, device={query.device}): self-attention "
+            "with T >= 256, T % 128 == 0 and D in (64, 128, 256) on a CUDA "
+            "device — use impl='auto' to fall back to the reference path")
+    if impl != "ref" and _use_flash(query, key, mask):
         from .flash import flash_attention as _flash
         return _flash(query, key, value, causal=causal, scale=scale,
                       segment_ids=q_seg, kv_segment_ids=kv_seg)

@@ -1,19 +1,28 @@
-"""Flash attention forward: the CUDA kernel ``csrc/flash_fwd.cu`` and its
-plain PyTorch version (counterpart of ``mxnet_tpu/ops/flash.py``).
+"""Flash attention, forward and backward: the CUDA kernels
+``csrc/flash_fwd.cu`` (B1) and ``csrc/flash_bwd.cu`` (B2 dQ, B3 dK/dV)
+and their plain PyTorch versions (counterpart of
+``mxnet_tpu/ops/flash.py``).
 
-The public entry takes (B, T, H, D) and returns O in the same layout;
-:func:`flash_fwd` also returns the per-row logsumexp, (B*H, 1, T)
-float32 as the reference lays it out, for the backward of a later slice.
-A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-plain version, the analogue of Pallas interpret mode.  The kernel reads
-the (B, T, H, D) layout in place through its strides, so no transpose is
-made here.
+The public entry takes (B, T, H, D) and returns O in the same layout,
+through :class:`_FlashAttention`, the autograd Function that stands for
+the reference's ``_flash`` custom_vjp: its forward saves
+(q, k, v, segment ids, O, lse) and its backward computes
+delta = rowsum(dO * O) in float32 and runs :func:`flash_bwd`.
+:func:`flash_fwd` returns O and the per-row logsumexp, (B*H, 1, T)
+float32 as the reference lays it out.  Each wrapper launches its kernel
+for CUDA tensors (or raises) and takes the plain version for CPU
+tensors, the analogue of Pallas interpret mode.  The kernels read and
+write the (B, T, H, D) layout in place through its strides, so no
+transpose is made here.
 
 Semantics shared by both versions: scores in float32; causal keeps keys
 col <= row (tq == tk); packed segment ids mask keys of other segments;
 the masked-safe exp zeroes masked entries; a row with no valid key gets
-O = 0 and lse = -1e30; the probabilities are rounded to the value dtype
-before the P.V product, as the reference's ``p.astype(v.dtype)`` does.
+O = 0 and lse = -1e30 (and so zero dQ, and adds nothing to dK/dV); the
+probabilities are rounded to the value dtype before the P.V product, as
+the reference's ``p.astype(v.dtype)`` does.  The backward rounds as the
+reference's does: P to dO's dtype before dV = P^T.dO, dS to k's dtype
+before dQ = dS.K and to q's dtype before dK = dS^T.Q.
 """
 from __future__ import annotations
 
@@ -24,26 +33,33 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["flash_attention", "flash_fwd"]
+__all__ = ["flash_attention", "flash_fwd", "flash_bwd", "flash_dq",
+           "flash_dkv"]
 
 _MASK = -1e30
 _HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _fwd_plain(q, k, v, q_seg, kv_seg, causal, scale):
-    """Masked softmax attention with the kernel's zero-row and lse rules:
-    (O (B, T, H, D) in q's dtype, lse (B*H, 1, T) float32)."""
-    b, tq, h, _d = q.shape
-    tk = k.shape[1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    keep = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+def _keep(q, k, q_seg, kv_seg, causal):
+    """Which (query, key) pairs attend: (B or 1, 1, Tq, Tk) bool."""
+    keep = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=q.device)
     if causal:
         keep = torch.tril(keep)
     keep = keep[None, None]
     if q_seg is not None:
         keep = keep & (q_seg[:, None, :, None] == kv_seg[:, None, None, :])
-    s = torch.where(keep, s, torch.full_like(s, _MASK))
+    return keep
+
+
+def _fwd_plain(q, k, v, q_seg, kv_seg, causal, scale):
+    """Masked softmax attention with the kernel's zero-row and lse rules:
+    (O (B, T, H, D) in q's dtype, lse (B*H, 1, T) float32)."""
+    b, tq, h, _d = q.shape
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = torch.where(_keep(q, k, q_seg, kv_seg, causal), s,
+                    torch.full_like(s, _MASK))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(s <= _MASK * 0.5, torch.zeros_like(s), torch.exp(s - m))
     l = p.sum(dim=-1, keepdim=True)
@@ -58,41 +74,104 @@ def _fwd_plain(q, k, v, q_seg, kv_seg, causal, scale):
             lse.reshape(b * h, 1, tq))
 
 
-def _kernel_fn():
+def _bwd_tiles(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale):
+    """P and dS, (B, H, Tq, Tk) float32, recomputed from lse as the
+    kernels do (masked pairs give P = 0)."""
+    b, tq, h, _d = q.shape
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    s = torch.where(_keep(q, k, q_seg, kv_seg, causal), s,
+                    torch.full_like(s, _MASK))
+    p = torch.where(s <= _MASK * 0.5, torch.zeros_like(s),
+                    torch.exp(s - lse.reshape(b, h, tq, 1)))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta.reshape(b, h, tq, 1)) * scale
+    return p, ds
+
+
+def _dq_plain(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale):
+    """B2's plain version: dQ (B, T, H, D) in q's dtype."""
+    _p, ds = _bwd_tiles(q, k, v, do, lse, delta, q_seg, kv_seg, causal,
+                        scale)
+    return torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(),
+                        k.float()).to(q.dtype)
+
+
+def _dkv_plain(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale):
+    """B3's plain version: (dK, dV) (B, T, H, D) in k's / v's dtype."""
+    p, ds = _bwd_tiles(q, k, v, do, lse, delta, q_seg, kv_seg, causal,
+                       scale)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_plain(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale):
+    """(dQ, dK, dV) with the kernels' masks, casts and empty-row rule."""
+    dq = _dq_plain(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale)
+    return (dq, *_dkv_plain(q, k, v, do, lse, delta, q_seg, kv_seg, causal,
+                            scale))
+
+
+def _kernel_fn(lib, symbol, n_ptrs):
+    """The C entry ``symbol`` of library ``lib``: ``n_ptrs`` pointers,
+    then (batch, seq, heads, head_dim, causal), scale, dtype, stream."""
     from ..utils import native
-    fn = native.load("flash_fwd").mxt_flash_fwd
+    fn = getattr(native.load(lib), symbol)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float,
-                       i, p]
+        fn.argtypes = [p] * n_ptrs + [i] * 5 + [ctypes.c_float, i, p]
         fn.restype = i
     return fn
 
 
-def _check_cuda(q, k, v, q_seg, kv_seg):
-    if not (k.device == q.device and v.device == q.device):
-        raise MXNetError("flash_fwd: q, k, v must share one device")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise MXNetError(f"flash_fwd: q, k, v must all be float32 or "
+def _check_cuda(name, q, k, v, q_seg, kv_seg, extra=()):
+    """Raise on what the kernels do not take; ``extra`` are further
+    (B, T, H, D) tensors (dO) that must match q."""
+    for x in (k, v, *extra):
+        if x.device != q.device:
+            raise MXNetError(f"{name}: all inputs must share one device")
+    if q.dtype not in _DTYPE_CODE or any(x.dtype != q.dtype
+                                         for x in (k, v, *extra)):
+        raise MXNetError(f"{name}: q, k, v must all be float32 or "
                          f"bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise MXNetError(f"flash_fwd: q, k, v must be one (B, T, H, D) "
+    if q.dim() != 4 or any(x.shape != q.shape for x in (k, v, *extra)):
+        raise MXNetError(f"{name}: q, k, v must be one (B, T, H, D) "
                          f"shape, got {tuple(q.shape)}/{tuple(k.shape)}/"
                          f"{tuple(v.shape)}")
     if q.shape[3] not in _HEAD_DIMS:
-        raise MXNetError(f"flash_fwd: head dim {q.shape[3]} not in "
+        raise MXNetError(f"{name}: head dim {q.shape[3]} not in "
                          f"{_HEAD_DIMS}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise MXNetError("flash_fwd: q, k, v must be contiguous")
+    if not all(x.is_contiguous() for x in (q, k, v, *extra)):
+        raise MXNetError(f"{name}: inputs must be contiguous")
     if q.shape[0] * q.shape[2] > 65535:
-        raise MXNetError("flash_fwd: batch*heads exceeds the grid limit")
+        raise MXNetError(f"{name}: batch*heads exceeds the grid limit")
     for seg in (q_seg, kv_seg):
         if seg is not None and (seg.device != q.device
                                 or seg.dtype != torch.int32
                                 or tuple(seg.shape) != tuple(q.shape[:2])
                                 or not seg.is_contiguous()):
-            raise MXNetError("flash_fwd: segment ids must be contiguous "
+            raise MXNetError(f"{name}: segment ids must be contiguous "
                              "(B, T) int32 on q's device")
+
+
+def _check_rows(name, q, *rows):
+    """lse / delta: contiguous (B*H, 1, T) float32 on q's device."""
+    b, t, h, _d = q.shape
+    for x in rows:
+        if (x.device != q.device or x.dtype != torch.float32
+                or tuple(x.shape) != (b * h, 1, t) or not x.is_contiguous()):
+            raise MXNetError(f"{name}: lse and delta must be contiguous "
+                             f"({b * h}, 1, {t}) float32 on q's device")
+
+
+def _ptr(x):
+    return x.data_ptr() if x is not None else None
+
+
+def _device_type(name, q):
+    if q.device.type not in ("cpu", "cuda"):
+        raise MXNetError(f"{name}: unsupported device {q.device}")
+    return q.device.type
 
 
 def flash_fwd(q, k, v, q_seg=None, kv_seg=None, *, causal: bool,
@@ -100,19 +179,15 @@ def flash_fwd(q, k, v, q_seg=None, kv_seg=None, *, causal: bool,
     """(O, lse) of self-attention over (B, T, H, D) inputs.  CUDA tensors
     launch ``csrc/flash_fwd.cu`` (counted in ``flash_fwd.launches``);
     CPU tensors take the plain version."""
-    if q.device.type == "cpu":
+    if _device_type("flash_fwd", q) == "cpu":
         return _fwd_plain(q, k, v, q_seg, kv_seg, causal, scale)
-    if q.device.type != "cuda":
-        raise MXNetError(f"flash_fwd: unsupported device {q.device}")
-    _check_cuda(q, k, v, q_seg, kv_seg)
+    _check_cuda("flash_fwd", q, k, v, q_seg, kv_seg)
     b, t, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b * h, 1, t), dtype=torch.float32, device=q.device)
     from ..utils.native import stream_ptr
-    err = _kernel_fn()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        q_seg.data_ptr() if q_seg is not None else None,
-        kv_seg.data_ptr() if kv_seg is not None else None,
+    err = _kernel_fn("flash_fwd", "mxt_flash_fwd", 7)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
         out.data_ptr(), lse.data_ptr(), b, t, h, d, int(bool(causal)),
         float(scale), _DTYPE_CODE[q.dtype], stream_ptr(q.device))
     if err:
@@ -124,10 +199,107 @@ def flash_fwd(q, k, v, q_seg=None, kv_seg=None, *, causal: bool,
 flash_fwd.launches = 0
 
 
+def flash_dq(q, k, v, do, lse, delta, q_seg=None, kv_seg=None, *,
+             causal: bool, scale: float):
+    """dQ of self-attention (B2).  ``lse`` is the forward's, ``delta`` =
+    rowsum(dO * O), both (B*H, 1, T) float32.  CUDA tensors launch
+    ``mxt_flash_dq`` of ``csrc/flash_bwd.cu`` (counted in
+    ``flash_dq.launches``); CPU tensors take the plain version."""
+    if _device_type("flash_dq", q) == "cpu":
+        return _dq_plain(q, k, v, do, lse, delta, q_seg, kv_seg, causal,
+                         scale)
+    _check_cuda("flash_dq", q, k, v, q_seg, kv_seg, (do,))
+    _check_rows("flash_dq", q, lse, delta)
+    b, t, h, d = q.shape
+    dq = torch.empty_like(q)
+    from ..utils.native import stream_ptr
+    err = _kernel_fn("flash_bwd", "mxt_flash_dq", 9)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
+        dq.data_ptr(), b, t, h, d, int(bool(causal)), float(scale),
+        _DTYPE_CODE[q.dtype], stream_ptr(q.device))
+    if err:
+        raise MXNetError(f"flash_dq: kernel launch failed (cudaError {err})")
+    flash_dq.launches += 1
+    return dq
+
+
+flash_dq.launches = 0
+
+
+def flash_dkv(q, k, v, do, lse, delta, q_seg=None, kv_seg=None, *,
+              causal: bool, scale: float):
+    """(dK, dV) of self-attention (B3); arguments as :func:`flash_dq`.
+    CUDA tensors launch ``mxt_flash_dkv`` (counted in
+    ``flash_dkv.launches``); CPU tensors take the plain version."""
+    if _device_type("flash_dkv", q) == "cpu":
+        return _dkv_plain(q, k, v, do, lse, delta, q_seg, kv_seg, causal,
+                          scale)
+    _check_cuda("flash_dkv", q, k, v, q_seg, kv_seg, (do,))
+    _check_rows("flash_dkv", q, lse, delta)
+    b, t, h, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    from ..utils.native import stream_ptr
+    err = _kernel_fn("flash_bwd", "mxt_flash_dkv", 10)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
+        dk.data_ptr(), dv.data_ptr(), b, t, h, d, int(bool(causal)),
+        float(scale), _DTYPE_CODE[q.dtype], stream_ptr(q.device))
+    if err:
+        raise MXNetError(f"flash_dkv: kernel launch failed (cudaError "
+                         f"{err})")
+    flash_dkv.launches += 1
+    return dk, dv
+
+
+flash_dkv.launches = 0
+
+
+def flash_bwd(q, k, v, do, lse, delta, q_seg=None, kv_seg=None, *,
+              causal: bool, scale: float):
+    """(dQ, dK, dV): B2 then B3 for CUDA tensors, the plain version for
+    CPU tensors."""
+    if _device_type("flash_bwd", q) == "cpu":
+        return _bwd_plain(q, k, v, do, lse, delta, q_seg, kv_seg, causal,
+                          scale)
+    kw = dict(causal=causal, scale=scale)
+    dq = flash_dq(q, k, v, do, lse, delta, q_seg, kv_seg, **kw)
+    return (dq, *flash_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, **kw))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention (the reference's ``_flash``
+    custom_vjp, ``flash.py:464-487``): B1 forward, B2 and B3 backward on
+    the card; the plain versions on the CPU.  Segment ids get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, kv_seg, causal, scale):
+        out, lse = flash_fwd(q, k, v, q_seg, kv_seg, causal=causal,
+                             scale=scale)
+        ctx.save_for_backward(q, k, v, q_seg, kv_seg, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_seg, kv_seg, out, lse = ctx.saved_tensors
+        b, t, h, _d = q.shape
+        do = do.contiguous()
+        # delta = rowsum(dO * O) in float32 outside the kernels, as the
+        # reference leaves it to XLA (flash.py:386); (B*H, 1, T)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
+            .reshape(b * h, 1, t).contiguous()
+        dq, dk, dv = flash_bwd(q, k, v, do, lse, delta, q_seg, kv_seg,
+                               causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = False,
                     scale: Optional[float] = None,
                     segment_ids=None, kv_segment_ids=None):
-    """Flash attention on (B, T, H, D) inputs → (B, T, H, D).
+    """Differentiable flash attention on (B, T, H, D) inputs →
+    (B, T, H, D).
 
     ``segment_ids`` (B, T) int enables sequence packing: tokens attend
     only within their own segment; ``kv_segment_ids`` defaults to it.
@@ -150,6 +322,5 @@ def flash_attention(q, k, v, *, causal: bool = False,
                              f"(B, Tk)=({b}, {tk})")
     elif kv_segment_ids is not None:
         raise ValueError("kv_segment_ids requires segment_ids")
-    out, _lse = flash_fwd(q, k, v, q_seg, kv_seg, causal=causal,
-                          scale=scale)
-    return out
+    return _FlashAttention.apply(q, k, v, q_seg, kv_seg, bool(causal),
+                                 scale)

@@ -1,0 +1,428 @@
+"""ShardedTrainer on one device (counterpart of
+``mxnet_tpu/parallel/trainer.py``).
+
+The reference compiles forward, backward and the optimizer update into
+one jitted program over a device mesh.  The port runs the same step
+eagerly on the net's device: forward in training mode, the loss, the
+gradients by ``torch.autograd.grad``, and the registered optimizer's
+update, which writes parameters and optimizer state in place.  The step
+semantics are the reference's:
+
+- ``num_update += 1``, then every parameter's update sees
+  ``t = num_update`` and the learning rate of that count
+  (``trainer.py:711-713``, through :meth:`Optimizer.traced`);
+- ``grad_accum`` splits the batch into microbatches, accumulates their
+  gradients in float32 and averages them before one update
+  (``trainer.py:389-423``);
+- the guarded step (``guard_nonfinite``, ``clip_global_norm``,
+  ``loss_scaler``; ``trainer.py:518-584``) computes an ``all_finite``
+  flag on the device and applies the update through ``torch.where``, so
+  a non-finite step leaves parameters and optimizer state bit-identical
+  and the host never waits for the flag.
+
+A mesh of more than one device raises: multi-GPU training is ROADMAP
+queue A6.  Orbax checkpoints, ``ResilientLoop``, the ``trainer.step``
+span and the fault-injection sites are queue A3.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import base as _base
+from .. import optimizer as opt_mod
+from ..gluon.parameter import is_initialized
+
+__all__ = ["ShardedTrainer"]
+
+
+def _leaves(state) -> List[torch.Tensor]:
+    """The tensors of an optimizer state (None, a tensor, or nested
+    tuples/lists of them), in order."""
+    if state is None:
+        return []
+    if isinstance(state, torch.Tensor):
+        return [state]
+    if isinstance(state, (tuple, list)):
+        return [leaf for s in state for leaf in _leaves(s)]
+    raise _base.MXNetError(f"unsupported optimizer state {type(state)}")
+
+
+def _mesh_size(mesh) -> int:
+    """Devices in ``mesh``: an int, a sequence of devices, or an object
+    with a ``devices`` array (a mesh)."""
+    if isinstance(mesh, int):
+        return mesh
+    return int(np.asarray(getattr(mesh, "devices", mesh), dtype=object).size)
+
+
+def _as_tuple(x) -> tuple:
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+class ShardedTrainer:
+    """Train a Block on its device (parity role: the reference's
+    ``ShardedTrainer`` with a one-device mesh).
+
+    Parameters
+    ----------
+    net : Block with initialized parameters; the trainer runs on their
+        device.
+    optimizer : str or Optimizer — any registered optimizer.
+    loss : callable(out, *labels) -> tensor, reduced to its mean.
+    mesh : None, or a mesh of one device.  More devices raise
+        ``MXNetError`` (ROADMAP queue A6).
+    rules, data_specs, label_specs, seq_axis : sharding specifications;
+        they need a mesh, so anything but None raises.
+    donate, donate_batch : accepted for the reference's signature; the
+        port always updates parameters and state in place.
+    grad_accum : microbatch count; the batch dim must divide by it.
+    guard_nonfinite : the guarded step; ``step()`` then returns
+        ``(loss, all_finite)``.
+    clip_global_norm : cap the unscaled gradient's global L2 norm at
+        this value before the update.  Implies the guarded step.
+    loss_scaler : an :class:`mxnet_tpu_torch.amp.LossScaler` whose
+        schedule runs on the device.  Implies the guarded step.
+    """
+
+    def __init__(self, net, optimizer, loss=None, optimizer_params=None,
+                 mesh=None, rules=None, data_specs=None, label_specs=None,
+                 seq_axis: Optional[int] = None, donate: bool = True,
+                 donate_batch: bool = False, grad_accum: int = 1,
+                 guard_nonfinite: bool = False,
+                 clip_global_norm: Optional[float] = None,
+                 loss_scaler=None):
+        self.net = net
+        self.loss = loss
+        if grad_accum != int(grad_accum) or int(grad_accum) < 1:
+            raise _base.MXNetError(
+                f"grad_accum must be a positive integer, got {grad_accum}")
+        self._grad_accum = int(grad_accum)
+        if mesh is not None and _mesh_size(mesh) != 1:
+            raise _base.MXNetError(
+                f"a mesh of {_mesh_size(mesh)} devices: the port's "
+                "ShardedTrainer runs on one device; data/tensor/sequence "
+                "parallel training is ROADMAP queue A6")
+        if any(x is not None for x in (rules, data_specs, label_specs,
+                                       seq_axis)):
+            raise _base.MXNetError(
+                "rules/data_specs/label_specs/seq_axis shard over a mesh; "
+                "the port's ShardedTrainer runs on one device (ROADMAP "
+                "queue A6)")
+        self.optimizer = opt_mod.create(optimizer,
+                                        **(optimizer_params or {}))
+        self._guard_nonfinite = bool(guard_nonfinite)
+        if clip_global_norm is not None and clip_global_norm <= 0:
+            raise _base.MXNetError(
+                f"clip_global_norm must be > 0, got {clip_global_norm}")
+        self._clip_global_norm = clip_global_norm
+        self._loss_scaler = loss_scaler
+        self._scale: Optional[torch.Tensor] = None  # loss scale (device)
+        self._good: Optional[torch.Tensor] = None   # finite steps in a row
+        self._built = False
+        self.device: Optional[torch.device] = None
+        self._trainable: List[Tuple[str, torch.nn.Parameter]] = []
+        self._aux: List[Tuple[str, torch.nn.Parameter]] = []
+        self._states: list = []
+        self._state_flat: List[torch.Tensor] = []
+        self._pending_states: Optional[dict] = None
+
+    # ----------------------------------------------------------- guardrails
+    @property
+    def _guarded(self) -> bool:
+        return (self._guard_nonfinite or self._loss_scaler is not None
+                or self._clip_global_norm is not None)
+
+    @property
+    def loss_scale(self) -> float:
+        """Current dynamic loss scale (reads the device scalar; 1.0 when
+        no scaler is attached)."""
+        if self._scale is not None:
+            return float(self._scale)
+        if self._loss_scaler is not None:
+            return float(self._loss_scaler.loss_scale)
+        return 1.0
+
+    # ------------------------------------------------------------------
+    def _build(self):
+        seen = set()
+        for name, p in self.net.collect_params().items():
+            if id(p) in seen:
+                continue
+            seen.add(id(p))
+            if not is_initialized(p):
+                raise _base.MXNetError(
+                    f"Parameter '{name}' has not been initialized: call "
+                    "initialize() or load parameters before the first "
+                    "build()/step()")
+            (self._trainable if p.requires_grad else self._aux).append(
+                (name, p))
+        if not self._trainable:
+            raise _base.MXNetError("the net has no trainable parameters")
+        self.device = self._trainable[0][1].device
+        opt = self.optimizer
+        opt.param_dict = {i: p for i, (_, p) in enumerate(self._trainable)}
+        for i, (_, p) in enumerate(self._trainable):
+            st = opt.create_state_multi_precision(i, p.detach())
+            self._states.append(st)
+            self._state_flat.extend(_leaves(st))
+        if self._guarded:
+            init = (self._loss_scaler.loss_scale
+                    if self._loss_scaler is not None else 1.0)
+            self._scale = torch.tensor(float(init), dtype=torch.float32,
+                                       device=self.device)
+            self._good = torch.zeros((), dtype=torch.int32,
+                                     device=self.device)
+        self._built = True
+        if self._pending_states is not None:
+            self._apply_loaded_states(self._pending_states)
+            self._pending_states = None
+
+    def build(self, data=(), labels=()):
+        """Create optimizer state without stepping, so a resume can load
+        state into a fresh trainer first.  The port's parameters have
+        their shapes already, so ``data``/``labels`` are not run."""
+        if not self._built:
+            self._build()
+        return self
+
+    # ------------------------------------------------------------------
+    def _to_device(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        return torch.as_tensor(np.asarray(x), device=self.device)
+
+    def _forward_loss(self, data, labels) -> torch.Tensor:
+        with _base.training_mode(True):
+            out = self.net(*data)
+        lval = self.loss(out, *labels) if self.loss is not None else out
+        return lval.mean()
+
+    def _grads(self, lval) -> List[torch.Tensor]:
+        params = [p for _, p in self._trainable]
+        grads = torch.autograd.grad(lval, params, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g
+                for p, g in zip(params, grads)]
+
+    def _loss_and_grads(self, data, labels, scale):
+        """The (unscaled) loss and the gradients of the loss times
+        ``scale`` (None: unscaled), over ``grad_accum`` microbatches."""
+        def one(d, l):
+            lval = self._forward_loss(d, l)
+            g = self._grads(lval * scale.to(lval.dtype)
+                            if scale is not None else lval)
+            return lval.detach(), g
+
+        accum = self._grad_accum
+        if accum == 1:
+            return one(data, labels)
+        mb = data[0].shape[0] // accum if data else 0
+        gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                for _, p in self._trainable]
+        lsum = torch.zeros((), dtype=torch.float32, device=self.device)
+        for i in range(accum):
+            sl = slice(i * mb, (i + 1) * mb)
+            lval, g = one([x[sl] for x in data], [x[sl] for x in labels])
+            for acc, gi in zip(gsum, g):
+                acc += gi.float()
+            lsum += lval.float()
+        grads = [(acc / accum).to(p.dtype)
+                 for acc, (_, p) in zip(gsum, self._trainable)]
+        return lsum / accum, grads
+
+    @torch.no_grad()
+    def _update(self, grads, lr, t, keep: Optional[torch.Tensor] = None):
+        """Apply the optimizer in place.  With ``keep`` (a 0-d bool on the
+        device), each parameter and its state are restored where it is
+        False, bit for bit."""
+        opt = self.optimizer
+        with opt.traced(lr, t):
+            for i, ((_, p), g) in enumerate(zip(self._trainable, grads)):
+                st = self._states[i]
+                live = [p] + _leaves(st)
+                old = [x.clone() for x in live] if keep is not None else ()
+                opt.update_multi_precision(i, p, g, st)
+                for x, o in zip(live, old):
+                    x.copy_(torch.where(keep, x, o))
+
+    def step(self, data, labels=()):
+        """One training step on ``data``/``labels`` (tensors or numpy
+        arrays; moved to the trainer's device).
+
+        Returns the loss as a 0-d tensor on the device — or, with the
+        guardrails on, ``(loss, all_finite)``: ``all_finite`` is a 0-d
+        bool tensor, False iff this step's loss or gradients were not
+        finite, in which case parameters and optimizer state were left
+        bit-identical and the loss scale shrank.  Neither forces a host
+        sync."""
+        data, labels = _as_tuple(data), _as_tuple(labels)
+        if self._grad_accum > 1 and data and \
+                data[0].shape[0] % self._grad_accum:
+            raise _base.MXNetError(
+                f"batch dim {data[0].shape[0]} not divisible by "
+                f"grad_accum={self._grad_accum}")
+        if not self._built:
+            self._build()
+        opt = self.optimizer
+        opt.num_update += 1
+        lr, t = opt.learning_rate, opt.num_update
+        data = [self._to_device(x) for x in data]
+        labels = [self._to_device(x) for x in labels]
+        scaler = self._loss_scaler
+        loss, grads = self._loss_and_grads(
+            data, labels, self._scale if scaler is not None else None)
+        if not self._guarded:
+            self._update(grads, lr, t)
+            return loss
+
+        if scaler is not None:       # unscale before clip/flag/update
+            inv = 1.0 / self._scale
+            grads = [g * inv.to(g.dtype) for g in grads]
+        finite = torch.isfinite(loss)
+        for g in grads:
+            finite = finite & torch.isfinite(g).all()
+        if self._clip_global_norm is not None:
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                   for g in grads))
+            coef = torch.clamp(self._clip_global_norm / (gnorm + 1e-6),
+                               max=1.0)
+            grads = [g * coef.to(g.dtype) for g in grads]
+        # zero the grads of a bad step so Inf * 0 inside the optimizer
+        # mints no NaN; the selects in _update make the skip exact
+        grads = [torch.where(finite, g, torch.zeros_like(g)) for g in grads]
+        self._update(grads, lr, t, keep=finite)
+
+        zero = torch.zeros_like(self._good)
+        if scaler is not None:
+            factor = float(scaler._scale_factor)
+            good = self._good + 1
+            grow = good >= int(scaler._scale_window)
+            grown = torch.where(grow, self._scale * factor, self._scale)
+            good = torch.where(grow, zero, good)
+            shrunk = torch.clamp(self._scale / factor, min=1.0)
+            self._scale = torch.where(finite, grown, shrunk)
+            self._good = torch.where(finite, good, zero)
+        else:
+            self._good = torch.where(finite, self._good + 1, zero)
+        return loss, finite
+
+    # ------------------------------------------------------------------
+    def stats(self) -> dict:
+        """Point-in-time trainer facts: step counter, built, guarded."""
+        return {"num_update": int(self.optimizer.num_update),
+                "built": self._built, "guarded": self._guarded}
+
+    @property
+    def learning_rate(self):
+        return self.optimizer.learning_rate
+
+    def set_learning_rate(self, lr):
+        self.optimizer.set_learning_rate(lr)
+
+    def _require_built(self, what):
+        if not self._built:
+            raise _base.MXNetError(
+                f"{what} before build: run build()/step() first so "
+                "optimizer states exist")
+
+    def _guard_meta(self) -> Dict[str, np.ndarray]:
+        return {"loss_scale": np.array([self.loss_scale], np.float32),
+                "good_steps": np.array([int(self._good)], np.int64)}
+
+    def save_states(self, fname):
+        """Write the step counter, the guard state and every optimizer
+        state leaf (``state_{i}_{j}``) into an ``MXTPU1`` container, the
+        reference's layout (``trainer.py:785-802``)."""
+        from ..utils.serialization import save
+        self._require_built("save_states")
+        data = {"num_update": np.array([self.optimizer.num_update],
+                                       np.int64)}
+        if self._guarded:
+            data.update(self._guard_meta())
+        for i, st in enumerate(self._states):
+            for j, leaf in enumerate(_leaves(st)):
+                data[f"state_{i}_{j}"] = leaf
+        save(fname, data)
+
+    def load_states(self, fname):
+        """Read a ``save_states`` file of either package; before the
+        first step it is applied once the states exist."""
+        from ..utils.serialization import load
+        loaded = {k: torch.from_numpy(v) for k, v in load(fname).items()}
+        if not self._built:
+            self._pending_states = loaded
+            return
+        self._apply_loaded_states(loaded)
+
+    @torch.no_grad()
+    def _apply_loaded_states(self, loaded):
+        if "num_update" in loaded:
+            self.optimizer.num_update = int(loaded["num_update"][0])
+        self._load_guard(loaded.get("loss_scale"), loaded.get("good_steps"))
+        for i, st in enumerate(self._states):
+            for j, leaf in enumerate(_leaves(st)):
+                leaf.copy_(loaded[f"state_{i}_{j}"])
+
+    def _load_guard(self, scale, good):
+        if not self._guarded:
+            return
+        if scale is not None:
+            self._scale.fill_(float(scale[0]))
+        if good is not None:
+            self._good.fill_(int(good[0]))
+
+    # ------------------------------------------------------- flat state dict
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The trainer's restorable state as a flat dict with the
+        reference's positional keys (``trainer.py:814-848``):
+        ``param:i``, ``aux:i``, ``state:i`` (optimizer-state leaves in
+        order) and ``meta:num_update`` (plus ``meta:loss_scale`` /
+        ``meta:good_steps`` when guarded).  Values are detached tensors
+        sharing the live storage: the next step changes them, so copy or
+        save them first."""
+        self._require_built("state_dict")
+        out = {"meta:num_update": torch.tensor([self.optimizer.num_update],
+                                               dtype=torch.int64)}
+        if self._guarded:
+            out.update({f"meta:{k}": torch.from_numpy(v)
+                        for k, v in self._guard_meta().items()})
+        for i, (_n, p) in enumerate(self._trainable):
+            out[f"param:{i}"] = p.detach()
+        for i, (_n, p) in enumerate(self._aux):
+            out[f"aux:{i}"] = p.detach()
+        for i, leaf in enumerate(self._state_flat):
+            out[f"state:{i}"] = leaf
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, d: Dict[str, torch.Tensor]):
+        """Inverse of :meth:`state_dict`, values as tensors (arrays of the
+        reference go through :func:`mxnet_tpu_torch.utils.convert.
+        load_numpy_state`).  Missing keys or other shapes raise before
+        anything is written."""
+        self._require_built("load_state_dict")
+        targets = ([(f"param:{i}", p, n)
+                    for i, (n, p) in enumerate(self._trainable)]
+                   + [(f"aux:{i}", p, n)
+                      for i, (n, p) in enumerate(self._aux)]
+                   + [(f"state:{i}", leaf, "opt state")
+                      for i, leaf in enumerate(self._state_flat)])
+        missing = [k for k, _t, _n in targets if k not in d]
+        if "meta:num_update" not in d:
+            missing.append("meta:num_update")
+        if missing:
+            raise _base.MXNetError(
+                f"state dict is missing {len(missing)} keys (e.g. "
+                f"{missing[:3]}) — not a checkpoint of this trainer/model")
+        for key, t, name in targets:
+            if tuple(d[key].shape) != tuple(t.shape):
+                raise _base.MXNetError(
+                    f"state dict {key} ({name}) has shape "
+                    f"{tuple(d[key].shape)}, expected {tuple(t.shape)} — "
+                    "checkpoint of a different model")
+        for key, t, _n in targets:
+            t.copy_(d[key])
+        self.optimizer.num_update = int(d["meta:num_update"][0])
+        self._load_guard(d.get("meta:loss_scale"), d.get("meta:good_steps"))

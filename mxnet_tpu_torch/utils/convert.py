@@ -1,7 +1,15 @@
-"""Carry weights across: fill a port model from arrays keyed by the
+"""Carry weights and trainer state across from the reference.
+
+:func:`load_numpy_params` fills a port model from arrays keyed by the
 reference's structural parameter names (``wte.weight``,
 ``h0.attn.q_proj.weight``, ``h0.ln1.gamma``, ...).  Dense weights are
-(out, in) in both packages, so nothing is transposed."""
+(out, in) in both packages, so nothing is transposed.
+:func:`load_numpy_state` fills a port ``ShardedTrainer`` from the
+reference trainer's ``state_dict()`` (positional keys ``param:i``,
+``aux:i``, ``state:i``, ``meta:*``): both packages collect parameters
+and optimizer-state leaves in the same order.  Values may be numpy
+arrays, tensors, or anything with ``asnumpy()`` (the reference's
+NDArrays), so no import of the reference is needed."""
 from __future__ import annotations
 
 import numpy as np
@@ -10,7 +18,27 @@ import torch
 from ..base import MXNetError
 from ..gluon.parameter import is_initialized
 
-__all__ = ["load_numpy_params"]
+__all__ = ["load_numpy_params", "load_numpy_state"]
+
+
+def _tensor(v) -> torch.Tensor:
+    """A tensor of ``v``: a tensor, a numpy array, or an object with
+    ``asnumpy()``."""
+    if isinstance(v, torch.Tensor):
+        return v.detach()
+    if hasattr(v, "asnumpy"):
+        v = v.asnumpy()
+    return torch.from_numpy(np.ascontiguousarray(v))
+
+
+def load_numpy_state(trainer, state):
+    """Load a flat trainer state dict (the reference's
+    ``ShardedTrainer.state_dict()``, or the port's) into ``trainer``,
+    building it first if needed; each value is cast to its target's
+    dtype and device."""
+    trainer.build()
+    trainer.load_state_dict({k: _tensor(v) for k, v in state.items()})
+    return trainer
 
 
 def load_numpy_params(net, params, device=None):
@@ -31,9 +59,7 @@ def load_numpy_params(net, params, device=None):
     with torch.no_grad():
         for name, m, attr in slots:
             p = m._parameters[attr]
-            v = params[name]
-            t = v.detach() if isinstance(v, torch.Tensor) \
-                else torch.from_numpy(np.ascontiguousarray(v))
+            t = _tensor(params[name])
             if tuple(t.shape) != tuple(p.shape):
                 raise MXNetError(f"Parameter '{name}': shape "
                                  f"{tuple(t.shape)} does not match the "

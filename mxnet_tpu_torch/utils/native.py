@@ -30,7 +30,7 @@ __all__ = ["KERNELS", "BUILD_DIR", "build", "load", "build_log",
            "stream_ptr"]
 
 #: every kernel source of the package, by name (csrc/<name>.cu)
-KERNELS = ("flash_fwd", "paged_attention")
+KERNELS = ("flash_fwd", "flash_bwd", "paged_attention")
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
