@@ -30,67 +30,35 @@
 // What bounds it on an H100: per attended (query, key) pair kernel 1 does
 // 3*D multiply-adds (S, dP, dQ) and kernel 2 4*D (S, dP, dV, dK), against
 // 8*D input bytes per row, so at training shapes (T = 1024, D = 64) the
-// bound is operations, by two orders of magnitude.  This first version is
-// built to be right, not to reach that bound: every product is a float32 FMA
-// on the CUDA cores with two shared-memory loads each, as in flash_fwd.cu,
-// so it sits far below the tensor-core bound (PERF.md has the measured
-// gap).  What the design does about the bound today: S, P and dS never leave
-// shared memory (no T*T matrix in device memory); each staged tile is read
-// by all 256 threads of the block; causal and segment skips drop the tiles
-// that hold no attended pair.  The next step is wgmma on bf16 tiles fed by
-// TMA.
+// bound is operations, by two orders of magnitude: the tensor cores, at
+// 495 / 3 = 165 TFLOP/s for float32 through 3xTF32 (flash_tc.cuh) and
+// 989 TFLOP/s for bf16.  Kernel 2 at D = 64 and 128 (`flash_dkv_tc_kernel`,
+// both dtypes; the main path's is float32 D = 64) runs its four products
+// there; its design is described at the kernel.  Kernel 1, and kernel 2 at
+// D = 256 (chosen at compile time, one kernel per case), keep the first
+// port's body: float32 FMAs on the CUDA cores with two shared-memory loads
+// each, S, P and dS in shared memory (no T*T matrix in device memory), each
+// staged tile read by all 256 threads of the block.  Kernel 1 takes the
+// same tensor-core design next.
 //
 // Layout: q, k, v, dO are read and dQ, dK, dV written in (B, T, H, D) in
 // place through the row stride H*D; lse and delta are (B*H, T) float32;
 // segment ids (B, T) int32.
 //
-// Tiles: the block owns BR rows (queries in kernel 1, keys in kernel 2) and
-// loops over tiles of BC rows of the other side; TPR = 256 / BR threads
-// share an owned row, each holding D / TPR accumulator columns in registers
-// (two sets in kernel 2).  BR = BC = 64 for D <= 128 and 32 for D = 256, so
-// the staged tiles (float32, one padding column so rows fall in distinct
-// banks) take at most 166 KB of the 227 KB a block may use.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <climits>
+// Tiles of the CUDA-core body: the block owns BR rows (queries in kernel
+// 1, keys in kernel 2) and loops over tiles of BC rows of the other side;
+// TPR = 256 / BR threads share an owned row, each holding D / TPR
+// accumulator columns in registers (two sets in kernel 2).  BR = BC = 64
+// for D <= 128 and 32 for D = 256, so the staged tiles (float32, one
+// padding column so rows fall in distinct banks) take at most 166 KB of the
+// 227 KB a block may use.
+#include "flash_tc.cuh"
 
 namespace {
 
+using namespace mxt;
+
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-// min/max of vals[0..n) over one warp; every lane gets the result
-__device__ __forceinline__ void warp_minmax(const int* vals, int n, int* mn,
-                                            int* mx) {
-  int lo = INT_MAX, hi = INT_MIN;
-  for (int i = threadIdx.x % 32; i < n; i += 32) {
-    lo = min(lo, vals[i]);
-    hi = max(hi, vals[i]);
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-  }
-  *mn = lo;
-  *mx = hi;
-}
 
 // Stage rows [r0, r0 + n) of one head of a (B, T, H, D) tensor as float32
 // into dst (rows x (D + 1)); rows past n are zero.
@@ -378,6 +346,194 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Kernel 2 (B3) at D = 64 and 128, float32 and bf16, on the tensor cores
+// (Mma<T>, flash_tc.cuh): dK and dV for 64 keys of one (batch, head), 4
+// warps of 16 keys each, looping over query tiles of BQ from the first that
+// reaches the block's keys.  K and V are staged once; each query tile's Q,
+// dO, lse, delta and segment ids are double-buffered by cp.async (tile
+// i+1's copies are issued before tile i is computed).  Per query tile each
+// warp runs four products, all mma.sync accumulators that stay in
+// registers:
+//   S^T = K.Q^T, P^T = exp(S^T * scale - lse) (masked pairs 0);
+//   dP^T = V.dO^T, dS^T = P^T * (dP^T - delta) * scale;
+//   dV += P^T.dO and dK += dS^T.Q, with P^T and dS^T as A fragments
+//   (rounded to dO's / q's dtype on the way, as the reference's astype).
+// Q and dO are each read in both orientations: as B[d][query] (S^T, dP^T)
+// and as B[query][d] (dV, dK); the padded rows of flash_tc.cuh serve both
+// without bank conflicts.  K and V A fragments are read from shared memory
+// (float32: split) at each use: kept in registers beside the four
+// accumulators they would not fit at D = 64.
+constexpr int kWarps = 4;
+constexpr int kTC = 32 * kWarps;    // threads per block
+constexpr int kBKey = 16 * kWarps;  // keys per block
+
+template <typename T, int D, int BQ>
+struct DkvSmem {
+  static constexpr int kLD = D + Mma<T>::kPad;
+  static constexpr size_t kTile = size_t(BQ) * kLD * sizeof(T);
+  // a stage: Q, dO (BQ x kLD), then lse, delta, q-seg (BQ each, 4 bytes)
+  static constexpr size_t kStage = 2 * kTile + 3 * BQ * 4;
+  static constexpr size_t kKV = size_t(2) * kBKey * kLD * sizeof(T);
+  static constexpr size_t kBytes = kKV + 2 * kStage;
+};
+
+template <typename T, int D, int BQ>
+__global__ void __launch_bounds__(kTC)
+    flash_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const int* __restrict__ qseg,
+                        const int* __restrict__ kseg, T* __restrict__ dk,
+                        T* __restrict__ dv, int seq, int heads, int causal,
+                        float scale) {
+  using M = Mma<T>;
+  using L = DkvSmem<T, D, BQ>;
+  constexpr int LD = L::kLD;
+  constexpr int NQ = BQ / 8;  // 8-query accumulator tiles per query tile
+  constexpr int KS = M::kK;   // depth of one product step
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  T* sK = reinterpret_cast<T*>(tc_smem);  // kBKey x LD
+  T* sV = sK + kBKey * LD;                // kBKey x LD
+  unsigned char* sStages = tc_smem + L::kKV;
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int k0 = blockIdx.y * kBKey;  // the longest causal loops first
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) >> 2, t = threadIdx.x & 3;
+  const size_t rs = size_t(heads) * D;
+  const size_t base = size_t(b) * seq * rs + size_t(h) * D;
+  const bool has_seg = qseg != nullptr;
+  const int nk = min(kBKey, seq - k0);
+
+  const int n_qt = (seq + BQ - 1) / BQ;
+  // causal: the first query tile holding a row >= k0
+  const int qt0 = causal ? k0 / BQ : 0;
+  auto stage = [&](int qt) { return sStages + ((qt - qt0) & 1) * L::kStage; };
+  auto issue = [&](int qt) {
+    unsigned char* st = stage(qt);
+    const int q0 = qt * BQ, nq = min(BQ, seq - q0);
+    load_rows<D, kTC>(reinterpret_cast<T*>(st), LD, q + base, rs, q0, nq, BQ);
+    load_rows<D, kTC>(reinterpret_cast<T*>(st + L::kTile), LD, dout + base,
+                      rs, q0, nq, BQ);
+    float* rows = reinterpret_cast<float*>(st + 2 * L::kTile);
+    load_vals<kTC>(rows, lse + size_t(bh) * seq + q0, nq, BQ);
+    load_vals<kTC>(rows + BQ, delta + size_t(bh) * seq + q0, nq, BQ);
+    if (has_seg)
+      load_vals<kTC>(reinterpret_cast<int*>(rows + 2 * BQ),
+                     qseg + size_t(b) * seq + q0, nq, BQ);
+  };
+
+  load_rows<D, kTC>(sK, LD, k + base, rs, k0, nk, kBKey);
+  load_rows<D, kTC>(sV, LD, v + base, rs, k0, nk, kBKey);
+  if (qt0 < n_qt) issue(qt0);
+  cp_async_commit();
+
+  // this thread's two keys, their segment ids, the block's range
+  const int r0 = 16 * warp + g;
+  const int key[2] = {k0 + r0, k0 + r0 + 8};
+  int ks[2] = {0, 0}, kmn = 0, kmx = 0;
+  if (has_seg) {
+    const int* krow = kseg + size_t(b) * seq;
+    for (int i = 0; i < 2; ++i)
+      ks[i] = key[i] < seq ? krow[key[i]] : INT_MIN;
+    warp_minmax(krow + k0, nk, &kmn, &kmx);
+  }
+
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc_k[n][i] = acc_v[n][i] = 0.f;
+
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    if (qt + 1 < n_qt) issue(qt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile qt (and K, V) visible to every warp
+    const T* sQ = reinterpret_cast<const T*>(stage(qt));
+    const T* sO = sQ + BQ * LD;
+    const float* sLse =
+        reinterpret_cast<const float*>(stage(qt) + 2 * L::kTile);
+    const float* sDelta = sLse + BQ;
+    const int* sQseg = reinterpret_cast<const int*>(sDelta + BQ);
+    const int q0 = qt * BQ;
+    const int nq = min(BQ, seq - q0);
+    bool run = true;
+    if (has_seg) {
+      // segment-disjoint tile skip; every warp reaches the same answer
+      int mn, mx;
+      warp_minmax(sQseg, nq, &mn, &mx);
+      run = mn <= kmx && mx >= kmn;
+    }
+    if (run) {
+      // S^T = K.Q^T and dP^T = V.dO^T: 16 keys x BQ queries per warp
+      float s[NQ][4], dp[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / KS; ++kk) {
+        const typename M::A ak = M::load_a(sK, LD, 16 * warp, KS * kk);
+        const typename M::A av = M::load_a(sV, LD, 16 * warp, KS * kk);
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          M::mma_n(s[j], ak, sQ, LD, 8 * j, KS * kk);
+          M::mma_n(dp[j], av, sO, LD, 8 * j, KS * kk);
+        }
+      }
+      // P^T and dS^T in place; s[j][2*r + e] is key r, query 8j + 2t + e.
+      // A masked pair has P = 0 and skips its exp (the reference's
+      // masked-safe exp); a row with no valid key has no kept pair.
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * t + e;
+          const int qi = q0 + c;
+          const float row_lse = sLse[c], row_delta = sDelta[c];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            bool keep = c < nq && key[r] < seq;
+            if (causal) keep = keep && key[r] <= qi;
+            if (has_seg) keep = keep && ks[r] == sQseg[c];
+            const int i = 2 * r + e;
+            const float p = keep ? expf(s[j][i] * scale - row_lse) : 0.f;
+            dp[j][i] = p * (dp[j][i] - row_delta) * scale;
+            s[j][i] = p;
+          }
+        }
+      }
+      // dV += P^T.dO and dK += dS^T.Q over this tile's queries
+#pragma unroll
+      for (int j = 0; j < BQ / KS; ++j) {
+        const typename M::A ap = M::acc_a(s + j * (KS / 8));
+        const typename M::A ad = M::acc_a(dp + j * (KS / 8));
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          M::mma_k(acc_v[n], ap, sO, LD, KS * j, 8 * n);
+          M::mma_k(acc_k[n], ad, sQ, LD, KS * j, 8 * n);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (key[r] >= seq) continue;
+    const size_t ob = base + size_t(key[r]) * rs + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      store2(dk + ob + 8 * n, acc_k[n][2 * r], acc_k[n][2 * r + 1]);
+      store2(dv + ob + 8 * n, acc_v[n][2 * r], acc_v[n][2 * r + 1]);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -420,17 +576,47 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, bool DKV>
-cudaError_t dispatch_d(int d, const Args& a) {
+template <typename T, int D, int BQ>
+cudaError_t launch_dkv_tc(const Args& a) {
+  constexpr size_t smem = DkvSmem<T, D, BQ>::kBytes;
+  auto kern = flash_dkv_tc_kernel<T, D, BQ>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.batch * a.heads, (a.seq + kBKey - 1) / kBKey);
+  kern<<<grid, kTC, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, a.qseg, a.kseg, static_cast<T*>(a.d0), static_cast<T*>(a.d1),
+      a.seq, a.heads, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_dq(int d, const Args& a) {
   switch (d) {
     case 64:
-      return DKV ? launch_dkv<T, 64, 64, 64>(a) : launch_dq<T, 64, 64, 64>(a);
+      return launch_dq<T, 64, 64, 64>(a);
     case 128:
-      return DKV ? launch_dkv<T, 128, 64, 64>(a)
-                 : launch_dq<T, 128, 64, 64>(a);
+      return launch_dq<T, 128, 64, 64>(a);
     case 256:
-      return DKV ? launch_dkv<T, 256, 32, 32>(a)
-                 : launch_dq<T, 256, 32, 32>(a);
+      return launch_dq<T, 256, 32, 32>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// one kernel per (dtype, head dim): D = 64 and 128 the tensor-core design,
+// D = 256 the CUDA-core body
+template <typename T>
+cudaError_t dispatch_dkv(int d, const Args& a) {
+  switch (d) {
+    case 64:
+      return launch_dkv_tc<T, 64, 64>(a);
+    case 128:
+      return launch_dkv_tc<T, 128, 32>(a);
+    case 256:
+      return launch_dkv<T, 256, 32, 32>(a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -438,8 +624,12 @@ cudaError_t dispatch_d(int d, const Args& a) {
 
 template <bool DKV>
 int dispatch(int dtype, int head_dim, const Args& a) {
-  if (dtype == 0) return dispatch_d<float, DKV>(head_dim, a);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16, DKV>(head_dim, a);
+  if (dtype == 0)
+    return DKV ? dispatch_dkv<float>(head_dim, a)
+               : dispatch_dq<float>(head_dim, a);
+  if (dtype == 1)
+    return DKV ? dispatch_dkv<__nv_bfloat16>(head_dim, a)
+               : dispatch_dq<__nv_bfloat16>(head_dim, a);
   return cudaErrorInvalidValue;
 }
 

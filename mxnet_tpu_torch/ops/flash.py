@@ -143,6 +143,9 @@ def _check_cuda(name, q, k, v, q_seg, kv_seg, extra=()):
                          f"{_HEAD_DIMS}")
     if not all(x.is_contiguous() for x in (q, k, v, *extra)):
         raise MXNetError(f"{name}: inputs must be contiguous")
+    if any(x.data_ptr() % 16 for x in (q, k, v, *extra)):
+        # the kernels copy rows in 16-byte pieces (cp.async)
+        raise MXNetError(f"{name}: inputs must be 16-byte aligned")
     if q.shape[0] * q.shape[2] > 65535:
         raise MXNetError(f"{name}: batch*heads exceeds the grid limit")
     for seg in (q_seg, kv_seg):

@@ -5,9 +5,10 @@ for ``sm_90a`` into its own shared library with a plain C interface and
 loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
 Libraries are built at first use from the sources in the checkout into
 ``build/kernels/`` at the repository root, named by a hash of the
-source and the flags, so an edited source is rebuilt and a stale
-library is never loaded.  :func:`build` starts one ``nvcc`` per source,
-all at once, and waits for them.
+source, every shared header (``csrc/*.cuh``) and the flags, so an
+edited source or header is rebuilt and a stale library is never
+loaded.  :func:`build` starts one ``nvcc`` per source, all at once,
+and waits for them.
 
 Nothing here runs at import time: the CPU tests import every module,
 and this host has no ``nvcc``.
@@ -54,8 +55,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = _CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

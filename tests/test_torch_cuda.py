@@ -58,6 +58,32 @@ def test_flash_kernel_matches_plain(dev, dtype, causal, seg, d):
     assert _maxabs(lse, lse_ref) <= TOL[dtype]
 
 
+def test_flash_kernels_at_training_shape_match_plain_and_repeat(dev):
+    """B1 and B3 at the training path's shape (T = 1024, D = 64, float32,
+    causal; batch and heads cut to 2): within the float32 tolerance of
+    their plain versions, and bit-identical on a second launch."""
+    g = torch.Generator(device=dev).manual_seed(1024)
+    b, t, h, d = 2, 1024, 2, 64
+    q, k, v, do = (torch.randn((b, t, h, d), generator=g, device=dev)
+                   for _ in range(4))
+    scale = d ** -0.5
+    o, lse = flash.flash_fwd(q, k, v, causal=True, scale=scale)
+    o_ref, lse_ref = flash._fwd_plain(q, k, v, None, None, True, scale)
+    assert _maxabs(o, o_ref) <= TOL[torch.float32]
+    assert _maxabs(lse, lse_ref) <= TOL[torch.float32]
+    o2, lse2 = flash.flash_fwd(q, k, v, causal=True, scale=scale)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    delta = (do * o).sum(-1).transpose(1, 2).reshape(b * h, 1, t) \
+        .contiguous()
+    args = (q, k, v, do, lse, delta, None, None)
+    dk, dv = flash.flash_dkv(*args, causal=True, scale=scale)
+    dk_ref, dv_ref = flash._dkv_plain(*args, True, scale)
+    for a, r in ((dk, dk_ref), (dv, dv_ref)):
+        assert _maxabs(a, r) <= TOL[torch.float32] * float(r.abs().max())
+    dk2, dv2 = flash.flash_dkv(*args, causal=True, scale=scale)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
 def _segments(dev, b, t):
     qseg = (torch.arange(t, device=dev) >= 100).to(torch.int32)
     qseg = (qseg + (torch.arange(t, device=dev) >= 250)).to(torch.int32)
