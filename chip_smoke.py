@@ -13,8 +13,10 @@ Phases (any failure exits non-zero and prints no result line):
    tolerances, with kernel / plain / library timings (CUDA events, L2
    flushed before each launch) and bounds (the peak rate printed beside
    each) at the shapes the main paths give them: B1 flash forward, B2/B3
-   flash backward (dQ; dK and dV), each flash kernel also held to repeat
-   bit for bit, B4 paged attention.
+   flash backward (dQ; dK and dV), B4 paged attention (its split walk and
+   merge), each kernel also held to repeat bit for bit.  B4's main-path
+   case is also timed by torch.profiler's device time, since the events
+   there read the wrapper's host work.
 3. The serving path at full width: GPT-2 124M (12 layers, 768 units, 12
    heads, vocab 50257, 1024 positions; random weights from a seed)
    served by ``InferenceEngine`` with paged KV and the paged-attention
@@ -120,7 +122,10 @@ def check(name, err, tol):
 
 class Timer:
     """Mean milliseconds per call by CUDA events, with a 128 MiB buffer
-    rewritten before each call so every launch starts from a cold L2."""
+    rewritten before each call so every launch starts from a cold L2.
+    The events bracket the call as the host issues it, so a call whose
+    kernels take less time than the wrapper's host work reads the host
+    work; ``device`` reads the kernels' own time."""
 
     def __init__(self, torch, device):
         self.torch = torch
@@ -142,6 +147,27 @@ class Timer:
             end.synchronize()
             total += start.elapsed_time(end)
         return total / iters
+
+    def device(self, fn, mark, iters=20, warm=3):
+        """Mean device milliseconds per call of the kernels whose names
+        hold ``mark``, from torch.profiler's trace of ``iters`` calls, L2
+        flushed before each; None if the profiler saw no such kernel."""
+        from torch.profiler import ProfilerActivity, profile
+        torch = self.torch
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                self.flush_buf.zero_()
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(t for k, t in _device_rows(torch, prof) if mark in k)
+        return ms / iters if ms > 0 else None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def bound(bytes_moved, flops, dtype):
@@ -365,14 +391,16 @@ def paged_cases(torch, dev, timer, card, lens):
     rs = np.random.RandomState(SEED + 1)
 
     def case(tag, b, tq, h, d, ps, npt, dtype, quant=False, layout=None,
-             qpos=None, tol=TOL_F32):
+             qpos=None, tol=TOL_F32, time_rows=None, park=True):
         """``layout`` is ``engine_table``'s (table, pool size); by default
         distinct pages in random order, the last row parked on the zero
-        page."""
+        page unless not ``park``.  ``time_rows``: also time the kernel on
+        the first rows only."""
         if layout is None:
             n_pool = b * npt
             table = rs.permutation(n_pool).astype(np.int32).reshape(b, npt)
-            table[-1] = n_pool
+            if park:
+                table[-1] = n_pool
         else:
             table, n_pool = layout
         table = torch.from_numpy(table).to(dev)
@@ -400,10 +428,35 @@ def paged_cases(torch, dev, timer, card, lens):
         ref = P._paged_plain(q, kp, vp, table, qpos, ks, vs, d ** -0.5)
         err = maxabs(out, ref)
         check(f"paged_attention {tag}", err, tol)
-        if not bool(torch.isfinite(out[-1]).all()):
-            raise AssertionError("parked zero-page row is not finite")
-        ms = timer(lambda: P.paged_attention(q, kp, vp, table, qpos,
-                                             k_scale=ks, v_scale=vs))
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"paged_attention {tag}: output not finite")
+        if not torch.equal(out, P.paged_attention(q, kp, vp, table, qpos,
+                                                  k_scale=ks, v_scale=vs)):
+            raise AssertionError(f"paged_attention {tag}: a second launch "
+                                 "gave other bits")
+        def call():
+            return P.paged_attention(q, kp, vp, table, qpos, k_scale=ks,
+                                     v_scale=vs)
+
+        ms = timer(call)
+        dev_ms = None
+        if time_rows is not None:
+            tr, qr = table[:time_rows].contiguous(), qpos[:time_rows]
+            q_r = q[:time_rows].contiguous()
+
+            def call_r():
+                return P.paged_attention(q_r, kp, vp, tr, qr, k_scale=ks,
+                                         v_scale=vs)
+
+            ms_r = timer(call_r)
+            # the events read the wrapper's host work here (two launches
+            # of a few microseconds each): the profiler reads the kernels
+            dev_ms = timer.device(call, "paged_")
+            dev_r = timer.device(call_r, "paged_")
+            print(f"    without the last row: kernel {ms_r:.4f} ms (with "
+                  f"it {ms:.4f} ms); device time of both passes (profiler) "
+                  f"{fmt_ms(dev_ms)}, without the last row {fmt_ms(dev_r)} "
+                  f"[{card}]", flush=True)
         plain_ms = timer(lambda: P._paged_plain(q, kp, vp, table, qpos, ks,
                                                 vs, d ** -0.5))
         # bytes: every distinct physical page holding a key <= some
@@ -424,7 +477,8 @@ def paged_cases(torch, dev, timer, card, lens):
               f"{b_ms:.4f} ms ({b_by} at {rate(b_by, 'float32')}) [{card}]",
               flush=True)
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    device_ms=dev_ms)
 
     print("B4 paged_attention vs plain:", flush=True)
     case("decode B8 H12 D64 ps16 P64 f32", 8, 1, 12, 64, 16, 64,
@@ -435,14 +489,36 @@ def paged_cases(torch, dev, timer, card, lens):
          torch.bfloat16, tol=TOL_BF16)
     case("chunk Tq16 B4 H12 D64 ps16 P64 f32", 4, 16, 12, 64, 16, 64,
          torch.float32)
+    case("chunk Tq16 B4 H12 D64 ps16 P64 int8", 4, 16, 12, 64, 16, 64,
+         torch.float32, quant=True, tol=TOL_INT8)
+    # the smallest head dim the kernel is built for
+    case("decode B8 H12 D32 ps16 P64 f32", 8, 1, 12, 32, 16, 64,
+         torch.float32)
+    case("decode B8 H12 D32 ps16 P64 int8", 8, 1, 12, 32, 16, 64,
+         torch.float32, quant=True, tol=TOL_INT8)
+    # one slot walking all 64 pages (the split walk's longest row alone)
+    case("decode B1 all 64 pages H12 D64 ps16 f32", 1, 1, 12, 64, 16, 64,
+         torch.float32, qpos=torch.tensor([[64 * 16 - 1]], device=dev),
+         park=False)
+    # walks of 1, 4 and 33 pages in one batch (a split of 4 pages ends
+    # inside the first, on its boundary and one page past the eighth)
+    walks = torch.tensor([[10], [3 * 16 + 5], [32 * 16 + 7]], device=dev)
+    for dtype, quant, tol in ((torch.float32, False, TOL_F32),
+                              (torch.float32, True, TOL_INT8),
+                              (torch.bfloat16, False, TOL_BF16)):
+        kind = "int8" if quant else str(dtype).split(".")[1]
+        case(f"decode B3 walks of 1/4/33 pages H12 D64 ps16 {kind}", 3, 1,
+             12, 64, 16, 64, dtype, quant=quant, qpos=walks, tol=tol,
+             park=False)
     # the main path's decode step halfway through its 32 new tokens: 8
     # slots on the engine's page layout + the parked scratch row (pos =
-    # Tmax walks all 64 zero-page entries), 512 pages, f32
+    # Tmax walks all 64 zero-page entries), 512 pages, f32; timed also
+    # without the parked row
     npt = 64
     qpos = torch.tensor([[n + 16] for n in lens] + [[npt * 16]], device=dev)
     return case("main-path decode B9 H12 D64 ps16 P64 f32", 9, 1, 12, 64,
                 16, npt, torch.float32, layout=engine_table(lens, 32, 16, npt),
-                qpos=qpos)
+                qpos=qpos, time_rows=len(lens))
 
 
 # ------------------------------------------------------------ main path
@@ -597,8 +673,10 @@ def report_profile(torch, name, wall, prof, card, marks=()):
           flush=True)
     for mark in marks:
         ms = sum(t for k, t in rows if mark in k)
-        print(f"    {mark}: {ms:.3f} ms, {ms / busy:.1%} of busy",
-              flush=True)
+        names = sorted({k[:k.find(">(") + 1] if ">(" in k else k[:80]
+                        for k, _t in rows if mark in k})
+        print(f"    {mark}: {ms:.3f} ms, {ms / busy:.1%} of busy "
+              f"({', '.join(names)})", flush=True)
     for key, ms in rows[:8]:
         print(f"    {ms:9.3f} ms {ms / busy:6.1%}  {key[:100]}", flush=True)
 
@@ -632,7 +710,7 @@ def profile_steps(torch, net, prompts, card):
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         report_profile(torch, name, wall, prof, card,
-                       marks=("flash_fwd", "paged_attention"))
+                       marks=("flash_fwd", "paged_"))
 
 
 def main_path(torch, card, prompts):

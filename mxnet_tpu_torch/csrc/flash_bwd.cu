@@ -28,30 +28,36 @@
 // query tile that reaches its key tile.
 //
 // What bounds it on an H100: per attended (query, key) pair kernel 1 does
-// 3*D multiply-adds (S, dP, dQ) and kernel 2 4*D (S, dP, dV, dK), against
-// 8*D input bytes per row, so at training shapes (T = 1024, D = 64) the
-// bound is operations, by two orders of magnitude: the tensor cores, at
-// 495 / 3 = 165 TFLOP/s for float32 through 3xTF32 (flash_tc.cuh) and
-// 989 TFLOP/s for bf16.  Kernel 2 at D = 64 and 128 (`flash_dkv_tc_kernel`,
-// both dtypes; the main path's is float32 D = 64) runs its four products
-// there; its design is described at the kernel.  Kernel 1, and kernel 2 at
-// D = 256 (chosen at compile time, one kernel per case), keep the first
-// port's body: float32 FMAs on the CUDA cores with two shared-memory loads
-// each, S, P and dS in shared memory (no T*T matrix in device memory), each
-// staged tile read by all 256 threads of the block.  Kernel 1 takes the
-// same tensor-core design next.
+// 3*D multiply-adds (S, dP, dQ: 6*D operations) and kernel 2 4*D (S, dP,
+// dV, dK: 8*D), against 8*D input bytes per row, so at training shapes
+// (T = 1024, D = 64) the bound is operations, by two orders of magnitude:
+// the tensor cores, at 495 / 3 = 165 TFLOP/s for float32 through 3xTF32
+// (flash_tc.cuh) and 989 TFLOP/s for bf16.  At D = 64 and 128 (both
+// dtypes; the main path's is float32 D = 64) both kernels run every
+// product there, as mma.sync accumulators that never leave registers:
+// `flash_dq_tc_kernel` three per key tile, `flash_dkv_tc_kernel` four per
+// query tile; their designs are described at the kernels.  Both keep the
+// forward's shape (4 warps of 16 rows, the other side's tiles
+// double-buffered by cp.async), so the work per staged byte is the
+// forward's.  D = 256 (chosen at compile time, one kernel per case) keeps
+// the first port's bodies, for register pressure: 16 rows of a D = 256
+// accumulator take 128 registers a lane, kernel 2's two of them 256, so
+// the tensor-core design needs D split across a warp pair there.  Those
+// bodies run float32 FMAs on the CUDA cores with two shared-memory loads
+// each, S, P and dS in shared memory (no T*T matrix in device memory),
+// each staged tile read by all 256 threads of the block.
 //
 // Layout: q, k, v, dO are read and dQ, dK, dV written in (B, T, H, D) in
 // place through the row stride H*D; lse and delta are (B*H, T) float32;
 // segment ids (B, T) int32.
 //
-// Tiles of the CUDA-core body: the block owns BR rows (queries in kernel
+// Tiles of the CUDA-core bodies: the block owns BR rows (queries in kernel
 // 1, keys in kernel 2) and loops over tiles of BC rows of the other side;
 // TPR = 256 / BR threads share an owned row, each holding D / TPR
-// accumulator columns in registers (two sets in kernel 2).  BR = BC = 64
-// for D <= 128 and 32 for D = 256, so the staged tiles (float32, one
-// padding column so rows fall in distinct banks) take at most 166 KB of the
-// 227 KB a block may use.
+// accumulator columns in registers (two sets in kernel 2).  BR = BC = 32
+// at D = 256, so the staged tiles (float32, one padding column so rows
+// fall in distinct banks) take at most 141 KB of the 227 KB a block may
+// use.
 #include "flash_tc.cuh"
 
 namespace {
@@ -95,8 +101,8 @@ constexpr size_t dkv_smem() {
          (BR + BC + 4) * sizeof(int);
 }
 
-// Kernel 1 (B2): dQ for BR queries of one (batch, head), looping over key
-// tiles of BC.
+// Kernel 1 (B2), the CUDA-core body (D = 256): dQ for BR queries of one
+// (batch, head), looping over key tiles of BC.
 template <typename T, int D, int BR, int BC>
 __global__ void __launch_bounds__(kThreads)
     flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -534,6 +540,181 @@ __global__ void __launch_bounds__(kTC)
   }
 }
 
+// Kernel 1 (B2) at D = 64 and 128, float32 and bf16, on the tensor cores
+// (Mma<T>, flash_tc.cuh): dQ for 64 queries of one (batch, head), 4 warps
+// of 16 queries each, looping over key tiles of BK up to the causal
+// diagonal.  Q and dO are staged once (float32 as loaded: their A
+// fragments are split at each use, which keeps the block at the forward's
+// shared-memory size); each row's lse and delta sit in registers.  K, V
+// and the key segment ids are double-buffered by cp.async (tile i+1's
+// copies are issued before tile i is computed, rows past T zero-filled).
+// Per key tile each warp runs three products, all mma.sync accumulators
+// that stay in registers:
+//   S = Q.K^T and dP = dO.V^T;
+//   P = exp(S * scale - lse) (masked pairs 0, skipping their exp),
+//   dS = P * (dP - delta) * scale;
+//   dQ += dS.K, with dS as an A fragment (rounded to k's dtype on the way,
+//   as the reference's astype) and K read along k.
+template <typename T, int D, int BK>
+struct DqSmem {
+  static constexpr int kLD = D + Mma<T>::kPad;
+  // Q and dO (kBKey x kLD), then two stages of K and V (BK x kLD each),
+  // then two stages of key segment ids
+  static constexpr size_t kQO = size_t(2) * kBKey * kLD * sizeof(T);
+  static constexpr size_t kStage = size_t(2) * BK * kLD * sizeof(T);
+  static constexpr size_t kBytes = kQO + 2 * kStage + 2 * BK * sizeof(int);
+};
+
+template <typename T, int D, int BK>
+__global__ void __launch_bounds__(kTC)
+    flash_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       const int* __restrict__ qseg,
+                       const int* __restrict__ kseg, T* __restrict__ dq,
+                       int seq, int heads, int causal, float scale) {
+  using M = Mma<T>;
+  using L = DqSmem<T, D, BK>;
+  constexpr int LD = L::kLD;
+  constexpr int NT = BK / 8;  // 8-key accumulator tiles per key tile
+  constexpr int KS = M::kK;   // depth of one product step
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  T* sQ = reinterpret_cast<T*>(tc_smem);  // kBKey x LD
+  T* sO = sQ + kBKey * LD;                // dO, kBKey x LD
+  T* sKV = sO + kBKey * LD;               // stage s: K, V (2*BK x LD)
+  int* sKseg = reinterpret_cast<int*>(tc_smem + L::kQO + 2 * L::kStage);
+
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest loops first
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int q0 = qt * kBKey;
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) >> 2, t = threadIdx.x & 3;
+  const size_t rs = size_t(heads) * D;
+  const size_t base = size_t(b) * seq * rs + size_t(h) * D;
+  const bool has_seg = qseg != nullptr;
+  const int nq = min(kBKey, seq - q0);
+
+  int n_kt = (seq + BK - 1) / BK;
+  if (causal) n_kt = min(n_kt, (q0 + kBKey + BK - 1) / BK);  // to the diagonal
+  auto issue = [&](int kt) {
+    T* st = sKV + (kt & 1) * 2 * BK * LD;
+    const int k0 = kt * BK, nk = min(BK, seq - k0);
+    load_rows<D, kTC>(st, LD, k + base, rs, k0, nk, BK);
+    load_rows<D, kTC>(st + BK * LD, LD, v + base, rs, k0, nk, BK);
+    if (has_seg)
+      load_vals<kTC>(sKseg + (kt & 1) * BK, kseg + size_t(b) * seq + k0, nk,
+                     BK);
+  };
+
+  load_rows<D, kTC>(sQ, LD, q + base, rs, q0, nq, kBKey);
+  load_rows<D, kTC>(sO, LD, dout + base, rs, q0, nq, kBKey);
+  cp_async_commit();
+  issue(0);
+  cp_async_commit();
+
+  // this thread's two query rows: lse, delta, segment ids; the block's
+  // segment range
+  const int r0 = 16 * warp + g;
+  const int qi[2] = {q0 + r0, q0 + r0 + 8};
+  float row_lse[2], row_delta[2];
+  int qs[2] = {0, 0}, qmn = 0, qmx = 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool live = qi[r] < seq;
+    row_lse[r] = live ? lse[size_t(bh) * seq + qi[r]] : 0.f;
+    row_delta[r] = live ? delta[size_t(bh) * seq + qi[r]] : 0.f;
+  }
+  if (has_seg) {
+    const int* qrow = qseg + size_t(b) * seq;
+    for (int i = 0; i < 2; ++i) qs[i] = qi[i] < seq ? qrow[qi[i]] : INT_MIN;
+    warp_minmax(qrow + q0, nq, &qmn, &qmx);
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (kt + 1 < n_kt) issue(kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile kt (and Q, dO) visible to every warp
+    const T* sK = sKV + (kt & 1) * 2 * BK * LD;
+    const T* sV = sK + BK * LD;
+    const int* ks = sKseg + (kt & 1) * BK;
+    const int k0 = kt * BK;
+    const int nk = min(BK, seq - k0);
+    bool run = true;
+    if (has_seg) {
+      // segment-disjoint tile skip (flash.py `_run_pred`); every warp
+      // reaches the same answer
+      int mn, mx;
+      warp_minmax(ks, nk, &mn, &mx);
+      run = mn <= qmx && mx >= qmn;
+    }
+    if (run) {
+      // S = Q.K^T and dP = dO.V^T: 16 queries x BK keys per warp
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / KS; ++kk) {
+        const typename M::A aq = M::load_a(sQ, LD, 16 * warp, KS * kk);
+        const typename M::A ao = M::load_a(sO, LD, 16 * warp, KS * kk);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          M::mma_n(s[j], aq, sK, LD, 8 * j, KS * kk);
+          M::mma_n(dp[j], ao, sV, LD, 8 * j, KS * kk);
+        }
+      }
+      // dS in place of dP; s[j][2*r + e] is query row r, key 8j + 2t + e.
+      // A masked pair has P = 0 and skips its exp (the reference's
+      // masked-safe exp); a row with no valid key has no kept pair.
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * t + e;
+          const int key = k0 + c;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            bool keep = c < nk;
+            if (causal) keep = keep && key <= qi[r];
+            if (has_seg) keep = keep && qs[r] == ks[c];
+            const int i = 2 * r + e;
+            const float p = keep ? expf(s[j][i] * scale - row_lse[r]) : 0.f;
+            dp[j][i] = p * (dp[j][i] - row_delta[r]) * scale;
+          }
+        }
+      }
+      // dQ += dS.K over this tile's keys
+#pragma unroll
+      for (int j = 0; j < BK / KS; ++j) {
+        const typename M::A ad = M::acc_a(dp + j * (KS / 8));
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          M::mma_k(acc[n], ad, sK, LD, KS * j, 8 * n);
+      }
+    }
+    __syncthreads();  // every warp is done with stage kt & 1
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (qi[r] >= seq) continue;
+    T* row = dq + base + size_t(qi[r]) * rs + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store2(row + 8 * n, acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -592,13 +773,30 @@ cudaError_t launch_dkv_tc(const Args& a) {
   return cudaGetLastError();
 }
 
+template <typename T, int D, int BK>
+cudaError_t launch_dq_tc(const Args& a) {
+  constexpr size_t smem = DqSmem<T, D, BK>::kBytes;
+  auto kern = flash_dq_tc_kernel<T, D, BK>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.batch * a.heads, (a.seq + kBKey - 1) / kBKey);
+  kern<<<grid, kTC, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, a.qseg, a.kseg, static_cast<T*>(a.d0), a.seq, a.heads,
+      a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+// one kernel per (dtype, head dim), as dispatch_dkv
 template <typename T>
 cudaError_t dispatch_dq(int d, const Args& a) {
   switch (d) {
     case 64:
-      return launch_dq<T, 64, 64, 64>(a);
+      return launch_dq_tc<T, 64, 64>(a);
     case 128:
-      return launch_dq<T, 128, 64, 64>(a);
+      return launch_dq_tc<T, 128, 64>(a);
     case 256:
       return launch_dq<T, 256, 32, 32>(a);
     default:

@@ -6,7 +6,10 @@ A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain version, the analogue of Pallas interpret mode.  The plain
 version gathers each slot's pages into a dense row and runs the same
 masked softmax: keys k <= qpos, the masked-safe exp, zeros for a row
-with no key, int8 pages dequantized by their scales.
+with no key, int8 pages dequantized by their scales.  The kernel walks
+each slot's table in splits of :func:`split_count` runs of pages and
+merges their partial softmaxes in a second pass (``csrc/
+paged_attention.cu``).
 """
 from __future__ import annotations
 
@@ -17,11 +20,16 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["paged_attention", "kv_quantize", "kv_dequantize"]
+__all__ = ["paged_attention", "kv_quantize", "kv_dequantize", "split_count",
+           "KERNEL_HEAD_DIMS"]
 
 _MASK = -1e30
 _Q_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _PAGE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+#: the head dims the CUDA kernel is built for
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+#: about how many keys one split of the kernel's page walk covers
+SPLIT_KEYS = 64
 
 
 # ------------------------------------------------------------ quantization
@@ -70,13 +78,22 @@ def _paged_plain(q, k_pages, v_pages, table_rows, qpos, k_scale, v_scale,
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
+def split_count(page_size: int, pages_per_row: int) -> int:
+    """How many splits the kernel cuts a slot's table of
+    ``pages_per_row`` pages into: runs of ``SPLIT_KEYS // page_size``
+    pages (at least one), so a split covers about ``SPLIT_KEYS`` keys.
+    Split ``c`` takes pages ``[c * r, (c + 1) * r)`` with
+    ``r = ceil(pages_per_row / count)``."""
+    per = max(1, SPLIT_KEYS // page_size)
+    return -(-pages_per_row // per)
+
+
 def _kernel_fn():
     from ..utils import native
     fn = native.load("paged_attention").mxt_paged_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                       ctypes.c_float, p]
+        fn.argtypes = [p] * 9 + [i] * 9 + [ctypes.c_float, p]
         fn.restype = i
     return fn
 
@@ -91,6 +108,9 @@ def _check_cuda(q, k_pages, v_pages, table_rows, qpos, k_scale, v_scale):
         raise MXNetError(f"paged_attention: q must be (B, Tq, H, D) float32 "
                          f"or bfloat16, got {tuple(q.shape)} {q.dtype}")
     b, tq, h, d = q.shape
+    if d not in KERNEL_HEAD_DIMS:
+        raise MXNetError(f"paged_attention: head dim {d} not in "
+                         f"{KERNEL_HEAD_DIMS}")
     if k_pages.dim() != 4 or k_pages.shape != v_pages.shape or \
             tuple(k_pages.shape[2:]) != (h, d):
         raise MXNetError(f"paged_attention: pages must be (N, ps, {h}, {d}), "
@@ -115,7 +135,10 @@ def _check_cuda(q, k_pages, v_pages, table_rows, qpos, k_scale, v_scale):
     if not all(t.is_contiguous() for t in (q, k_pages, v_pages, table_rows,
                                            qpos)):
         raise MXNetError("paged_attention: inputs must be contiguous")
-    if b > 65535 or h > 65535:
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        # the kernel copies page rows in 16-byte pieces (cp.async)
+        raise MXNetError("paged_attention: pages must be 16-byte aligned")
+    if b * -(-tq // 4) > 65535 or h > 65535:
         raise MXNetError("paged_attention: batch/heads exceed the grid limit")
 
 
@@ -144,14 +167,19 @@ def paged_attention(q, k_pages, v_pages, table_rows, qpos, *,
     if q.device.type != "cuda":
         raise MXNetError(f"paged_attention: unsupported device {q.device}")
     _check_cuda(q, k_pages, v_pages, table_rows, qpos, k_scale, v_scale)
+    ps, npt = k_pages.shape[1], table_rows.shape[1]
+    ns = split_count(ps, npt)
     out = torch.empty_like(q)
+    # each split's partial (acc[D], then m and l) for every row
+    scratch = torch.empty(b * tq * h * ns * (d + 2), dtype=torch.float32,
+                          device=q.device)
     from ..utils.native import stream_ptr
     err = _kernel_fn()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
         table_rows.data_ptr(), qpos.data_ptr(), out.data_ptr(),
-        b, tq, h, d, k_pages.shape[1], table_rows.shape[1],
+        scratch.data_ptr(), b, tq, h, d, ps, npt, ns,
         _Q_CODE[q.dtype], _PAGE_CODE[k_pages.dtype], scale,
         stream_ptr(q.device))
     if err:

@@ -14,8 +14,9 @@ KV layouts: ``kv_layout='dense'`` gives each slot a full (Tmax, H, D)
 row; ``'paged'`` carves the cache into fixed-size pages mapped by
 per-slot page tables (:mod:`.kv_pages`), with ``kv_quant='int8'`` pages
 and two read arms — ``paged_attention='kernel'`` (the default: the CUDA
-paged-attention kernel reads pages in place) or ``'gather'`` (rows
-gathered back, the reference arm).
+paged-attention kernel reads pages in place; on the card the engine
+refuses a model whose head dim the kernel is not built for) or
+``'gather'`` (rows gathered back, the reference arm).
 
 Admission is page-budgeted: a request is admitted only when the pool can
 hold its whole lifetime, ``prompt + max_new_tokens`` positions, and its
@@ -42,6 +43,7 @@ import numpy as np
 import torch
 
 from ..context import resolve_device
+from ..ops.paged import KERNEL_HEAD_DIMS
 from .batcher import BucketLattice, DynamicBatcher
 from .errors import (EngineStoppedError, InvalidRequestError,
                      QueueFullError, ServingError)
@@ -194,6 +196,13 @@ class InferenceEngine:
         self.paged_attention = (paged_attention or "kernel") \
             if self._paged else None
         self._paged_kernel = self.paged_attention == "kernel"
+        if self._paged_kernel and self.device.type == "cuda":
+            head_dim = net.kv_heads()[1]
+            if head_dim not in KERNEL_HEAD_DIMS:
+                raise ServingError(
+                    f"the paged-attention kernel takes head dims "
+                    f"{KERNEL_HEAD_DIMS}, the model's is {head_dim}: serve "
+                    "it with paged_attention='gather'")
         if self._paged:
             self.page_size = int(page_size)
             if self.page_size < 1 or self.max_length % self.page_size:

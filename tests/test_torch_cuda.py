@@ -59,9 +59,10 @@ def test_flash_kernel_matches_plain(dev, dtype, causal, seg, d):
 
 
 def test_flash_kernels_at_training_shape_match_plain_and_repeat(dev):
-    """B1 and B3 at the training path's shape (T = 1024, D = 64, float32,
-    causal; batch and heads cut to 2): within the float32 tolerance of
-    their plain versions, and bit-identical on a second launch."""
+    """B1, B2 and B3 at the training path's shape (T = 1024, D = 64,
+    float32, causal; batch and heads cut to 2): within the float32
+    tolerance of their plain versions, and bit-identical on a second
+    launch."""
     g = torch.Generator(device=dev).manual_seed(1024)
     b, t, h, d = 2, 1024, 2, 64
     q, k, v, do = (torch.randn((b, t, h, d), generator=g, device=dev)
@@ -76,12 +77,11 @@ def test_flash_kernels_at_training_shape_match_plain_and_repeat(dev):
     delta = (do * o).sum(-1).transpose(1, 2).reshape(b * h, 1, t) \
         .contiguous()
     args = (q, k, v, do, lse, delta, None, None)
-    dk, dv = flash.flash_dkv(*args, causal=True, scale=scale)
-    dk_ref, dv_ref = flash._dkv_plain(*args, True, scale)
-    for a, r in ((dk, dk_ref), (dv, dv_ref)):
+    dq, dk, dv = flash.flash_bwd(*args, causal=True, scale=scale)
+    for a, r in zip((dq, dk, dv), flash._bwd_plain(*args, True, scale)):
         assert _maxabs(a, r) <= TOL[torch.float32] * float(r.abs().max())
-    dk2, dv2 = flash.flash_dkv(*args, causal=True, scale=scale)
-    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    again = flash.flash_bwd(*args, causal=True, scale=scale)
+    assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
 
 
 def _segments(dev, b, t):
@@ -202,6 +202,81 @@ def test_paged_kernel_matches_plain(dev, kind, tq):
     assert bool(torch.isfinite(out).all())
 
 
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("tq", [1, 16])
+def test_paged_kernel_split_walks_match_plain_and_repeat(dev, kind, tq):
+    """The split walk and merge on walks of 1, 4, 33 and all 64 pages of
+    16 keys (splits of 4 pages: inside the first, on its boundary, past
+    the eighth, every split), a parked row on the zero page and a row
+    with no key: within tolerance of the plain version, finite, zero for
+    the keyless row, bit-identical on a second launch."""
+    g = torch.Generator(device=dev).manual_seed(64 + tq)
+    h, d, ps, npt = 12, 64, 16, 64
+    b, n = 6, 6 * 64 + 1
+    kf = torch.randn((n, ps, h, d), generator=g, device=dev)
+    vf = torch.randn((n, ps, h, d), generator=g, device=dev)
+    kf[-1] = 0
+    vf[-1] = 0
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    q = torch.randn((b, tq, h, d), generator=g, device=dev).to(dtype)
+    table = torch.randperm(n - 1, generator=g, device=dev)[:b * npt] \
+        .reshape(b, npt).to(torch.int32)
+    table[4] = n - 1                       # parked on the zero page
+    last = torch.tensor([10, 3 * ps + 5, 32 * ps + 7, npt * ps - 1,
+                         npt * ps, -1], device=dev)
+    qpos = (last[:, None] - torch.arange(tq - 1, -1, -1, device=dev))
+    qpos[5] = -1
+    qpos = qpos.to(torch.int32).contiguous()
+    ks = vs = None
+    if kind == "int8":
+        kp, ks = paged.kv_quantize(kf)
+        vp, vs = paged.kv_quantize(vf)
+    else:
+        kp, vp = kf.to(dtype), vf.to(dtype)
+    n0 = paged.paged_attention.launches
+    out = paged.paged_attention(q, kp, vp, table, qpos, k_scale=ks,
+                                v_scale=vs)
+    torch.cuda.synchronize()
+    assert paged.paged_attention.launches == n0 + 1
+    ref = paged._paged_plain(q, kp, vp, table, qpos, ks, vs, d ** -0.5)
+    assert _maxabs(out, ref) <= TOL[dtype]
+    assert bool(torch.isfinite(out).all())
+    assert bool((out[5] == 0).all())
+    assert torch.equal(out, paged.paged_attention(q, kp, vp, table, qpos,
+                                                  k_scale=ks, v_scale=vs))
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_paged_kernel_at_head_dim_32_matches_plain(dev, kind):
+    """The smallest head dim the kernel is built for, at decode and on
+    the parked zero-page row."""
+    g = torch.Generator(device=dev).manual_seed(32)
+    b, h, d, ps, npt, n = 4, 4, 32, 16, 16, 4 * 16 + 1
+    kf = torch.randn((n, ps, h, d), generator=g, device=dev)
+    vf = torch.randn((n, ps, h, d), generator=g, device=dev)
+    kf[-1] = 0
+    vf[-1] = 0
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    q = torch.randn((b, 1, h, d), generator=g, device=dev).to(dtype)
+    table = torch.randperm(n - 1, generator=g, device=dev).reshape(b, npt) \
+        .to(torch.int32)
+    table[-1] = n - 1
+    qpos = torch.tensor([[5], [100], [npt * ps - 1], [npt * ps]],
+                        dtype=torch.int32, device=dev)
+    ks = vs = None
+    if kind == "int8":
+        kp, ks = paged.kv_quantize(kf)
+        vp, vs = paged.kv_quantize(vf)
+    else:
+        kp, vp = kf.to(dtype), vf.to(dtype)
+    out = paged.paged_attention(q, kp, vp, table, qpos, k_scale=ks,
+                                v_scale=vs)
+    torch.cuda.synchronize()
+    ref = paged._paged_plain(q, kp, vp, table, qpos, ks, vs, d ** -0.5)
+    assert _maxabs(out, ref) <= TOL[dtype]
+    assert bool(torch.isfinite(out).all())
+
+
 def _small_gpt2(seed, device=None):
     from mxnet_tpu_torch.models import get_gpt2
     net = get_gpt2("gpt2_124m", vocab_size=256, units=128, num_layers=2,
@@ -235,6 +310,20 @@ def test_engine_arms_agree_on_card(dev):
     for a, b, c in zip(outs["kernel"], outs["gather"], outs["dense"]):
         onp.testing.assert_array_equal(a, b)
         onp.testing.assert_array_equal(a, c)
+
+
+def test_engine_refuses_head_dims_the_kernel_lacks(dev):
+    """A model of head dim 80 is refused by the kernel read arm when the
+    engine is built, not on its first decode step; the gather arm takes
+    it."""
+    from mxnet_tpu_torch.models import get_gpt2
+    from mxnet_tpu_torch.serving import InferenceEngine, ServingError
+    net = get_gpt2("gpt2_124m", vocab_size=256, units=160, num_layers=1,
+                   num_heads=2, max_length=128, dropout=0.0).initialize(seed=0)
+    assert net.kv_heads() == (2, 80)
+    with pytest.raises(ServingError, match="head dims"):
+        InferenceEngine(net, kv_layout="paged")
+    InferenceEngine(net, kv_layout="paged", paged_attention="gather")
 
 
 def test_bf16_model_kernel_arm_matches_gather_arm(dev):

@@ -1,7 +1,8 @@
 """The arithmetic of the tensor-core flash kernels, emulated on the CPU.
 
-``csrc/flash_fwd.cu`` (B1) and ``csrc/flash_bwd.cu`` ``flash_dkv_tc_kernel``
-(B3) compute every float32 product on the tensor cores as three TF32
+``csrc/flash_fwd.cu`` (B1) and ``csrc/flash_bwd.cu`` ``flash_dq_tc_kernel``
+(B2) and ``flash_dkv_tc_kernel`` (B3) compute every float32 product on the
+tensor cores as three TF32
 products (``csrc/flash_tc.cuh``): each operand x is split into
 ``big = rna_tf32(x)`` and ``small = rna_tf32(x - big)``, and a product is
 ``small_a*big_b + big_a*small_b + big_a*big_b``.  No card runs here, so
@@ -13,7 +14,7 @@ themselves are held to their plain versions on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 
 Tolerance: the float32 max-abs of ``tests/test_torch_flash.py``, 1e-5,
-for O and for dK, dV.  Single-pass TF32 products would miss it by about
+for O and for dQ, dK, dV.  Single-pass TF32 products would miss it by about
 two orders of magnitude; run from the repository root as a script
 (``JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_flash_tc.py``)
 it prints the errors of both.
@@ -29,7 +30,7 @@ from mxnet_tpu_torch.utils import native
 
 F32_TOL = 1e-5
 MASK = -1e30
-TILE = 64          # keys per tile in B1, queries per tile in B3 (D = 64)
+TILE = 64          # keys per tile in B1 and B2, queries per tile in B3
 
 
 def rna_tf32(x):
@@ -81,6 +82,25 @@ def fwd_tc(q, k, v, causal, scale, mm=mm3):
     return acc / l, m + torch.log(l)
 
 
+def dq_tc(q, k, v, do, lse, delta, causal, scale, mm=mm3):
+    """B2's loop on (BH, T, D) float32: key tiles of 64; S, dP, then
+    dQ += dS.K."""
+    t = q.shape[1]
+    dq = torch.zeros_like(q)
+    rows = torch.arange(t)[:, None]
+    for k0 in range(0, t, TILE):
+        kt, vt = k[:, k0:k0 + TILE], v[:, k0:k0 + TILE]
+        s = mm(q, kt.transpose(1, 2)) * scale
+        p = torch.exp(s - lse[:, :, None])
+        if causal:
+            cols = k0 + torch.arange(kt.shape[1])[None]
+            p = torch.where(cols <= rows, p, torch.zeros_like(p))
+        dp = mm(do, vt.transpose(1, 2))
+        ds = p * (dp - delta[:, :, None]) * scale
+        dq = dq + mm(ds, kt)
+    return dq
+
+
 def dkv_tc(q, k, v, do, lse, delta, causal, scale, mm=mm3):
     """B3's loop on (BH, T, D) float32: query tiles of 64; S^T, dP^T, then
     dV += P^T.dO and dK += dS^T.Q."""
@@ -119,7 +139,7 @@ def _unflat(x, b, h):
 
 
 def _reference(q, k, v, cot):
-    """O and (dK, dV) of the JAX package's flash attention, causal, in
+    """O and (dQ, dK, dV) of the JAX package's flash attention, causal, in
     Pallas interpret mode."""
     c = jnp.asarray(cot)
 
@@ -129,7 +149,7 @@ def _reference(q, k, v, cot):
 
     (_, out), grads = jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True)(
         *(jnp.asarray(x) for x in (q, k, v)))
-    return onp.asarray(out), [onp.asarray(g) for g in grads[1:]]
+    return onp.asarray(out), [onp.asarray(g) for g in grads]
 
 
 def _emulated(q, k, v, cot, mm):
@@ -138,8 +158,9 @@ def _emulated(q, k, v, cot, mm):
     qf, kf, vf, of = (_flat(x) for x in (q, k, v, cot))
     o, lse = fwd_tc(qf, kf, vf, True, scale, mm)
     delta = (of * o).sum(-1)
+    dq = dq_tc(qf, kf, vf, of, lse[..., 0], delta, True, scale, mm)
     dk, dv = dkv_tc(qf, kf, vf, of, lse[..., 0], delta, True, scale, mm)
-    return _unflat(o, b, h), [_unflat(x, b, h) for x in (dk, dv)]
+    return _unflat(o, b, h), [_unflat(x, b, h) for x in (dq, dk, dv)]
 
 
 def _errors(mm, seed=0, shape=(1, 1024, 2, 64)):
@@ -147,7 +168,8 @@ def _errors(mm, seed=0, shape=(1, 1024, 2, 64)):
     o_ref, g_ref = _reference(q, k, v, cot)
     o, g = _emulated(q, k, v, cot, mm)
     return (float(onp.abs(o - o_ref).max()),
-            max(float(onp.abs(a - r).max()) for a, r in zip(g, g_ref)))
+            float(onp.abs(g[0] - g_ref[0]).max()),
+            max(float(onp.abs(a - r).max()) for a, r in zip(g[1:], g_ref[1:])))
 
 
 def test_rna_tf32_rounds_half_away_from_zero():
@@ -177,8 +199,18 @@ def test_3xtf32_forward_and_dkv_match_pallas_at_training_length():
     o_ref, g_ref = _reference(q, k, v, cot)
     o, g = _emulated(q, k, v, cot, mm3)
     onp.testing.assert_allclose(o, o_ref, atol=F32_TOL, rtol=0)
-    for a, r in zip(g, g_ref):
+    for a, r in zip(g[1:], g_ref[1:]):
         onp.testing.assert_allclose(a, r, atol=F32_TOL, rtol=0)
+
+
+def test_3xtf32_dq_matches_pallas_at_training_length():
+    """B2's arithmetic (key tiles of 64, S and dP through 3xTF32, dS
+    rounded as the reference does, dQ += dS.K) at T = 1024, D = 64,
+    causal, against the Pallas dQ kernel in interpret mode."""
+    q, k, v, cot = _inputs(1, 1, 1024, 2, 64)
+    _o_ref, g_ref = _reference(q, k, v, cot)
+    _o, g = _emulated(q, k, v, cot, mm3)
+    onp.testing.assert_allclose(g[0], g_ref[0], atol=F32_TOL, rtol=0)
 
 
 @pytest.mark.parametrize("edit", ["header", "new_header", "source"])
@@ -203,7 +235,7 @@ def test_kernel_library_name_follows_every_header(tmp_path, monkeypatch,
 
 
 def test_flash_sources_use_tensor_cores_and_no_library_kernel():
-    """B1 and B3 take their products through the shared ``Mma<T>`` of
+    """B1, B2 and B3 take their products through the shared ``Mma<T>`` of
     flash_tc.cuh, which issues TF32 (three passes) and bf16 mma.sync; no
     source calls a library's kernel."""
     csrc = native._CSRC
@@ -216,6 +248,9 @@ def test_flash_sources_use_tensor_cores_and_no_library_kernel():
         src = (csrc / f"{name}.cu").read_text()
         assert '#include "flash_tc.cuh"' in src
         assert "M::mma_n(" in src and "M::mma_k(" in src
+    bwd = (csrc / "flash_bwd.cu").read_text()
+    for kernel in ("flash_dq_tc_kernel", "flash_dkv_tc_kernel"):
+        assert f"launch_{kernel.split('_')[1]}_tc<T, 64," in bwd, kernel
     for path in list(csrc.glob("*.cu")) + list(csrc.glob("*.cuh")):
         text = path.read_text().lower()
         for lib in ("cublas", "cudnn", "cutlass/gemm", "scaled_dot_product"):
@@ -224,7 +259,7 @@ def test_flash_sources_use_tensor_cores_and_no_library_kernel():
 
 if __name__ == "__main__":
     for label, mm in (("3xTF32", mm3), ("1xTF32", mm1)):
-        o_err, g_err = _errors(mm)
+        o_err, dq_err, g_err = _errors(mm)
         print(f"{label}: causal B1 T1024 H2 D64 float32, max-abs error vs "
               f"the Pallas kernels (interpret mode): O {o_err:.3e}, "
-              f"dK/dV {g_err:.3e}")
+              f"dQ {dq_err:.3e}, dK/dV {g_err:.3e}")

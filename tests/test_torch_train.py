@@ -42,6 +42,8 @@ LR = 1e-3
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-5
 PARAM_TOL = 1e-4
+# the reference weights' seed: the same weights whatever ran before
+WEIGHT_SEED = 0
 
 
 def _batch(seed):
@@ -53,6 +55,7 @@ def _batch(seed):
 @pytest.fixture(scope="module")
 def params():
     jn = jget_gpt2("gpt2_124m", **CFG)
+    mx.random.seed(WEIGHT_SEED)
     jn.initialize()
     return {k: p.data().asnumpy()
             for k, p in jn._collect_params_with_prefix().items()}
@@ -60,6 +63,7 @@ def params():
 
 def _ref_net(params):
     jn = jget_gpt2("gpt2_124m", **CFG)
+    mx.random.seed(WEIGHT_SEED)
     jn.initialize()
     for k, p in jn._collect_params_with_prefix().items():
         p.set_data(mx.nd.array(params[k]))
