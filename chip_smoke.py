@@ -35,11 +35,21 @@ Phases (any failure exits non-zero and prints no result line):
    first.  Before it, one step's loss and every gradient at batch 4 are
    held to the same step with ``impl='ref'`` attention.  Then
    ``torch.profiler`` shows where one step spends its time.
-5. A ``{"kernels": [...]}`` line, the card line again, and the last
+5. The MXNet imperative loop at the same width, on a fresh net from the
+   same seed and batch: ``mx.nd`` inputs, ``with autograd.record()``,
+   ``gluon.loss.SoftmaxCrossEntropyLoss``, ``loss.backward()`` and
+   ``gluon.Trainer(..., "adam").step(16)``, one warm-up step and 5 timed
+   ones.  B1, B2 and B3 must each launch 12 times per step, every step's
+   loss must be within ``TOL_LOSS`` of phase 4's for the same step, and
+   step 1's ``p.grad()`` (over the batch size) within ``TOL_GRAD`` of
+   ``torch.autograd.grad`` of ``gpt2_lm_loss``.  Then ``torch.profiler``
+   shows where one step spends its time.
+6. A ``{"kernels": [...]}`` line, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -782,14 +792,17 @@ def grad_parity(torch, net, toks, labels):
     # softmax cancels: its gradient is zero in exact arithmetic and both
     # runs return rounding noise, so it is held against the largest
     # gradient of the model instead of its own
-    names = list(net.collect_params())
-    top = max(float(g.abs().max()) for g in g_r)
-    errs = [maxabs(a, b) / (top if n.endswith("k_proj.bias") else
-                            max(float(b.abs().max()), 1e-30))
-            for n, a, b in zip(names, g_k, g_r)]
+    names = [n for n, _ in net.named_parameters()]
+    errs = grad_errors(names, g_k, g_r)
     worst = int(np.argmax(errs))
     check(f"{len(errs)} gradients kernels vs impl='ref' (worst "
           f"{names[worst]}, over its max-abs)", errs[worst], TOL_GRAD)
+
+
+def train_batch():
+    rs = np.random.RandomState(SEED)
+    return tuple(rs.randint(0, VOCAB, (TRAIN_B, TRAIN_T)).astype(np.int32)
+                 for _ in range(2))
 
 
 def train_path(torch, card):
@@ -799,9 +812,7 @@ def train_path(torch, card):
     from mxnet_tpu_torch.parallel import ShardedTrainer
     net = get_gpt2("gpt2_124m", dropout=0.0)
     net.initialize(seed=SEED)
-    rs = np.random.RandomState(SEED)
-    toks, labels = (rs.randint(0, VOCAB, (TRAIN_B, TRAIN_T)).astype(np.int32)
-                    for _ in range(2))
+    toks, labels = train_batch()
     print(f"training GPT-2 124M, batch {TRAIN_B} x {TRAIN_T} tokens, Adam "
           f"lr {TRAIN_LR}, float32:", flush=True)
     grad_parity(torch, net, toks[:4], labels[:4])
@@ -845,6 +856,103 @@ def train_path(torch, card):
         wall_ms = (time.perf_counter() - t0) * 1e3
     report_profile(torch, f"train step B{TRAIN_B} T{TRAIN_T}", wall_ms, prof,
                    card, marks=("flash_fwd", "flash_dq", "flash_dkv"))
+    return launches, losses
+
+
+def grad_errors(names, grads, ref):
+    """Each gradient's max-abs error over its reference's max-abs;
+    ``k_proj.bias`` (zero in exact arithmetic: the softmax cancels it)
+    over the largest reference gradient's instead."""
+    top = max(float(g.abs().max()) for g in ref)
+    return [maxabs(a, b) / (top if n.endswith("k_proj.bias") else
+                            max(float(b.abs().max()), 1e-30))
+            for n, a, b in zip(names, grads, ref)]
+
+
+def gluon_step(mx, net, trainer, loss_fn, x, y):
+    """One step of the canonical MXNet loop; returns the per-sample
+    losses."""
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss.detach()
+
+
+def gluon_path(torch, card, toks, labels, want_losses):
+    """The MXNet imperative loop on a fresh GPT-2 124M (same seed, same
+    batch) held to the ShardedTrainer's losses ``want_losses`` step by
+    step, and its first gradients to ``torch.autograd.grad`` of
+    ``gpt2_lm_loss``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.base import training_mode
+    from mxnet_tpu_torch.models import get_gpt2, gpt2_lm_loss
+    net = get_gpt2("gpt2_124m", dropout=0.0)
+    net.initialize(seed=SEED)
+    x = mx.nd.array(toks, dtype="int32")
+    y = mx.nd.array(labels, dtype="int32")
+    print(f"gluon loop on {x.context}: GPT-2 124M, batch {TRAIN_B} x "
+          f"{TRAIN_T}, SoftmaxCrossEntropyLoss, gluon.Trainer adam lr "
+          f"{TRAIN_LR}, float32:", flush=True)
+    with training_mode(True):
+        ref_loss = gpt2_lm_loss(net(x.tensor), y.tensor)
+    ref = torch.autograd.grad(ref_loss, list(net.parameters()))
+    del ref_loss
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": TRAIN_LR})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    losses = [gluon_step(mx, net, trainer, loss_fn, x, y)]     # warm-up
+    params = net.collect_params()
+    names = list(params.keys())
+    # p.grad() holds the summed per-sample gradients; step() scales
+    # them by 1 / batch (a power of two: exact)
+    errs = grad_errors(names, [p.grad().tensor / TRAIN_B
+                               for p in params.values()], ref)
+    worst = int(np.argmax(errs))
+    check(f"{len(errs)} step-1 p.grad() / {TRAIN_B} vs autograd.grad of "
+          f"gpt2_lm_loss (worst {names[worst]}, over its max-abs)",
+          errs[worst], TOL_GRAD)
+    del ref
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.monotonic()
+    for _ in range(TRAIN_STEPS):
+        losses.append(gluon_step(mx, net, trainer, loss_fn, x, y))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses = [float(v.mean().asscalar()) for v in losses]
+    per_step = {n: c / TRAIN_STEPS for n, c in launches.items()}
+    print(f"  losses {losses}", flush=True)
+    print(f"  {TRAIN_STEPS} steps in {wall:.3f} s: "
+          f"{wall / TRAIN_STEPS * 1e3:.1f} ms/step, "
+          f"{TRAIN_STEPS * TRAIN_B * TRAIN_T / wall:.1f} tokens/s, peak "
+          f"memory {peak:.0f} MiB, launches per step {per_step} [{card}]",
+          flush=True)
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        if per_step[name] != len(net.blocks):
+            raise AssertionError(f"gluon loop launched {name} "
+                                 f"{per_step[name]} times per step, not "
+                                 f"{len(net.blocks)}")
+    for i, (got, want) in enumerate(zip(losses, want_losses)):
+        check(f"gluon loss step {i} vs ShardedTrainer (relative)",
+              abs(got - want) / abs(want), TOL_LOSS)
+    if len(losses) != len(want_losses):
+        raise AssertionError("the two loops took different step counts")
+    print("where the time goes (one gluon step):", flush=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gluon_step(mx, net, trainer, loss_fn, x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(torch, f"gluon step B{TRAIN_B} T{TRAIN_T}", wall_ms, prof,
+                   card, marks=("flash_fwd", "flash_dq", "flash_dkv"))
     return launches
 
 
@@ -873,8 +981,11 @@ def main() -> int:
               **flash_bwd_cases(torch, dev, timer, card),
               "paged_attention": paged_cases(torch, dev, timer, card,
                                              [len(p) for p in prompts])}
-    by_path = {"serve": main_path(torch, card, prompts),
-               "train": train_path(torch, card)}
+    by_path = {"serve": main_path(torch, card, prompts)}
+    by_path["train"], train_losses = train_path(torch, card)
+    gc.collect()                 # the training phase's net and trainer
+    torch.cuda.empty_cache()
+    by_path["gluon"] = gluon_path(torch, card, *train_batch(), train_losses)
     # each kernel's launches on the path that is its own: the training
     # path for the flash kernels, the serving path for paged attention
     own = {name: "serve" if name == "paged_attention" else "train"

@@ -1,17 +1,23 @@
 """mxnet_tpu_torch — the PyTorch/CUDA port of mxnet_tpu.
 
-Mirrors the JAX package's layout and names.  It carries the serving
-path (GPT-2 through ``InferenceEngine``) and the training path (GPT-2
-through ``parallel.ShardedTrainer`` with the registered optimizers),
-with hand-written CUDA kernels for flash attention forward and backward
-and for paged attention.  Entry points run on the current CUDA device
-unless the caller passes ``device="cpu"``; without a card they raise.
+Mirrors the JAX package's layout and names.  It carries MXNet's
+imperative surface (``nd``, ``autograd``, ``gluon`` with ``Trainer`` and
+``loss``), the serving path (GPT-2 through ``InferenceEngine``) and the
+training path (GPT-2 through ``gluon.Trainer`` or
+``parallel.ShardedTrainer`` with the registered optimizers), with
+hand-written CUDA kernels for flash attention forward and backward and
+for paged attention.  Entry points run on the current CUDA device unless
+the caller asks for the CPU (``device="cpu"``, ``ctx=mx.cpu()`` or
+``with mx.cpu():``); without a card they raise.
 """
-from . import (amp, base, context, gluon, initializer, lr_scheduler, models,
-               ops, optimizer, parallel, random, serving)
+from . import (amp, autograd, base, context, gluon, initializer,
+               lr_scheduler, models, ndarray, ops, optimizer, parallel,
+               random, serving)
+from . import ndarray as nd
 from .base import MXNetError
-from .context import cpu, gpu
+from .context import Context, cpu, current_context, gpu
 
-__all__ = ["MXNetError", "cpu", "gpu", "amp", "base", "context", "gluon",
-           "initializer", "lr_scheduler", "models", "ops", "optimizer",
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "amp",
+           "autograd", "base", "context", "gluon", "initializer",
+           "lr_scheduler", "models", "nd", "ndarray", "ops", "optimizer",
            "parallel", "random", "serving"]

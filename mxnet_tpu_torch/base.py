@@ -1,33 +1,38 @@
 """Foundational pieces (counterpart of ``mxnet_tpu/base.py``): the
-framework error type, the name → class registries and the training-mode
-flag."""
+framework error type, the name → class registries, and the thread-local
+training-mode and recording flags."""
 from __future__ import annotations
 
 import contextlib
 import threading
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 __all__ = ["MXNetError", "registry", "is_training", "set_training",
-           "training_mode", "torch_dtype"]
+           "training_mode", "is_recording", "set_recording", "torch_dtype"]
 
 
 class MXNetError(RuntimeError):
     """Framework-level error (parity with mxnet.base.MXNetError)."""
 
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
+_DTYPES = {
+    "float32": torch.float32, "float64": torch.float64,
+    "float16": torch.float16, "bfloat16": torch.bfloat16,
+    "int8": torch.int8, "uint8": torch.uint8, "int16": torch.int16,
+    "int32": torch.int32, "int64": torch.int64, "bool": torch.bool}
 
 
 def torch_dtype(dtype) -> torch.dtype:
-    """A floating ``torch.dtype`` from an MXNet dtype name or a torch
-    dtype."""
+    """A ``torch.dtype`` from an MXNet dtype name, a numpy dtype or a
+    torch dtype."""
     if isinstance(dtype, torch.dtype):
         return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
     try:
-        return _DTYPES[str(dtype)]
+        return _DTYPES[name]
     except KeyError:
         raise MXNetError(f"unsupported dtype {dtype!r}") from None
 
@@ -90,3 +95,15 @@ def training_mode(flag: bool):
         yield
     finally:
         set_training(prev)
+
+
+def is_recording() -> bool:
+    """Whether ``autograd.record`` is active on this thread: NDArray ops
+    and NDArray calls into a Block build a graph only then."""
+    return getattr(_STATE, "recording", False)
+
+
+def set_recording(flag: bool) -> bool:
+    prev = is_recording()
+    _STATE.recording = bool(flag)
+    return prev

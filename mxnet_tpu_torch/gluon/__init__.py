@@ -1,5 +1,8 @@
 """Gluon core (counterpart of ``mxnet_tpu.gluon``)."""
-from . import nn
+from . import loss, nn
 from .block import Block, HybridBlock
+from .parameter import Parameter, ParameterDict
+from .trainer import Trainer
 
-__all__ = ["Block", "HybridBlock", "nn"]
+__all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict", "Trainer",
+           "loss", "nn"]

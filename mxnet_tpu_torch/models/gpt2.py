@@ -14,6 +14,8 @@ import torch.nn.functional as F
 from ..context import resolve_device
 from ..gluon.block import HybridBlock
 from ..gluon.nn import Dropout, Embedding, LayerNorm
+from ..ndarray.ndarray import NDArray
+from ..ndarray.ops import _as_nd, invoke
 from .transformer import TransformerBlock, run_blocks
 
 __all__ = ["GPT2Model", "get_gpt2", "gpt2_lm_loss"]
@@ -208,7 +210,12 @@ def gpt2_lm_loss(logits, labels):
     as the reference computes it (``gpt2.py:525``) without a full
     log-softmax; labels clip to the vocabulary (``pick(mode='clip')``).
     Dense models only: the reference's MoE router aux losses are not
-    ported."""
+    ported.  NDArray inputs give an NDArray, recorded inside
+    ``autograd.record()``."""
+    if isinstance(logits, NDArray) or isinstance(labels, NDArray):
+        like = logits if isinstance(logits, NDArray) else labels
+        return invoke("gpt2_lm_loss", gpt2_lm_loss,
+                      [_as_nd(logits, like), _as_nd(labels, like)])
     x = logits.float()
     idx = labels.long().clamp(0, x.shape[-1] - 1)
     picked = x.gather(-1, idx[..., None])[..., 0]

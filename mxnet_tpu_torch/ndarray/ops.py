@@ -1,0 +1,1085 @@
+"""The ``nd`` operator namespace (counterpart of
+``mxnet_tpu/ndarray/ops.py``).
+
+Each op is a plain torch function over the tensors behind its NDArray
+inputs, dispatched by :func:`invoke`, which runs it under
+``torch.set_grad_enabled(is_recording())`` so a graph is built only
+inside ``autograd.record()``, exactly where the reference's tape records.
+Names and signatures are the reference's; the names it exports that the
+port does not have yet are in :data:`NOT_YET_PORTED` (ROADMAP A1).
+"""
+from __future__ import annotations
+
+import builtins
+import math
+import numbers
+from typing import Tuple
+
+import torch
+import torch.nn.functional as Fn
+
+from .. import base as _base
+from .. import random as _random
+from ..base import torch_dtype
+from .ndarray import NDArray, array
+
+__all__: list = []  # populated by _export
+
+# the reference's ops the port lacks so far; it only shrinks
+NOT_YET_PORTED = frozenset("""
+random_uniform random_normal random_gamma random_exponential random_poisson
+random_randint normal uniform random_bernoulli sample_multinomial shuffle
+random_negative_binomial random_generalized_negative_binomial sample_uniform
+sample_normal sample_gamma sample_exponential sample_poisson
+Convolution Deconvolution Pooling BatchNorm GroupNorm InstanceNorm RNN
+SequenceMask SequenceLast SequenceReverse SoftmaxOutput
+LinearRegressionOutput interleaved_matmul_selfatt_qk
+interleaved_matmul_selfatt_valatt UpSampling unravel_index
+ravel_multi_index ROIPooling Crop LRN SoftmaxActivation depth_to_space
+space_to_depth batch_take BilinearSampler GridGenerator SpatialTransformer
+box_iou box_nms ROIAlign MultiBoxPrior MultiBoxTarget MultiBoxDetection
+scatter_nd linalg_potrf linalg_trsm linalg_det linalg_slogdet
+linalg_inverse""".split())
+
+
+def _export(fn):
+    __all__.append(fn.__name__)
+    return fn
+
+
+def _alias(name, fn):
+    globals()[name] = fn
+    __all__.append(name)
+
+
+# ---------------------------------------------------------------- dispatcher
+
+def invoke(name, fn, nd_inputs, nout=1, ctx=None, differentiable=True):
+    """Run ``fn`` over the tensors of ``nd_inputs`` and wrap what it
+    returns (a tensor, or a tuple/list of them) as NDArrays; a graph is
+    built only while recording and only for a differentiable op."""
+    ts = [x._t for x in nd_inputs]
+    with torch.set_grad_enabled(_base.is_recording() and differentiable):
+        out = fn(*ts)
+    if isinstance(out, (tuple, list)):
+        return [NDArray(o) for o in out]
+    return NDArray(out)
+
+
+def _as_nd(x, like=None):
+    """``x`` as an NDArray, on ``like``'s device when given."""
+    if isinstance(x, NDArray):
+        return x
+    if isinstance(x, torch.Tensor):
+        return NDArray(x if like is None else x.to(like._t.device))
+    return array(x, ctx=None if like is None else like._t.device)
+
+
+def _first_nd(*xs):
+    return next((x for x in xs if isinstance(x, NDArray)), None)
+
+
+def _scalar(s, t):
+    """A Python number as a 0-d CPU tensor of its promoted dtype with
+    ``t`` (torch mixes such scalars with tensors on any device)."""
+    s = s.item() if hasattr(s, "item") else s
+    return torch.tensor(s, dtype=torch.result_type(t, s))
+
+
+def _unary_op(name, tfn, differentiable=True):
+    def op(data, out=None, **ignored):
+        r = invoke(name, tfn, [_as_nd(data)], differentiable=differentiable)
+        return _into(out, r)
+    op.__name__ = name
+    return _export(op)
+
+
+def _into(out, r):
+    if out is None:
+        return r
+    with torch.no_grad():
+        out._t.copy_(r._t)
+    return out
+
+
+def _binary_op(name, tfn, differentiable=True):
+    """``tfn(a, b)`` over two tensors; a Python number on either side
+    becomes a 0-d tensor of the promoted dtype."""
+    def op(lhs, rhs, out=None, **ignored):
+        like = _first_nd(lhs, rhs)
+        if like is None:
+            return tfn(torch.as_tensor(lhs), torch.as_tensor(rhs)).item()
+        if isinstance(lhs, numbers.Number):
+            r = invoke(name, lambda b: tfn(_scalar(lhs, b), b), [rhs],
+                       differentiable=differentiable)
+        elif isinstance(rhs, numbers.Number):
+            r = invoke(name, lambda a: tfn(a, _scalar(rhs, a)), [lhs],
+                       differentiable=differentiable)
+        else:
+            r = invoke(name, tfn, [_as_nd(lhs, like), _as_nd(rhs, like)],
+                       differentiable=differentiable)
+        return _into(out, r)
+    op.__name__ = name
+    return _export(op)
+
+
+def _cmp(tfn):
+    # MXNet comparisons give 0/1 in the left operand's dtype
+    return lambda a, b: tfn(a, b).to(a.dtype)
+
+
+def _logical(tfn):
+    return lambda a, b: tfn(a.bool(), b.bool()).to(torch.float32)
+
+
+# ------------------------------------------------------------- element-wise
+
+add = _binary_op("add", torch.add)
+subtract = _binary_op("subtract", torch.sub)
+multiply = _binary_op("multiply", torch.mul)
+divide = _binary_op("divide", torch.true_divide)
+floor_divide = _binary_op("floor_divide", torch.floor_divide,
+                          differentiable=False)
+mod = _binary_op("mod", torch.remainder)
+power = _binary_op("power", torch.pow)
+maximum = _binary_op("maximum", torch.maximum)
+minimum = _binary_op("minimum", torch.minimum)
+hypot = _binary_op("hypot", torch.hypot)
+arctan2 = _binary_op("arctan2", torch.atan2)
+equal = _binary_op("equal", _cmp(torch.eq), differentiable=False)
+not_equal = _binary_op("not_equal", _cmp(torch.ne), differentiable=False)
+greater = _binary_op("greater", _cmp(torch.gt), differentiable=False)
+greater_equal = _binary_op("greater_equal", _cmp(torch.ge),
+                           differentiable=False)
+lesser = _binary_op("lesser", _cmp(torch.lt), differentiable=False)
+lesser_equal = _binary_op("lesser_equal", _cmp(torch.le),
+                          differentiable=False)
+logical_and = _binary_op("logical_and", _logical(torch.logical_and),
+                         differentiable=False)
+logical_or = _binary_op("logical_or", _logical(torch.logical_or),
+                        differentiable=False)
+logical_xor = _binary_op("logical_xor", _logical(torch.logical_xor),
+                         differentiable=False)
+
+# broadcast_* / elemwise_* names (MXNet's)
+for _nm, _f in [("broadcast_add", "add"), ("broadcast_sub", "subtract"),
+                ("broadcast_mul", "multiply"), ("broadcast_div", "divide"),
+                ("broadcast_power", "power"), ("broadcast_maximum", "maximum"),
+                ("broadcast_minimum", "minimum"), ("broadcast_mod", "mod"),
+                ("broadcast_equal", "equal"),
+                ("broadcast_not_equal", "not_equal"),
+                ("broadcast_greater", "greater"),
+                ("broadcast_greater_equal", "greater_equal"),
+                ("broadcast_lesser", "lesser"),
+                ("broadcast_lesser_equal", "lesser_equal"),
+                ("broadcast_logical_and", "logical_and"),
+                ("broadcast_logical_or", "logical_or"),
+                ("broadcast_logical_xor", "logical_xor"),
+                ("elemwise_add", "add"), ("elemwise_sub", "subtract"),
+                ("elemwise_mul", "multiply"), ("elemwise_div", "divide")]:
+    _alias(_nm, globals()[_f])
+
+
+def _f32(tfn):
+    """``tfn`` on a float tensor (integers promote to float32, as jnp's
+    transcendental functions do)."""
+    return lambda x: tfn(x if x.is_floating_point() else x.float())
+
+
+def _flag(tfn):
+    return lambda x: tfn(x).to(torch.float32)
+
+
+negative = _unary_op("negative", torch.neg)
+abs = _unary_op("abs", torch.abs)
+sign = _unary_op("sign", torch.sign, differentiable=False)
+round = _unary_op("round", torch.round, differentiable=False)
+rint = _unary_op("rint", torch.round, differentiable=False)
+floor = _unary_op("floor", torch.floor, differentiable=False)
+ceil = _unary_op("ceil", torch.ceil, differentiable=False)
+trunc = _unary_op("trunc", torch.trunc, differentiable=False)
+fix = _unary_op("fix", torch.trunc, differentiable=False)
+exp = _unary_op("exp", _f32(torch.exp))
+expm1 = _unary_op("expm1", _f32(torch.expm1))
+log = _unary_op("log", _f32(torch.log))
+log10 = _unary_op("log10", _f32(torch.log10))
+log2 = _unary_op("log2", _f32(torch.log2))
+log1p = _unary_op("log1p", _f32(torch.log1p))
+sqrt = _unary_op("sqrt", _f32(torch.sqrt))
+rsqrt = _unary_op("rsqrt", _f32(torch.rsqrt))
+cbrt = _unary_op("cbrt", _f32(lambda x: torch.sign(x) *
+                               torch.abs(x) ** (1.0 / 3.0)))
+rcbrt = _unary_op("rcbrt", _f32(lambda x: 1.0 / (torch.sign(x) *
+                                                 torch.abs(x) ** (1 / 3.0))))
+square = _unary_op("square", torch.square)
+reciprocal = _unary_op("reciprocal", _f32(torch.reciprocal))
+sin = _unary_op("sin", _f32(torch.sin))
+cos = _unary_op("cos", _f32(torch.cos))
+tan = _unary_op("tan", _f32(torch.tan))
+arcsin = _unary_op("arcsin", _f32(torch.asin))
+arccos = _unary_op("arccos", _f32(torch.acos))
+arctan = _unary_op("arctan", _f32(torch.atan))
+sinh = _unary_op("sinh", _f32(torch.sinh))
+cosh = _unary_op("cosh", _f32(torch.cosh))
+tanh = _unary_op("tanh", _f32(torch.tanh))
+arcsinh = _unary_op("arcsinh", _f32(torch.asinh))
+arccosh = _unary_op("arccosh", _f32(torch.acosh))
+arctanh = _unary_op("arctanh", _f32(torch.atanh))
+degrees = _unary_op("degrees", _f32(torch.rad2deg))
+radians = _unary_op("radians", _f32(torch.deg2rad))
+erf = _unary_op("erf", _f32(torch.erf))
+erfinv = _unary_op("erfinv", _f32(torch.erfinv))
+gamma = _unary_op("gamma", _f32(lambda x: torch.exp(torch.lgamma(x))))
+gammaln = _unary_op("gammaln", _f32(torch.lgamma))
+sigmoid = _unary_op("sigmoid", _f32(torch.sigmoid))
+softsign = _unary_op("softsign", _f32(Fn.softsign))
+relu = _unary_op("relu", torch.relu)
+softplus = _unary_op("softplus", _f32(Fn.softplus))
+logical_not = _unary_op("logical_not", _flag(torch.logical_not),
+                        differentiable=False)
+isnan = _unary_op("isnan", _flag(torch.isnan), differentiable=False)
+isinf = _unary_op("isinf", _flag(torch.isinf), differentiable=False)
+isfinite = _unary_op("isfinite", _flag(torch.isfinite), differentiable=False)
+zeros_like = _unary_op("zeros_like", torch.zeros_like, differentiable=False)
+ones_like = _unary_op("ones_like", torch.ones_like, differentiable=False)
+identity = _unary_op("identity", lambda x: x.view_as(x))
+
+
+@_export
+def clip(data, a_min=None, a_max=None, out=None, **kw):
+    return _into(out, invoke("clip", lambda x: torch.clamp(x, a_min, a_max),
+                             [_as_nd(data)]))
+
+
+@_export
+def cast(data, dtype, out=None):
+    dt = torch_dtype(dtype)
+    return _into(out, invoke("cast", lambda x: x.to(dt), [_as_nd(data)]))
+
+
+_alias("Cast", cast)
+
+
+@_export
+def where(condition, x, y):
+    like = _first_nd(condition, x, y)
+    c, a, b = (_as_nd(v, like) for v in (condition, x, y))
+    return invoke("where", lambda c_, a_, b_: torch.where(c_.bool(), a_, b_),
+                  [c, a, b])
+
+
+# ---------------------------------------------------------------- reductions
+
+def _axes(ndim, axis, exclude=False) -> Tuple[int, ...]:
+    """The reduced axes: all for None / (), else ``axis`` (or, with
+    ``exclude``, every other axis, which may be none)."""
+    if axis is None or (isinstance(axis, (list, tuple)) and not axis):
+        return tuple(range(ndim))
+    ax = (axis,) if isinstance(axis, int) else tuple(axis)
+    ax = tuple(a % ndim for a in ax)
+    if exclude:
+        ax = tuple(i for i in range(ndim) if i not in ax)
+    return ax
+
+
+def _prod(x, dim, keepdim):
+    for d in sorted(dim, reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keepdim)
+    return x
+
+
+def _reduce_op(name, tfn, differentiable=True):
+    def op(data, axis=None, keepdims=False, exclude=False, out=None, **kw):
+        data = _as_nd(data)
+        ax = _axes(data.ndim, axis, exclude)
+
+        def f(x):
+            if not ax:           # nothing to reduce (the jnp semantics)
+                return x
+            return tfn(x, dim=ax, keepdim=keepdims)
+        return _into(out, invoke(name, f, [data],
+                                 differentiable=differentiable))
+    op.__name__ = name
+    return _export(op)
+
+
+sum = _reduce_op("sum", torch.sum)
+mean = _reduce_op("mean", lambda x, dim, keepdim: torch.mean(
+    x if x.is_floating_point() else x.float(), dim=dim, keepdim=keepdim))
+prod = _reduce_op("prod", _prod)
+max = _reduce_op("max", torch.amax)
+min = _reduce_op("min", torch.amin)
+nansum = _reduce_op("nansum", torch.nansum)
+nanprod = _reduce_op("nanprod", lambda x, dim, keepdim: _prod(
+    torch.where(torch.isnan(x), torch.ones_like(x), x), dim, keepdim))
+_alias("sum_axis", sum)
+
+
+@_export
+def norm(data, ord=2, axis=None, keepdims=False, out=None):
+    data = _as_nd(data)
+    ax = _axes(data.ndim, axis)
+    if ord not in (1, 2):
+        raise ValueError("norm only supports ord=1,2")
+
+    def f(x):
+        if ord == 2:
+            return torch.sqrt(torch.sum(torch.square(x), dim=ax,
+                                        keepdim=keepdims))
+        return torch.sum(torch.abs(x), dim=ax, keepdim=keepdims)
+    return invoke("norm", f, [data])
+
+
+def _arg(tfn):
+    def f(x, axis, keepdims):
+        if axis is None:
+            r = tfn(x.reshape(-1), dim=0)
+            if keepdims:
+                r = r.reshape((1,) * x.dim())
+        else:
+            r = tfn(x, dim=axis, keepdim=keepdims)
+        return r.to(torch.float32)
+    return f
+
+
+@_export
+def argmax(data, axis=None, keepdims=False):
+    return invoke("argmax", lambda x: _arg(torch.argmax)(x, axis, keepdims),
+                  [_as_nd(data)], differentiable=False)
+
+
+@_export
+def argmin(data, axis=None, keepdims=False):
+    return invoke("argmin", lambda x: _arg(torch.argmin)(x, axis, keepdims),
+                  [_as_nd(data)], differentiable=False)
+
+
+@_export
+def topk(data, axis=-1, k=1, ret_typ="indices", is_ascend=False,
+         dtype="float32"):
+    dt = torch_dtype(dtype)
+
+    def f(x):
+        vals, idx = torch.topk(x, k, dim=axis, largest=not is_ascend)
+        if ret_typ == "indices":
+            return idx.to(dt)
+        if ret_typ == "value":
+            return vals
+        return (vals, idx.to(dt))
+    return invoke("topk", f, [_as_nd(data)], differentiable=False)
+
+
+@_export
+def sort(data, axis=-1, is_ascend=True):
+    def f(x):
+        s = torch.sort(x, dim=axis, stable=True).values
+        return s if is_ascend else torch.flip(s, dims=(axis,))
+    return invoke("sort", f, [_as_nd(data)], differentiable=False)
+
+
+@_export
+def argsort(data, axis=-1, is_ascend=True, dtype="float32"):
+    dt = torch_dtype(dtype)
+
+    def f(x):
+        s = torch.argsort(x, dim=axis, stable=True)
+        return (s if is_ascend else torch.flip(s, dims=(axis,))).to(dt)
+    return invoke("argsort", f, [_as_nd(data)], differentiable=False)
+
+
+# ------------------------------------------------------------ linear algebra
+
+def _t2(a):
+    return a.transpose(-1, -2) if a.dim() > 1 else a
+
+
+@_export
+def dot(lhs, rhs, transpose_a=False, transpose_b=False):
+    like = _first_nd(lhs, rhs)
+
+    def f(a, b):
+        a = _t2(a) if transpose_a else a
+        b = _t2(b) if transpose_b else b
+        # MXNet dot: the last axis of a against the first axis of b
+        return torch.tensordot(a, b, dims=([a.dim() - 1], [0]))
+    return invoke("dot", f, [_as_nd(lhs, like), _as_nd(rhs, like)])
+
+
+@_export
+def batch_dot(lhs, rhs, transpose_a=False, transpose_b=False):
+    like = _first_nd(lhs, rhs)
+
+    def f(a, b):
+        return torch.matmul(a.transpose(-1, -2) if transpose_a else a,
+                            b.transpose(-1, -2) if transpose_b else b)
+    return invoke("batch_dot", f, [_as_nd(lhs, like), _as_nd(rhs, like)])
+
+
+@_export
+def matmul(lhs, rhs):
+    like = _first_nd(lhs, rhs)
+    return invoke("matmul", torch.matmul,
+                  [_as_nd(lhs, like), _as_nd(rhs, like)])
+
+
+@_export
+def linalg_gemm2(A, B, transpose_a=False, transpose_b=False, alpha=1.0):
+    like = _first_nd(A, B)
+
+    def f(a, b):
+        return alpha * torch.matmul(a.transpose(-1, -2) if transpose_a else a,
+                                    b.transpose(-1, -2) if transpose_b else b)
+    return invoke("linalg_gemm2", f, [_as_nd(A, like), _as_nd(B, like)])
+
+
+@_export
+def linalg_syrk(A, transpose=False, alpha=1.0):
+    def f(a):
+        at = a.transpose(-1, -2)
+        return alpha * (torch.matmul(at, a) if transpose
+                        else torch.matmul(a, at))
+    return invoke("linalg_syrk", f, [_as_nd(A)])
+
+
+@_export
+def linalg_extractdiag(A, offset=0, **kw):
+    return invoke("linalg_extractdiag",
+                  lambda a: torch.diagonal(a, offset, -2, -1), [_as_nd(A)])
+
+
+@_export
+def linalg_makediag(A, offset=0, **kw):
+    return invoke("linalg_makediag",
+                  lambda a: torch.diag_embed(a, offset), [_as_nd(A)])
+
+
+# --------------------------------------------------------------- shape ops
+
+def _mx_reshape_shape(src: Tuple[int, ...], spec: Tuple[int, ...],
+                      reverse: bool) -> Tuple[int, ...]:
+    """MXNet's reshape codes 0 (keep), -1 (infer), -2 (the rest), -3
+    (merge two), -4 (split one)."""
+    if reverse:
+        rev = _mx_reshape_shape(tuple(reversed(src)),
+                                tuple(reversed(spec)), False)
+        return tuple(reversed(rev))
+    out: list = []
+    src_i = i = 0
+    spec = tuple(spec)
+    while i < len(spec):
+        s = spec[i]
+        if s == 0:
+            out.append(src[src_i])
+            src_i += 1
+        elif s == -1:
+            out.append(-1)
+            src_i += 1
+        elif s == -2:
+            out.extend(src[src_i:])
+            src_i = len(src)
+        elif s == -3:
+            out.append(src[src_i] * src[src_i + 1])
+            src_i += 2
+        elif s == -4:
+            a, b = spec[i + 1], spec[i + 2]
+            dim = src[src_i]
+            if a == -1:
+                a = dim // b
+            if b == -1:
+                b = dim // a
+            out.extend([a, b])
+            src_i += 1
+            i += 2
+        else:
+            out.append(int(s))
+            src_i += 1
+        i += 1
+    if -1 in out:
+        known = math.prod(v for v in out if v != -1)
+        out[out.index(-1)] = math.prod(src) // known if known else 0
+    return tuple(out)
+
+
+@_export
+def reshape(data, shape=None, reverse=False, **kw):
+    data = _as_nd(data)
+    tgt = _mx_reshape_shape(data.shape, tuple(shape), reverse)
+    return invoke("reshape", lambda x: x.reshape(tgt), [data])
+
+
+@_export
+def transpose(data, axes=None):
+    def f(x):
+        return x.permute(tuple(axes) if axes else
+                         tuple(reversed(range(x.dim()))))
+    return invoke("transpose", f, [_as_nd(data)])
+
+
+@_export
+def swapaxes(data, dim1=0, dim2=1):
+    return invoke("swapaxes", lambda x: torch.swapaxes(x, dim1, dim2),
+                  [_as_nd(data)])
+
+
+_alias("SwapAxis", swapaxes)
+
+
+@_export
+def flatten(data):
+    data = _as_nd(data)
+    n = data.shape[0] if data.ndim else 1
+    return invoke("flatten", lambda x: x.reshape(n, -1), [data])
+
+
+_alias("Flatten", flatten)
+
+
+@_export
+def expand_dims(data, axis):
+    return invoke("expand_dims", lambda x: x.unsqueeze(axis), [_as_nd(data)])
+
+
+@_export
+def squeeze(data, axis=None):
+    def f(x):
+        if axis is None:
+            return x.squeeze()
+        return x.squeeze(tuple(axis) if isinstance(axis, (list, tuple))
+                         else axis)
+    return invoke("squeeze", f, [_as_nd(data)])
+
+
+@_export
+def broadcast_to(data, shape):
+    data = _as_nd(data)
+    tgt = tuple(s if t == 0 else t for s, t in zip(data.shape, tuple(shape)))
+    return invoke("broadcast_to", lambda x: x.expand(tgt), [data])
+
+
+@_export
+def broadcast_like(lhs, rhs):
+    like = _first_nd(lhs, rhs)
+    return invoke("broadcast_like", lambda a, b: a.expand(b.shape),
+                  [_as_nd(lhs, like), _as_nd(rhs, like)])
+
+
+@_export
+def reshape_like(lhs, rhs, lhs_begin=None, lhs_end=None, rhs_begin=None,
+                 rhs_end=None):
+    """Reshape lhs to rhs's shape, or dims [lhs_begin, lhs_end) of lhs to
+    dims [rhs_begin, rhs_end) of rhs."""
+    like = _first_nd(lhs, rhs)
+    partial = any(v is not None for v in
+                  (lhs_begin, lhs_end, rhs_begin, rhs_end))
+
+    def f(a, b):
+        if not partial:
+            return a.reshape(b.shape)
+        lb = 0 if lhs_begin is None else lhs_begin
+        le = a.dim() if lhs_end is None else lhs_end
+        rb = 0 if rhs_begin is None else rhs_begin
+        re_ = b.dim() if rhs_end is None else rhs_end
+        return a.reshape(a.shape[:lb] + b.shape[rb:re_] + a.shape[le:])
+    return invoke("reshape_like", f, [_as_nd(lhs, like), _as_nd(rhs, like)])
+
+
+@_export
+def broadcast_axis(data, axis=(), size=()):
+    data = _as_nd(data)
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    sizes = (size,) if isinstance(size, int) else tuple(size)
+    tgt = list(data.shape)
+    for a, s in zip(axes, sizes):
+        tgt[a] = s
+    return invoke("broadcast_axis", lambda x: x.expand(tuple(tgt)), [data])
+
+
+def _seq(data):
+    if len(data) == 1 and isinstance(data[0], (list, tuple)):
+        data = tuple(data[0])
+    like = _first_nd(*data)
+    return [_as_nd(d, like) for d in data]
+
+
+@_export
+def concat(*data, dim=1, **kw):
+    return invoke("concat", lambda *xs: torch.cat(xs, dim=dim), _seq(data))
+
+
+_alias("Concat", concat)
+
+
+@_export
+def stack(*data, axis=0, **kw):
+    return invoke("stack", lambda *xs: torch.stack(xs, dim=axis), _seq(data))
+
+
+@_export
+def split(data, num_outputs=None, axis=1, squeeze_axis=False):
+    data = _as_nd(data)
+    n = data.shape[axis]
+    if n % num_outputs:
+        raise _base.MXNetError(f"split: axis {axis} of size {n} does not "
+                               f"divide into {num_outputs} outputs")
+
+    def f(x):
+        parts = torch.split(x, n // num_outputs, dim=axis)
+        if squeeze_axis:
+            parts = [p.squeeze(axis) for p in parts]
+        return tuple(parts)
+    return invoke("split", f, [data])
+
+
+_alias("SliceChannel", split)
+
+
+@_export
+def slice(data, begin, end, step=None):
+    data = _as_nd(data)
+    step = tuple(step) if step is not None else (None,) * len(begin)
+    if any(s is not None and s < 0 for s in step):
+        raise _base.MXNetError("slice with a negative step is not ported")
+    idx = tuple(builtins.slice(b, e, s) for b, e, s in
+                zip(tuple(begin), tuple(end), step))
+    return invoke("slice", lambda x: x[idx], [data])
+
+
+@_export
+def slice_axis(data, axis, begin, end):
+    def f(x):
+        idx = [builtins.slice(None)] * x.dim()
+        idx[axis] = builtins.slice(begin, end)
+        return x[tuple(idx)]
+    return invoke("slice_axis", f, [_as_nd(data)])
+
+
+@_export
+def slice_like(data, shape_like, axes=None):
+    like = _first_nd(data, shape_like)
+
+    def f(x, y):
+        idx = [builtins.slice(None)] * x.dim()
+        for a in (axes if axes is not None else range(y.dim())):
+            idx[a] = builtins.slice(0, y.shape[a])
+        return x[tuple(idx)]
+    return invoke("slice_like", f, [_as_nd(data, like),
+                                    _as_nd(shape_like, like)])
+
+
+def _clip_index(idx, n, mode="clip"):
+    idx = idx.long()
+    return torch.remainder(idx, n) if mode == "wrap" else idx.clamp(0, n - 1)
+
+
+@_export
+def take(a, indices, axis=0, mode="clip"):
+    like = _first_nd(a, indices)
+
+    def f(x, idx):
+        ax = axis % x.dim()
+        i = _clip_index(idx, x.shape[ax], mode)
+        out = torch.index_select(x, ax, i.reshape(-1))
+        return out.reshape(x.shape[:ax] + i.shape + x.shape[ax + 1:])
+    return invoke("take", f, [_as_nd(a, like), _as_nd(indices, like)])
+
+
+@_export
+def pick(data, index, axis=-1, keepdims=False, mode="clip"):
+    like = _first_nd(data, index)
+
+    def f(x, idx):
+        i = _clip_index(idx, x.shape[axis], mode).unsqueeze(axis)
+        out = torch.gather(x, axis, i)
+        return out if keepdims else out.squeeze(axis)
+    return invoke("pick", f, [_as_nd(data, like), _as_nd(index, like)])
+
+
+@_export
+def choose_element_0index(data, index):
+    return pick(data, index, axis=-1)
+
+
+@_export
+def gather_nd(data, indices):
+    like = _first_nd(data, indices)
+
+    def f(x, idx):
+        idx = idx.long()
+        return x[tuple(idx[i] for i in range(idx.shape[0]))]
+    return invoke("gather_nd", f, [_as_nd(data, like),
+                                   _as_nd(indices, like)])
+
+
+@_export
+def one_hot(indices, depth, on_value=1.0, off_value=0.0, dtype="float32"):
+    dt = torch_dtype(dtype)
+
+    def f(idx):
+        # out-of-range ids give an all-off row, as jax.nn.one_hot does
+        hot = idx.long()[..., None] == torch.arange(depth,
+                                                    device=idx.device)
+        return hot.to(dt) * (on_value - off_value) + off_value
+    return invoke("one_hot", f, [_as_nd(indices)], differentiable=False)
+
+
+@_export
+def tile(data, reps):
+    return invoke("tile", lambda x: torch.tile(x, tuple(reps)),
+                  [_as_nd(data)])
+
+
+@_export
+def repeat(data, repeats, axis=None):
+    return invoke("repeat",
+                  lambda x: torch.repeat_interleave(x, repeats, dim=axis),
+                  [_as_nd(data)])
+
+
+@_export
+def flip(data, axis):
+    dims = tuple(axis) if isinstance(axis, (list, tuple)) else (axis,)
+    return invoke("flip", lambda x: torch.flip(x, dims=dims), [_as_nd(data)])
+
+
+_alias("reverse", flip)
+
+
+@_export
+def pad(data, mode="constant", pad_width=None, constant_value=0.0):
+    pw = tuple(pad_width)
+    pairs = [(pw[2 * i], pw[2 * i + 1]) for i in range(len(pw) // 2)]
+    tmode = {"constant": "constant", "edge": "replicate",
+             "reflect": "reflect"}[mode]
+
+    if tmode != "constant":
+        # torch pads the trailing dims only: MXNet leaves N and C alone
+        while pairs and pairs[0] == (0, 0):
+            pairs.pop(0)
+    flat = [v for p in reversed(pairs) for v in p]
+
+    def f(x):
+        if tmode == "constant":
+            return Fn.pad(x, flat, mode="constant", value=constant_value)
+        return Fn.pad(x, flat, mode=tmode)
+    return invoke("pad", f, [_as_nd(data)])
+
+
+_alias("Pad", pad)
+
+
+@_export
+def arange_like(data, start=0.0, step=1.0, axis=None):
+    def f(x):
+        if axis is None:
+            return (start + step * torch.arange(
+                x.numel(), dtype=x.dtype, device=x.device)).reshape(x.shape)
+        return start + step * torch.arange(x.shape[axis], dtype=x.dtype,
+                                           device=x.device)
+    return invoke("arange_like", f, [_as_nd(data)], differentiable=False)
+
+
+@_export
+def shape_array(data):
+    data = _as_nd(data)
+    return NDArray(torch.tensor(data.shape, dtype=torch.int64,
+                                device=data._t.device))
+
+
+@_export
+def size_array(data):
+    data = _as_nd(data)
+    return NDArray(torch.tensor([data.size], dtype=torch.int64,
+                                device=data._t.device))
+
+
+@_export
+def diag(data, k=0, axis1=0, axis2=1):
+    def f(x):
+        if x.dim() == 1:
+            return torch.diag(x, k)
+        return torch.diagonal(x, k, axis1, axis2)
+    return invoke("diag", f, [_as_nd(data)])
+
+
+@_export
+def cumsum(a, axis=None, dtype=None, **kw):
+    def f(x):
+        y = torch.cumsum(x.reshape(-1) if axis is None else x,
+                         dim=0 if axis is None else axis)
+        return y.to(torch_dtype(dtype)) if dtype else y
+    return invoke("cumsum", f, [_as_nd(a)])
+
+
+@_export
+def cumprod(a, axis=None, dtype=None, **kw):
+    def f(x):
+        y = torch.cumprod(x.reshape(-1) if axis is None else x,
+                          dim=0 if axis is None else axis)
+        return y.to(torch_dtype(dtype)) if dtype else y
+    return invoke("cumprod", f, [_as_nd(a)])
+
+
+@_export
+def moments(data, axes=None, keepdims=False, **kw):
+    """(mean, variance) over ``axes``."""
+    data = _as_nd(data)
+    ax = _axes(data.ndim, axes)
+
+    def f(x):
+        mk = torch.mean(x, dim=ax, keepdim=True)
+        v = torch.mean((x - mk) ** 2, dim=ax, keepdim=keepdims)
+        return (mk if keepdims else mk.squeeze(ax)), v
+    return invoke("moments", f, [data], nout=2)
+
+
+# ------------------------------------------------ softmax family, activations
+
+@_export
+def softmax(data, axis=-1, length=None, temperature=None, use_length=False):
+    t = temperature or 1.0
+    data = _as_nd(data)
+    if length is None:
+        return invoke("softmax", lambda x: torch.softmax(x / t, dim=axis),
+                      [data])
+
+    def f(x, ln):
+        # positions >= length along `axis` are masked out
+        n = x.shape[axis]
+        shape = [1] * x.dim()
+        shape[axis] = n
+        ar = torch.arange(n, device=x.device).reshape(shape)
+        mask = ar < ln.long().unsqueeze(axis)
+        neg = torch.finfo(x.dtype).min
+        masked = torch.where(mask, x / t, torch.full_like(x, neg))
+        return torch.softmax(masked, dim=axis) * mask
+    return invoke("softmax", f, [data, _as_nd(length, data)])
+
+
+@_export
+def log_softmax(data, axis=-1, temperature=None):
+    t = temperature or 1.0
+    return invoke("log_softmax",
+                  lambda x: torch.log_softmax(x / t if t != 1.0 else x,
+                                              dim=axis), [_as_nd(data)])
+
+
+@_export
+def logsumexp(data, axis=-1, keepdims=False):
+    """log(sum(exp(x))) along ``axis``, in float32."""
+    return invoke("logsumexp",
+                  lambda x: torch.logsumexp(x.float(), dim=axis,
+                                            keepdim=keepdims),
+                  [_as_nd(data)])
+
+
+@_export
+def softmax_cross_entropy(data, label):
+    like = _first_nd(data, label)
+
+    def f(x, y):
+        ls = torch.log_softmax(x, dim=-1)
+        return -torch.sum(torch.gather(ls, -1, y.long()[:, None]))
+    return invoke("softmax_cross_entropy", f,
+                  [_as_nd(data, like), _as_nd(label, like)])
+
+
+def _mish(x):
+    return x * torch.tanh(Fn.softplus(x))
+
+
+ACTIVATION_FNS = {
+    "relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
+    "softrelu": Fn.softplus, "softsign": Fn.softsign,
+    "log_sigmoid": Fn.logsigmoid, "mish": _mish,
+    # jax.nn.gelu's default, the tanh approximation
+    "gelu": lambda x: Fn.gelu(x, approximate="tanh"), "silu": Fn.silu}
+
+
+@_export
+def Activation(data, act_type="relu", **kw):
+    return invoke(f"activation_{act_type}", ACTIVATION_FNS[act_type],
+                  [_as_nd(data)])
+
+
+@_export
+def LeakyReLU(data, gamma=None, act_type="leaky", slope=0.25,
+              lower_bound=0.125, upper_bound=0.334, **kw):
+    data = _as_nd(data)
+    if act_type == "leaky":
+        return invoke("leaky_relu", lambda x: Fn.leaky_relu(x, slope), [data])
+    if act_type == "elu":
+        return invoke("elu", lambda x: Fn.elu(x, alpha=slope), [data])
+    if act_type == "selu":
+        return invoke("selu", Fn.selu, [data])
+    if act_type == "gelu":
+        return invoke("gelu", Fn.gelu, [data])
+    if act_type == "prelu":
+        return invoke("prelu", lambda x, a: torch.where(x >= 0, x, a * x),
+                      [data, _as_nd(gamma, data)])
+    if act_type == "rrelu":
+        if _base.is_training():
+            def f(x):
+                s = torch.rand(x.shape, device=x.device,
+                               generator=_random.generator(x.device))
+                s = lower_bound + (upper_bound - lower_bound) * s
+                return torch.where(x >= 0, x, s.to(x.dtype) * x)
+            return invoke("rrelu", f, [data])
+        mid = (lower_bound + upper_bound) / 2.0
+        return invoke("rrelu", lambda x: torch.where(x >= 0, x, mid * x),
+                      [data])
+    raise ValueError(f"unknown LeakyReLU act_type {act_type}")
+
+
+@_export
+def hard_sigmoid(data, alpha=0.2, beta=0.5):
+    return invoke("hard_sigmoid",
+                  lambda x: torch.clamp(alpha * x + beta, 0.0, 1.0),
+                  [_as_nd(data)])
+
+
+@_export
+def relu6(data):
+    return invoke("relu6", lambda x: torch.clamp(x, 0.0, 6.0), [_as_nd(data)])
+
+
+@_export
+def selu(data):
+    return invoke("selu", Fn.selu, [_as_nd(data)])
+
+
+@_export
+def gelu(data):
+    """The exact erf form."""
+    return invoke("gelu", Fn.gelu, [_as_nd(data)])
+
+
+@_export
+def prelu(data, gamma):
+    like = _first_nd(data, gamma)
+
+    def f(x, g):
+        gshape = [1] * x.dim()
+        if x.dim() > 1:
+            gshape[1] = -1
+        return torch.where(x >= 0, x, x * g.reshape(gshape))
+    return invoke("prelu", f, [_as_nd(data, like), _as_nd(gamma, like)])
+
+
+# ------------------------------------------------------------- neural ops
+
+@_export
+def FullyConnected(data, weight, bias=None, num_hidden=None,
+                   no_bias=False, flatten=True, **kw):
+    """weight is (out, in); with ``flatten`` the input is (N, -1)."""
+    nds = [_as_nd(data), _as_nd(weight, data)]
+    if bias is not None and not no_bias:
+        nds.append(_as_nd(bias, data))
+
+    def f(x, w, *b):
+        if flatten and x.dim() > 2:
+            x = x.reshape(x.shape[0], -1)
+        return Fn.linear(x, w, b[0] if b else None)
+    return invoke("FullyConnected", f, nds)
+
+
+@_export
+def Embedding(data, weight, input_dim=None, output_dim=None,
+              dtype="float32", sparse_grad=False, **kw):
+    like = _first_nd(data, weight)
+
+    def f(idx, w):
+        return Fn.embedding(_clip_index(idx, w.shape[0]), w)
+    return invoke("Embedding", f, [_as_nd(data, like), _as_nd(weight, like)])
+
+
+@_export
+def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5, **kw):
+    like = _first_nd(data, gamma, beta)
+
+    def f(x, g, b):
+        mean_ = torch.mean(x, dim=axis, keepdim=True)
+        var = torch.var(x, dim=axis, unbiased=False, keepdim=True)
+        shape = [1] * x.dim()
+        shape[axis] = x.shape[axis]
+        return (x - mean_) * torch.rsqrt(var + eps) * g.reshape(shape) \
+            + b.reshape(shape)
+    return invoke("LayerNorm", f, [_as_nd(v, like)
+                                   for v in (data, gamma, beta)])
+
+
+@_export
+def L2Normalization(data, eps=1e-10, mode="instance"):
+    def f(x):
+        if mode == "instance":
+            axes = tuple(range(1, x.dim()))
+        elif mode == "channel":
+            axes = (1,)
+        else:  # spatial
+            axes = tuple(range(2, x.dim()))
+        return x / torch.sqrt(torch.sum(torch.square(x), dim=axes,
+                                        keepdim=True) + eps)
+    return invoke("L2Normalization", f, [_as_nd(data)])
+
+
+@_export
+def Dropout(data, p=0.5, mode="training", axes=(), cudnn_off=False, **kw):
+    """Inverted dropout, in training mode (or ``mode='always'``); the
+    mask comes from the device's generator in :mod:`..random`."""
+    data = _as_nd(data)
+    if (not _base.is_training() and mode != "always") or p <= 0:
+        return invoke("dropout_id", lambda x: x.view_as(x), [data])
+
+    def f(x):
+        shape = list(x.shape)
+        for a in axes:
+            shape[a] = 1        # one draw shared along these axes
+        draw = torch.rand(shape, device=x.device,
+                          generator=_random.generator(x.device))
+        return torch.where(draw < 1.0 - p, x / (1.0 - p),
+                           torch.zeros_like(x))
+    return invoke("Dropout", f, [data])
+
+
+@_export
+def smooth_l1(data, scalar=1.0):
+    s2 = scalar * scalar
+
+    def f(x):
+        return torch.where(torch.abs(x) < 1.0 / s2, 0.5 * s2 * torch.square(x),
+                           torch.abs(x) - 0.5 / s2)
+    return invoke("smooth_l1", f, [_as_nd(data)])
+
+
+@_export
+def MakeLoss(data, grad_scale=1.0, **kw):
+    return invoke("make_loss", lambda x: x * grad_scale, [_as_nd(data)])
+
+
+@_export
+def make_loss(data, **kw):
+    return MakeLoss(data, **kw)
+
+
+@_export
+def BlockGrad(data):
+    return _as_nd(data).detach()
+
+
+_alias("stop_gradient", BlockGrad)
+
+
+@_export
+def div_sqrt_dim(data):
+    return invoke("div_sqrt_dim", lambda x: x / math.sqrt(x.shape[-1]),
+                  [_as_nd(data)])
+
+
+@_export
+def add_n(*args, **kw):
+    """The sum of a list of arrays."""
+    def f(*xs):
+        acc = xs[0]
+        for x in xs[1:]:
+            acc = acc + x
+        return acc
+    return invoke("add_n", f, _seq(args))

@@ -7,13 +7,16 @@ optional ``lr_scheduler`` and the name registry behind :func:`create`.
 Where the reference returns new arrays (jax is functional), an update
 here writes the weight and its state **in place**, under
 ``torch.no_grad``, so a step allocates no second copy of the model.
-This slice ports SGD, NAG, Adam and AdamW; the other optimizers and
-``Updater`` are still to come.
+This slice ports SGD, NAG, Adam and AdamW and the index-keyed
+:class:`Updater` that ``gluon.Trainer`` drives; the other optimizers are
+still to come.
 """
 from __future__ import annotations
 
+import io
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from .. import base as _base
@@ -22,7 +25,7 @@ _registry = _base.registry("optimizer")
 register = _registry.register
 
 __all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "create",
-           "register"]
+           "register", "Updater", "get_updater"]
 
 
 class Optimizer:
@@ -271,3 +274,71 @@ def create(name, **kwargs) -> Optimizer:
     if isinstance(name, Optimizer):
         return name
     return _registry.get(name)(**kwargs)
+
+
+def _map_state(state, fn):
+    """``state`` (None, a tensor or nested tuples/lists of them) with
+    ``fn`` applied to every tensor; other leaves are kept."""
+    if isinstance(state, (tuple, list)):
+        return type(state)(_map_state(s, fn) for s in state)
+    if isinstance(state, (torch.Tensor, np.ndarray)):
+        return fn(state)
+    return state
+
+
+class Updater:
+    """Keeps one optimizer state per index and applies the optimizer to
+    ``(index, grad, weight)``, NDArrays or tensors; the weight is updated
+    in place.  The row-sparse lazy update is not ported (the port has no
+    sparse NDArray yet)."""
+
+    def __init__(self, optimizer: Optimizer):
+        self.optimizer = optimizer
+        self.states: Dict[Any, Any] = {}
+        self.states_synced: Dict[Any, bool] = {}
+
+    def __call__(self, index, grad, weight):
+        w = getattr(weight, "_t", weight)
+        g = getattr(grad, "_t", grad)
+        if index not in self.states:
+            self.states[index] = \
+                self.optimizer.create_state_multi_precision(index, w.detach())
+            self.states_synced[index] = True
+        elif not self.states_synced.get(index, True):
+            # loaded by set_states: onto the weight's device, once
+            self.states[index] = _map_state(
+                self.states[index], lambda s: torch.as_tensor(s).to(w.device))
+            self.states_synced[index] = True
+        self.optimizer.update_multi_precision(index, w.detach(), g,
+                                              self.states[index])
+
+    def get_states(self, dump_optimizer=False) -> bytes:
+        """The states and update counts as the reference's bytes (a
+        pickled numpy object array), so either package reads them."""
+        buf = io.BytesIO()
+        payload = {
+            "__states__": {k: _map_state(v, lambda s: s.detach().cpu()
+                                         .numpy()
+                                         if isinstance(s, torch.Tensor)
+                                         else s)
+                           for k, v in self.states.items()},
+            "__num_update__": self.optimizer.num_update,
+            "__index_update_count__": dict(
+                self.optimizer._index_update_count)}
+        np.save(buf, np.asarray([payload], dtype=object), allow_pickle=True)
+        return buf.getvalue()
+
+    def set_states(self, states_bytes):
+        loaded = np.load(io.BytesIO(states_bytes), allow_pickle=True)[0]
+        states = loaded.get("__states__", loaded)
+        self.states = {k: _map_state(v, lambda s: torch.from_numpy(
+            np.array(s))) for k, v in states.items()}
+        self.states_synced = {k: False for k in self.states}
+        if "__num_update__" in loaded:
+            self.optimizer.num_update = int(loaded["__num_update__"])
+            self.optimizer._index_update_count.update(
+                loaded["__index_update_count__"])
+
+
+def get_updater(optimizer: Optimizer) -> Updater:
+    return Updater(optimizer)

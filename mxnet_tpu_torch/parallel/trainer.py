@@ -34,6 +34,7 @@ import torch
 from .. import base as _base
 from .. import optimizer as opt_mod
 from ..gluon.parameter import is_initialized
+from ..ndarray.ndarray import NDArray
 
 __all__ = ["ShardedTrainer"]
 
@@ -147,11 +148,7 @@ class ShardedTrainer:
 
     # ------------------------------------------------------------------
     def _build(self):
-        seen = set()
-        for name, p in self.net.collect_params().items():
-            if id(p) in seen:
-                continue
-            seen.add(id(p))
+        for name, p in self.net.named_parameters():
             if not is_initialized(p):
                 raise _base.MXNetError(
                     f"Parameter '{name}' has not been initialized: call "
@@ -190,6 +187,8 @@ class ShardedTrainer:
 
     # ------------------------------------------------------------------
     def _to_device(self, x) -> torch.Tensor:
+        if isinstance(x, NDArray):
+            x = x.tensor
         if isinstance(x, torch.Tensor):
             return x.to(self.device)
         return torch.as_tensor(np.asarray(x), device=self.device)
@@ -248,8 +247,8 @@ class ShardedTrainer:
                     x.copy_(torch.where(keep, x, o))
 
     def step(self, data, labels=()):
-        """One training step on ``data``/``labels`` (tensors or numpy
-        arrays; moved to the trainer's device).
+        """One training step on ``data``/``labels`` (tensors, NDArrays or
+        numpy arrays; moved to the trainer's device).
 
         Returns the loss as a 0-d tensor on the device — or, with the
         guardrails on, ``(loss, all_finite)``: ``all_finite`` is a 0-d

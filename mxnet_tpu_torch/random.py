@@ -16,6 +16,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .context import Context
+
 __all__ = ["seed", "generator"]
 
 # MXNet's device type ids (``Context.devtype2id``): a device's generator
@@ -29,7 +31,8 @@ _BASE = [int(np.random.randint(0, 2 ** 31 - 1))]
 
 
 def _key(device) -> torch.device:
-    dev = torch.device(device)
+    dev = device.torch_device if isinstance(device, Context) else \
+        torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -167,8 +167,56 @@ def test_trainer_step_on_card_matches_cpu(dev):
         losses[where] = [float(tr.step(toks, labels)) for _ in range(2)]
     assert flash.flash_dkv.launches == n0 + 2 * 2
     assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-5)
-    for (name, a), b in zip(nets["cuda"].collect_params().items(),
-                            nets["cpu"].collect_params().values()):
+    for (name, a), b in zip(nets["cuda"].named_parameters(),
+                            nets["cpu"].parameters()):
+        assert _maxabs(a.detach().cpu(), b.detach()) <= 1e-4, name
+
+
+def test_gluon_loop_on_card_matches_cpu(dev):
+    """Two steps of the MXNet loop (``mx.nd`` inputs, ``record()``,
+    SoftmaxCE, ``backward``, ``gluon.Trainer`` Adam) on a small GPT-2 at
+    T = 256: on the card each step launches B1, B2 and B3 once a layer,
+    and the run agrees with the CPU's: losses relative 1e-5, step-1
+    gradients max-abs 1e-4 of their own max-abs (``k_proj.bias``, zero in
+    exact arithmetic, of the largest), parameters max-abs 1e-4."""
+    import mxnet_tpu_torch as mx
+    rs = onp.random.RandomState(1)
+    toks, labels = (rs.randint(0, 256, (2, 256)).astype("int32")
+                    for _ in range(2))
+    nets = {"cpu": _small_gpt2(3, device="cpu")}
+    nets["cuda"] = _small_gpt2(3, device=dev)
+    nets["cuda"].load_state_dict(nets["cpu"].state_dict())
+    kernels = (flash.flash_fwd, flash.flash_dq, flash.flash_dkv)
+    n0 = [k.launches for k in kernels]
+    runs = {}
+    for where, net in nets.items():
+        with (mx.cpu() if where == "cpu" else mx.gpu(0)):
+            trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                       {"learning_rate": 1e-3})
+            loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+            x = mx.nd.array(toks, dtype="int32")
+            y = mx.nd.array(labels, dtype="int32")
+            losses, grads = [], None
+            for _ in range(2):
+                with mx.autograd.record():
+                    loss = loss_fn(net(x), y)
+                loss.backward()
+                if grads is None:
+                    grads = {k: p.grad().tensor.detach().cpu().clone()
+                             for k, p in net.collect_params().items()}
+                trainer.step(x.shape[0])
+                losses.append(float(loss.mean().asscalar()))
+        runs[where] = losses, grads
+    assert [k.launches - n for k, n in zip(kernels, n0)] == [4, 4, 4]
+    assert runs["cuda"][0] == pytest.approx(runs["cpu"][0], rel=1e-5)
+    ref = runs["cpu"][1]
+    top = max(float(g.abs().max()) for g in ref.values())
+    for name, g in runs["cuda"][1].items():
+        scale = top if name.endswith("k_proj.bias") else \
+            float(ref[name].abs().max())
+        assert _maxabs(g, ref[name]) <= 1e-4 * scale, name
+    for (name, a), b in zip(nets["cuda"].named_parameters(),
+                            nets["cpu"].parameters()):
         assert _maxabs(a.detach().cpu(), b.detach()) <= 1e-4, name
 
 

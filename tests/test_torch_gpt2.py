@@ -57,8 +57,7 @@ def test_structural_names_and_both_load_routes(nets):
     names = list(tn.collect_params().keys())
     assert names == list(jn._collect_params_with_prefix().keys())
     assert "h0.attn.q_proj.weight" in names and "h1.ln2.gamma" in names
-    for (k, a), b in zip(tn.collect_params().items(),
-                         tn_file.collect_params().values()):
+    for (k, a), b in zip(tn.named_parameters(), tn_file.parameters()):
         onp.testing.assert_array_equal(a.detach().numpy(), params[k])
         onp.testing.assert_array_equal(b.detach().numpy(), params[k])
     # Dense weights are (out, in) in both packages
@@ -202,8 +201,7 @@ def test_sampled_generate_is_seeded(nets):
 def test_initialize_is_seeded_and_follows_name_rules():
     a = tget_gpt2("gpt2_124m", device="cpu", **CFG).initialize(seed=5)
     b = tget_gpt2("gpt2_124m", device="cpu", **CFG).initialize(seed=5)
-    for (k, x), y in zip(a.collect_params().items(),
-                         b.collect_params().values()):
+    for (k, x), y in zip(a.named_parameters(), b.parameters()):
         assert torch.equal(x, y), k
     w = a.h0.attn.q_proj.weight.detach()
     assert float(w.abs().max()) <= 0.07 and float(w.std()) > 0.01

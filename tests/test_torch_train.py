@@ -121,7 +121,7 @@ def _port_step(tr, data, *labels):
 
 
 def _params_close(port_tr, ref_params, tol=PARAM_TOL):
-    for k, p in port_tr.net.collect_params().items():
+    for k, p in port_tr.net.named_parameters():
         onp.testing.assert_allclose(p.detach().numpy(), ref_params[k],
                                     atol=tol, rtol=0, err_msg=k)
 
@@ -157,8 +157,8 @@ def test_step1_gradients_match_reference(params):
     tn = _port_net(params)
     with training_mode(True):
         tl = tloss(tn(torch.from_numpy(toks)), torch.from_numpy(labels))
-    names = list(tn.collect_params())
-    grads = torch.autograd.grad(tl, list(tn.collect_params().values()))
+    names = [n for n, _ in tn.named_parameters()]
+    grads = torch.autograd.grad(tl, list(tn.parameters()))
     ref = jn._collect_params_with_prefix()
     assert float(tl.detach()) == pytest.approx(
         float(lval.asnumpy()), rel=LOSS_RTOL)
