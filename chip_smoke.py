@@ -44,8 +44,34 @@ Phases (any failure exits non-zero and prints no result line):
    step 1's ``p.grad()`` (over the batch size) within ``TOL_GRAD`` of
    ``torch.autograd.grad`` of ``gpt2_lm_loss``.  Then ``torch.profiler``
    shows where one step spends its time.
-6. A ``{"kernels": [...]}`` line, the card line again, and the last
+6. The reference's canonical program (MXNet's Gluon MNIST MLP) on the
+   card, through the public surface only: ``nn.HybridSequential`` of
+   ``Flatten``, ``Dense(128, activation="relu")`` and ``Dense(10)``,
+   ``initialize(mx.init.Xavier())`` (every shape deferred to the first
+   batch), ``hybridize(static_alloc=True)``, SGD 0.1 and
+   ``SoftmaxCrossEntropyLoss`` on 20 seeded MNIST-shaped batches (128 x
+   1 x 28 x 28 in [0, 1), labels of a fixed random teacher).  The
+   deferred shapes must materialize on the card, the hybridized and
+   imperative outputs agree, every step's loss be within
+   ``TOL_MLP_LOSS`` of the same program on the CPU from the same
+   weights, and the loss fall.  No kernel of the port runs here.
+7. Phase 5's loop under ``mx.amp.init("bfloat16")`` on a fresh net from
+   the same seed and batch: one warm-up step and 5 timed ones.  B1, B2
+   and B3 must each launch 12 times per step with bf16 q/k/v (and never
+   in float32), step 1's forward give the dtypes of ``AMP_DTYPES`` at
+   the named points of every layer, every parameter and gradient stay
+   float32, the losses be finite and falling, and step 1's loss be
+   within ``TOL_AMP_STEP1`` of phase 5's float32 step 1 and its
+   gradients within ``TOL_AMP_GRAD``.  Before it, the same step 1 under
+   each policy of ``AMP_CONTROLS`` (float32 ops forced to bf16) must
+   fail at least one of those three checks; its errors are printed, to
+   show what each check can see.  Then
+   ``torch.profiler`` shows where one step spends its time.
+8. A ``{"kernels": [...]}`` line, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.
+
+Phase 2 also times B1, B2 and B3 in bf16 at the training shape, the
+shape phase 7 gives them.
 """
 from __future__ import annotations
 
@@ -81,9 +107,41 @@ TOL_BWD = {"float32": 1e-4, "bfloat16": 2e-2}
 # float32 sums taken in another order, forward and backward
 TOL_GRAD = 1e-3
 TOL_LOSS = 1e-5
+# the canonical MLP program, card vs CPU from the same weights: float32
+# on both (TF32 off), sums taken in another order over 20 SGD steps
+TOL_MLP_LOSS = 1e-5
+# step 1 under amp (bf16 products) against phase 5's float32 step 1 on
+# the same weights and batch.  The loss, relative: the sound policy
+# reads 1.084e-05 on an H100, the loss computed in bf16 (a control)
+# 2.9e-04.  Each gradient's max-abs error over its own max-abs (as
+# ``grad_errors``): the sound policy's worst leaf reads 6.3e-02 (the
+# last layer's q_proj.weight, a small difference of bf16 scores at
+# initialization), and so do the controls; this limit holds the
+# gradients' flow (a cast that cut the graph reads 1), the dtypes at
+# the named points hold the casts
+TOL_AMP_STEP1 = 1e-4
+TOL_AMP_GRAD = 1e-1
+# the dtype the reference's policy gives at each named point of every
+# layer (held against the reference by tests/test_torch_amp.py)
+AMP_DTYPES = {"ln1 out": "float32", "q_proj": "bfloat16",
+              "k_proj": "bfloat16", "v_proj": "bfloat16",
+              "attention out": "bfloat16", "ln2 out": "float32",
+              "ffn hidden": "bfloat16", "gelu out": "bfloat16",
+              "residual stream": "float32", "ln_f out": "float32",
+              "logits": "bfloat16", "loss": "float32"}
+# controls for phase 7's step-1 checks: float32 ops of the policy
+# forced to bf16 through amp.init's target_precision_ops; each must fail
+# at least one of the checks
+AMP_CONTROLS = {"LayerNorm in bf16": ["LayerNorm"],
+                "the loss in bf16": ["log_softmax", "softmax_cross_entropy",
+                                     "logsumexp", "mean"]}
 
 # the training path: bench.py's chip configuration for GPT-2 124M
 TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 16, 1024, 5, 1e-4
+# the canonical program: MNIST's batch shape, SGD at 0.1
+MLP_B, MLP_STEPS, MLP_LR = 128, 20, 0.1
+# substrings of the GEMM kernels' names (cuBLAS, cuBLASLt, CUTLASS)
+GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass")
 
 # H100 SXM published peaks (dense): HBM bytes/s; bf16 on the tensor
 # cores; float32 at float32 accuracy on the tensor cores, which takes
@@ -270,9 +328,12 @@ def flash_cases(torch, dev, timer, card):
     run("serving-path causal B8 T512 H12 D64 f32", 8, 512, 12, 64,
         torch.float32, True)
     # the training path's shape, the one the kernels line reports (its
-    # launches are the training path's)
-    return run(f"training-path causal B{TRAIN_B} T{TRAIN_T} H12 D64 f32",
-               TRAIN_B, TRAIN_T, 12, 64, torch.float32, True)
+    # launches are the training path's), and in bf16 phase 7's
+    f32 = run(f"training-path causal B{TRAIN_B} T{TRAIN_T} H12 D64 f32",
+              TRAIN_B, TRAIN_T, 12, 64, torch.float32, True)
+    bf16 = run(f"training-path causal B{TRAIN_B} T{TRAIN_T} H12 D64 bf16",
+               TRAIN_B, TRAIN_T, 12, 64, torch.bfloat16, True, tol=TOL_BF16)
+    return f32, bf16
 
 
 def flash_bwd_cases(torch, dev, timer, card):
@@ -371,9 +432,11 @@ def flash_bwd_cases(torch, dev, timer, card):
             run(f"{kind} B2 T300 H3 D{d} {str(dtype).split('.')[1]}", 2,
                 300, 3, d, dtype, causal, seg)
     # the training path's shape: GPT-2 124M at batch 16 x 1024, float32
-    return run(f"training-path causal B{TRAIN_B} T{TRAIN_T} H12 D64 "
-               "float32",
-               TRAIN_B, TRAIN_T, 12, 64, torch.float32, True)
+    # (phases 4-5) and bf16 (phase 7)
+    return {dt: run(f"training-path causal B{TRAIN_B} T{TRAIN_T} H12 D64 "
+                    f"{dt}", TRAIN_B, TRAIN_T, 12, 64, getattr(torch, dt),
+                    True)
+            for dt in ("float32", "bfloat16")}
 
 
 def engine_table(lens, max_new, ps, npt):
@@ -547,13 +610,27 @@ def _wrappers():
 
 
 def reset_launches():
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch counts to 0."""
     for fn in _wrappers().values():
-        fn.launches = 0
+        if hasattr(fn, "launches_by_dtype"):
+            fn.launches_by_dtype = dict.fromkeys(fn.launches_by_dtype, 0)
+        else:
+            fn.launches = 0
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """{kernel wrapper: launches}; the flash wrappers count by dtype."""
+    return {name: (sum(fn.launches_by_dtype.values())
+                   if hasattr(fn, "launches_by_dtype") else fn.launches)
+            for name, fn in _wrappers().items()}
+
+
+def read_launches_by_dtype() -> dict:
+    """{flash wrapper: {dtype name: launches}}."""
+    return {name: {str(dt).split(".")[1]: n
+                   for dt, n in fn.launches_by_dtype.items()}
+            for name, fn in _wrappers().items()
+            if hasattr(fn, "launches_by_dtype")}
 
 
 def serve(torch, net, prompts, card, **kw):
@@ -681,6 +758,9 @@ def report_profile(torch, name, wall, prof, card, marks=()):
     print(f"  {name}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
           f"({busy / wall:.1%}; idle {1 - busy / wall:.1%}) [{card}]",
           flush=True)
+    gemm = sum(t for k, t in rows
+               if any(g in k.lower() for g in GEMM_MARKS))
+    print(f"    GEMMs: {gemm:.3f} ms, {gemm / busy:.1%} of busy", flush=True)
     for mark in marks:
         ms = sum(t for k, t in rows if mark in k)
         names = sorted({k[:k.find(">(") + 1] if ">(" in k else k[:80]
@@ -883,7 +963,8 @@ def gluon_path(torch, card, toks, labels, want_losses):
     """The MXNet imperative loop on a fresh GPT-2 124M (same seed, same
     batch) held to the ShardedTrainer's losses ``want_losses`` step by
     step, and its first gradients to ``torch.autograd.grad`` of
-    ``gpt2_lm_loss``."""
+    ``gpt2_lm_loss``.  Returns the launches, the losses and step 1's
+    gradients over the batch size."""
     from torch.profiler import ProfilerActivity, profile
 
     import mxnet_tpu_torch as mx
@@ -908,8 +989,8 @@ def gluon_path(torch, card, toks, labels, want_losses):
     names = list(params.keys())
     # p.grad() holds the summed per-sample gradients; step() scales
     # them by 1 / batch (a power of two: exact)
-    errs = grad_errors(names, [p.grad().tensor / TRAIN_B
-                               for p in params.values()], ref)
+    grads1 = [p.grad().tensor / TRAIN_B for p in params.values()]
+    errs = grad_errors(names, grads1, ref)
     worst = int(np.argmax(errs))
     check(f"{len(errs)} step-1 p.grad() / {TRAIN_B} vs autograd.grad of "
           f"gpt2_lm_loss (worst {names[worst]}, over its max-abs)",
@@ -953,6 +1034,248 @@ def gluon_path(torch, card, toks, labels, want_losses):
         wall_ms = (time.perf_counter() - t0) * 1e3
     report_profile(torch, f"gluon step B{TRAIN_B} T{TRAIN_T}", wall_ms, prof,
                    card, marks=("flash_fwd", "flash_dq", "flash_dkv"))
+    return launches, losses, grads1
+
+
+# ------------------------------------------------ the canonical program
+
+def mnist_batches():
+    """``MLP_STEPS`` MNIST-shaped batches: pixels in [0, 1), labels of a
+    fixed random linear teacher over the pixels."""
+    rs = np.random.RandomState(SEED)
+    teacher = rs.randn(784, 10).astype(np.float32)
+    out = []
+    for _ in range(MLP_STEPS):
+        x = rs.rand(MLP_B, 1, 28, 28).astype(np.float32)
+        out.append((x, (x.reshape(MLP_B, -1) @ teacher).argmax(1)
+                    .astype(np.float32)))
+    return out
+
+
+def mlp_program(mx, params=None):
+    """The canonical program's net and loop pieces, as a user writes
+    them; ``params`` (structural name → numpy) replace the draws."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential()
+    net.add(nn.Flatten(), nn.Dense(128, activation="relu"), nn.Dense(10))
+    net.initialize(mx.init.Xavier())
+    if params is not None:
+        for k, p in net.collect_params().items():
+            p.set_data(mx.nd.array(params[k]))
+    net.hybridize(static_alloc=True)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": MLP_LR})
+    return net, trainer, gluon.loss.SoftmaxCrossEntropyLoss()
+
+
+def mlp_steps(mx, net, trainer, loss_fn, batches):
+    """One SGD step per batch; the per-sample losses of each step."""
+    losses = []
+    for x, y in batches:
+        xb, yb = mx.nd.array(x), mx.nd.array(y)
+        with mx.autograd.record():
+            loss = loss_fn(net(xb), yb)
+        loss.backward()
+        trainer.step(x.shape[0])
+        losses.append(loss.detach())
+    return losses
+
+
+def mlp_path(torch, card):
+    """Phase 6: the canonical program on the card, held to itself on
+    the CPU from the same weights."""
+    import mxnet_tpu_torch as mx
+    batches = mnist_batches()
+    net, trainer, loss_fn = mlp_program(mx)
+    x0 = mx.nd.array(batches[0][0])
+    print(f"canonical MLP on {x0.context}: batch {MLP_B} x 1 x 28 x 28, "
+          f"{MLP_STEPS} SGD steps at {MLP_LR}, float32:", flush=True)
+    net.hybridize(False)
+    imp = net(x0)
+    net.hybridize(static_alloc=True)
+    hyb = net(x0)
+    w = net.collect_params()["1.weight"]
+    if w.shape != (128, 784) or w.data().context != x0.context:
+        raise AssertionError(f"deferred weight is {w.shape} on "
+                             f"{w.data().context}, not (128, 784) on "
+                             f"{x0.context}")
+    shapes = {k: p.shape for k, p in net.collect_params().items()}
+    print(f"  deferred shapes {shapes} on {w.data().context}", flush=True)
+    check("hybridized vs imperative output", maxabs(hyb.tensor, imp.tensor),
+          0.0)
+    params = {k: p.data().asnumpy() for k, p in
+              net.collect_params().items()}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    card_losses = mlp_steps(mx, net, trainer, loss_fn, batches)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    card_losses = [float(v.mean().asscalar()) for v in card_losses]
+    with mx.cpu():
+        cnet, ctrainer, closs = mlp_program(mx, params)
+        cpu_losses = [float(v.mean().asscalar()) for v in
+                      mlp_steps(mx, cnet, ctrainer, closs, batches)]
+    print(f"  losses {card_losses[0]:.6f} -> {card_losses[-1]:.6f}; "
+          f"{MLP_STEPS} steps in {wall:.3f} s = "
+          f"{MLP_STEPS * MLP_B / wall:.1f} samples/s [{card}]", flush=True)
+    worst = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    check(f"{MLP_STEPS} step losses card vs CPU (relative)", worst,
+          TOL_MLP_LOSS)
+    if not all(np.isfinite(card_losses)) or \
+            not card_losses[-1] < card_losses[0]:
+        raise AssertionError(f"MLP losses not finite and falling: "
+                             f"{card_losses}")
+
+
+# ------------------------------------------------------- the amp arm
+
+def watch_dtypes(net):
+    """Forward hooks recording, for each named point of ``AMP_DTYPES``
+    but the loss, the set of dtypes it shows over every layer; returns
+    (the record, the hooks' handles)."""
+    seen = {}
+
+    def note(key, x):
+        seen.setdefault(key, set()).add(str(x.dtype).rsplit(".", 1)[-1])
+
+    def out(key):
+        return lambda blk, args, y: note(key, y)
+
+    hooks = []
+    for blk in net.blocks:
+        hooks += [blk.ln1.register_forward_hook(out("ln1 out")),
+                  blk.ln2.register_forward_hook(out("ln2 out")),
+                  blk.attn.out_proj.register_forward_pre_hook(
+                      lambda b, args: note("attention out", args[0])),
+                  blk.ffn.fc1.register_forward_hook(out("ffn hidden")),
+                  blk.ffn.act.register_forward_hook(out("gelu out")),
+                  blk.register_forward_hook(out("residual stream"))]
+        hooks += [getattr(blk.attn, n).register_forward_hook(out(n))
+                  for n in ("q_proj", "k_proj", "v_proj")]
+    hooks.append(net.ln_f.register_forward_hook(out("ln_f out")))
+    return seen, hooks
+
+
+def amp_step1(mx, net, loss_fn, x, y, want_loss, want_grads):
+    """One forward and backward under this thread's policy from the
+    weights phase 5 started at: (the loss, its gap to phase 5's float32
+    step 1 (relative), the worst gradient error against phase 5's step 1
+    (``grad_errors``) and its parameter, the dtypes seen at the named
+    points)."""
+    seen, hooks = watch_dtypes(net)
+    with mx.autograd.record():
+        logits = net(x)
+        loss = loss_fn(logits, y)
+    for h in hooks:
+        h.remove()
+    seen["logits"] = {str(logits.dtype)}
+    seen["loss"] = {str(loss.dtype)}
+    loss.backward()
+    params = net.collect_params()
+    names = list(params.keys())
+    errs = grad_errors(names, [p.grad().tensor / TRAIN_B
+                               for p in params.values()], want_grads)
+    worst = int(np.argmax(errs))
+    got = float(loss.mean().asscalar())
+    return (got, abs(got - want_loss) / abs(want_loss), errs[worst],
+            names[worst], seen)
+
+
+def amp_path(torch, card, toks, labels, want_step1, want_grads):
+    """Phase 7: phase 5's loop under ``mx.amp.init('bfloat16')``, step 1
+    held to phase 5's loss ``want_step1`` and gradients ``want_grads``
+    (over the batch size)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import get_gpt2
+    try:
+        net = get_gpt2("gpt2_124m", dropout=0.0)
+        net.initialize(seed=SEED)
+        x = mx.nd.array(toks, dtype="int32")
+        y = mx.nd.array(labels, dtype="int32")
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        print(f"amp arm on {x.context}: GPT-2 124M, batch {TRAIN_B} x "
+              f"{TRAIN_T}, gluon loop under amp.init('bfloat16'), adam lr "
+              f"{TRAIN_LR}:", flush=True)
+        # the controls take no step, so every run starts from the
+        # weights phase 5 started at
+        want = {k: {v} for k, v in AMP_DTYPES.items()}
+        for what, ops in AMP_CONTROLS.items():
+            mx.amp.init("bfloat16", target_precision_ops=ops)
+            _, gap, err, leaf, seen = amp_step1(mx, net, loss_fn, x, y,
+                                                want_step1, want_grads)
+            off = sorted(k for k in want if seen.get(k) != want[k])
+            print(f"  control, {what}: dtypes off at {off}, step-1 loss "
+                  f"gap {gap:.3e}, worst gradient {err:.3e} ({leaf})",
+                  flush=True)
+            if not off and gap <= TOL_AMP_STEP1 and err <= TOL_AMP_GRAD:
+                raise AssertionError(f"phase 7's checks do not see {what}")
+        mx.amp.init("bfloat16")
+        step1, gap, err, leaf, seen = amp_step1(mx, net, loss_fn, x, y,
+                                                want_step1, want_grads)
+        print(f"  step 1 loss {step1:.6f} vs phase 5's float32 "
+              f"{want_step1:.6f}", flush=True)
+        if seen != want:
+            raise AssertionError(f"amp dtypes at the named points {seen}, "
+                                 f"not {want}")
+        print(f"  dtypes at the named points of all {len(net.blocks)} "
+              f"layers as the reference's: {AMP_DTYPES}", flush=True)
+        check("amp step-1 loss vs float32 (relative)", gap, TOL_AMP_STEP1)
+        check(f"amp step-1 gradients vs float32 (worst {leaf}, over its "
+              "max-abs)", err, TOL_AMP_GRAD)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": TRAIN_LR})
+        trainer.step(TRAIN_B)                      # the warm-up step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.monotonic()
+        timed = [gluon_step(mx, net, trainer, loss_fn, x, y)
+                 for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = read_launches()
+        by_dtype = read_launches_by_dtype()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        losses = [step1] + [float(v.mean().asscalar()) for v in timed]
+        print(f"  losses {losses}", flush=True)
+        print(f"  {TRAIN_STEPS} steps in {wall:.3f} s: "
+              f"{wall / TRAIN_STEPS * 1e3:.1f} ms/step, "
+              f"{TRAIN_STEPS * TRAIN_B * TRAIN_T / wall:.1f} tokens/s, peak "
+              f"memory {peak:.0f} MiB, launches by dtype {by_dtype} "
+              f"[{card}]", flush=True)
+        n_layers = len(net.blocks)
+        for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+            got = by_dtype[name]
+            if got["bfloat16"] != n_layers * TRAIN_STEPS or got["float32"]:
+                raise AssertionError(f"amp arm launched {name} {got} over "
+                                     f"{TRAIN_STEPS} steps, not "
+                                     f"{n_layers} bf16 a step")
+        for k, p in net.collect_params().items():
+            if p.data().tensor.dtype != torch.float32 or \
+                    p.grad().tensor.dtype != torch.float32:
+                raise AssertionError(f"{k}: parameter {p.dtype} / gradient "
+                                     f"{p.grad().dtype}, not float32")
+        print(f"  all {len(net.collect_params())} parameters and gradients "
+              "float32", flush=True)
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"amp losses not finite and falling: "
+                                 f"{losses}")
+        print("where the time goes (one amp step):", flush=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            gluon_step(mx, net, trainer, loss_fn, x, y)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        report_profile(torch, f"amp step B{TRAIN_B} T{TRAIN_T}", wall_ms,
+                       prof, card, marks=("flash_fwd", "flash_dq",
+                                          "flash_dkv"))
+    finally:
+        mx.amp.reset()
     return launches
 
 
@@ -977,17 +1300,36 @@ def main() -> int:
         print(f"--- ptxas {name}:\n{native.build_log(name).strip()}")
     timer = Timer(torch, dev)
     prompts = make_prompts()
-    record = {"flash_fwd": flash_cases(torch, dev, timer, card),
-              **flash_bwd_cases(torch, dev, timer, card),
+    fwd_f32, fwd_bf16 = flash_cases(torch, dev, timer, card)
+    bwd = flash_bwd_cases(torch, dev, timer, card)
+    record = {"flash_fwd": fwd_f32,
+              **bwd["float32"],
               "paged_attention": paged_cases(torch, dev, timer, card,
                                              [len(p) for p in prompts])}
+    record_bf16 = {"flash_fwd": fwd_bf16, **bwd["bfloat16"]}
     by_path = {"serve": main_path(torch, card, prompts)}
     by_path["train"], train_losses = train_path(torch, card)
     gc.collect()                 # the training phase's net and trainer
     torch.cuda.empty_cache()
-    by_path["gluon"] = gluon_path(torch, card, *train_batch(), train_losses)
+    toks, labels = train_batch()
+    by_path["gluon"], gluon_losses, gluon_grads = gluon_path(
+        torch, card, toks, labels, train_losses)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["mlp"] = {name: 0 for name in KERNELS}
+    reset_launches()
+    mlp_path(torch, card)
+    if any(read_launches().values()):
+        raise AssertionError("the MLP program launched a kernel of the port")
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["amp"] = amp_path(torch, card, toks, labels, gluon_losses[0],
+                              gluon_grads)
+    del gluon_grads
     # each kernel's launches on the path that is its own: the training
-    # path for the flash kernels, the serving path for paged attention
+    # path for the flash kernels, the serving path for paged attention;
+    # the flash kernels' bf16 numbers (phase 2 at the training shape)
+    # with the amp arm's launches
     own = {name: "serve" if name == "paged_attention" else "train"
            for name in KERNELS}
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
@@ -995,6 +1337,10 @@ def main() -> int:
                     launches=by_path[own[name]][name],
                     launches_by_path={p: c[name] for p, c in by_path.items()},
                     **record[name]) for name in KERNELS]
+    for k in kernels:
+        if k["name"] in record_bf16:
+            k["bfloat16"] = dict(launches=by_path["amp"][k["name"]],
+                                 **record_bf16[k["name"]])
     print(f"chip_smoke: {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,8 +1,9 @@
 """mxnet_tpu_torch — the PyTorch/CUDA port of mxnet_tpu.
 
 Mirrors the JAX package's layout and names.  It carries MXNet's
-imperative surface (``nd``, ``autograd``, ``gluon`` with ``Trainer`` and
-``loss``), the serving path (GPT-2 through ``InferenceEngine``) and the
+imperative surface (``nd``, ``autograd``, ``init``, ``amp``, and
+``gluon`` with its blocks, layers, ``Trainer`` and ``loss``), the serving
+path (GPT-2 through ``InferenceEngine``) and the
 training path (GPT-2 through ``gluon.Trainer`` or
 ``parallel.ShardedTrainer`` with the registered optimizers), with
 hand-written CUDA kernels for flash attention forward and backward and
@@ -13,11 +14,12 @@ the caller asks for the CPU (``device="cpu"``, ``ctx=mx.cpu()`` or
 from . import (amp, autograd, base, context, gluon, initializer,
                lr_scheduler, models, ndarray, ops, optimizer, parallel,
                random, serving)
+from . import initializer as init
 from . import ndarray as nd
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "amp",
-           "autograd", "base", "context", "gluon", "initializer",
+           "autograd", "base", "context", "gluon", "init", "initializer",
            "lr_scheduler", "models", "nd", "ndarray", "ops", "optimizer",
            "parallel", "random", "serving"]

@@ -1,21 +1,112 @@
 """Mixed precision (counterpart of ``mxnet_tpu/amp/__init__.py``).
 
-This slice ports the dynamic loss-scaling schedule, :class:`LossScaler`,
+``amp.init()`` installs a *cast policy* for the calling thread (the
+reference's is thread-local too, so a serving engine's scheduler thread
+keeps its own).  Ops are classed by the reference's op names in
+:mod:`.lists`: an op on the target list (``FullyConnected``,
+``dot_product_attention``, ``flash_attention``, ``dot``, ...) sees its
+float32 inputs cast to the target dtype (bf16 by default), so its
+products run on the tensor cores; an op on the float32 list
+(``softmax``, ``log_softmax``, ``LayerNorm``, ``logsumexp``, ...) sees
+its bf16/fp16 inputs cast to float32; every other op takes what it is
+given, and torch's type promotion widens mixed inputs (bf16 + float32
+gives float32), as ``WIDEST_TYPE_CASTS`` asks.
+
+The policy is consulted in two places, so both calling conventions
+follow it: :func:`mxnet_tpu_torch.ndarray.ops.invoke` for the ``nd``
+ops, and :func:`cast` on the tensor path that the reference also sends
+through its dispatcher (``Dense`` and the tied LM head as
+``FullyConnected``, ``LayerNorm``, the attention entry points).  The
+casts sit inside torch's autograd graph, so the master weights and
+their gradients stay float32.  With no policy nothing casts.
+
+Also here: the dynamic loss-scaling schedule, :class:`LossScaler`,
 which ``parallel.ShardedTrainer(loss_scaler=...)`` runs on the device,
 and the guarded ``gluon.Trainer`` step behind :func:`init_trainer` /
-:func:`scale_loss`.  Autocast with float32 master weights is still to
-come.
+:func:`scale_loss` / :func:`unscale`; :func:`convert_model` for
+bf16/fp16 parameters.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
+import threading
 import warnings
+from typing import Optional
 
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, torch_dtype
+from .lists import FP16_FUNCS, FP32_FUNCS, WIDEST_TYPE_CASTS
 
-__all__ = ["LossScaler", "init_trainer", "scale_loss"]
+__all__ = ["init", "reset", "current_policy", "cast", "init_trainer",
+           "scale_loss", "unscale", "convert_model", "convert_hybrid_block",
+           "LossScaler", "amp_cast", "amp_multicast", "FP16_FUNCS",
+           "FP32_FUNCS", "WIDEST_TYPE_CASTS"]
+
+
+class _State(threading.local):
+    policy = None          # each thread starts with amp off
+
+
+_state = _State()
+_WIDE = (torch.float32, torch.float64)
+_NARROW = (torch.bfloat16, torch.float16)
+
+
+class _Policy:
+    """The op lists and the target dtype of one ``amp.init``."""
+
+    def __init__(self, target_dtype):
+        self.target_dtype = torch_dtype(target_dtype)
+        self.target_ops = set(FP16_FUNCS)
+        self.fp32_ops = set(FP32_FUNCS)
+
+    def cast_args(self, opname, arrs):
+        """``arrs`` (tensors, or None) as op ``opname`` takes them."""
+        if opname in self.target_ops:
+            dt = self.target_dtype
+            return tuple(a.to(dt) if a is not None and a.dtype in _WIDE
+                         else a for a in arrs)
+        if opname in self.fp32_ops:
+            return tuple(a.float() if a is not None and a.dtype in _NARROW
+                         else a for a in arrs)
+        return arrs
+
+
+def current_policy() -> Optional[_Policy]:
+    """This thread's policy, or None when amp is off."""
+    return _state.policy
+
+
+def cast(opname, *tensors):
+    """``tensors`` cast as this thread's policy casts the inputs of op
+    ``opname`` (unchanged when amp is off); None entries pass."""
+    pol = _state.policy
+    return tensors if pol is None else pol.cast_args(opname, tensors)
+
+
+def init(target_dtype="bfloat16", target_precision_ops=None,
+         conditional_fp32_ops=None, fp32_ops=None):
+    """Turn the cast policy on for this thread (MXNet's ``amp.init``):
+    ``'float16'``/``'fp16'`` targets fp16, anything else bf16;
+    ``target_precision_ops`` and ``fp32_ops`` extend the lists."""
+    if str(target_dtype) in ("float16", "fp16"):
+        target_dtype = "float16"
+    else:
+        target_dtype = "bfloat16"
+    p = _Policy(target_dtype)
+    if target_precision_ops:
+        p.target_ops |= set(target_precision_ops)
+    if fp32_ops:
+        p.fp32_ops |= set(fp32_ops)
+    _state.policy = p
+    return p
+
+
+def reset():
+    """Turn the cast policy off for this thread."""
+    _state.policy = None
 
 
 class LossScaler:
@@ -97,3 +188,56 @@ def scale_loss(loss, trainer):
         yield loss * scaler.loss_scale
     trainer._scale = getattr(trainer, "_amp_original_scale", 1.0) / \
         scaler.loss_scale
+
+
+def unscale(trainer):
+    """Divide the gradients by the loss scale now (to clip or inspect
+    them before ``step``), and leave the trainer's rescale at its
+    unscaled value so ``step`` does not divide again.  A
+    ``ShardedTrainer`` unscales on the device: nothing to do."""
+    scaler = getattr(trainer, "_amp_loss_scaler", None)
+    if scaler is None:
+        if getattr(trainer, "_loss_scaler", None) is None:
+            _warn_no_scaler("unscale")
+        return
+    inv = 1.0 / scaler.loss_scale
+    with torch.no_grad():
+        for p in trainer._params:
+            if p.grad_req != "null":
+                p.grad()._t.mul_(inv)
+    trainer._scale = getattr(trainer, "_amp_original_scale", 1.0)
+
+
+_KEEP_FP32 = ("gamma", "beta", "running_mean", "running_var")
+
+
+def convert_model(net, target_dtype="bfloat16"):
+    """Cast a model's float32 parameters to ``target_dtype``, keeping the
+    norm parameters (``gamma``, ``beta``, ``running_mean``,
+    ``running_var``) in float32 (MXNet's ``amp.convert_model``)."""
+    dt = torch_dtype(target_dtype)
+    for name, p in net.collect_params().items():
+        if name.endswith(_KEEP_FP32):
+            continue
+        if p.tensor.dtype == torch.float32:
+            p.cast(dt)
+    return net
+
+
+def convert_hybrid_block(net, target_dtype="bfloat16", ctx=None):
+    return convert_model(net, target_dtype)
+
+
+def amp_cast(data, dtype="bfloat16"):
+    """``data`` (an NDArray or a tensor) cast to ``dtype``."""
+    if isinstance(data, torch.Tensor):
+        return data.to(torch_dtype(dtype))
+    return data.astype(dtype)
+
+
+def amp_multicast(*data, num_outputs=None):
+    """The inputs cast to their widest dtype."""
+    ts = [d if isinstance(d, torch.Tensor) else d.tensor for d in data]
+    dt = functools.reduce(torch.promote_types, [t.dtype for t in ts])
+    return [d.to(dt) if isinstance(d, torch.Tensor) else d.astype(dt)
+            for d in data]

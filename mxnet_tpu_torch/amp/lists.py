@@ -1,0 +1,42 @@
+"""AMP op lists (counterpart of ``mxnet_tpu/amp/lists.py``, after MXNet's
+contrib/amp/lists/symbol_fp16.py).
+
+Three classes, keyed by the dispatcher op name:
+- FP16_FUNCS: compute-bound ops run in the target low precision (the
+  tensor-core products).
+- FP32_FUNCS: numerics-sensitive ops forced to fp32.
+- WIDEST_TYPE_CASTS: multi-input ops whose inputs are promoted to the widest
+  participating dtype (torch's type promotion already does this; listed
+  for parity).
+"""
+
+FP16_FUNCS = [
+    "dot", "batch_dot", "matmul", "FullyConnected", "Convolution",
+    "Deconvolution", "RNN", "interleaved_matmul_selfatt_qk",
+    "interleaved_matmul_selfatt_valatt", "linalg_gemm2",
+    "dot_product_attention", "einsum", "tensordot", "inner", "outer",
+    "vdot", "kron",
+    # attention kernels accumulate in f32 internally; bf16 inputs feed
+    # the tensor cores at full rate
+    "flash_attention", "ring_attention", "ulysses_attention",
+    "sparse_dot",
+]
+
+FP32_FUNCS = [
+    "softmax", "log_softmax", "softmax_cross_entropy", "softmin",
+    "BatchNorm", "LayerNorm", "GroupNorm", "InstanceNorm",
+    "L2Normalization", "norm", "exp", "expm1", "log", "log1p", "log2",
+    "log10", "power", "rsqrt", "rcbrt", "erfinv", "gamma", "gammaln",
+    "cosh", "sinh", "tan", "arccosh", "arcsinh", "arctanh", "mean", "sum",
+    "nansum", "prod", "nanprod", "cumsum", "cumprod", "var", "std",
+    "smooth_l1", "quantile", "logaddexp", "logaddexp2", "logsumexp",
+    "LRN", "SoftmaxActivation", "masked_softmax", "masked_log_softmax",
+    "moments", "linalg_det", "linalg_inverse", "linalg_slogdet",
+    "linalg_potrf", "linalg_trsm", "linalg_syrk",
+]
+
+WIDEST_TYPE_CASTS = [
+    "add", "subtract", "multiply", "divide", "maximum", "minimum", "mod",
+    "hypot", "arctan2", "where", "concat", "concatenate", "stack",
+    "broadcast_add", "broadcast_sub", "broadcast_mul", "broadcast_div",
+]

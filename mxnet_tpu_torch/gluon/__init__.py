@@ -1,8 +1,11 @@
 """Gluon core (counterpart of ``mxnet_tpu.gluon``)."""
-from . import loss, nn
+from . import loss, nn, utils
 from .block import Block, HybridBlock
-from .parameter import Parameter, ParameterDict
+from .parameter import (Constant, DeferredInitializationError, Parameter,
+                        ParameterDict)
 from .trainer import Trainer
+from .utils import split_and_load
 
-__all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict", "Trainer",
-           "loss", "nn"]
+__all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict", "Constant",
+           "DeferredInitializationError", "Trainer", "loss", "nn", "utils",
+           "split_and_load"]

@@ -1,4 +1,6 @@
 """Neural-network layers (counterpart of ``mxnet_tpu.gluon.nn``)."""
-from .basic_layers import GELU, Dense, Dropout, Embedding, LayerNorm
+from ..block import Block, HybridBlock
+from .basic_layers import *  # noqa: F401,F403
+from .basic_layers import __all__ as _layers
 
-__all__ = ["Dense", "Embedding", "LayerNorm", "GELU", "Dropout"]
+__all__ = ["Block", "HybridBlock", *_layers]

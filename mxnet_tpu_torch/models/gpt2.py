@@ -11,6 +11,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import amp as _amp
 from ..context import resolve_device
 from ..gluon.block import HybridBlock
 from ..gluon.nn import Dropout, Embedding, LayerNorm
@@ -52,8 +53,8 @@ class GPT2Model(HybridBlock):
         self.ln_f = LayerNorm(epsilon=layer_norm_eps, in_channels=units)
 
     def _logits(self, x):
-        # tied LM head: logits = x · wteᵀ
-        return F.linear(x, self.wte.weight)
+        # tied LM head: logits = x · wteᵀ, the reference's FullyConnected
+        return F.linear(*_amp.cast("FullyConnected", x, self.wte.weight))
 
     def forward(self, tokens):
         t = tokens.shape[1]
@@ -208,10 +209,11 @@ def gpt2_lm_loss(logits, labels):
     """Next-token cross entropy; ``labels`` (B, T) already shifted.  The
     mean over tokens of ``logsumexp(logits) - logits[label]`` in float32,
     as the reference computes it (``gpt2.py:525``) without a full
-    log-softmax; labels clip to the vocabulary (``pick(mode='clip')``).
-    Dense models only: the reference's MoE router aux losses are not
-    ported.  NDArray inputs give an NDArray, recorded inside
-    ``autograd.record()``."""
+    log-softmax (float32 is also what the amp policy gives
+    ``logsumexp``, so bf16 logits are widened here); labels clip to the
+    vocabulary (``pick(mode='clip')``).  Dense models only: the
+    reference's MoE router aux losses are not ported.  NDArray inputs
+    give an NDArray, recorded inside ``autograd.record()``."""
     if isinstance(logits, NDArray) or isinstance(labels, NDArray):
         like = logits if isinstance(logits, NDArray) else labels
         return invoke("gpt2_lm_loss", gpt2_lm_loss,

@@ -94,7 +94,7 @@ class MultiHeadAttention(HybridBlock):
         self._head_dim = units // num_heads
         self._causal = causal
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            setattr(self, name, Dense(units, in_units=units))
+            setattr(self, name, Dense(units, flatten=False, in_units=units))
         self.dropout = Dropout(dropout) if dropout else None
 
     def _qkv(self, x):
@@ -225,9 +225,9 @@ class PositionwiseFFN(HybridBlock):
 
     def __init__(self, units, hidden_size, dropout=0.0):
         super().__init__()
-        self.fc1 = Dense(hidden_size, in_units=units)
+        self.fc1 = Dense(hidden_size, flatten=False, in_units=units)
         self.act = GELU()
-        self.fc2 = Dense(units, in_units=hidden_size)
+        self.fc2 = Dense(units, flatten=False, in_units=hidden_size)
         self.dropout = Dropout(dropout) if dropout else None
 
     def forward(self, x):

@@ -18,6 +18,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as Fn
 
+from .. import amp as _amp
 from .. import base as _base
 from .. import random as _random
 from ..base import torch_dtype
@@ -57,10 +58,11 @@ def _alias(name, fn):
 def invoke(name, fn, nd_inputs, nout=1, ctx=None, differentiable=True):
     """Run ``fn`` over the tensors of ``nd_inputs`` and wrap what it
     returns (a tensor, or a tuple/list of them) as NDArrays; a graph is
-    built only while recording and only for a differentiable op."""
-    ts = [x._t for x in nd_inputs]
+    built only while recording and only for a differentiable op.  Under
+    ``amp.init()`` the inputs are first cast as the policy casts op
+    ``name``'s."""
     with torch.set_grad_enabled(_base.is_recording() and differentiable):
-        out = fn(*ts)
+        out = fn(*_amp.cast(name, *(x._t for x in nd_inputs)))
     if isinstance(out, (tuple, list)):
         return [NDArray(o) for o in out]
     return NDArray(out)

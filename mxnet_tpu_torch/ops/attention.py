@@ -7,13 +7,17 @@ self-attention, no mask, T >= 256, T % 128 == 0, D in {64, 128, 256})
 and replaces "platform is a TPU" with "the tensor is on CUDA".  On the
 CPU the reference path runs.  The flash route is differentiable (B1
 forward, B2/B3 backward through ``flash._FlashAttention``), so a
-training forward takes it too.  Attention dropout is not ported (the
-port's GPT-2 runs none).
+training forward takes it too.  Under ``amp.init()`` both entry points
+cast q, k and v as the policy casts ``dot_product_attention`` /
+``flash_attention`` (bf16 by default), so the kernels run their bf16
+instantiations.  Attention dropout is not ported (the port's GPT-2 runs
+none).
 """
 from __future__ import annotations
 
 import torch
 
+from .. import amp as _amp
 from ..base import MXNetError
 
 __all__ = ["dot_product_attention", "flash_attention"]
@@ -54,6 +58,7 @@ def _use_flash(q, k, mask) -> bool:
 
 def flash_attention(q, k, v, *, causal=False, scale=None):
     """Flash kernel on the card for shapes it takes, reference elsewhere."""
+    q, k, v = _amp.cast("flash_attention", q, k, v)
     if _use_flash(q, k, None):
         from .flash import flash_attention as _flash
         return _flash(q, k, v, causal=causal, scale=scale)
@@ -74,6 +79,8 @@ def dot_product_attention(query, key, value, *, causal=False, mask=None,
     if impl not in ("auto", "flash", "ref"):
         raise MXNetError(f"impl={impl!r}: expected 'auto', 'flash' or "
                          "'ref'")
+    query, key, value = _amp.cast("dot_product_attention", query, key,
+                                  value)
     q_seg = kv_seg = None
     if segment_ids is not None:
         q_seg = torch.as_tensor(segment_ids, device=query.device)

@@ -180,8 +180,9 @@ def _device_type(name, q):
 def flash_fwd(q, k, v, q_seg=None, kv_seg=None, *, causal: bool,
               scale: float):
     """(O, lse) of self-attention over (B, T, H, D) inputs.  CUDA tensors
-    launch ``csrc/flash_fwd.cu`` (counted in ``flash_fwd.launches``);
-    CPU tensors take the plain version."""
+    launch ``csrc/flash_fwd.cu`` (counted by q's dtype in
+    ``flash_fwd.launches_by_dtype``); CPU tensors take the plain
+    version."""
     if _device_type("flash_fwd", q) == "cpu":
         return _fwd_plain(q, k, v, q_seg, kv_seg, causal, scale)
     _check_cuda("flash_fwd", q, k, v, q_seg, kv_seg)
@@ -195,11 +196,11 @@ def flash_fwd(q, k, v, q_seg=None, kv_seg=None, *, causal: bool,
         float(scale), _DTYPE_CODE[q.dtype], stream_ptr(q.device))
     if err:
         raise MXNetError(f"flash_fwd: kernel launch failed (cudaError {err})")
-    flash_fwd.launches += 1
+    flash_fwd.launches_by_dtype[q.dtype] += 1
     return out, lse
 
 
-flash_fwd.launches = 0
+flash_fwd.launches_by_dtype = dict.fromkeys(_DTYPE_CODE, 0)
 
 
 def flash_dq(q, k, v, do, lse, delta, q_seg=None, kv_seg=None, *,
@@ -207,7 +208,8 @@ def flash_dq(q, k, v, do, lse, delta, q_seg=None, kv_seg=None, *,
     """dQ of self-attention (B2).  ``lse`` is the forward's, ``delta`` =
     rowsum(dO * O), both (B*H, 1, T) float32.  CUDA tensors launch
     ``mxt_flash_dq`` of ``csrc/flash_bwd.cu`` (counted in
-    ``flash_dq.launches``); CPU tensors take the plain version."""
+    ``flash_dq.launches_by_dtype``); CPU tensors take the plain
+    version."""
     if _device_type("flash_dq", q) == "cpu":
         return _dq_plain(q, k, v, do, lse, delta, q_seg, kv_seg, causal,
                          scale)
@@ -223,18 +225,19 @@ def flash_dq(q, k, v, do, lse, delta, q_seg=None, kv_seg=None, *,
         _DTYPE_CODE[q.dtype], stream_ptr(q.device))
     if err:
         raise MXNetError(f"flash_dq: kernel launch failed (cudaError {err})")
-    flash_dq.launches += 1
+    flash_dq.launches_by_dtype[q.dtype] += 1
     return dq
 
 
-flash_dq.launches = 0
+flash_dq.launches_by_dtype = dict.fromkeys(_DTYPE_CODE, 0)
 
 
 def flash_dkv(q, k, v, do, lse, delta, q_seg=None, kv_seg=None, *,
               causal: bool, scale: float):
     """(dK, dV) of self-attention (B3); arguments as :func:`flash_dq`.
     CUDA tensors launch ``mxt_flash_dkv`` (counted in
-    ``flash_dkv.launches``); CPU tensors take the plain version."""
+    ``flash_dkv.launches_by_dtype``); CPU tensors take the plain
+    version."""
     if _device_type("flash_dkv", q) == "cpu":
         return _dkv_plain(q, k, v, do, lse, delta, q_seg, kv_seg, causal,
                           scale)
@@ -251,11 +254,11 @@ def flash_dkv(q, k, v, do, lse, delta, q_seg=None, kv_seg=None, *,
     if err:
         raise MXNetError(f"flash_dkv: kernel launch failed (cudaError "
                          f"{err})")
-    flash_dkv.launches += 1
+    flash_dkv.launches_by_dtype[q.dtype] += 1
     return dk, dv
 
 
-flash_dkv.launches = 0
+flash_dkv.launches_by_dtype = dict.fromkeys(_DTYPE_CODE, 0)
 
 
 def flash_bwd(q, k, v, do, lse, delta, q_seg=None, kv_seg=None, *,

@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
-from ..gluon.parameter import is_initialized
+from ..gluon.parameter import (is_initialized, replace_parameter,
+                               shape_known)
 
 __all__ = ["load_numpy_params", "load_numpy_state"]
 
@@ -41,26 +42,37 @@ def load_numpy_state(trainer, state):
     return trainer
 
 
-def load_numpy_params(net, params, device=None):
+def load_numpy_params(net, params, device=None, allow_missing=False,
+                      ignore_extra=False):
     """Copy ``params`` ({structural name: np.ndarray or tensor}) into
-    ``net``, cast to each parameter's dtype; the key sets and every
-    shape must match exactly.  An uninitialized parameter is
-    materialized on ``device`` (default: the net's construction device,
-    else the current CUDA device); an initialized one keeps its
-    device."""
+    ``net``, cast to each parameter's dtype.  A parameter ``params``
+    lacks raises unless ``allow_missing``; a name the model lacks
+    raises unless ``ignore_extra``.  Shapes must match, but for a
+    deferred parameter's unknown (0) dimensions, which the value fills.
+    An uninitialized parameter is materialized on ``device`` (default:
+    the net's construction device, else the current CUDA device); an
+    initialized one keeps its device."""
     slots = list(net._param_slots())
     names = {name for name, _m, _a in slots}
-    if set(params) != names:
+    missing = sorted(names - set(params))
+    extra = sorted(set(params) - names)
+    if (missing and not allow_missing) or (extra and not ignore_extra):
         raise MXNetError(
-            f"parameter names differ: missing "
-            f"{sorted(names - set(params))[:8]}, extra "
-            f"{sorted(set(params) - names)[:8]}")
+            f"parameter names differ: missing {missing[:8]}, extra "
+            f"{extra[:8]}")
     dev = None
     with torch.no_grad():
         for name, m, attr in slots:
+            if name not in params:
+                continue
             p = m._parameters[attr]
             t = _tensor(params[name])
-            if tuple(t.shape) != tuple(p.shape):
+            if is_initialized(p) or shape_known(p):
+                fits = tuple(t.shape) == tuple(p.shape)
+            else:
+                fits = t.dim() == p.dim() and all(
+                    d in (0, s) for d, s in zip(p.shape, t.shape))
+            if not fits:
                 raise MXNetError(f"Parameter '{name}': shape "
                                  f"{tuple(t.shape)} does not match the "
                                  f"model's {tuple(p.shape)}")
@@ -70,8 +82,9 @@ def load_numpy_params(net, params, device=None):
                 if dev is None:
                     dev = net._target_device(device)
                 target = dev
-            net._replace(m, attr, t.to(device=target, dtype=p.dtype).clone(),
-                         p.requires_grad)
+            replace_parameter(m, attr,
+                              t.to(device=target, dtype=p.dtype).clone(),
+                              p.requires_grad)
     if dev is not None:
         net._device = dev
     return net

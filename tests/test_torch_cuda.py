@@ -32,6 +32,11 @@ def _maxabs(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
+def _launches(fn):
+    """A flash wrapper's launches over every dtype."""
+    return sum(fn.launches_by_dtype.values())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,seg,d", [(True, False, 64),
                                           (False, False, 128),
@@ -47,11 +52,11 @@ def test_flash_kernel_matches_plain(dev, dtype, causal, seg, d):
         qseg = (torch.arange(t, device=dev) >= 100).to(torch.int32)
         qseg = (qseg + (torch.arange(t, device=dev) >= 250)).to(torch.int32)
         qseg = qseg[None].expand(b, t).contiguous()
-    n0 = flash.flash_fwd.launches
+    n0 = _launches(flash.flash_fwd)
     o, lse = flash.flash_fwd(q, k, v, qseg, qseg, causal=causal,
                              scale=d ** -0.5)
     torch.cuda.synchronize()
-    assert flash.flash_fwd.launches == n0 + 1
+    assert _launches(flash.flash_fwd) == n0 + 1
     o_ref, lse_ref = flash._fwd_plain(q, k, v, qseg, qseg, causal,
                                       d ** -0.5)
     assert _maxabs(o, o_ref) <= TOL[dtype]
@@ -108,10 +113,10 @@ def test_flash_bwd_kernels_match_plain_and_repeat(dev, dtype, causal, seg,
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
         .reshape(b * h, 1, t).contiguous()
     args = (q, k, v, do, lse, delta, qseg, qseg)
-    n0 = (flash.flash_dq.launches, flash.flash_dkv.launches)
+    n0 = (_launches(flash.flash_dq), _launches(flash.flash_dkv))
     got = flash.flash_bwd(*args, causal=causal, scale=scale)
     torch.cuda.synchronize()
-    assert (flash.flash_dq.launches, flash.flash_dkv.launches) == \
+    assert (_launches(flash.flash_dq), _launches(flash.flash_dkv)) == \
         (n0[0] + 1, n0[1] + 1)
     ref = flash._bwd_plain(*args, causal, scale)
     for a, r in zip(got, ref):
@@ -131,13 +136,13 @@ def test_flash_route_is_differentiable_on_card(dev):
     q, k, v = (torch.randn((2, 256, 2, 64), generator=g, device=dev)
                .requires_grad_() for _ in range(3))
     cot = torch.randn((2, 256, 2, 64), generator=g, device=dev)
-    n0 = flash.flash_dq.launches
+    n0 = _launches(flash.flash_dq)
     grads = {}
     for impl in ("auto", "ref"):
         out = attention.dot_product_attention(q, k, v, causal=True,
                                               impl=impl)
         grads[impl] = torch.autograd.grad((out * cot).sum(), (q, k, v))
-    assert flash.flash_dq.launches == n0 + 1
+    assert _launches(flash.flash_dq) == n0 + 1
     for a, r in zip(grads["auto"], grads["ref"]):
         assert _maxabs(a, r) <= 1e-4 * float(r.abs().max())
     mha = MultiHeadAttention(128, 2, causal=True).initialize(device=dev)
@@ -160,12 +165,12 @@ def test_trainer_step_on_card_matches_cpu(dev):
     nets = {"cpu": _small_gpt2(3, device="cpu")}
     nets["cuda"] = _small_gpt2(3, device=dev)
     nets["cuda"].load_state_dict(nets["cpu"].state_dict())
-    losses, n0 = {}, flash.flash_dkv.launches
+    losses, n0 = {}, _launches(flash.flash_dkv)
     for where, net in nets.items():
         tr = ShardedTrainer(net, "adam", loss=gpt2_lm_loss,
                             optimizer_params={"learning_rate": 1e-3})
         losses[where] = [float(tr.step(toks, labels)) for _ in range(2)]
-    assert flash.flash_dkv.launches == n0 + 2 * 2
+    assert _launches(flash.flash_dkv) == n0 + 2 * 2
     assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-5)
     for (name, a), b in zip(nets["cuda"].named_parameters(),
                             nets["cpu"].parameters()):
@@ -187,7 +192,7 @@ def test_gluon_loop_on_card_matches_cpu(dev):
     nets["cuda"] = _small_gpt2(3, device=dev)
     nets["cuda"].load_state_dict(nets["cpu"].state_dict())
     kernels = (flash.flash_fwd, flash.flash_dq, flash.flash_dkv)
-    n0 = [k.launches for k in kernels]
+    n0 = [_launches(k) for k in kernels]
     runs = {}
     for where, net in nets.items():
         with (mx.cpu() if where == "cpu" else mx.gpu(0)):
@@ -207,7 +212,7 @@ def test_gluon_loop_on_card_matches_cpu(dev):
                 trainer.step(x.shape[0])
                 losses.append(float(loss.mean().asscalar()))
         runs[where] = losses, grads
-    assert [k.launches - n for k, n in zip(kernels, n0)] == [4, 4, 4]
+    assert [_launches(k) - n for k, n in zip(kernels, n0)] == [4, 4, 4]
     assert runs["cuda"][0] == pytest.approx(runs["cpu"][0], rel=1e-5)
     ref = runs["cpu"][1]
     top = max(float(g.abs().max()) for g in ref.values())
@@ -218,6 +223,65 @@ def test_gluon_loop_on_card_matches_cpu(dev):
     for (name, a), b in zip(nets["cuda"].named_parameters(),
                             nets["cpu"].parameters()):
         assert _maxabs(a.detach().cpu(), b.detach()) <= 1e-4, name
+
+
+def test_amp_gluon_loop_runs_bf16_kernels_on_card(dev):
+    """One step of the MXNet loop under ``amp.init()`` on a small GPT-2
+    at T = 256: B1, B2 and B3 launch once a layer with bf16 q/k/v, the
+    parameters and gradients stay float32, and the loss agrees with the
+    same step under amp on the CPU within 2e-2 relative (bf16 products
+    summed in another order)."""
+    import mxnet_tpu_torch as mx
+    rs = onp.random.RandomState(2)
+    toks, labels = (rs.randint(0, 256, (2, 256)).astype("int32")
+                    for _ in range(2))
+    nets = {"cpu": _small_gpt2(4, device="cpu")}
+    nets["cuda"] = _small_gpt2(4, device=dev)
+    nets["cuda"].load_state_dict(nets["cpu"].state_dict())
+    kernels = (flash.flash_fwd, flash.flash_dq, flash.flash_dkv)
+    n0 = [k.launches_by_dtype[torch.bfloat16] for k in kernels]
+    losses = {}
+    mx.amp.init()
+    try:
+        for where, net in nets.items():
+            with (mx.cpu() if where == "cpu" else mx.gpu(0)):
+                trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                           {"learning_rate": 0.1})
+                x = mx.nd.array(toks, dtype="int32")
+                y = mx.nd.array(labels, dtype="int32")
+                with mx.autograd.record():
+                    logits = net(x)
+                    loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(logits, y)
+                assert logits.tensor.dtype == torch.bfloat16
+                loss.backward()
+                trainer.step(x.shape[0])
+                losses[where] = float(loss.mean().asscalar())
+                for k, p in net.collect_params().items():
+                    assert p.data().tensor.dtype == torch.float32, k
+                    assert p.grad().tensor.dtype == torch.float32, k
+    finally:
+        mx.amp.reset()
+    assert [k.launches_by_dtype[torch.bfloat16] - n
+            for k, n in zip(kernels, n0)] == [2, 2, 2]
+    assert losses["cuda"] == pytest.approx(losses["cpu"], rel=2e-2)
+
+
+def test_deferred_mlp_materializes_on_card(dev):
+    """The canonical program's net: every shape deferred by
+    ``initialize`` materializes on the card at the first batch, and the
+    hybridized output equals the imperative one."""
+    import mxnet_tpu_torch as mx
+    net = mx.gluon.nn.HybridSequential()
+    net.add(mx.gluon.nn.Flatten(),
+            mx.gluon.nn.Dense(128, activation="relu"), mx.gluon.nn.Dense(10))
+    net.initialize(mx.init.Xavier())
+    x = mx.nd.array(onp.random.RandomState(0).rand(8, 1, 28, 28)
+                    .astype("float32"), ctx=mx.gpu(0))
+    imp = net(x)
+    net.hybridize(static_alloc=True)
+    assert torch.equal(net(x).tensor, imp.tensor)
+    w = net.collect_params()["1.weight"]
+    assert w.shape == (128, 784) and w.data().tensor.is_cuda
 
 
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
@@ -347,12 +411,12 @@ def test_engine_arms_agree_on_card(dev):
         eng = InferenceEngine(net, num_slots=4, max_batch=4,
                               seq_buckets=(32, 256, 384), **kw)
         eng.warmup()
-        n_flash, n_paged = (flash.flash_fwd.launches,
+        n_flash, n_paged = (_launches(flash.flash_fwd),
                             paged.paged_attention.launches)
         with eng:
             futs = [eng.submit(p, max_new_tokens=6) for p in prompts]
             outs[arm] = [f.result(timeout=300) for f in futs]
-        assert flash.flash_fwd.launches > n_flash
+        assert _launches(flash.flash_fwd) > n_flash
         assert (paged.paged_attention.launches > n_paged) == (arm ==
                                                              "kernel")
     for a, b, c in zip(outs["kernel"], outs["gather"], outs["dense"]):
