@@ -67,7 +67,25 @@ Phases (any failure exits non-zero and prints no result line):
    fail at least one of those three checks; its errors are printed, to
    show what each check can see.  Then
    ``torch.profiler`` shows where one step spends its time.
-8. A ``{"kernels": [...]}`` line, the card line again, and the last
+8. The routed family at full width: GPT-2 124M with 8 experts (top 2,
+   capacity factor 1.25) in every second layer (h1, h3, ..., h11),
+   ``remat=True``, float32, seed 0, dropout 0, trained by
+   ``ShardedTrainer(net, "lamb", loss=gpt2_lm_loss)`` at lr 1e-3, wd
+   0.01 on phase 4's batch: one warm-up step, 5 timed ones, then 2
+   without remat.  B1 launches 24 times a step under remat (12 in the
+   forward, 12 when each layer is recomputed in backward: its attention
+   runs again before the activations backward needs), B2 and B3 12, all
+   in float32; the losses are finite and falling and the aux collector
+   is empty after every step; each MoE layer's aux loss and dropped
+   share are printed.  Before it, at batch 4 with dropout 0.1 from one
+   seed: a step with remat against one without (``TOL_REMAT_LOSS``,
+   ``TOL_REMAT_GRAD``) and against ``impl='ref'`` attention
+   (``TOL_LOSS``, ``TOL_GRAD``); one LAMB step over every parameter
+   through the list-wise update against the per-parameter loop from one
+   state, and every registered optimizer's 3 list-wise updates of a few
+   card tensors against the CPU's (``TOL_MULTI``).  Then
+   ``torch.profiler`` shows where one step spends its time.
+9. A ``{"kernels": [...]}`` line, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also times B1, B2 and B3 in bf16 at the training shape, the
@@ -135,6 +153,16 @@ AMP_DTYPES = {"ln1 out": "float32", "q_proj": "bfloat16",
 AMP_CONTROLS = {"LayerNorm in bf16": ["LayerNorm"],
                 "the loss in bf16": ["log_softmax", "softmax_cross_entropy",
                                      "logsumexp", "mean"]}
+
+# phase 8, the routed family (``__graft_entry__.py:113-117``'s MoE GPT-2
+# with 8 experts): remat against none on the same deterministic kernels
+# and dropout masks (the recomputation replays them); the list-wise
+# update against the per-parameter one and the card against the CPU
+# differ only in the order of float32 sums (norms, reductions)
+MOE_CFG = dict(num_experts=8, moe_every=2, moe_top_k=2,
+               moe_capacity_factor=1.25)
+MOE_LR, MOE_WD, MOE_DROPOUT, MOE_PARITY_B = 1e-3, 0.01, 0.1, 4
+TOL_REMAT_LOSS, TOL_REMAT_GRAD, TOL_MULTI = 1e-6, 1e-5, 1e-6
 
 # the training path: bench.py's chip configuration for GPT-2 124M
 TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 16, 1024, 5, 1e-4
@@ -1279,6 +1307,267 @@ def amp_path(torch, card, toks, labels, want_step1, want_grads):
     return launches
 
 
+# --------------------------------------------------- the routed family
+
+def moe_step(torch, mx, net, toks, labels, remat, seed, impl=None):
+    """One training forward and backward of ``net`` under ``remat``,
+    dropout drawn from ``seed``: (loss, gradients, launches by dtype);
+    the aux collector must be empty after it."""
+    import functools
+
+    from mxnet_tpu_torch import base
+    from mxnet_tpu_torch.models import aux_loss_scope, gpt2_lm_loss
+    from mxnet_tpu_torch.models import transformer
+    net._remat = remat
+    mx.random.seed(seed)
+    orig = transformer.dot_product_attention
+    if impl is not None:
+        transformer.dot_product_attention = functools.partial(orig,
+                                                              impl=impl)
+    reset_launches()
+    try:
+        with base.training_mode(True), aux_loss_scope():
+            loss = gpt2_lm_loss(net(toks), labels)
+        grads = torch.autograd.grad(loss, list(net.parameters()))
+    finally:
+        transformer.dot_product_attention = orig
+    torch.cuda.synchronize()
+    if base.pop_aux_losses():
+        raise AssertionError("the aux collector is not empty after a step")
+    return loss.detach(), grads, read_launches_by_dtype()
+
+
+def expect_launches(by_dtype, want, what):
+    """``by_dtype`` ({wrapper: {dtype: n}}) must show float32 launches
+    only, ``want`` ({wrapper: n}) of each."""
+    for name, n in want.items():
+        got = by_dtype[name]
+        if got.get("float32", 0) != n or sum(got.values()) != n:
+            raise AssertionError(f"{what}: {name} launched {got}, not {n} "
+                                 "float32")
+
+
+def moe_parity(torch, mx, card, toks, labels):
+    """Phase 8's gates at batch ``MOE_PARITY_B``: one step with remat
+    against the same step without it and against ``impl='ref'``
+    attention, dropout ``MOE_DROPOUT`` from one seed.  Returns the
+    gradients of the remat step."""
+    from mxnet_tpu_torch.models import get_gpt2
+    net = get_gpt2("gpt2_124m", dropout=MOE_DROPOUT, **MOE_CFG)
+    net.initialize(seed=SEED)
+    n_layers = len(net.blocks)
+    t, lab = (torch.from_numpy(x[:MOE_PARITY_B]).to(net.device)
+              for x in (toks, labels))
+    loss_r, g_r, n_r = moe_step(torch, mx, net, t, lab, True, SEED + 1)
+    expect_launches(n_r, {"flash_fwd": 2 * n_layers, "flash_dq": n_layers,
+                          "flash_dkv": n_layers}, "remat step")
+    loss_p, g_p, n_p = moe_step(torch, mx, net, t, lab, False, SEED + 1)
+    expect_launches(n_p, dict.fromkeys(("flash_fwd", "flash_dq",
+                                        "flash_dkv"), n_layers),
+                    "step without remat")
+    names = [n for n, _ in net.named_parameters()]
+    check(f"loss B{MOE_PARITY_B} T{TRAIN_T} dropout {MOE_DROPOUT} remat vs "
+          "none (relative)", abs(float(loss_r) - float(loss_p)) /
+          abs(float(loss_p)), TOL_REMAT_LOSS)
+    errs = [relerr(a, b) for a, b in zip(g_r, g_p)]
+    worst = int(np.argmax(errs))
+    check(f"{len(errs)} gradients remat vs none (worst {names[worst]}, "
+          "over its max-abs)", errs[worst], TOL_REMAT_GRAD)
+    del g_p
+    loss_f, g_f, n_f = moe_step(torch, mx, net, t, lab, True, SEED + 1,
+                                impl="ref")
+    if any(n for d in n_f.values() for n in d.values()):
+        raise AssertionError(f"impl='ref' launched kernels: {n_f}")
+    check("loss remat, kernels vs impl='ref' (relative)",
+          abs(float(loss_r) - float(loss_f)) / abs(float(loss_f)), TOL_LOSS)
+    errs = grad_errors(names, g_r, g_f)
+    worst = int(np.argmax(errs))
+    check(f"{len(errs)} gradients remat, kernels vs impl='ref' (worst "
+          f"{names[worst]}, over its max-abs)", errs[worst], TOL_GRAD)
+    return net, g_r
+
+
+def lamb_multi_vs_loop(torch, card, net, grads):
+    """One LAMB step over every parameter of ``net`` through the list-wise
+    update against the per-parameter loop, from one state (a first
+    list-wise step from zeros); each parameter within ``TOL_MULTI`` of
+    its max-abs.  Then both forms' times, the median of 5 calls each, in
+    turns."""
+    from mxnet_tpu_torch import optimizer as topt
+    kw = {"learning_rate": MOE_LR, "wd": MOE_WD}
+    a = [p.detach().clone() for p in net.parameters()]
+    opt_a, opt_b = topt.create("lamb", **kw), topt.create("lamb", **kw)
+    idx = list(range(len(a)))
+    st_a = [opt_a.create_state(i, w) for i, w in zip(idx, a)]
+    b = [w.clone() for w in a]
+    st_b = [tuple(s.clone() for s in st) for st in st_a]
+
+    def list_wise(t):
+        with opt_a.traced(MOE_LR, t):
+            opt_a.update_multi(idx, a, grads, st_a)
+
+    def per_parameter(t):
+        with opt_b.traced(MOE_LR, t):
+            for i in idx:
+                opt_b.update(i, b[i], grads[i], st_b[i])
+
+    list_wise(1)
+    for w, v in zip(b, a):
+        w.copy_(v)
+    for s, v in zip(st_b, st_a):
+        for x, y in zip(s, v):
+            x.copy_(y)
+    list_wise(2)
+    per_parameter(2)
+    errs = [relerr(x, y) for x, y in zip(a, b)]
+    names = [n for n, _ in net.named_parameters()]
+    worst = int(np.argmax(errs))
+    check(f"LAMB list-wise vs per-parameter, {len(errs)} parameters (worst "
+          f"{names[worst]}, over its max-abs)", errs[worst], TOL_MULTI)
+    ms = {"list-wise": [], "per-parameter": []}
+    for t in range(3, 8):
+        for what, fn in (("list-wise", list_wise),
+                         ("per-parameter", per_parameter)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(t)
+            torch.cuda.synchronize()
+            ms[what].append((time.perf_counter() - t0) * 1e3)
+    print(f"  LAMB step over {len(a)} tensors, "
+          f"{sum(w.numel() for w in a)} parameters, median of 5 calls in "
+          f"turns: list-wise {np.median(ms['list-wise']):.3f} ms "
+          f"({min(ms['list-wise']):.3f}-{max(ms['list-wise']):.3f}), "
+          f"per-parameter {np.median(ms['per-parameter']):.3f} ms "
+          f"({min(ms['per-parameter']):.3f}-"
+          f"{max(ms['per-parameter']):.3f}) [{card}]", flush=True)
+
+
+def optimizers_card_vs_cpu(torch, dev):
+    """Every registered optimizer, 3 list-wise updates of a few tensors
+    on the card and the same on the CPU: within ``TOL_MULTI`` of each
+    CPU tensor's max-abs."""
+    from mxnet_tpu_torch import optimizer as topt
+    rs = np.random.RandomState(SEED)
+    shapes = [(768,), (3072, 768), (8, 768), (64,)]
+    w0 = [rs.randn(*s).astype(np.float32) * 0.02 for s in shapes]
+    w0[-1][:] = 0                       # LAMB's and LARS's norm guards
+    gs = [[rs.randn(*s).astype(np.float32) for s in shapes]
+          for _ in range(3)]
+    names = sorted(topt._registry._entries)
+    worst = (0.0, "")
+    for name in names:
+        out = {}
+        for where in ("cpu", dev):
+            opt = topt.create(name, learning_rate=1e-2, wd=0.01)
+            w = [torch.tensor(x, device=where) for x in w0]   # copies
+            st = [opt.create_state(i, x) for i, x in enumerate(w)]
+            for g in gs:
+                opt.update_multi(list(range(len(w))), w,
+                                 [torch.tensor(x, device=where) for x in g],
+                                 st)
+            out[str(where)] = [x.cpu() for x in w]
+        cpu, card_w = out["cpu"], out[str(dev)]
+        err = max(relerr(a, b) for a, b in zip(card_w, cpu))
+        worst = max(worst, (err, name))
+    check(f"{len(names)} optimizers x 3 list-wise updates, card vs CPU "
+          f"(worst {worst[1]}, over each tensor's max-abs)", worst[0],
+          TOL_MULTI)
+
+
+def moe_path(torch, card, toks, labels):
+    """Phase 8: the routed GPT-2 at full width trained by
+    ``ShardedTrainer`` with LAMB under remat."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import base
+    from mxnet_tpu_torch.models import get_gpt2, gpt2_lm_loss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    print(f"routed GPT-2 124M ({MOE_CFG}), LAMB lr {MOE_LR} wd {MOE_WD}, "
+          f"remat, float32:", flush=True)
+    parity_net, grads = moe_parity(torch, mx, card, toks, labels)
+    lamb_multi_vs_loop(torch, card, parity_net, grads)
+    del parity_net, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    optimizers_card_vs_cpu(torch, torch.device("cuda", 0))
+    net = get_gpt2("gpt2_124m", dropout=0.0, remat=True, **MOE_CFG)
+    net.initialize(seed=SEED)
+    moes = [(f"h{i}", b.moe) for i, b in enumerate(net.blocks)
+            if hasattr(b, "moe")]
+    n_params = sum(p.numel() for p in net.parameters())
+    cap = moes[0][1].capacity(TRAIN_B * TRAIN_T)
+    print(f"  {n_params} parameters on {net.device}, MoE in "
+          f"{[n for n, _ in moes]}, capacity {cap} per expert at batch "
+          f"{TRAIN_B} x {TRAIN_T}", flush=True)
+    trainer = ShardedTrainer(net, "lamb", loss=gpt2_lm_loss,
+                             optimizer_params={"learning_rate": MOE_LR,
+                                               "wd": MOE_WD})
+
+    def steps(n):
+        out = []
+        for _ in range(n):
+            out.append(trainer.step(toks, labels))
+            if base.pop_aux_losses():
+                raise AssertionError("the aux collector is not empty "
+                                     "after a step")
+        return out
+
+    losses = steps(1)                                   # warm-up
+    n_layers = len(net.blocks)
+    readings = {}
+    for remat, n in ((True, TRAIN_STEPS), (False, 2)):
+        net._remat = remat
+        if not remat:       # its own warm-up: the allocator grows first
+            losses += steps(1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.monotonic()
+        losses += steps(n)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        by_dtype = read_launches_by_dtype()
+        if remat:
+            launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        expect_launches(by_dtype, {
+            "flash_fwd": (2 if remat else 1) * n_layers * n,
+            "flash_dq": n_layers * n, "flash_dkv": n_layers * n},
+            f"remat={remat} steps")
+        readings[remat] = (wall / n * 1e3, n * TRAIN_B * TRAIN_T / wall,
+                           peak)
+        print(f"  remat={remat}: {n} steps in {wall:.3f} s: "
+              f"{wall / n * 1e3:.1f} ms/step, "
+              f"{n * TRAIN_B * TRAIN_T / wall:.1f} tokens/s, peak memory "
+              f"{peak:.0f} MiB, launches by dtype {by_dtype} [{card}]",
+              flush=True)
+    losses = [float(x) for x in losses]
+    print(f"  losses {losses}", flush=True)
+    for name, layer in moes:
+        print(f"  {name}.moe: aux {float(layer.last_aux):.6f}, dropped "
+              f"{float(layer.last_dropped):.4%} of (token, choice) "
+              "assignments", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"routed losses not finite and falling: "
+                             f"{losses}")
+    print(f"  remat saves {readings[False][2] - readings[True][2]:.0f} MiB "
+          f"of peak for {readings[True][0] / readings[False][0]:.3f}x the "
+          "step time", flush=True)
+    net._remat = True
+    print("where the time goes (one routed step, remat):", flush=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(toks, labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(torch, f"routed step B{TRAIN_B} T{TRAIN_T}", wall_ms,
+                   prof, card, marks=("flash_fwd", "flash_dq", "flash_dkv"))
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1326,6 +1615,9 @@ def main() -> int:
     by_path["amp"] = amp_path(torch, card, toks, labels, gluon_losses[0],
                               gluon_grads)
     del gluon_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["moe"] = moe_path(torch, card, toks, labels)
     # each kernel's launches on the path that is its own: the training
     # path for the flash kernels, the serving path for paged attention;
     # the flash kernels' bf16 numbers (phase 2 at the training shape)

@@ -39,10 +39,10 @@ import torch
 from ..base import MXNetError, torch_dtype
 from .lists import FP16_FUNCS, FP32_FUNCS, WIDEST_TYPE_CASTS
 
-__all__ = ["init", "reset", "current_policy", "cast", "init_trainer",
-           "scale_loss", "unscale", "convert_model", "convert_hybrid_block",
-           "LossScaler", "amp_cast", "amp_multicast", "FP16_FUNCS",
-           "FP32_FUNCS", "WIDEST_TYPE_CASTS"]
+__all__ = ["init", "reset", "current_policy", "policy_scope", "cast",
+           "init_trainer", "scale_loss", "unscale", "convert_model",
+           "convert_hybrid_block", "LossScaler", "amp_cast", "amp_multicast",
+           "FP16_FUNCS", "FP32_FUNCS", "WIDEST_TYPE_CASTS"]
 
 
 class _State(threading.local):
@@ -77,6 +77,18 @@ class _Policy:
 def current_policy() -> Optional[_Policy]:
     """This thread's policy, or None when amp is off."""
     return _state.policy
+
+
+@contextlib.contextmanager
+def policy_scope(policy):
+    """Run with ``policy`` (a :func:`current_policy` value; None: amp
+    off) as this thread's policy, then restore the previous one.  Remat
+    uses it to recompute a layer under the policy of its forward."""
+    prev, _state.policy = _state.policy, policy
+    try:
+        yield
+    finally:
+        _state.policy = prev
 
 
 def cast(opname, *tensors):

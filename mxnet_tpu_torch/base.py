@@ -1,6 +1,7 @@
 """Foundational pieces (counterpart of ``mxnet_tpu/base.py``): the
-framework error type, the name → class registries, and the thread-local
-training-mode and recording flags."""
+framework error type, the name → class registries, the thread-local
+training-mode and recording flags, and the ambient auxiliary-loss
+collector."""
 from __future__ import annotations
 
 import contextlib
@@ -11,7 +12,9 @@ import numpy as np
 import torch
 
 __all__ = ["MXNetError", "registry", "is_training", "set_training",
-           "training_mode", "is_recording", "set_recording", "torch_dtype"]
+           "training_mode", "is_recording", "set_recording", "torch_dtype",
+           "aux_collection_active", "set_aux_collection", "record_aux_loss",
+           "pop_aux_losses"]
 
 
 class MXNetError(RuntimeError):
@@ -107,3 +110,32 @@ def set_recording(flag: bool) -> bool:
     prev = is_recording()
     _STATE.recording = bool(flag)
     return prev
+
+
+# The ambient auxiliary-loss collector (``base.py:190-217``): layers such
+# as the MoE router append their losses during the forward, and the loss
+# function of the same (micro)batch drains them.  A layer records only
+# while ``autograd.record()`` or an aux-collection scope is open, so a
+# forward nobody drains (inference, serving) leaves nothing behind.
+
+def aux_collection_active() -> bool:
+    return getattr(_STATE, "aux_collect", False)
+
+
+def set_aux_collection(flag: bool) -> bool:
+    prev = aux_collection_active()
+    _STATE.aux_collect = bool(flag)
+    return prev
+
+
+def record_aux_loss(x) -> None:
+    if not hasattr(_STATE, "aux_losses"):
+        _STATE.aux_losses = []
+    _STATE.aux_losses.append(x)
+
+
+def pop_aux_losses() -> list:
+    """Drain and return this thread's recorded aux losses."""
+    out = list(getattr(_STATE, "aux_losses", ()))
+    _STATE.aux_losses = []
+    return out

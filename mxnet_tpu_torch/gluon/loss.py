@@ -1,18 +1,26 @@
 """Loss layers (counterpart of ``mxnet_tpu/gluon/loss.py``), written as
 ``hybrid_forward`` over ``F = mx.nd`` as the reference's are.  Each
 returns one loss per sample (the mean over every axis but
-``batch_axis``).  CTC and SDML are not ported yet (ROADMAP A1)."""
+``batch_axis``).  ``CTCLoss`` and ``SDMLLoss`` compute on tensors, as
+the ops ``ctc_loss`` and ``sdml_loss`` (NDArrays go through ``invoke``
+under those names): CTC is the reference's log-space forward recursion
+(``optax.ctc_loss``, written here in torch), so an alignment that cannot
+exist (a label longer than its input) gives its finite value, built
+from ``log_epsilon``, not ``inf``."""
 from __future__ import annotations
 
 import math
 
+import torch
+
+from ..ndarray.ops import apply_op
 from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
            "KLDivLoss", "HuberLoss", "HingeLoss", "SquaredHingeLoss",
            "LogisticLoss", "TripletLoss", "CosineEmbeddingLoss",
-           "PoissonNLLLoss"]
+           "CTCLoss", "PoissonNLLLoss", "SDMLLoss", "ctc_loss", "sdml_loss"]
 
 
 def _apply_weighting(F, loss, weight=None, sample_weight=None):
@@ -250,3 +258,141 @@ class PoissonNLLLoss(Loss):
         if loss.ndim > 1:
             loss = F.mean(loss, axis=tuple(range(1, loss.ndim)))
         return loss
+
+
+# log(+0) in the CTC recursion, as optax's ``log_epsilon``
+_CTC_LOG_EPS = -1e5
+
+
+def _ctc_forward(logits, logit_pad, labels, label_pad, blank=0):
+    """Per-sequence CTC loss (B,) of ``logits`` (B, T, K) against
+    ``labels`` (B, N) (right-padded; pads flagged 1.0 in ``label_pad``),
+    frames flagged 1.0 in ``logit_pad`` skipped: the recursion of
+    ``optax.ctc_loss`` over blank (phi) and label (emit) states."""
+    b, t, k = logits.shape
+    n = labels.shape[1]
+    eps = _CTC_LOG_EPS
+    logprobs = torch.log_softmax(logits, dim=-1)
+    label_lens = n - label_pad.sum(dim=1).to(torch.int64)
+    repeat = torch.zeros((b, n), dtype=logprobs.dtype,
+                         device=logits.device)
+    repeat[:, :-1] = (labels[:, :-1] == labels[:, 1:]).to(logprobs.dtype)
+    lp_phi = logprobs[:, :, blank:blank + 1].transpose(0, 1)    # (T, B, 1)
+    lp_emit = torch.gather(
+        logprobs, 2, labels[:, None, :].expand(b, t, n).long()
+    ).transpose(0, 1)                                           # (T, B, N)
+    pad = logit_pad.transpose(0, 1).to(logprobs.dtype)          # (T, B)
+
+    def add_phi(phi, score):
+        return torch.cat([phi[:, :1],
+                          torch.logaddexp(phi[:, 1:], score)], dim=-1)
+
+    phi = torch.full((b, n + 1), eps, dtype=logprobs.dtype,
+                     device=logits.device)
+    phi[:, 0] = 0.0
+    emit = torch.full((b, n), eps, dtype=logprobs.dtype,
+                      device=logits.device)
+    for step in range(t):
+        prev_phi_orig = phi
+        prev_phi = add_phi(phi, emit + eps * repeat)
+        next_emit = torch.logaddexp(prev_phi[:, :-1] + lp_emit[step],
+                                    emit + lp_emit[step])
+        next_phi = add_phi(prev_phi + lp_phi[step],
+                           emit + lp_phi[step] + eps * (1.0 - repeat))
+        p = pad[step][:, None]
+        emit = p * emit + (1.0 - p) * next_emit
+        phi = p * prev_phi_orig + (1.0 - p) * next_phi
+    last = add_phi(phi, emit)
+    return -last.gather(1, label_lens[:, None])[:, 0]
+
+
+def ctc_loss(pred, label, pred_lengths=None, label_lengths=None,
+             layout="NTC", label_layout="NT"):
+    """The ``ctc_loss`` op: blank is class 0; ``label`` padded with -1,
+    or with ``label_lengths``; ``pred_lengths`` marks the frames past
+    each input's end as padding."""
+    tnc, tn = layout == "TNC", label_layout == "TN"
+    args = [pred, label] + [x for x in (pred_lengths, label_lengths)
+                            if x is not None]
+
+    def fn(p, lab, *lens):
+        if tnc:
+            p = p.transpose(0, 1)
+        if tn:
+            lab = lab.transpose(0, 1)
+        b, t, _k = p.shape
+        n = lab.shape[1]
+        lens = list(lens)
+        if pred_lengths is not None:
+            plen = lens.pop(0).to(torch.int64)
+            logit_pad = (torch.arange(t, device=p.device)[None, :]
+                         >= plen[:, None]).to(p.dtype)
+        else:
+            logit_pad = torch.zeros((b, t), dtype=p.dtype, device=p.device)
+        if label_lengths is not None:
+            llen = lens.pop(0).to(torch.int64)
+            label_pad = (torch.arange(n, device=p.device)[None, :]
+                         >= llen[:, None]).to(p.dtype)
+        else:
+            label_pad = (lab < 0).to(p.dtype)
+        labels = torch.where(lab < 0, torch.zeros_like(lab), lab)
+        return _ctc_forward(p, logit_pad, labels.to(torch.int64), label_pad)
+
+    return apply_op("ctc_loss", fn, args)
+
+
+class CTCLoss(Loss):
+    """Connectionist temporal classification loss (parity:
+    gluon.loss.CTCLoss): layout ``'NTC'`` or ``'TNC'``, label layout
+    ``'NT'`` or ``'TN'``, blank class 0, labels padded with -1 (or given
+    ``label_lengths``), ``pred_lengths`` for ragged inputs."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        if layout not in ("NTC", "TNC"):
+            raise ValueError(f"unsupported layout {layout}")
+        if label_layout not in ("NT", "TN"):
+            raise ValueError(f"unsupported label_layout {label_layout}")
+        super().__init__(weight, 0, **kwargs)
+        self._layout = layout
+        self._label_layout = label_layout
+
+    def forward(self, pred, label, pred_lengths=None, label_lengths=None,
+                sample_weight=None):
+        loss = ctc_loss(pred, label, pred_lengths, label_lengths,
+                        self._layout, self._label_layout)
+        if sample_weight is not None:
+            loss = loss * sample_weight
+        if self._weight is not None:
+            loss = loss * self._weight
+        return loss
+
+
+def sdml_loss(x1, x2, smoothing_parameter=0.3):
+    """The ``sdml_loss`` op: smoothed cross entropy over the batch of
+    negative pairwise L2 distances between aligned rows."""
+    def fn(a, b):
+        n = a.shape[0]
+        d = torch.sqrt(torch.clamp(
+            torch.sum((a[:, None, :] - b[None, :, :]) ** 2, dim=-1),
+            min=1e-12))
+        eye = torch.eye(n, dtype=a.dtype, device=a.device)
+        smooth = smoothing_parameter / max(n - 1, 1)
+        target = eye * (1 - smoothing_parameter) + (1 - eye) * smooth
+        return -torch.sum(target * torch.log_softmax(-d, dim=-1), dim=-1)
+
+    return apply_op("sdml_loss", fn, [x1, x2])
+
+
+class SDMLLoss(Loss):
+    """Smoothed deep metric learning loss (parity: gluon/loss.py
+    SDMLLoss): row i of ``x1`` pairs with row i of ``x2``, every other
+    row of the batch is a negative."""
+
+    def __init__(self, smoothing_parameter=0.3, weight=1.0, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._smoothing = smoothing_parameter
+
+    def forward(self, x1, x2):
+        return sdml_loss(x1, x2, self._smoothing)

@@ -97,7 +97,10 @@ class Trainer:
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):
-        updater = self._updaters[0]
+        """One list-wise optimizer step over every parameter with a
+        gradient (``Optimizer.update_multi``), as the reference's
+        ``update`` compiles into one program."""
+        indices, grads, datas = [], [], []
         for i, p in enumerate(self._params):
             if p.grad_req == "null":
                 continue
@@ -107,7 +110,10 @@ class Trainer:
                 if ignore_stale_grad:
                     continue
                 raise
-            updater(i, grad, data)
+            indices.append(i)
+            grads.append(grad)
+            datas.append(data)
+        self._updaters[0](indices, grads, datas)
 
     def save_states(self, fname):
         """The optimizer's states and counts in the reference's format."""

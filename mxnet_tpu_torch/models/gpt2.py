@@ -3,7 +3,10 @@ the forward pass, the serving decode surface the engine drives
 (slot and page caches, bucketed prefill, one decode step over every
 slot) and a generate loop.  Token ids and positions are int32 at the
 public functions; caches follow the parameter dtype.  The LM head is
-tied to ``wte``.
+tied to ``wte``.  The reference's routed family is here too:
+``num_experts`` puts an :class:`~.moe.MoETransformerBlock` at every
+``moe_every``-th layer, whose router aux losses ``gpt2_lm_loss`` adds;
+``remat`` recomputes layers in backward (:func:`.transformer.run_blocks`).
 """
 from __future__ import annotations
 
@@ -12,11 +15,13 @@ import torch
 import torch.nn.functional as F
 
 from .. import amp as _amp
+from .. import base as _base
 from ..context import resolve_device
 from ..gluon.block import HybridBlock
 from ..gluon.nn import Dropout, Embedding, LayerNorm
 from ..ndarray.ndarray import NDArray
 from ..ndarray.ops import _as_nd, invoke
+from .moe import MoETransformerBlock
 from .transformer import TransformerBlock, run_blocks
 
 __all__ = ["GPT2Model", "get_gpt2", "gpt2_lm_loss"]
@@ -35,8 +40,12 @@ class GPT2Model(HybridBlock):
 
     def __init__(self, vocab_size=50257, units=768, num_layers=12,
                  num_heads=12, max_length=1024, dropout=0.1,
-                 layer_norm_eps=1e-5):
+                 layer_norm_eps=1e-5, num_experts=0, moe_every=2,
+                 moe_top_k=2, moe_capacity_factor=1.25, scan_layers=None,
+                 remat=False):
         super().__init__()
+        self._scan_layers = scan_layers
+        self._remat = remat
         self.vocab_size = vocab_size
         self.max_length = max_length
         self.wte = Embedding(vocab_size, units)
@@ -44,9 +53,16 @@ class GPT2Model(HybridBlock):
         self.drop = Dropout(dropout) if dropout else None
         blocks = []
         for i in range(num_layers):
-            blk = TransformerBlock(units, 4 * units, num_heads,
-                                   dropout=dropout, causal=True,
-                                   layer_norm_eps=layer_norm_eps)
+            if num_experts and i % moe_every == moe_every - 1:
+                blk = MoETransformerBlock(
+                    units, 4 * units, num_heads, num_experts,
+                    top_k=moe_top_k, capacity_factor=moe_capacity_factor,
+                    dropout=dropout, causal=True,
+                    layer_norm_eps=layer_norm_eps)
+            else:
+                blk = TransformerBlock(units, 4 * units, num_heads,
+                                       dropout=dropout, causal=True,
+                                       layer_norm_eps=layer_norm_eps)
             self.add_module(f"h{i}", blk)
             blocks.append(blk)
         self.blocks = blocks
@@ -65,7 +81,8 @@ class GPT2Model(HybridBlock):
         x = self.wte(tokens) + self.wpe(pos)[None]
         if self.drop is not None:
             x = self.drop(x)
-        x = run_blocks(self.blocks, x)
+        x = run_blocks(self.blocks, x, scan=self._scan_layers,
+                       remat=self._remat)
         return self._logits(self.ln_f(x))
 
     # ------------------------------------------------------ serving surface
@@ -205,23 +222,28 @@ class GPT2Model(HybridBlock):
         return torch.cat(out, dim=1)
 
 
-def gpt2_lm_loss(logits, labels):
+def gpt2_lm_loss(logits, labels, aux_weight=0.01):
     """Next-token cross entropy; ``labels`` (B, T) already shifted.  The
     mean over tokens of ``logsumexp(logits) - logits[label]`` in float32,
-    as the reference computes it (``gpt2.py:525``) without a full
+    as the reference computes it (``gpt2.py:525-539``) without a full
     log-softmax (float32 is also what the amp policy gives
     ``logsumexp``, so bf16 logits are widened here); labels clip to the
-    vocabulary (``pick(mode='clip')``).  Dense models only: the
-    reference's MoE router aux losses are not ported.  NDArray inputs
-    give an NDArray, recorded inside ``autograd.record()``."""
+    vocabulary (``pick(mode='clip')``).  The router aux losses the
+    forward recorded (MoE layers) are drained and added, each times
+    ``aux_weight``; a dense model records none.  NDArray inputs give an
+    NDArray, recorded inside ``autograd.record()``."""
     if isinstance(logits, NDArray) or isinstance(labels, NDArray):
         like = logits if isinstance(logits, NDArray) else labels
-        return invoke("gpt2_lm_loss", gpt2_lm_loss,
+        return invoke("gpt2_lm_loss",
+                      lambda x, y: gpt2_lm_loss(x, y, aux_weight),
                       [_as_nd(logits, like), _as_nd(labels, like)])
     x = logits.float()
     idx = labels.long().clamp(0, x.shape[-1] - 1)
     picked = x.gather(-1, idx[..., None])[..., 0]
-    return (torch.logsumexp(x, dim=-1) - picked).mean()
+    loss = (torch.logsumexp(x, dim=-1) - picked).mean()
+    for aux in _base.pop_aux_losses():
+        loss = loss + aux * aux_weight
+    return loss
 
 
 def get_gpt2(name="gpt2_124m", device=None, **kwargs):

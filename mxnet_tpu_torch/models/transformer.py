@@ -18,11 +18,23 @@ differences in how caches are updated:
   ``N`` real ones — page ``N`` is the zero page (read by unassigned table
   entries, never written, so it reads as exact zeros) and page ``N + 1``
   is the trash page every targetless write lands in.
+
+:func:`run_blocks` takes the reference's ``remat`` (``transformer.py:
+710-752``): each layer runs under ``torch.utils.checkpoint`` and is
+recomputed during backward, with the forward's dropout masks replayed
+(see :func:`_remat_layer`).
 """
 from __future__ import annotations
 
-import torch
+import functools
 
+import torch
+import torch.utils.checkpoint as _ckpt
+
+from .. import amp as _amp
+from .. import base as _base
+from .. import random as _random
+from ..base import MXNetError
 from ..gluon.block import HybridBlock
 from ..gluon.nn import GELU, Dense, Dropout, LayerNorm
 from ..ops import dot_product_attention
@@ -108,9 +120,10 @@ class MultiHeadAttention(HybridBlock):
         b, t = out.shape[0], out.shape[1]
         return self.out_proj(out.reshape(b, t, -1))
 
-    def forward(self, x):
+    def forward(self, x, mask=None):
         q, k, v = self._qkv(x)
-        out = self._out(dot_product_attention(q, k, v, causal=self._causal))
+        out = self._out(dot_product_attention(q, k, v, causal=self._causal,
+                                              mask=mask))
         if self.dropout is not None:
             out = self.dropout(out)
         return out
@@ -237,10 +250,98 @@ class PositionwiseFFN(HybridBlock):
         return h
 
 
-def run_blocks(blocks, x):
-    """Apply a stack of transformer layers in order."""
+# remat="dots" keeps the products' outputs (the reference's
+# ``checkpoint_dots``, ``transformer.py:696-698``) and recomputes the rest
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _call(blk, x, mask):
+    return blk(x) if mask is None else blk(x, mask)
+
+
+def _own_aux(blk, x, mask):
+    """``blk``'s output and the aux losses it recorded, the collector's
+    earlier entries left in place."""
+    outer = _base.pop_aux_losses()
+    try:
+        out = _call(blk, x, mask)
+    finally:
+        mine = _base.pop_aux_losses()
+        for a in outer:
+            _base.record_aux_loss(a)
+    return out, mine
+
+
+def _remat_layer(blk, x, mask, remat):
+    """One layer under ``torch.utils.checkpoint`` (non-reentrant; with
+    ``remat='dots'`` a selective policy that saves mm/addmm/bmm outputs).
+
+    The recomputation runs during backward, on autograd's device thread
+    for CUDA tensors, so it reinstates what the forward read from its
+    thread: the training and recording flags, aux collection, the amp
+    policy, and the device generator's state, replayed so dropout draws
+    the same masks (the reference's "IDENTICAL dropout masks") and
+    afterwards put back, so later draws are those of a run without
+    remat.  The layer's aux losses leave the checkpoint as outputs and
+    are recorded once; those of the recomputation are dropped.  A
+    kernel launched through ctypes (B1 in ``ops/flash.py``) is no aten
+    op, so the policy cannot save it: it runs again in the
+    recomputation under either form."""
+    dev = x.device
+    rng = _random.generator(dev).get_state()
+    flags = (_base.is_training(), _base.is_recording(),
+             _base.aux_collection_active(), _amp.current_policy())
+    forward_done = []
+
+    def run(h):
+        if not forward_done:
+            forward_done.append(True)
+            out, aux = _own_aux(blk, h, mask)
+            return (out, *aux)
+        prev = (_base.set_training(flags[0]), _base.set_recording(flags[1]),
+                _base.set_aux_collection(flags[2]))
+        try:
+            with _amp.policy_scope(flags[3]), _random.replay(dev, rng):
+                _own_aux(blk, h, mask)
+        finally:
+            _base.set_training(prev[0])
+            _base.set_recording(prev[1])
+            _base.set_aux_collection(prev[2])
+
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _save_dots)
+    out, *aux = _ckpt.checkpoint(run, x, use_reentrant=False, **kw)
+    for a in aux:
+        _base.record_aux_loss(a)
+    return out
+
+
+def run_blocks(blocks, x, mask=None, scan=None, remat=False):
+    """Apply a stack of transformer layers in order.
+
+    ``remat`` (the reference's): ``True`` recomputes each layer during
+    backward instead of keeping its activations (``_remat_layer``);
+    ``"dots"`` keeps the matmul outputs and recomputes the rest.  It
+    applies only where a graph is built (grad enabled).  ``scan`` is
+    accepted for the reference's signature and has no effect: the port
+    runs layers eagerly, and ``lax.scan`` exists to compile one body."""
+    if remat not in (False, None, True, "dots"):
+        raise MXNetError(f"remat={remat!r}: expected False, True or "
+                         "'dots'")
+    if remat and torch.is_grad_enabled():
+        for blk in blocks:
+            x = _remat_layer(blk, x, mask, remat)
+        return x
     for blk in blocks:
-        x = blk(x)
+        x = _call(blk, x, mask)
     return x
 
 
@@ -256,8 +357,8 @@ class TransformerBlock(HybridBlock):
         self.ln2 = LayerNorm(epsilon=layer_norm_eps, in_channels=units)
         self.ffn = PositionwiseFFN(units, hidden_size, dropout=dropout)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln1(x))
+    def forward(self, x, mask=None):
+        x = x + self.attn(self.ln1(x), mask)
         return x + self.ffn(self.ln2(x))
 
     def forward_step_slots(self, x, cache, pos, page_table=None,

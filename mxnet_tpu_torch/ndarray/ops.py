@@ -81,6 +81,18 @@ def _first_nd(*xs):
     return next((x for x in xs if isinstance(x, NDArray)), None)
 
 
+def apply_op(name, fn, inputs):
+    """Op ``name`` as either convention calls it: with an NDArray among
+    ``inputs``, through :func:`invoke` (a graph only inside
+    ``autograd.record()``, NDArrays out); with tensors, ``fn`` on them as
+    the amp policy casts op ``name``'s inputs, in the caller's grad
+    mode."""
+    like = _first_nd(*inputs)
+    if like is not None:
+        return invoke(name, fn, [_as_nd(x, like) for x in inputs])
+    return fn(*_amp.cast(name, *inputs))
+
+
 def _scalar(s, t):
     """A Python number as a 0-d CPU tensor of its promoted dtype with
     ``t`` (torch mixes such scalars with tensors on any device)."""

@@ -4,12 +4,21 @@ python/mxnet/optimizer/*.py).
 The MXNet API is kept: index-keyed states, lr/wd multipliers,
 ``rescale_grad``, ``clip_gradient``, per-index update counts, an
 optional ``lr_scheduler`` and the name registry behind :func:`create`.
-Where the reference returns new arrays (jax is functional), an update
-here writes the weight and its state **in place**, under
-``torch.no_grad``, so a step allocates no second copy of the model.
-This slice ports SGD, NAG, Adam and AdamW and the index-keyed
-:class:`Updater` that ``gluon.Trainer`` drives; the other optimizers are
-still to come.
+Every optimizer the reference registers is here (SGD, NAG, Adam, AdamW,
+RMSProp, Adagrad, AdaDelta, Adamax, Ftrl, LAMB, LARS, Signum, DCASGD),
+with the reference's state layout (tuple order and dtypes), so optimizer
+state files and trainer state dicts cross packages.  Where the reference
+returns new arrays (jax is functional), an update here writes the weight
+and its state **in place**, under ``torch.no_grad``, so a step allocates
+no second copy of the model.
+
+``update(index, weight, grad, state)`` is the definition of each rule.
+:meth:`Optimizer.update_multi` applies one step to lists of parameters
+at once, as ``torch._foreach_*`` ops over the lists (LAMB and LARS take
+their per-tensor norms with ``torch._foreach_norm``): the port's form of
+the reference's single compiled update (``parallel/trainer.py:636-650``),
+which ``gluon.Trainer`` and ``ShardedTrainer`` always use.  A rule with
+no list-wise form (Ftrl) runs its ``update`` per parameter there.
 """
 from __future__ import annotations
 
@@ -24,8 +33,13 @@ from .. import base as _base
 _registry = _base.registry("optimizer")
 register = _registry.register
 
-__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "create",
-           "register", "Updater", "get_updater"]
+__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "RMSProp", "Adagrad",
+           "AdaDelta", "Adamax", "Ftrl", "LAMB", "LARS", "Signum", "DCASGD",
+           "create", "register", "Updater", "get_updater"]
+
+
+def _owner(cls, name):
+    return next(c for c in cls.__mro__ if name in c.__dict__)
 
 
 class Optimizer:
@@ -135,6 +149,46 @@ class Optimizer:
         else:
             self.update(index, weight, grad, state)
 
+    # -- list-wise update -------------------------------------------------
+    # A subclass gives its rule a list-wise form by defining
+    # ``_multi(weights, grads, states, lrs, wds, ts)`` beside ``update``:
+    # ``grads`` are already rescaled and clipped (fresh tensors it may
+    # overwrite); ``lrs``, ``wds`` and ``ts`` are each index's learning
+    # rate, weight decay and update count.
+    _multi = None
+
+    @classmethod
+    def _has_multi(cls) -> bool:
+        """Whether the class's ``_multi`` is the list-wise form of its own
+        ``update`` (a subclass that redefines ``update`` alone loops)."""
+        owner = _owner(cls, "_multi")
+        return owner is not Optimizer and owner is _owner(cls, "update")
+
+    @torch.no_grad()
+    def update_multi(self, indices, weights, grads, states):
+        """One step over lists of parameters, weights and states updated
+        in place; the same step as ``update_multi_precision`` applied to
+        each index in turn (counts, learning rates and schedules
+        included)."""
+        if not type(self)._has_multi() or (self.multi_precision and any(
+                w.dtype == torch.float16 for w in weights)):
+            for i, w, g, s in zip(indices, weights, grads, states):
+                self.update_multi_precision(i, w, g, s)
+            return
+        if not indices:
+            return
+        lrs, wds, ts = [], [], []
+        for i in indices:
+            self._update_count(i)
+            lrs.append(self._get_lr(i))
+            wds.append(self._get_wd(i))
+            ts.append(self._index_update_count[i])
+        gs = torch._foreach_mul(list(grads), self.rescale_grad)
+        if self.clip_gradient is not None:
+            torch._foreach_clamp_min_(gs, -self.clip_gradient)
+            torch._foreach_clamp_max_(gs, self.clip_gradient)
+        self._multi(list(weights), gs, list(states), lrs, wds, ts)
+
 
 class _TracedCount(dict):
     """Stands in for ``Optimizer._index_update_count`` during one fixed
@@ -180,6 +234,45 @@ def _zeros_like(weight):
     return torch.zeros_like(weight, memory_format=torch.contiguous_format)
 
 
+# -- list-wise helpers: each rounds its products as the per-parameter
+# rule's expressions do, one op at a time --------------------------------
+
+def _plus_wd_(gs, weights, wds):
+    """``g + wd * weight`` for every pair, into ``gs``."""
+    torch._foreach_add_(gs, torch._foreach_mul(weights, wds))
+
+
+def _ema_(xs, beta, ys):
+    """``x = beta * x + (1 - beta) * y`` for every pair, into ``xs``."""
+    torch._foreach_mul_(xs, beta)
+    torch._foreach_add_(xs, torch._foreach_mul(ys, 1 - beta))
+
+
+def _square(xs):
+    return torch._foreach_mul(xs, xs)
+
+
+def _columns(states, n):
+    """The ``n`` leaves of tuple states as ``n`` lists."""
+    return [list(c) for c in zip(*states)] if states else [[]] * n
+
+
+def _norm(x):
+    return torch.linalg.vector_norm(x)
+
+
+def _norms(xs):
+    """The L2 norms of ``xs`` as one vector."""
+    return torch.stack(torch._foreach_norm(xs))
+
+
+def _scale_each(xs, vector, scalars):
+    """``xs[i] * (vector[i] * scalars[i])``: per-tensor factors from a
+    device vector, without a copy from the host."""
+    factors = torch._foreach_mul(list(vector.unbind(0)), scalars)
+    return torch._foreach_mul(xs, factors)
+
+
 @register()
 class SGD(Optimizer):
     """SGD with momentum (parity: sgd_update / sgd_mom_update)."""
@@ -204,6 +297,16 @@ class SGD(Optimizer):
         else:
             weight.copy_(weight - lr * g)
 
+    def _multi(self, weights, gs, states, lrs, wds, ts):
+        _plus_wd_(gs, weights, wds)
+        step = torch._foreach_mul(gs, lrs)
+        if self.momentum == 0.0:
+            torch._foreach_sub_(weights, step)
+            return
+        torch._foreach_mul_(states, self.momentum)
+        torch._foreach_sub_(states, step)
+        torch._foreach_add_(weights, states)
+
 
 @register()
 class NAG(SGD):
@@ -219,6 +322,16 @@ class NAG(SGD):
             weight.copy_(weight + self.momentum * state - lr * g)
         else:
             weight.copy_(weight - lr * g)
+
+    def _multi(self, weights, gs, states, lrs, wds, ts):
+        _plus_wd_(gs, weights, wds)
+        step = torch._foreach_mul(gs, lrs)
+        if self.momentum != 0.0:
+            torch._foreach_mul_(states, self.momentum)
+            torch._foreach_sub_(states, step)
+            torch._foreach_add_(weights,
+                                torch._foreach_mul(states, self.momentum))
+        torch._foreach_sub_(weights, step)
 
 
 @register()
@@ -242,15 +355,34 @@ class Adam(Optimizer):
         var.copy_(self.beta2 * var + (1 - self.beta2) * torch.square(g))
         return mean, var
 
+    def _moments_multi(self, gs, states):
+        means, variances = _columns(states, 2)
+        _ema_(means, self.beta1, gs)
+        _ema_(variances, self.beta2, _square(gs))
+        return means, variances
+
+    def _coef(self, t):
+        return (1.0 - self.beta2 ** t) ** 0.5 / (1.0 - self.beta1 ** t)
+
     @torch.no_grad()
     def update(self, index, weight, grad, state):
         self._update_count(index)
         t = self._index_update_count[index]
         lr, wd = self._get_lr(index), self._get_wd(index)
-        lr *= (1.0 - self.beta2 ** t) ** 0.5 / (1.0 - self.beta1 ** t)
+        lr *= self._coef(t)
         g = self._preprocess_grad(grad) + wd * weight
         m, v = self._moments(g, state)
         weight.copy_(weight - lr * m / (torch.sqrt(v) + self.epsilon))
+
+    def _multi(self, weights, gs, states, lrs, wds, ts):
+        _plus_wd_(gs, weights, wds)
+        means, variances = self._moments_multi(gs, states)
+        denom = torch._foreach_sqrt(variances)
+        torch._foreach_add_(denom, self.epsilon)
+        step = torch._foreach_mul(
+            means, [lr * self._coef(t) for lr, t in zip(lrs, ts)])
+        torch._foreach_div_(step, denom)
+        torch._foreach_sub_(weights, step)
 
 
 @register()
@@ -262,10 +394,372 @@ class AdamW(Adam):
         self._update_count(index)
         t = self._index_update_count[index]
         lr, wd = self._get_lr(index), self._get_wd(index)
-        coef = (1.0 - self.beta2 ** t) ** 0.5 / (1.0 - self.beta1 ** t)
+        coef = self._coef(t)
         m, v = self._moments(self._preprocess_grad(grad), state)
         weight.copy_(weight - lr * (
             coef * m / (torch.sqrt(v) + self.epsilon) + wd * weight))
+
+    def _multi(self, weights, gs, states, lrs, wds, ts):
+        means, variances = self._moments_multi(gs, states)
+        denom = torch._foreach_sqrt(variances)
+        torch._foreach_add_(denom, self.epsilon)
+        step = torch._foreach_mul(means, [self._coef(t) for t in ts])
+        torch._foreach_div_(step, denom)
+        torch._foreach_add_(step, torch._foreach_mul(weights, wds))
+        torch._foreach_mul_(step, lrs)
+        torch._foreach_sub_(weights, step)
+
+
+@register()
+class RMSProp(Optimizer):
+    """RMSProp, plain (state ``(n,)``) or ``centered`` (state ``(n, g,
+    delta)``, with momentum), as ``optimizer/__init__.py:281``."""
+
+    def __init__(self, learning_rate=0.001, rho=0.9, momentum=0.9,
+                 epsilon=1e-8, centered=False, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.rho, self.momentum = rho, momentum
+        self.epsilon, self.centered = epsilon, centered
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return (_zeros_like(weight), _zeros_like(weight),
+                    _zeros_like(weight))                  # n, g, delta
+        return (_zeros_like(weight),)                     # n
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        g = self._preprocess_grad(grad) + wd * weight
+        n = state[0]
+        n.copy_(self.rho * n + (1 - self.rho) * torch.square(g))
+        if self.centered:
+            _, gbar, delta = state
+            gbar.copy_(self.rho * gbar + (1 - self.rho) * g)
+            delta.copy_(self.momentum * delta - lr * g / torch.sqrt(
+                n - torch.square(gbar) + self.epsilon))
+            weight.copy_(weight + delta)
+        else:
+            weight.copy_(weight - lr * g / torch.sqrt(n + self.epsilon))
+
+    def _multi(self, weights, gs, states, lrs, wds, ts):
+        _plus_wd_(gs, weights, wds)
+        cols = _columns(states, 3 if self.centered else 1)
+        ns = cols[0]
+        _ema_(ns, self.rho, _square(gs))
+        step = torch._foreach_mul(gs, lrs)
+        if self.centered:
+            gbars, deltas = cols[1], cols[2]
+            _ema_(gbars, self.rho, gs)
+            denom = torch._foreach_sub(ns, _square(gbars))
+        else:
+            denom = ns
+        denom = torch._foreach_add(denom, self.epsilon)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_div_(step, denom)
+        if self.centered:
+            torch._foreach_mul_(deltas, self.momentum)
+            torch._foreach_sub_(deltas, step)
+            torch._foreach_add_(weights, deltas)
+        else:
+            torch._foreach_sub_(weights, step)
+
+
+@register()
+class Adagrad(Optimizer):
+    """Adagrad; the state is the running sum of squared gradients."""
+
+    def __init__(self, learning_rate=0.01, eps=1e-7, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        g = self._preprocess_grad(grad) + wd * weight
+        state.copy_(state + torch.square(g))
+        weight.copy_(weight - lr * g / torch.sqrt(
+            state + self.float_stable_eps))
+
+    def _multi(self, weights, gs, states, lrs, wds, ts):
+        _plus_wd_(gs, weights, wds)
+        torch._foreach_add_(states, _square(gs))
+        denom = torch._foreach_add(states, self.float_stable_eps)
+        torch._foreach_sqrt_(denom)
+        step = torch._foreach_mul(gs, lrs)
+        torch._foreach_div_(step, denom)
+        torch._foreach_sub_(weights, step)
+
+
+@register()
+class AdaDelta(Optimizer):
+    """AdaDelta (no learning rate); state ``(acc_g, acc_delta)``."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho, self.epsilon = rho, epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        wd = self._get_wd(index)
+        acc_g, acc_delta = state
+        g = self._preprocess_grad(grad) + wd * weight
+        acc_g.copy_(self.rho * acc_g + (1 - self.rho) * torch.square(g))
+        delta = torch.sqrt(acc_delta + self.epsilon) / \
+            torch.sqrt(acc_g + self.epsilon) * g
+        acc_delta.copy_(self.rho * acc_delta
+                        + (1 - self.rho) * torch.square(delta))
+        weight.copy_(weight - delta)
+
+    def _multi(self, weights, gs, states, lrs, wds, ts):
+        _plus_wd_(gs, weights, wds)
+        acc_g, acc_delta = _columns(states, 2)
+        _ema_(acc_g, self.rho, _square(gs))
+        delta = torch._foreach_add(acc_delta, self.epsilon)
+        torch._foreach_sqrt_(delta)
+        denom = torch._foreach_add(acc_g, self.epsilon)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_div_(delta, denom)
+        torch._foreach_mul_(delta, gs)
+        _ema_(acc_delta, self.rho, _square(delta))
+        torch._foreach_sub_(weights, delta)
+
+
+@register()
+class Adamax(Optimizer):
+    """Adamax: Adam with the infinity norm; state ``(mean, u)``."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2 = beta1, beta2
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._index_update_count[index]
+        lr = self._get_lr(index) / (1.0 - self.beta1 ** t)
+        wd = self._get_wd(index)
+        mean, u = state
+        g = self._preprocess_grad(grad) + wd * weight
+        mean.copy_(self.beta1 * mean + (1 - self.beta1) * g)
+        u.copy_(torch.maximum(self.beta2 * u, torch.abs(g)))
+        weight.copy_(weight - lr * mean / (u + 1e-8))
+
+    def _multi(self, weights, gs, states, lrs, wds, ts):
+        _plus_wd_(gs, weights, wds)
+        means, us = _columns(states, 2)
+        _ema_(means, self.beta1, gs)
+        torch._foreach_mul_(us, self.beta2)
+        torch._foreach_maximum_(us, torch._foreach_abs(gs))
+        step = torch._foreach_mul(
+            means, [lr / (1.0 - self.beta1 ** t) for lr, t in zip(lrs, ts)])
+        torch._foreach_div_(step, torch._foreach_add(us, 1e-8))
+        torch._foreach_sub_(weights, step)
+
+
+@register()
+class Ftrl(Optimizer):
+    """FTRL-Proximal; state ``(z, n)``.  Its thresholded weight has no
+    list-wise form: ``update_multi`` runs ``update`` per parameter."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1, self.beta = lamda1, beta
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))  # z, n
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        zs, ns = state
+        g = self._preprocess_grad(grad)
+        n_new = ns + torch.square(g)
+        sigma = (torch.sqrt(n_new) - torch.sqrt(ns)) / lr
+        zs.copy_(zs + g - sigma * weight)
+        ns.copy_(n_new)
+        weight.copy_(torch.where(
+            torch.abs(zs) <= self.lamda1, torch.zeros_like(weight),
+            -(zs - torch.sign(zs) * self.lamda1)
+            / ((self.beta + torch.sqrt(n_new)) / lr + wd)))
+
+
+@register()
+class LAMB(Optimizer):
+    """Layer-wise adaptive moments for large-batch training (parity:
+    contrib/multi_lamb.cc): Adam's moments, then each tensor's step
+    scaled by ``||w|| / ||r||`` (1 where either is 0), clipped to
+    ``lower_bound``/``upper_bound``."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, lower_bound=None, upper_bound=None,
+                 bias_correction=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lower_bound, self.upper_bound = lower_bound, upper_bound
+        self.bias_correction = bias_correction
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def _trust(self, w_norm, r_norm):
+        ratio = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                            torch.ones_like(w_norm))
+        if self.lower_bound is not None:
+            ratio = torch.clamp(ratio, min=self.lower_bound)
+        if self.upper_bound is not None:
+            ratio = torch.clamp(ratio, max=self.upper_bound)
+        return ratio
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        t = self._index_update_count[index]
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        mean, var = state
+        g = self._preprocess_grad(grad)
+        mean.copy_(self.beta1 * mean + (1 - self.beta1) * g)
+        var.copy_(self.beta2 * var + (1 - self.beta2) * torch.square(g))
+        if self.bias_correction:
+            m_hat = mean / (1 - self.beta1 ** t)
+            v_hat = var / (1 - self.beta2 ** t)
+        else:
+            m_hat, v_hat = mean, var
+        r = m_hat / (torch.sqrt(v_hat) + self.epsilon) + wd * weight
+        ratio = self._trust(_norm(weight), _norm(r))
+        weight.copy_(weight - lr * ratio * r)
+
+    def _multi(self, weights, gs, states, lrs, wds, ts):
+        means, variances = _columns(states, 2)
+        _ema_(means, self.beta1, gs)
+        _ema_(variances, self.beta2, _square(gs))
+        if self.bias_correction:
+            m_hat = torch._foreach_div(
+                means, [1 - self.beta1 ** t for t in ts])
+            v_hat = torch._foreach_div(
+                variances, [1 - self.beta2 ** t for t in ts])
+        else:
+            m_hat, v_hat = means, variances
+        denom = torch._foreach_sqrt(v_hat)
+        torch._foreach_add_(denom, self.epsilon)
+        r = torch._foreach_div(m_hat, denom)
+        del m_hat, v_hat, denom
+        _plus_wd_(r, weights, wds)
+        ratio = self._trust(_norms(weights), _norms(r))
+        torch._foreach_sub_(weights, _scale_each(r, ratio, lrs))
+
+
+@register()
+class LARS(Optimizer):
+    """Layer-wise adaptive rate scaling: each tensor's gradient scaled by
+    ``eta ||w|| / (||g|| + wd ||w|| + eps)`` (1 where a norm is 0), then
+    SGD with momentum."""
+
+    def __init__(self, learning_rate=0.1, momentum=0.9, eta=0.001,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum, self.eta, self.epsilon = momentum, eta, epsilon
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros_like(weight)
+
+    def _trust(self, w_norm, g_norm, scaled):
+        return torch.where((w_norm > 0) & (g_norm > 0), scaled,
+                           torch.ones_like(w_norm))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        g = self._preprocess_grad(grad)
+        w_norm, g_norm = _norm(weight), _norm(g)
+        trust = self._trust(w_norm, g_norm, self.eta * w_norm / (
+            g_norm + wd * w_norm + self.epsilon))
+        g = trust * (g + wd * weight)
+        if state is not None:
+            state.copy_(self.momentum * state - lr * g)
+            weight.copy_(weight + state)
+        else:
+            weight.copy_(weight - lr * g)
+
+    def _multi(self, weights, gs, states, lrs, wds, ts):
+        w_norms, g_norms = torch._foreach_norm(weights), \
+            torch._foreach_norm(gs)
+        denom = torch._foreach_add(g_norms,
+                                   torch._foreach_mul(w_norms, wds))
+        torch._foreach_add_(denom, self.epsilon)
+        scaled = torch._foreach_mul(w_norms, self.eta)
+        torch._foreach_div_(scaled, denom)
+        trust = self._trust(torch.stack(w_norms), torch.stack(g_norms),
+                            torch.stack(scaled))
+        _plus_wd_(gs, weights, wds)
+        gs = torch._foreach_mul(gs, list(trust.unbind(0)))
+        step = torch._foreach_mul(gs, lrs)
+        if self.momentum == 0.0:
+            torch._foreach_sub_(weights, step)
+            return
+        torch._foreach_mul_(states, self.momentum)
+        torch._foreach_sub_(states, step)
+        torch._foreach_add_(weights, states)
+
+
+@register()
+class Signum(Optimizer):
+    """signSGD with momentum: the step is ``lr * sign(momentum)``, with
+    decoupled decay ``wd_lh``."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum, self.wd_lh = momentum, wd_lh
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros_like(weight)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        g = self._preprocess_grad(grad) + wd * weight
+        if state is not None:
+            state.copy_(self.momentum * state - (1 - self.momentum) * g)
+            step = torch.sign(state)
+        else:
+            step = -torch.sign(g)
+        weight.copy_((1 - lr * self.wd_lh) * weight + lr * step)
+
+    def _multi(self, weights, gs, states, lrs, wds, ts):
+        _plus_wd_(gs, weights, wds)
+        if self.momentum != 0.0:
+            torch._foreach_mul_(states, self.momentum)
+            torch._foreach_sub_(states,
+                                torch._foreach_mul(gs, 1 - self.momentum))
+            step = torch._foreach_sign(states)
+        else:
+            step = torch._foreach_sign(gs)
+            torch._foreach_neg_(step)
+        torch._foreach_mul_(weights, [1 - lr * self.wd_lh for lr in lrs])
+        torch._foreach_add_(weights, torch._foreach_mul(step, lrs))
+
+
+@register()
+class DCASGD(SGD):
+    """The delay-compensated variant degenerates to SGD in synchronous
+    training, as in the reference."""
 
 
 def create(name, **kwargs) -> Optimizer:
@@ -289,28 +783,35 @@ def _map_state(state, fn):
 class Updater:
     """Keeps one optimizer state per index and applies the optimizer to
     ``(index, grad, weight)``, NDArrays or tensors; the weight is updated
-    in place.  The row-sparse lazy update is not ported (the port has no
-    sparse NDArray yet)."""
+    in place.  ``index``, ``grad`` and ``weight`` may be lists, as in
+    MXNet's aggregated update: the optimizer then takes one list-wise
+    step (:meth:`Optimizer.update_multi`).  The row-sparse lazy update is
+    not ported (the port has no sparse NDArray yet)."""
 
     def __init__(self, optimizer: Optimizer):
         self.optimizer = optimizer
         self.states: Dict[Any, Any] = {}
         self.states_synced: Dict[Any, bool] = {}
 
-    def __call__(self, index, grad, weight):
-        w = getattr(weight, "_t", weight)
-        g = getattr(grad, "_t", grad)
+    def _state(self, index, w):
         if index not in self.states:
             self.states[index] = \
-                self.optimizer.create_state_multi_precision(index, w.detach())
+                self.optimizer.create_state_multi_precision(index, w)
             self.states_synced[index] = True
         elif not self.states_synced.get(index, True):
             # loaded by set_states: onto the weight's device, once
             self.states[index] = _map_state(
                 self.states[index], lambda s: torch.as_tensor(s).to(w.device))
             self.states_synced[index] = True
-        self.optimizer.update_multi_precision(index, w.detach(), g,
-                                              self.states[index])
+        return self.states[index]
+
+    def __call__(self, index, grad, weight):
+        if not isinstance(index, (list, tuple)):
+            index, grad, weight = [index], [grad], [weight]
+        ws = [getattr(w, "_t", w).detach() for w in weight]
+        gs = [getattr(g, "_t", g) for g in grad]
+        states = [self._state(i, w) for i, w in zip(index, ws)]
+        self.optimizer.update_multi(list(index), ws, gs, states)
 
     def get_states(self, dump_optimizer=False) -> bytes:
         """The states and update counts as the reference's bytes (a

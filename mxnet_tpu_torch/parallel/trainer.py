@@ -194,10 +194,22 @@ class ShardedTrainer:
         return torch.as_tensor(np.asarray(x), device=self.device)
 
     def _forward_loss(self, data, labels) -> torch.Tensor:
-        with _base.training_mode(True):
-            out = self.net(*data)
-        lval = self.loss(out, *labels) if self.loss is not None else out
-        return lval.mean()
+        """The mean loss of one (micro)batch, inside an aux-loss scope
+        (``trainer.py:326-366``): stale entries are drained before the
+        forward, the layers record their aux losses (MoE routers) during
+        it for the loss to add, and whatever the loss left is drained
+        after, so nothing outlives the (micro)batch."""
+        _base.pop_aux_losses()
+        prev = _base.set_aux_collection(True)
+        try:
+            with _base.training_mode(True):
+                out = self.net(*data)
+            lval = self.loss(out, *labels) if self.loss is not None \
+                else out
+            return lval.mean()
+        finally:
+            _base.set_aux_collection(prev)
+            _base.pop_aux_losses()
 
     def _grads(self, lval) -> List[torch.Tensor]:
         params = [p for _, p in self._trainable]
@@ -233,18 +245,24 @@ class ShardedTrainer:
 
     @torch.no_grad()
     def _update(self, grads, lr, t, keep: Optional[torch.Tensor] = None):
-        """Apply the optimizer in place.  With ``keep`` (a 0-d bool on the
-        device), each parameter and its state are restored where it is
-        False, bit for bit."""
+        """Apply the optimizer in place, one list-wise step over every
+        parameter (``Optimizer.update_multi``).  With ``keep`` (a 0-d bool
+        on the device), parameters and states are restored where it is
+        False, bit for bit: one ``torch._foreach_copy_`` saves them all
+        before the step and a ``torch.where`` per tensor puts them back,
+        with no host read of the flag."""
         opt = self.optimizer
+        params = [p for _, p in self._trainable]
+        live = params + self._state_flat
+        if keep is not None:
+            old = [torch.empty_like(x) for x in live]
+            torch._foreach_copy_(old, live)
         with opt.traced(lr, t):
-            for i, ((_, p), g) in enumerate(zip(self._trainable, grads)):
-                st = self._states[i]
-                live = [p] + _leaves(st)
-                old = [x.clone() for x in live] if keep is not None else ()
-                opt.update_multi_precision(i, p, g, st)
-                for x, o in zip(live, old):
-                    x.copy_(torch.where(keep, x, o))
+            opt.update_multi(list(range(len(params))), params, grads,
+                             self._states)
+        if keep is not None:
+            for x, o in zip(live, old):
+                torch.where(keep, x, o, out=x)
 
     def step(self, data, labels=()):
         """One training step on ``data``/``labels`` (tensors, NDArrays or

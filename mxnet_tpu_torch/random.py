@@ -10,6 +10,7 @@ one stream.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Dict, Optional
 
@@ -18,7 +19,7 @@ import torch
 
 from .context import Context
 
-__all__ = ["seed", "generator"]
+__all__ = ["seed", "generator", "replay"]
 
 # MXNet's device type ids (``Context.devtype2id``): a device's generator
 # is seeded with base + (type id << 8) + index, as the reference derives
@@ -66,3 +67,19 @@ def generator(device: Optional[torch.device] = None) -> torch.Generator:
         if g is None:
             g = _GENS[dev] = _new(dev, _BASE[0])
         return g
+
+
+@contextlib.contextmanager
+def replay(device, state: torch.Tensor):
+    """Draw from ``device``'s generator as from ``state`` (an earlier
+    ``generator(device).get_state()``), then give the generator back the
+    state it had on entry.  Remat recomputes a layer inside it, so the
+    recomputation draws the forward's dropout masks and the draws after
+    it are the ones a run without remat makes."""
+    g = generator(device)
+    after = g.get_state()
+    g.set_state(state)
+    try:
+        yield
+    finally:
+        g.set_state(after)

@@ -468,3 +468,106 @@ def test_bf16_model_kernel_arm_matches_gather_arm(dev):
                                           paged_kernel=arm == "kernel")[0]
         assert _maxabs(logits["kernel"][:s], logits["gather"][:s]) <= 2e-2
         pos[:s] += 1
+
+
+def _moe_params(rs, e, u, h):
+    return {"gate": rs.randn(e, u).astype("float32") * 0.3,
+            "w1": rs.randn(e, u, h).astype("float32") * 0.1,
+            "b1": rs.randn(e, h).astype("float32") * 0.1,
+            "w2": rs.randn(e, h, u).astype("float32") * 0.1,
+            "b2": rs.randn(e, u).astype("float32") * 0.1}
+
+
+@pytest.mark.parametrize("capacity_factor", [2.0, 0.5])
+def test_moe_layer_on_card_matches_cpu(dev, capacity_factor):
+    """The MoE layer (8 experts, top 2) on the card against the CPU from
+    the same weights, at ample capacity and at one that drops: the same
+    dropped share, output, aux and router gradient within 1e-5 of their
+    max-abs."""
+    from mxnet_tpu_torch.models import MoELayer
+    from mxnet_tpu_torch.utils.convert import load_numpy_params
+    rs = onp.random.RandomState(0)
+    params = _moe_params(rs, 8, 128, 512)
+    x = torch.from_numpy(rs.randn(2, 256, 128).astype("float32"))
+    cot = torch.from_numpy(rs.randn(2, 256, 128).astype("float32"))
+    got = {}
+    for where in ("cpu", dev):
+        layer = load_numpy_params(
+            MoELayer(128, 512, 8, capacity_factor=capacity_factor), params,
+            device=where)
+        y = layer(x.to(where))
+        gate_grad, = torch.autograd.grad(
+            (y * cot.to(where)).sum() + layer.last_aux, [layer.gate])
+        got[str(where)] = [t.detach().cpu() for t in
+                           (y, layer.last_aux, gate_grad,
+                            layer.last_dropped)]
+    (y_c, aux_c, g_c, drop_c), (y_g, aux_g, g_g, drop_g) = got.values()
+    assert float(drop_g) == float(drop_c)
+    assert (float(drop_c) > 0) == (capacity_factor < 1)
+    for a, r in ((y_g, y_c), (aux_g, aux_c), (g_g, g_c)):
+        assert _maxabs(a, r) <= 1e-5 * float(r.abs().max())
+
+
+def test_remat_launch_counts_and_gradients_on_card(dev):
+    """A 2-layer MoE GPT-2 at T = 256 with dropout 0.1, one step under
+    each ``remat``: without it B1, B2 and B3 launch once a layer; under
+    ``True`` and ``'dots'`` B1 launches twice a layer (the recomputation
+    runs the ctypes launch again: the policy sees no aten op for it)
+    and B2, B3 once.  All in float32.  The loss and gradients equal the
+    run without remat (1e-6 of each max-abs), every thread's aux
+    collector ends empty, and the device generator ends where the run
+    without remat leaves it."""
+    import collections
+    import threading
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import base
+    from mxnet_tpu_torch.models import get_gpt2, gpt2_lm_loss
+    net = get_gpt2("gpt2_124m", vocab_size=256, units=128, num_layers=2,
+                   num_heads=2, max_length=512, dropout=0.1,
+                   num_experts=2, device=dev).initialize(seed=0)
+    rs = onp.random.RandomState(0)
+    toks, labels = (torch.from_numpy(rs.randint(0, 256, (2, 256))
+                                     .astype("int32")).to(dev)
+                    for _ in range(2))
+    pending = collections.Counter()
+    rec, pop = base.record_aux_loss, base.pop_aux_losses
+
+    def spy_rec(a):
+        pending[threading.get_ident()] += 1
+        rec(a)
+
+    def spy_pop():
+        out = pop()
+        pending[threading.get_ident()] -= len(out)
+        return out
+
+    kernels = (flash.flash_fwd, flash.flash_dq, flash.flash_dkv)
+    runs = {}
+    base.record_aux_loss, base.pop_aux_losses = spy_rec, spy_pop
+    try:
+        for remat in (False, True, "dots"):
+            net._remat = remat
+            mx.random.seed(7)
+            n0 = [dict(k.launches_by_dtype) for k in kernels]
+            with base.training_mode(True), mx.models.aux_loss_scope():
+                loss = gpt2_lm_loss(net(toks), labels)
+                grads = torch.autograd.grad(loss, list(net.parameters()))
+            torch.cuda.synchronize()
+            counts = [{str(dt).split(".")[1]: k.launches_by_dtype[dt] - n[dt]
+                       for dt in n if k.launches_by_dtype[dt] - n[dt]}
+                      for k, n in zip(kernels, n0)]
+            runs[remat] = (loss.detach(), grads, counts,
+                           mx.random.generator(dev).get_state())
+    finally:
+        base.record_aux_loss, base.pop_aux_losses = rec, pop
+    assert not any(pending.values()), dict(pending)
+    assert runs[False][2] == [{"float32": 2}] * 3
+    loss0, grads0, _c, state0 = runs[False]
+    for remat in (True, "dots"):
+        loss, grads, counts, state = runs[remat]
+        assert counts == [{"float32": 4}, {"float32": 2}, {"float32": 2}]
+        assert _maxabs(loss, loss0) <= 1e-6 * float(loss0.abs())
+        for a, r in zip(grads, grads0):
+            assert _maxabs(a, r) <= 1e-6 * max(float(r.abs().max()), 1e-30)
+        assert torch.equal(state, state0)
