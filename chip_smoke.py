@@ -85,11 +85,36 @@ Phases (any failure exits non-zero and prints no result line):
    state, and every registered optimizer's 3 list-wise updates of a few
    card tensors against the CPU's (``TOL_MULTI``).  Then
    ``torch.profiler`` shows where one step spends its time.
-9. A ``{"kernels": [...]}`` line, the card line again, and the last
+9. The serving engine's features at phase 3's width, paged KV with
+   16-position pages, 8 slots, buckets 64-512 and chunks of 256
+   (``FEATURES``), kernel arm in float32 unless named.  (a) Chunked
+   prefill: 8 prompts of 600-1000 tokens, 16 new each; every request
+   completes and B4 runs with ``Tq`` the chunk bucket; a 1000-token
+   prompt's last logits after 4 chunks through B4 are held within
+   ``TOL_LOGITS`` of one T = 1024 prefill (B1); the gather arm and int8
+   pages repeat it (token-identity shares printed).  (b) Prefix reuse:
+   two waves of 8 requests sharing a 512-token prefix, each with its
+   own 32-64-token suffix, wave 2 after wave 1 completed: at least 8
+   hits reusing 8 x 496 tokens, wave 2's suffixes on B4 with Tq > 1;
+   the dense layout without a prefix cache repeats it.  (c) Page
+   pressure: 8 prompts of 400-500 tokens, 128 new, a pool of 160 pages:
+   preemptions happen and every stream completes at full length;
+   against a pool of 512.  (d) Speculative decode: phase 3's prompts
+   (chunks of 512: the full path, B1), 64 new, ``spec_tokens=4``,
+   ``draft_layers=2``: a 5-token
+   ``verify_slots`` window is held within ``TOL_LOGITS`` of 5 decode
+   steps, a drafter over all 12 layers must propose the tokens of 4
+   greedy decode steps (at least 0.9 of them: the control that reads
+   acceptance as the 2-layer drafter's quality), B4 runs at Tq 5;
+   acceptance and tokens/s with speculation on and off.  Each prints tokens/s, TTFT p50 and peak memory, and the
+   phase its wall time.
+10. A ``{"kernels": [...]}`` line, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also times B1, B2 and B3 in bf16 at the training shape, the
-shape phase 7 gives them.
+shape phase 7 gives them, and B4 at phase 9's chunk shape (8 rows x 256
+queries over tables sharing 32 prefix pages) and verify shape (9 rows x
+5 queries), float32 and int8.
 """
 from __future__ import annotations
 
@@ -483,20 +508,36 @@ def engine_table(lens, max_new, ps, npt):
     return table, pool.num_pages
 
 
+def shared_prefix_table(b, npt, shared, rs):
+    """A chunk batch's page table: ``b`` rows whose first ``shared``
+    logical pages are the same physical pages (a prefix hit's whole
+    pages), the rest distinct, in random order.  Returns the (b, npt)
+    int32 table and the pool size."""
+    n_pool = shared + b * (npt - shared)
+    perm = rs.permutation(n_pool).astype(np.int32)
+    table = np.empty((b, npt), np.int32)
+    table[:, :shared] = perm[:shared]
+    table[:, shared:] = perm[shared:].reshape(b, npt - shared)
+    return table, n_pool
+
+
 def paged_cases(torch, dev, timer, card, lens):
     """B4 against its plain version; returns the main-path case's
-    numbers.  ``lens`` are the main path's prompt lengths."""
+    numbers and those at phase 9's chunk and verify shapes (float32).
+    ``lens`` are the main path's prompt lengths."""
     from mxnet_tpu_torch.ops import paged as P
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 1)
     rs = np.random.RandomState(SEED + 1)
 
     def case(tag, b, tq, h, d, ps, npt, dtype, quant=False, layout=None,
-             qpos=None, tol=TOL_F32, time_rows=None, park=True):
-        """``layout`` is ``engine_table``'s (table, pool size); by default
-        distinct pages in random order, the last row parked on the zero
-        page unless not ``park``.  ``time_rows``: also time the kernel on
-        the first rows only."""
+             qpos=None, tol=TOL_F32, time_rows=None, park=True,
+             device_time=False):
+        """``layout`` is ``engine_table``'s (table, pool size), or
+        ``shared_prefix_table``'s; by default distinct pages in random
+        order, the last row parked on the zero page unless not ``park``.
+        ``time_rows``: also time the kernel on the first rows only;
+        ``device_time``: also read the profiler's device time."""
         if layout is None:
             n_pool = b * npt
             table = rs.permutation(n_pool).astype(np.int32).reshape(b, npt)
@@ -558,6 +599,10 @@ def paged_cases(torch, dev, timer, card, lens):
                   f"it {ms:.4f} ms); device time of both passes (profiler) "
                   f"{fmt_ms(dev_ms)}, without the last row {fmt_ms(dev_r)} "
                   f"[{card}]", flush=True)
+        elif device_time:
+            dev_ms = timer.device(call, "paged_")
+            print(f"    device time of both passes (profiler) "
+                  f"{fmt_ms(dev_ms)} [{card}]", flush=True)
         plain_ms = timer(lambda: P._paged_plain(q, kp, vp, table, qpos, ks,
                                                 vs, d ** -0.5))
         # bytes: every distinct physical page holding a key <= some
@@ -611,15 +656,38 @@ def paged_cases(torch, dev, timer, card, lens):
         case(f"decode B3 walks of 1/4/33 pages H12 D64 ps16 {kind}", 3, 1,
              12, 64, 16, 64, dtype, quant=quant, qpos=walks, tol=tol,
              park=False)
+    # phase 9's multi-query shapes: a chunk batch of 8 rows x 256
+    # queries (the chunk bucket) whose tables share a 512-token prefix,
+    # half of them right behind it; and a verify window of k + 1 = 5
+    # queries over 8 slots and the parked scratch row
+    chunk_layout = shared_prefix_table(8, 64, 32, rs)
+    start = np.array([512, 100, 512, 300, 512, 740, 512, 0])
+    chunk_qpos = torch.from_numpy(start[:, None] + np.arange(256)).to(dev)
+    multi = {}
+    for quant, tol in ((False, TOL_F32), (True, TOL_INT8)):
+        kind = "int8" if quant else "f32"
+        multi[("chunk", kind)] = case(
+            f"chunk B8 Tq256 shared prefix H12 D64 ps16 P64 {kind}", 8, 256,
+            12, 64, 16, 64, torch.float32, quant=quant, layout=chunk_layout,
+            qpos=chunk_qpos, tol=tol, device_time=not quant)
+        verify_qpos = torch.tensor([[n + 16] for n in lens] + [[64 * 16]],
+                                   device=dev) + torch.arange(5, device=dev)
+        multi[("verify", kind)] = case(
+            f"verify B9 Tq5 H12 D64 ps16 P64 {kind}", 9, 5, 12, 64, 16, 64,
+            torch.float32, quant=quant,
+            layout=engine_table(lens, 64, 16, 64), qpos=verify_qpos,
+            tol=tol, device_time=not quant)
     # the main path's decode step halfway through its 32 new tokens: 8
     # slots on the engine's page layout + the parked scratch row (pos =
     # Tmax walks all 64 zero-page entries), 512 pages, f32; timed also
     # without the parked row
     npt = 64
     qpos = torch.tensor([[n + 16] for n in lens] + [[npt * 16]], device=dev)
-    return case("main-path decode B9 H12 D64 ps16 P64 f32", 9, 1, 12, 64,
+    main = case("main-path decode B9 H12 D64 ps16 P64 f32", 9, 1, 12, 64,
                 16, npt, torch.float32, layout=engine_table(lens, 32, 16, npt),
                 qpos=qpos, time_rows=len(lens))
+    return main, {"chunk": multi[("chunk", "f32")],
+                  "verify": multi[("verify", "f32")]}
 
 
 # ------------------------------------------------------------ main path
@@ -644,6 +712,7 @@ def reset_launches():
             fn.launches_by_dtype = dict.fromkeys(fn.launches_by_dtype, 0)
         else:
             fn.launches = 0
+            fn.multi_query_launches = 0
 
 
 def read_launches() -> dict:
@@ -858,6 +927,268 @@ def main_path(torch, card, prompts):
     logits_parity(torch, net, prompts, "int8")
     profile_steps(torch, net, prompts, card)
     return launches
+
+
+# ------------------------------------------------- the serving features
+
+# phase 9's engines: phase 3's, with prompts chunked at the 256 bucket
+FEATURES = dict(num_slots=8, max_batch=8, page_size=16,
+                seq_buckets=(64, 128, 256, 512), prefill_chunk=256)
+
+
+def drive(torch, eng, waves, max_new):
+    """Warm ``eng`` up, set the launch counts to 0, serve ``waves`` (each
+    submitted once the one before it has completed) and read the counts.
+    Returns a dict: the outputs, the stats, the launch counts, B4's
+    multi-query launches in each wave, the wall time, each wave's TTFT
+    p50 (ms) and the peak memory (MiB)."""
+    from mxnet_tpu_torch.ops.paged import paged_attention
+    eng.warmup()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    outs, ttft, multi = [], [], []
+    t0 = time.monotonic()
+    with eng:
+        for wave in waves:
+            n0 = len(eng._ttft)
+            m0 = paged_attention.multi_query_launches
+            futs = [eng.submit(p, max_new_tokens=max_new) for p in wave]
+            outs += [f.result(600) for f in futs]
+            ttft.append(float(np.median(eng._ttft[n0:])) * 1e3)
+            multi.append(paged_attention.multi_query_launches - m0)
+    wall = time.monotonic() - t0
+    prompts = [p for wave in waves for p in wave]
+    for p, o in zip(prompts, outs):
+        if o.shape != (len(p) + max_new,) or \
+                not np.array_equal(o[:len(p)], p) or o.min() < 0 or \
+                o.max() >= VOCAB:
+            raise AssertionError("a served sequence is short or has the "
+                                 "wrong prompt or out-of-vocab tokens")
+    return dict(outs=outs, stats=eng.stats(), launches=read_launches(),
+                multi=multi, wall=wall, ttft=ttft,
+                peak=torch.cuda.max_memory_allocated() / 2 ** 20)
+
+
+def same_share(a, b, prompts):
+    """The share of generated tokens two runs agree on."""
+    return float(np.mean([np.mean(x[len(p):] == y[len(p):])
+                          for x, y, p in zip(a, b, prompts)]))
+
+
+def report(name, r, card):
+    gen = r["stats"]["counters"]["tokens_generated"]
+    print(f"  {name}: {gen} tokens in {r['wall']:.3f} s = "
+          f"{gen / r['wall']:.1f} tokens/s, TTFT p50 "
+          f"{' / '.join(f'{t:.1f}' for t in r['ttft'])} ms, peak memory "
+          f"{r['peak']:.0f} MiB, B4 launches "
+          f"{r['launches']['paged_attention']} ({sum(r['multi'])} with "
+          f"Tq > 1), flash {r['launches']['flash_fwd']} [{card}]",
+          flush=True)
+
+
+def chunk_logits(torch, net):
+    """A 1000-token prompt prefilled as 4 chunks of the 256 bucket
+    through B4, against one ``prefill_slots`` call at T = 1024 (B1):
+    the last position's logits."""
+    dev, ps = net.device, 16
+    npt = net.max_length // ps
+    table = torch.full((2, npt), npt, dtype=torch.int32, device=dev)
+    table[0] = torch.arange(npt, dtype=torch.int32, device=dev)
+    prompt = np.random.RandomState(SEED + 9).randint(0, VOCAB, 1000)
+    toks = torch.zeros((1, 1024), dtype=torch.int32, device=dev)
+    toks[0, :1000] = torch.from_numpy(prompt)
+    sidx = torch.zeros((1,), dtype=torch.int32, device=dev)
+
+    def i32(v):
+        return torch.tensor([v], dtype=torch.int32, device=dev)
+    caches = net.init_page_cache(npt + 1, ps)
+    reset_launches()
+    for off in range(0, 1000, 256):
+        n = min(256, 1000 - off)
+        chunk = torch.zeros((1, 256), dtype=torch.int32, device=dev)
+        chunk[0, :n] = toks[0, off:off + n]
+        lg, _ = net.prefill_slots(chunk, i32(n), caches, sidx,
+                                  offset=i32(off), page_table=table,
+                                  paged_kernel=True)
+    from mxnet_tpu_torch.ops.paged import paged_attention
+    if paged_attention.multi_query_launches != 4 * len(net.blocks):
+        raise AssertionError("the chunks did not all run B4 with Tq > 1")
+    full, _ = net.prefill_slots(toks, i32(1000), net.init_page_cache(
+        npt + 1, ps), sidx, page_table=table, paged_kernel=True)
+    check("last-position logits, 4 chunks through B4 vs one T=1024 "
+          "prefill (B1)", maxabs(lg, full), TOL_LOGITS)
+
+
+def verify_logits(torch, net, prompts):
+    """``verify_slots`` over a 5-token window (B4 at Tq 5) against 5
+    sequential ``decode_step`` calls from the same cache state."""
+    pb = PagedBatch(torch, net, prompts)
+    s, dev = len(prompts), net.device
+    caches = [pb.caches(), pb.caches()]
+    first = [pb.prefill(c, True) for c in caches][0]
+    win = np.random.RandomState(SEED + 5).randint(0, VOCAB, (s + 1, 5))
+    win[:s, 0] = first[:s].argmax(-1).cpu().numpy()
+    win = win.astype(np.int32)
+    pos = torch.from_numpy(pb.pos).to(dev)
+    lg_win, _ = net.verify_slots(torch.from_numpy(win).to(dev), caches[0],
+                                 pos, page_table=pb.table, paged_kernel=True)
+    worst = 0.0
+    for i in range(5):
+        lg = pb.decode(np.ascontiguousarray(win[:, i]), caches[1], True)
+        worst = max(worst, maxabs(lg[:s], lg_win[:s, i]))
+        pb.pos[:s] += 1
+    check("verify window (Tq 5) vs 5 sequential decode steps", worst,
+          TOL_LOGITS)
+
+
+def full_depth_draft(torch, net, prompts):
+    """A control for the drafter's quality: ``draft_slots`` over all
+    the model's layers is the model itself, so its 4 proposals must be
+    the tokens of 4 greedy decode steps from the same state (read from
+    the pages it gathers, against decode steps through B4).  Returns
+    the share that agree; under 0.9 the drafter is at fault."""
+    pb = PagedBatch(torch, net, prompts)
+    s, dev = len(prompts), net.device
+    caches = pb.caches()
+    tok = np.zeros((s + 1,), np.int32)
+    tok[:s] = pb.prefill(caches, True)[:s].argmax(-1).cpu().numpy()
+    greedy = (torch.zeros(s + 1, device=dev),
+              torch.zeros(s + 1, dtype=torch.int32, device=dev),
+              torch.ones(s + 1, device=dev))
+    drafts = net.draft_slots(
+        torch.from_numpy(tok).to(dev), caches,
+        torch.from_numpy(pb.pos).to(dev), 4, len(net.blocks), *greedy,
+        np.zeros(s + 1, np.int64), page_table=pb.table).cpu().numpy()
+    agree = []
+    for i in range(4):
+        tok = pb.decode(tok, caches, True).argmax(-1).to(torch.int32) \
+            .cpu().numpy()
+        agree.append(drafts[:s, i] == tok[:s])
+        pb.pos[:s] += 1
+    share = float(np.mean(agree))
+    print(f"  drafter over all {len(net.blocks)} layers vs 4 greedy decode "
+          f"steps: {share:.4f} of proposals agree", flush=True)
+    if share < 0.9:
+        raise AssertionError("the full-depth drafter does not propose the "
+                             "model's tokens")
+    return share
+
+
+def feature_prompts(rs, lo, hi, n=8):
+    return [rs.randint(0, VOCAB, (int(k),)).astype(np.int32)
+            for k in rs.randint(lo, hi + 1, size=n)]
+
+
+def features_path(torch, card, prompts):
+    """Phase 9: chunked prefill, prefix reuse, page pressure and
+    speculative decode at full width.  Returns each path's launch counts
+    and B4's multi-query launches."""
+    from mxnet_tpu_torch.models import get_gpt2
+    from mxnet_tpu_torch.serving import InferenceEngine
+    t_phase = time.monotonic()
+    net = get_gpt2("gpt2_124m", dropout=0.0)
+    net.initialize(seed=SEED)
+    rs = np.random.RandomState(SEED + 3)
+    by_path, multi_by_path = {}, {}
+
+    def engine(**kw):
+        cfg = dict(FEATURES, kv_layout="paged")
+        cfg.update(kw)
+        return InferenceEngine(net, **cfg)
+
+    def keep(path, r):
+        by_path[path] = r["launches"]
+        multi_by_path[path] = sum(r["multi"])
+        if multi_by_path[path] <= 0:
+            raise AssertionError(f"the {path} path never launched B4 with "
+                                 "Tq > 1")
+
+    print("9a chunked prefill: 8 prompts of 600-1000 tokens, chunks of 256, "
+          "16 new tokens", flush=True)
+    long = feature_prompts(rs, 600, 1000)
+    print(f"  prompt lengths {[len(p) for p in long]}", flush=True)
+    r = drive(torch, engine(), [long], 16)
+    report("kernel arm f32", r, card)
+    print(f"  prefill chunk batches {r['stats']['counters']['prefill_chunks']}"
+          , flush=True)
+    keep("chunk", r)
+    chunk_logits(torch, net)
+    g = drive(torch, engine(paged_attention="gather"), [long], 16)
+    report("gather arm f32", g, card)
+    print(f"  greedy tokens identical kernel vs gather arm: "
+          f"{same_share(r['outs'], g['outs'], long):.4f}", flush=True)
+    q = drive(torch, engine(kv_quant="int8"), [long], 16)
+    report("kernel arm int8", q, card)
+    print(f"  greedy tokens identical int8 vs f32 pages: "
+          f"{same_share(r['outs'], q['outs'], long):.4f}", flush=True)
+
+    print("9b prefix reuse: a 512-token prefix, suffixes of 32-64 tokens, "
+          "two waves of 8", flush=True)
+    prefix = rs.randint(0, VOCAB, 512)
+    waves = [[np.concatenate([prefix, rs.randint(0, VOCAB, int(n))])
+              .astype(np.int32) for n in rs.randint(32, 65, size=8)]
+             for _ in range(2)]
+    r = drive(torch, engine(), waves, 16)
+    report("kernel arm f32, wave 1 / wave 2", r, card)
+    c = r["stats"]["counters"]
+    print(f"  prefix hits {c['prefix_hits']}, tokens reused "
+          f"{c['prefix_tokens_saved']}, misses {c['prefix_misses']}; B4 "
+          f"launches with Tq > 1 by wave {r['multi']}", flush=True)
+    if c["prefix_hits"] < 8 or c["prefix_tokens_saved"] < 8 * 496:
+        raise AssertionError("wave 2 did not reuse the cached prefix")
+    if r["multi"][1] <= 0:
+        raise AssertionError("the suffixes behind the hits never launched "
+                             "B4 with Tq > 1")
+    keep("prefix", r)
+    d = drive(torch, engine(kv_layout="dense", prefix_pool_rows=0), waves,
+              16)
+    report("dense, no prefix cache", d, card)
+    print(f"  greedy tokens identical paged with hits vs dense without: "
+          f"{same_share(r['outs'], d['outs'], waves[0] + waves[1]):.4f}",
+          flush=True)
+
+    print("9c page pressure: 8 prompts of 400-500 tokens, 128 new, 160 "
+          "pages", flush=True)
+    press = feature_prompts(rs, 400, 500)
+    need = sum(-(-(len(p) + 128) // 16) for p in press)
+    print(f"  prompt lengths {[len(p) for p in press]}; lifetimes need "
+          f"{need} pages", flush=True)
+    r = drive(torch, engine(num_pages=160), [press], 128)
+    report("kernel arm f32, 160 pages", r, card)
+    c = r["stats"]["counters"]
+    print(f"  preemptions {c['preemptions']}, resumes "
+          f"{c['preempt_resumes']}, page faults {c['page_faults']}, prefix "
+          f"hits {c['prefix_hits']}", flush=True)
+    if c["preemptions"] <= 0 or c["completed"] != len(press):
+        raise AssertionError("page pressure preempted nothing, or a "
+                             "request did not complete")
+    keep("pressure", r)
+    roomy = drive(torch, engine(), [press], 128)
+    report("kernel arm f32, 512 pages", roomy, card)
+    print(f"  greedy tokens identical pressured vs unpressured: "
+          f"{same_share(r['outs'], roomy['outs'], press):.4f}", flush=True)
+
+    print("9d speculative decode: phase 3's prompts, 64 new, k = 4, 2 draft "
+          "layers", flush=True)
+    verify_logits(torch, net, prompts)
+    full_depth_draft(torch, net, prompts)
+    # prompts of at most 512 take phase 3's full path (B1), so every B4
+    # launch with Tq > 1 below is a verify window
+    off = drive(torch, engine(prefill_chunk=512), [prompts], 64)
+    report("spec off", off, card)
+    on = drive(torch, engine(prefill_chunk=512, spec_tokens=4,
+                             draft_layers=2), [prompts], 64)
+    report("spec on", on, card)
+    sp = on["stats"]["counters"]
+    print(f"  acceptance {on['stats']['rates']['spec_acceptance_rate']} "
+          f"({sp['spec_tokens_accepted']} of {sp['spec_tokens_proposed']} "
+          f"drafts, {sp['spec_cycles']} cycles, {sp['spec_pages_rewound']} "
+          f"pages rewound); greedy tokens identical spec on vs off: "
+          f"{same_share(on['outs'], off['outs'], prompts):.4f}", flush=True)
+    keep("spec", on)
+    print(f"phase 9: {time.monotonic() - t_phase:.1f} s", flush=True)
+    return by_path, multi_by_path
 
 
 # -------------------------------------------------------- training path
@@ -1591,10 +1922,10 @@ def main() -> int:
     prompts = make_prompts()
     fwd_f32, fwd_bf16 = flash_cases(torch, dev, timer, card)
     bwd = flash_bwd_cases(torch, dev, timer, card)
-    record = {"flash_fwd": fwd_f32,
-              **bwd["float32"],
-              "paged_attention": paged_cases(torch, dev, timer, card,
-                                             [len(p) for p in prompts])}
+    paged_main, paged_multi = paged_cases(torch, dev, timer, card,
+                                          [len(p) for p in prompts])
+    record = {"flash_fwd": fwd_f32, **bwd["float32"],
+              "paged_attention": paged_main}
     record_bf16 = {"flash_fwd": fwd_bf16, **bwd["bfloat16"]}
     by_path = {"serve": main_path(torch, card, prompts)}
     by_path["train"], train_losses = train_path(torch, card)
@@ -1618,6 +1949,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     by_path["moe"] = moe_path(torch, card, toks, labels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    features, multi_by_path = features_path(torch, card, prompts)
+    by_path.update(features)
     # each kernel's launches on the path that is its own: the training
     # path for the flash kernels, the serving path for paged attention;
     # the flash kernels' bf16 numbers (phase 2 at the training shape)
@@ -1630,6 +1965,11 @@ def main() -> int:
                     launches_by_path={p: c[name] for p, c in by_path.items()},
                     **record[name]) for name in KERNELS]
     for k in kernels:
+        if k["name"] == "paged_attention":
+            # phase 9's paths: B4's launches with Tq > 1, and its numbers
+            # at the chunk and verify shapes (phase 2)
+            k["multi_query_launches_by_path"] = multi_by_path
+            k.update(paged_multi)
         if k["name"] in record_bf16:
             k["bfloat16"] = dict(launches=by_path["amp"][k["name"]],
                                  **record_bf16[k["name"]])

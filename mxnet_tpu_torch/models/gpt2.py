@@ -1,7 +1,8 @@
 """GPT-2 language model (counterpart of ``mxnet_tpu/models/gpt2.py``):
 the forward pass, the serving decode surface the engine drives
-(slot and page caches, bucketed prefill, one decode step over every
-slot) and a generate loop.  Token ids and positions are int32 at the
+(slot and page caches, bucketed and chunked prefill, one decode step
+over every slot, the speculative verify window and early-exit drafter)
+and a generate loop.  Token ids and positions are int32 at the
 public functions; caches follow the parameter dtype.  The LM head is
 tied to ``wte``.  The reference's routed family is here too:
 ``num_experts`` puts an :class:`~.moe.MoETransformerBlock` at every
@@ -33,6 +34,13 @@ _CONFIGS = {
     "gpt2_774m": (36, 1280, 20),
     "gpt2_1558m": (48, 1600, 25),
 }
+
+
+def _dense_blocks_only(net):
+    if any(type(b) is not TransformerBlock for b in net.blocks):
+        raise ValueError("incremental decoding supports dense GPT-2 "
+                         "blocks only (MoE routing is a training-time "
+                         "layout)")
 
 
 class GPT2Model(HybridBlock):
@@ -183,6 +191,74 @@ class GPT2Model(HybridBlock):
             x, _ = blk.forward_step_slots(x, cache, pos, page_table,
                                           paged_kernel)
         return self._logits(self.ln_f(x)).reshape(s, self.vocab_size), caches
+
+    @torch.no_grad()
+    def verify_slots(self, tokens, caches, pos, page_table=None,
+                     paged_kernel=False):
+        """Speculative verify forward: the decode step over an (S, W)
+        window.  Row s consumes the window tokens at positions
+        ``[pos[s], pos[s] + W)``, writes their K/V (parked rows at
+        ``pos >= Tmax`` into the trash target), attends its whole cache
+        row, and the logits of every window position come back,
+        (S, W, vocab): ``logits[s, i]`` follows window token i.  Row i is
+        slot i (``slot_idx=None``).  In the paged kernel arm each layer
+        launches the paged-attention kernel with ``Tq = W``."""
+        _dense_blocks_only(self)
+        s, t = tokens.shape
+        ar = torch.arange(t, dtype=torch.int32, device=tokens.device)
+        # clamp the embedding lookup only: windows past Tmax write to the
+        # trash target and their logits are never accepted
+        apos = torch.clamp(pos[:, None] + ar[None], max=self.max_length - 1)
+        x = self.wte(tokens) + self.wpe(apos)
+        for blk, cache in zip(self.blocks, caches):
+            x, _ = blk.forward_prefill_slots(x, cache, None, pos,
+                                             page_table, paged_kernel)
+        return (self._logits(self.ln_f(x)).reshape(s, t, self.vocab_size),
+                caches)
+
+    @torch.no_grad()
+    def draft_slots(self, tok, caches, pos, n_tokens, draft_layers,
+                    temperature, top_k, top_p, seeds, page_table=None):
+        """Self-speculative drafter: propose ``n_tokens`` tokens per slot
+        by early exit after the first ``draft_layers`` blocks (then
+        ``ln_f`` and the tied head); the caches' leading layers are its
+        KV state.  Read-only on ``caches``: the speculated K/V live in
+        per-layer window buffers (float32 under int8 pages).  Step i
+        samples with the verifier's rule, keyed by (request seed,
+        ``pos + i``), so a drafter that tracks the model proposes exactly
+        the token the verifier draws.  The reference runs the k steps in
+        one compiled loop; here they are ``n_tokens`` eager steps.
+        Returns (S, n_tokens) int32."""
+        from ..serving.sampling import sample_tokens
+        _dense_blocks_only(self)
+        if not 1 <= int(draft_layers) <= len(self.blocks):
+            raise ValueError(f"draft_layers={draft_layers} must be in "
+                             f"[1, {len(self.blocks)}]")
+        blocks = self.blocks[:int(draft_layers)]
+        s = tok.shape[0]
+        h, d = self.kv_heads()
+        dt = caches[0]["k"].dtype
+        if not dt.is_floating_point:
+            dt = torch.float32
+        dev = tok.device
+        wins = [(torch.zeros((s, n_tokens, h, d), dtype=dt, device=dev),
+                 torch.zeros((s, n_tokens, h, d), dtype=dt, device=dev))
+                for _ in blocks]
+        rows = [blk.attn.cache_rows(cache, s, page_table)
+                for blk, cache in zip(blocks, caches)]
+        pos_host = pos.cpu().numpy()
+        cur = tok.to(torch.int32)
+        out = torch.zeros((s, int(n_tokens)), dtype=torch.int32, device=dev)
+        for i in range(int(n_tokens)):
+            p = torch.clamp(pos + i, max=self.max_length - 1)
+            x = self.wte(cur.reshape(s, 1)) + self.wpe(p.reshape(s, 1))
+            for blk, (wk, wv), r in zip(blocks, wins, rows):
+                x = blk.forward_step_window(x, r, pos, wk, wv, i)
+            lg = self._logits(self.ln_f(x)).reshape(s, self.vocab_size)
+            cur = sample_tokens(lg, temperature, top_k, top_p, seeds,
+                                pos_host + i)
+            out[:, i] = cur
+        return out
 
     @torch.no_grad()
     def generate(self, prompt, max_new_tokens, temperature=1.0, top_k=0,

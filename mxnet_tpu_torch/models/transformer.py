@@ -2,7 +2,8 @@
 ``mxnet_tpu/models/transformer.py``), single device, eager.
 
 The serving entry points (``forward_step_slots``,
-``forward_prefill_slots``) mirror the reference's, with two deliberate
+``forward_prefill_slots``, the speculative drafter's read-only
+``forward_step_window``) mirror the reference's, with two deliberate
 differences in how caches are updated:
 
 - **In place.**  The reference returns new cache arrays (jax is
@@ -41,7 +42,7 @@ from ..ops import dot_product_attention
 from ..ops.paged import kv_quantize, paged_attention
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerBlock",
-           "run_blocks"]
+           "run_blocks", "copy_cache_rows"]
 
 _NEG = -1e30
 
@@ -169,23 +170,28 @@ class MultiHeadAttention(HybridBlock):
         the card at T >= 256.  With ``offset`` (B,) row i's tokens sit at
         ``[offset[i], offset[i] + Tb)`` behind K/V already in its cache
         row, and each query attends every cached key <= its position.
-        Writes with no real target land in the trash column/page."""
+        Writes with no real target land in the trash column/page.
+        ``slot_idx=None`` means row i is slot i (the verify window over
+        every slot): the cache rows are read as a slice, not a gather."""
         b, t = x.shape[0], x.shape[1]
         scale = 1.0 / (self._head_dim ** 0.5)
         q, k, v = self._qkv(x)
         ar = torch.arange(t, device=x.device, dtype=torch.int32)[None, :]
         cidx = ar.expand(b, t) if offset is None else offset[:, None] + ar
+        rows = slice(0, b) if slot_idx is None else slot_idx.long()
         if page_table is None:
-            _write_rows(cache, slot_idx[:, None], cidx, k, v)
+            ridx = torch.arange(b, device=x.device) if slot_idx is None \
+                else slot_idx
+            _write_rows(cache, ridx[:, None], cidx, k, v)
         else:
-            trows = page_table[slot_idx.long()]
+            trows = page_table[rows]
             _write_pages(cache, trows, cidx, k, v)
         if offset is None:
             out = dot_product_attention(q, k, v, causal=True)
         elif page_table is None:
             tmax = cache["k"].shape[1] - 1
-            krow = cache["k"][slot_idx.long(), :tmax]
-            vrow = cache["v"][slot_idx.long(), :tmax]
+            krow = cache["k"][rows, :tmax]
+            vrow = cache["v"][rows, :tmax]
             out = _attention_chunk(q, krow, vrow, cidx, scale)
         elif paged_kernel:
             quant = "k_scale" in cache
@@ -197,6 +203,46 @@ class MultiHeadAttention(HybridBlock):
             krow, vrow = _gather_rows(cache, trows)
             out = _attention_chunk(q, krow, vrow, cidx, scale)
         return self._out(out), cache
+
+
+    def cache_rows(self, cache, s, page_table=None):
+        """The first ``s`` rows of ``cache`` as dense (S, Tmax, H, D) K
+        and V, read back through ``page_table`` (dequantized to float32
+        for int8 pages) in the paged layout: what the draft attends.
+        The drafter reads them once for its k steps."""
+        if page_table is None:
+            tmax = cache["k"].shape[1] - 1
+            return cache["k"][:s, :tmax], cache["v"][:s, :tmax]
+        return _gather_rows(cache, page_table[:s])
+
+    def forward_step_window(self, x, rows, pos, win_k, win_v, i):
+        """Read-only draft step: like :meth:`forward_step_slots`, but the
+        new K/V land in the per-layer window buffers ``win_k``/``win_v``
+        (S, W, H, D) at column ``i`` (in place) and the cache is never
+        written, so an abandoned draft leaves nothing behind.  Row s
+        consumes a token at position ``pos[s] + i`` and attends the
+        keys ``< pos[s]`` of its cache row (``rows``, from
+        :meth:`cache_rows`) plus window columns ``<= i``.  The
+        reference's signature takes the cache and the page table
+        instead of their rows."""
+        q, k_new, v_new = self._qkv(x)
+        win_k[:, i] = k_new[:, 0].to(win_k.dtype)
+        win_v[:, i] = v_new[:, 0].to(win_v.dtype)
+        out = _attention_step_window(q, rows[0], rows[1], win_k, win_v, pos,
+                                     i, 1.0 / (self._head_dim ** 0.5))
+        return self._out(out)
+
+
+def copy_cache_rows(caches, src: int, dst: int, length: int):
+    """Copy positions ``[0, length)`` of row ``src`` into row ``dst`` of
+    every leaf of every layer, the rest of ``dst`` untouched: the dense
+    prefix cache's pool-to-slot and slot-to-pool copy.  In the paged
+    layout axis 1 is the page's, so the same copy is a prefix hit's
+    partial tail page (int8 scales included).  On the device, no host
+    read."""
+    for cache in caches:
+        for a in cache.values():
+            a[dst, :length] = a[src, :length]
 
 
 def _paged_rows(pages, table_rows):
@@ -224,6 +270,23 @@ def _attention_chunk(q, k_rows, v_rows, qpos, scale):
     keys = torch.arange(k_rows.shape[1], device=q.device)
     keep = keys[None, None, None, :] <= qpos[:, None, :, None]
     return _masked_softmax_attention(q, k_rows, v_rows, keep, scale)
+
+
+def _attention_step_window(q, k_cache, v_cache, k_win, v_win, pos, i,
+                           scale):
+    """A draft step over [cache row, speculation window]: row s attends
+    cache keys ``< pos[s]`` (the consumed token's own K/V is in window
+    column 0) and window columns ``<= i``."""
+    keys = torch.arange(k_cache.shape[1], device=q.device)
+    keep_c = keys[None, None, None, :] < pos[:, None, None, None]
+    cols = torch.arange(k_win.shape[1], device=q.device)
+    keep_w = (cols <= i)[None, None, None, :].expand(
+        keep_c.shape[0], 1, 1, -1)
+    keep = torch.cat([keep_c, keep_w], dim=-1)
+    vals = torch.cat([v_cache, v_win.to(v_cache.dtype)], dim=1)
+    return _masked_softmax_attention(
+        q, torch.cat([k_cache, k_win.to(k_cache.dtype)], dim=1), vals,
+        keep, scale)
 
 
 def _attention_step_slots(q, k_cache, v_cache, pos, scale):
@@ -374,3 +437,8 @@ class TransformerBlock(HybridBlock):
             self.ln1(x), cache, slot_idx, offset, page_table, paged_kernel)
         x = x + a
         return x + self.ffn(self.ln2(x)), cache
+
+    def forward_step_window(self, x, rows, pos, win_k, win_v, i):
+        x = x + self.attn.forward_step_window(self.ln1(x), rows, pos, win_k,
+                                              win_v, i)
+        return x + self.ffn(self.ln2(x))

@@ -186,7 +186,10 @@ def paged_attention(q, k_pages, v_pages, table_rows, qpos, *,
         raise MXNetError(f"paged_attention: kernel launch failed "
                          f"(cudaError {err})")
     paged_attention.launches += 1
+    if tq > 1:
+        paged_attention.multi_query_launches += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.multi_query_launches = 0

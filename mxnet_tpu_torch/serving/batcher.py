@@ -66,9 +66,13 @@ class BucketLattice:
     def max_batch(self) -> int:
         return self.batch_buckets[-1]
 
-    def prefill_points(self):
-        """Every (batch_bucket, seq_bucket) pair — the warmup set."""
-        return [(b, s) for b in self.batch_buckets for s in self.seq_buckets]
+    def prefill_points(self, max_seq: Optional[int] = None):
+        """Every (batch_bucket, seq_bucket) pair — the warmup set.
+        ``max_seq`` caps the seq side at its bucket (no prefill call runs
+        more than the engine's ``prefill_chunk`` tokens)."""
+        sb = self.seq_buckets if max_seq is None else \
+            tuple(s for s in self.seq_buckets if s <= self.seq(max_seq))
+        return [(b, s) for b in self.batch_buckets for s in sb]
 
 
 class DynamicBatcher:

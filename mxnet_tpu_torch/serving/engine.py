@@ -1,14 +1,23 @@
-"""`InferenceEngine` — the online serving front end, core only
-(counterpart of ``mxnet_tpu/serving/engine.py``).
+"""`InferenceEngine` — the online serving front end (counterpart of
+``mxnet_tpu/serving/engine.py``).
 
 One background scheduler thread owns all device work; callers use
 ``submit()`` (returns an :class:`InferenceFuture`) or ``infer()``.  The
 engine decodes a GPT-2 style LM (``prefill_slots``/``decode_step``) with
-continuous batching over a persistent KV cache: each cycle admits queued
-requests into free slots, prefills them in bucketed batches (every
-prompt padded up to a seq bucket of the lattice, every batch up to a
-batch bucket), then runs one fixed-shape decode step over every slot,
-free ones parked at ``pos = Tmax``.
+continuous batching over a persistent KV cache.  Each cycle admits
+queued requests into free slots (a prefix-cache hit skips the matched
+positions), claims the pages the cycle will write, prefills, then runs
+one fixed-shape decode step over every slot, free ones parked at
+``pos = Tmax`` — or, with ``spec_tokens``, one speculative cycle.
+
+Prefill: a fresh prompt of at most ``prefill_chunk`` tokens takes the
+full path (every prompt padded up to a seq bucket, every batch up to a
+batch bucket; flash attention on the card).  Longer prompts, and the
+suffix behind a prefix hit, prefill in chunks of at most
+``prefill_chunk`` tokens behind the positions already cached, one chunk
+batch per cycle, oldest admission first (the offset path: the paged
+kernel arm launches the paged-attention kernel with ``Tq`` the chunk
+bucket).  A prompt may be as long as ``max_length - max_new_tokens``.
 
 KV layouts: ``kv_layout='dense'`` gives each slot a full (Tmax, H, D)
 row; ``'paged'`` carves the cache into fixed-size pages mapped by
@@ -18,18 +27,30 @@ paged-attention kernel reads pages in place; on the card the engine
 refuses a model whose head dim the kernel is not built for) or
 ``'gather'`` (rows gathered back, the reference arm).
 
-Admission is page-budgeted: a request is admitted only when the pool can
-hold its whole lifetime, ``prompt + max_new_tokens`` positions, and its
-pages are claimed at admission.  The reference claims pages lazily and
-preempts a victim when the pool runs dry; preemption is not in this
-slice, so the port reserves up front and a running request can never
-fault.  A blocked request waits at the front of the queue.
+Paged memory is claimed lazily: admission needs the prompt plus the
+first decode page against a running budget (free pages plus what
+evicting idle prefix entries would free), and pages grow as a slot
+writes.  When the pool runs dry the youngest admission is preempted by
+reference: its progress becomes an evictable prefix entry, and its
+continuation requeues at the front with the same future and resumes by
+prefix hit.  The reference ranks victims by priority class first; the
+port has one class.
 
-Not in this slice: the prefix cache, chunked prefill across cycles (a
-prompt longer than the largest seq bucket is refused), speculation,
-deadlines, overload control and preemption, the watchdog and fault
-sites, KV tiers, migration, meshes, the metrics registry and
-``debug_parity``.  The counters in ``stats()`` are plain integers.
+Prefix cache: the dense layout reserves ``prefix_pool_rows`` rows and
+copies a hit's positions row to row; the paged layout is always on,
+sharing whole pages by refcount and copying a partial tail page.
+
+Speculative decode (``spec_tokens=k``, ``draft_layers``): an early-exit
+drafter proposes k tokens per slot, one verify forward over the
+(S, k + 1) window samples the model's own token at every position, and
+the longest matching draft prefix plus one correction or bonus token is
+accepted — streams are those of plain decode, greedy or sampled.
+
+Not in this slice: deadlines and ``cancel``, priority classes and
+overload control, the watchdog, fault sites and NaN guard, KV tiers,
+migration, meshes, the metrics registry, CUDA graphs and
+``debug_parity``.  The counters in ``stats()`` are plain integers under
+the reference's names.
 """
 from __future__ import annotations
 
@@ -43,17 +64,33 @@ import numpy as np
 import torch
 
 from ..context import resolve_device
+from ..models.transformer import copy_cache_rows
 from ..ops.paged import KERNEL_HEAD_DIMS
 from .batcher import BucketLattice, DynamicBatcher
 from .errors import (EngineStoppedError, InvalidRequestError,
                      QueueFullError, ServingError)
-from .kv_pages import PagePool
+from .kv_pages import PagedPrefixCache, PagePool
 from .kv_slots import SlotAllocator, SlotState
+from .prefix_cache import PrefixCache
 from .sampling import sample_tokens
 
 __all__ = ["InferenceEngine", "InferenceFuture", "Request"]
 
 _log = logging.getLogger(__name__)
+
+_COUNTERS = (
+    "submitted", "rejected", "shed", "admitted", "completed", "failed",
+    "prompt_tokens", "tokens_generated", "padded_tokens",
+    "prefill_batches", "prefill_chunks", "decode_steps",
+    # paged memory: admissions and growths the pool could not cover,
+    # preempted requests and their re-admissions
+    "page_faults", "preemptions", "preempt_resumes",
+    # prefix cache
+    "prefix_hits", "prefix_misses", "prefix_tokens_saved",
+    "prefix_inserts", "prefix_evictions",
+    # speculative decode
+    "spec_cycles", "spec_tokens_proposed", "spec_tokens_accepted",
+    "spec_pages_rewound")
 
 
 class InferenceFuture:
@@ -87,8 +124,8 @@ class InferenceFuture:
 
 class Request:
     __slots__ = ("payload", "prompt_len", "max_new_tokens", "eos_id",
-                 "future", "t_submit", "t_enqueue", "temperature", "top_k",
-                 "top_p", "seed")
+                 "future", "t_submit", "t_enqueue", "t_first", "temperature",
+                 "top_k", "top_p", "seed", "preempted")
 
     def __init__(self, payload, max_new_tokens, eos_id, temperature, top_k,
                  top_p, seed):
@@ -103,6 +140,8 @@ class Request:
         self.future = InferenceFuture()
         self.t_submit = time.monotonic()
         self.t_enqueue = self.t_submit
+        self.t_first = None           # the request's first token, any run
+        self.preempted = 0            # times preempted (slot reclaimed)
 
 
 def _percentiles(xs):
@@ -120,10 +159,15 @@ class InferenceEngine:
     a prefill call takes), ``num_slots`` (decode concurrency, default
     ``max_batch``), ``max_length`` (KV length per slot, default the
     model's), ``batch_buckets``/``seq_buckets`` (the lattice),
-    ``eos_id``, ``default_max_new_tokens``, ``kv_layout``,
-    ``page_size``, ``num_pages`` (default: the dense-equivalent
-    ``num_slots * max_length / page_size``), ``kv_quant`` and
-    ``paged_attention``.  ``device`` is where the engine runs (default:
+    ``eos_id``, ``default_max_new_tokens``, ``prefix_pool_rows`` (dense
+    prefix-cache rows, 0 = off; ignored when paged), ``prefill_chunk``
+    (tokens per prefill call, default the largest seq bucket),
+    ``prefix_min_tokens`` (the shortest prefix worth caching or
+    copying), ``kv_layout``, ``page_size``, ``num_pages`` (default: the
+    dense-equivalent ``num_slots * max_length / page_size``),
+    ``kv_quant``, ``paged_attention``, ``spec_tokens`` (speculation
+    depth k, 0 = off) and ``draft_layers`` (the drafter's blocks, fewer
+    than the model's).  ``device`` is where the engine runs (default:
     the current CUDA device; raises without one): the model's
     parameters must already live there.  The queue holds at most
     ``QUEUE_DEPTH`` requests (beyond it ``submit`` raises
@@ -141,10 +185,14 @@ class InferenceEngine:
                  seq_buckets: Optional[Sequence[int]] = None,
                  eos_id: Optional[int] = None,
                  default_max_new_tokens: int = 16,
+                 prefix_pool_rows: int = 0,
+                 prefill_chunk: Optional[int] = None,
+                 prefix_min_tokens: int = 4,
                  kv_layout: str = "dense", page_size: int = 16,
                  num_pages: Optional[int] = None,
                  kv_quant: Optional[str] = None,
                  paged_attention: Optional[str] = None,
+                 spec_tokens: int = 0, draft_layers: int = 1,
                  device=None):
         if not (hasattr(net, "prefill_slots") and hasattr(net, "decode_step")):
             raise ServingError(f"{type(net).__name__} lacks the serving "
@@ -174,6 +222,17 @@ class InferenceEngine:
                                f"exceeds KV length max_length="
                                f"{self.max_length}")
         self._alloc = SlotAllocator(self.num_slots)
+        self.prefix_pool_rows = int(prefix_pool_rows)
+        if self.prefix_pool_rows < 0:
+            raise ServingError(f"prefix_pool_rows must be >= 0, got "
+                               f"{self.prefix_pool_rows}")
+        self.prefill_chunk = int(prefill_chunk) \
+            if prefill_chunk is not None else self.lattice.max_seq
+        if self.prefill_chunk < 1:
+            raise ServingError(f"prefill_chunk must be >= 1, got "
+                               f"{self.prefill_chunk}")
+        self.prefill_chunk = min(self.prefill_chunk, self.lattice.max_seq)
+        self.prefix_min_tokens = max(1, int(prefix_min_tokens))
 
         if kv_layout not in ("dense", "paged"):
             raise ServingError(f"kv_layout must be 'dense'|'paged', got "
@@ -219,15 +278,52 @@ class InferenceEngine:
                     f"{self.page_size})")
             self._pool = PagePool(self.num_pages, self.page_size)
             # host-authoritative page table: row = slot (+ scratch row),
-            # unassigned entries point at the zero page
+            # unassigned entries point at the zero page; the device copy
+            # is refreshed once a cycle (``_sync_table``)
             self._page_table = np.full(
                 (self.num_slots + 1, self._n_logical), self._pool.scratch,
                 dtype=np.int32)
             self._table_dev = None
+            self._table_stale = True
+            # the paged prefix cache reserves nothing (its entries are
+            # evictable refcounts on the pool), so it is always on
+            self.prefix_pool_rows = 0
+            self._prefix = PagedPrefixCache(
+                self._pool, min_tokens=self.prefix_min_tokens)
         else:
             self.page_size = None
             self.num_pages = 0
             self._pool = None
+            self._prefix = PrefixCache(
+                self.prefix_pool_rows, row_base=self.num_slots + 1,
+                min_tokens=self.prefix_min_tokens) \
+                if self.prefix_pool_rows else None
+        self.spec_tokens = int(spec_tokens)
+        self.draft_layers = int(draft_layers)
+        if self.spec_tokens < 0:
+            raise ServingError(f"spec_tokens must be >= 0, got "
+                               f"{self.spec_tokens}")
+        if self.spec_tokens:
+            if not (hasattr(net, "draft_slots")
+                    and hasattr(net, "verify_slots")):
+                raise ServingError(
+                    f"{type(net).__name__} lacks the speculative decode "
+                    "surface (draft_slots/verify_slots) — set "
+                    "spec_tokens=0 to serve it")
+            if self.spec_tokens + 1 > self.max_length:
+                raise ServingError(
+                    f"spec_tokens={self.spec_tokens} leaves no room for "
+                    f"the verify window in max_length={self.max_length}")
+            n_blocks = len(net.blocks)
+            if not 1 <= self.draft_layers < n_blocks:
+                raise ServingError(
+                    f"draft_layers={self.draft_layers} must be >= 1 and < "
+                    f"the model's layer count ({n_blocks}) — the drafter "
+                    "must be cheaper than the verify forward")
+        # whether every decoding slot got pages for the whole speculation
+        # window this cycle; a shortfall degrades the cycle to plain
+        # decode rather than preempting for an optimization
+        self._spec_pages_ok = True
 
         self._cond = threading.Condition()
         self._batcher = DynamicBatcher(self.QUEUE_DEPTH, cond=self._cond)
@@ -235,11 +331,7 @@ class InferenceEngine:
         self._thread: Optional[threading.Thread] = None
         self._stopping = False
         self._caches = None
-        self._counters = dict.fromkeys(
-            ("submitted", "rejected", "shed", "admitted", "completed",
-             "failed", "prompt_tokens", "tokens_generated",
-             "padded_tokens", "prefill_batches", "decode_steps",
-             "page_waits"), 0)
+        self._counters = dict.fromkeys(_COUNTERS, 0)
         self._counters_lock = threading.Lock()
         self._ttft = []
         self._latency = []
@@ -285,7 +377,9 @@ class InferenceEngine:
                top_k: int = 0, top_p: float = 1.0,
                seed: int = 0) -> InferenceFuture:
         """Enqueue one prompt (1-D ints, or (1, T)); the future's result
-        is the full sequence (prompt + generated) as np.int32.
+        is the full sequence (prompt + generated) as np.int32.  Prompts
+        longer than the largest seq bucket prefill in chunks; prompt +
+        ``max_new_tokens`` must fit ``max_length``.
         ``temperature <= 0`` (the default) is exact greedy argmax;
         otherwise the request samples with its own seeded generator."""
         if not (math.isfinite(float(temperature))
@@ -310,10 +404,6 @@ class InferenceEngine:
             self._reject(InvalidRequestError(
                 f"need a non-empty prompt and max_new_tokens >= 1 (got "
                 f"len={arr.size}, max_new_tokens={mnt})"))
-        if arr.size > self.lattice.max_seq:
-            self._reject(InvalidRequestError(
-                f"prompt len {arr.size} exceeds the largest seq bucket "
-                f"{self.lattice.max_seq} (chunked prefill is not ported)"))
         if arr.size + mnt > self.max_length:
             self._reject(InvalidRequestError(
                 f"prompt len {arr.size} + {mnt} new tokens does not fit "
@@ -350,25 +440,34 @@ class InferenceEngine:
 
     # ---------------------------------------------------------------- warmup
     def warmup(self) -> int:
-        """Run the decode step and every (batch, seq) prefill point of the
-        lattice once on scratch rows, so the first request pays no
-        one-time cost (kernel builds, library handles, allocator growth).
-        Needs an idle engine; returns the number of shapes run."""
+        """Run the decode step, every (batch, seq) point of the full and
+        the chunked prefill lattices (capped at the ``prefill_chunk``
+        bucket) and, with speculation, the draft and the verify window
+        once on scratch rows, so the first request pays
+        no one-time cost (kernel builds, library handles, allocator
+        growth).  Needs an idle engine; returns the number of shapes
+        run."""
         with self._step_lock:
             if self._alloc.active_count:
                 raise ServingError("warmup needs an idle engine")
             s1 = self.num_slots + 1
             scratch = self._alloc.scratch
-            self._run_decode(np.zeros((s1,), np.int32),
-                             np.full((s1,), self.max_length, np.int32),
-                             self._samp_rows([], s1))
+            self._ensure_caches()
+            self._sync_table()
+            idle_tok = np.zeros((s1,), np.int32)
+            idle_pos = np.full((s1,), self.max_length, np.int32)
+            self._run_decode(idle_tok, idle_pos, self._samp_rows([], s1))
             n = 1
-            for bb, tb in self.lattice.prefill_points():
-                self._run_prefill(np.zeros((bb, tb), np.int32),
-                                  np.ones((bb,), np.int32),
-                                  np.full((bb,), scratch, np.int32),
-                                  self._samp_rows([], bb))
-                n += 1
+            if self.spec_tokens:
+                self._run_spec(idle_tok, idle_pos, self._samp_rows([], s1))
+                n += 2
+            for bb, tb in self.lattice.prefill_points(self.prefill_chunk):
+                args = (np.zeros((bb, tb), np.int32), np.ones((bb,), np.int32),
+                        np.full((bb,), scratch, np.int32),
+                        self._samp_rows([], bb))
+                self._run_prefill(*args)
+                self._run_prefill(*args, off=np.zeros((bb,), np.int32))
+                n += 2
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             return n
@@ -377,6 +476,7 @@ class InferenceEngine:
     def stats(self) -> dict:
         with self._counters_lock:
             c = dict(self._counters)
+        pref = c["prefix_hits"] + c["prefix_misses"]
         return {
             "counters": c,
             "latency": {"ttft": _percentiles(list(self._ttft)),
@@ -387,13 +487,25 @@ class InferenceEngine:
                        "num_slots": self.num_slots,
                        "batch_buckets": list(self.lattice.batch_buckets),
                        "seq_buckets": list(self.lattice.seq_buckets),
+                       "prefix_entries": len(self._prefix)
+                       if self._prefix is not None else 0,
                        "running": self._thread is not None},
             "slots": {"kv_layout": self.kv_layout,
                       "active_highwater": self._alloc.active_highwater,
                       "page_size": self.page_size,
                       "pages_total": self.num_pages,
                       "pages_free": self._pool.free_count
+                      if self._pool is not None else 0,
+                      "pages_shared": self._pool.shared_count
                       if self._pool is not None else 0},
+            # accepted / proposed drafts (the bonus token each cycle
+            # banks is not proposed, so a useless drafter reads 0.0)
+            "rates": {
+                "prefix_hit_rate": round(c["prefix_hits"] / pref, 4)
+                if pref else None,
+                "spec_acceptance_rate": round(
+                    c["spec_tokens_accepted"] / c["spec_tokens_proposed"],
+                    4) if c["spec_tokens_proposed"] else None},
             "quantized_kv": {"kv_quant": self.kv_quant,
                              "paged_attention": self.paged_attention},
         }
@@ -406,15 +518,28 @@ class InferenceEngine:
                     self.num_pages + 1, self.page_size,
                     kv_quant=self.kv_quant)
             else:
+                # slots + scratch + prefix pool rows
                 self._caches = self.net.init_slot_cache(
-                    self.num_slots + 1, self.max_length)
+                    self.num_slots + 1 + self.prefix_pool_rows,
+                    self.max_length)
+
+    def _sync_table(self):
+        """Upload the page table if it changed: once a cycle, after every
+        claim and before the first launch.  Changes made later in the
+        cycle (a release at the first or last token, a speculation
+        rewind) only drop pages from rows that no later launch of the
+        cycle writes through: a released row is parked at ``Tmax`` and a
+        rewound one writes at positions its kept pages cover, and no
+        page is claimed again before the next cycle's upload."""
+        if self._paged and self._table_stale:
+            # a snapshot: on the CPU ``.to`` would return a view that
+            # follows every later host edit, which the card's copy does not
+            self._table_dev = self._dev(self._page_table.copy())
+            self._table_stale = False
 
     def _paged_kw(self):
         if not self._paged:
             return {}
-        if self._table_dev is None:
-            self._table_dev = torch.from_numpy(self._page_table).to(
-                self.device)
         return {"page_table": self._table_dev,
                 "paged_kernel": self._paged_kernel}
 
@@ -442,18 +567,45 @@ class InferenceEngine:
                             self._dev(topp), seeds, positions)
         return tok.cpu().numpy()
 
-    def _run_prefill(self, toks, lens, sidx, samp):
+    def _run_prefill(self, toks, lens, sidx, samp, off=None):
+        """One full (``off=None``) or chunked prefill call; the token
+        sampled at each row's last real position."""
         self._ensure_caches()
         logits, self._caches = self.net.prefill_slots(
             self._dev(toks), self._dev(lens), self._caches, self._dev(sidx),
+            offset=None if off is None else self._dev(off),
             **self._paged_kw())
-        return self._sample(logits, samp, lens - 1)
+        return self._sample(logits, samp,
+                            lens - 1 if off is None else off + lens - 1)
 
     def _run_decode(self, tok, pos, samp):
         self._ensure_caches()
         logits, self._caches = self.net.decode_step(
             self._dev(tok), self._caches, self._dev(pos), **self._paged_kw())
         return self._sample(logits, samp, pos)
+
+    def _run_spec(self, tok, pos, samp):
+        """Draft k tokens per row (read-only on the caches), then verify
+        the (S, k + 1) window [tok, drafts]: its K/V are written and
+        every window column is sampled at its own position ``pos + i``,
+        the (request seed, position) the plain engine would use there.
+        Returns (drafts (S, k), verify tokens (S, k + 1)) on the host."""
+        self._ensure_caches()
+        k = self.spec_tokens
+        temp, topk, topp, seeds = samp
+        tok_d, pos_d = self._dev(tok), self._dev(pos)
+        draft = self.net.draft_slots(
+            tok_d, self._caches, pos_d, k, self.draft_layers,
+            self._dev(temp), self._dev(topk), self._dev(topp), seeds,
+            page_table=self._table_dev if self._paged else None)
+        logits, self._caches = self.net.verify_slots(
+            torch.cat([tok_d[:, None], draft], dim=1), self._caches, pos_d,
+            **self._paged_kw())
+        s, w, v = logits.shape
+        fpos = (pos[:, None] + np.arange(w, dtype=np.int64)).reshape(-1)
+        vt = self._sample(logits.reshape(s * w, v),
+                          tuple(np.repeat(a, w) for a in samp), fpos)
+        return draft.cpu().numpy(), vt.reshape(s, w)
 
     # ------------------------------------------------------------- scheduler
     def _loop(self):
@@ -474,6 +626,10 @@ class InferenceEngine:
                     self._fail_all(e)
 
     def _cycle(self):
+        """Admit; claim every page the cycle writes (prefill chunks, the
+        first decode page of a prompt finishing now, decode growth and
+        the speculation window); upload the table once; prefill; then one
+        decode step or one speculative cycle."""
         free = self._alloc.free_count
         if free and not self._batcher.empty():
             # only an idle engine waits for a batch to fill: with
@@ -482,9 +638,23 @@ class InferenceEngine:
                 else 0
             self._admit(self._batcher.get_batch(
                 min(free, self.lattice.max_batch), wait_us))
-        self._prefill_cycle()
+        full, chunked, finishing = self._plan_prefill()
+        if self._paged:
+            self._grow_pages(finishing)
+        self._sync_table()
+        for tb in sorted(full):
+            rows = [(s, st) for s, st in full[tb] if s in self._alloc]
+            mb = self.lattice.max_batch
+            for i in range(0, len(rows), mb):
+                self._prefill_full(rows[i:i + mb], tb)
+        chunked = [(s, st) for s, st in chunked if s in self._alloc]
+        if chunked:
+            self._prefill_chunk_batch(chunked)
         if any(not st.prefilling for _s, st in self._alloc.items()):
-            self._decode_step()
+            if self.spec_tokens and self._spec_pages_ok:
+                self._spec_step()
+            else:
+                self._decode_step()
 
     def _fail(self, req: Request, exc: BaseException):
         req.future.set_exception(exc)
@@ -492,8 +662,9 @@ class InferenceEngine:
 
     def _fail_all(self, exc: BaseException):
         """Fail every queued and in-flight request.  If any was in
-        flight, drop the device caches too: a failed step may have left
-        them half-written."""
+        flight, drop the device caches too (a failed step may have left
+        them half-written), and with them every prefix entry and page
+        claim."""
         for req in self._batcher.drain():
             self._fail(req, exc)
         inflight = self._alloc.items()
@@ -502,55 +673,333 @@ class InferenceEngine:
             self._fail(st.request, exc)
         if inflight:
             self._caches = None
+            if self._prefix is not None:
+                self._prefix.reset()
+            if self._paged:
+                self._pool.reset()
+                self._page_table[:] = self._pool.scratch
+                self._table_stale = True
 
     def _release(self, slot: int):
+        """End a lease: drop its prefix read pin and, paged, its claim
+        on every page it mapped (pages an entry or another slot still
+        reads survive); returns the page ids that freed."""
         st = self._alloc.free(slot)
+        if st.pinned is not None:
+            self._prefix.unpin(st.pinned)
+            st.pinned = None
+        freed = []
         if self._paged:
+            freed = self._pool.release(st.pages)
+            st.pages = []
+            self._page_table[slot, :] = self._pool.scratch
+            self._table_stale = True
+        return freed
+
+    # ------------------------------------------------------------ admission
+    def _admit(self, reqs):
+        """Lease a slot per request; a prefix hit fills its matched
+        positions now, so prefill only sees the suffix.  Paged: admit
+        while a running budget of available pages covers the prompt and
+        the first decode page; a blocked request and everything behind
+        it go back to the front of the queue, in order."""
+        now = time.monotonic()
+        budget = self._pages_available() if self._paged else 0
+        for i, req in enumerate(reqs):
+            need = self._page_need(req) if self._paged else 0
+            if self._paged and budget < need:
+                self._count("page_faults")
+                for r in reversed(reqs[i:]):
+                    self._batcher.requeue(r)
+                break
+            budget -= need
+            st = SlotState(req, req.prompt_len, req.max_new_tokens,
+                           tokens=req.payload)
+            st.t_schedule = now
+            slot = self._alloc.alloc(st)
+            self._count("admitted")
+            self._count("prompt_tokens", req.prompt_len)
+            if req.preempted:
+                self._count("preempt_resumes")
+            if self._prefix is not None and req.prompt_len > 1:
+                self._prefix_admit(st, slot)
+
+    def _pages_available(self) -> int:
+        """Free pages plus what evicting every idle prefix entry would
+        free: a cached prefix never blocks live work."""
+        return self._pool.free_count + self._prefix.evictable_pages()
+
+    def _page_need(self, req: Request) -> int:
+        """The prompt plus the first decode page (a hit claims fewer)."""
+        return self._pool.pages_for(min(req.prompt_len + 1,
+                                        self.max_length))
+
+    # --------------------------------------------------------- prefix cache
+    def _prefix_admit(self, st: SlotState, slot: int):
+        """Longest-prefix lookup, then the dense row copy or the paged
+        page sharing.  At least one prompt token is left to prefill: its
+        logits give the first token."""
+        hit = self._prefix.lookup(st.request.payload)
+        if hit is None:
+            self._count("prefix_misses")
+            return
+        match, entry = hit
+        match = min(match, st.prompt_len - 1)
+        if match < self.prefix_min_tokens:
+            self._count("prefix_misses")
+            return
+        if self._paged:
+            self._prefix_admit_paged(st, slot, entry, match)
+            return
+        self._prefix.pin(entry)
+        self._ensure_caches()
+        copy_cache_rows(self._caches, entry.row, slot, match)
+        st.filled = match
+        st.pinned = entry             # read-pinned until prefill completes
+        self._count("prefix_hits")
+        self._count("prefix_tokens_saved", match)
+
+    def _prefix_admit_paged(self, st, slot, entry, match):
+        """Share every whole matched page by refcount (read-only to this
+        slot: its suffix starts past them) and copy a partial tail page
+        into a fresh page of its own, int8 scales included."""
+        ps = self.page_size
+        match = min(match, entry.length)
+        n_full = match // ps
+        for i in range(n_full):
+            pid = entry.pages[i]
+            self._pool.ref(pid)
+            st.pages.append(pid)
+            self._page_table[slot, i] = pid
+        self._table_stale = True
+        filled = n_full * ps
+        rem = match - filled
+        if rem:
+            self._prefix.pin(entry)   # the tail's source must survive
+            newp = self._claim_pages(1)
+            if newp is not None:
+                self._ensure_caches()
+                copy_cache_rows(self._caches, entry.pages[n_full], newp[0],
+                                rem)
+                st.pages.append(newp[0])
+                self._page_table[slot, n_full] = newp[0]
+                filled += rem
+                st.pinned = entry
+            else:
+                self._count("page_faults")
+                self._prefix.unpin(entry)
+        if filled < self.prefix_min_tokens:
+            # nothing usable shared: a plain miss
             self._pool.release(st.pages)
             st.pages = []
             self._page_table[slot, :] = self._pool.scratch
-            self._table_dev = None
+            self._count("prefix_misses")
+            return
+        st.filled = filled
+        self._count("prefix_hits")
+        self._count("prefix_tokens_saved", filled)
 
-    def _admit(self, reqs):
-        """Lease a slot per live request.  Paged: admit only while the
-        pool covers the request's whole lifetime, claiming its pages now;
-        a blocked request and everything behind it go back to the front
-        of the queue, in order."""
-        for i, req in enumerate(reqs):
-            pages = None
-            if self._paged:
-                need = self._pool.pages_for(
-                    min(req.prompt_len + req.max_new_tokens,
-                        self.max_length))
-                pages = self._pool.alloc(need)
-                if pages is None:
-                    self._count("page_waits")
-                    for r in reversed(reqs[i:]):
-                        self._batcher.requeue(r)
-                    break
-            st = SlotState(req, req.prompt_len, req.max_new_tokens,
-                           tokens=req.payload)
-            slot = self._alloc.alloc(st)
-            if pages is not None:
-                st.pages = pages
-                self._page_table[slot, :len(pages)] = pages
-                self._table_dev = None
-            self._count("admitted")
-            self._count("prompt_tokens", req.prompt_len)
+    def _prefix_insert(self, st: SlotState, slot: int):
+        """A prefill just completed: cache the whole prompt."""
+        if self._prefix is None or st.prompt_len < self.prefix_min_tokens:
+            return
+        self._pool_insert(st.tokens, slot, st.prompt_len, st)
 
-    def _prefill_cycle(self):
-        """Full-prompt prefill of every admitted slot, grouped by seq
-        bucket, at most ``lattice.max_batch`` rows per call."""
-        groups = {}
+    def _pool_insert(self, tokens, slot, length, st):
+        """Dense: reserve a pool row (evicting the least recently used
+        idle entry if none is free) and copy the slot's K/V ``[0,
+        length)`` into it.  Paged: the entry takes refcounts on the
+        slot's pages covering ``[0, length)``; a partial last page is
+        shared too, since the donor writes only positions past
+        ``length`` in it, which no reader reads."""
+        if self._paged:
+            npages = self._pool.pages_for(length)
+            if npages > len(st.pages):
+                return
+            if self._prefix.insert(tokens, st.pages[:npages], length):
+                self._count("prefix_inserts")
+            return
+        ev0 = self._prefix.evictions
+        entry = self._prefix.insert(tokens)
+        self._count("prefix_evictions", self._prefix.evictions - ev0)
+        if entry is None:
+            return
+        copy_cache_rows(self._caches, slot, entry.row, length)
+        self._count("prefix_inserts")
+
+    # ---------------------------------------------------------- paged pages
+    def _evict(self, k: int) -> int:
+        """The pool's reclaim hook: evict idle prefix entries, least
+        recently used first, until ``k`` pages freed."""
+        ev0 = self._prefix.evictions
+        freed = self._prefix.evict_pages(k)
+        self._count("prefix_evictions", self._prefix.evictions - ev0)
+        return freed
+
+    def _claim_pages(self, n: int, reclaim: bool = True):
+        """Allocate ``n`` pages, evicting idle prefix entries if the free
+        list is short; ``reclaim=False`` (the speculation window's soft
+        claim) takes the free list only."""
+        return self._pool.alloc(n, self._evict if reclaim else None)
+
+    def _ensure_pages(self, slot, st, upto) -> bool:
+        """Grow ``slot``'s pages to cover positions ``[0, upto)``.  When
+        the pool runs dry, idle prefix entries go first, then the
+        youngest other slot is preempted by reference.  False when no
+        victim is left: the caller preempts the slot itself."""
+        need = self._pool.pages_for(upto) - len(st.pages)
+        if need <= 0:
+            return True
+        pages = self._claim_pages(need)
+        while pages is None:
+            self._count("page_faults")
+            victim = self._page_victim(slot)
+            if victim is None:
+                return False
+            self._preempt(*victim)
+            pages = self._claim_pages(need)
+        base = len(st.pages)
+        st.pages.extend(pages)
+        self._page_table[slot, base:base + need] = pages
+        self._table_stale = True
+        return True
+
+    def _page_victim(self, exclude):
+        """The youngest admission holding pages, other than ``exclude``:
+        the oldest work keeps running, which guarantees progress (every
+        request fits the pool alone).  One priority class: the
+        reference ranks by class first."""
+        cands = [(slot, st) for slot, st in self._alloc.items()
+                 if slot != exclude and st.pages]
+        if not cands:
+            return None
+        # stable: among one admission batch the highest slot goes first
+        cands.sort(key=lambda it: it[1].t_schedule)
+        return cands[-1]
+
+    def _grow_pages(self, finishing):
+        """Before the cycle's launches, oldest admission first: every
+        decoding slot, and every slot whose prefill ends this cycle,
+        gets the page its next decode write needs (position ``pos``); a
+        slot that cannot get one even after preempting others is
+        preempted itself.  With speculation each also wants the window
+        ``[pos, pos + k]``, as a soft claim from the free list: a
+        shortfall never preempts, it degrades the cycle to plain decode,
+        and claims past the accepted tokens are rewound after the
+        verify."""
+        self._spec_pages_ok = True
+        ending = {slot for slot, _st in finishing}
+        rows = [(slot, st) for slot, st in self._alloc.items()
+                if not st.prefilling or slot in ending]
+        rows.sort(key=lambda it: it[1].t_schedule)
+        for slot, st in rows:
+            if slot not in self._alloc:
+                continue               # preempted as a victim already
+            if not self._ensure_pages(slot, st, st.pos + 1):
+                self._preempt(slot, st)
+                continue
+            if not self.spec_tokens:
+                continue
+            upto = min(st.pos + 1 + self.spec_tokens, self.max_length)
+            need = self._pool.pages_for(upto) - len(st.pages)
+            if need <= 0:
+                continue
+            pages = self._claim_pages(need, reclaim=False)
+            if pages is None:
+                self._spec_pages_ok = False
+                continue
+            base = len(st.pages)
+            st.pages.extend(pages)
+            self._page_table[slot, base:base + need] = pages
+            self._table_stale = True
+
+    def _scrub_pages(self, freed):
+        """Zero freed pages in every layer (int8 scales too), so a page
+        crossing tenants carries nothing of the last one."""
+        if not freed or self._caches is None:
+            return
+        idx = self._dev(np.asarray(freed, np.int64))
+        for cache in self._caches:
+            for a in cache.values():
+                a[idx] = 0
+
+    def _rewind_pages(self, slot, st, scrub=True):
+        """Release pages claimed past the slot's next write position
+        (``st.pos``): the speculation window's claims beyond the
+        accepted tokens.  After a verify wrote them, freed pages are
+        scrubbed; a degraded cycle's claims were never written."""
+        keep = self._pool.pages_for(st.pos + 1)
+        if len(st.pages) <= keep:
+            return
+        tail = st.pages[keep:]
+        del st.pages[keep:]
+        self._page_table[slot, keep:keep + len(tail)] = self._pool.scratch
+        self._table_stale = True
+        freed = self._pool.release(tail)
+        if freed:
+            if scrub:
+                self._scrub_pages(freed)
+            self._count("spec_pages_rewound", len(freed))
+
+    def _preempt(self, slot: int, st: SlotState):
+        """Park a slot by reference: its progress (a decoding slot's K/V
+        ``[0, pos)``, a prefilling one's ``[0, filled)``) becomes an
+        evictable prefix entry, and its continuation — the prompt plus
+        the tokens so far, the same future — requeues at the front and
+        resumes by prefix hit."""
+        req = st.request
+        seq = np.concatenate([req.payload, np.asarray(st.generated,
+                                                      np.int32)]) \
+            if st.generated else req.payload
+        park = st.filled if st.prefilling else st.pos
+        if self._prefix is not None and park >= self.prefix_min_tokens:
+            self._pool_insert(seq[:park], slot, park, st)
+        self._release(slot)
+        cont = Request(seq, st.max_new_tokens - len(st.generated),
+                       req.eos_id, req.temperature, req.top_k, req.top_p,
+                       req.seed)
+        cont.future = req.future
+        cont.t_submit = req.t_submit
+        cont.t_first = req.t_first
+        cont.preempted = req.preempted + 1
+        self._batcher.requeue(cont)
+        self._count("preemptions")
+        # the continuation's completion counts only its own tokens
+        self._count("tokens_generated", len(st.generated))
+
+    # -------------------------------------------------------------- prefill
+    def _plan_prefill(self):
+        """Claim the pages of every prefilling slot's next chunk, then
+        group: fresh prompts of at most ``prefill_chunk`` tokens take the
+        full path by seq bucket; the rest (long prompts, suffixes behind
+        a hit) at most one chunk batch, oldest admission first.  Returns
+        (full groups, chunk rows, the rows whose prefill ends this
+        cycle)."""
+        ready = []
         for slot, st in self._alloc.items():
-            if st.prefilling:
-                groups.setdefault(self.lattice.seq(st.prompt_len),
-                                  []).append((slot, st))
-        mb = self.lattice.max_batch
-        for tb in sorted(groups):
-            rows = groups[tb]
-            for i in range(0, len(rows), mb):
-                self._prefill_full(rows[i:i + mb], tb)
+            if slot not in self._alloc or not st.prefilling:
+                continue
+            if self._paged:
+                take = min(st.prompt_len - st.filled, self.prefill_chunk)
+                if not self._ensure_pages(slot, st, st.filled + take):
+                    self._preempt(slot, st)
+                    continue
+            ready.append((slot, st))
+        full, chunked = {}, []
+        for slot, st in ready:
+            if slot not in self._alloc:
+                continue               # preempted as a later slot's victim
+            if st.filled == 0 and st.prompt_len <= self.prefill_chunk:
+                full.setdefault(self.lattice.seq(st.prompt_len),
+                                []).append((slot, st))
+            else:
+                chunked.append((slot, st))
+        chunked.sort(key=lambda it: it[1].t_schedule)
+        chunked = chunked[:self.lattice.max_batch]
+        finishing = [r for rows in full.values() for r in rows] + [
+            (slot, st) for slot, st in chunked
+            if st.prompt_len - st.filled <= self.prefill_chunk]
+        return full, chunked, finishing
 
     def _prefill_full(self, rows, tb):
         bb = self.lattice.batch(len(rows))
@@ -568,13 +1017,55 @@ class InferenceEngine:
             toks, lens, sidx,
             self._samp_rows([st.request for _s, st in rows], bb))
         for i, (slot, st) in enumerate(rows):
-            st.t_first = time.monotonic()
-            st.advance(int(first[i]))
-            self._finish_if_done(slot, st)
+            st.filled = st.prompt_len
+            self._first_token(slot, st, int(first[i]))
 
-    def _decode_step(self):
-        """One fixed-shape step over all S+1 rows; rows not decoding
-        (free slots, the scratch row) park at pos = Tmax."""
+    def _prefill_chunk_batch(self, rows):
+        """One offset prefill over up to ``max_batch`` rows: row i writes
+        its next ``min(remaining, prefill_chunk)`` prompt tokens behind
+        its populated ``[0, filled)``."""
+        take = [min(st.prompt_len - st.filled, self.prefill_chunk)
+                for _s, st in rows]
+        tb = self.lattice.seq(max(take))
+        bb = self.lattice.batch(len(rows))
+        toks = np.zeros((bb, tb), np.int32)
+        lens = np.ones((bb,), np.int32)
+        off = np.zeros((bb,), np.int32)
+        sidx = np.full((bb,), self._alloc.scratch, np.int32)
+        for i, (slot, st) in enumerate(rows):
+            toks[i, :take[i]] = st.tokens[st.filled:st.filled + take[i]]
+            lens[i] = take[i]
+            off[i] = st.filled
+            sidx[i] = slot
+        self._count("padded_tokens", bb * tb - sum(take))
+        self._count("prefill_chunks")
+        first = self._run_prefill(
+            toks, lens, sidx,
+            self._samp_rows([st.request for _s, st in rows], bb), off=off)
+        for i, (slot, st) in enumerate(rows):
+            st.filled += take[i]
+            if st.filled == st.prompt_len:
+                self._first_token(slot, st, int(first[i]))
+
+    def _first_token(self, slot: int, st: SlotState, token: int):
+        """A prefill completed: release the read pin on its source
+        entry, donate the prompt to the prefix cache, enter decode."""
+        st.t_first = time.monotonic()
+        if st.request.t_first is None:
+            st.request.t_first = st.t_first
+        if st.pinned is not None:
+            self._prefix.unpin(st.pinned)
+            st.pinned = None
+        self._prefix_insert(st, slot)
+        st.advance(token)
+        self._finish_if_done(slot, st)
+
+    # --------------------------------------------------------------- decode
+    def _decode_rows(self):
+        """The fixed-shape (S+1,) tokens, positions and sampling rows of
+        a decode step, and the riding (slot, state) pairs.  Rows not
+        decoding (free slots, the scratch row, slots mid-prefill) park
+        at ``pos = Tmax``, so their writes land in the trash target."""
         s1 = self.num_slots + 1
         tok = np.zeros((s1,), np.int32)
         pos = np.full((s1,), self.max_length, np.int32)
@@ -587,11 +1078,56 @@ class InferenceEngine:
             pos[slot] = st.pos
             reqs[slot] = st.request
             riders.append((slot, st))
+        return tok, pos, self._samp_rows(reqs, s1), riders
+
+    def _decode_step(self):
+        tok, pos, samp, riders = self._decode_rows()
+        if self._paged and self.spec_tokens:
+            # a plain cycle returns the soft window claims it will not use
+            for slot, st in riders:
+                self._rewind_pages(slot, st, scrub=False)
         self._count("decode_steps")
-        nxt = self._run_decode(tok, pos, self._samp_rows(reqs, s1))
+        nxt = self._run_decode(tok, pos, samp)
         for slot, st in riders:
             st.advance(int(nxt[slot]))
             self._finish_if_done(slot, st)
+
+    def _spec_step(self):
+        """One speculative cycle: draft, verify, then per slot accept the
+        verify tokens while the drafts match them — the longest matching
+        draft prefix plus one correction or bonus token, cut at the
+        budget and at eos — so every accepted token is the one plain
+        decode would give.  Rejected tokens rewind by not advancing; in
+        the paged layout pages claimed past the accepted ones go back to
+        the pool."""
+        k = self.spec_tokens
+        tok, pos, samp, riders = self._decode_rows()
+        if all(st.remaining <= 1 for _s, st in riders):
+            # every rider needs one more token: a window is overhead
+            self._decode_step()
+            return
+        draft, vt = self._run_spec(tok, pos, samp)
+        self._count("spec_cycles")
+        n_prop = n_acc = 0
+        for slot, st in riders:
+            eos = st.request.eos_id
+            n_prop += min(k, st.remaining)
+            accepted = []
+            for i in range(k + 1):
+                if st.remaining - len(accepted) <= 0:
+                    break
+                t = int(vt[slot, i])
+                accepted.append(t)
+                matched = i < k and int(draft[slot, i]) == t
+                n_acc += matched
+                if (eos is not None and t == eos) or not matched:
+                    break
+            st.advance_many(accepted)
+            if self._paged:
+                self._rewind_pages(slot, st)
+            self._finish_if_done(slot, st)
+        self._count("spec_tokens_proposed", n_prop)
+        self._count("spec_tokens_accepted", n_acc)
 
     def _finish_if_done(self, slot: int, st: SlotState):
         if st.done or (st.request.eos_id is not None
@@ -602,7 +1138,7 @@ class InferenceEngine:
     def _complete(self, st: SlotState):
         req = st.request
         now = time.monotonic()
-        self._ttft.append(st.t_first - req.t_submit)
+        self._ttft.append(req.t_first - req.t_submit)
         self._latency.append(now - req.t_submit)
         self._count("completed")
         self._count("tokens_generated", len(st.generated))

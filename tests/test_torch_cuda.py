@@ -571,3 +571,109 @@ def test_remat_launch_counts_and_gradients_on_card(dev):
         for a, r in zip(grads, grads0):
             assert _maxabs(a, r) <= 1e-6 * max(float(r.abs().max()), 1e-30)
         assert torch.equal(state, state0)
+
+
+def _engine_shape_case(dev, shape, seed):
+    """B4's inputs at one of the engine's multi-query shapes, on the
+    model's pool layout (real pages, the zero page, the trash page):
+    ``chunk`` is a chunk batch of 8 rows x 256 queries whose tables
+    share a 32-page (512-token) prefix, half of them at the suffix right
+    behind it; ``verify`` is the window of 8 slots x 5 queries plus the
+    parked scratch row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, d, ps, npt, shared = 12, 64, 16, 64, 32
+    b, tq = (8, 256) if shape == "chunk" else (9, 5)
+    n_real = shared + b * (npt - shared)
+    perm = torch.randperm(n_real, generator=g, device=dev).to(torch.int32)
+    table = torch.empty((b, npt), dtype=torch.int32, device=dev)
+    table[:, :shared] = perm[:shared]
+    table[:, shared:] = perm[shared:].reshape(b, npt - shared)
+    hi = npt * ps - tq
+    start = torch.randint(0, hi + 1, (b,), generator=g, device=dev)
+    if shape == "chunk":
+        start[::2] = shared * ps
+    else:
+        table[-1] = n_real                       # parked on the zero page
+        start[-1] = npt * ps
+    qpos = (start[:, None] + torch.arange(tq, device=dev)).to(torch.int32)
+    kf = torch.randn((n_real + 2, ps, h, d), generator=g, device=dev)
+    vf = torch.randn((n_real + 2, ps, h, d), generator=g, device=dev)
+    kf[n_real] = 0
+    vf[n_real] = 0
+    q = torch.randn((b, tq, h, d), generator=g, device=dev)
+    return q, kf, vf, table, qpos.contiguous()
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+@pytest.mark.parametrize("shape", ["chunk", "verify"])
+def test_paged_kernel_at_engine_chunk_and_verify_shapes(dev, kind, shape):
+    """B4 with Tq = 256 (the chunk bucket; tables sharing prefix pages)
+    and Tq = 5 (a verify window of k = 4): within tolerance of its plain
+    version, counted as a multi-query launch, and bit-identical on a
+    second launch."""
+    q, kf, vf, table, qpos = _engine_shape_case(dev, shape, 7)
+    ks = vs = None
+    if kind == "int8":
+        kp, ks = paged.kv_quantize(kf)
+        vp, vs = paged.kv_quantize(vf)
+    else:
+        kp, vp = kf, vf
+    n0 = paged.paged_attention.multi_query_launches
+    out = paged.paged_attention(q, kp, vp, table, qpos, k_scale=ks,
+                                v_scale=vs)
+    torch.cuda.synchronize()
+    assert paged.paged_attention.multi_query_launches == n0 + 1
+    ref = paged._paged_plain(q, kp, vp, table, qpos, ks, vs, 64 ** -0.5)
+    assert _maxabs(out, ref) <= TOL[torch.float32]
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(out, paged.paged_attention(q, kp, vp, table, qpos,
+                                                  k_scale=ks, v_scale=vs))
+
+
+def test_engine_kernel_arm_never_takes_the_plain_or_gather_path(
+        dev, monkeypatch):
+    """Chunked prefill, prefix hits, page pressure with preemption and
+    speculative verify under ``paged_attention='kernel'`` read pages
+    through B4 only: with the plain version and the gather arm's
+    attentions made to raise, the streams equal the gather arm's, and
+    B4 ran multi-query launches."""
+    from mxnet_tpu_torch.models import transformer
+    from mxnet_tpu_torch.serving import InferenceEngine
+    net = _small_gpt2(3)
+    rs = onp.random.RandomState(1)
+    shared = rs.randint(0, 256, (200,))
+    # the second family prompt arrives after the first completed: a hit
+    waves = [[rs.randint(0, 256, (n,)).astype("int32") for n in (300, 400)]]
+    waves += [[onp.concatenate([shared, rs.randint(0, 256, (n,))])
+               .astype("int32")] for n in (20, 40)]
+    configs = [dict(prefill_chunk=128),
+               dict(num_pages=40, spec_tokens=2)]
+
+    def run(arm, kw):
+        eng = InferenceEngine(net, kv_layout="paged", paged_attention=arm,
+                              num_slots=4, max_batch=4, page_size=16,
+                              seq_buckets=(32, 64, 128), **kw)
+        eng.warmup()
+        outs = []
+        with eng:
+            for wave in waves:
+                futs = [eng.submit(p, max_new_tokens=24) for p in wave]
+                outs += [f.result(timeout=300) for f in futs]
+        return outs, eng.stats()["counters"]
+
+    want = [run("gather", kw)[0] for kw in configs]
+
+    def boom(*_a, **_k):
+        raise AssertionError("the kernel arm took a plain/gather path")
+    monkeypatch.setattr(paged, "_paged_plain", boom)
+    monkeypatch.setattr(transformer, "_attention_chunk", boom)
+    monkeypatch.setattr(transformer, "_attention_step_slots", boom)
+    for kw, ref in zip(configs, want):
+        n0 = paged.paged_attention.multi_query_launches
+        outs, c = run("kernel", kw)
+        assert paged.paged_attention.multi_query_launches > n0
+        for a, b in zip(outs, ref):
+            onp.testing.assert_array_equal(a, b)
+        assert c["prefill_chunks"] > 0 and c["prefix_hits"] > 0
+        if "spec_tokens" in kw:
+            assert c["spec_cycles"] > 0 and c["preemptions"] > 0

@@ -208,17 +208,25 @@ def test_sampled_stream_depends_only_on_seed(setup):
 
 def test_page_budget_holds_requests_until_pages_free(setup):
     """A pool of 12 pages (one worst-case request, Tmax / 8) against four
-    requests whose lifetimes need 2 + 3 + 4 + 5 pages: the last waits
-    at the front of the queue (counted in page_waits) and is served,
-    token-identical, once finished requests return their pages."""
+    requests whose lifetimes need 2 + 3 + 4 + 5 pages.  Admission claims
+    only prompt + 1 position (1 + 2 + 3 + 4 pages), so all four are
+    admitted at once; when decode growth runs the pool dry the youngest
+    slot is preempted by reference and requeued, and every stream stays
+    token-identical (as in the reference's engine, the pool is too small
+    for the parked prefix to survive to the resume).  Afterwards only
+    prefix entries hold pages, all of them evictable."""
     _jn, tn, prompts, refs = setup
     eng = _engine(tn, kv_layout="paged", num_pages=12)
     outs = _serve(eng, prompts)
     for r, o in zip(refs, outs):
         onp.testing.assert_array_equal(o, r)
     s = eng.stats()
-    assert s["counters"]["page_waits"] >= 1
-    assert s["slots"]["pages_free"] == 12
+    c = s["counters"]
+    assert s["slots"]["active_highwater"] == 4
+    assert c["page_faults"] >= 1
+    assert c["preemptions"] >= 1 and c["preempt_resumes"] >= 1
+    assert c["tokens_generated"] == NEW * len(prompts)
+    assert s["slots"]["pages_free"] + eng._prefix.evictable_pages() == 12
 
 
 def test_queue_full_and_stop_without_start(setup):
@@ -240,14 +248,25 @@ def test_queue_full_and_stop_without_start(setup):
 
 
 def test_submit_rejects_what_it_cannot_serve(setup):
+    """A prompt over the largest seq bucket (32) is served in chunks, up
+    to ``max_length - max_new_tokens``; past that, or with a bad
+    sampling parameter, submit refuses."""
     _jn, tn, _prompts, _refs = setup
     eng = _engine(tn)
     with pytest.raises(InvalidRequestError):
-        eng.submit(onp.zeros(33, "int32"))           # > largest bucket
-    with pytest.raises(InvalidRequestError):
         eng.submit(onp.zeros(30, "int32"), max_new_tokens=70)
     with pytest.raises(InvalidRequestError):
+        eng.submit(onp.zeros(91, "int32"), max_new_tokens=6)
+    with pytest.raises(InvalidRequestError):
         eng.submit(onp.zeros(4, "int32"), temperature=-1.0)
+    long = (onp.arange(96 - NEW) * 7 % 128).astype("int32")
+    outs = _serve(eng, [long[:33], long])
+    assert [o.shape for o in outs] == [(33 + NEW,), (96,)]
+    onp.testing.assert_array_equal(outs[1][:96 - NEW], long)
+    # one chunk batch a cycle, both rows in it: 32 + 32, then 1 + 32,
+    # then the longer prompt's last 24
+    assert eng.stats()["counters"]["prefill_chunks"] == 3
+    assert eng.stats()["counters"]["rejected"] == 3
 
 
 def test_port_imports_no_jax():
