@@ -108,7 +108,38 @@ Phases (any failure exits non-zero and prints no result line):
    acceptance as the 2-layer drafter's quality), B4 runs at Tq 5;
    acceptance and tokens/s with speculation on and off.  Each prints tokens/s, TTFT p50 and peak memory, and the
    phase its wall time.
-10. A ``{"kernels": [...]}`` line, the card line again, and the last
+10. The vision family at full width: ``bench.py``'s ResNet-50 arm
+   (``bench.py:370-394``), cut in nothing: ResNet-50 v1
+   (``get_resnet(1, 50, classes=1000, layout="NHWC")``, seed 0), batch
+   128 of 224 x 224 x 3 images uniform in [-1, 1), labels in [0, 100),
+   float32 with TF32 off.  Gates first, at batch 8, from one set of
+   weights: one ``ShardedTrainer`` SGD step on the card against the
+   same step on the CPU (loss ``TOL_VISION_LOSS``; the moving
+   statistics after it ``TOL_VISION_STATE``; the gradients,
+   read as the momentum, -lr times step 1's gradient, held to the CPU's
+   float64 step no further than ``TOL_VISION_GRAD_RATIO`` times the
+   CPU's float32 step is), a predict-mode forward from the card's state
+   after it on both (``TOL_VISION_LOGITS``, and it must differ from a
+   batch-statistics forward: the moving statistics are used), and NCHW
+   against NHWC logits on the card from the same (O, I, kH, kW) weights; cuDNN's
+   modes are printed beside them.  (a) ``ShardedTrainer(net, "sgd",
+   loss=ce)`` at lr 0.1, momentum 0.9, ``ce`` as ``bench.py:101-104``:
+   one warm-up step and 5 timed ones on the same batch, ms/step,
+   images/s, peak memory, and the share of float32's peak outside the
+   tensor cores at ``3 x 4.1e9`` FLOP per image; then untimed steps to
+   ``VISION_TRAIN_STEPS`` (the configuration overshoots for ~10 steps),
+   every loss finite and the last below the first.  (b) A fresh net from the same seed through the Gluon loop
+   (``record`` → ``SoftmaxCrossEntropyLoss`` → ``backward`` →
+   ``gluon.Trainer(..., "sgd").step(128)``) under
+   ``mx.amp.init("bfloat16")``: every convolution's output bf16, every
+   BatchNorm's float32, parameters and gradients float32, step 1 within
+   ``TOL_VISION_AMP`` of (a)'s; the same timed and untimed steps and
+   loss gate as (a).  (c)
+   ``torch.profiler`` over one step of each: wall, device busy, idle
+   share, the shares of convolution, BatchNorm, elementwise, copy and
+   layout-transpose kernels, and the top kernels.  No kernel of the port
+   launches in this phase.
+11. A ``{"kernels": [...]}`` line, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.
 
 Phase 2 also times B1, B2 and B3 in bf16 at the training shape, the
@@ -195,6 +226,50 @@ TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 16, 1024, 5, 1e-4
 MLP_B, MLP_STEPS, MLP_LR = 128, 20, 0.1
 # substrings of the GEMM kernels' names (cuBLAS, cuBLASLt, CUTLASS)
 GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass")
+
+# phase 10: bench.py's ResNet-50 arm (bench.py:370-394), SGD at 0.1 with
+# momentum 0.9, its gates at batch 8
+VISION_B, VISION_SIZE, VISION_STEPS, VISION_PARITY_B = 128, 224, 5, 8
+VISION_OPT = {"learning_rate": 0.1, "momentum": 0.9}
+# lr 0.1 with momentum 0.9 overshoots on the repeated batch: from 8.65
+# the loss climbs to ~18 by step 5, is back under step 1's by step 10
+# (float32) or 11 (amp), wavers under amp to step 16 and falls steadily
+# from step 20 (6.50 float32, 6.36 amp at step 24 on an H100).  So
+# after the timed steps each arm goes on, untimed, to this many steps,
+# and its last loss must be below its first
+VISION_TRAIN_STEPS = 24
+# a training step's FLOP per image (bench.py's 3 x ResNet-50 v1's
+# forward), held against float32's peak outside the tensor cores (TF32
+# is off): the H100 SXM's published 67 TFLOP/s
+VISION_FLOP_PER_IMAGE = 3 * 4.1e9
+F32_SIMT_PEAK = 67e12
+# card against CPU at batch 8, float32 with TF32 off: cuDNN's algorithms
+# (implicit GEMM, Winograd, FFT) sum in another order than the CPU's
+# through 53 convolutions and BatchNorms.  The loss relative; the
+# moving statistics after the step each as max-abs error over its
+# max-abs; logits over their max-abs; NCHW against NHWC on the card the
+# same
+TOL_VISION_LOSS = 1e-5
+TOL_VISION_STATE = 1e-3
+TOL_VISION_LOGITS = 1e-4
+# ResNet-50's step-1 gradients are ill-conditioned in float32 (against
+# float64, the CPU's float32 leaves part by a median 2-3 % of their
+# max-abs, the worst by ~30 %): the card's global L2 error to the CPU's
+# float64 step may be at most this multiple of the CPU float32's
+TOL_VISION_GRAD_RATIO = 2.0
+# step 1 under amp (bf16 convolutions, float32 BatchNorm) against (a)'s
+# float32 step 1 on the same weights and batch, relative
+TOL_VISION_AMP = 2e-2
+# phase 10's kernel classes: a kernel counts in the first class one of
+# whose marks its lower-cased name holds
+VISION_CLASSES = (
+    ("layout transpose", ("nchwtonhwc", "nhwctonchw", "transpose")),
+    ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+    ("convolution", ("conv", "fprop", "dgrad", "wgrad", "winograd",
+                     "implicit", "xmma", "cudnn", "fft", "gemm")),
+    ("copy or cast", ("copy",)),
+    ("elementwise", ("elementwise", "reduce")),
+)
 
 # H100 SXM published peaks (dense): HBM bytes/s; bf16 on the tensor
 # cores; float32 at float32 accuracy on the tensor cores, which takes
@@ -842,9 +917,11 @@ def _device_rows(torch, prof):
     return sorted(rows, key=lambda r: -r[1])
 
 
-def report_profile(torch, name, wall, prof, card, marks=()):
+def report_profile(torch, name, wall, prof, card, marks=(), classes=()):
     """Print wall time, device-busy time and share, each kernel of
-    ``marks`` (substrings of kernel names) with its share, and the
+    ``marks`` (substrings of kernel names) with its share, the share of
+    each of ``classes`` ((label, marks): a kernel counts in the first
+    class one of whose marks its lower-cased name holds), and the
     kernels that took the most device time."""
     rows = _device_rows(torch, prof)
     busy = sum(ms for _k, ms in rows)
@@ -864,6 +941,17 @@ def report_profile(torch, name, wall, prof, card, marks=()):
                         for k, _t in rows if mark in k})
         print(f"    {mark}: {ms:.3f} ms, {ms / busy:.1%} of busy "
               f"({', '.join(names)})", flush=True)
+    if classes:
+        by_class = dict.fromkeys([label for label, _m in classes]
+                                 + ["other"], 0.0)
+        for key, ms in rows:
+            low = key.lower()
+            label = next((lb for lb, ms_ in classes
+                          if any(m in low for m in ms_)), "other")
+            by_class[label] += ms
+        print("    by class: " + ", ".join(
+            f"{label} {ms:.3f} ms ({ms / busy:.1%})"
+            for label, ms in by_class.items()), flush=True)
     for key, ms in rows[:8]:
         print(f"    {ms:9.3f} ms {ms / busy:6.1%}  {key[:100]}", flush=True)
 
@@ -1899,6 +1987,283 @@ def moe_path(torch, card, toks, labels):
     return launches
 
 
+# --------------------------------------------------- the vision family
+
+def vision_batch():
+    """``bench.py``'s ResNet-50 batch: images uniform in [-1, 1) (NHWC),
+    labels in [0, 100)."""
+    rs = np.random.RandomState(SEED)
+    x = rs.uniform(-1, 1, (VISION_B, VISION_SIZE, VISION_SIZE, 3))
+    return x.astype(np.float32), rs.randint(0, 100, (VISION_B,)) \
+        .astype(np.int32)
+
+
+def vision_ce(logits, labels):
+    """``bench.py:101-104``'s loss: logsumexp - pick, per sample."""
+    return logits.logsumexp(-1) - logits.gather(
+        -1, labels.long()[:, None])[:, 0]
+
+
+def resnet50(layout="NHWC"):
+    from mxnet_tpu_torch.models.vision import get_resnet
+    return get_resnet(1, 50, classes=1000, layout=layout)
+
+
+def step_errors(names, got, ref):
+    """(global L2 error of ``got`` against ``ref`` over ``ref``'s L2
+    norm, every leaf's max-abs error over its max-abs, the worst leaf).
+    A convolution bias that BatchNorm follows (v1's bottleneck body.0
+    and body.6) has a zero gradient in exact arithmetic, since BatchNorm
+    subtracts the batch mean: it is held against the largest leaf."""
+    top = max(float(r.abs().max()) for r in ref)
+    errs = [maxabs(a, r) / (top if n.endswith(".bias") and ".body." in n
+                            else max(float(r.abs().max()), 1e-30))
+            for n, a, r in zip(names, got, ref)]
+    l2 = float(sum(((a.double() - r.double()) ** 2).sum()
+                   for a, r in zip(got, ref)) ** 0.5 /
+               sum((r.double() ** 2).sum() for r in ref) ** 0.5)
+    worst = int(np.argmax(errs))
+    return l2, errs[worst], names[worst]
+
+
+def vision_parity(torch, card, params, x, y):
+    """Phase 10's gates at batch 8 from ``params``: one SGD step on the
+    card against the CPU, with the CPU's float64 step as the arbiter of
+    the gradients; a predict-mode forward after it; NCHW against NHWC
+    logits on the card."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.base import training_mode
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    from mxnet_tpu_torch.utils.convert import load_numpy_params
+    cud = torch.backends.cudnn
+    print(f"  gates at batch {len(x)}: cudnn.benchmark={cud.benchmark}, "
+          f"cudnn.deterministic={cud.deterministic}, "
+          f"cudnn.allow_tf32={cud.allow_tf32}", flush=True)
+    runs = {}
+    for run, ctx, dt in (("card", mx.gpu(0), torch.float32),
+                         ("cpu", mx.cpu(), torch.float32),
+                         ("cpu64", mx.cpu(), torch.float64)):
+        with ctx:
+            net = load_numpy_params(resnet50(), params).to(dt)
+            tr = ShardedTrainer(net, "sgd", loss=vision_ce,
+                                optimizer_params=VISION_OPT)
+            xt = torch.from_numpy(x).to(net.device, dt)
+            loss = float(tr.step(xt, (y,)))
+            state = {k: v.detach().cpu().double()
+                     for k, v in tr.state_dict().items()}
+        runs[run] = (loss, state, net)
+    (lc, sc, card_net), (lh, sh, cpu_net) = runs["card"], runs["cpu"]
+    check(f"step-1 loss B{len(x)} card vs CPU (relative)",
+          abs(lc - lh) / abs(lh), TOL_VISION_LOSS)
+    names = {"state": [n for n, p in card_net.named_parameters()
+                       if p.requires_grad],
+             "aux": [n for n, p in card_net.named_parameters()
+                     if not p.requires_grad]}
+    keys = {kind: [k for k in sh if k.startswith(kind + ":")]
+            for kind in names}
+    # step 1's momentum is -lr x its gradient.  ResNet-50's training
+    # gradients at initialization are ill-conditioned in float32: the
+    # CPU's own float32 step parts from its float64 step by a few per
+    # cent of each leaf (ResNet-18's, or ResNet-50's in predict mode,
+    # by ~1e-6), so the card is held to float64 no worse than the CPU
+    # float32 is
+    grads = {run: [runs[run][1][k] for k in keys["state"]]
+             for run in runs}
+    vs = {"card vs CPU": step_errors(names["state"], grads["card"],
+                                     grads["cpu"]),
+          "card vs float64": step_errors(names["state"], grads["card"],
+                                         grads["cpu64"]),
+          "CPU vs float64": step_errors(names["state"], grads["cpu"],
+                                        grads["cpu64"])}
+    for what, (l2, worst, leaf) in vs.items():
+        print(f"  step-1 gradients {what}: global L2 {l2:.3e}, worst leaf "
+              f"{worst:.3e} ({leaf})", flush=True)
+    check("step-1 gradients: card's L2 error to float64 over the CPU "
+          "float32's", vs["card vs float64"][0] / vs["CPU vs float64"][0],
+          TOL_VISION_GRAD_RATIO)
+    _l2, worst, leaf = step_errors(names["aux"],
+                                   [sc[k] for k in keys["aux"]],
+                                   [sh[k] for k in keys["aux"]])
+    check(f"{len(keys['aux'])} moving statistics after the step card vs "
+          f"CPU (worst {leaf}, over its max-abs)", worst, TOL_VISION_STATE)
+    # predict mode from one state, the card's after its step (the
+    # parameters inherit the gradients' float32 spread; the moving
+    # statistics agree as checked above)
+    moved = {k: p.detach().cpu().numpy() for k, p in
+             card_net.named_parameters()}
+    load_numpy_params(cpu_net, moved)
+    nchw = load_numpy_params(resnet50("NCHW"), moved)
+    with torch.no_grad():
+        with training_mode(False):
+            pc, ph = (n(torch.from_numpy(x).to(n.device)).cpu()
+                      for n in (card_net, cpu_net))
+            pn = nchw(torch.from_numpy(x).to(nchw.device)
+                      .permute(0, 3, 1, 2)).cpu()
+        with training_mode(True):                  # batch statistics
+            bc = card_net(torch.from_numpy(x).to(card_net.device)).cpu()
+    check("predict-mode logits after the step card vs CPU (over max-abs)",
+          relerr(pc, ph), TOL_VISION_LOGITS)
+    gap = relerr(bc, pc)
+    print(f"  batch-statistics logits differ from predict-mode ones by "
+          f"{gap:.3e} of their max-abs", flush=True)
+    if gap <= TOL_VISION_LOGITS:
+        raise AssertionError("predict mode gives the batch-statistics "
+                             "logits: the moving statistics are not used")
+    check("NCHW vs NHWC predict-mode logits on the card (over max-abs)",
+          relerr(pn, pc), TOL_VISION_LOGITS)
+
+
+def vision_train(torch, card, trainer, x, y):
+    """Phase 10a: a warm-up step and the timed ones; returns the losses
+    and the profiler's step."""
+    losses = [trainer.step(x, (y,))]                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    for _ in range(VISION_STEPS):
+        losses.append(trainer.step(x, (y,)))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    while len(losses) < VISION_TRAIN_STEPS:
+        losses.append(trainer.step(x, (y,)))
+    losses = [float(v) for v in losses]
+    ips = VISION_STEPS * VISION_B / wall
+    print(f"  (a) ShardedTrainer sgd: losses {losses}", flush=True)
+    print(f"  {VISION_STEPS} steps in {wall:.3f} s: "
+          f"{wall / VISION_STEPS * 1e3:.1f} ms/step, {ips:.1f} images/s, "
+          f"peak memory {peak:.0f} MiB, "
+          f"{ips * VISION_FLOP_PER_IMAGE / F32_SIMT_PEAK:.1%} of float32's "
+          f"{F32_SIMT_PEAK / 1e12:g} TFLOP/s outside the tensor cores at "
+          f"{VISION_FLOP_PER_IMAGE:.3g} FLOP an image [{card}]", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"ResNet-50 losses not finite and falling: "
+                             f"{losses}")
+    return losses
+
+
+def vision_amp(torch, card, x_np, y_np, want_step1):
+    """Phase 10b: a fresh net from the same seed through the Gluon loop
+    under ``amp.init('bfloat16')``; returns (losses, a step closure for
+    the profiler)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn
+    mx.amp.init("bfloat16")
+    net = resnet50()
+    net.initialize(seed=SEED)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", VISION_OPT)
+    x, y = mx.nd.array(x_np), mx.nd.array(y_np, dtype="int32")
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step():
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(VISION_B)
+        return loss
+
+    seen = {"Conv2D": set(), "BatchNorm": set()}
+
+    def note(kind):
+        return lambda _m, _i, out: seen[kind].add(str(out.dtype))
+    hooks = [m.register_forward_hook(note(type(m).__name__))
+             for m in net.modules()
+             if isinstance(m, (nn.Conv2D, nn.BatchNorm))]
+    first = step()                # step 1, the shapes settle in it
+    for h in hooks:
+        h.remove()
+    want = {"Conv2D": {"torch.bfloat16"}, "BatchNorm": {"torch.float32"}}
+    if seen != want:
+        raise AssertionError(f"amp dtypes {seen}, not {want}")
+    n_conv = sum(isinstance(m, nn.Conv2D) for m in net.modules())
+    n_bn = sum(isinstance(m, nn.BatchNorm) for m in net.modules())
+    print(f"  (b) gluon loop under amp.init('bfloat16'): all {n_conv} "
+          f"convolutions bf16, all {n_bn} BatchNorms float32", flush=True)
+    for k, p in net.collect_params().items():
+        dts = {p.data().tensor.dtype} | (
+            set() if p.grad_req == "null" else {p.grad().tensor.dtype})
+        if dts != {torch.float32}:
+            raise AssertionError(f"{k}: parameter or gradient {dts}")
+    step1 = float(first.mean().asscalar())
+    check("amp step-1 loss vs (a)'s float32 step 1 (relative)",
+          abs(step1 - want_step1) / abs(want_step1), TOL_VISION_AMP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    timed = [step() for _ in range(VISION_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    timed += [step() for _ in range(VISION_TRAIN_STEPS - 1 - VISION_STEPS)]
+    losses = [step1] + [float(v.mean().asscalar()) for v in timed]
+    print(f"  losses {losses}; all parameters and gradients float32",
+          flush=True)
+    print(f"  {VISION_STEPS} steps in {wall:.3f} s: "
+          f"{wall / VISION_STEPS * 1e3:.1f} ms/step, "
+          f"{VISION_STEPS * VISION_B / wall:.1f} images/s, peak memory "
+          f"{peak:.0f} MiB [{card}]", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"amp ResNet-50 losses not finite and "
+                             f"falling: {losses}")
+    return losses, step
+
+
+def profile_one(torch, name, fn, card):
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(torch, name, wall_ms, prof, card, classes=VISION_CLASSES)
+
+
+def vision_path(torch, card):
+    """Phase 10: full-width ResNet-50 v1 training, float32 through
+    ``ShardedTrainer`` and under amp through the Gluon loop, after the
+    card-vs-CPU and layout gates at batch 8."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    t_phase = time.monotonic()
+    x_np, y_np = vision_batch()
+    net = resnet50()
+    net.initialize(seed=SEED)
+    x = torch.from_numpy(x_np).to(net.device)
+    y = torch.from_numpy(y_np).to(net.device)
+    trainer = ShardedTrainer(net, "sgd", loss=vision_ce,
+                             optimizer_params=VISION_OPT).build(x)
+    n_params = sum(p.numel() for p in net.parameters() if p.requires_grad)
+    print(f"ResNet-50 v1 NHWC: {n_params} trainable parameters on "
+          f"{net.device}, batch {VISION_B} x {VISION_SIZE} x {VISION_SIZE} "
+          f"x 3, SGD lr {VISION_OPT['learning_rate']} momentum "
+          f"{VISION_OPT['momentum']}, float32:", flush=True)
+    params = {k: p.detach().cpu().numpy() for k, p in
+              net.named_parameters()}
+    b = VISION_PARITY_B
+    vision_parity(torch, card, params, x_np[:b], y_np[:b])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = vision_train(torch, card, trainer, x, y)
+    print("where the time goes (one ShardedTrainer step):", flush=True)
+    profile_one(torch, f"ResNet-50 step B{VISION_B}",
+                lambda: trainer.step(x, (y,)), card)
+    del trainer, net, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        _amp_losses, amp_step = vision_amp(torch, card, x_np, y_np,
+                                           losses[0])
+        print("where the time goes (one amp gluon step):", flush=True)
+        profile_one(torch, f"ResNet-50 amp step B{VISION_B}", amp_step,
+                    card)
+    finally:
+        mx.amp.reset()
+    print(f"phase 10: {time.monotonic() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1953,6 +2318,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     features, multi_by_path = features_path(torch, card, prompts)
     by_path.update(features)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()
+    vision_path(torch, card)
+    by_path["vision"] = read_launches()
+    if any(by_path["vision"].values()):
+        raise AssertionError(f"the vision phase launched a kernel of the "
+                             f"port: {by_path['vision']}")
     # each kernel's launches on the path that is its own: the training
     # path for the flash kernels, the serving path for paged attention;
     # the flash kernels' bf16 numbers (phase 2 at the training shape)

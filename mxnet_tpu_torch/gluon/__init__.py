@@ -1,5 +1,5 @@
 """Gluon core (counterpart of ``mxnet_tpu.gluon``)."""
-from . import loss, nn, utils
+from . import loss, model_zoo, nn, utils
 from .block import Block, HybridBlock
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
@@ -7,5 +7,5 @@ from .trainer import Trainer
 from .utils import split_and_load
 
 __all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict", "Constant",
-           "DeferredInitializationError", "Trainer", "loss", "nn", "utils",
-           "split_and_load"]
+           "DeferredInitializationError", "Trainer", "loss", "model_zoo",
+           "nn", "utils", "split_and_load"]

@@ -1,17 +1,18 @@
 """Core Gluon layers (counterpart of
 ``mxnet_tpu/gluon/nn/basic_layers.py``): the containers ``Sequential``
 and ``HybridSequential``, ``Dense``, ``Dropout``, ``Embedding``,
-``LayerNorm``, ``Flatten``, the activations and the lambda blocks, with
-the reference's signatures, parameter names (``weight``/``bias``,
-``gamma``/``beta``, ``alpha``) and math.  The norm layers that need
-batch statistics (BatchNorm, GroupNorm, InstanceNorm) are ROADMAP A5.
+``LayerNorm``, the norm layers over batch or group statistics
+(``BatchNorm``, ``SyncBatchNorm``, ``GroupNorm``, ``InstanceNorm``),
+``Flatten``, the activations and the lambda blocks, with the reference's
+signatures, parameter names (``weight``/``bias``, ``gamma``/``beta``,
+``running_mean``/``running_var``, ``alpha``) and math.
 
 A 0 in a declared size (``Dense(128)``'s ``in_units``, ``LayerNorm``'s
 ``in_channels``) defers the parameter: the layer's first call infers it
 from its input.  The layers that carry a product or a norm consult the
 amp cast policy under the reference's op names (``FullyConnected``,
-``LayerNorm``), so ``mx.amp.init()`` gives them the dtypes the
-reference's dispatcher gives (``amp/lists.py``).
+``LayerNorm``, ``BatchNorm``, ...), so ``mx.amp.init()`` gives them the
+dtypes the reference's dispatcher gives (``amp/lists.py``).
 """
 from __future__ import annotations
 
@@ -24,11 +25,13 @@ from ... import amp as _amp
 from ... import base as _base
 from ... import initializer as init_mod
 from ... import random as _random
+from ...ndarray import ops
 from ...ndarray.ops import ACTIVATION_FNS
 from ..block import Block, HybridBlock, _run_nd
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "Embedding",
-           "LayerNorm", "Flatten", "Activation", "LeakyReLU", "PReLU", "ELU",
+           "BatchNorm", "SyncBatchNorm", "LayerNorm", "GroupNorm",
+           "InstanceNorm", "Flatten", "Activation", "LeakyReLU", "PReLU", "ELU",
            "SELU", "GELU", "Swish", "SiLU", "Lambda", "HybridLambda",
            "Identity"]
 
@@ -160,6 +163,69 @@ class Embedding(HybridBlock):
         return f"Embedding({self._input_dim} -> {self._output_dim})"
 
 
+class BatchNorm(HybridBlock):
+    """Normalize along channel axis ``axis`` (-1 for channels-last) by
+    the batch's mean and biased variance in training mode, by the moving
+    statistics otherwise or with ``use_global_stats``.  Each training
+    call moves ``running_mean``/``running_var`` in place, without a
+    graph: ``m * old + (1 - m) * batch`` with the biased batch variance,
+    as the reference's layer does (torch's own ``F.batch_norm`` update
+    would take the unbiased one).  ``scale``/``center`` False freeze
+    ``gamma``/``beta`` (``scale=False`` also fixes gamma at 1)."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._axis = axis
+        self._momentum = momentum
+        self._eps = epsilon
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        c = (in_channels,)
+        self._new_param("gamma", c, init=gamma_initializer,
+                        allow_deferred_init=True, differentiable=scale)
+        self._new_param("beta", c, init=beta_initializer,
+                        allow_deferred_init=True, differentiable=center)
+        self._new_param("running_mean", c, init=running_mean_initializer,
+                        allow_deferred_init=True, differentiable=False)
+        self._new_param("running_var", c,
+                        init=running_variance_initializer,
+                        allow_deferred_init=True, differentiable=False)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        for attr in ("gamma", "beta", "running_mean", "running_var"):
+            self._set_shape(attr, (c,))
+
+    def forward(self, x):
+        training = _base.is_training() and not self._use_global_stats
+        x, g, b = _amp.cast("BatchNorm", x, self.gamma, self.beta)
+        out, mean, var = ops.batch_norm(
+            x, g, b, self.running_mean, self.running_var, self._eps,
+            not self._scale, training, self._axis)
+        if training:
+            m = self._momentum
+            with torch.no_grad():
+                self.running_mean.mul_(m).add_(mean, alpha=1 - m)
+                self.running_var.mul_(m).add_(var, alpha=1 - m)
+        return out
+
+    def __repr__(self):
+        return (f"BatchNorm(axis={self._axis}, eps={self._eps}, "
+                f"momentum={self._momentum})")
+
+
+class SyncBatchNorm(BatchNorm):
+    """BatchNorm over the batch of every device; on the port's one
+    device it is BatchNorm (as the reference's is eagerly)."""
+
+    def __init__(self, in_channels=0, num_devices=None, **kwargs):
+        super().__init__(in_channels=in_channels, **kwargs)
+
+
 class LayerNorm(HybridBlock):
     """``(x - mean) · rsqrt(var + eps) · gamma + beta`` along ``axis``,
     with the biased variance; ``center``/``scale`` False freeze
@@ -194,6 +260,61 @@ class LayerNorm(HybridBlock):
 
     def __repr__(self):
         return f"LayerNorm(axis={self._axis}, eps={self._eps})"
+
+
+class _GroupStatsNorm(HybridBlock):
+    """``gamma``/``beta`` per channel (axis 1), statistics per sample over
+    groups of channels and the spatial axes."""
+
+    _op = None
+
+    def __init__(self, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._eps = epsilon
+        self._new_param("gamma", (in_channels,), init=gamma_initializer,
+                        allow_deferred_init=True, differentiable=scale)
+        self._new_param("beta", (in_channels,), init=beta_initializer,
+                        allow_deferred_init=True, differentiable=center)
+
+    def infer_shape(self, x, *args):
+        self._set_shape("gamma", (x.shape[1],))
+        self._set_shape("beta", (x.shape[1],))
+
+    def forward(self, x):
+        x, g, b = _amp.cast(self._op, x, self.gamma, self.beta)
+        return F.group_norm(x, self._groups(x), g, b, self._eps)
+
+
+class GroupNorm(_GroupStatsNorm):
+    _op = "GroupNorm"
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, prefix, params)
+        self._num_groups = num_groups
+
+    def _groups(self, x):
+        return self._num_groups
+
+
+class InstanceNorm(_GroupStatsNorm):
+    """A group per channel.  ``axis`` is accepted and, as in the
+    reference, the channel axis is 1."""
+
+    _op = "InstanceNorm"
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, prefix, params)
+
+    def _groups(self, x):
+        return x.shape[1]
 
 
 class Flatten(HybridBlock):

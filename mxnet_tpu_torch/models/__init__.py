@@ -1,9 +1,11 @@
 """Models (counterpart of ``mxnet_tpu.models``): GPT-2 and its LM loss,
-and the MoE layers."""
+the MoE layers, and the vision zoo (``vision``, ``get_model``)."""
+from . import vision
 from .gpt2 import GPT2Model, get_gpt2, gpt2_lm_loss
 from .moe import (MoELayer, MoETransformerBlock, aux_loss_scope, moe_ffn,
                   pop_aux_losses)
+from .vision import get_model
 
-__all__ = ["GPT2Model", "get_gpt2", "gpt2_lm_loss", "MoELayer",
-           "MoETransformerBlock", "moe_ffn", "pop_aux_losses",
+__all__ = ["vision", "get_model", "GPT2Model", "get_gpt2", "gpt2_lm_loss",
+           "MoELayer", "MoETransformerBlock", "moe_ffn", "pop_aux_losses",
            "aux_loss_scope"]

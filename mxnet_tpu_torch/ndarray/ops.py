@@ -28,16 +28,14 @@ __all__: list = []  # populated by _export
 
 # the reference's ops the port lacks so far; it only shrinks
 NOT_YET_PORTED = frozenset("""
-random_uniform random_normal random_gamma random_exponential random_poisson
-random_randint normal uniform random_bernoulli sample_multinomial shuffle
-random_negative_binomial random_generalized_negative_binomial sample_uniform
-sample_normal sample_gamma sample_exponential sample_poisson
-Convolution Deconvolution Pooling BatchNorm GroupNorm InstanceNorm RNN
-SequenceMask SequenceLast SequenceReverse SoftmaxOutput
-LinearRegressionOutput interleaved_matmul_selfatt_qk
-interleaved_matmul_selfatt_valatt UpSampling unravel_index
-ravel_multi_index ROIPooling Crop LRN SoftmaxActivation depth_to_space
-space_to_depth batch_take BilinearSampler GridGenerator SpatialTransformer
+random_uniform random_normal random_gamma random_exponential
+random_poisson random_randint normal uniform random_bernoulli
+sample_multinomial shuffle random_negative_binomial
+random_generalized_negative_binomial sample_uniform sample_normal
+sample_gamma sample_exponential sample_poisson RNN SequenceMask
+SequenceLast SequenceReverse interleaved_matmul_selfatt_qk
+interleaved_matmul_selfatt_valatt unravel_index ravel_multi_index
+ROIPooling batch_take BilinearSampler GridGenerator SpatialTransformer
 box_iou box_nms ROIAlign MultiBoxPrior MultiBoxTarget MultiBoxDetection
 scatter_nd linalg_potrf linalg_trsm linalg_det linalg_slogdet
 linalg_inverse""".split())
@@ -1097,3 +1095,404 @@ def add_n(*args, **kw):
             acc = acc + x
         return acc
     return invoke("add_n", f, _seq(args))
+
+
+# ------------------------------------ vision: convolution, pooling, norms
+#
+# Each op has a tensor function (``conv``, ``deconv``, ``pool``,
+# ``batch_norm``, ...) that the ``gluon.nn`` layers call on their tensors
+# after ``amp.cast``, and an ``nd`` op of the reference's name and
+# signature that runs it through ``invoke``.  A channels-last layout
+# (``NWC``/``NHWC``/``NDHWC``) runs on ``x.movedim(-1, 1)``: for a
+# contiguous tensor that view is torch's channels_last memory format,
+# which cuDNN convolves and pools natively, and the result moves back the
+# same way.  Weights are (O, I, *k) in every layout.
+
+CHANNELS_LAST_LAYOUTS = ("NWC", "NHWC", "NDHWC")
+_LAYOUT_NDIM = {"NCW": 3, "NWC": 3, "NCHW": 4, "NHWC": 4, "NCDHW": 5,
+                "NDHWC": 5}
+_CONV = {1: Fn.conv1d, 2: Fn.conv2d, 3: Fn.conv3d}
+_CONV_T = {1: Fn.conv_transpose1d, 2: Fn.conv_transpose2d,
+           3: Fn.conv_transpose3d}
+_MAX_POOL = {1: Fn.max_pool1d, 2: Fn.max_pool2d, 3: Fn.max_pool3d}
+_AVG_POOL = {1: Fn.avg_pool1d, 2: Fn.avg_pool2d, 3: Fn.avg_pool3d}
+
+
+def check_conv_layout(ndim, layout):
+    """Raise as the reference's ``_conv_dim_numbers`` does for a layout
+    that does not fit ``ndim``-d data."""
+    if layout in (None, "NCW", "NCHW", "NCDHW"):
+        if layout is not None and len(layout) != ndim:
+            raise _base.MXNetError(
+                f"conv layout {layout!r} expects {len(layout)}-d input, "
+                f"got {ndim}-d")
+    elif _LAYOUT_NDIM.get(layout) != ndim:
+        raise _base.MXNetError(f"unsupported conv layout {layout!r} for "
+                               f"{ndim}-d input")
+
+
+def channels_first(x, layout):
+    """``x`` in ``layout`` as an (N, C, *spatial) view."""
+    return x.movedim(-1, 1) if layout in CHANNELS_LAST_LAYOUTS else x
+
+
+def channels_back(y, layout):
+    """An (N, C, *spatial) result in ``layout``."""
+    return y.movedim(1, -1) if layout in CHANNELS_LAST_LAYOUTS else y
+
+
+def _spatial(v, n, default):
+    return tuple(v) if v else (default,) * n
+
+
+def conv(x, w, b, stride=None, dilate=None, pad=None, groups=1,
+         layout=None):
+    """N-d convolution of ``x`` in ``layout`` by (O, I/groups, *k)
+    weights ``w``, plus ``b`` (None: no bias)."""
+    n = x.dim() - 2
+    y = _CONV[n](channels_first(x, layout), w, b, _spatial(stride, n, 1),
+                 _spatial(pad, n, 0), _spatial(dilate, n, 1), groups)
+    return channels_back(y, layout)
+
+
+def deconv(x, w, b, stride=None, dilate=None, pad=None, groups=1):
+    """Transposed convolution of channels-first ``x`` by (Cin, Cout/groups,
+    *k) weights, output size ``(in - 1) * stride + (k - 1) * dilate + 1 -
+    2 * pad`` (the reference's; MXNet's ``adj`` is not applied)."""
+    n = x.dim() - 2
+    return _CONV_T[n](x, w, b, _spatial(stride, n, 1), _spatial(pad, n, 0),
+                      0, groups, _spatial(dilate, n, 1))
+
+
+def pool(x, kernel=None, pool_type="max", global_pool=False, stride=None,
+         pad=None, pooling_convention="valid", count_include_pad=True,
+         layout=None, p_value=2):
+    """The reference's ``Pooling`` on a tensor.  ``full`` pads the upper
+    side so a last partial window fits (the reference's ceil rule, which
+    keeps a window that starts in the padding, where torch's ``ceil_mode``
+    drops it); such padding is explicit (-inf for max, 0 otherwise) and
+    the windows then lie inside the padded input, so an average divides
+    by the whole window or, without ``count_include_pad``, by the count
+    of real elements in it."""
+    n = x.dim() - 2
+    if global_pool:
+        sp0 = 1 if layout in CHANNELS_LAST_LAYOUTS else 2
+        axes = tuple(range(sp0, sp0 + n))
+        if pool_type == "max":
+            return torch.amax(x, dim=axes, keepdim=True)
+        return torch.mean(x, dim=axes, keepdim=True)
+    k = tuple(kernel)
+    s = tuple(stride) if stride else k
+    p = _spatial(pad, n, 0)
+    xc = channels_first(x, layout)
+    hi = list(p)
+    if pooling_convention == "full":
+        for i in range(n):
+            size = xc.shape[2 + i] + 2 * p[i]
+            out = int(math.ceil((size - k[i]) / s[i])) + 1
+            hi[i] += builtins.max((out - 1) * s[i] + k[i] - size, 0)
+    # torch pads by itself only evenly and by at most half a window; its
+    # CUDA average pooling's backward on channels-last data that it pads
+    # itself gives wrong gradients (torch 2.11), so averages pad here
+    native = tuple(hi) == p and all(2 * a <= b for a, b in zip(p, k)) \
+        and (pool_type == "max" or not any(p))
+
+    def padded(t, fill):
+        flat = [v for i in reversed(range(n)) for v in (p[i], hi[i])]
+        return Fn.pad(t, flat, value=fill)
+
+    if pool_type == "max":
+        if native:
+            y = _MAX_POOL[n](xc, k, s, p)
+        else:
+            fill = -math.inf if xc.is_floating_point() else \
+                torch.iinfo(xc.dtype).min
+            y = _MAX_POOL[n](padded(xc, fill), k, s)
+        return channels_back(y, layout)
+    if pool_type not in ("avg", "sum", "lp"):
+        raise ValueError(f"unknown pool_type {pool_type}")
+    src = xc.abs() ** p_value if pool_type == "lp" else xc
+    mean_of_real = pool_type == "avg" and not count_include_pad
+    if native:
+        y = _AVG_POOL[n](src, k, s)
+    else:
+        y = _AVG_POOL[n](padded(src, 0.0), k, s)
+        if mean_of_real:     # over the real elements' share of a window
+            ones = torch.ones((1, 1) + tuple(xc.shape[2:]),
+                              dtype=xc.dtype, device=xc.device)
+            y = y / _AVG_POOL[n](padded(ones, 0.0), k, s)
+    if pool_type != "avg":
+        y = y * math.prod(k)
+        if pool_type == "lp":
+            y = y ** (1.0 / p_value)
+    return channels_back(y, layout)
+
+
+def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-5,
+               fix_gamma=False, training=True, axis=1):
+    """(out, mean, var): ``x`` normalized along channel axis ``axis`` by
+    its batch statistics (``training``; the biased variance) or by the
+    moving ones.  ``fix_gamma`` scales by 1."""
+    ax = axis % x.dim()
+    xc = x.movedim(ax, 1)
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    if training:
+        dims = [i for i in range(xc.dim()) if i != 1]
+        var, mean = torch.var_mean(xc, dim=dims, unbiased=False)
+    else:
+        mean, var = moving_mean, moving_var
+    if training and xc.numel() > xc.shape[1]:
+        out = Fn.batch_norm(xc, None, None, g, beta, True, 0.0, eps)
+    else:
+        # elementwise: the moving statistics take gradients too, and one
+        # value per channel (which F.batch_norm refuses) normalizes to 0
+        c = (-1,) + (1,) * (xc.dim() - 2)
+        out = (xc - mean.reshape(c)) * torch.rsqrt(var + eps).reshape(c) \
+            * g.reshape(c) + beta.reshape(c)
+    return out.movedim(1, ax), mean, var
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """softmax forward; the backward ignores the incoming gradient and
+    gives ``(p - onehot(label)) * grad_scale``, masked and normalized."""
+
+    @staticmethod
+    def forward(ctx, x, label, grad_scale, use_ignore, ignore_label,
+                normalization):
+        p = torch.softmax(x, dim=-1)
+        ctx.save_for_backward(p, label)
+        ctx.cfg = (grad_scale, use_ignore, ignore_label, normalization)
+        return p
+
+    @staticmethod
+    def backward(ctx, _g):
+        p, label = ctx.saved_tensors
+        grad_scale, use_ignore, ignore_label, normalization = ctx.cfg
+        y = label.to(torch.int32)
+        # an out-of-range label gives an all-zero row, as jax.nn.one_hot
+        onehot = (y[..., None] == torch.arange(p.shape[-1],
+                                               device=p.device)).to(p.dtype)
+        dx = (p - onehot) * grad_scale
+        valid = None
+        if use_ignore:
+            valid = y != ignore_label
+            dx = dx * valid[..., None].to(p.dtype)
+        if normalization == "batch":
+            dx = dx / p.shape[0]
+        elif normalization == "valid":
+            count = valid.sum().to(p.dtype) if valid is not None else \
+                torch.tensor(float(label.numel()), dtype=p.dtype)
+            dx = dx / torch.clamp(count, min=1)
+        return dx, None, None, None, None, None
+
+
+class _LinearRegressionOutput(torch.autograd.Function):
+    """identity forward; the backward gives ``(x - label) * grad_scale``
+    whatever the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, x, label, grad_scale):
+        ctx.save_for_backward(x, label)
+        ctx.grad_scale = grad_scale
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, _g):
+        x, label = ctx.saved_tensors
+        return (x - label.reshape(x.shape)) * ctx.grad_scale, None, None
+
+
+@_export
+def Convolution(data, weight, bias=None, kernel=None, stride=None,
+                dilate=None, pad=None, num_filter=None, num_group=1,
+                no_bias=False, layout=None, **kw):
+    """NCHW (default) or channels-last via ``layout``; (O, I, *k)
+    weights either way."""
+    data = _as_nd(data)
+    check_conv_layout(data.ndim, layout)
+    nds = [data, _as_nd(weight, data)]
+    if bias is not None and not no_bias:
+        nds.append(_as_nd(bias, data))
+    return invoke("Convolution", lambda x, w, *b: conv(
+        x, w, b[0] if b else None, stride, dilate, pad, num_group, layout),
+        nds)
+
+
+@_export
+def Deconvolution(data, weight, bias=None, kernel=None, stride=None,
+                  dilate=None, pad=None, adj=None, num_filter=None,
+                  num_group=1, no_bias=True, layout=None, **kw):
+    """Transposed convolution, channels-first only, weights (Cin,
+    Cout/groups, *k).  ``adj`` and ``target_shape`` are accepted and not
+    applied, as in the reference (ROADMAP queue C)."""
+    data = _as_nd(data)
+    check_conv_layout(data.ndim, layout)
+    if layout in CHANNELS_LAST_LAYOUTS:
+        raise _base.MXNetError(
+            "channels-last layout is not supported for Deconvolution "
+            "(runs NCHW)")
+    nds = [data, _as_nd(weight, data)]
+    if bias is not None and not no_bias:
+        nds.append(_as_nd(bias, data))
+    return invoke("Deconvolution", lambda x, w, *b: deconv(
+        x, w, b[0] if b else None, stride, dilate, pad, num_group), nds)
+
+
+@_export
+def Pooling(data, kernel=None, pool_type="max", global_pool=False,
+            stride=None, pad=None, pooling_convention="valid",
+            count_include_pad=True, layout=None, **kw):
+    """max / avg / sum / lp pooling (see :func:`pool`), NCHW or
+    channels-last via ``layout``."""
+    data = _as_nd(data)
+    if layout is not None:
+        if layout not in _LAYOUT_NDIM:
+            raise _base.MXNetError(f"unsupported pooling layout {layout!r}")
+        if _LAYOUT_NDIM[layout] != data.ndim:
+            raise _base.MXNetError(
+                f"pooling layout {layout!r} expects "
+                f"{_LAYOUT_NDIM[layout]}-d input, got {data.ndim}-d")
+    return invoke("Pooling", lambda x: pool(
+        x, kernel, pool_type, global_pool, stride, pad, pooling_convention,
+        count_include_pad, layout, kw.get("p_value", 2)), [data])
+
+
+@_export
+def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
+              momentum=0.9, fix_gamma=False, use_global_stats=False,
+              output_mean_var=False, axis=1, **kw):
+    """The normalized data, or with ``output_mean_var`` (out, batch mean,
+    batch variance).  Functional, as the reference's: the Gluon layer
+    updates the moving statistics."""
+    like = _first_nd(data, gamma, beta, moving_mean, moving_var)
+    nds = [_as_nd(v, like) for v in (data, gamma, beta, moving_mean,
+                                     moving_var)]
+    training = _base.is_training() and not use_global_stats
+    out, mean, var = invoke("BatchNorm", lambda x, g, b, mm, mv: batch_norm(
+        x, g, b, mm, mv, eps, fix_gamma, training, axis), nds)
+    if output_mean_var or kw.get("_internal_stats"):
+        return out, mean, var
+    return out
+
+
+@_export
+def GroupNorm(data, gamma, beta, num_groups=1, eps=1e-5, **kw):
+    like = _first_nd(data, gamma, beta)
+    return invoke("GroupNorm", lambda x, g, b: Fn.group_norm(
+        x, num_groups, g, b, eps), [_as_nd(v, like)
+                                    for v in (data, gamma, beta)])
+
+
+@_export
+def InstanceNorm(data, gamma, beta, eps=1e-3, **kw):
+    """Per sample and channel over the spatial axes (GroupNorm with a
+    group per channel)."""
+    like = _first_nd(data, gamma, beta)
+    return invoke("InstanceNorm", lambda x, g, b: Fn.group_norm(
+        x, x.shape[1], g, b, eps), [_as_nd(v, like)
+                                    for v in (data, gamma, beta)])
+
+
+@_export
+def SoftmaxOutput(data, label=None, grad_scale=1.0, ignore_label=-1,
+                  use_ignore=False, normalization="null", out_grad=False,
+                  **kw):
+    """softmax of ``data``; its gradient is the loss head's
+    ``(softmax - onehot(label)) * grad_scale`` per ``normalization``
+    ('null' | 'batch' | 'valid'), whatever flows in."""
+    data = _as_nd(data)
+    if label is None:
+        return softmax(data, axis=-1)
+    return invoke("SoftmaxOutput", lambda x, y: _SoftmaxOutput.apply(
+        x, y, grad_scale, use_ignore, ignore_label, normalization),
+        [data, _as_nd(label, data)])
+
+
+@_export
+def LinearRegressionOutput(data, label=None, grad_scale=1.0, **kw):
+    """identity; its gradient is ``(data - label) * grad_scale``."""
+    data = _as_nd(data)
+    if label is None:
+        return data
+    return invoke("LinearRegressionOutput",
+                  lambda x, y: _LinearRegressionOutput.apply(x, y,
+                                                             grad_scale),
+                  [data, _as_nd(label, data)])
+
+
+@_export
+def UpSampling(data, scale=2, sample_type="nearest", **kw):
+    """(N, C, H, W) → (N, C, H·scale, W·scale): nearest repeats; bilinear
+    samples at half-pixel centers (``jax.image.resize``'s)."""
+    def f(x):
+        if sample_type == "nearest":
+            return x.repeat_interleave(scale, 2).repeat_interleave(scale, 3)
+        return Fn.interpolate(x, size=(x.shape[2] * scale,
+                                       x.shape[3] * scale),
+                              mode="bilinear", align_corners=False)
+    return invoke("UpSampling", f, [_as_nd(data)])
+
+
+@_export
+def Crop(data, *like, offset=(0, 0), h_w=(0, 0), center_crop=False, **kw):
+    """(N, C, H, W) cropped to the spatial size of ``like[0]`` or to
+    ``h_w``, at ``offset`` or centered."""
+    data = _as_nd(data)
+    nds = [data] + ([_as_nd(like[0], data)] if like else [])
+
+    def f(x, *rest):
+        th, tw = (rest[0].shape[2], rest[0].shape[3]) if rest else h_w
+        if center_crop:
+            y0, x0 = (x.shape[2] - th) // 2, (x.shape[3] - tw) // 2
+        else:
+            y0, x0 = offset
+        return x[:, :, y0:y0 + th, x0:x0 + tw]
+    return invoke("Crop", f, nds)
+
+
+@_export
+def LRN(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5, **kw):
+    """Local response normalization across channels; alpha is divided by
+    the window size, as MXNet's ``lrn-inl.h`` does."""
+    def f(x):
+        c, half = x.shape[1], nsize // 2
+        sq = Fn.pad(x * x, [0, 0] * (x.dim() - 2) + [half, half])
+        acc = builtins.sum(sq.narrow(1, i, c) for i in range(nsize))
+        return x / torch.pow(knorm + (alpha / nsize) * acc, beta)
+    return invoke("LRN", f, [_as_nd(data)])
+
+
+@_export
+def SoftmaxActivation(data, mode="instance", **kw):
+    """softmax over axis 1 (``channel``) or over every non-batch axis
+    flattened (``instance``)."""
+    def f(x):
+        if mode == "channel":
+            return torch.softmax(x, dim=1)
+        return torch.softmax(x.reshape(x.shape[0], -1), dim=-1) \
+            .reshape(x.shape)
+    return invoke("SoftmaxActivation", f, [_as_nd(data)])
+
+
+@_export
+def depth_to_space(data, block_size, **kw):
+    """(N, C·b·b, H, W) → (N, C, H·b, W·b), MXNet's DCR order."""
+    b = int(block_size)
+
+    def f(x):
+        n, c, h, w = x.shape
+        x = x.reshape(n, b, b, c // (b * b), h, w).permute(0, 3, 4, 1, 5, 2)
+        return x.reshape(n, c // (b * b), h * b, w * b)
+    return invoke("depth_to_space", f, [_as_nd(data)])
+
+
+@_export
+def space_to_depth(data, block_size, **kw):
+    """(N, C, H·b, W·b) → (N, C·b·b, H, W)."""
+    b = int(block_size)
+
+    def f(x):
+        n, c, h, w = x.shape
+        x = x.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
+        return x.reshape(n, c * b * b, h // b, w // b)
+    return invoke("space_to_depth", f, [_as_nd(data)])

@@ -11,14 +11,20 @@ semantics are the reference's:
 - ``num_update += 1``, then every parameter's update sees
   ``t = num_update`` and the learning rate of that count
   (``trainer.py:711-713``, through :meth:`Optimizer.traced`);
+- the parameters that take no gradient (BatchNorm's moving statistics)
+  are aux state: the layers move them in place during the forward, once
+  per (micro)batch in microbatch order, as the reference threads them
+  through its scan (``trainer.py:391-418``);
 - ``grad_accum`` splits the batch into microbatches, accumulates their
   gradients in float32 and averages them before one update
   (``trainer.py:389-423``);
 - the guarded step (``guard_nonfinite``, ``clip_global_norm``,
   ``loss_scaler``; ``trainer.py:518-584``) computes an ``all_finite``
   flag on the device and applies the update through ``torch.where``, so
-  a non-finite step leaves parameters and optimizer state bit-identical
-  and the host never waits for the flag.
+  a non-finite step leaves parameters, aux and optimizer state
+  bit-identical and the host never waits for the flag;
+- deferred parameter shapes settle at the first step (or ``build``) by
+  one forward of a one-sample slice in inference mode.
 
 A mesh of more than one device raises: multi-GPU training is ROADMAP
 queue A6.  Orbax checkpoints, ``ResilientLoop``, the ``trainer.step``
@@ -33,6 +39,7 @@ import torch
 
 from .. import base as _base
 from .. import optimizer as opt_mod
+from ..context import resolve_device
 from ..gluon.parameter import is_initialized
 from ..ndarray.ndarray import NDArray
 
@@ -147,7 +154,21 @@ class ShardedTrainer:
         return 1.0
 
     # ------------------------------------------------------------------
-    def _build(self):
+    def _settle(self, data):
+        """Give deferred parameters their shapes and values with one
+        forward of the batch's first sample, in inference mode and
+        without a graph, so no moving statistic or dropout draw moves
+        (the reference settles shapes the same way)."""
+        if not data or all(is_initialized(p)
+                           for p in self.net.parameters()):
+            return
+        dev = self.net.device or resolve_device(None)
+        sample = [self._to_device(x, dev)[:1] for x in data]
+        with torch.no_grad(), _base.training_mode(False):
+            self.net(*sample)
+
+    def _build(self, data=()):
+        self._settle(data)
         for name, p in self.net.named_parameters():
             if not is_initialized(p):
                 raise _base.MXNetError(
@@ -179,19 +200,23 @@ class ShardedTrainer:
 
     def build(self, data=(), labels=()):
         """Create optimizer state without stepping, so a resume can load
-        state into a fresh trainer first.  The port's parameters have
-        their shapes already, so ``data``/``labels`` are not run."""
+        state into a fresh trainer first.  Deferred parameter shapes are
+        settled on ``data`` (see :meth:`_settle`); ``labels`` are not
+        needed."""
         if not self._built:
-            self._build()
+            self._build(_as_tuple(data) if data is not None else ())
         return self
 
     # ------------------------------------------------------------------
-    def _to_device(self, x) -> torch.Tensor:
+    def _to_device(self, x, device=None) -> torch.Tensor:
+        """``x`` (tensor, NDArray or array) as a tensor on ``device``
+        (default: the trainer's)."""
+        device = self.device if device is None else device
         if isinstance(x, NDArray):
             x = x.tensor
         if isinstance(x, torch.Tensor):
-            return x.to(self.device)
-        return torch.as_tensor(np.asarray(x), device=self.device)
+            return x.to(device)
+        return torch.as_tensor(np.asarray(x), device=device)
 
     def _forward_loss(self, data, labels) -> torch.Tensor:
         """The mean loss of one (micro)batch, inside an aux-loss scope
@@ -281,13 +306,17 @@ class ShardedTrainer:
                 f"batch dim {data[0].shape[0]} not divisible by "
                 f"grad_accum={self._grad_accum}")
         if not self._built:
-            self._build()
+            self._build(data)
         opt = self.optimizer
         opt.num_update += 1
         lr, t = opt.learning_rate, opt.num_update
         data = [self._to_device(x) for x in data]
         labels = [self._to_device(x) for x in labels]
         scaler = self._loss_scaler
+        # the forward moves aux state (BatchNorm's moving statistics) in
+        # place; a guarded step that turns out non-finite puts it back
+        aux_before = [p.detach().clone() for _, p in self._aux] \
+            if self._guarded else []
         loss, grads = self._loss_and_grads(
             data, labels, self._scale if scaler is not None else None)
         if not self._guarded:
@@ -310,6 +339,9 @@ class ShardedTrainer:
         # mints no NaN; the selects in _update make the skip exact
         grads = [torch.where(finite, g, torch.zeros_like(g)) for g in grads]
         self._update(grads, lr, t, keep=finite)
+        with torch.no_grad():
+            for (_n, p), old in zip(self._aux, aux_before):
+                torch.where(finite, p, old, out=p)
 
         zero = torch.zeros_like(self._good)
         if scaler is not None:

@@ -677,3 +677,130 @@ def test_engine_kernel_arm_never_takes_the_plain_or_gather_path(
         assert c["prefill_chunks"] > 0 and c["prefix_hits"] > 0
         if "spec_tokens" in kw:
             assert c["spec_cycles"] > 0 and c["preemptions"] > 0
+
+
+# ------------------------------------------------ the vision ops and layers
+# card against CPU, float32 with TF32 off: cuDNN's algorithms (implicit
+# GEMM, Winograd, FFT) sum in another order than the CPU's, so each
+# result is held as max-abs error over its max-abs within 1e-5
+
+VISION_TOL = 1e-5
+
+
+@pytest.fixture
+def no_tf32(dev):
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield dev
+    torch.backends.cudnn.allow_tf32 = saved
+
+
+def _relerr(a, ref):
+    return _maxabs(a, ref) / max(float(ref.abs().max()), 1e-30)
+
+
+def _card_vs_cpu(dev, fn, *inputs):
+    """``fn`` on the card and on the CPU with the same inputs: outputs
+    and input gradients (for a seeded head gradient) as relative
+    errors."""
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        xs = [x.to(d).requires_grad_(x.is_floating_point()) for x in inputs]
+        y = fn(*xs)
+        hg = torch.linspace(0.5, 1.5, y.numel()).reshape(y.shape).to(d)
+        grads = torch.autograd.grad(y, [x for x in xs if x.requires_grad],
+                                    hg)
+        outs[d.type] = (y.detach().cpu(), [g.cpu() for g in grads])
+    (yc, gc), (yh, gh) = outs["cuda"], outs["cpu"]
+    return [_relerr(yc, yh)] + [_relerr(a, b) for a, b in zip(gc, gh)]
+
+
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+def test_convolution_pooling_batchnorm_on_card_match_cpu(no_tf32, layout):
+    from mxnet_tpu_torch.ndarray import ops
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 16, 20, 20, generator=g)
+    if layout == "NHWC":
+        x = x.permute(0, 2, 3, 1).contiguous()
+    w = torch.randn(32, 8, 3, 3, generator=g) * 0.1
+    gamma, beta = torch.rand(32, generator=g) + 0.5, torch.randn(32,
+                                                                 generator=g)
+    ax = -1 if layout == "NHWC" else 1
+
+    def conv(x, w):
+        return ops.conv(x, w, None, (2, 2), (1, 1), (1, 1), 2, layout)
+
+    def pool(x):
+        return ops.pool(x, (3, 3), "max", False, (2, 2), (1, 1), "full",
+                        True, layout)
+
+    def stem_pool(x):                   # ResNet's: torch pads it itself
+        return ops.pool(x, (3, 3), "max", False, (2, 2), (1, 1), "valid",
+                        True, layout)
+
+    def avg(x):
+        return ops.pool(x, (3, 3), "avg", False, (2, 2), (1, 1), "valid",
+                        False, layout)
+
+    def avg_in(x):
+        return ops.pool(x, (3, 3), "avg", False, (1, 1), (1, 1), "valid",
+                        True, layout)
+
+    def bn(x, g_, b_):
+        return ops.batch_norm(x, g_, b_, None, None, 1e-5, False, True,
+                              ax)[0]
+    y = conv(x, w).detach()
+    for name, fn, inputs in (("conv", conv, (x, w)), ("max pool", pool, (x,)),
+                             ("max pool, torch's padding", stem_pool, (x,)),
+                             ("avg pool", avg, (x,)),
+                             ("avg pool with pad", avg_in, (x,)),
+                             ("batch norm", bn, (y, gamma, beta))):
+        errs = _card_vs_cpu(no_tf32, fn, *inputs)
+        assert max(errs) <= VISION_TOL, (name, errs)
+
+
+def test_resnet_moving_statistics_after_a_step_on_card_match_cpu(no_tf32):
+    """One ``ShardedTrainer`` step of a narrow NHWC ResNet on the card
+    and on the CPU from the same weights: loss, the moving statistics
+    (moved in place on the card) and the parameters agree."""
+    from mxnet_tpu_torch.models import vision
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    from mxnet_tpu_torch.utils.convert import load_numpy_params
+
+    def narrow():
+        return vision.ResNetV1(vision.BottleneckV1, [1, 1, 1, 1],
+                               [16, 32, 64, 128, 256], classes=10,
+                               layout="NHWC")
+
+    def ce(out, y):
+        return torch.logsumexp(out, -1) - out.gather(-1, y[:, None])[:, 0]
+
+    rs = onp.random.RandomState(0)
+    x = rs.uniform(-1, 1, (8, 64, 64, 3)).astype("float32")
+    y = rs.randint(0, 10, (8,)).astype("int64")
+    ref = narrow()
+    ref.initialize(seed=0, device="cpu")
+    ShardedTrainer(ref, "sgd").build(x)
+    params = {k: p.detach().numpy().copy() for k, p in
+              ref.named_parameters()}
+    out = {}
+    for d in (no_tf32, torch.device("cpu")):
+        net = load_numpy_params(narrow(), params, device=d)
+        tr = ShardedTrainer(net, "sgd", loss=ce, optimizer_params={
+            "learning_rate": 0.1, "momentum": 0.9})
+        loss = float(tr.step(x, (y,)))
+        out[d.type] = (loss, {k: p.detach().cpu() for k, p in
+                              net.named_parameters()})
+    (lc, pc), (lh, ph) = out["cuda"], out["cpu"]
+    assert abs(lc - lh) <= 1e-5 * abs(lh)
+    # a convolution bias that BatchNorm follows takes a zero gradient
+    # in exact arithmetic (rounding noise on both sides): its step is
+    # held against the largest parameter
+    top = max(float(v.abs().max()) for v in ph.values())
+    for k in ph:
+        scale = top if k.endswith(".bias") and ".body." in k else \
+            max(float(ph[k].abs().max()), 1e-30)
+        assert _maxabs(pc[k], ph[k]) <= 1e-4 * scale, k
+    moved = [k for k in ph if "running_" in k
+             and not torch.equal(ph[k], torch.from_numpy(params[k]))]
+    assert len(moved) == 17 * 2
