@@ -139,16 +139,68 @@ Phases (any failure exits non-zero and prints no result line):
    share, the shares of convolution, BatchNorm, elementwise, copy and
    layout-transpose kernels, and the top kernels.  No kernel of the port
    launches in this phase.
-11. A ``{"kernels": [...]}`` line, the card line again, and the last
-   line ``{"ok": true, "device": {...}}``.
+11. BERT-large pretraining at full width: ``bench.py``'s arm
+   (``bench.py:731-790``), cut in nothing: 24 x 1024, 16 heads, vocab
+   30522, ``max_length`` 512, batch 8 x 512, 64 masked positions a row,
+   MLM + NSP loss, Adam lr 1e-4, ``remat='dots'``, dropout 0.1, float32
+   with TF32 off.  Gate first, at batch 4 and dropout 0 without
+   ``valid_length``: one step's loss and gradients with the kernels
+   against ``impl='ref'`` attention (phase 4's tolerances; B1 48
+   launches, B2 and B3 24: remat relaunches B1).  (a)
+   ``ShardedTrainer`` with ``valid_length``, as bench.py passes it: the
+   key mask sends attention to the reference path, no kernel launches.
+   (b) The Gluon loop under ``mx.amp.init("bfloat16")`` without
+   ``valid_length`` (the same function on full rows): B1-B3 in bf16 at
+   48 / 24 / 24 launches a step.  Each: one warm-up step and 5 timed
+   ones, ms/step, samples/s, peak memory, the share of the peak at
+   bench.py's FLOP per sample, launches a step, a profile of one step,
+   losses finite and falling.
+12. Transformer-big training and translation: ``bench.py``'s arm
+   (``bench.py:679-725``): 6 + 6 layers, 1024 units, 4096 hidden, 16
+   heads, vocab 32000, batch 16, source and target 256 tokens, dropout
+   0, Adam lr 1e-4, ``ShardedTrainer``, float32.  Gate at batch 4: loss
+   and gradients against ``impl='ref'``.  The warm-up step credits each
+   flash launch to the attention module it ran in (forward and
+   backward hooks): encoder, decoder and cross-attention, 6 of each
+   kernel each.  5 timed steps: tokens/s, peak memory, the share of
+   the peak.  Then greedy ``translate`` of 8 random 64-token sources to
+   32 tokens: each emitted token's teacher-forced logit within
+   ``TOL_GREEDY`` (relative) of its position's largest; then beam 4:
+   ids in range, nothing but EOS after an EOS, and both teacher-forced
+   length-normalized scores printed.
+13. The LSTM language model: the "medium" PTB word model of Zaremba,
+   Sutskever and Vinyals (2014): embedding 650, ``gluon.rnn.LSTM(650,
+   num_layers=2, dropout=0.5)`` with dropout 0.5 before and after it,
+   vocab 10000, an untied ``Dense`` decoder, 35 steps x batch 20 of
+   random ids, SGD lr 1, the summed gradient clipped at 5 x tokens by
+   ``gluon.utils.clip_global_norm``, state carried across steps.  Gate:
+   the fused ``RNN`` route (cuDNN) against the step-by-step route,
+   logits and every gradient, ``TOL_RNN``.  A warm-up step and 10
+   timed ones: ms/step, tokens/s, peak memory, losses finite and
+   falling, a profile of one step; no kernel of the port launches.
+14. A ``{"kernels": [...]}`` line, the card line again, and the last
+   line ``{"ok": true, "device": {...}}``.  ``launches_by_path`` holds
+   every phase's launches (``bert``, ``bert_amp``, ``nmt`` and ``lstm``
+   among them); the flash kernels carry their numbers at phases 11-12's
+   shapes (``shapes``), phase 12's launches by attention and the
+   cross-attention call's times.
 
 Phase 2 also times B1, B2 and B3 in bf16 at the training shape, the
-shape phase 7 gives them, and B4 at phase 9's chunk shape (8 rows x 256
+shape phase 7 gives them, B4 at phase 9's chunk shape (8 rows x 256
 queries over tables sharing 32 prefix pages) and verify shape (9 rows x
-5 queries), float32 and int8.
+5 queries), float32 and int8, and B1-B3 at phases 11-12's shapes: BERT's
+non-causal B8 T512 H16 D64 (float32 and bf16), Transformer-big's B16
+T256 H16 D64 non-causal and causal, and one cross-attention call (q
+from one tensor, k and v projections of another) through the flash
+route against the reference path, dQ and the memory's gradient
+included.  B2 computes each row's delta from its own P and dP (the
+reference's kernel is given rowsum(dO * O)) and is held on it too; B3
+is fed B2's delta, as the training backward runs them.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import gc
 import json
 import subprocess
@@ -270,6 +322,42 @@ VISION_CLASSES = (
     ("copy or cast", ("copy",)),
     ("elementwise", ("elementwise", "reduce")),
 )
+
+# phase 11: bench.py's BERT-large arm (bench.py:731-790), cut in nothing:
+# batch 8 x 512, 64 masked positions a row, Adam lr 1e-4, dropout 0.1,
+# remat='dots'; its kernels-vs-reference gate at batch 4
+BERT_B, BERT_T, BERT_MASKED, BERT_VOCAB = 8, 512, 64, 30522
+BERT_STEPS, BERT_LR, BERT_DROPOUT, BERT_PARITY_B = 5, 1e-4, 0.1, 4
+# a training step's FLOP per sample, bench.py:785-787's count for
+# 24 x 1024
+BERT_FLOP_PER_SAMPLE = (BERT_T * (6.0 * 12 * 24 * 1024 * 1024 +
+                                  12.0 * 24 * 1024 * BERT_T) +
+                        6.0 * BERT_MASKED * 1024 * BERT_VOCAB)
+# phase 12: bench.py's Transformer-big arm (bench.py:679-725): batch 16,
+# source and target 256 tokens, vocab 32000, dropout 0, Adam lr 1e-4;
+# its gate at batch 4
+NMT_B, NMT_T, NMT_VOCAB, NMT_STEPS, NMT_LR, NMT_PARITY_B = (
+    16, 256, 32000, 5, 1e-4, 4)
+# FLOP per target token, bench.py:712-718's count for 6 + 6 layers of
+# 1024 units, 4096 hidden
+NMT_FLOP_PER_TOKEN = (6.0 * (6 * ((4 * 1024 * 1024 + 2 * 1024 * 4096) +
+                                  (8 * 1024 * 1024 + 2 * 1024 * 4096)) +
+                             1024 * NMT_VOCAB) + 24.0 * 6 * 1024 * NMT_T)
+# greedy translate against a teacher-forced forward over its tokens:
+# the emitted token's logit at most this far (relative) below the
+# position's largest.  The two forwards run other shapes (a growing
+# prefix against the whole sequence), so their float32 sums differ in
+# order; random weights make near-ties, so no exact argmax is asked
+TOL_GREEDY = 1e-4
+# phase 13: the "medium" PTB word model of Zaremba, Sutskever and
+# Vinyals (2014): 650 units, 2 layers, dropout 0.5, vocab 10000, 35
+# steps x batch 20, SGD lr 1, gradients clipped at a global norm of 5
+LSTM_VOCAB, LSTM_UNITS, LSTM_T, LSTM_B = 10000, 650, 35, 20
+LSTM_DROPOUT, LSTM_LR, LSTM_CLIP, LSTM_STEPS = 0.5, 1.0, 5.0, 10
+# cuDNN's fused LSTM against the step-by-step version on the card,
+# float32 with TF32 off: the same products summed in another order over
+# 35 steps, forward and backward; each over its own max-abs
+TOL_RNN = 1e-4
 
 # H100 SXM published peaks (dense): HBM bytes/s; bf16 on the tensor
 # cores; float32 at float32 accuracy on the tensor cores, which takes
@@ -461,7 +549,28 @@ def flash_cases(torch, dev, timer, card):
               TRAIN_B, TRAIN_T, 12, 64, torch.float32, True)
     bf16 = run(f"training-path causal B{TRAIN_B} T{TRAIN_T} H12 D64 bf16",
                TRAIN_B, TRAIN_T, 12, 64, torch.bfloat16, True, tol=TOL_BF16)
-    return f32, bf16
+    lang = {tag: run(tag, *shape, tol=TOL_F32 if dt == torch.float32
+                     else TOL_BF16)
+            for tag, shape, dt in language_shapes(torch)}
+    return f32, bf16, lang
+
+
+def language_shapes(torch):
+    """(tag, run arguments, dtype) of the shapes phases 11-12 give B1-B3:
+    BERT-large's bidirectional attention (B8 T512 H16 D64, float32 and
+    bf16) and Transformer-big's at B16 T256 H16 D64, non-causal (the
+    encoder and the cross-attention) and causal (the decoder)."""
+    out = []
+    for b, t, causal, dt in ((BERT_B, BERT_T, False, torch.float32),
+                             (BERT_B, BERT_T, False, torch.bfloat16),
+                             (NMT_B, NMT_T, False, torch.float32),
+                             (NMT_B, NMT_T, True, torch.float32)):
+        model = "bert" if t == BERT_T else "nmt"
+        kind = "causal" if causal else "full"
+        name = str(dt).split(".")[1]
+        out.append((f"{model} {kind} B{b} T{t} H16 D64 {name}",
+                    (b, t, 16, 64, dt, causal), dt))
+    return out
 
 
 def flash_bwd_cases(torch, dev, timer, card):
@@ -478,17 +587,18 @@ def flash_bwd_cases(torch, dev, timer, card):
                        .to(dtype) for _ in range(4))
         qseg, keep = attended(torch, dev, b, t, causal, seg)
         scale = d ** -0.5
-        o, lse = F.flash_fwd(q, k, v, qseg, qseg, causal=causal,
-                             scale=scale)
-        delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
-            .reshape(b * h, 1, t).contiguous()
-        args = (q, k, v, do, lse, delta, qseg, qseg)
+        _o, lse = F.flash_fwd(q, k, v, qseg, qseg, causal=causal,
+                              scale=scale)
+        # B2 computes each row's delta from its own P and dP (a first pass
+        # over the keys); B3 is fed it, as the training backward runs them
+        args = (q, k, v, do, lse, qseg, qseg)
         kw = dict(causal=causal, scale=scale)
-        dq = F.flash_dq(*args, **kw)
-        dk, dv = F.flash_dkv(*args, **kw)
+        dq, delta = F.flash_dq(*args, **kw)
+        dkv_args = (q, k, v, do, lse, delta, qseg, qseg)
+        dk, dv = F.flash_dkv(*dkv_args, **kw)
         torch.cuda.synchronize()
-        dq_ref = F._dq_plain(*args, causal, scale)
-        dk_ref, dv_ref = F._dkv_plain(*args, causal, scale)
+        dq_ref, delta_ref = F._dq_plain(*args, causal, scale)
+        dk_ref, dv_ref = F._dkv_plain(*dkv_args, causal, scale)
         rel = {"flash_dq": relerr(dq, dq_ref),
                "flash_dkv": max(relerr(dk, dk_ref), relerr(dv, dv_ref))}
         absd = {"flash_dq": maxabs(dq, dq_ref),
@@ -496,16 +606,19 @@ def flash_bwd_cases(torch, dev, timer, card):
         for name in rel:
             check(f"{name} {tag} (over plain max-abs)", rel[name],
                   TOL_BWD[dname])
-        dk2, dv2 = F.flash_dkv(*args, **kw)
-        if not (torch.equal(dq, F.flash_dq(*args, **kw))
-                and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+        check(f"flash_dq {tag}: delta (over plain max-abs)",
+              relerr(delta, delta_ref), TOL_BWD[dname])
+        dq2, delta2 = F.flash_dq(*args, **kw)
+        dk2, dv2 = F.flash_dkv(*dkv_args, **kw)
+        pairs = ((dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2))
+        if not all(torch.equal(a, c) for a, c in pairs):
             raise AssertionError(f"flash_dq/flash_dkv {tag}: a second "
                                  "launch gave other bits")
         ms = {"flash_dq": timer(lambda: F.flash_dq(*args, **kw)),
-              "flash_dkv": timer(lambda: F.flash_dkv(*args, **kw))}
+              "flash_dkv": timer(lambda: F.flash_dkv(*dkv_args, **kw))}
         plain = {"flash_dq": timer(lambda: F._dq_plain(*args, causal,
                                                        scale)),
-                 "flash_dkv": timer(lambda: F._dkv_plain(*args, causal,
+                 "flash_dkv": timer(lambda: F._dkv_plain(*dkv_args, causal,
                                                          scale))}
         lib_ms = None
         if not seg:
@@ -519,11 +632,13 @@ def flash_bwd_cases(torch, dev, timer, card):
             lib_ms = timer(lambda: torch.autograd.grad(
                 out, (qt, kt, vt), dot, retain_graph=True))
         # operations per attended (query, key) pair: B2 computes S, dP
-        # and dQ (3 products, 6*D), B3 S, dP, dV and dK (8*D), the whole
-        # backward the five distinct products (10*D); bytes: q, k, v, dO
-        # (and O for the whole backward) read once, lse and delta, the
-        # segment ids, each output written once (delta is no input of
-        # the whole backward, which reads O instead)
+        # and dQ (3 products, 6*D; its first pass, which repeats S and dP
+        # for its own delta, is the design's and not the function's), B3
+        # S, dP, dV and dK (8*D), the whole backward the five distinct
+        # products (10*D); bytes: q, k, v, dO (and O for the whole
+        # backward) read once, lse and delta (read, or written by B2),
+        # the segment ids, each output written once (delta is no input
+        # of the whole backward, which reads O instead)
         pairs = b * h * int(keep.sum())
         n = b * t * h * d * q.element_size()
         rows = 2 * b * h * t * 4 + (2 * b * t * 4 if seg else 0)
@@ -561,10 +676,66 @@ def flash_bwd_cases(torch, dev, timer, card):
                 300, 3, d, dtype, causal, seg)
     # the training path's shape: GPT-2 124M at batch 16 x 1024, float32
     # (phases 4-5) and bf16 (phase 7)
-    return {dt: run(f"training-path causal B{TRAIN_B} T{TRAIN_T} H12 D64 "
+    main = {dt: run(f"training-path causal B{TRAIN_B} T{TRAIN_T} H12 D64 "
                     f"{dt}", TRAIN_B, TRAIN_T, 12, 64, getattr(torch, dt),
                     True)
             for dt in ("float32", "bfloat16")}
+    lang = {tag: run(tag, *shape) for tag, shape, _dt in
+            language_shapes(torch)}
+    return main, lang
+
+
+def cross_case(torch, dev, timer, card):
+    """One cross-attention call through the flash route: q from one
+    tensor, k and v projections of another (the encoder's output), at
+    Transformer-big's B16 T256 H16 D64 float32.  Output, dQ and the
+    memory's gradient (through B3's dK and dV) against the reference
+    path; forward and backward timed against it and SDPA."""
+    from mxnet_tpu_torch.ops import attention
+    from mxnet_tpu_torch.ops import flash as F
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 5)
+    b, t, h, d = NMT_B, NMT_T, 16, 64
+    q = torch.randn((b, t, h, d), generator=g, device=dev)
+    mem = torch.randn((b, t, h * d), generator=g, device=dev)
+    wk, wv = (torch.randn((h * d, h * d), generator=g, device=dev) /
+              (h * d) ** 0.5 for _ in range(2))
+    cot = torch.randn((b, t, h, d), generator=g, device=dev)
+
+    def run(fn):
+        qq, mm = q.clone().requires_grad_(), mem.clone().requires_grad_()
+        k = (mm @ wk).reshape(b, t, h, d)
+        v = (mm @ wv).reshape(b, t, h, d)
+        out = fn(qq, k, v)
+        return (out.detach(),) + torch.autograd.grad((out * cot).sum(),
+                                                     (qq, mm))
+
+    reset_launches()
+    got = run(lambda qq, k, v: F.flash_attention(qq, k, v))
+    n = read_launches()
+    want = run(lambda qq, k, v: attention._attention_ref(qq, k, v))
+    if [n[k] for k in ("flash_fwd", "flash_dq", "flash_dkv")] != [1, 1, 1]:
+        raise AssertionError(f"cross-attention launches {n}")
+    print("cross-attention (q and k/v from different tensors), B16 T256 "
+          "H16 D64 f32, flash route vs reference path:", flush=True)
+    check("cross output", maxabs(got[0], want[0]), TOL_F32)
+    check("cross dQ (over its max-abs)", relerr(got[1], want[1]),
+          TOL_BWD["float32"])
+    check("cross d memory through dK, dV (over its max-abs)",
+          relerr(got[2], want[2]), TOL_BWD["float32"])
+
+    def sdpa(qq, k, v):
+        return torch.nn.functional.scaled_dot_product_attention(
+            qq.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)) \
+            .transpose(1, 2)
+    ms = {name: timer(lambda fn=fn: run(fn), iters=10)
+          for name, fn in (("flash", F.flash_attention),
+                           ("plain", attention._attention_ref),
+                           ("sdpa", sdpa))}
+    print(f"    forward + backward with the projections: flash route "
+          f"{ms['flash']:.4f} ms, reference path {ms['plain']:.4f} ms, "
+          f"sdpa {ms['sdpa']:.4f} ms [{card}]", flush=True)
+    return ms
 
 
 def engine_table(lens, max_new, ps, npt):
@@ -1756,14 +1927,14 @@ def moe_step(torch, mx, net, toks, labels, remat, seed, impl=None):
     return loss.detach(), grads, read_launches_by_dtype()
 
 
-def expect_launches(by_dtype, want, what):
-    """``by_dtype`` ({wrapper: {dtype: n}}) must show float32 launches
-    only, ``want`` ({wrapper: n}) of each."""
+def expect_launches(by_dtype, want, what, dtype="float32"):
+    """``by_dtype`` ({wrapper: {dtype: n}}) must show launches in
+    ``dtype`` only, ``want`` ({wrapper: n}) of each."""
     for name, n in want.items():
         got = by_dtype[name]
-        if got.get("float32", 0) != n or sum(got.values()) != n:
+        if got.get(dtype, 0) != n or sum(got.values()) != n:
             raise AssertionError(f"{what}: {name} launched {got}, not {n} "
-                                 "float32")
+                                 f"{dtype}")
 
 
 def moe_parity(torch, mx, card, toks, labels):
@@ -2264,6 +2435,477 @@ def vision_path(torch, card):
     print(f"phase 10: {time.monotonic() - t_phase:.1f} s", flush=True)
 
 
+# --------------------------------------------------- the language family
+
+@contextlib.contextmanager
+def attention_impl(impl):
+    """Every ``MultiHeadAttention`` call takes ``dot_product_attention``
+    with ``impl`` (the dispatch patched for a check only)."""
+    from mxnet_tpu_torch.models import transformer
+    orig = transformer.dot_product_attention
+    transformer.dot_product_attention = functools.partial(orig, impl=impl)
+    try:
+        yield
+    finally:
+        transformer.dot_product_attention = orig
+
+
+def kernels_vs_ref(torch, net, loss_fn, args, want, what):
+    """One training forward and backward of ``loss_fn(net(*args))`` with
+    the flash kernels, against the same with ``impl='ref'`` attention:
+    ``want`` is the flash launches {wrapper: n} of the kernel run (none
+    in the other); the loss relative ``TOL_LOSS``, every gradient
+    ``TOL_GRAD`` of its own max-abs (``grad_errors``)."""
+    from mxnet_tpu_torch.base import training_mode
+    params = list(net.parameters())
+    runs = {}
+    for impl in ("auto", "ref"):
+        reset_launches()
+        with attention_impl(impl), training_mode(True):
+            loss = loss_fn(net(*args)).mean()
+            grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        runs[impl] = (float(loss.detach()), grads, read_launches())
+        del loss
+    (lk, gk, nk), (lr_, gr, nr) = runs["auto"], runs["ref"]
+    for name, n in want.items():
+        if nk[name] != n or nr[name]:
+            raise AssertionError(f"{what}: {name} launched {nk[name]} / "
+                                 f"{nr[name]} times, not {n} / 0")
+    check(f"{what} loss kernels vs impl='ref' (relative)",
+          abs(lk - lr_) / abs(lr_), TOL_LOSS)
+    names = [n for n, _ in net.named_parameters()]
+    errs = grad_errors(names, gk, gr)
+    worst = int(np.argmax(errs))
+    check(f"{what} {len(errs)} gradients kernels vs impl='ref' (worst "
+          f"{names[worst]}, over its max-abs)", errs[worst], TOL_GRAD)
+
+
+def timed_steps(torch, step, n, tokens, card, what, flop=None, peak=None):
+    """``n`` timed calls of ``step`` after the caller's warm-up: returns
+    (losses, ms/step, peak MiB, launches per step) and prints them with
+    the rate of ``tokens`` units a step and, with ``flop`` (per step)
+    and ``peak`` (FLOP/s), the share of that peak."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.monotonic()
+    losses = [step() for _ in range(n)]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: v / n for k, v in read_launches().items()}
+    mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    unit, count = tokens
+    share = "" if flop is None else (
+        f", {flop * n / wall / peak:.1%} of {peak / 1e12:g} TFLOP/s at "
+        f"{flop:.4g} FLOP a step")
+    print(f"  {what}: {n} steps in {wall:.3f} s: {wall / n * 1e3:.1f} "
+          f"ms/step, {count * n / wall:.1f} {unit}/s, peak memory "
+          f"{mib:.0f} MiB{share}, launches per step {launches} [{card}]",
+          flush=True)
+    return [float(x) for x in losses], wall / n * 1e3, mib, launches
+
+
+def finite_and_falling(losses, what):
+    print(f"  {what} losses {losses}", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{what} losses not finite and falling: "
+                             f"{losses}")
+
+
+def profile_step(torch, name, fn, card):
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(torch, name, wall_ms, prof, card,
+                   marks=("flash_fwd", "flash_dq", "flash_dkv"))
+
+
+def free(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def bert_batch(b=BERT_B):
+    """``bench.py:761-776``'s batch: random ids, token types 0, every row
+    full (``valid_length`` = T), ``BERT_MASKED`` sorted masked positions
+    a row, MLM and NSP labels."""
+    rs = np.random.RandomState(SEED)
+    toks = rs.randint(0, BERT_VOCAB, (b, BERT_T)).astype(np.int32)
+    types = np.zeros((b, BERT_T), np.int32)
+    vlen = np.full((b,), BERT_T, np.int32)
+    pos = np.stack([np.sort(rs.choice(BERT_T, BERT_MASKED, replace=False))
+                    for _ in range(b)]).astype(np.int32)
+    mlm = rs.randint(0, BERT_VOCAB, (b, BERT_MASKED)).astype(np.int32)
+    nsp = rs.randint(0, 2, (b,)).astype(np.int32)
+    return toks, types, vlen, pos, mlm, nsp
+
+
+def bert_loss(outs, mlm_labels, nsp_labels):
+    """``bench.py:752-759``'s MLM + NSP cross entropy per sample (B,):
+    its mean over the batch is bench.py's loss.  Tensors or NDArrays."""
+    from mxnet_tpu_torch.ndarray.ops import apply_op
+
+    def f(m, n, ym, yn):
+        m, n = m.float(), n.float()
+        lm = m.logsumexp(-1) - m.gather(-1, ym.long()[..., None])[..., 0]
+        ln = n.logsumexp(-1) - n.gather(-1, yn.long()[:, None])[:, 0]
+        return lm.mean(-1) + ln
+    return apply_op("bert_loss", f, [outs[0], outs[1], mlm_labels,
+                                     nsp_labels])
+
+
+def bert_net(dropout):
+    from mxnet_tpu_torch.models import BERTForPretrain, get_bert
+    net = BERTForPretrain(get_bert("bert_large", vocab_size=BERT_VOCAB,
+                                   max_length=BERT_T, remat="dots",
+                                   dropout=dropout))
+    return net.initialize(seed=SEED)
+
+
+def bert_path(torch, card):
+    """Phase 11: BERT-large pretraining at full width, (a) float32
+    through ``ShardedTrainer`` with ``valid_length`` (the reference
+    path), (b) the Gluon loop under amp without it (B1-B3 in bf16),
+    after the kernels-vs-reference gate."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    t_phase = time.monotonic()
+    n_layers = 24
+    # B1 runs again when remat='dots' recomputes each layer (a ctypes
+    # launch is no aten op the policy could save)
+    want = {"flash_fwd": 2 * n_layers, "flash_dq": n_layers,
+            "flash_dkv": n_layers}
+    print(f"BERT-large pretraining: 24 x 1024, 16 heads, vocab "
+          f"{BERT_VOCAB}, batch {BERT_B} x {BERT_T}, {BERT_MASKED} masked "
+          f"positions a row, Adam lr {BERT_LR}, remat='dots':", flush=True)
+    net = bert_net(0.0)
+    dev = net.device
+    toks, types, _v, pos, mlm, nsp = (torch.from_numpy(a).to(dev) for a in
+                                      bert_batch(BERT_PARITY_B))
+    kernels_vs_ref(torch, net, lambda o: bert_loss(o, mlm, nsp),
+                   (toks, types, None, pos), want,
+                   f"BERT-large B{BERT_PARITY_B} T{BERT_T} dropout 0")
+    del net
+    free(torch)
+    batch = [torch.from_numpy(a).to(dev) for a in bert_batch()]
+    toks, types, vlen, pos, mlm, nsp = batch
+    net = bert_net(BERT_DROPOUT)
+    print(f"  {sum(p.numel() for p in net.parameters())} parameters on "
+          f"{net.device}, dropout {BERT_DROPOUT}", flush=True)
+    trainer = ShardedTrainer(net, "adam", loss=bert_loss,
+                             optimizer_params={"learning_rate": BERT_LR})
+
+    def step_a():
+        return trainer.step((toks, types, vlen, pos), (mlm, nsp))
+    first = [float(step_a())]                          # warm-up
+    losses, ms_a, mib_a, per_a = timed_steps(
+        torch, step_a, BERT_STEPS, ("samples", BERT_B), card,
+        "(a) ShardedTrainer float32, valid_length (reference path)",
+        BERT_FLOP_PER_SAMPLE * BERT_B, F32_SIMT_PEAK)
+    finite_and_falling(first + losses, "(a)")
+    if any(per_a.values()):
+        raise AssertionError(f"(a) launched a kernel: {per_a}")
+    print("where the time goes (one (a) step):", flush=True)
+    profile_step(torch, f"BERT-large step B{BERT_B} f32", step_a, card)
+    del trainer, net
+    free(torch)
+    try:
+        mx.amp.init("bfloat16")
+        net = bert_net(BERT_DROPOUT)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": BERT_LR})
+        x = [mx.nd.array(a) for a in (toks, types, pos, mlm, nsp)]
+
+        def step_b():
+            with mx.autograd.record():
+                loss = bert_loss(net(x[0], x[1], None, x[2]), x[3], x[4])
+            loss.backward()
+            trainer.step(BERT_B)
+            return loss.mean().asscalar()
+        first = [float(step_b())]                      # warm-up
+        losses, ms_b, mib_b, _per = timed_steps(
+            torch, step_b, BERT_STEPS, ("samples", BERT_B), card,
+            "(b) gluon loop under amp.init('bfloat16'), no valid_length",
+            BERT_FLOP_PER_SAMPLE * BERT_B, PEAK_FLOPS["bfloat16"])
+        launches = read_launches()
+        by_dtype = read_launches_by_dtype()
+        expect_launches(by_dtype, {k: n * BERT_STEPS for k, n in
+                                   want.items()}, "(b)", dtype="bfloat16")
+        finite_and_falling(first + losses, "(b)")
+        print("where the time goes (one (b) step):", flush=True)
+        profile_step(torch, f"BERT-large amp step B{BERT_B}", step_b, card)
+    finally:
+        mx.amp.reset()
+    print(f"  remat='dots' launches a step: B1 {want['flash_fwd']}, B2 and "
+          f"B3 {n_layers} each", flush=True)
+    print(f"phase 11: {time.monotonic() - t_phase:.1f} s", flush=True)
+    del trainer, net
+    free(torch)
+    return {k: int(v * BERT_STEPS) for k, v in per_a.items()}, launches
+
+
+def nmt_batch(b=NMT_B):
+    """``bench.py:702-707``'s batch: random source, shifted target and
+    label ids."""
+    rs = np.random.RandomState(SEED)
+    return tuple(rs.randint(0, NMT_VOCAB, (b, NMT_T)).astype(np.int32)
+                 for _ in range(3))
+
+
+def nmt_attribution(torch, net):
+    """Hooks on every attention module that credit the flash launches
+    made inside its forward and inside its backward to its kind
+    (encoder, decoder, cross).  Returns (counts, handles)."""
+    counts = {kind: dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"),
+                                  0)
+              for kind in ("encoder", "decoder", "cross")}
+    mods = [("encoder", b.attn) for b in net.enc_layers]
+    for b in net.dec_layers:
+        mods += [("decoder", b.self_attn), ("cross", b.cross_attn)]
+    handles, mark = [], {}
+
+    def before(key):
+        def hook(*_a):
+            mark[key] = read_launches()
+        return hook
+
+    def after(key, kind):
+        def hook(*_a):
+            now = read_launches()
+            for name in counts[kind]:
+                counts[kind][name] += now[name] - mark[key][name]
+        return hook
+    for i, (kind, m) in enumerate(mods):
+        handles += [m.register_forward_pre_hook(before(("f", i))),
+                    m.register_forward_hook(after(("f", i), kind)),
+                    m.register_full_backward_pre_hook(before(("b", i))),
+                    m.register_full_backward_hook(after(("b", i), kind))]
+    return counts, handles
+
+
+def nmt_path(torch, card):
+    """Phase 12: Transformer-big training through ``ShardedTrainer``
+    (float32), then greedy and beam ``translate``."""
+    from mxnet_tpu_torch.models import get_nmt, nmt_loss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    t_phase = time.monotonic()
+    n_layers = 6
+    print(f"Transformer-big: 6 + 6 layers, 1024, 4096, 16 heads, vocab "
+          f"{NMT_VOCAB}, batch {NMT_B}, source and target {NMT_T}, "
+          f"dropout 0, Adam lr {NMT_LR}, float32:", flush=True)
+    net = get_nmt("transformer_big", src_vocab_size=NMT_VOCAB, dropout=0.0)
+    net.initialize(seed=SEED)
+    dev = net.device
+    src, tgt, labels = (torch.from_numpy(a).to(dev) for a in nmt_batch())
+    b = NMT_PARITY_B
+    want = {k: 3 * n_layers for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    kernels_vs_ref(torch, net, lambda o: nmt_loss(o, labels[:b]),
+                   (src[:b], tgt[:b]), want,
+                   f"Transformer-big B{b} T{NMT_T}")
+    print(f"  {sum(p.numel() for p in net.parameters())} parameters on "
+          f"{net.device}", flush=True)
+    trainer = ShardedTrainer(net, "adam", loss=nmt_loss,
+                             optimizer_params={"learning_rate": NMT_LR})
+
+    def step():
+        return trainer.step((src, tgt), labels)
+    counts, handles = nmt_attribution(torch, net)
+    reset_launches()
+    first = [float(step())]                            # warm-up
+    total = read_launches()
+    for h in handles:
+        h.remove()
+    print(f"  launches a step by attention: {counts} (total {total})",
+          flush=True)
+    for kind, c in counts.items():
+        if any(n != n_layers for n in c.values()):
+            raise AssertionError(f"{kind} attention launched {c}, not "
+                                 f"{n_layers} of each")
+    losses, _ms, _mib, per = timed_steps(
+        torch, step, NMT_STEPS, ("tokens", NMT_B * NMT_T), card,
+        "ShardedTrainer float32", NMT_FLOP_PER_TOKEN * NMT_B * NMT_T,
+        F32_SIMT_PEAK)
+    if per != {**want, "paged_attention": 0}:
+        raise AssertionError(f"launches per step {per}, not {want}")
+    finite_and_falling(first + losses, "Transformer-big")
+    launches = read_launches()
+    print("where the time goes (one step):", flush=True)
+    profile_step(torch, f"Transformer-big step B{NMT_B}", step, card)
+    del trainer
+    free(torch)
+    translate_checks(torch, net)
+    print(f"phase 12: {time.monotonic() - t_phase:.1f} s", flush=True)
+    del net
+    free(torch)
+    return launches, counts
+
+
+def forced_logits(torch, net, src, toks, bos):
+    """Teacher-forced logits (B, L, V) of ``toks`` after BOS."""
+    tgt = np.concatenate([np.full((len(toks), 1), bos, np.int32),
+                          toks[:, :-1]], axis=1)
+    with torch.no_grad():
+        return net(src, torch.from_numpy(tgt).to(src.device)).double()
+
+
+def translate_checks(torch, net):
+    """Greedy and beam-4 ``translate`` of 8 random 64-token sources,
+    ``max_length`` 32: greedy's tokens each within ``TOL_GREEDY``
+    (relative) of their position's largest teacher-forced logit; beam's
+    tokens well formed; both teacher-forced length-normalized scores
+    printed."""
+    rs = np.random.RandomState(SEED + 1)
+    src = torch.from_numpy(rs.randint(0, NMT_VOCAB, (8, 64))
+                           .astype(np.int32)).to(net.device)
+    bos, eos, alpha = 1, 2, 1.0
+    scores = {}
+    for beam in (1, 4):
+        t0 = time.monotonic()
+        toks = net.translate(src, max_length=32, beam_size=beam,
+                             alpha=alpha, bos_id=bos, eos_id=eos)
+        wall = time.monotonic() - t0
+        if toks.min() < 0 or toks.max() >= NMT_VOCAB:
+            raise AssertionError(f"beam {beam}: ids out of range")
+        lens = []
+        for row in toks:
+            ends = np.nonzero(row == eos)[0]
+            n = int(ends[0]) + 1 if len(ends) else len(row)
+            if (row[n:] != eos).any():
+                raise AssertionError(f"beam {beam}: a token after EOS")
+            lens.append(n)
+        logits = forced_logits(torch, net, src, toks, bos)
+        logp = torch.log_softmax(logits, -1).cpu().numpy()
+        picked = np.take_along_axis(logp, toks[..., None].astype(np.int64),
+                                    -1)[..., 0]
+        scores[beam] = float(np.mean([picked[i, :n].sum() / n ** alpha
+                                      for i, n in enumerate(lens)]))
+        print(f"  translate beam {beam}: {toks.shape} tokens in "
+              f"{wall:.3f} s, lengths {lens}, teacher-forced "
+              f"length-normalized log-prob {scores[beam]:.6f}", flush=True)
+        if beam == 1:
+            lg = logits.cpu().numpy()
+            worst = 0.0
+            for i, n in enumerate(lens):
+                top = lg[i, :n].max(-1)
+                got = np.take_along_axis(lg[i, :n], toks[i, :n, None]
+                                         .astype(np.int64), -1)[:, 0]
+                worst = max(worst, float(((top - got) /
+                                          np.abs(top)).max()))
+            check("greedy tokens vs teacher-forced argmax (largest "
+                  "logit - emitted, relative)", worst, TOL_GREEDY)
+    print(f"  beam 4 minus greedy score: {scores[4] - scores[1]:.6f} "
+          "(a finding on random weights, not a gate)", flush=True)
+
+
+def word_lm():
+    """The PTB word model of Zaremba, Sutskever and Vinyals (2014),
+    "medium": embedding, dropout, a 2-layer LSTM with dropout between
+    its layers, dropout, an untied Dense decoder over the vocabulary."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn, rnn
+
+    class WordLM(mx.gluon.Block):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(LSTM_VOCAB, LSTM_UNITS)
+            self.drop = nn.Dropout(LSTM_DROPOUT)
+            self.lstm = rnn.LSTM(LSTM_UNITS, num_layers=2,
+                                 dropout=LSTM_DROPOUT, input_size=LSTM_UNITS)
+            self.decoder = nn.Dense(LSTM_VOCAB, flatten=False,
+                                    in_units=LSTM_UNITS)
+
+        def forward(self, x, states):
+            out, states = self.lstm(self.drop(self.embed(x)), states)
+            return self.decoder(self.drop(out)), states
+    return WordLM()
+
+
+def lstm_path(torch, card):
+    """Phase 13: the LSTM language model through the Gluon loop (SGD lr
+    1, gradients clipped at a global norm of 5 through
+    ``gluon.utils.clip_global_norm``), after the fused-vs-step gate."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.base import training_mode
+    t_phase = time.monotonic()
+    net = word_lm().initialize(mx.init.Uniform(0.05), seed=SEED)
+    dev = net.device
+    rs = np.random.RandomState(SEED)
+    x_np, y_np = (rs.randint(0, LSTM_VOCAB, (LSTM_T, LSTM_B))
+                  .astype(np.int32) for _ in range(2))
+    x, y = (torch.from_numpy(a).to(dev) for a in (x_np, y_np))
+    n_params = sum(p.numel() for p in net.parameters())
+    print(f"LSTM LM (Zaremba et al. 2014, medium): embedding "
+          f"{LSTM_UNITS}, LSTM {LSTM_UNITS} x 2, dropout {LSTM_DROPOUT}, "
+          f"vocab {LSTM_VOCAB}, {LSTM_T} steps x batch {LSTM_B}, SGD lr "
+          f"{LSTM_LR}, clip {LSTM_CLIP}; {n_params} parameters on {dev}:",
+          flush=True)
+    params = list(net.parameters())
+    names = [n for n, _ in net.named_parameters()]
+    zeros = [torch.zeros((2, LSTM_B, LSTM_UNITS), device=dev)
+             for _ in range(2)]
+    runs = {}
+    for impl in ("fused", "step"):
+        net.lstm._impl = impl
+        mx.random.seed(SEED)
+        with training_mode(True):
+            logits, _st = net(x, zeros)
+            loss = torch.nn.functional.cross_entropy(
+                logits.reshape(-1, LSTM_VOCAB), y.reshape(-1).long())
+        runs[impl] = (logits.detach(), torch.autograd.grad(loss, params))
+        torch.cuda.synchronize()
+    net.lstm._impl = "auto"
+    check("fused RNN (cuDNN) vs step-by-step: logits (over max-abs)",
+          relerr(runs["fused"][0], runs["step"][0]), TOL_RNN)
+    errs = [relerr(a, b) for a, b in zip(runs["fused"][1],
+                                         runs["step"][1])]
+    worst = int(np.argmax(errs))
+    check(f"fused RNN vs step-by-step: {len(errs)} gradients (worst "
+          f"{names[worst]}, over its max-abs)", errs[worst], TOL_RNN)
+    del runs
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": LSTM_LR})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    xn, yn = mx.nd.array(x_np, dtype="int32"), mx.nd.array(
+        y_np, dtype="int32")
+    states = net.lstm.begin_state(LSTM_B)
+    grads = [p.grad() for p in net.collect_params().values()]
+    n_tok = LSTM_T * LSTM_B
+
+    def step():
+        nonlocal states
+        states = [s.detach() for s in states]
+        with mx.autograd.record():
+            out, states = net(xn, states)
+            loss = loss_fn(out.reshape((n_tok, LSTM_VOCAB)),
+                           yn.reshape((n_tok,)))
+        loss.backward()
+        # MXNet's word LM example: the summed gradient clipped at
+        # clip x tokens, then the step divides by the tokens
+        mx.gluon.utils.clip_global_norm(grads, LSTM_CLIP * n_tok,
+                                        check_isfinite=False)
+        trainer.step(n_tok)
+        return loss.mean().asscalar()
+    first = [float(step())]                            # warm-up
+    losses, _ms, _mib, per = timed_steps(
+        torch, step, LSTM_STEPS, ("tokens", n_tok), card,
+        "gluon loop float32 (fused RNN)")
+    finite_and_falling(first + losses, "LSTM LM")
+    if any(per.values()):
+        raise AssertionError(f"the LSTM LM launched a kernel: {per}")
+    print("where the time goes (one step):", flush=True)
+    profile_step(torch, f"LSTM LM step T{LSTM_T} B{LSTM_B}", step, card)
+    print(f"phase 13: {time.monotonic() - t_phase:.1f} s", flush=True)
+    del trainer, net
+    free(torch)
+    return {k: int(v * LSTM_STEPS) for k, v in per.items()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2285,8 +2927,9 @@ def main() -> int:
         print(f"--- ptxas {name}:\n{native.build_log(name).strip()}")
     timer = Timer(torch, dev)
     prompts = make_prompts()
-    fwd_f32, fwd_bf16 = flash_cases(torch, dev, timer, card)
-    bwd = flash_bwd_cases(torch, dev, timer, card)
+    fwd_f32, fwd_bf16, fwd_lang = flash_cases(torch, dev, timer, card)
+    bwd, bwd_lang = flash_bwd_cases(torch, dev, timer, card)
+    cross_ms = cross_case(torch, dev, timer, card)
     paged_main, paged_multi = paged_cases(torch, dev, timer, card,
                                           [len(p) for p in prompts])
     record = {"flash_fwd": fwd_f32, **bwd["float32"],
@@ -2326,6 +2969,10 @@ def main() -> int:
     if any(by_path["vision"].values()):
         raise AssertionError(f"the vision phase launched a kernel of the "
                              f"port: {by_path['vision']}")
+    free(torch)
+    by_path["bert"], by_path["bert_amp"] = bert_path(torch, card)
+    by_path["nmt"], nmt_split = nmt_path(torch, card)
+    by_path["lstm"] = lstm_path(torch, card)
     # each kernel's launches on the path that is its own: the training
     # path for the flash kernels, the serving path for paged attention;
     # the flash kernels' bf16 numbers (phase 2 at the training shape)
@@ -2346,6 +2993,13 @@ def main() -> int:
         if k["name"] in record_bf16:
             k["bfloat16"] = dict(launches=by_path["amp"][k["name"]],
                                  **record_bf16[k["name"]])
+            # phases 11-12's shapes (phase 2), the NMT step's launches
+            # by attention, the cross-attention call's times
+            k["shapes"] = (fwd_lang if k["name"] == "flash_fwd" else
+                           {t: r[k["name"]] for t, r in bwd_lang.items()})
+            k["nmt_launches_by_attention"] = {
+                kind: c[k["name"]] for kind, c in nmt_split.items()}
+            k["cross_fwd_bwd_ms"] = cross_ms
     print(f"chip_smoke: {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,11 +5,20 @@
 // launched by `_bwd_impl`), the Pallas TPU kernels of the training
 // backward.  Same function: the probabilities are recomputed from the
 // forward's per-row logsumexp, P = exp(S - lse) (zero where S is masked),
-// dP = dO.V^T, dS = P * (dP - delta) * scale with delta = rowsum(dO * O)
-// computed by the caller; then dQ = dS.K (kernel 1) and dV = P^T.dO,
-// dK = dS^T.Q (kernel 2).  Causal and packed segment-id masks are the
-// forward's; tiles above the diagonal and tiles whose segment ranges cannot
-// meet are skipped.  A masked pair has P = 0 and skips its exp, which is the
+// dP = dO.V^T, dS = P * (dP - delta) * scale; then dQ = dS.K (kernel 1)
+// and dV = P^T.dO, dK = dS^T.Q (kernel 2).  Kernel 1 computes each row's
+// delta in a first pass over the key tiles, delta = sum_j P dP / sum_j P
+// from the very P and dP its second pass uses, and writes it for kernel 2.
+// In exact arithmetic that is the reference's rowsum(dO * O); in float32 it
+// keeps sum_j dS = 0 for each query, which a delta from the forward's O
+// (its own 3xTF32 rounding apart from the backward's products) does not:
+// where attention is peaked,
+// dP - delta cancels, and that mismatch reached 1e-3 of q_proj's gradient
+// in a 24-layer BERT-large on an H100 (the reference path: 5e-5 of float64).
+// The first pass costs kernel 1 two more products per pair (S and dP
+// again).  Causal and packed segment-id masks are the forward's; tiles
+// above the diagonal and tiles whose segment ranges cannot meet are
+// skipped.  A masked pair has P = 0 and skips its exp, which is the
 // reference's masked-safe exp (`where(s <= _MASK/2, 0, exp(s - lse))`):
 // a row with no valid key (lse = -1e30) gives dQ = 0 and adds nothing to
 // dK/dV, and nothing becomes inf or NaN.
@@ -108,7 +117,7 @@ __global__ void __launch_bounds__(kThreads)
     flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta,
+                    float* __restrict__ delta_out,
                     const int* __restrict__ qseg, const int* __restrict__ kseg,
                     T* __restrict__ dq, int seq, int heads, int causal,
                     float scale) {
@@ -158,7 +167,7 @@ __global__ void __launch_bounds__(kThreads)
   const int qi = q0 + row;
   const bool live = row < nq;
   const float row_lse = live ? lse[size_t(bh) * seq + qi] : 0.f;
-  const float row_delta = live ? delta[size_t(bh) * seq + qi] : 0.f;
+  float row_delta = 0.f;
   float acc[DPT];
 #pragma unroll
   for (int j = 0; j < DPT; ++j) acc[j] = 0.f;
@@ -166,51 +175,69 @@ __global__ void __launch_bounds__(kThreads)
   int n_kt = (seq + BC - 1) / BC;
   if (causal) n_kt = min(n_kt, (q0 + BR + BC - 1) / BC);  // to the diagonal
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BC;
-    const int nk = min(BC, seq - k0);
-    __syncthreads();  // the previous tile's sK/sV/sS reads are done
-    stage<T, D>(sK, k, base, rs, k0, nk, BC);
-    stage<T, D>(sV, v, base, rs, k0, nk, BC);
-    if (has_seg) {
-      for (int i = tid; i < nk; i += kThreads)
-        sKseg[i] = kseg[size_t(b) * seq + k0 + i];
+  // pass 0 sums P and P.dP of this thread's pairs for the row's delta
+  float psum = 0.f, pdp = 0.f;
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pass == 1) {
+      // the row's TPR threads are adjacent lanes of one warp
+#pragma unroll
+      for (int o = 1; o < TPR; o <<= 1) {
+        psum += __shfl_xor_sync(0xffffffffu, psum, o);
+        pdp += __shfl_xor_sync(0xffffffffu, pdp, o);
+      }
+      row_delta = psum > 0.f ? pdp / psum : 0.f;
+      if (live && lane == 0) delta_out[size_t(bh) * seq + qi] = row_delta;
     }
-    __syncthreads();
-    if (has_seg) {
-      // segment-disjoint tile skip (flash.py `_run_pred`)
-      if (tid < 32) {
-        int mn, mx;
-        warp_minmax(sKseg, nk, &mn, &mx);
-        if (tid == 0) sFlag[0] = (mn <= sFlag[2]) && (mx >= sFlag[1]);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int k0 = kt * BC;
+      const int nk = min(BC, seq - k0);
+      __syncthreads();  // the previous tile's sK/sV/sS reads are done
+      stage<T, D>(sK, k, base, rs, k0, nk, BC);
+      stage<T, D>(sV, v, base, rs, k0, nk, BC);
+      if (has_seg) {
+        for (int i = tid; i < nk; i += kThreads)
+          sKseg[i] = kseg[size_t(b) * seq + k0 + i];
       }
       __syncthreads();
-      if (!sFlag[0]) continue;  // uniform across the block
-    }
+      if (has_seg) {
+        // segment-disjoint tile skip (flash.py `_run_pred`)
+        if (tid < 32) {
+          int mn, mx;
+          warp_minmax(sKseg, nk, &mn, &mx);
+          if (tid == 0) sFlag[0] = (mn <= sFlag[2]) && (mx >= sFlag[1]);
+        }
+        __syncthreads();
+        if (!sFlag[0]) continue;  // uniform across the block
+      }
 
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int c = lane + TPR * j;
-      const int key = k0 + c;
-      bool keep = live && c < nk;
-      if (causal) keep = keep && key <= qi;
-      if (has_seg) keep = keep && sQseg[row] == sKseg[c];
-      float ds = 0.f;  // a masked pair has P = 0 (flash.py `p = where(...)`)
-      if (keep) {
-        const float s = dot<D>(sQ + row * LD, sK + c * LD) * scale;
-        const float dp = dot<D>(sO + row * LD, sV + c * LD);
-        ds = expf(s - row_lse) * (dp - row_delta) * scale;
+      for (int j = 0; j < CPT; ++j) {
+        const int c = lane + TPR * j;
+        const int key = k0 + c;
+        bool keep = live && c < nk;
+        if (causal) keep = keep && key <= qi;
+        if (has_seg) keep = keep && sQseg[row] == sKseg[c];
+        float ds = 0.f;  // a masked pair has P = 0 (flash.py `p = where(...)`)
+        if (keep) {
+          const float s = dot<D>(sQ + row * LD, sK + c * LD) * scale;
+          const float dp = dot<D>(sO + row * LD, sV + c * LD);
+          const float p = expf(s - row_lse);
+          psum += p;
+          pdp += p * dp;
+          ds = p * (dp - row_delta) * scale;
+        }
+        if (pass == 1) sS[row * LS + c] = round_to<T>(ds);  // ds.astype(k)
       }
-      sS[row * LS + c] = round_to<T>(ds);  // ds.astype(k.dtype)
-    }
-    __syncwarp();  // the row's threads share one warp
+      if (pass == 0) continue;
+      __syncwarp();  // the row's threads share one warp
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      const int d = lane + TPR * j;
-      float sum = 0.f;
+      for (int j = 0; j < DPT; ++j) {
+        const int d = lane + TPR * j;
+        float sum = 0.f;
 #pragma unroll 16
-      for (int c = 0; c < BC; ++c) sum += sS[row * LS + c] * sK[c * LD + d];
-      acc[j] += sum;
+        for (int c = 0; c < BC; ++c) sum += sS[row * LS + c] * sK[c * LD + d];
+        acc[j] += sum;
+      }
     }
   }
 
@@ -570,7 +597,7 @@ __global__ void __launch_bounds__(kTC)
     flash_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ dout,
                        const float* __restrict__ lse,
-                       const float* __restrict__ delta,
+                       float* __restrict__ delta_out,
                        const int* __restrict__ qseg,
                        const int* __restrict__ kseg, T* __restrict__ dq,
                        int seq, int heads, int causal, float scale) {
@@ -619,13 +646,12 @@ __global__ void __launch_bounds__(kTC)
   // segment range
   const int r0 = 16 * warp + g;
   const int qi[2] = {q0 + r0, q0 + r0 + 8};
-  float row_lse[2], row_delta[2];
+  float row_lse[2], row_delta[2] = {0.f, 0.f};
   int qs[2] = {0, 0}, qmn = 0, qmx = 0;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const bool live = qi[r] < seq;
     row_lse[r] = live ? lse[size_t(bh) * seq + qi[r]] : 0.f;
-    row_delta[r] = live ? delta[size_t(bh) * seq + qi[r]] : 0.f;
   }
   if (has_seg) {
     const int* qrow = qseg + size_t(b) * seq;
@@ -638,71 +664,95 @@ __global__ void __launch_bounds__(kTC)
   for (int n = 0; n < D / 8; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    if (kt + 1 < n_kt) issue(kt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();  // tile kt (and Q, dO) visible to every warp
-    const T* sK = sKV + (kt & 1) * 2 * BK * LD;
-    const T* sV = sK + BK * LD;
-    const int* ks = sKseg + (kt & 1) * BK;
-    const int k0 = kt * BK;
-    const int nk = min(BK, seq - k0);
-    bool run = true;
-    if (has_seg) {
-      // segment-disjoint tile skip (flash.py `_run_pred`); every warp
-      // reaches the same answer
-      int mn, mx;
-      warp_minmax(ks, nk, &mn, &mx);
-      run = mn <= qmx && mx >= qmn;
+  // pass 0 sums P and P.dP of this thread's pairs for the rows' deltas;
+  // the four threads t of a row group hold disjoint key columns
+  float psum[2] = {0.f, 0.f}, pdp[2] = {0.f, 0.f};
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pass == 1) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], o);
+          pdp[r] += __shfl_xor_sync(0xffffffffu, pdp[r], o);
+        }
+        row_delta[r] = psum[r] > 0.f ? pdp[r] / psum[r] : 0.f;
+        if (t == 0 && qi[r] < seq)
+          delta_out[size_t(bh) * seq + qi[r]] = row_delta[r];
+      }
+      issue(0);  // pass 0's last tile was read before its closing barrier
+      cp_async_commit();
     }
-    if (run) {
-      // S = Q.K^T and dP = dO.V^T: 16 queries x BK keys per warp
-      float s[NT][4], dp[NT][4];
+    for (int kt = 0; kt < n_kt; ++kt) {
+      if (kt + 1 < n_kt) issue(kt + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();  // tile kt (and Q, dO) visible to every warp
+      const T* sK = sKV + (kt & 1) * 2 * BK * LD;
+      const T* sV = sK + BK * LD;
+      const int* ks = sKseg + (kt & 1) * BK;
+      const int k0 = kt * BK;
+      const int nk = min(BK, seq - k0);
+      bool run = true;
+      if (has_seg) {
+        // segment-disjoint tile skip (flash.py `_run_pred`); every warp
+        // reaches the same answer
+        int mn, mx;
+        warp_minmax(ks, nk, &mn, &mx);
+        run = mn <= qmx && mx >= qmn;
+      }
+      if (run) {
+        // S = Q.K^T and dP = dO.V^T: 16 queries x BK keys per warp
+        float s[NT][4], dp[NT][4];
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+        for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+          for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < D / KS; ++kk) {
-        const typename M::A aq = M::load_a(sQ, LD, 16 * warp, KS * kk);
-        const typename M::A ao = M::load_a(sO, LD, 16 * warp, KS * kk);
+        for (int kk = 0; kk < D / KS; ++kk) {
+          const typename M::A aq = M::load_a(sQ, LD, 16 * warp, KS * kk);
+          const typename M::A ao = M::load_a(sO, LD, 16 * warp, KS * kk);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            M::mma_n(s[j], aq, sK, LD, 8 * j, KS * kk);
+            M::mma_n(dp[j], ao, sV, LD, 8 * j, KS * kk);
+          }
+        }
+        // dS in place of dP; s[j][2*r + e] is query row r, key 8j + 2t + e.
+        // A masked pair has P = 0 and skips its exp (the reference's
+        // masked-safe exp); a row with no valid key has no kept pair.
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
-          M::mma_n(s[j], aq, sK, LD, 8 * j, KS * kk);
-          M::mma_n(dp[j], ao, sV, LD, 8 * j, KS * kk);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + 2 * t + e;
+            const int key = k0 + c;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              bool keep = c < nk;
+              if (causal) keep = keep && key <= qi[r];
+              if (has_seg) keep = keep && qs[r] == ks[c];
+              const int i = 2 * r + e;
+              const float p = keep ? expf(s[j][i] * scale - row_lse[r]) : 0.f;
+              psum[r] += p;
+              pdp[r] += p * dp[j][i];
+              dp[j][i] = p * (dp[j][i] - row_delta[r]) * scale;
+            }
+          }
         }
-      }
-      // dS in place of dP; s[j][2*r + e] is query row r, key 8j + 2t + e.
-      // A masked pair has P = 0 and skips its exp (the reference's
-      // masked-safe exp); a row with no valid key has no kept pair.
+        // dQ += dS.K over this tile's keys
+        if (pass == 1) {
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
+          for (int j = 0; j < BK / KS; ++j) {
+            const typename M::A ad = M::acc_a(dp + j * (KS / 8));
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = 8 * j + 2 * t + e;
-          const int key = k0 + c;
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            bool keep = c < nk;
-            if (causal) keep = keep && key <= qi[r];
-            if (has_seg) keep = keep && qs[r] == ks[c];
-            const int i = 2 * r + e;
-            const float p = keep ? expf(s[j][i] * scale - row_lse[r]) : 0.f;
-            dp[j][i] = p * (dp[j][i] - row_delta[r]) * scale;
+            for (int n = 0; n < D / 8; ++n)
+              M::mma_k(acc[n], ad, sK, LD, KS * j, 8 * n);
           }
         }
       }
-      // dQ += dS.K over this tile's keys
-#pragma unroll
-      for (int j = 0; j < BK / KS; ++j) {
-        const typename M::A ad = M::acc_a(dp + j * (KS / 8));
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-          M::mma_k(acc[n], ad, sK, LD, KS * j, 8 * n);
-      }
+      __syncthreads();  // every warp is done with stage kt & 1
     }
-    __syncthreads();  // every warp is done with stage kt & 1
   }
 
 #pragma unroll
@@ -717,7 +767,9 @@ __global__ void __launch_bounds__(kTC)
 
 struct Args {
   const void *q, *k, *v, *dout;
-  const float *lse, *delta;
+  const float* lse;
+  const float* delta;  // kernel 2 reads it
+  float* delta_out;    // kernel 1 writes it
   const int *qseg, *kseg;
   void *d0, *d1;  // dQ (kernel 1); dK, dV (kernel 2)
   int batch, seq, heads, causal;
@@ -736,8 +788,8 @@ cudaError_t launch_dq(const Args& a) {
   kern<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, a.qseg, a.kseg, static_cast<T*>(a.d0), a.seq, a.heads,
-      a.causal, a.scale);
+      a.delta_out, a.qseg, a.kseg, static_cast<T*>(a.d0), a.seq,
+      a.heads, a.causal, a.scale);
   return cudaGetLastError();
 }
 
@@ -784,8 +836,8 @@ cudaError_t launch_dq_tc(const Args& a) {
   kern<<<grid, kTC, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, a.qseg, a.kseg, static_cast<T*>(a.d0), a.seq, a.heads,
-      a.causal, a.scale);
+      a.delta_out, a.qseg, a.kseg, static_cast<T*>(a.d0), a.seq,
+      a.heads, a.causal, a.scale);
   return cudaGetLastError();
 }
 
@@ -835,14 +887,15 @@ int dispatch(int dtype, int head_dim, const Args& a) {
 
 // Each returns the cudaError_t of its launch (0 on success).  dtype: 0
 // float32, 1 bfloat16.  qseg/kseg are (B, T) int32 or both null; lse and
-// delta (B*H, T) float32.
+// delta (B*H, T) float32: mxt_flash_dq writes each row's delta to
+// delta_out and mxt_flash_dkv reads it.
 extern "C" int mxt_flash_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
-                            const float* delta, const int* qseg,
+                            float* delta_out, const int* qseg,
                             const int* kseg, void* dq, int batch, int seq,
                             int heads, int head_dim, int causal, float scale,
                             int dtype, void* stream) {
-  const Args a{q,     k,    v,    dout,  lse,    delta,
+  const Args a{q,     k,    v,    dout,    lse,   nullptr, delta_out,
                qseg,  kseg, dq,   nullptr, batch, seq,
                heads, causal, scale, static_cast<cudaStream_t>(stream)};
   return dispatch<false>(dtype, head_dim, a);
@@ -854,7 +907,7 @@ extern "C" int mxt_flash_dkv(const void* q, const void* k, const void* v,
                              const int* kseg, void* dk, void* dv, int batch,
                              int seq, int heads, int head_dim, int causal,
                              float scale, int dtype, void* stream) {
-  const Args a{q,     k,    v,    dout, lse,   delta,
+  const Args a{q,     k,    v,    dout, lse,   delta, nullptr,
                qseg,  kseg, dk,   dv,   batch, seq,
                heads, causal, scale, static_cast<cudaStream_t>(stream)};
   return dispatch<true>(dtype, head_dim, a);

@@ -1,5 +1,5 @@
 """Gluon core (counterpart of ``mxnet_tpu.gluon``)."""
-from . import loss, model_zoo, nn, utils
+from . import loss, model_zoo, nn, rnn, utils
 from .block import Block, HybridBlock
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
@@ -8,4 +8,4 @@ from .utils import split_and_load
 
 __all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict", "Constant",
            "DeferredInitializationError", "Trainer", "loss", "model_zoo",
-           "nn", "utils", "split_and_load"]
+           "nn", "rnn", "utils", "split_and_load"]

@@ -1,11 +1,15 @@
 """Models (counterpart of ``mxnet_tpu.models``): GPT-2 and its LM loss,
-the MoE layers, and the vision zoo (``vision``, ``get_model``)."""
+the MoE layers, BERT with its pretraining heads, Transformer NMT and
+its loss, and the vision zoo (``vision``, ``get_model``)."""
 from . import vision
+from .bert import BERTForPretrain, BERTModel, get_bert
 from .gpt2 import GPT2Model, get_gpt2, gpt2_lm_loss
 from .moe import (MoELayer, MoETransformerBlock, aux_loss_scope, moe_ffn,
                   pop_aux_losses)
+from .nmt import TransformerNMT, get_nmt, nmt_loss
 from .vision import get_model
 
 __all__ = ["vision", "get_model", "GPT2Model", "get_gpt2", "gpt2_lm_loss",
            "MoELayer", "MoETransformerBlock", "moe_ffn", "pop_aux_losses",
-           "aux_loss_scope"]
+           "aux_loss_scope", "get_bert", "BERTModel", "BERTForPretrain",
+           "get_nmt", "TransformerNMT", "nmt_loss"]

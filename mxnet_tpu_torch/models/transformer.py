@@ -42,7 +42,7 @@ from ..ops import dot_product_attention
 from ..ops.paged import kv_quantize, paged_attention
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerBlock",
-           "run_blocks", "copy_cache_rows"]
+           "TransformerEncoderLayer", "run_blocks", "copy_cache_rows"]
 
 _NEG = -1e30
 
@@ -95,10 +95,16 @@ def _gather_rows(cache, table_rows):
 
 
 class MultiHeadAttention(HybridBlock):
-    """Self-attention with separate q/k/v/out projections (the
-    reference's parameter tree)."""
+    """Multi-head attention with separate q/k/v/out projections (the
+    reference's parameter tree): self-attention over ``x``, or
+    cross-attention with ``memory`` (queries from ``x``, keys and values
+    from ``memory``: the encoder-decoder attention of NMT).
+    ``attention_dropout`` drops attention weights in training; above 0
+    it sends attention to the reference path, as the reference's
+    dispatch does."""
 
-    def __init__(self, units, num_heads, dropout=0.0, causal=False):
+    def __init__(self, units, num_heads, dropout=0.0, attention_dropout=0.0,
+                 use_bias=True, causal=False):
         super().__init__()
         if units % num_heads:
             raise ValueError(f"units {units} not divisible by heads "
@@ -106,25 +112,29 @@ class MultiHeadAttention(HybridBlock):
         self._num_heads = num_heads
         self._head_dim = units // num_heads
         self._causal = causal
+        self._att_dropout = attention_dropout
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            setattr(self, name, Dense(units, flatten=False, in_units=units))
+            setattr(self, name, Dense(units, use_bias=use_bias,
+                                      flatten=False, in_units=units))
         self.dropout = Dropout(dropout) if dropout else None
 
-    def _qkv(self, x):
-        b, t = x.shape[0], x.shape[1]
+    def _qkv(self, x, memory=None):
+        kv = x if memory is None else memory
+        b, t, tk = x.shape[0], x.shape[1], kv.shape[1]
         h, d = self._num_heads, self._head_dim
         return (self.q_proj(x).reshape(b, t, h, d),
-                self.k_proj(x).reshape(b, t, h, d),
-                self.v_proj(x).reshape(b, t, h, d))
+                self.k_proj(kv).reshape(b, tk, h, d),
+                self.v_proj(kv).reshape(b, tk, h, d))
 
     def _out(self, out):
         b, t = out.shape[0], out.shape[1]
         return self.out_proj(out.reshape(b, t, -1))
 
-    def forward(self, x, mask=None):
-        q, k, v = self._qkv(x)
-        out = self._out(dot_product_attention(q, k, v, causal=self._causal,
-                                              mask=mask))
+    def forward(self, x, mask=None, memory=None):
+        q, k, v = self._qkv(x, memory)
+        out = self._out(dot_product_attention(
+            q, k, v, causal=self._causal, mask=mask,
+            dropout=self._att_dropout))
         if self.dropout is not None:
             out = self.dropout(out)
         return out
@@ -324,16 +334,18 @@ def _save_dots(ctx, op, *args, **kwargs):
             else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _call(blk, x, mask):
+def _call(blk, x, mask, memory=None):
+    if memory is not None:
+        return blk(x, memory, mask)
     return blk(x) if mask is None else blk(x, mask)
 
 
-def _own_aux(blk, x, mask):
+def _own_aux(blk, x, mask, memory=None):
     """``blk``'s output and the aux losses it recorded, the collector's
     earlier entries left in place."""
     outer = _base.pop_aux_losses()
     try:
-        out = _call(blk, x, mask)
+        out = _call(blk, x, mask, memory)
     finally:
         mine = _base.pop_aux_losses()
         for a in outer:
@@ -341,9 +353,12 @@ def _own_aux(blk, x, mask):
     return out, mine
 
 
-def _remat_layer(blk, x, mask, remat):
+def _remat_layer(blk, x, mask, remat, memory=None):
     """One layer under ``torch.utils.checkpoint`` (non-reentrant; with
     ``remat='dots'`` a selective policy that saves mm/addmm/bmm outputs).
+    A decoder layer takes ``memory`` (the encoder's output) as a second
+    input of the checkpoint: it is saved, not recomputed, and its
+    gradient flows out of the recomputation.
 
     The recomputation runs during backward, on autograd's device thread
     for CUDA tensors, so it reinstates what the forward read from its
@@ -362,16 +377,16 @@ def _remat_layer(blk, x, mask, remat):
              _base.aux_collection_active(), _amp.current_policy())
     forward_done = []
 
-    def run(h):
+    def run(h, mem):
         if not forward_done:
             forward_done.append(True)
-            out, aux = _own_aux(blk, h, mask)
+            out, aux = _own_aux(blk, h, mask, mem)
             return (out, *aux)
         prev = (_base.set_training(flags[0]), _base.set_recording(flags[1]),
                 _base.set_aux_collection(flags[2]))
         try:
             with _amp.policy_scope(flags[3]), _random.replay(dev, rng):
-                _own_aux(blk, h, mask)
+                _own_aux(blk, h, mask, mem)
         finally:
             _base.set_training(prev[0])
             _base.set_recording(prev[1])
@@ -381,7 +396,7 @@ def _remat_layer(blk, x, mask, remat):
     if remat == "dots":
         kw["context_fn"] = functools.partial(
             _ckpt.create_selective_checkpoint_contexts, _save_dots)
-    out, *aux = _ckpt.checkpoint(run, x, use_reentrant=False, **kw)
+    out, *aux = _ckpt.checkpoint(run, x, memory, use_reentrant=False, **kw)
     for a in aux:
         _base.record_aux_loss(a)
     return out
@@ -412,10 +427,11 @@ class TransformerBlock(HybridBlock):
     """Pre-LN transformer layer (GPT-2 style)."""
 
     def __init__(self, units, hidden_size, num_heads, dropout=0.0,
-                 causal=True, layer_norm_eps=1e-5):
+                 attention_dropout=0.0, causal=True, layer_norm_eps=1e-5):
         super().__init__()
         self.ln1 = LayerNorm(epsilon=layer_norm_eps, in_channels=units)
         self.attn = MultiHeadAttention(units, num_heads, dropout=dropout,
+                                       attention_dropout=attention_dropout,
                                        causal=causal)
         self.ln2 = LayerNorm(epsilon=layer_norm_eps, in_channels=units)
         self.ffn = PositionwiseFFN(units, hidden_size, dropout=dropout)
@@ -442,3 +458,11 @@ class TransformerBlock(HybridBlock):
         x = x + self.attn.forward_step_window(self.ln1(x), rows, pos, win_k,
                                               win_v, i)
         return x + self.ffn(self.ln2(x))
+
+
+class TransformerEncoderLayer(TransformerBlock):
+    """Bidirectional (BERT-style) pre-LN layer: no causal mask."""
+
+    def __init__(self, units, hidden_size, num_heads, **kwargs):
+        super().__init__(units, hidden_size, num_heads, causal=False,
+                         **kwargs)

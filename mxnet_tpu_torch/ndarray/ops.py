@@ -32,9 +32,8 @@ random_uniform random_normal random_gamma random_exponential
 random_poisson random_randint normal uniform random_bernoulli
 sample_multinomial shuffle random_negative_binomial
 random_generalized_negative_binomial sample_uniform sample_normal
-sample_gamma sample_exponential sample_poisson RNN SequenceMask
-SequenceLast SequenceReverse interleaved_matmul_selfatt_qk
-interleaved_matmul_selfatt_valatt unravel_index ravel_multi_index
+sample_gamma sample_exponential sample_poisson unravel_index
+ravel_multi_index
 ROIPooling batch_take BilinearSampler GridGenerator SpatialTransformer
 box_iou box_nms ROIAlign MultiBoxPrior MultiBoxTarget MultiBoxDetection
 scatter_nd linalg_potrf linalg_trsm linalg_det linalg_slogdet
@@ -1496,3 +1495,121 @@ def space_to_depth(data, block_size, **kw):
         x = x.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
         return x.reshape(n, c * b * b, h // b, w // b)
     return invoke("space_to_depth", f, [_as_nd(data)])
+
+
+# ------------------------------------------------------ sequence / RNN ops
+
+def _seq_shape(x, axis, n):
+    """A shape of ``x.dim()`` ones but ``n`` at ``axis``."""
+    shape = [1] * x.dim()
+    shape[axis] = n
+    return shape
+
+
+@_export
+def SequenceMask(data, sequence_length=None, use_sequence_length=False,
+                 value=0.0, axis=0):
+    """Positions at or past each row's length along ``axis`` (0: time
+    major, the batch on axis 1; else the batch on axis 0) set to
+    ``value``."""
+    data = _as_nd(data)
+    if not use_sequence_length or sequence_length is None:
+        return invoke("seqmask_id", lambda x: x.view_as(x), [data])
+
+    def f(x, ln):
+        ar = torch.arange(x.shape[axis], device=x.device)
+        batch_axis = 1 if axis == 0 else 0
+        keep = ar.reshape(_seq_shape(x, axis, x.shape[axis])) < \
+            ln.to(torch.int32).reshape(
+                _seq_shape(x, batch_axis, x.shape[batch_axis]))
+        return torch.where(keep, x, torch.full_like(x, value))
+    return invoke("SequenceMask", f, [data, _as_nd(sequence_length, data)])
+
+
+@_export
+def SequenceLast(data, sequence_length=None, use_sequence_length=False,
+                 axis=0):
+    """Each row's last valid step along ``axis`` (the last step without
+    lengths)."""
+    data = _as_nd(data)
+    if not use_sequence_length or sequence_length is None:
+        return invoke("SequenceLast", lambda x: x.select(axis, -1), [data])
+
+    def f(x, ln):
+        xm = x.movedim(axis, 0)
+        idx = (ln.long() - 1).reshape((1, -1) + (1,) * (xm.dim() - 2))
+        return torch.gather(xm, 0, idx.expand((1,) + xm.shape[1:]))[0]
+    return invoke("SequenceLast", f, [data, _as_nd(sequence_length, data)])
+
+
+@_export
+def SequenceReverse(data, sequence_length=None, use_sequence_length=False,
+                    axis=0):
+    """Each row's first ``length`` steps reversed along ``axis`` (0:
+    time major), the padding after them left in place; all steps without
+    lengths."""
+    data = _as_nd(data)
+    if not use_sequence_length or sequence_length is None:
+        return invoke("SequenceReverse", lambda x: torch.flip(x, (axis,)),
+                      [data])
+
+    def f(x, ln):
+        xm = x.movedim(axis, 0)                     # (T, B, ...)
+        ar = torch.arange(xm.shape[0], device=x.device)[:, None]
+        n = ln.long()[None, :]
+        src = torch.where(ar < n, n - 1 - ar, ar)
+        src = src.reshape(src.shape + (1,) * (xm.dim() - 2))
+        return torch.gather(xm, 0, src.expand(xm.shape)).movedim(0, axis)
+    return invoke("SequenceReverse", f, [data, _as_nd(sequence_length,
+                                                     data)])
+
+
+def _interleaved(x, heads, which):
+    """Part ``which`` (0 q, 1 k, 2 v) of the (T, B, 3·H·D) layout
+    interleaved per head ([q h0, k h0, v h0, q h1, ...]) as
+    (B·H, T, D)."""
+    t, b, e3 = x.shape
+    hd = e3 // (3 * heads)
+    part = x.reshape(t, b, heads, 3, hd)[:, :, :, which, :]
+    return part.permute(1, 2, 0, 3).reshape(b * heads, t, hd)
+
+
+@_export
+def interleaved_matmul_selfatt_qk(queries_keys_values, heads):
+    """(T, B, 3·H·D) interleaved q/k/v → (B·H, T, T) scores
+    ``(q / sqrt(D)) · kᵀ`` (the fused self-attention op of MXNet's
+    ``contrib/transformer.cc``)."""
+    def f(x):
+        q, k = _interleaved(x, heads, 0), _interleaved(x, heads, 1)
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        return torch.matmul(q * scale, k.transpose(-1, -2))
+    return invoke("interleaved_matmul_selfatt_qk", f,
+                  [_as_nd(queries_keys_values)])
+
+
+@_export
+def interleaved_matmul_selfatt_valatt(queries_keys_values, attention,
+                                      heads):
+    """Attention weights (B·H, T, T) over the interleaved v → (T, B,
+    H·D)."""
+    def f(x, a):
+        t, b = x.shape[0], x.shape[1]
+        out = torch.matmul(a, _interleaved(x, heads, 2))   # (B·H, T, D)
+        return out.reshape(b, heads, t, -1).permute(2, 0, 1, 3) \
+            .reshape(t, b, -1)
+    qkv = _as_nd(queries_keys_values)
+    return invoke("interleaved_matmul_selfatt_valatt", f,
+                  [qkv, _as_nd(attention, qkv)])
+
+
+@_export
+def RNN(data, parameters, state, state_cell=None, state_size=None,
+        num_layers=1, mode="lstm", bidirectional=False, p=0.0,
+        state_outputs=True, projection_size=None, **kw):
+    """Fused multi-layer RNN over (T, B, C) ``data`` with MXNet's flat
+    parameter vector (all weights, layer-major, i2h then h2h per layer
+    and direction, then all biases) — see
+    :func:`mxnet_tpu_torch.gluon.rnn._rnn_impl.rnn_forward`."""
+    from ..gluon.rnn._rnn_impl import rnn_forward   # lazy: avoids a cycle
+    return rnn_forward(data, parameters, state, state_cell, state_size,
+                       num_layers, mode, bidirectional, p, state_outputs)

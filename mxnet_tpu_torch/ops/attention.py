@@ -10,14 +10,17 @@ forward, B2/B3 backward through ``flash._FlashAttention``), so a
 training forward takes it too.  Under ``amp.init()`` both entry points
 cast q, k and v as the policy casts ``dot_product_attention`` /
 ``flash_attention`` (bf16 by default), so the kernels run their bf16
-instantiations.  Attention dropout is not ported (the port's GPT-2 runs
-none).
+instantiations.  Attention dropout (``dropout``) takes the reference
+path, as the reference's ``_use_flash`` rules (``attention.py:61-82``),
+and drops only in training, with masks from the device's generator.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import amp as _amp
+from .. import base as _base
+from .. import random as _random
 from ..base import MXNetError
 
 __all__ = ["dot_product_attention", "flash_attention"]
@@ -25,10 +28,12 @@ __all__ = ["dot_product_attention", "flash_attention"]
 _NEG_INF = -1e30
 
 
-def _attention_ref(q, k, v, *, causal=False, mask=None, scale=None):
+def _attention_ref(q, k, v, *, causal=False, mask=None, scale=None,
+                   dropout=0.0):
     """Plain attention on (B, T, H, D).  Scores in float32; causal is
     bottom-right aligned when tq != tk; fully-masked rows return zeros,
-    as the flash kernel's do."""
+    as the flash kernel's do; ``dropout`` (applied as given: the caller
+    passes 0 outside training) drops attention weights."""
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
@@ -44,11 +49,17 @@ def _attention_ref(q, k, v, *, causal=False, mask=None, scale=None):
     if mask is not None or (causal and tq > tk):
         any_valid = (logits > 0.5 * _NEG_INF).any(dim=-1, keepdim=True)
         probs = torch.where(any_valid, probs, torch.zeros_like(probs))
+    if dropout > 0.0:
+        draw = torch.rand(probs.shape, device=probs.device,
+                          generator=_random.generator(probs.device))
+        probs = torch.where(draw < 1.0 - dropout, probs / (1.0 - dropout),
+                            torch.zeros_like(probs))
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
-def _use_flash(q, k, mask) -> bool:
-    if mask is not None or tuple(k.shape) != tuple(q.shape):
+def _use_flash(q, k, mask, dropout=0.0) -> bool:
+    if mask is not None or dropout > 0.0 or \
+            tuple(k.shape) != tuple(q.shape):
         return False
     _b, t, _h, d = q.shape
     if t < 256 or t % 128 or d not in (64, 128, 256):
@@ -67,7 +78,7 @@ def flash_attention(q, k, v, *, causal=False, scale=None):
 
 def dot_product_attention(query, key, value, *, causal=False, mask=None,
                           segment_ids=None, kv_segment_ids=None,
-                          scale=None, impl="auto"):
+                          dropout=0.0, scale=None, impl="auto"):
     """Multi-head attention on tensors: (B, T, H, D) → (B, T, H, D).
 
     ``impl``: ``'auto'`` takes the flash kernels where they apply (see
@@ -75,7 +86,8 @@ def dot_product_attention(query, key, value, *, causal=False, mask=None,
     where they do not apply; ``'ref'`` always takes the reference path.
     ``segment_ids`` (B, Tq) enables sequence packing (``kv_segment_ids``
     (B, Tk) defaults to it).  A query whose keys are all masked returns
-    zeros on both paths."""
+    zeros on both paths.  ``dropout`` drops attention weights in
+    training, on the reference path."""
     if impl not in ("auto", "flash", "ref"):
         raise MXNetError(f"impl={impl!r}: expected 'auto', 'flash' or "
                          "'ref'")
@@ -94,9 +106,9 @@ def dot_product_attention(query, key, value, *, causal=False, mask=None,
                 f"{tuple(q_seg.shape)} / {tuple(kv_seg.shape)}")
     elif kv_segment_ids is not None:
         raise MXNetError("kv_segment_ids requires segment_ids")
-    if impl == "flash" and mask is not None:
+    if impl == "flash" and (mask is not None or dropout > 0.0):
         raise MXNetError("impl='flash' does not support an explicit mask "
-                         "— use impl='auto'/'ref'")
+                         "or attention dropout — use impl='auto'/'ref'")
     if impl == "flash" and not _use_flash(query, key, mask):
         raise MXNetError(
             f"impl='flash' requested but the flash kernels do not take "
@@ -104,7 +116,7 @@ def dot_product_attention(query, key, value, *, causal=False, mask=None,
             f"{tuple(key.shape)}, device={query.device}): self-attention "
             "with T >= 256, T % 128 == 0 and D in (64, 128, 256) on a CUDA "
             "device — use impl='auto' to fall back to the reference path")
-    if impl != "ref" and _use_flash(query, key, mask):
+    if impl != "ref" and _use_flash(query, key, mask, dropout):
         from .flash import flash_attention as _flash
         return _flash(query, key, value, causal=causal, scale=scale,
                       segment_ids=q_seg, kv_segment_ids=kv_seg)
@@ -113,4 +125,5 @@ def dot_product_attention(query, key, value, *, causal=False, mask=None,
         seg_mask = q_seg[:, None, :, None] == kv_seg[:, None, None, :]
         full_mask = seg_mask if mask is None else (mask & seg_mask)
     return _attention_ref(query, key, value, causal=causal, mask=full_mask,
-                          scale=scale)
+                          scale=scale,
+                          dropout=dropout if _base.is_training() else 0.0)

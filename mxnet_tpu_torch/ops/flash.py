@@ -6,8 +6,9 @@ and their plain PyTorch versions (counterpart of
 The public entry takes (B, T, H, D) and returns O in the same layout,
 through :class:`_FlashAttention`, the autograd Function that stands for
 the reference's ``_flash`` custom_vjp: its forward saves
-(q, k, v, segment ids, O, lse) and its backward computes
-delta = rowsum(dO * O) in float32 and runs :func:`flash_bwd`.
+(q, k, v, segment ids, lse) and its backward runs :func:`flash_bwd`
+with B2 computing each row's delta from its own P and dP (the
+reference takes rowsum(dO * O): equal in exact arithmetic).
 :func:`flash_fwd` returns O and the per-row logsumexp, (B*H, 1, T)
 float32 as the reference lays it out.  Each wrapper launches its kernel
 for CUDA tensors (or raises) and takes the plain version for CPU
@@ -74,9 +75,20 @@ def _fwd_plain(q, k, v, q_seg, kv_seg, causal, scale):
             lse.reshape(b * h, 1, tq))
 
 
+def _own_delta(p, dp):
+    """Each row's delta from the backward's own P and dP: sum_j P dP /
+    sum_j P (0 for a row with no valid key), (B, H, Tq, 1) float32."""
+    psum = p.sum(-1, keepdim=True)
+    return torch.where(psum > 0, (p * dp).sum(-1, keepdim=True) /
+                       torch.where(psum > 0, psum, torch.ones_like(psum)),
+                       torch.zeros_like(psum))
+
+
 def _bwd_tiles(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale):
-    """P and dS, (B, H, Tq, Tk) float32, recomputed from lse as the
-    kernels do (masked pairs give P = 0)."""
+    """P, dS (B, H, Tq, Tk) float32 and delta (B, H, Tq, 1), recomputed
+    from lse as the kernels do (masked pairs give P = 0); ``delta`` None
+    (B2's case) is computed from P and dP (:func:`_own_delta`), else it
+    is B2's, (B*H, 1, Tq) (B3's case)."""
     b, tq, h, _d = q.shape
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     s = torch.where(_keep(q, k, q_seg, kv_seg, causal), s,
@@ -84,30 +96,35 @@ def _bwd_tiles(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale):
     p = torch.where(s <= _MASK * 0.5, torch.zeros_like(s),
                     torch.exp(s - lse.reshape(b, h, tq, 1)))
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
-    ds = p * (dp - delta.reshape(b, h, tq, 1)) * scale
-    return p, ds
+    delta = _own_delta(p, dp) if delta is None else \
+        delta.reshape(b, h, tq, 1)
+    return p, p * (dp - delta) * scale, delta
 
 
-def _dq_plain(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale):
-    """B2's plain version: dQ (B, T, H, D) in q's dtype."""
-    _p, ds = _bwd_tiles(q, k, v, do, lse, delta, q_seg, kv_seg, causal,
-                        scale)
-    return torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(),
-                        k.float()).to(q.dtype)
+def _dq_plain(q, k, v, do, lse, q_seg, kv_seg, causal, scale):
+    """B2's plain version: (dQ (B, T, H, D) in q's dtype, delta (B*H, 1,
+    T) float32) with delta computed as B2 computes it."""
+    _p, ds, delta = _bwd_tiles(q, k, v, do, lse, None, q_seg, kv_seg,
+                               causal, scale)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(),
+                      k.float()).to(q.dtype)
+    b, t, h, _d = q.shape
+    return dq, delta.reshape(b * h, 1, t).contiguous()
 
 
 def _dkv_plain(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale):
     """B3's plain version: (dK, dV) (B, T, H, D) in k's / v's dtype."""
-    p, ds = _bwd_tiles(q, k, v, do, lse, delta, q_seg, kv_seg, causal,
-                       scale)
+    p, ds, _delta = _bwd_tiles(q, k, v, do, lse, delta, q_seg, kv_seg,
+                               causal, scale)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _bwd_plain(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale):
-    """(dQ, dK, dV) with the kernels' masks, casts and empty-row rule."""
-    dq = _dq_plain(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale)
+def _bwd_plain(q, k, v, do, lse, q_seg, kv_seg, causal, scale):
+    """(dQ, dK, dV) with the kernels' masks, casts and empty-row rule,
+    delta as :func:`flash_bwd` takes it."""
+    dq, delta = _dq_plain(q, k, v, do, lse, q_seg, kv_seg, causal, scale)
     return (dq, *_dkv_plain(q, k, v, do, lse, delta, q_seg, kv_seg, causal,
                             scale))
 
@@ -203,20 +220,23 @@ def flash_fwd(q, k, v, q_seg=None, kv_seg=None, *, causal: bool,
 flash_fwd.launches_by_dtype = dict.fromkeys(_DTYPE_CODE, 0)
 
 
-def flash_dq(q, k, v, do, lse, delta, q_seg=None, kv_seg=None, *,
-             causal: bool, scale: float):
-    """dQ of self-attention (B2).  ``lse`` is the forward's, ``delta`` =
-    rowsum(dO * O), both (B*H, 1, T) float32.  CUDA tensors launch
+def flash_dq(q, k, v, do, lse, q_seg=None, kv_seg=None, *, causal: bool,
+             scale: float):
+    """(dQ, delta) of self-attention (B2).  ``lse`` is the forward's,
+    (B*H, 1, T) float32.  B2 computes each row's delta itself from its
+    own P and dP (sum_j P dP / sum_j P, a first pass over the keys), which
+    keeps each query's dS summing to 0 (see ``csrc/flash_bwd.cu``), and
+    returns it, (B*H, 1, T) float32, for B3.  CUDA tensors launch
     ``mxt_flash_dq`` of ``csrc/flash_bwd.cu`` (counted in
     ``flash_dq.launches_by_dtype``); CPU tensors take the plain
     version."""
     if _device_type("flash_dq", q) == "cpu":
-        return _dq_plain(q, k, v, do, lse, delta, q_seg, kv_seg, causal,
-                         scale)
+        return _dq_plain(q, k, v, do, lse, q_seg, kv_seg, causal, scale)
     _check_cuda("flash_dq", q, k, v, q_seg, kv_seg, (do,))
-    _check_rows("flash_dq", q, lse, delta)
+    _check_rows("flash_dq", q, lse)
     b, t, h, d = q.shape
     dq = torch.empty_like(q)
+    delta = torch.empty((b * h, 1, t), dtype=torch.float32, device=q.device)
     from ..utils.native import stream_ptr
     err = _kernel_fn("flash_bwd", "mxt_flash_dq", 9)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -226,7 +246,7 @@ def flash_dq(q, k, v, do, lse, delta, q_seg=None, kv_seg=None, *,
     if err:
         raise MXNetError(f"flash_dq: kernel launch failed (cudaError {err})")
     flash_dq.launches_by_dtype[q.dtype] += 1
-    return dq
+    return dq, delta
 
 
 flash_dq.launches_by_dtype = dict.fromkeys(_DTYPE_CODE, 0)
@@ -234,8 +254,8 @@ flash_dq.launches_by_dtype = dict.fromkeys(_DTYPE_CODE, 0)
 
 def flash_dkv(q, k, v, do, lse, delta, q_seg=None, kv_seg=None, *,
               causal: bool, scale: float):
-    """(dK, dV) of self-attention (B3); arguments as :func:`flash_dq`.
-    CUDA tensors launch ``mxt_flash_dkv`` (counted in
+    """(dK, dV) of self-attention (B3); ``delta`` is :func:`flash_dq`'s,
+    the other arguments are as there.  CUDA tensors launch ``mxt_flash_dkv`` (counted in
     ``flash_dkv.launches_by_dtype``); CPU tensors take the plain
     version."""
     if _device_type("flash_dkv", q) == "cpu":
@@ -261,15 +281,14 @@ def flash_dkv(q, k, v, do, lse, delta, q_seg=None, kv_seg=None, *,
 flash_dkv.launches_by_dtype = dict.fromkeys(_DTYPE_CODE, 0)
 
 
-def flash_bwd(q, k, v, do, lse, delta, q_seg=None, kv_seg=None, *,
-              causal: bool, scale: float):
-    """(dQ, dK, dV): B2 then B3 for CUDA tensors, the plain version for
-    CPU tensors."""
+def flash_bwd(q, k, v, do, lse, q_seg=None, kv_seg=None, *, causal: bool,
+              scale: float):
+    """(dQ, dK, dV): B2 then B3, fed B2's delta, for CUDA tensors; the
+    plain version for CPU tensors."""
     if _device_type("flash_bwd", q) == "cpu":
-        return _bwd_plain(q, k, v, do, lse, delta, q_seg, kv_seg, causal,
-                          scale)
+        return _bwd_plain(q, k, v, do, lse, q_seg, kv_seg, causal, scale)
     kw = dict(causal=causal, scale=scale)
-    dq = flash_dq(q, k, v, do, lse, delta, q_seg, kv_seg, **kw)
+    dq, delta = flash_dq(q, k, v, do, lse, q_seg, kv_seg, **kw)
     return (dq, *flash_dkv(q, k, v, do, lse, delta, q_seg, kv_seg, **kw))
 
 
@@ -283,20 +302,17 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, q_seg, kv_seg, causal, scale):
         out, lse = flash_fwd(q, k, v, q_seg, kv_seg, causal=causal,
                              scale=scale)
-        ctx.save_for_backward(q, k, v, q_seg, kv_seg, out, lse)
+        ctx.save_for_backward(q, k, v, q_seg, kv_seg, lse)
         ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, q_seg, kv_seg, out, lse = ctx.saved_tensors
-        b, t, h, _d = q.shape
-        do = do.contiguous()
-        # delta = rowsum(dO * O) in float32 outside the kernels, as the
-        # reference leaves it to XLA (flash.py:386); (B*H, 1, T)
-        delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
-            .reshape(b * h, 1, t).contiguous()
-        dq, dk, dv = flash_bwd(q, k, v, do, lse, delta, q_seg, kv_seg,
+        q, k, v, q_seg, kv_seg, lse = ctx.saved_tensors
+        # delta from B2's own P and dP (flash_dq), not rowsum(dO * O) as
+        # the reference takes it (flash.py:386): the same in exact
+        # arithmetic, and consistent with the products that use it
+        dq, dk, dv = flash_bwd(q, k, v, do.contiguous(), lse, q_seg, kv_seg,
                                causal=ctx.causal, scale=ctx.scale)
         return dq, dk, dv, None, None, None, None
 

@@ -47,15 +47,21 @@ def load_numpy_params(net, params, device=None, allow_missing=False,
     """Copy ``params`` ({structural name: np.ndarray or tensor}) into
     ``net``, cast to each parameter's dtype.  A parameter ``params``
     lacks raises unless ``allow_missing``; a name the model lacks
-    raises unless ``ignore_extra``.  Shapes must match, but for a
+    raises unless ``ignore_extra``; a second name of a shared parameter
+    is an alias and is not loaded.  Shapes must match, but for a
     deferred parameter's unknown (0) dimensions, which the value fills.
     An uninitialized parameter is materialized on ``device`` (default:
     the net's construction device, else the current CUDA device); an
     initialized one keeps its device."""
     slots = list(net._param_slots())
     names = {name for name, _m, _a in slots}
+    # a block shared under two attributes (NMT's ``tgt_embed`` is
+    # ``src_embed`` with ``shared_embed``) has its parameters under
+    # both names in the reference's files; the second name is an alias
+    aliases = {name for name, _p in
+               net.named_parameters(remove_duplicate=False)} - names
     missing = sorted(names - set(params))
-    extra = sorted(set(params) - names)
+    extra = sorted(set(params) - names - aliases)
     if (missing and not allow_missing) or (extra and not ignore_extra):
         raise MXNetError(
             f"parameter names differ: missing {missing[:8]}, extra "

@@ -79,9 +79,7 @@ def test_flash_kernels_at_training_shape_match_plain_and_repeat(dev):
     assert _maxabs(lse, lse_ref) <= TOL[torch.float32]
     o2, lse2 = flash.flash_fwd(q, k, v, causal=True, scale=scale)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
-    delta = (do * o).sum(-1).transpose(1, 2).reshape(b * h, 1, t) \
-        .contiguous()
-    args = (q, k, v, do, lse, delta, None, None)
+    args = (q, k, v, do, lse, None, None)
     dq, dk, dv = flash.flash_bwd(*args, causal=True, scale=scale)
     for a, r in zip((dq, dk, dv), flash._bwd_plain(*args, True, scale)):
         assert _maxabs(a, r) <= TOL[torch.float32] * float(r.abs().max())
@@ -95,35 +93,49 @@ def _segments(dev, b, t):
     return qseg[None].expand(b, t).contiguous()
 
 
+def _check_bwd(args, dtype, causal, scale):
+    """B2 then B3 on ``args`` (q, k, v, dO, lse, segment ids): one launch
+    each; B2's dQ and the delta it computes, and B3's dK and dV fed that
+    delta, within ``TOL`` of their plain versions (over the plain
+    result's max-abs); bit-identical on a second launch."""
+    n0 = (_launches(flash.flash_dq), _launches(flash.flash_dkv))
+    dq, delta = flash.flash_dq(*args, causal=causal, scale=scale)
+    dk, dv = flash.flash_dkv(*args[:5], delta, *args[5:], causal=causal,
+                             scale=scale)
+    torch.cuda.synchronize()
+    assert (_launches(flash.flash_dq), _launches(flash.flash_dkv)) == \
+        (n0[0] + 1, n0[1] + 1)
+    dq_ref, delta_ref = flash._dq_plain(*args, causal, scale)
+    dk_ref, dv_ref = flash._dkv_plain(*args[:5], delta_ref, *args[5:],
+                                      causal, scale)
+    for a, r in ((dq, dq_ref), (delta, delta_ref), (dk, dk_ref),
+                 (dv, dv_ref)):
+        assert bool(torch.isfinite(a).all())
+        assert _maxabs(a, r) <= TOL[dtype] * float(r.float().abs().max())
+    assert all(a.dtype == dtype for a in (dq, dk, dv))
+    again = flash.flash_bwd(*args, causal=causal, scale=scale)
+    assert all(torch.equal(a, c) for a, c in zip((dq, dk, dv), again))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,seg,d", [(True, False, 64),
                                           (False, False, 128),
                                           (True, True, 64),
-                                          (True, False, 256)])
+                                          (True, False, 256),
+                                          (False, False, 256)])
 def test_flash_bwd_kernels_match_plain_and_repeat(dev, dtype, causal, seg,
                                                   d):
+    """B2 and B3 at T = 300 (not a multiple of any tile), every head dim,
+    causal or full, with and without segments (:func:`_check_bwd`)."""
     g = torch.Generator(device=dev).manual_seed(d + 7 * causal)
     b, t, h = 2, 300, 3          # T not a multiple of any tile
     q, k, v, do = (torch.randn((b, t, h, d), generator=g, device=dev)
                    .to(dtype) for _ in range(4))
     qseg = _segments(dev, b, t) if seg else None
     scale = d ** -0.5
-    o, lse = flash.flash_fwd(q, k, v, qseg, qseg, causal=causal,
-                             scale=scale)
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
-        .reshape(b * h, 1, t).contiguous()
-    args = (q, k, v, do, lse, delta, qseg, qseg)
-    n0 = (_launches(flash.flash_dq), _launches(flash.flash_dkv))
-    got = flash.flash_bwd(*args, causal=causal, scale=scale)
-    torch.cuda.synchronize()
-    assert (_launches(flash.flash_dq), _launches(flash.flash_dkv)) == \
-        (n0[0] + 1, n0[1] + 1)
-    ref = flash._bwd_plain(*args, causal, scale)
-    for a, r in zip(got, ref):
-        assert a.dtype == dtype and bool(torch.isfinite(a).all())
-        assert _maxabs(a, r) <= TOL[dtype] * float(r.float().abs().max())
-    again = flash.flash_bwd(*args, causal=causal, scale=scale)
-    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    _o, lse = flash.flash_fwd(q, k, v, qseg, qseg, causal=causal,
+                              scale=scale)
+    _check_bwd((q, k, v, do, lse, qseg, qseg), dtype, causal, scale)
 
 
 def test_flash_route_is_differentiable_on_card(dev):
@@ -804,3 +816,119 @@ def test_resnet_moving_statistics_after_a_step_on_card_match_cpu(no_tf32):
     moved = [k for k in ph if "running_" in k
              and not torch.equal(ph[k], torch.from_numpy(params[k]))]
     assert len(moved) == 17 * 2
+
+
+# ------------------------------------------------ the language family
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,causal", [(2, 512, 4, False),
+                                          (2, 256, 4, False),
+                                          (2, 256, 4, True)])
+def test_flash_kernels_at_bert_and_nmt_shapes_match_plain(dev, dtype, b, t,
+                                                          h, causal):
+    """B1, B2 and B3 at BERT's (T 512, non-causal) and NMT's (T 256,
+    both) head dim 64, batch and heads cut: within the tolerances of
+    their plain versions (whole key tiles: T a multiple of every tile),
+    B2 with the delta it computes and B3 fed it, as training runs
+    them."""
+    g = torch.Generator(device=dev).manual_seed(t + causal)
+    d, scale = 64, 64 ** -0.5
+    q, k, v, do = (torch.randn((b, t, h, d), generator=g, device=dev)
+                   .to(dtype) for _ in range(4))
+    o, lse = flash.flash_fwd(q, k, v, causal=causal, scale=scale)
+    o_ref, lse_ref = flash._fwd_plain(q, k, v, None, None, causal, scale)
+    assert _maxabs(o, o_ref) <= TOL[dtype]
+    assert _maxabs(lse, lse_ref) <= TOL[dtype]
+    _check_bwd((q, k, v, do, lse, None, None), dtype, causal, scale)
+
+
+def test_cross_attention_on_card_matches_reference_path(dev):
+    """Cross-attention with source and target of one length takes B1-B3
+    (q from the decoder, k and v projections of the memory); its output
+    and the gradients of the query input, the memory and every weight
+    equal the reference path's (1e-4 of their own max-abs); a source
+    mask or another source length sends it to the reference path."""
+    from mxnet_tpu_torch.base import training_mode
+    from mxnet_tpu_torch.models import transformer
+    g = torch.Generator(device=dev).manual_seed(3)
+    mha = transformer.MultiHeadAttention(128, 2).initialize(device=dev)
+    x, mem = (torch.randn((2, 256, 128), generator=g, device=dev)
+              .requires_grad_() for _ in range(2))
+    params = [x, mem] + list(mha.parameters())
+    runs = {}
+    kernels = (flash.flash_fwd, flash.flash_dq, flash.flash_dkv)
+    for impl in ("auto", "ref"):
+        n0 = [_launches(kk) for kk in kernels]
+        orig = transformer.dot_product_attention
+        if impl == "ref":
+            transformer.dot_product_attention = \
+                lambda *a, **kw: orig(*a, impl="ref", **kw)
+        try:
+            with training_mode(True):
+                out = mha(x, None, mem)
+                runs[impl] = (out.detach(), torch.autograd.grad(
+                    out.square().sum(), params))
+        finally:
+            transformer.dot_product_attention = orig
+        n = [_launches(kk) - c for kk, c in zip(kernels, n0)]
+        assert n == ([1, 1, 1] if impl == "auto" else [0, 0, 0])
+    assert _maxabs(runs["auto"][0], runs["ref"][0]) <= 1e-4
+    # k_proj.bias adds one constant to each row of scores, which the
+    # softmax cancels: its gradient is rounding noise on both paths and
+    # is held against the largest gradient
+    names = ["x", "memory"] + [n for n, _ in mha.named_parameters()]
+    top = max(float(r.abs().max()) for r in runs["ref"][1])
+    for name, a, r in zip(names, runs["auto"][1], runs["ref"][1]):
+        scale = top if name == "k_proj.bias" else float(r.abs().max())
+        assert _maxabs(a, r) <= 1e-4 * scale, name
+    n0 = _launches(flash.flash_fwd)
+    keep = torch.ones((2, 1, 1, 256), dtype=torch.bool, device=dev)
+    mha(x, keep, mem)
+    mha(x, None, mem[:, :200])
+    assert _launches(flash.flash_fwd) == n0
+
+
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
+def test_fused_rnn_on_card_matches_step_route(no_tf32, mode):
+    """cuDNN's recurrent op (the fused route) against the step-by-step
+    decomposition on the card, values and gradients, two bidirectional
+    layers with dropout between them from one seed: 1e-4 of their own
+    max-abs (float32, TF32 off)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.rnn import _rnn_impl
+    gates = {"lstm": 4, "gru": 3}.get(mode, 1)
+    g = torch.Generator(device=no_tf32).manual_seed(5)
+    hid, c, b, t = 64, 48, 8, 35
+    params = []
+    for li in range(2):
+        dirs = []
+        for _d in range(2):
+            in_sz = c if li == 0 else 2 * hid
+            dirs.append(tuple(
+                (torch.rand(s, generator=g, device=no_tf32) - 0.5) * 0.2
+                for s in ((gates * hid, in_sz), (gates * hid, hid),
+                          (gates * hid,), (gates * hid,))))
+        params.append(dirs)
+    x = torch.randn((t, b, c), generator=g, device=no_tf32)
+    h0 = torch.randn((4, b, hid), generator=g, device=no_tf32) * 0.5
+    c0 = torch.randn((4, b, hid), generator=g, device=no_tf32) * 0.5
+    res = {}
+    for impl in ("fused", "step"):
+        leaves = [x.clone().requires_grad_()] + [
+            w.clone().requires_grad_() for layer in params for ws in layer
+            for w in ws]
+        it = iter(leaves[1:])
+        ps = [[tuple(next(it) for _ in range(4)) for _ in range(2)]
+              for _ in range(2)]
+        mx.random.seed(11)
+        with mx.base.training_mode(True):
+            out, h, cc = _rnn_impl.rnn_layer_forward(
+                leaves[0], ps, h0, c0 if mode == "lstm" else None, mode,
+                p_dropout=0.5, impl=impl)
+        outs = [out, h] + ([cc] if mode == "lstm" else [])
+        total = sum((o * (i + 1.5)).sum() for i, o in enumerate(outs))
+        res[impl] = ([o.detach() for o in outs],
+                     torch.autograd.grad(total, leaves))
+    for a, r in zip(res["fused"][0] + list(res["fused"][1]),
+                    res["step"][0] + list(res["step"][1])):
+        assert _relerr(a, r) <= 1e-4

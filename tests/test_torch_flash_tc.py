@@ -82,11 +82,10 @@ def fwd_tc(q, k, v, causal, scale, mm=mm3):
     return acc / l, m + torch.log(l)
 
 
-def dq_tc(q, k, v, do, lse, delta, causal, scale, mm=mm3):
-    """B2's loop on (BH, T, D) float32: key tiles of 64; S, dP, then
-    dQ += dS.K."""
+def dq_tiles(q, k, v, do, lse, causal, scale, mm=mm3):
+    """B2's key tiles of 64 on (BH, T, D) float32: (K tile, P, dP), P
+    recomputed from lse and dP = dO.V^T through ``mm``."""
     t = q.shape[1]
-    dq = torch.zeros_like(q)
     rows = torch.arange(t)[:, None]
     for k0 in range(0, t, TILE):
         kt, vt = k[:, k0:k0 + TILE], v[:, k0:k0 + TILE]
@@ -95,10 +94,20 @@ def dq_tc(q, k, v, do, lse, delta, causal, scale, mm=mm3):
         if causal:
             cols = k0 + torch.arange(kt.shape[1])[None]
             p = torch.where(cols <= rows, p, torch.zeros_like(p))
-        dp = mm(do, vt.transpose(1, 2))
-        ds = p * (dp - delta[:, :, None]) * scale
-        dq = dq + mm(ds, kt)
-    return dq
+        yield kt, p, mm(do, vt.transpose(1, 2))
+
+
+def dq_tc(q, k, v, do, lse, causal, scale, mm=mm3):
+    """B2's two passes over key tiles of 64: each row's delta, sum P dP /
+    sum P, then S, dP and dQ += dS.K.  Returns (dQ, delta)."""
+    psum, pdp = torch.zeros(q.shape[:2]), torch.zeros(q.shape[:2])
+    for _kt, p, dp in dq_tiles(q, k, v, do, lse, causal, scale, mm):
+        psum, pdp = psum + p.sum(-1), pdp + (p * dp).sum(-1)
+    delta = pdp / psum
+    dq = torch.zeros_like(q)
+    for kt, p, dp in dq_tiles(q, k, v, do, lse, causal, scale, mm):
+        dq = dq + mm(p * (dp - delta[:, :, None]) * scale, kt)
+    return dq, delta
 
 
 def dkv_tc(q, k, v, do, lse, delta, causal, scale, mm=mm3):
@@ -157,8 +166,7 @@ def _emulated(q, k, v, cot, mm):
     scale = d ** -0.5
     qf, kf, vf, of = (_flat(x) for x in (q, k, v, cot))
     o, lse = fwd_tc(qf, kf, vf, True, scale, mm)
-    delta = (of * o).sum(-1)
-    dq = dq_tc(qf, kf, vf, of, lse[..., 0], delta, True, scale, mm)
+    dq, delta = dq_tc(qf, kf, vf, of, lse[..., 0], True, scale, mm)
     dk, dv = dkv_tc(qf, kf, vf, of, lse[..., 0], delta, True, scale, mm)
     return _unflat(o, b, h), [_unflat(x, b, h) for x in (dq, dk, dv)]
 
@@ -204,9 +212,11 @@ def test_3xtf32_forward_and_dkv_match_pallas_at_training_length():
 
 
 def test_3xtf32_dq_matches_pallas_at_training_length():
-    """B2's arithmetic (key tiles of 64, S and dP through 3xTF32, dS
-    rounded as the reference does, dQ += dS.K) at T = 1024, D = 64,
-    causal, against the Pallas dQ kernel in interpret mode."""
+    """B2's arithmetic (key tiles of 64, S and dP through 3xTF32, each
+    row's delta from its own P and dP (sum P dP / sum P) where the
+    reference takes rowsum(dO * O), dS rounded as the reference does,
+    dQ += dS.K) at T = 1024, D = 64, causal, against the Pallas dQ
+    kernel in interpret mode."""
     q, k, v, cot = _inputs(1, 1, 1024, 2, 64)
     _o_ref, g_ref = _reference(q, k, v, cot)
     _o, g = _emulated(q, k, v, cot, mm3)
