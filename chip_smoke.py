@@ -146,7 +146,8 @@ Phases (any failure exits non-zero and prints no result line):
    with TF32 off.  Gate first, at batch 4 and dropout 0 without
    ``valid_length``: one step's loss and gradients with the kernels
    against ``impl='ref'`` attention (phase 4's tolerances; B1 48
-   launches, B2 and B3 24: remat relaunches B1).  (a)
+   launches, B2 and B3 24: remat relaunches B1).  ``'dots'`` keeps each
+   layer's products and recomputes the rest, with no per-op hook.  (a)
    ``ShardedTrainer`` with ``valid_length``, as bench.py passes it: the
    key mask sends attention to the reference path, no kernel launches.
    (b) The Gluon loop under ``mx.amp.init("bfloat16")`` without
@@ -154,7 +155,7 @@ Phases (any failure exits non-zero and prints no result line):
    48 / 24 / 24 launches a step.  Each: one warm-up step and 5 timed
    ones, ms/step, samples/s, peak memory, the share of the peak at
    bench.py's FLOP per sample, launches a step, a profile of one step,
-   losses finite and falling.
+   losses finite and falling; (b) also the host's CPU time a step.
 12. Transformer-big training and translation: ``bench.py``'s arm
    (``bench.py:679-725``): 6 + 6 layers, 1024 units, 4096 hidden, 16
    heads, vocab 32000, batch 16, source and target 256 tokens, dropout
@@ -178,10 +179,33 @@ Phases (any failure exits non-zero and prints no result line):
    logits and every gradient, ``TOL_RNN``.  A warm-up step and 10
    timed ones: ms/step, tokens/s, peak memory, losses finite and
    falling, a profile of one step; no kernel of the port launches.
-14. A ``{"kernels": [...]}`` line, the card line again, and the last
+14. The ``nd`` op surface at the sizes of the public models that use
+   it, each part held against the same port op on the CPU from the same
+   inputs (``TOL_OPS``, gradients ``TOL_OPS_GRAD``), timed by CUDA
+   events with L2 flushed, with its peak memory; every output on the
+   card.  (a) SSD-300 (VGG16 on VOC): ``MultiBoxPrior`` over the six
+   maps (8732 anchors), ``MultiBoxTarget`` at batch 32 and 21 classes
+   with hard-negative mining, ``MultiBoxDetection`` (threshold 0.01,
+   NMS 0.45, top 400), ``box_nms`` alone over 8732 rows: class targets,
+   masks and kept sets identical but for NMS rows within
+   ``TOL_NMS_EDGE`` of the threshold.  (b) Faster R-CNN's ROI head:
+   ``ROIPooling`` on (2, 512, 38, 63), 256 ROIs, 7 x 7, with the data
+   gradient.  (c) Mask R-CNN's C4 head: ``ROIAlign`` on (2, 1024, 38,
+   63), 1024 ROIs, 14 x 14, sample ratio 2 (held at 128 of the ROIs).
+   (d) ``SpatialTransformer`` on (64, 3, 448, 448) to 224 x 224, with
+   gradients to the data and the affine parameters.  (e) ``potrf``,
+   ``trsm`` (four flag combinations), ``slogdet`` and ``inverse`` of 64
+   SPD 1024-matrices, ``det`` of 64 x 64 ones, held to float64 by
+   residual.  (f) 2^24 draws of each of the 18 samplers: mean and
+   variance within ``SIGMAS`` standard errors of the law, a seed
+   repeats bit for bit and another differs; ``sample_multinomial`` over
+   GPT-2's vocabulary; ``shuffle`` of 2^20 rows a permutation.  (g)
+   ``scatter_nd`` of 2^20 updates (duplicates add) into 4096 x 4096.  No
+   kernel of the port launches (``launches_by_path["ops"]``).
+15. A ``{"kernels": [...]}`` line, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.  ``launches_by_path`` holds
-   every phase's launches (``bert``, ``bert_amp``, ``nmt`` and ``lstm``
-   among them); the flash kernels carry their numbers at phases 11-12's
+   every phase's launches (``bert``, ``bert_amp``, ``nmt``, ``lstm``
+   and ``ops`` among them); the flash kernels carry their numbers at phases 11-12's
    shapes (``shapes``), phase 12's launches by attention and the
    cross-attention call's times.
 
@@ -358,6 +382,53 @@ LSTM_DROPOUT, LSTM_LR, LSTM_CLIP, LSTM_STEPS = 0.5, 1.0, 5.0, 10
 # float32 with TF32 off: the same products summed in another order over
 # 35 steps, forward and backward; each over its own max-abs
 TOL_RNN = 1e-4
+
+# phase 14: the nd op surface at the sizes of the public models that use
+# it.  (a) SSD-300, VGG16 on VOC (Liu et al. 2016; GluonCV's
+# ssd_300_vgg16_atrous_voc): six maps, anchor sizes (30, 60, 111, 162,
+# 213, 264, 315) / 300 as (s_k, sqrt(s_k s_k+1)), ratios (1, 2, 1/2) on
+# maps 1, 5 and 6 and (1, 2, 1/2, 3, 1/3) on maps 2-4, GluonCV's steps
+# (8, 16, 32, 64, 100, 300) / 300: 8732 anchors; batch 32, 21 classes,
+# 56 label rows of which 1-40 valid
+SSD_MAPS = (38, 19, 10, 5, 3, 1)
+SSD_SIZES = (30, 60, 111, 162, 213, 264, 315)
+SSD_STEPS = (8, 16, 32, 64, 100, 300)
+SSD_WIDE = (1, 2, 3)                        # the maps with five ratios
+SSD_ANCHORS, SSD_B, SSD_CLASSES, SSD_GT = 8732, 32, 21, 56
+# (b) Faster R-CNN's VGG16 ROI head (Ren et al. 2015): conv5 of two
+# 600 x 1000 images, 128 ROIs an image; (c) Mask R-CNN's C4 head (He et
+# al. 2017): res4 of the same images, 512 ROIs an image
+RCNN_MAP, RCNN_ROIS, RCNN_POOL = (2, 512, 38, 63), 256, (7, 7)
+MASK_MAP, MASK_ROIS, MASK_POOL = (2, 1024, 38, 63), 1024, (14, 14)
+# (c)'s CPU comparison takes these of its ROIs (its CPU run at all 1024
+# would hold a 3.3 GB sample tensor for minutes of CPU time)
+MASK_HELD_ROIS = 128
+# (d) the spatial transformer of Jaderberg et al. (2015) on CUB: 448 x
+# 448 crops sampled to 224 x 224 by an affine grid, batch 64
+STN_IN, STN_OUT = (64, 3, 448, 448), (224, 224)
+# (e) GP-sized linalg: 64 SPD matrices of 1024 (A = X X^T / 1024 + I),
+# 64 right-hand sides; det on 64 x 64 (1024 overflows float32)
+GP_B, GP_N, GP_RHS, DET_N = 64, 1024, 64, 64
+# the float64 residuals on the CPU take these of the 64 matrices (each
+# a 1024^3 float64 product there); det's take all
+GP_HELD = 8
+# (f) draws a sampler, GPT-2's vocabulary for sample_multinomial; (g)
+# scatter_nd's updates and shape
+SAMPLE_N, MULTI_ROWS, SHUFFLE_ROWS = 1 << 24, 1024, 1 << 20
+SCATTER_N, SCATTER_SHAPE = 1 << 20, (4096, 4096)
+# card against the CPU (the same port op, float32): values whose float
+# ops are the same on both (maxima, products of a few terms, exp/log a
+# few ulp apart) at 1e-5 of their max-abs; gradients summed by atomics
+# in another order (up to thousands of terms a pixel) at 1e-4.  Kept
+# sets, class targets and masks are exact, but for an NMS row whose IoU
+# with its suppressor lies within TOL_NMS_EDGE of the threshold
+TOL_OPS, TOL_OPS_GRAD, TOL_NMS_EDGE = 1e-5, 1e-4, 1e-5
+# linalg against float64 on the CPU by residual: float32 factorizations
+# of well conditioned 1024-matrices (condition < 10) reach ~1e-6
+TOL_LINALG = {"potrf": 1e-5, "trsm": 1e-5, "inverse": 1e-5,
+              "slogdet": 1e-5, "det": 1e-4}
+# samplers: mean and variance within this many standard errors
+SIGMAS = 6.0
 
 # H100 SXM published peaks (dense): HBM bytes/s; bf16 on the tensor
 # cores; float32 at float32 accuracy on the tensor cores, which takes
@@ -2577,8 +2648,8 @@ def bert_path(torch, card):
     from mxnet_tpu_torch.parallel import ShardedTrainer
     t_phase = time.monotonic()
     n_layers = 24
-    # B1 runs again when remat='dots' recomputes each layer (a ctypes
-    # launch is no aten op the policy could save)
+    # B1 runs again when remat='dots' recomputes each layer (it is no
+    # product, so its output is not kept)
     want = {"flash_fwd": 2 * n_layers, "flash_dq": n_layers,
             "flash_dkv": n_layers}
     print(f"BERT-large pretraining: 24 x 1024, 16 heads, vocab "
@@ -2629,10 +2700,16 @@ def bert_path(torch, card):
             trainer.step(BERT_B)
             return loss.mean().asscalar()
         first = [float(step_b())]                      # warm-up
+        cpu0 = time.process_time()
         losses, ms_b, mib_b, _per = timed_steps(
             torch, step_b, BERT_STEPS, ("samples", BERT_B), card,
             "(b) gluon loop under amp.init('bfloat16'), no valid_length",
             BERT_FLOP_PER_SAMPLE * BERT_B, PEAK_FLOPS["bfloat16"])
+        # every thread of the process (autograd's device thread runs
+        # backward), the step's own sync wait included
+        print(f"  (b) remat='dots' host CPU time "
+              f"{(time.process_time() - cpu0) / BERT_STEPS * 1e3:.1f} ms a "
+              f"step over {ms_b:.1f} ms of wall [{card}]", flush=True)
         launches = read_launches()
         by_dtype = read_launches_by_dtype()
         expect_launches(by_dtype, {k: n * BERT_STEPS for k, n in
@@ -2906,6 +2983,544 @@ def lstm_path(torch, card):
     return {k: int(v * LSTM_STEPS) for k, v in per.items()}
 
 
+# ------------------------------------------------- phase 14: the op surface
+
+def on_card(*arrays):
+    for a in arrays:
+        if not a.tensor.is_cuda:
+            raise AssertionError(f"an output left the card: {a.tensor.device}")
+
+
+def cpu_copy(mx, a):
+    """An NDArray on the CPU holding ``a``'s values (tensors and numpy
+    arrays too)."""
+    t = a.tensor if hasattr(a, "tensor") else a
+    return mx.nd.array(t.detach().cpu() if hasattr(t, "detach") else t,
+                       ctx=mx.cpu())
+
+
+def op_time(torch, timer, fn, iters=5):
+    """(ms a call by CUDA events, L2 flushed before each; peak MiB above
+    what was allocated before the call)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    return timer(fn, iters=iters, warm=1), peak
+
+
+def fwd_bwd(mx, op, xs, head):
+    """One recorded call of ``op(*xs)`` and its backward from ``head``;
+    returns the output and the inputs' gradients."""
+    for x in xs:
+        x.attach_grad()
+    with mx.autograd.record():
+        out = op(*xs)
+    out.backward(head)
+    return out, [x.grad for x in xs]
+
+
+def timed_op(torch, mx, timer, card, what, op, xs, head=None, iters=5):
+    """Time ``op(*xs)``, and with ``head`` forward plus backward; print
+    both with the peak above the inputs.  Returns the numbers."""
+    ms, peak = op_time(torch, timer, lambda: op(*xs), iters)
+    line = f"  {what}: forward {ms:.4f} ms"
+    rec = {"ms": ms, "peak_mib": peak}
+    if head is not None:
+        ms2, peak2 = op_time(torch, timer,
+                             lambda: fwd_bwd(mx, op, xs, head), iters)
+        rec.update(fwd_bwd_ms=ms2, backward_ms=ms2 - ms,
+                   peak_mib=max(peak, peak2))
+        line += f", forward+backward {ms2:.4f} ms (backward {ms2 - ms:.4f})"
+    print(f"{line}, peak {rec['peak_mib']:.1f} MiB above the inputs "
+          f"[{card}]", flush=True)
+    return rec
+
+
+def held(name, got, want, tol):
+    """``got`` (card) against ``want`` (CPU), max-abs over max-abs."""
+    import torch
+    g, w = got.tensor.detach().cpu(), want.tensor.detach()
+    if g.shape != w.shape:
+        raise AssertionError(f"{name}: shape {tuple(g.shape)} vs "
+                             f"{tuple(w.shape)}")
+    check(name, float((g.double() - w.double()).abs().max()) /
+          max(float(w.double().abs().max()), 1e-30), tol)
+    return torch.equal(g, w)
+
+
+def ssd_priors(mx, ctx=None):
+    """SSD-300's anchors (1, 8732, 4) over its six maps."""
+    s = [v / 300.0 for v in SSD_SIZES]
+    parts = []
+    for k, m in enumerate(SSD_MAPS):
+        ratios = (1, 2, 0.5, 3, 1 / 3) if k in SSD_WIDE else (1, 2, 0.5)
+        step = SSD_STEPS[k] / 300.0
+        parts.append(mx.nd.MultiBoxPrior(
+            mx.nd.zeros((1, 1, m, m), ctx=ctx),
+            sizes=(s[k], (s[k] * s[k + 1]) ** 0.5), ratios=ratios,
+            steps=(step, step)))
+    return mx.nd.concat(*parts, dim=1)
+
+
+def ssd_inputs(rs):
+    """Seeded labels (B, 56, 5), 1-40 valid rows of boxes inside the
+    image; class scores (B, 21, 8732) as softmax probabilities; offsets
+    (B, 34928)."""
+    lab = -np.ones((SSD_B, SSD_GT, 5), np.float32)
+    for b in range(SSD_B):
+        k = rs.randint(1, 41)
+        c = rs.uniform(0.05, 0.95, (k, 2))
+        wh = rs.uniform(0.05, 0.6, (k, 2))
+        lab[b, :k, 0] = rs.randint(0, SSD_CLASSES - 1, k)
+        lab[b, :k, 1:3] = np.clip(c - wh / 2, 0, 1)
+        lab[b, :k, 3:5] = np.clip(c + wh / 2, 0, 1)
+    logits = rs.randn(SSD_B, SSD_CLASSES, SSD_ANCHORS).astype(np.float32)
+    prob = np.exp(2 * logits)
+    prob /= prob.sum(1, keepdims=True)
+    loc = (0.5 * rs.randn(SSD_B, SSD_ANCHORS * 4)).astype(np.float32)
+    return lab, prob.astype(np.float32), loc
+
+
+def nms_differences(torch, got, want, thresh):
+    """Rows kept on one device and not the other: each must lie within
+    ``TOL_NMS_EDGE`` of the threshold in IoU with a kept row of its
+    class that scores at least as high.  Returns (rows, worst margin)."""
+    from mxnet_tpu_torch.ndarray.detection import pairwise_iou
+    g, w = got.tensor.detach().cpu(), want.tensor.detach()
+    g, w = g.reshape(-1, g.shape[-2], 6), w.reshape(-1, w.shape[-2], 6)
+    n, worst = 0, 0.0
+    for b in range(g.shape[0]):
+        kg, kw = g[b, :, 0] >= 0, w[b, :, 0] >= 0
+        for i in torch.nonzero(kg != kw).flatten().tolist():
+            n += 1
+            row = w[b, i] if kw[i] else g[b, i]
+            kept = w[b][kw] if not kw[i] else g[b][kg]
+            rival = kept[(kept[:, 0] == row[0]) & (kept[:, 1] >= row[1])]
+            if not len(rival):
+                raise AssertionError(f"NMS image {b} row {i} differs with "
+                                     f"no kept rival")
+            iou = pairwise_iou(row[None, 2:6].double(), rival[:, 2:6].double())
+            margin = float((iou - thresh).abs().min())
+            worst = max(worst, margin)
+    if worst > TOL_NMS_EDGE:
+        raise AssertionError(f"NMS kept sets differ away from the "
+                             f"threshold: margin {worst:.3e}")
+    return n, worst
+
+
+def ssd_part(torch, mx, timer, card, rs, dev):
+    """(a): MultiBoxPrior, MultiBoxTarget, MultiBoxDetection, box_nms."""
+    out = {}
+    anchors = ssd_priors(mx)
+    if anchors.shape != (1, SSD_ANCHORS, 4):
+        raise AssertionError(f"SSD-300 anchors {anchors.shape}, not 8732")
+    on_card(anchors)
+    held("(a) MultiBoxPrior, 8732 anchors, card vs CPU", anchors,
+         ssd_priors(mx, mx.cpu()), TOL_OPS)
+    out["MultiBoxPrior"] = timed_op(
+        torch, mx, timer, card, "(a) MultiBoxPrior x 6 maps",
+        lambda: ssd_priors(mx), [], iters=10)
+    lab, prob, loc = ssd_inputs(rs)
+    lab_d, prob_d, loc_d = (mx.nd.array(a) for a in (lab, prob, loc))
+    kw = dict(overlap_threshold=0.5, negative_mining_ratio=3.0,
+              negative_mining_thresh=0.5)
+    tgt = mx.nd.MultiBoxTarget(anchors, lab_d, prob_d, **kw)
+    on_card(*tgt)
+    want = mx.nd.MultiBoxTarget(cpu_copy(mx, anchors), cpu_copy(mx, lab),
+                                cpu_copy(mx, prob), **kw)
+    held("(a) MultiBoxTarget B32 loc targets", tgt[0], want[0], TOL_OPS)
+    for name, g, w in (("loc masks", tgt[1], want[1]),
+                       ("class targets", tgt[2], want[2])):
+        if not torch.equal(g.tensor.cpu(), w.tensor):
+            raise AssertionError(f"(a) MultiBoxTarget {name} differ")
+    ct = want[2].tensor
+    print(f"  (a) MultiBoxTarget class targets and masks identical: "
+          f"{int((ct > 0).sum())} matched, {int((ct == 0).sum())} mined "
+          f"negatives, {int((ct < 0).sum())} ignored", flush=True)
+    out["MultiBoxTarget"] = timed_op(
+        torch, mx, timer, card, "(a) MultiBoxTarget B32, 21 classes",
+        lambda: mx.nd.MultiBoxTarget(anchors, lab_d, prob_d, **kw), [])
+    dkw = dict(threshold=0.01, nms_threshold=0.45, nms_topk=400)
+    det = mx.nd.MultiBoxDetection(prob_d, loc_d, anchors, **dkw)
+    on_card(det)
+    want = mx.nd.MultiBoxDetection(cpu_copy(mx, prob), cpu_copy(mx, loc),
+                                   cpu_copy(mx, anchors), **dkw)
+    n, margin = nms_differences(torch, det, want, 0.45)
+    kept = det.tensor[..., 0] >= 0
+    print(f"  (a) MultiBoxDetection B32: {int(kept.sum())} rows kept, "
+          f"{n} differ from the CPU's (worst IoU margin {margin:.3e}, "
+          f"limit {TOL_NMS_EDGE:g})", flush=True)
+    both = kept.cpu() & (want.tensor[..., 0] >= 0)
+    check("(a) MultiBoxDetection kept rows card vs CPU",
+          float((det.tensor.cpu()[both] - want.tensor[both]).abs().max()),
+          TOL_OPS)
+    out["MultiBoxDetection"] = timed_op(
+        torch, mx, timer, card,
+        "(a) MultiBoxDetection B32, nms_topk 400",
+        lambda: mx.nd.MultiBoxDetection(prob_d, loc_d, anchors, **dkw), [])
+    # box_nms alone over all 8732 decoded rows of one image, topk=-1
+    from mxnet_tpu_torch.ndarray import detection
+    rows = mx.nd.array(detection._decode(
+        prob_d.tensor[:1], loc_d.tensor[:1], anchors.tensor, True, 0.01,
+        (0.1, 0.1, 0.2, 0.2)))
+    nkw = dict(overlap_thresh=0.45, valid_thresh=0.01, topk=-1, id_index=0)
+    nms = mx.nd.box_nms(rows, **nkw)
+    on_card(nms)
+    n, margin = nms_differences(torch, nms, mx.nd.box_nms(
+        cpu_copy(mx, rows), **nkw), 0.45)
+    print(f"  (a) box_nms 8732 rows, topk=-1: "
+          f"{int((nms.tensor[..., 0] >= 0).sum())} kept, {n} differ "
+          f"(worst margin {margin:.3e})", flush=True)
+    head = mx.nd.array(np.ones(rows.shape, np.float32))
+    out["box_nms"] = timed_op(torch, mx, timer, card,
+                              "(a) box_nms 8732 rows",
+                              lambda r: mx.nd.box_nms(r, **nkw), [rows],
+                              head=head)
+    return out
+
+
+def rois(rs, n, images, height, width):
+    """(n, 5) ROIs [image, x1, y1, x2, y2] in image pixels, ``n //
+    images`` an image, 16-400 pixels a side."""
+    img = np.repeat(np.arange(images), n // images)[:, None]
+    wh = rs.uniform(16, 400, (n, 2))
+    x1 = rs.uniform(0, width - 16, n)
+    y1 = rs.uniform(0, height - 16, n)
+    box = np.stack([x1, y1, np.minimum(x1 + wh[:, 0], width - 1),
+                    np.minimum(y1 + wh[:, 1], height - 1)], 1)
+    return np.concatenate([img, box], 1).astype(np.float32)
+
+
+def roi_part(torch, mx, timer, card, rs, dev):
+    """(b) ROIPooling at Faster R-CNN's size, (c) ROIAlign at Mask
+    R-CNN's: values and data gradients card vs CPU, timed."""
+    out = {}
+    x = rs.randn(*RCNN_MAP).astype(np.float32)
+    np.maximum(x, 0, out=x)                      # a ReLU's map: ties
+    r = rois(rs, RCNN_ROIS, 2, 600, 1000)
+    head = rs.uniform(0.5, 1.5, (RCNN_ROIS, RCNN_MAP[1]) + RCNN_POOL).astype(
+        np.float32)
+
+    def pool(x_, r_):
+        return mx.nd.ROIPooling(x_, r_, RCNN_POOL, 1 / 16)
+    xd, rd, hd = (mx.nd.array(a) for a in (x, r, head))
+    got, (gx, _gr) = fwd_bwd(mx, pool, [xd, rd], hd)
+    on_card(got, gx)
+    want, (wx, _wr) = fwd_bwd(mx, pool, [cpu_copy(mx, x), cpu_copy(mx, r)],
+                              cpu_copy(mx, head))
+    held("(b) ROIPooling (2, 512, 38, 63) 256 ROIs 7x7 card vs CPU", got,
+         want, TOL_OPS)
+    held("(b) ROIPooling data gradient card vs CPU", gx, wx, TOL_OPS_GRAD)
+    out["ROIPooling"] = timed_op(
+        torch, mx, timer, card, "(b) ROIPooling (2, 512, 38, 63), 256 "
+        "ROIs, 7x7, 1/16", pool, [xd, rd], head=hd)
+    del got, gx, want, wx, xd, rd, hd
+    free(torch)
+
+    x = rs.randn(*MASK_MAP).astype(np.float32)
+    r = rois(rs, MASK_ROIS, 2, 600, 1000)
+    out_shape = (MASK_ROIS, MASK_MAP[1]) + MASK_POOL
+    head = mx.nd.array(torch.rand(out_shape, generator=torch.Generator(
+        dev).manual_seed(SEED), device=dev) + 0.5)
+
+    def align(x_, r_):
+        return mx.nd.ROIAlign(x_, r_, MASK_POOL, 1 / 16, 2)
+    xd, rd = mx.nd.array(x), mx.nd.array(r)
+    got, (gx, gr) = fwd_bwd(mx, align, [xd, rd], head)
+    on_card(got, gx, gr)
+    # the CPU holds the first ROIs of each image, the card recomputes
+    # them alone: the same op on the same inputs
+    k = MASK_HELD_ROIS // 2
+    sub = np.concatenate([r[:k], r[MASK_ROIS // 2:MASK_ROIS // 2 + k]])
+    hsub = torch.cat([head.tensor[:k], head.tensor[MASK_ROIS // 2:
+                                                   MASK_ROIS // 2 + k]])
+    g_sub, (gx_sub, _g) = fwd_bwd(mx, align, [mx.nd.array(x),
+                                              mx.nd.array(sub)],
+                                  mx.nd.array(hsub))
+    w_sub, (wx_sub, _w) = fwd_bwd(mx, align, [cpu_copy(mx, x),
+                                              cpu_copy(mx, sub)],
+                                  cpu_copy(mx, hsub))
+    held(f"(c) ROIAlign (2, 1024, 38, 63) 14x14 sr 2, {MASK_HELD_ROIS} "
+         f"ROIs card vs CPU", g_sub, w_sub, TOL_OPS)
+    held("(c) ROIAlign data gradient card vs CPU", gx_sub, wx_sub,
+         TOL_OPS_GRAD)
+    if not torch.equal(g_sub.tensor, torch.cat(
+            [got.tensor[:k], got.tensor[MASK_ROIS // 2:MASK_ROIS // 2 + k]])):
+        raise AssertionError("(c) ROIAlign: a ROI's output depends on the "
+                             "other ROIs of the call")
+    out["ROIAlign"] = timed_op(
+        torch, mx, timer, card, "(c) ROIAlign (2, 1024, 38, 63), 1024 "
+        "ROIs, 14x14, sample_ratio 2, 1/16", align, [xd, rd], head=head,
+        iters=3)
+    return out
+
+
+def stn_part(torch, mx, timer, card, rs, dev):
+    """(d) SpatialTransformer at the CUB setting: gradients to the data
+    and to the affine parameters."""
+    x = rs.rand(*STN_IN).astype(np.float32)
+    theta = np.tile(np.array([0.5, 0, 0, 0, 0.5, 0], np.float32),
+                    (STN_IN[0], 1)) + 0.1 * rs.randn(STN_IN[0], 6).astype(
+        np.float32)
+    head = rs.uniform(0.5, 1.5, (STN_IN[0], 3) + STN_OUT).astype(np.float32)
+
+    def stn(x_, t_):
+        return mx.nd.SpatialTransformer(x_, t_, target_shape=STN_OUT)
+    xd, td, hd = (mx.nd.array(a) for a in (x, theta, head))
+    got, (gx, gt) = fwd_bwd(mx, stn, [xd, td], hd)
+    on_card(got, gx, gt)
+    want, (wx, wt) = fwd_bwd(mx, stn, [cpu_copy(mx, x), cpu_copy(mx, theta)],
+                             cpu_copy(mx, head))
+    held("(d) SpatialTransformer (64, 3, 448, 448) -> 224 card vs CPU", got,
+         want, TOL_OPS)
+    held("(d) SpatialTransformer data gradient", gx, wx, TOL_OPS_GRAD)
+    held("(d) SpatialTransformer loc gradient", gt, wt, TOL_OPS_GRAD)
+    return {"SpatialTransformer": timed_op(
+        torch, mx, timer, card, "(d) SpatialTransformer (64, 3, 448, 448) "
+        "-> 224 x 224, affine", stn, [xd, td], head=hd)}
+
+
+def linalg_part(torch, mx, timer, card, rs, dev):
+    """(e): potrf, trsm (four flag combinations), slogdet and inverse of
+    64 SPD 1024-matrices, det of 64 x 64 ones; residuals in float64 on
+    the CPU."""
+    out = {}
+    xs = torch.from_numpy(rs.randn(GP_B, GP_N, GP_N)).to(dev)
+    ad = mx.nd.array((xs @ xs.transpose(-1, -2) / GP_N + torch.eye(
+        GP_N, dtype=torch.double, device=dev)).float())
+    del xs
+    h = GP_HELD                      # the matrices held in float64
+    a64 = ad.tensor[:h].cpu().double()      # the float32 matrices, exactly
+    norm = a64.norm(dim=(-2, -1))
+
+    def resid(name, err):
+        check(f"(e) {name} residual vs float64 on the CPU (relative, "
+              f"{h} of {GP_B} matrices)", float(err),
+              TOL_LINALG[name.split()[0]])
+    lo = mx.nd.linalg_potrf(ad)
+    on_card(lo)
+    l64 = lo.tensor[:h].cpu().double()
+    resid("potrf", ((l64 @ l64.transpose(-1, -2) - a64).norm(dim=(-2, -1))
+                    / norm).max())
+    out["linalg_potrf"] = timed_op(torch, mx, timer, card,
+                                   "(e) linalg_potrf 64 x 1024^2",
+                                   mx.nd.linalg_potrf, [ad])
+    b = rs.randn(GP_B, GP_N, GP_RHS).astype(np.float32)
+    for transpose in (False, True):
+        for right in (False, True):
+            bd = mx.nd.array(b.transpose(0, 2, 1).copy() if right else b)
+            kw = dict(transpose=transpose, rightside=right, lower=True,
+                      alpha=0.5)
+            xsol = mx.nd.linalg_trsm(lo, bd, **kw)
+            on_card(xsol)
+            x64 = xsol.tensor[:h].cpu().double()
+            b64 = bd.tensor[:h].cpu().double()
+            op = l64.transpose(-1, -2) if transpose else l64
+            lhs = x64 @ op if right else op @ x64
+            resid(f"trsm transpose={transpose} rightside={right}",
+                  ((lhs - 0.5 * b64).norm(dim=(-2, -1)) /
+                   (op.norm(dim=(-2, -1)) * x64.norm(dim=(-2, -1)))).max())
+            out[f"linalg_trsm t{int(transpose)} r{int(right)}"] = timed_op(
+                torch, mx, timer, card,
+                f"(e) linalg_trsm 64 x 1024^2, {GP_RHS} right-hand sides, "
+                f"transpose={transpose} rightside={right}",
+                lambda a_, b_, kw=kw: mx.nd.linalg_trsm(a_, b_, **kw),
+                [lo, bd])
+    sign, logdet = mx.nd.linalg_slogdet(ad)
+    on_card(sign, logdet)
+    s64, ld64 = torch.linalg.slogdet(a64)
+    if not torch.equal(sign.tensor[:h].cpu().double(), s64):
+        raise AssertionError("(e) slogdet signs differ from float64's")
+    resid("slogdet", ((logdet.tensor[:h].cpu().double() - ld64).abs() /
+                      ld64.abs()).max())
+    out["linalg_slogdet"] = timed_op(torch, mx, timer, card,
+                                     "(e) linalg_slogdet 64 x 1024^2",
+                                     mx.nd.linalg_slogdet, [ad])
+    inv = mx.nd.linalg_inverse(ad)
+    on_card(inv)
+    eye = torch.eye(GP_N, dtype=torch.double)
+    resid("inverse", ((a64 @ inv.tensor[:h].cpu().double() - eye).norm(
+        dim=(-2, -1)) / GP_N ** 0.5).max())
+    out["linalg_inverse"] = timed_op(torch, mx, timer, card,
+                                     "(e) linalg_inverse 64 x 1024^2",
+                                     mx.nd.linalg_inverse, [ad])
+    m = (np.eye(DET_N) + rs.randn(GP_B, DET_N, DET_N) / DET_N ** 0.5 *
+         0.5).astype(np.float32)
+    md = mx.nd.array(m)
+    det = mx.nd.linalg_det(md)
+    on_card(det)
+    d64 = torch.linalg.det(torch.from_numpy(m).double())
+    resid("det", ((det.tensor.cpu().double() - d64).abs() /
+                  d64.abs()).max())
+    out["linalg_det"] = timed_op(torch, mx, timer, card,
+                                 "(e) linalg_det 64 x 64^2",
+                                 mx.nd.linalg_det, [md], iters=10)
+    return out
+
+
+def sampler_laws(st):
+    """name: (call on nd, scipy law) for the 18 samplers at
+    ``SAMPLE_N`` draws; the sample_* ops draw 2**14 each of 2**10
+    parameter rows of one value."""
+    n, rows = SAMPLE_N, 1 << 10
+    each = SAMPLE_N // rows
+
+    def par(nd, *vals):
+        return [nd.array(np.full((rows,), v, np.float32)) for v in vals]
+    return {
+        "random_uniform": (lambda nd: nd.random_uniform(
+            shape=n, low=-1.0, high=3.0), st.uniform(-1, 4)),
+        "uniform": (lambda nd: nd.uniform(shape=n), st.uniform(0, 1)),
+        "random_normal": (lambda nd: nd.random_normal(
+            shape=n, loc=1.0, scale=2.0), st.norm(1, 2)),
+        "normal": (lambda nd: nd.normal(shape=n), st.norm(0, 1)),
+        "random_gamma": (lambda nd: nd.random_gamma(
+            shape=n, alpha=2.5, beta=1.5), st.gamma(2.5, scale=1.5)),
+        "random_exponential": (lambda nd: nd.random_exponential(
+            shape=n, lam=2.0), st.expon(scale=0.5)),
+        "random_poisson": (lambda nd: nd.random_poisson(
+            shape=n, lam=3.5), st.poisson(3.5)),
+        "random_randint": (lambda nd: nd.random_randint(
+            shape=n, low=-3, high=5), st.randint(-3, 5)),
+        "random_bernoulli": (lambda nd: nd.random_bernoulli(
+            0.3, shape=n), st.bernoulli(0.3)),
+        "random_negative_binomial": (lambda nd: nd.random_negative_binomial(
+            shape=n, k=3, p=0.4), st.nbinom(3, 0.4)),
+        "random_generalized_negative_binomial": (
+            lambda nd: nd.random_generalized_negative_binomial(
+                shape=n, mu=2.0, alpha=0.5), st.nbinom(2.0, 0.5)),
+        "sample_uniform": (lambda nd: nd.sample_uniform(
+            *par(nd, 0.0, 2.0), shape=each), st.uniform(0, 2)),
+        "sample_normal": (lambda nd: nd.sample_normal(
+            *par(nd, 1.0, 3.0), shape=each), st.norm(1, 3)),
+        "sample_gamma": (lambda nd: nd.sample_gamma(
+            *par(nd, 0.7, 2.0), shape=each), st.gamma(0.7, scale=2.0)),
+        "sample_exponential": (lambda nd: nd.sample_exponential(
+            *par(nd, 0.5), shape=each), st.expon(scale=2.0)),
+        "sample_poisson": (lambda nd: nd.sample_poisson(
+            *par(nd, 6.0), shape=each), st.poisson(6.0)),
+    }
+
+
+def seeds_repeat(torch, mx, name, first, draw):
+    """``draw()`` after reseeding with ``SEED`` repeats ``first`` (drawn
+    just after seeding with it) bit for bit; after ``SEED + 1`` it
+    differs."""
+    mx.random.seed(SEED)
+    again = draw().tensor
+    mx.random.seed(SEED + 1)
+    other = draw().tensor
+    if not torch.equal(again, first.tensor) or torch.equal(other,
+                                                           first.tensor):
+        raise AssertionError(f"(f) {name}: a seed does not repeat, or "
+                             f"another seed repeats it")
+
+
+def sampling_part(torch, mx, timer, card, rs, dev):
+    """(f): moments of 2**24 draws of each sampler, seeding, the
+    multinomial at GPT-2's vocabulary, shuffle."""
+    import scipy.stats as st
+    out = {}
+    for name, (call, law) in sampler_laws(st).items():
+        mx.random.seed(SEED)
+        x = call(mx.nd)
+        on_card(x)
+        t = x.tensor.double().reshape(-1)
+        if t.numel() != SAMPLE_N:
+            raise AssertionError(f"(f) {name}: {t.numel()} draws")
+        mean, var, _s, kurt = (float(v) for v in law.stats(moments="mvsk"))
+        m, v = float(t.mean()), float(t.var(unbiased=False))
+        se_m = (var / SAMPLE_N) ** 0.5
+        se_v = var * ((kurt + 2) / SAMPLE_N) ** 0.5
+        if abs(m - mean) > SIGMAS * se_m or abs(v - var) > SIGMAS * se_v:
+            raise AssertionError(
+                f"(f) {name}: mean {m} (want {mean} +- {SIGMAS * se_m:.2e}) "
+                f"variance {v} (want {var} +- {SIGMAS * se_v:.2e})")
+        seeds_repeat(torch, mx, name, x, lambda: call(mx.nd))
+        ms, peak = op_time(torch, timer, lambda: call(mx.nd))
+        out[name] = {"ms": ms, "peak_mib": peak}
+        print(f"  (f) {name} 2^24 draws: mean {m:.5f} (law {mean:.5f}, "
+              f"{abs(m - mean) / se_m:.2f} se), variance {v:.5f} (law "
+              f"{var:.5f}, {abs(v - var) / se_v:.2f} se), seeds repeat, "
+              f"{ms:.4f} ms, peak {peak:.1f} MiB [{card}]", flush=True)
+    logits = torch.randn(MULTI_ROWS, VOCAB, device=dev,
+                         generator=torch.Generator(dev).manual_seed(SEED))
+    p = mx.nd.array(torch.softmax(2 * logits, -1))
+    mx.random.seed(SEED)
+    s, logp = mx.nd.sample_multinomial(p, get_prob=True)
+    on_card(s, logp)
+    seeds_repeat(torch, mx, "sample_multinomial", s,
+                 lambda: mx.nd.sample_multinomial(p))
+    pt, st_ = p.tensor.double(), s.tensor.long()
+    picked = pt.gather(1, st_[:, None])[:, 0]
+    want = (pt ** 2).sum(1)
+    se = float(((pt ** 3).sum(1) - want ** 2).sum() ** 0.5) / MULTI_ROWS
+    if abs(float(picked.mean() - want.mean())) > SIGMAS * se:
+        raise AssertionError("(f) sample_multinomial draws do not follow p")
+    check("(f) sample_multinomial get_prob vs log p at the draws",
+          float((logp.tensor.double() - picked.log()).abs().max()), 1e-5)
+    ms, peak = op_time(torch, timer, lambda: mx.nd.sample_multinomial(p))
+    out["sample_multinomial"] = {"ms": ms, "peak_mib": peak}
+    print(f"  (f) sample_multinomial (1024, 50257): E p[draw] "
+          f"{float(picked.mean()):.6f} vs sum p^2 {float(want.mean()):.6f} "
+          f"(se {se:.2e}), seeds repeat, {ms:.4f} ms, peak {peak:.1f} MiB "
+          f"[{card}]",
+          flush=True)
+    rows = torch.arange(SHUFFLE_ROWS * 16, device=dev,
+                        dtype=torch.int32).reshape(SHUFFLE_ROWS, 16)
+    mx.random.seed(SEED)
+    sh = mx.nd.shuffle(mx.nd.array(rows))
+    on_card(sh)
+    seeds_repeat(torch, mx, "shuffle", sh,
+                 lambda: mx.nd.shuffle(mx.nd.array(rows)))
+    back = sh.tensor[torch.argsort(sh.tensor[:, 0])]
+    if not torch.equal(back, rows) or torch.equal(sh.tensor, rows):
+        raise AssertionError("(f) shuffle is not a permutation of the rows")
+    ms, peak = op_time(torch, timer, lambda: mx.nd.shuffle(sh))
+    out["shuffle"] = {"ms": ms, "peak_mib": peak}
+    print(f"  (f) shuffle (2^20, 16): a permutation of the rows, seeds "
+          f"repeat, {ms:.4f} ms, peak {peak:.1f} MiB [{card}]", flush=True)
+    return out
+
+
+def index_part(torch, mx, timer, card, rs, dev):
+    """(g): scatter_nd of 2**20 updates, duplicates adding, card vs
+    CPU."""
+    idx = rs.randint(0, SCATTER_SHAPE[0], (2, SCATTER_N)).astype(np.int32)
+    idx[:, 1::64] = idx[:, ::64]                      # duplicates for sure
+    data = rs.randn(SCATTER_N).astype(np.float32)
+    dd, ii = mx.nd.array(data), mx.nd.array(idx)
+    got = mx.nd.scatter_nd(dd, ii, SCATTER_SHAPE)
+    on_card(got)
+    held("(g) scatter_nd 2^20 updates into 4096^2 card vs CPU", got,
+         mx.nd.scatter_nd(cpu_copy(mx, data), cpu_copy(mx, idx),
+                          SCATTER_SHAPE), TOL_OPS)
+    return {"scatter_nd": timed_op(
+        torch, mx, timer, card, "(g) scatter_nd 2^20 updates, 4096 x 4096",
+        lambda d, i: mx.nd.scatter_nd(d, i, SCATTER_SHAPE), [dd, ii],
+        iters=10)}
+
+
+def ops_path(torch, card, timer, dev):
+    """Phase 14: the nd ops at published sizes, each held against the
+    same port op on the CPU (or float64, or its law) and timed."""
+    import mxnet_tpu_torch as mx
+    t_phase = time.monotonic()
+    print("the op surface at published sizes (SSD-300, Faster/Mask R-CNN "
+          "heads, STN on CUB, GP linalg, samplers, scatter):", flush=True)
+    rs = np.random.RandomState(SEED)
+    out = {}
+    for part in (ssd_part, roi_part, stn_part, linalg_part, sampling_part,
+                 index_part):
+        out.update(part(torch, mx, timer, card, rs, dev))
+        free(torch)
+    print(json.dumps({"ops": out}), flush=True)
+    print(f"phase 14: {time.monotonic() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2973,6 +3588,13 @@ def main() -> int:
     by_path["bert"], by_path["bert_amp"] = bert_path(torch, card)
     by_path["nmt"], nmt_split = nmt_path(torch, card)
     by_path["lstm"] = lstm_path(torch, card)
+    free(torch)
+    reset_launches()
+    ops_path(torch, card, timer, dev)
+    by_path["ops"] = read_launches()
+    if any(by_path["ops"].values()):
+        raise AssertionError(f"the ops phase launched a kernel of the "
+                             f"port: {by_path['ops']}")
     # each kernel's launches on the path that is its own: the training
     # path for the flash kernels, the serving path for paged attention;
     # the flash kernels' bf16 numbers (phase 2 at the training shape)

@@ -27,6 +27,7 @@ from ... import initializer as init_mod
 from ... import random as _random
 from ...ndarray import ops
 from ...ndarray.ops import ACTIVATION_FNS
+from ...ops import dots as _dots
 from ..block import Block, HybridBlock, _run_nd
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "Embedding",
@@ -105,7 +106,7 @@ class Dense(HybridBlock):
         if self._flatten and x.dim() > 2:
             x = x.reshape(x.shape[0], -1)
         x, w, b = _amp.cast("FullyConnected", x, self.weight, self.bias)
-        out = F.linear(x, w, b)
+        out = _dots.linear(x, w, b)
         return out if self._act is None else self._act(out)
 
     def __repr__(self):

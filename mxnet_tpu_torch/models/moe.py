@@ -40,6 +40,7 @@ from ..base import MXNetError
 from ..gluon.block import HybridBlock
 from ..gluon.nn import Dropout, LayerNorm
 from ..ndarray.ops import apply_op
+from ..ops import dots as _dots
 
 __all__ = ["MoELayer", "MoETransformerBlock", "moe_ffn", "pop_aux_losses",
            "aux_loss_scope"]
@@ -74,7 +75,7 @@ def _route(xf, wg, num_experts, top_k, capacity):
     """The router on (N, D) tokens: (probs (N, E) float32, gates (N, k)
     renormalized, expert ids (N, k), positions (N, k) within the expert,
     in capacity (N, k) bool)."""
-    probs = torch.softmax(xf.float() @ wg.float().t(), dim=-1)
+    probs = torch.softmax(_dots.matmul(xf.float(), wg.float().t()), dim=-1)
     gates, idx = torch.topk(probs, top_k, dim=-1)
     gates = gates / gates.sum(dim=-1, keepdim=True)
     # the one-hot is laid out (E, N), so the cumulative sum runs along
@@ -107,9 +108,9 @@ def _moe_ffn(x, wg, w1, b1, w2, b2, *, num_experts, top_k, capacity,
     x_e = xf.new_zeros((e * c + 1, d)).index_copy(
         0, torch.where(dispatched, slot, trash).reshape(-1), rows)
     x_e = x_e[:e * c].reshape(e, c, d)
-    h = torch.bmm(x_e, w1) + b1[:, None, :]
+    h = _dots.matmul(x_e, w1) + b1[:, None, :]
     h = _ACTIVATIONS[activation](h).to(xf.dtype)
-    y_e = (torch.bmm(h, w2) + b2[:, None, :]).float()
+    y_e = (_dots.matmul(h, w2) + b2[:, None, :]).float()
     y_e = torch.cat([y_e.reshape(e * c, d), y_e.new_zeros((1, d))])
     picked = y_e.index_select(
         0, torch.where(in_cap, slot, trash).reshape(-1)).reshape(n, top_k, d)
@@ -192,12 +193,10 @@ class MoETransformerBlock(HybridBlock):
                  prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         from .transformer import MultiHeadAttention
-        if attention_dropout:
-            raise MXNetError("attention_dropout is not ported (ROADMAP "
-                             "A1.7)")
         self.ln1 = LayerNorm(epsilon=layer_norm_eps, in_channels=units)
-        self.attn = MultiHeadAttention(units, num_heads, dropout=dropout,
-                                       causal=causal)
+        self.attn = MultiHeadAttention(
+            units, num_heads, dropout=dropout,
+            attention_dropout=attention_dropout, causal=causal)
         self.ln2 = LayerNorm(epsilon=layer_norm_eps, in_channels=units)
         self.moe = MoELayer(units, hidden_size, num_experts, top_k=top_k,
                             capacity_factor=capacity_factor,

@@ -23,11 +23,12 @@ differences in how caches are updated:
 :func:`run_blocks` takes the reference's ``remat`` (``transformer.py:
 710-752``): each layer runs under ``torch.utils.checkpoint`` and is
 recomputed during backward, with the forward's dropout masks replayed
-(see :func:`_remat_layer`).
+(see :func:`_remat_layer`); under ``'dots'`` the recomputation reads the
+products' kept outputs back (:mod:`~mxnet_tpu_torch.ops.dots`).
 """
 from __future__ import annotations
 
-import functools
+import contextlib
 
 import torch
 import torch.utils.checkpoint as _ckpt
@@ -39,6 +40,7 @@ from ..base import MXNetError
 from ..gluon.block import HybridBlock
 from ..gluon.nn import GELU, Dense, Dropout, LayerNorm
 from ..ops import dot_product_attention
+from ..ops import dots as _dots
 from ..ops.paged import kv_quantize, paged_attention
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerBlock",
@@ -323,17 +325,6 @@ class PositionwiseFFN(HybridBlock):
         return h
 
 
-# remat="dots" keeps the products' outputs (the reference's
-# ``checkpoint_dots``, ``transformer.py:696-698``) and recomputes the rest
-_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
-         torch.ops.aten.bmm.default)
-
-
-def _save_dots(ctx, op, *args, **kwargs):
-    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
-            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
-
-
 def _call(blk, x, mask, memory=None):
     if memory is not None:
         return blk(x, memory, mask)
@@ -354,8 +345,11 @@ def _own_aux(blk, x, mask, memory=None):
 
 
 def _remat_layer(blk, x, mask, remat, memory=None):
-    """One layer under ``torch.utils.checkpoint`` (non-reentrant; with
-    ``remat='dots'`` a selective policy that saves mm/addmm/bmm outputs).
+    """One layer under ``torch.utils.checkpoint`` (non-reentrant).  With
+    ``remat='dots'`` the layer's products keep their outputs and the
+    recomputation reads them back instead of multiplying again
+    (:mod:`~mxnet_tpu_torch.ops.dots`, the reference's
+    ``checkpoint_dots``, ``transformer.py:696-698``).
     A decoder layer takes ``memory`` (the encoder's output) as a second
     input of the checkpoint: it is saved, not recomputed, and its
     gradient flows out of the recomputation.
@@ -367,36 +361,39 @@ def _remat_layer(blk, x, mask, remat, memory=None):
     the same masks (the reference's "IDENTICAL dropout masks") and
     afterwards put back, so later draws are those of a run without
     remat.  The layer's aux losses leave the checkpoint as outputs and
-    are recorded once; those of the recomputation are dropped.  A
-    kernel launched through ctypes (B1 in ``ops/flash.py``) is no aten
-    op, so the policy cannot save it: it runs again in the
-    recomputation under either form."""
+    are recorded once; those of the recomputation are dropped.  B1
+    (``ops/flash.py``, a ctypes launch) is no product: it runs again in
+    the recomputation under either form, as the reference's policy
+    saves no Pallas call's output either."""
     dev = x.device
     rng = _random.generator(dev).get_state()
     flags = (_base.is_training(), _base.is_recording(),
              _base.aux_collection_active(), _amp.current_policy())
     forward_done = []
+    products = []               # the 'dots' layer's kept outputs
+
+    def keep(replay):
+        return _dots.keep(products, replay) if remat == "dots" else \
+            contextlib.nullcontext()
 
     def run(h, mem):
         if not forward_done:
             forward_done.append(True)
-            out, aux = _own_aux(blk, h, mask, mem)
+            with keep(False):
+                out, aux = _own_aux(blk, h, mask, mem)
             return (out, *aux)
         prev = (_base.set_training(flags[0]), _base.set_recording(flags[1]),
                 _base.set_aux_collection(flags[2]))
         try:
-            with _amp.policy_scope(flags[3]), _random.replay(dev, rng):
+            with _amp.policy_scope(flags[3]), _random.replay(dev, rng), \
+                    keep(True):
                 _own_aux(blk, h, mask, mem)
         finally:
             _base.set_training(prev[0])
             _base.set_recording(prev[1])
             _base.set_aux_collection(prev[2])
 
-    kw = {}
-    if remat == "dots":
-        kw["context_fn"] = functools.partial(
-            _ckpt.create_selective_checkpoint_contexts, _save_dots)
-    out, *aux = _ckpt.checkpoint(run, x, memory, use_reentrant=False, **kw)
+    out, *aux = _ckpt.checkpoint(run, x, memory, use_reentrant=False)
     for a in aux:
         _base.record_aux_loss(a)
     return out

@@ -5,8 +5,9 @@ Each op is a plain torch function over the tensors behind its NDArray
 inputs, dispatched by :func:`invoke`, which runs it under
 ``torch.set_grad_enabled(is_recording())`` so a graph is built only
 inside ``autograd.record()``, exactly where the reference's tape records.
-Names and signatures are the reference's; the names it exports that the
-port does not have yet are in :data:`NOT_YET_PORTED` (ROADMAP A1).
+Names and signatures are the reference's, every one of them: the random
+samplers live in :mod:`.sampling` and the spatial, ROI and detection ops
+in :mod:`.detection`, both re-exported here.
 """
 from __future__ import annotations
 
@@ -26,18 +27,9 @@ from .ndarray import NDArray, array
 
 __all__: list = []  # populated by _export
 
-# the reference's ops the port lacks so far; it only shrinks
-NOT_YET_PORTED = frozenset("""
-random_uniform random_normal random_gamma random_exponential
-random_poisson random_randint normal uniform random_bernoulli
-sample_multinomial shuffle random_negative_binomial
-random_generalized_negative_binomial sample_uniform sample_normal
-sample_gamma sample_exponential sample_poisson unravel_index
-ravel_multi_index
-ROIPooling batch_take BilinearSampler GridGenerator SpatialTransformer
-box_iou box_nms ROIAlign MultiBoxPrior MultiBoxTarget MultiBoxDetection
-scatter_nd linalg_potrf linalg_trsm linalg_det linalg_slogdet
-linalg_inverse""".split())
+# the reference's ops the port lacks: none since the sampling, linalg,
+# detection and index ops; kept (empty) so that a test can hold it so
+NOT_YET_PORTED = frozenset()
 
 
 def _export(fn):
@@ -464,6 +456,54 @@ def linalg_makediag(A, offset=0, **kw):
                   lambda a: torch.diag_embed(a, offset), [_as_nd(A)])
 
 
+@_export
+def linalg_potrf(A):
+    """Lower Cholesky factor; a matrix that is not positive definite
+    gives NaN, as jnp's does (no host read to find out)."""
+    def f(a):
+        lo, info = torch.linalg.cholesky_ex(a)
+        bad = (info != 0)[..., None, None]
+        return torch.where(bad, torch.full_like(lo, math.nan), lo)
+    return invoke("linalg_potrf", f, [_as_nd(A)])
+
+
+@_export
+def linalg_trsm(A, B, transpose=False, rightside=False, lower=True,
+                alpha=1.0):
+    """``alpha * op(A)^-1 B`` (or ``alpha * B op(A)^-1`` with
+    ``rightside``), ``op(A) = A^T`` with ``transpose``; only the
+    ``lower`` (or upper) triangle of A is read."""
+    like = _first_nd(A, B)
+
+    def f(a, b):
+        tri = torch.tril(a) if lower else torch.triu(a)
+        if transpose:           # the transpose of a lower factor is upper
+            tri = tri.transpose(-1, -2)
+        upper = lower if transpose else not lower
+        return alpha * torch.linalg.solve_triangular(
+            tri, b, upper=upper, left=not rightside)
+    return invoke("linalg_trsm", f, [_as_nd(A, like), _as_nd(B, like)])
+
+
+@_export
+def linalg_det(A, **kw):
+    return invoke("linalg_det", torch.linalg.det, [_as_nd(A)])
+
+
+@_export
+def linalg_slogdet(A, **kw):
+    return invoke("linalg_slogdet", lambda a: tuple(torch.linalg.slogdet(a)),
+                  [_as_nd(A)])
+
+
+@_export
+def linalg_inverse(A, **kw):
+    """The inverse; a singular matrix gives what LU gives (inf or NaN)
+    instead of raising, as jnp's does."""
+    return invoke("linalg_inverse", lambda a: torch.linalg.inv_ex(a)[0],
+                  [_as_nd(A)])
+
+
 # --------------------------------------------------------------- shape ops
 
 def _mx_reshape_shape(src: Tuple[int, ...], spec: Tuple[int, ...],
@@ -644,14 +684,35 @@ def split(data, num_outputs=None, axis=1, squeeze_axis=False):
 _alias("SliceChannel", split)
 
 
+def _flipped_slice(sl, n):
+    """A negative-step slice of an axis of size ``n`` as the positive-step
+    slice that picks the same elements, in the same order, from the axis
+    flipped (torch has no negative-step slice)."""
+    start, _stop, step = sl.indices(n)
+    count = len(range(*sl.indices(n)))
+    if not count:
+        return builtins.slice(0, 0)
+    first = n - 1 - start
+    return builtins.slice(first, first + (count - 1) * -step + 1, -step)
+
+
 @_export
 def slice(data, begin, end, step=None):
+    """``x[begin:end:step]`` per axis, ``None`` bounds as Python's.  A
+    negative step flips the axis and slices it: the result is a copy
+    where the reference's is a view, which no caller sees through
+    ``nd``."""
     data = _as_nd(data)
     step = tuple(step) if step is not None else (None,) * len(begin)
-    if any(s is not None and s < 0 for s in step):
-        raise _base.MXNetError("slice with a negative step is not ported")
-    idx = tuple(builtins.slice(b, e, s) for b, e, s in
-                zip(tuple(begin), tuple(end), step))
+    idx = [builtins.slice(b, e, s) for b, e, s in
+           zip(tuple(begin), tuple(end), step)]
+    flip = tuple(a for a, sl in enumerate(idx)
+                 if sl.step is not None and sl.step < 0)
+    for a in flip:
+        idx[a] = _flipped_slice(idx[a], data.shape[a])
+    idx = tuple(idx)
+    if flip:
+        return invoke("slice", lambda x: torch.flip(x, flip)[idx], [data])
     return invoke("slice", lambda x: x[idx], [data])
 
 
@@ -719,6 +780,85 @@ def gather_nd(data, indices):
         return x[tuple(idx[i] for i in range(idx.shape[0]))]
     return invoke("gather_nd", f, [_as_nd(data, like),
                                    _as_nd(indices, like)])
+
+
+@_export
+def scatter_nd(data, indices, shape):
+    """Scatter ``data`` into zeros of ``shape`` at ``indices`` (K, ...).
+    Duplicate indices *add*, as the reference's ``.at[].add`` does
+    (upstream MXNet keeps one of them)."""
+    like = _first_nd(data, indices)
+
+    def f(d, idx):
+        idx = idx.long()
+        z = torch.zeros(tuple(shape), dtype=d.dtype, device=d.device)
+        return z.index_put(tuple(idx[i] for i in range(idx.shape[0])), d,
+                           accumulate=True)
+    return invoke("scatter_nd", f, [_as_nd(data, like),
+                                    _as_nd(indices, like)])
+
+
+def _unravel(flat, shape):
+    """Coordinates (len(shape), ...) of flat ids, jnp's rule: a negative
+    id counts from the end, then every id is clipped into the array."""
+    size = math.prod(shape)
+    flat = flat.long()
+    flat = torch.where(flat < 0, flat + size, flat).clamp(0, builtins.max(
+        size - 1, 0))
+    coords = []
+    for s in reversed(shape):
+        coords.append(torch.remainder(flat, s))
+        flat = torch.div(flat, s, rounding_mode="floor")
+    return torch.stack(coords[::-1]).to(torch.int32)
+
+
+@_export
+def unravel_index(data, shape):
+    return invoke("unravel_index", lambda i: _unravel(i, tuple(shape)),
+                  [_as_nd(data)], differentiable=False)
+
+
+@_export
+def ravel_multi_index(data, shape):
+    """Flat ids of coordinates ``data`` (len(shape), ...), each
+    coordinate clipped into its axis (``mode='clip'``)."""
+    shape = tuple(shape)
+
+    def f(m):
+        flat = torch.zeros(m.shape[1:], dtype=torch.long, device=m.device)
+        for i, s in enumerate(shape):
+            flat = flat * s + m[i].long().clamp(0, s - 1)
+        return flat.to(torch.int32)
+    return invoke("ravel_multi_index", f, [_as_nd(data)],
+                  differentiable=False)
+
+
+def _fill_value(dtype):
+    """What jnp's gather fills an out-of-range index with: NaN for
+    floats, the lowest value for signed integers, the highest for
+    unsigned."""
+    if dtype.is_floating_point:
+        return math.nan
+    info = torch.iinfo(dtype)
+    return info.max if info.min == 0 else info.min
+
+
+@_export
+def batch_take(a, indices, **kw):
+    """``out[i] = a[i, indices[i]]``: a negative index counts from the
+    row's end, one past either end fills NaN (the reference's
+    ``take_along_axis``; ``pick`` and ``take`` clip instead)."""
+    like = _first_nd(a, indices)
+
+    def f(x, idx):
+        n = x.shape[1]
+        i = idx.long().reshape(-1)
+        i = torch.where(i < 0, i + n, i)
+        inside = (i >= 0) & (i < n)
+        got = torch.gather(x, 1, i.clamp(0, n - 1)[:, None])[:, 0]
+        return torch.where(inside, got, torch.full_like(
+            got, _fill_value(x.dtype)))
+    return invoke("batch_take", f, [_as_nd(a, like), _as_nd(indices, like)])
 
 
 @_export
@@ -1613,3 +1753,12 @@ def RNN(data, parameters, state, state_cell=None, state_size=None,
     from ..gluon.rnn._rnn_impl import rnn_forward   # lazy: avoids a cycle
     return rnn_forward(data, parameters, state, state_cell, state_size,
                        num_layers, mode, bidirectional, p, state_outputs)
+
+
+# the sibling modules import this one's helpers, so they come last
+from . import detection as _detection  # noqa: E402
+from . import sampling as _sampling  # noqa: E402
+
+for _m in (_sampling, _detection):
+    for _nm in _m.__all__:
+        _alias(_nm, getattr(_m, _nm))

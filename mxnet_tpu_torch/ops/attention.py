@@ -22,6 +22,7 @@ from .. import amp as _amp
 from .. import base as _base
 from .. import random as _random
 from ..base import MXNetError
+from . import dots as _dots
 
 __all__ = ["dot_product_attention", "flash_attention"]
 
@@ -36,7 +37,7 @@ def _attention_ref(q, k, v, *, causal=False, mask=None, scale=None,
     passes 0 outside training) drops attention weights."""
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    logits = _dots.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     tq, tk = logits.shape[-2], logits.shape[-1]
     neg = torch.full_like(logits, _NEG_INF)
     if causal:
@@ -54,7 +55,7 @@ def _attention_ref(q, k, v, *, causal=False, mask=None, scale=None,
                           generator=_random.generator(probs.device))
         probs = torch.where(draw < 1.0 - dropout, probs / (1.0 - dropout),
                             torch.zeros_like(probs))
-    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+    return _dots.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
 def _use_flash(q, k, mask, dropout=0.0) -> bool:

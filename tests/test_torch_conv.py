@@ -360,7 +360,7 @@ def test_ported_ops_left_the_not_ported_list():
               "SoftmaxActivation", "depth_to_space", "space_to_depth"}
     assert not ported & TOPS.NOT_YET_PORTED
     assert ported <= set(TOPS.__all__)
-    assert len(TOPS.NOT_YET_PORTED) == 37
+    assert len(TOPS.NOT_YET_PORTED) == 0
 
 
 # --------------------------------------------------------------- layers

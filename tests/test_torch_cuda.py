@@ -524,8 +524,8 @@ def test_remat_launch_counts_and_gradients_on_card(dev):
     """A 2-layer MoE GPT-2 at T = 256 with dropout 0.1, one step under
     each ``remat``: without it B1, B2 and B3 launch once a layer; under
     ``True`` and ``'dots'`` B1 launches twice a layer (the recomputation
-    runs the ctypes launch again: the policy sees no aten op for it)
-    and B2, B3 once.  All in float32.  The loss and gradients equal the
+    runs it again: ``'dots'`` keeps only the products' outputs) and B2,
+    B3 once.  All in float32.  The loss and gradients equal the
     run without remat (1e-6 of each max-abs), every thread's aux
     collector ends empty, and the device generator ends where the run
     without remat leaves it."""
@@ -932,3 +932,216 @@ def test_fused_rnn_on_card_matches_step_route(no_tf32, mode):
     for a, r in zip(res["fused"][0] + list(res["fused"][1]),
                     res["step"][0] + list(res["step"][1])):
         assert _relerr(a, r) <= 1e-4
+
+
+# ------------------------------------------- the nd ops of A1.7 on the card
+
+def _nd_run(ctx, call, inputs, grad):
+    """``call(nd, *arrays)`` on ``ctx`` under ``autograd.record()``: its
+    outputs and the gradients of the inputs indexed by ``grad`` (a
+    seeded head gradient on the first output), as CPU tensors; every
+    output and gradient must lie on ``ctx``'s device."""
+    import mxnet_tpu_torch as mx
+    xs = [mx.nd.array(a, ctx=ctx, dtype=a.dtype) for a in inputs]
+    for i in grad:
+        xs[i].attach_grad()
+    with mx.autograd.record():
+        out = call(mx.nd, *xs)
+    outs = list(out) if isinstance(out, (list, tuple)) else [out]
+    if grad:
+        hg = onp.random.RandomState(1).uniform(0.5, 1.5, outs[0].shape)
+        outs[0].backward(mx.nd.array(hg.astype("float32"), ctx=ctx))
+    got = outs + [xs[i].grad for i in grad]
+    for a in got:
+        assert a.tensor.device.type == torch.device(ctx.torch_device).type
+    return [a.tensor.detach().cpu() for a in got]
+
+
+def _nd_card_vs_cpu(call, inputs, grad=(), tol=1e-5, exact=False):
+    """The same port op on the card and on the CPU: each output and
+    gradient within ``tol`` of its max-abs; with ``exact``, which
+    entries are -1 identical too."""
+    import mxnet_tpu_torch as mx
+    card = _nd_run(mx.gpu(0), call, inputs, grad)
+    cpu = _nd_run(mx.cpu(), call, inputs, grad)
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        assert a.shape == b.shape and a.dtype == b.dtype, i
+        if exact:
+            assert torch.equal(a == -1, b == -1), i
+        if a.is_floating_point():
+            fin = torch.isfinite(b)
+            assert torch.equal(torch.isfinite(a), fin), i
+            assert _relerr(a[fin], b[fin]) <= tol, (i, _relerr(a[fin],
+                                                               b[fin]))
+        else:
+            assert torch.equal(a, b), i
+
+
+def _rs(seed):
+    return onp.random.RandomState(seed)
+
+
+def test_nd_index_and_linalg_ops_on_card_match_cpu(no_tf32):
+    rs = _rs(0)
+    idx = onp.stack([rs.randint(0, 4, 30), rs.randint(-5, 5, 30)])
+    _nd_card_vs_cpu(lambda nd, d, i: nd.scatter_nd(d, i, (4, 5)),
+                    [rs.randn(30).astype("float32"), idx.astype("int32")],
+                    grad=(0,))
+    _nd_card_vs_cpu(lambda nd, i: nd.unravel_index(i, (3, 4)),
+                    [onp.array([-13, -1, 0, 5, 11, 100], "float32")])
+    _nd_card_vs_cpu(lambda nd, m: nd.ravel_multi_index(m, (3, 4)),
+                    [onp.array([[-1, 0, 2, 7], [4, -2, 3, 0]], "float32")])
+    _nd_card_vs_cpu(lambda nd, a, i: nd.batch_take(a, i),
+                    [rs.randn(3, 4).astype("float32"),
+                     onp.array([0, 7, -1], "int32")], grad=(0,))
+    x = rs.randn(2, 8, 8)
+    spd = (x @ x.transpose(0, 2, 1) / 8 + onp.eye(8)).astype("float32")
+    _nd_card_vs_cpu(lambda nd, a: nd.linalg_potrf(a), [spd], grad=(0,),
+                    tol=1e-4)
+    tri = (onp.tril(rs.randn(2, 8, 8)) * 0.3 + 2 * onp.eye(8)).astype(
+        "float32")
+    for transpose in (False, True):
+        for right in (False, True):
+            b = rs.randn(2, 3, 8) if right else rs.randn(2, 8, 3)
+            _nd_card_vs_cpu(lambda nd, a, b: nd.linalg_trsm(
+                a, b, transpose=transpose, rightside=right, alpha=0.7),
+                [tri, b.astype("float32")], grad=(0, 1), tol=1e-4)
+    a = (rs.randn(2, 8, 8) + 3 * onp.eye(8)).astype("float32")
+    for op in ("linalg_det", "linalg_inverse"):
+        _nd_card_vs_cpu(lambda nd, a: getattr(nd, op)(a), [a], grad=(0,),
+                        tol=1e-4)
+    _nd_card_vs_cpu(lambda nd, a: nd.linalg_slogdet(a)[1], [a], grad=(0,),
+                    tol=1e-4)
+
+
+def _rois(rs, n, size=12.0):
+    c = rs.uniform(-0.1 * size, 1.1 * size, (n, 2, 2))
+    c.sort(axis=1)
+    c[:, 1] += 1.0
+    return onp.concatenate([rs.randint(0, 2, (n, 1)), c[:, :, 0], c[:, :, 1]],
+                           1)[:, [0, 1, 3, 2, 4]].astype("float32")
+
+
+def test_nd_spatial_and_roi_ops_on_card_match_cpu(no_tf32):
+    rs = _rs(1)
+    x = rs.randn(2, 4, 12, 12).astype("float32")
+    theta = (onp.tile([1, 0, 0, 0, 1, 0], (2, 1)) + 0.3 * rs.randn(2, 6)
+             ).astype("float32")
+    grid = rs.uniform(-1.2, 1.2, (2, 2, 5, 6)).astype("float32")
+    _nd_card_vs_cpu(lambda nd, t: nd.GridGenerator(t, "affine", (5, 7)),
+                    [theta], grad=(0,))
+    _nd_card_vs_cpu(lambda nd, t: nd.GridGenerator(t, "warp"),
+                    [rs.randn(2, 2, 6, 5).astype("float32")], grad=(0,))
+    _nd_card_vs_cpu(lambda nd, x, g: nd.BilinearSampler(x, g), [x, grid],
+                    grad=(0, 1), tol=1e-4)
+    _nd_card_vs_cpu(lambda nd, x, t: nd.SpatialTransformer(
+        x, t, target_shape=(6, 6)), [x, theta], grad=(0, 1), tol=1e-4)
+    relu = onp.maximum(onp.round(x), 0)                  # tied maxima
+    _nd_card_vs_cpu(lambda nd, x, r: nd.ROIPooling(x, r, (3, 2), 1.0),
+                    [relu, _rois(rs, 9)], grad=(0,))
+    # bin edges that land on whole pixels (14 rows in 7 bins): CUDA's
+    # division by a host scalar (a product with its reciprocal) floors
+    # 14 * (1/7) to 1, so the port divides by a device tensor
+    whole = onp.array([[0, 0, 0, 13, 13], [1, 2, 3, 15, 9],
+                       [0, 0, 0, 20, 27], [1, 7, 7, 27, 20]], "float32")
+    _nd_card_vs_cpu(lambda nd, x, r: nd.ROIPooling(x, r, (7, 7), 1.0),
+                    [rs.randn(2, 4, 32, 32).astype("float32"), whole],
+                    grad=(0,))
+    _nd_card_vs_cpu(lambda nd, x, r: nd.ROIAlign(x, r, (3, 3), 0.5, 2),
+                    [x, _rois(rs, 7, 24.0)], grad=(0, 1), tol=1e-4)
+    _nd_card_vs_cpu(lambda nd, x, r: nd.ROIAlign(
+        x, r, (2, 2), 1.0, 2, position_sensitive=True),
+        [rs.randn(2, 8, 12, 12).astype("float32"), _rois(rs, 5)],
+        grad=(0, 1), tol=1e-4)
+
+
+def _det_rows(rs, n, batch=2):
+    centers = rs.uniform(0.2, 0.8, (4, 2))
+    c = centers[rs.randint(0, 4, (batch, n))] + 0.05 * rs.randn(batch, n, 2)
+    wh = rs.uniform(0.1, 0.3, (batch, n, 2))
+    score = onp.round(rs.uniform(-0.2, 1.0, (batch, n)), 1)
+    ids = rs.randint(0, 3, (batch, n))
+    return onp.concatenate([ids[..., None], score[..., None], c - wh / 2,
+                            c + wh / 2], -1).astype("float32")
+
+
+def test_nd_detection_ops_on_card_match_cpu(no_tf32):
+    rs = _rs(2)
+    rows = _det_rows(rs, 40)
+    _nd_card_vs_cpu(lambda nd, a, b: nd.box_iou(a, b),
+                    [rows[0, :7, 2:], rows[1, :5, 2:]], grad=(0, 1))
+    for kw in (dict(), dict(topk=5), dict(id_index=0),
+               dict(id_index=0, force_suppress=True),
+               dict(in_format="center", out_format="corner")):
+        _nd_card_vs_cpu(lambda nd, x: nd.box_nms(x, **kw), [rows],
+                        grad=(0,), exact=True)
+    feat = onp.zeros((1, 1, 4, 4), "float32")
+    _nd_card_vs_cpu(lambda nd, x: nd.MultiBoxPrior(
+        x, sizes=(0.3, 0.5), ratios=(1, 2, 0.5)), [feat])
+    import mxnet_tpu_torch as mx
+    with mx.cpu():
+        anchors = mx.nd.MultiBoxPrior(mx.nd.array(feat), sizes=(0.3, 0.5),
+                                      ratios=(1, 2, 0.5)).asnumpy()
+    lab = -onp.ones((3, 6, 5), "float32")
+    for b in range(3):
+        k = rs.randint(1, 7)
+        lab[b, :k, 0] = rs.randint(0, 4, k)
+        lab[b, :k, 1:] = _det_rows(rs, k, 1)[0, :, 2:].clip(0, 1)
+    cp = rs.uniform(0, 1, (3, 5, anchors.shape[1])).astype("float32")
+    _nd_card_vs_cpu(lambda nd, a, l, c: nd.MultiBoxTarget(
+        a, l, c, negative_mining_ratio=3.0), [anchors, lab, cp],
+        exact=True)
+    logits = rs.randn(2, 5, anchors.shape[1]) * 2
+    prob = (onp.exp(logits) / onp.exp(logits).sum(1, keepdims=True)).astype(
+        "float32")
+    loc = (0.5 * rs.randn(2, anchors.shape[1] * 4)).astype("float32")
+    _nd_card_vs_cpu(lambda nd, c, l, a: nd.MultiBoxDetection(
+        c, l, a, nms_topk=10), [prob, loc, anchors], exact=True)
+
+
+def test_nd_samplers_draw_on_card_from_its_generator(dev):
+    """Each of the 18 samplers on the card: its output on the card, with
+    the CPU's shape and dtype; a seed repeats the card's draws."""
+    import mxnet_tpu_torch as mx
+    calls = {
+        "random_uniform": lambda nd: nd.random_uniform(shape=(64,)),
+        "uniform": lambda nd: nd.uniform(shape=64),
+        "random_normal": lambda nd: nd.random_normal(shape=(64,)),
+        "normal": lambda nd: nd.normal(shape=(64,)),
+        "random_gamma": lambda nd: nd.random_gamma(shape=(64,), alpha=0.5),
+        "random_exponential": lambda nd: nd.random_exponential(shape=64),
+        "random_poisson": lambda nd: nd.random_poisson(shape=(64,), lam=3),
+        "random_randint": lambda nd: nd.random_randint(shape=(64,), high=9),
+        "random_bernoulli": lambda nd: nd.random_bernoulli(0.5, shape=64),
+        "random_negative_binomial": lambda nd: nd.random_negative_binomial(
+            shape=64, k=3, p=0.4),
+        "random_generalized_negative_binomial":
+            lambda nd: nd.random_generalized_negative_binomial(shape=64),
+        "sample_multinomial": lambda nd: nd.sample_multinomial(
+            nd.array([[0.2, 0.8], [0.5, 0.5]]), shape=32, get_prob=True),
+        "shuffle": lambda nd: nd.shuffle(nd.arange(64)),
+        "sample_uniform": lambda nd: nd.sample_uniform(
+            nd.array([0.0, 1.0]), nd.array([1.0, 3.0]), shape=32),
+        "sample_normal": lambda nd: nd.sample_normal(
+            nd.array([0.0, 1.0]), nd.array([1.0, 3.0]), shape=32),
+        "sample_gamma": lambda nd: nd.sample_gamma(
+            nd.array([0.5, 1.0]), nd.array([1.0, 3.0]), shape=32),
+        "sample_exponential": lambda nd: nd.sample_exponential(
+            nd.array([0.5, 1.0]), shape=32),
+        "sample_poisson": lambda nd: nd.sample_poisson(
+            nd.array([0.5, 4.0]), shape=32),
+    }
+
+    def draw(ctx, call, seed):
+        mx.random.seed(seed)
+        with ctx:
+            out = call(mx.nd)
+        return out if isinstance(out, (list, tuple)) else [out]
+    for name, call in calls.items():
+        card = draw(mx.gpu(0), call, 3)
+        cpu = draw(mx.cpu(), call, 3)
+        again = draw(mx.gpu(0), call, 3)
+        for a, b, c in zip(card, cpu, again):
+            assert a.tensor.is_cuda and not b.tensor.is_cuda, name
+            assert a.shape == b.shape and a.dtype == b.dtype, name
+            assert torch.equal(a.tensor, c.tensor), name

@@ -301,15 +301,12 @@ def test_pick_and_take_clip_out_of_range_ids():
 
 
 def test_every_reference_op_is_ported_or_listed():
-    """Every name of the reference's ``nd`` ops exists in the port or is
-    on ``NOT_YET_PORTED``, a list that may only shrink."""
+    """Every name of the reference's ``nd`` ops exists in the port:
+    ``NOT_YET_PORTED`` is empty and stays so."""
     ref, port = set(JOPS.__all__), set(TOPS.__all__)
     missing = ref - port
-    assert missing <= TOPS.NOT_YET_PORTED, sorted(missing -
-                                                  TOPS.NOT_YET_PORTED)
-    assert not TOPS.NOT_YET_PORTED & port
-    assert TOPS.NOT_YET_PORTED <= ref
-    assert len(TOPS.NOT_YET_PORTED) <= 37
+    assert missing == set(), sorted(missing)
+    assert TOPS.NOT_YET_PORTED == frozenset()
     for name in port & ref:
         assert hasattr(tmx.nd, name), name
 

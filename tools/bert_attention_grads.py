@@ -4,7 +4,7 @@ reference attention path in float32 and in float64, beside the plain
 backward fed the reference's delta from B1's O and from an exact O, and
 the host cost of the amp Gluon step under each ``remat`` form.
 
-    python3 tools/bert_attention_grads.py [--batch 4] [--steps 3]
+    python3 tools/bert_attention_grads.py [--batch 4] [--steps 5]
 
 Precision: one set of seeded weights (``chip_smoke.bert_net``, dropout
 0), ``chip_smoke.bert_batch`` without ``valid_length``, the MLM + NSP
@@ -21,9 +21,13 @@ the median leaf, and the loss's relative gap.
 
 Host cost: the Gluon loop of ``chip_smoke.py`` phase 11 (b) under
 ``amp.init('bfloat16')`` at batch 8 x 512 with ``remat`` 'dots', True
-and False: ms/step over ``--steps`` steps after a warm-up, and one
-profiled step's device busy time and idle share, with the CPU ops that
-took the most self time under 'dots'.  Needs one CUDA device; prints the
+and False, one net in two rounds of opposite order: ms/step and the
+process's CPU time a step (every thread, sync waits included) over
+``--steps`` steps after a warm-up, the peak
+memory of the step and of its forward and backward alone (there
+'dots' must peak between True and False), and one profiled
+step's device busy time and idle share, with the CPU ops that took the
+most self time under 'dots'.  Needs one CUDA device; prints the
 card's name and power limit first.
 """
 from __future__ import annotations
@@ -102,57 +106,85 @@ def precision(torch, cs, batch):
 
 
 def host_cost(torch, cs, card, steps):
+    """The amp Gluon step under each ``remat``, one net and trainer for
+    all, in two rounds of opposite order (the host's speed drifts within
+    a run): ms and CPU ms a step, the peaks, one profiled step each."""
     import mxnet_tpu_torch as mx
     from torch.profiler import ProfilerActivity, profile
     toks, types, _v, pos, mlm, nsp = cs.bert_batch()
-    for remat in ("dots", True, False):
-        try:
-            mx.amp.init("bfloat16")
-            net = cs.bert_net(cs.BERT_DROPOUT)
-            net.backbone._remat = remat
-            trainer = mx.gluon.Trainer(net.collect_params(), "adam",
-                                       {"learning_rate": cs.BERT_LR})
-            x = [mx.nd.array(a, dtype="int32")
-                 for a in (toks, types, pos, mlm, nsp)]
+    peaks = {}
+    try:
+        mx.amp.init("bfloat16")
+        net = cs.bert_net(cs.BERT_DROPOUT)
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": cs.BERT_LR})
+        x = [mx.nd.array(a, dtype="int32")
+             for a in (toks, types, pos, mlm, nsp)]
 
-            def step():
-                with mx.autograd.record():
-                    loss = cs.bert_loss(net(x[0], x[1], None, x[2]), x[3],
-                                        x[4])
-                loss.backward()
-                trainer.step(cs.BERT_B)
-                return loss
+        def fwd_bwd():
+            with mx.autograd.record():
+                loss = cs.bert_loss(net(x[0], x[1], None, x[2]), x[3], x[4])
+            loss.backward()
+            return loss
 
-            step()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.monotonic()
-            for _ in range(steps):
-                step()
-            torch.cuda.synchronize()
-            ms = (time.monotonic() - t0) / steps * 1e3
-            mib = torch.cuda.max_memory_allocated() / 2 ** 20
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
+        def step():
+            loss = fwd_bwd()
+            trainer.step(cs.BERT_B)
+            return loss
+
+        for order in (("dots", True, False), (False, True, "dots")):
+            for remat in order:
+                net.backbone._remat = remat
                 step()
                 torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-            busy = sum(t for _k, t in cs._device_rows(torch, prof))
-            print(f"  amp Gluon step B{cs.BERT_B} remat={remat!r}: "
-                  f"{ms:.1f} ms/step, peak {mib:.0f} MiB; profiled wall "
-                  f"{wall:.1f} ms, device busy {busy:.1f} ms (idle "
-                  f"{1 - busy / wall:.1%}) [{card}]", flush=True)
-            if remat == "dots":
-                rows = sorted(prof.key_averages(),
-                              key=lambda e: -e.self_cpu_time_total)[:8]
-                for e in rows:
-                    print(f"    cpu {e.self_cpu_time_total / 1e3:8.2f} ms "
-                          f"x{e.count:6d}  {e.key[:70]}", flush=True)
-        finally:
-            mx.amp.reset()
-        del trainer, net
-        cs.free(torch)
+                torch.cuda.reset_peak_memory_stats()
+                t0, cpu0 = time.monotonic(), time.process_time()
+                for _ in range(steps):
+                    step()
+                torch.cuda.synchronize()
+                ms = (time.monotonic() - t0) / steps * 1e3
+                cpu = (time.process_time() - cpu0) / steps * 1e3
+                mib = torch.cuda.max_memory_allocated() / 2 ** 20
+                # the activations' peak: forward and backward alone
+                # (Adam's update, which peaks alike in every arm, left out)
+                torch.cuda.reset_peak_memory_stats()
+                fwd_bwd()
+                torch.cuda.synchronize()
+                peaks[remat] = torch.cuda.max_memory_allocated() / 2 ** 20
+                line = (f"  amp Gluon step B{cs.BERT_B} remat={remat!r}: "
+                        f"{ms:.1f} ms/step, host CPU {cpu:.1f} ms/step, "
+                        f"peak {mib:.0f} MiB (forward and backward "
+                        f"{peaks[remat]:.0f})")
+                if order[0] != "dots":
+                    print(line + f" [{card}]", flush=True)
+                    continue
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    step()
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+                busy = sum(t for _k, t in cs._device_rows(torch, prof))
+                print(f"{line}; profiled wall {wall:.1f} ms, device busy "
+                      f"{busy:.1f} ms (idle {1 - busy / wall:.1%}) [{card}]",
+                      flush=True)
+                if remat == "dots":
+                    rows = sorted(prof.key_averages(),
+                                  key=lambda e: -e.self_cpu_time_total)[:8]
+                    for e in rows:
+                        print(f"    cpu {e.self_cpu_time_total / 1e3:8.2f} "
+                              f"ms x{e.count:6d}  {e.key[:70]}", flush=True)
+    finally:
+        mx.amp.reset()
+    del trainer, net
+    cs.free(torch)
+    between = peaks[True] <= peaks["dots"] <= peaks[False]
+    print(f"  forward and backward peaks: remat=True {peaks[True]:.0f} <= "
+          f"'dots' {peaks['dots']:.0f} <= False {peaks[False]:.0f} MiB: "
+          f"{'ok' if between else 'FAIL'} [{card}]", flush=True)
+    if not between:
+        raise AssertionError("remat='dots' does not peak between True and "
+                             "False")
 
 
 def main() -> int:
@@ -164,7 +196,7 @@ def main() -> int:
     from mxnet_tpu_torch.utils import native
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--steps", type=int, default=5)
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
