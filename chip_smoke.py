@@ -21,10 +21,13 @@ Phases (any failure exits non-zero and prints no result line):
    heads, vocab 50257, 1024 positions; random weights from a seed)
    served by ``InferenceEngine`` with paged KV and the paged-attention
    kernel: 8 requests of 300-500 prompt tokens (the 512 seq bucket, so
-   prefill runs the flash kernel) and 32 new tokens each.  Both kernels'
-   launch counters must move.  The same requests replay through the
-   gather read arm; per-step logits of the two arms are held together at
-   the model level; the whole phase repeats with int8 KV pages.  Then
+   prefill runs the flash kernel) and 32 new tokens each, through the
+   engine's default on the card: its programs are CUDA graphs, captured
+   by ``warmup()`` and replayed.  Both kernels' launch counters (which
+   replays advance by what their capture counted) must move.  The same
+   requests replay through the gather read arm; per-step logits of the
+   two arms are held together at the model level; the whole phase
+   repeats with int8 KV pages.  Then
    ``torch.profiler`` shows where one prefill and 8 decode steps spend
    their time (wall, device-busy share, top kernels).
 4. The training path at full width: the same GPT-2 124M (float32, seed
@@ -87,7 +90,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``torch.profiler`` shows where one step spends its time.
 9. The serving engine's features at phase 3's width, paged KV with
    16-position pages, 8 slots, buckets 64-512 and chunks of 256
-   (``FEATURES``), kernel arm in float32 unless named.  (a) Chunked
+   (``FEATURES``), kernel arm in float32 unless named, graphed as
+   phase 3.  (a) Chunked
    prefill: 8 prompts of 600-1000 tokens, 16 new each; every request
    completes and B4 runs with ``Tq`` the chunk bucket; a 1000-token
    prompt's last logits after 4 chunks through B4 are held within
@@ -202,7 +206,29 @@ Phases (any failure exits non-zero and prints no result line):
    GPT-2's vocabulary; ``shuffle`` of 2^20 rows a permutation.  (g)
    ``scatter_nd`` of 2^20 updates (duplicates add) into 4096 x 4096.  No
    kernel of the port launches (``launches_by_path["ops"]``).
-15. A ``{"kernels": [...]}`` line, the card line again, and the last
+15. The serving engine's compiled programs.  (a) Phase 3's engine at
+   full width, eager (``_graphs = False``) and graphed arms in turns,
+   ``GRAPH_ROUNDS`` rounds, each arm a fresh engine serving phase 3's
+   prompts with 32 then 256 new tokens: warm-up seconds and program
+   count, tokens/s, TTFT p50 by wave and peak memory above the model
+   for each; greedy streams identical across every arm, kernel launches
+   (from replays) equal to the eager arm's, and the graphed arm's
+   ``compiles`` after traffic equal to its ``warmup()`` return.  (b)
+   Each program kind (prefill at 512, chunk at 256, decode, draft +
+   verify at k = 4 over 2 draft layers, the prefix copy) replayed
+   against the eager call from the same inputs, twice with new inputs:
+   tokens identical, the caches they wrote within ``TOL_REPLAY``.  (c)
+   ``torch.profiler`` over the engine's own cycles driven by hand, the
+   first (prefill B8 T512 and one decode) and 8 decode cycles, graphed
+   and eager: wall, device busy and idle share.  (d) Forward mode:
+   ResNet-50 v1 NHWC (seed 0, float32, TF32 off) at ``max_batch`` 32,
+   96 requests of 224 x 224 x 3 in 3 waves, eager and graphed arms in
+   turns: each output within ``TOL_FORWARD`` of the block's direct
+   forward, images/s, latency p50, the freeze; the B32 forward
+   program's replay against its eager call, and a profile of one call
+   of each; no kernel of the port
+   launches (``launches_by_path["forward"]``).
+16. A ``{"kernels": [...]}`` line, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.  ``launches_by_path`` holds
    every phase's launches (``bert``, ``bert_amp``, ``nmt``, ``lstm``
    and ``ops`` among them); the flash kernels carry their numbers at phases 11-12's
@@ -429,6 +455,23 @@ TOL_LINALG = {"potrf": 1e-5, "trsm": 1e-5, "inverse": 1e-5,
               "slogdet": 1e-5, "det": 1e-4}
 # samplers: mean and variance within this many standard errors
 SIGMAS = 6.0
+
+# phase 15: the compiled programs.  (a) phase 3's engine, the eager and
+# the graphed arm in turns, 3 rounds, each arm serving phase 3's prompts
+# with 32 then 256 new tokens (decode dominates)
+GRAPH_ROUNDS, GRAPH_NEW = 3, (32, 256)
+# (b) a replay against the eager call from the same inputs: the same
+# kernels in the same order, so tokens are identical and the caches the
+# programs wrote agree but for a float32 GEMM whose cuBLAS algorithm
+# differs under capture (max-abs)
+TOL_REPLAY = 1e-5
+# (d) ResNet-50 v1 in forward mode: 96 requests of 224 x 224 x 3 in 3
+# waves at max_batch 32; each output against the block's direct forward
+# of its wave, as max-abs error over the logits' max-abs (float32, TF32
+# off; a batch that splits runs cuDNN's algorithms for another batch
+# size, which sum in another order)
+FWD_REQUESTS, FWD_WAVES, FWD_BATCH = 96, 3, 32
+TOL_FORWARD = 1e-4
 
 # H100 SXM published peaks (dense): HBM bytes/s; bf16 on the tensor
 # cores; float32 at float32 accuracy on the tensor cores, which takes
@@ -1015,36 +1058,25 @@ def make_prompts():
             for n in rs.randint(300, 501, size=8)]
 
 
-def _wrappers():
-    from mxnet_tpu_torch.ops import flash, paged
-    return {"flash_fwd": flash.flash_fwd, "flash_dq": flash.flash_dq,
-            "flash_dkv": flash.flash_dkv,
-            "paged_attention": paged.paged_attention}
+def _launches():
+    """The port's registry of kernel launch counters."""
+    from mxnet_tpu_torch.ops import launches
+    return launches
 
 
 def reset_launches():
     """Set every kernel wrapper's launch counts to 0."""
-    for fn in _wrappers().values():
-        if hasattr(fn, "launches_by_dtype"):
-            fn.launches_by_dtype = dict.fromkeys(fn.launches_by_dtype, 0)
-        else:
-            fn.launches = 0
-            fn.multi_query_launches = 0
+    _launches().reset()
 
 
 def read_launches() -> dict:
-    """{kernel wrapper: launches}; the flash wrappers count by dtype."""
-    return {name: (sum(fn.launches_by_dtype.values())
-                   if hasattr(fn, "launches_by_dtype") else fn.launches)
-            for name, fn in _wrappers().items()}
+    """{kernel wrapper: launches}."""
+    return _launches().totals()
 
 
 def read_launches_by_dtype() -> dict:
     """{flash wrapper: {dtype name: launches}}."""
-    return {name: {str(dt).split(".")[1]: n
-                   for dt, n in fn.launches_by_dtype.items()}
-            for name, fn in _wrappers().items()
-            if hasattr(fn, "launches_by_dtype")}
+    return _launches().by_dtype()
 
 
 def serve(torch, net, prompts, card, **kw):
@@ -1072,7 +1104,7 @@ def serve(torch, net, prompts, card, **kw):
                                  "out-of-vocab tokens")
     gen = s["counters"]["tokens_generated"]
     arm = kw.get("paged_attention"), kw.get("kv_quant")
-    print(f"  serve arm={arm}: warmup shapes {n_warm}, {gen} tokens in "
+    print(f"  serve arm={arm}: warmup programs {n_warm}, {gen} tokens in "
           f"{wall:.3f} s = {gen / wall:.1f} tokens/s, TTFT p50 "
           f"{s['latency']['ttft']['p50'] * 1e3:.1f} ms, peak memory "
           f"{peak:.0f} MiB, launches {launches} [{card}]", flush=True)
@@ -3521,6 +3553,341 @@ def ops_path(torch, card, timer, dev):
     print(f"phase 14: {time.monotonic() - t_phase:.1f} s", flush=True)
 
 
+# ------------------------------------------- phase 15: compiled programs
+
+def serving_engine(torch, net, graphs, **kw):
+    """Phase 3's engine (paged, 16-position pages, 8 slots, buckets
+    64-512, the kernel arm), its programs CUDA graphs or eager."""
+    from mxnet_tpu_torch.serving import InferenceEngine
+    cfg = dict(kv_layout="paged", num_slots=8, max_batch=8, page_size=16,
+               seq_buckets=(64, 128, 256, 512), paged_attention="kernel")
+    cfg.update(kw)
+    eng = InferenceEngine(net, **cfg)
+    eng._graphs = graphs
+    return eng
+
+
+def arm_name(graphs):
+    return "graphed" if graphs else "eager"
+
+
+def graph_arm(torch, net, prompts, graphs, card, rnd):
+    """One arm of (a): a fresh engine, warmed up, serving the prompts
+    with each of ``GRAPH_NEW`` new tokens in turn.  Returns its outputs,
+    launches, rates and memory."""
+    free(torch)
+    base = torch.cuda.memory_allocated()
+    base_reserved = torch.cuda.memory_reserved()
+    eng = serving_engine(torch, net, graphs)
+    t0 = time.monotonic()
+    n_warm = eng.warmup()
+    warm_s = time.monotonic() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = read_launches()
+    paged = _launches().wrappers()["paged_attention"]
+    multi0 = paged.multi_query_launches
+    outs, ttft = [], []
+    t0 = time.monotonic()
+    with eng:
+        for new in GRAPH_NEW:
+            n0 = len(eng._ttft)
+            futs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+            outs += [f.result(600) for f in futs]
+            ttft.append(float(np.median(eng._ttft[n0:])) * 1e3)
+    wall = time.monotonic() - t0
+    launches = {k: n - before[k] for k, n in read_launches().items()}
+    launches["multi_query"] = paged.multi_query_launches - multi0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    reserved = (torch.cuda.memory_reserved() - base_reserved) / 2 ** 20
+    c = eng.stats()["counters"]
+    for p, o, new in zip(prompts * len(GRAPH_NEW), outs,
+                         [n for n in GRAPH_NEW for _ in prompts]):
+        if o.shape != (len(p) + new,) or not np.array_equal(o[:len(p)], p) \
+                or o.min() < 0 or o.max() >= VOCAB:
+            raise AssertionError("served sequence has the wrong shape or "
+                                 "out-of-vocab tokens")
+    if graphs and c["compiles"] != n_warm:
+        raise AssertionError(f"the graphed engine compiled on traffic: "
+                             f"{c['compiles']} programs, warmup {n_warm}")
+    gen = c["tokens_generated"]
+    r = dict(outs=outs, launches=launches, tps=gen / wall, ttft=ttft,
+             peak=peak, reserved=reserved, warm_s=warm_s, n_warm=n_warm,
+             hits=c["bucket_hits"], wall=wall)
+    print(f"  round {rnd} {arm_name(graphs)}: warmup {warm_s:.3f} s for "
+          f"{n_warm} programs; {gen} tokens in {wall:.3f} s = "
+          f"{r['tps']:.1f} tokens/s, TTFT p50 by wave "
+          f"{' / '.join(f'{t:.1f}' for t in ttft)} ms, peak "
+          f"{peak:.0f} MiB (reserved {reserved:.0f}) above the model, "
+          f"{c['compiles']} compiles, {c['bucket_hits']} bucket hits, "
+          f"launches {launches} [{card}]", flush=True)
+    del eng
+    return r
+
+
+def eager_vs_graphed(torch, net, prompts, card):
+    """(a): ``GRAPH_ROUNDS`` rounds of the eager and the graphed arm in
+    turns (eager first in odd rounds): greedy streams identical across
+    every arm, the same kernel launches, the graphed arm frozen."""
+    print(f"15a eager vs graphed engine, {GRAPH_ROUNDS} rounds in turns: "
+          f"phase 3's prompts with {GRAPH_NEW} new tokens", flush=True)
+    runs = {True: [], False: []}
+    for rnd in range(1, GRAPH_ROUNDS + 1):
+        for graphs in ((False, True) if rnd % 2 else (True, False)):
+            runs[graphs].append(graph_arm(torch, net, prompts, graphs,
+                                          card, rnd))
+    first = runs[False][0]
+    for graphs, rs in runs.items():
+        for r in rs:
+            for a, b in zip(r["outs"], first["outs"]):
+                if not np.array_equal(a, b):
+                    raise AssertionError("greedy streams differ between "
+                                         "the eager and the graphed arm")
+            if r["launches"] != first["launches"]:
+                raise AssertionError(f"launches under replay "
+                                     f"{r['launches']} differ from the "
+                                     f"eager arm's {first['launches']}")
+    for graphs, rs in runs.items():
+        tps = [r["tps"] for r in rs]
+        print(f"  {arm_name(graphs)}: tokens/s by round "
+              f"{' / '.join(f'{t:.1f}' for t in tps)}; greedy streams "
+              f"identical across arms; launches {first['launches']} in "
+              f"every arm [{card}]", flush=True)
+    return {arm_name(g): [{k: r[k] for k in ("tps", "ttft", "peak",
+                                              "reserved", "warm_s",
+                                              "n_warm", "wall")}
+                          for r in rs] for g, rs in runs.items()}
+
+
+def program_calls(eng, rs, lens):
+    """One call of each program kind of a phase-3 engine with
+    speculation and a prefix cache, from seeded inputs: (name, thunk).
+    Slot i owns pages [60 i, 60 i + 60); its prompt (``lens``)
+    prefills at the 512 bucket (B1), then a chunk of the 256 bucket
+    behind it (B4, Tq 256), a decode step, a draft and a verify window
+    (B4, Tq k + 1), and a tail-page copy.  Rows 0, 2, 4, 6 sample."""
+    s = eng.num_slots
+    s1 = s + 1
+    eng._page_table[:s, :60] = np.arange(60 * s).reshape(s, 60)
+    eng._table_stale = True
+    eng._sync_table()
+    lens = np.asarray(lens, np.int32)
+    toks = rs.randint(0, VOCAB, (s, 512)).astype(np.int32)
+    chunk = rs.randint(0, VOCAB, (s, 256)).astype(np.int32)
+    clen = rs.randint(100, 257, s).astype(np.int32)
+    sidx = np.arange(s, dtype=np.int32)
+    samp = eng._samp_rows([], s)
+    temp = np.zeros(s1, np.float32)
+    temp[0:s:2] = 0.8
+    samp1 = (temp, np.zeros(s1, np.int32), np.ones(s1, np.float32),
+             np.arange(s1, dtype=np.int64) + 5)
+    pos = np.append(lens + clen, eng.max_length).astype(np.int32)
+    tok = rs.randint(0, VOCAB, (s1,)).astype(np.int32)
+    return [
+        ("prefill B8 T512", lambda: eng._run_prefill(toks, lens, sidx,
+                                                     samp)),
+        ("chunk B8 T256", lambda: eng._run_prefill(chunk, clen, sidx, samp,
+                                                   off=lens.copy())),
+        ("decode", lambda: eng._run_decode(tok, pos, samp1)),
+        ("draft + verify", lambda: eng._run_spec(tok, pos + 1, samp1)),
+        ("prefix copy", lambda: eng._copy_rows(3, 60 * s + 5, 9)),
+    ]
+
+
+def cache_maxabs(a, b):
+    """Max-abs between two paged engines' caches, the trash page (where
+    duplicate writes land in any order) left out."""
+    return max(maxabs(x[:-1], y[:-1]) for ca, cb in zip(a._caches,
+                                                       b._caches)
+               for x, y in zip(ca.values(), cb.values()))
+
+
+def program_parity(torch, net, prompts, card):
+    """(b): each program kind's replay against the eager call from the
+    same inputs, then again after new inputs: tokens identical, the
+    caches the programs wrote within ``TOL_REPLAY``."""
+    print("15b replay vs eager call, each program kind, two sets of "
+          "inputs (spec k = 4 over 2 draft layers)", flush=True)
+    engs = {}
+    for graphs in (True, False):
+        eng = serving_engine(torch, net, graphs, batch_buckets=(8,),
+                             seq_buckets=(256, 512), spec_tokens=4,
+                             draft_layers=2)
+        n = eng.warmup()
+        if n != len(eng._programs):
+            raise AssertionError("warmup's count is not its programs'")
+        engs[graphs] = eng
+    lens = [len(p) for p in prompts]
+    worst = {}
+    for rnd in range(2):
+        calls = {g: program_calls(e, np.random.RandomState(SEED + 20 + rnd),
+                                  lens) for g, e in engs.items()}
+        for (name, fg), (_n, fe) in zip(calls[True], calls[False]):
+            got, want = fg(), fe()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            for a, b in zip(got, want):
+                if a is not None and not np.array_equal(a, b):
+                    raise AssertionError(f"{name}: replayed tokens differ "
+                                         "from the eager call's")
+            torch.cuda.synchronize()
+            err = cache_maxabs(engs[True], engs[False])
+            worst[name] = max(worst.get(name, 0.0), err)
+    for name, err in worst.items():
+        check(f"{name}: replay vs eager, tokens identical, caches max-abs",
+              err, TOL_REPLAY)
+    c = engs[True].stats()["compile"]
+    if c["compiles"] != len(engs[True]._programs):
+        raise AssertionError("a parity call compiled a program")
+    return engs
+
+
+def profile_cycles(torch, net, prompts, card):
+    """(c): torch.profiler over engine cycles driven by hand (no
+    scheduler thread): the first cycle (admission, the B8 T512 prefill
+    and one decode step), then 8 decode cycles, graphed and eager."""
+    from torch.profiler import ProfilerActivity, profile
+    print("15c where the time goes: the engine's own cycles, graphed vs "
+          "eager (T5: 8 eager model-level decode steps idled 89.1 %)",
+          flush=True)
+    for graphs in (True, False):
+        eng = serving_engine(torch, net, graphs, batch_buckets=(8,),
+                             seq_buckets=(512,))
+        eng.warmup()
+        for p in prompts:
+            eng.submit(p, max_new_tokens=64)
+        for name, n in (("first cycle (prefill B8 T512 + 1 decode)", 1),
+                        ("8 decode cycles", 8)):
+            if n > 1:
+                for _ in range(2):
+                    eng._cycle()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    eng._cycle()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            report_profile(torch, f"{arm_name(graphs)} {name}", wall, prof,
+                           card, marks=("flash_fwd", "paged_"))
+        eng.stop()
+        del eng
+        free(torch)
+
+
+def forward_engine(torch, net, graphs, **kw):
+    from mxnet_tpu_torch.serving import InferenceEngine
+    eng = InferenceEngine(net, max_batch=FWD_BATCH, **kw)
+    # each wave's requests form one batch
+    eng.MAX_WAIT_US = 200_000.0
+    eng._graphs = graphs
+    return eng
+
+
+def forward_serving(torch, card):
+    """(d): ResNet-50 v1 served in forward mode, eager and graphed arms
+    in turns, each output held to the block's direct forward on the
+    card; the forward program's replay against its eager call."""
+    from mxnet_tpu_torch.base import training_mode
+    print(f"15d forward mode: ResNet-50 v1 NHWC at max_batch {FWD_BATCH}, "
+          f"{FWD_REQUESTS} requests of {VISION_SIZE} x {VISION_SIZE} x 3 "
+          f"in {FWD_WAVES} waves, float32 (TF32 off)", flush=True)
+    net = resnet50()
+    net.initialize(seed=SEED)
+    rs = np.random.RandomState(SEED + 30)
+    shape = (VISION_SIZE, VISION_SIZE, 3)
+    images = rs.uniform(-1, 1, (FWD_REQUESTS,) + shape).astype(np.float32)
+    waves = np.split(images, FWD_WAVES)
+    with torch.no_grad(), training_mode(False):
+        direct = [net(torch.from_numpy(w).to(net.device)).cpu().numpy()
+                  for w in waves]
+    # the forward program's replay vs its eager call, two inputs
+    engs = {g: forward_engine(torch, net, g, batch_buckets=(FWD_BATCH,))
+            for g in (True, False)}
+    worst = 0.0
+    for g, eng in engs.items():
+        eng.warmup(example_shape=shape)
+    key = (shape, "float32")
+    for w in waves[:2]:
+        got, want = (engs[g]._forward_program(w, key).float().cpu()
+                     for g in (True, False))
+        worst = max(worst, maxabs(got, want))
+    check(f"forward B{FWD_BATCH}: replay vs eager call, two inputs", worst,
+          TOL_REPLAY)
+    for g, eng in engs.items():
+        profile_one(torch, f"forward B{FWD_BATCH} program call "
+                    f"({arm_name(g)}, staging copy included)",
+                    lambda: eng._forward_program(waves[0], key), card)
+    del engs, eng
+    free(torch)
+    out = {}
+    for rnd, order in enumerate(((False, True), (True, False)), 1):
+        for graphs in order:
+            free(torch)
+            eng = forward_engine(torch, net, graphs)
+            t0 = time.monotonic()
+            n_warm = eng.warmup(example_shape=shape)
+            warm_s = time.monotonic() - t0
+            worst = 0.0
+            t0 = time.monotonic()
+            with eng:
+                for w, ref in zip(waves, direct):
+                    futs = [eng.submit(x) for x in w]
+                    got = np.stack([f.result(600) for f in futs])
+                    worst = max(worst, float(np.abs(got - ref).max())
+                                / float(np.abs(ref).max()))
+            wall = time.monotonic() - t0
+            s = eng.stats()
+            c = s["counters"]
+            if c["compiles"] != n_warm or c["completed"] != FWD_REQUESTS:
+                raise AssertionError(f"forward serving compiled on traffic "
+                                     f"or lost a request: {c}")
+            p50 = s["latency"]["request"]["p50"] * 1e3
+            print(f"  round {rnd} {arm_name(graphs)}: warmup {warm_s:.3f} s "
+                  f"for {n_warm} programs; {FWD_REQUESTS} images in "
+                  f"{wall:.3f} s = {FWD_REQUESTS / wall:.1f} images/s, "
+                  f"latency p50 {p50:.1f} ms, {c['forward_batches']} "
+                  f"batches, compiles {c['compiles']} (frozen), bucket "
+                  f"hits {c['bucket_hits']} [{card}]", flush=True)
+            check(f"  {arm_name(graphs)} outputs vs the direct forward "
+                  f"(max-abs over max-abs)", worst, TOL_FORWARD)
+            out.setdefault(arm_name(graphs), []).append(
+                dict(images_per_s=FWD_REQUESTS / wall, p50_ms=p50,
+                     warm_s=warm_s, n_warm=n_warm))
+            del eng
+    del net
+    free(torch)
+    return out
+
+
+def programs_path(torch, card, prompts):
+    """Phase 15: the serving engine's compiled programs.  Returns the
+    launches of (a)-(c), and (d)'s (which must be none)."""
+    from mxnet_tpu_torch.models import get_gpt2
+    t_phase = time.monotonic()
+    net = get_gpt2("gpt2_124m", dropout=0.0)
+    net.initialize(seed=SEED)
+    reset_launches()
+    summary = {"a": eager_vs_graphed(torch, net, prompts, card)}
+    engs = program_parity(torch, net, prompts, card)
+    del engs
+    free(torch)
+    profile_cycles(torch, net, prompts, card)
+    launches = read_launches()
+    del net
+    free(torch)
+    reset_launches()
+    summary["d"] = forward_serving(torch, card)
+    fwd_launches = read_launches()
+    if any(fwd_launches.values()):
+        raise AssertionError(f"forward serving launched a kernel of the "
+                             f"port: {fwd_launches}")
+    print(json.dumps({"programs": summary}), flush=True)
+    print(f"phase 15: {time.monotonic() - t_phase:.1f} s", flush=True)
+    return launches, fwd_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3595,6 +3962,9 @@ def main() -> int:
     if any(by_path["ops"].values()):
         raise AssertionError(f"the ops phase launched a kernel of the "
                              f"port: {by_path['ops']}")
+    free(torch)
+    by_path["programs"], by_path["forward"] = programs_path(torch, card,
+                                                            prompts)
     # each kernel's launches on the path that is its own: the training
     # path for the flash kernels, the serving path for paged attention;
     # the flash kernels' bf16 numbers (phase 2 at the training shape)

@@ -226,9 +226,11 @@ class GPT2Model(HybridBlock):
         per-layer window buffers (float32 under int8 pages).  Step i
         samples with the verifier's rule, keyed by (request seed,
         ``pos + i``), so a drafter that tracks the model proposes exactly
-        the token the verifier draws.  The reference runs the k steps in
-        one compiled loop; here they are ``n_tokens`` eager steps.
-        Returns (S, n_tokens) int32."""
+        the token the verifier draws.  One program, as the reference's
+        compiled loop: positions, sampling rows and seeds are device
+        tensors (``seeds`` may be a host sequence), nothing is read back
+        to the host, and the ``n_tokens`` steps can be captured together
+        in one CUDA graph.  Returns (S, n_tokens) int32."""
         from ..serving.sampling import sample_tokens
         _dense_blocks_only(self)
         if not 1 <= int(draft_layers) <= len(self.blocks):
@@ -241,14 +243,14 @@ class GPT2Model(HybridBlock):
         if not dt.is_floating_point:
             dt = torch.float32
         dev = tok.device
+        seeds = torch.as_tensor(seeds, device=dev).to(torch.int64)
         wins = [(torch.zeros((s, n_tokens, h, d), dtype=dt, device=dev),
                  torch.zeros((s, n_tokens, h, d), dtype=dt, device=dev))
                 for _ in blocks]
         rows = [blk.attn.cache_rows(cache, s, page_table)
                 for blk, cache in zip(blocks, caches)]
-        pos_host = pos.cpu().numpy()
         cur = tok.to(torch.int32)
-        out = torch.zeros((s, int(n_tokens)), dtype=torch.int32, device=dev)
+        out = []
         for i in range(int(n_tokens)):
             p = torch.clamp(pos + i, max=self.max_length - 1)
             x = self.wte(cur.reshape(s, 1)) + self.wpe(p.reshape(s, 1))
@@ -256,9 +258,9 @@ class GPT2Model(HybridBlock):
                 x = blk.forward_step_window(x, r, pos, wk, wv, i)
             lg = self._logits(self.ln_f(x)).reshape(s, self.vocab_size)
             cur = sample_tokens(lg, temperature, top_k, top_p, seeds,
-                                pos_host + i)
-            out[:, i] = cur
-        return out
+                                pos + i)
+            out.append(cur)
+        return torch.stack(out, dim=1)
 
     @torch.no_grad()
     def generate(self, prompt, max_new_tokens, temperature=1.0, top_k=0,

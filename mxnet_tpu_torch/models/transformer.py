@@ -245,16 +245,27 @@ class MultiHeadAttention(HybridBlock):
         return self._out(out)
 
 
-def copy_cache_rows(caches, src: int, dst: int, length: int):
+def copy_cache_rows(caches, src, dst, length):
     """Copy positions ``[0, length)`` of row ``src`` into row ``dst`` of
     every leaf of every layer, the rest of ``dst`` untouched: the dense
     prefix cache's pool-to-slot and slot-to-pool copy.  In the paged
     layout axis 1 is the page's, so the same copy is a prefix hit's
-    partial tail page (int8 scales included).  On the device, no host
-    read."""
+    partial tail page (int8 scales included).  ``src``, ``dst`` and
+    ``length`` are device scalars (or ints): one masked copy of whole
+    rows, the same launches for every length and no host read, the
+    reference's one program with src/dst/length traced."""
+    leaf = caches[0]["k"]
+    dev = leaf.device
+
+    def idx(x):
+        return torch.as_tensor(x, device=dev).to(torch.int64).reshape(1)
+    src, dst, length = idx(src), idx(dst), idx(length)
+    keep = torch.arange(leaf.shape[1], device=dev) < length
     for cache in caches:
         for a in cache.values():
-            a[dst, :length] = a[src, :length]
+            m = keep.reshape((1, -1) + (1,) * (a.dim() - 2))
+            a.index_copy_(0, dst, torch.where(m, a.index_select(0, src),
+                                              a.index_select(0, dst)))
 
 
 def _paged_rows(pages, table_rows):

@@ -1,5 +1,7 @@
-"""Attention ops and the two CUDA kernels (counterpart of
-``mxnet_tpu.ops``)."""
+"""Attention ops and the CUDA kernels' wrappers (counterpart of
+``mxnet_tpu.ops``).  Importing the package registers every wrapper's
+launch counters (``launches``)."""
+from . import flash, launches
 from .attention import dot_product_attention, flash_attention
 from .paged import kv_dequantize, kv_quantize, paged_attention
 

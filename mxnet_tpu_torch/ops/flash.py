@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 
 from ..base import MXNetError
+from . import launches as _launches
 
 __all__ = ["flash_attention", "flash_fwd", "flash_bwd", "flash_dq",
            "flash_dkv"]
@@ -217,7 +218,8 @@ def flash_fwd(q, k, v, q_seg=None, kv_seg=None, *, causal: bool,
     return out, lse
 
 
-flash_fwd.launches_by_dtype = dict.fromkeys(_DTYPE_CODE, 0)
+_launches.register(flash_fwd,
+                  launches_by_dtype=dict.fromkeys(_DTYPE_CODE, 0))
 
 
 def flash_dq(q, k, v, do, lse, q_seg=None, kv_seg=None, *, causal: bool,
@@ -249,7 +251,8 @@ def flash_dq(q, k, v, do, lse, q_seg=None, kv_seg=None, *, causal: bool,
     return dq, delta
 
 
-flash_dq.launches_by_dtype = dict.fromkeys(_DTYPE_CODE, 0)
+_launches.register(flash_dq,
+                  launches_by_dtype=dict.fromkeys(_DTYPE_CODE, 0))
 
 
 def flash_dkv(q, k, v, do, lse, delta, q_seg=None, kv_seg=None, *,
@@ -278,7 +281,8 @@ def flash_dkv(q, k, v, do, lse, delta, q_seg=None, kv_seg=None, *,
     return dk, dv
 
 
-flash_dkv.launches_by_dtype = dict.fromkeys(_DTYPE_CODE, 0)
+_launches.register(flash_dkv,
+                  launches_by_dtype=dict.fromkeys(_DTYPE_CODE, 0))
 
 
 def flash_bwd(q, k, v, do, lse, q_seg=None, kv_seg=None, *, causal: bool,

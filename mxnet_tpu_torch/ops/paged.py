@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from ..base import MXNetError
+from . import launches as _launches
 
 __all__ = ["paged_attention", "kv_quantize", "kv_dequantize", "split_count",
            "KERNEL_HEAD_DIMS"]
@@ -191,5 +192,4 @@ def paged_attention(q, k_pages, v_pages, table_rows, qpos, *,
     return out
 
 
-paged_attention.launches = 0
-paged_attention.multi_query_launches = 0
+_launches.register(paged_attention, launches=0, multi_query_launches=0)

@@ -13,7 +13,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 from .errors import EngineStoppedError, QueueFullError, ServingError
 
@@ -114,10 +114,14 @@ class DynamicBatcher:
             self._q.appendleft(req)
             self._cond.notify_all()
 
-    def get_batch(self, max_batch: int, max_wait_us: float) -> List:
+    def get_batch(self, max_batch: int, max_wait_us: float,
+                  compatible: Optional[Callable] = None) -> List:
         """Form one batch without blocking on an empty queue: collect
         until ``max_batch`` requests are ready or the oldest has waited
-        ``max_wait_us``.  [] if nothing is queued."""
+        ``max_wait_us``.  ``compatible`` maps a request to a grouping
+        key (the forward mode's input shape): the batch takes the
+        head's key and skips over other keys without reordering them.
+        [] if nothing is queued."""
         with self._cond:
             if not self._q:
                 return []
@@ -127,8 +131,16 @@ class DynamicBatcher:
                 if remaining <= 0:
                     break
                 self._cond.wait(remaining)
-            n = min(max_batch, len(self._q))
-            return [self._q.popleft() for _ in range(n)]
+            key = compatible(self._q[0]) if compatible else None
+            batch, leftover = [], deque()
+            while self._q and len(batch) < max_batch:
+                r = self._q.popleft()
+                if compatible is None or compatible(r) == key:
+                    batch.append(r)
+                else:
+                    leftover.append(r)
+            self._q.extendleft(reversed(leftover))
+            return batch
 
     def drain(self) -> List:
         """Remove and return everything queued."""

@@ -46,11 +46,30 @@ drafter proposes k tokens per slot, one verify forward over the
 the longest matching draft prefix plus one correction or bonus token is
 accepted — streams are those of plain decode, greedy or sampled.
 
+Compiled programs (the reference's jit cache and compile freeze):
+every device call of the engine is a :class:`~.graphs.Program` keyed
+as the reference keys its programs — the decode step, full and chunk
+prefill per (batch, seq) bucket, the draft and the verify window, the
+prefix copy, and the forward per batch bucket.  On the card each is one
+CUDA graph, captured at its first call and replayed after; ``warmup()``
+captures the whole lattice, and after it ``compiles`` stays where it is
+and every call counts a ``bucket_hit`` (``stats()["compile"]``,
+``stats()["compile_cache"]``).  On the CPU the same programs run their
+functions on the same static buffers.  The private class attribute
+``_graphs`` (an instance may set it False before ``warmup()``) runs the
+programs eagerly on the card: a comparison arm, never a fallback.
+
+Forward mode (``mode='forward'``, the default for a block without the
+decode surface): any block served by dynamic batching — requests of one
+example each, grouped by shape and dtype, padded to a batch bucket, one
+program per (bucket, shape), rows scattered back — in predict mode with
+no autograd recording.
+
 Not in this slice: deadlines and ``cancel``, priority classes and
 overload control, the watchdog, fault sites and NaN guard, KV tiers,
-migration, meshes, the metrics registry, CUDA graphs and
-``debug_parity``.  The counters in ``stats()`` are plain integers under
-the reference's names.
+migration, meshes, the metrics registry and ``debug_parity``.  The
+counters in ``stats()`` are plain integers under the reference's
+names.
 """
 from __future__ import annotations
 
@@ -63,12 +82,14 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..base import training_mode
 from ..context import resolve_device
 from ..models.transformer import copy_cache_rows
 from ..ops.paged import KERNEL_HEAD_DIMS
 from .batcher import BucketLattice, DynamicBatcher
 from .errors import (EngineStoppedError, InvalidRequestError,
                      QueueFullError, ServingError)
+from .graphs import Program
 from .kv_pages import PagedPrefixCache, PagePool
 from .kv_slots import SlotAllocator, SlotState
 from .prefix_cache import PrefixCache
@@ -90,7 +111,21 @@ _COUNTERS = (
     "prefix_inserts", "prefix_evictions",
     # speculative decode
     "spec_cycles", "spec_tokens_proposed", "spec_tokens_accepted",
-    "spec_pages_rewound")
+    "spec_pages_rewound",
+    # forward mode
+    "forward_batches",
+    # compiled programs: first calls (captures) and later calls
+    "compiles", "bucket_hits")
+
+
+class _NoSlots:
+    """Forward mode's slot allocator: no KV slots, none in flight."""
+
+    num_slots = free_count = active_count = active_highwater = 0
+
+    @staticmethod
+    def items():
+        return []
 
 
 class InferenceFuture:
@@ -125,12 +160,12 @@ class InferenceFuture:
 class Request:
     __slots__ = ("payload", "prompt_len", "max_new_tokens", "eos_id",
                  "future", "t_submit", "t_enqueue", "t_first", "temperature",
-                 "top_k", "top_p", "seed", "preempted")
+                 "top_k", "top_p", "seed", "preempted", "shape_key")
 
     def __init__(self, payload, max_new_tokens, eos_id, temperature, top_k,
                  top_p, seed):
         self.payload = payload
-        self.prompt_len = int(payload.shape[0])
+        self.prompt_len = int(payload.shape[0]) if payload.ndim else 1
         self.max_new_tokens = max_new_tokens
         self.eos_id = eos_id
         self.temperature = float(temperature)
@@ -142,6 +177,15 @@ class Request:
         self.t_enqueue = self.t_submit
         self.t_first = None           # the request's first token, any run
         self.preempted = 0            # times preempted (slot reclaimed)
+        self.shape_key = None         # forward mode: (shape, dtype name)
+
+
+_MESH_POINT = "1dev"
+
+
+def _host(t):
+    """A program's output on the host, as a numpy copy."""
+    return t.cpu().numpy().copy()
 
 
 def _percentiles(xs):
@@ -153,13 +197,17 @@ def _percentiles(xs):
 
 
 class InferenceEngine:
-    """Serve a GPT-2 style model online.  See the module docstring.
+    """Serve a GPT-2 style model online, or any block in forward mode.
+    See the module docstring.
 
-    Parameters follow the reference: ``max_batch`` (the largest batch
-    a prefill call takes), ``num_slots`` (decode concurrency, default
-    ``max_batch``), ``max_length`` (KV length per slot, default the
-    model's), ``batch_buckets``/``seq_buckets`` (the lattice),
-    ``eos_id``, ``default_max_new_tokens``, ``prefix_pool_rows`` (dense
+    ``mode`` is ``'decode'`` or ``'forward'``; None picks decode when
+    the net has the decode surface (``prefill_slots``/``decode_step``)
+    and forward otherwise.  Parameters follow the reference:
+    ``max_batch`` (the largest batch a prefill or forward call takes),
+    ``num_slots`` (decode concurrency, default ``max_batch``),
+    ``max_length`` (KV length per slot, default the model's),
+    ``batch_buckets``/``seq_buckets`` (the lattice), ``eos_id``,
+    ``default_max_new_tokens``, ``prefix_pool_rows`` (dense
     prefix-cache rows, 0 = off; ignored when paged), ``prefill_chunk``
     (tokens per prefill call, default the largest seq bucket),
     ``prefix_min_tokens`` (the shortest prefix worth caching or
@@ -177,8 +225,12 @@ class InferenceEngine:
 
     QUEUE_DEPTH = 64
     MAX_WAIT_US = 2000.0
+    # programs are CUDA graphs on the card; False runs them eagerly (a
+    # comparison arm for the card and its tests, set before warmup())
+    _graphs = True
 
-    def __init__(self, net, *, max_batch: int = 8,
+    def __init__(self, net, mode: Optional[str] = None, *,
+                 max_batch: int = 8,
                  num_slots: Optional[int] = None,
                  max_length: Optional[int] = None,
                  batch_buckets: Optional[Sequence[int]] = None,
@@ -194,9 +246,23 @@ class InferenceEngine:
                  paged_attention: Optional[str] = None,
                  spec_tokens: int = 0, draft_layers: int = 1,
                  device=None):
-        if not (hasattr(net, "prefill_slots") and hasattr(net, "decode_step")):
+        decodes = hasattr(net, "prefill_slots") and \
+            hasattr(net, "decode_step")
+        if mode is None:
+            mode = "decode" if decodes else "forward"
+        if mode not in ("decode", "forward"):
+            raise ServingError(f"mode must be 'decode'|'forward', got "
+                               f"{mode!r}")
+        if mode == "decode" and not decodes:
             raise ServingError(f"{type(net).__name__} lacks the serving "
                                "decode surface (prefill_slots/decode_step)")
+        if kv_layout not in ("dense", "paged"):
+            raise ServingError(f"kv_layout must be 'dense'|'paged', got "
+                               f"{kv_layout!r}")
+        if kv_layout == "paged" and mode != "decode":
+            raise ServingError("kv_layout='paged' is a decode-mode layout "
+                               "(forward mode has no KV cache to page)")
+        self.mode = mode
         self.device = resolve_device(device)
         if net.device != self.device:
             raise ServingError(f"the model's parameters live on "
@@ -207,6 +273,39 @@ class InferenceEngine:
         self.max_batch = int(max_batch)
         self.eos_id = eos_id
         self.default_max_new_tokens = int(default_max_new_tokens)
+        self._cond = threading.Condition()
+        self._batcher = DynamicBatcher(self.QUEUE_DEPTH, cond=self._cond)
+        self._step_lock = threading.Lock()
+        self._thread: Optional[threading.Thread] = None
+        self._stopping = False
+        self._caches = None
+        self._table_dev = None
+        self._counters = dict.fromkeys(_COUNTERS, 0)
+        self._counters_lock = threading.Lock()
+        self._ttft = []
+        self._latency = []
+        # the compiled programs by key, their shared memory pool and
+        # capture stream (made at the first capture)
+        self._programs = {}
+        self._graph_pool = None
+        self._graph_stream = None
+        if mode == "forward":
+            if int(spec_tokens):
+                raise ServingError("spec_tokens is a decode-mode knob "
+                                   "(forward mode has no decode loop to "
+                                   "speculate)")
+            self.lattice = BucketLattice(batch_buckets, (1,),
+                                         max_batch=self.max_batch)
+            # no KV state: an allocator with no slots and no caches, so
+            # the scheduler, failure and stats paths run unguarded
+            self.num_slots = 0
+            self._alloc = _NoSlots()
+            self._caches = ()
+            self.kv_layout = kv_layout
+            self.kv_quant = self.paged_attention = self.page_size = None
+            self.num_pages = 0
+            self._pool = self._prefix = None
+            return
         self.max_length = int(max_length or net.max_length)
         if self.max_length > net.max_length:
             raise ServingError(
@@ -234,9 +333,6 @@ class InferenceEngine:
         self.prefill_chunk = min(self.prefill_chunk, self.lattice.max_seq)
         self.prefix_min_tokens = max(1, int(prefix_min_tokens))
 
-        if kv_layout not in ("dense", "paged"):
-            raise ServingError(f"kv_layout must be 'dense'|'paged', got "
-                               f"{kv_layout!r}")
         self.kv_layout = kv_layout
         self._paged = kv_layout == "paged"
         if kv_quant not in (None, "int8"):
@@ -283,7 +379,6 @@ class InferenceEngine:
             self._page_table = np.full(
                 (self.num_slots + 1, self._n_logical), self._pool.scratch,
                 dtype=np.int32)
-            self._table_dev = None
             self._table_stale = True
             # the paged prefix cache reserves nothing (its entries are
             # evictable refcounts on the pool), so it is always on
@@ -325,17 +420,6 @@ class InferenceEngine:
         # decode rather than preempting for an optimization
         self._spec_pages_ok = True
 
-        self._cond = threading.Condition()
-        self._batcher = DynamicBatcher(self.QUEUE_DEPTH, cond=self._cond)
-        self._step_lock = threading.Lock()
-        self._thread: Optional[threading.Thread] = None
-        self._stopping = False
-        self._caches = None
-        self._counters = dict.fromkeys(_COUNTERS, 0)
-        self._counters_lock = threading.Lock()
-        self._ttft = []
-        self._latency = []
-
     # ------------------------------------------------------------- lifecycle
     def start(self):
         if self._thread is not None:
@@ -351,9 +435,10 @@ class InferenceEngine:
 
     def stop(self):
         """Stop accepting requests, finish everything queued and in
-        flight, then stop the scheduler.  A request the scheduler never
-        ran (the engine was never started) fails with
-        :class:`EngineStoppedError`: nothing is dropped silently."""
+        flight, then stop the scheduler and release the compiled
+        programs.  A request the scheduler never ran (the engine was
+        never started) fails with :class:`EngineStoppedError`: nothing
+        is dropped silently."""
         self._batcher.close()
         with self._cond:
             self._stopping = True
@@ -364,6 +449,11 @@ class InferenceEngine:
         with self._step_lock:
             self._fail_all(EngineStoppedError("engine stopped — request "
                                               "was never run"))
+            # a stopped engine never runs again: its graphs and their
+            # pool go now, not whenever a collection breaks the cycle
+            # through the programs' bound methods
+            self._programs.clear()
+            self._graph_pool = self._graph_stream = None
 
     def __enter__(self):
         return self.start()
@@ -381,7 +471,12 @@ class InferenceEngine:
         longer than the largest seq bucket prefill in chunks; prompt +
         ``max_new_tokens`` must fit ``max_length``.
         ``temperature <= 0`` (the default) is exact greedy argmax;
-        otherwise the request samples with its own seeded generator."""
+        otherwise the request samples with its own seeded noise.
+        Forward mode: ``x`` is ONE example without the batch dim, and
+        the result is the block's output row (a tuple of rows for a
+        block with several outputs) as numpy."""
+        if self.mode == "forward":
+            return self._submit_forward(x, temperature, top_k, top_p, seed)
         if not (math.isfinite(float(temperature))
                 and float(temperature) >= 0.0) or int(top_k) < 0 \
                 or not 0.0 < float(top_p) <= 1.0:
@@ -419,6 +514,25 @@ class InferenceEngine:
             raise
         return req.future
 
+    def _submit_forward(self, x, temperature, top_k, top_p, seed):
+        if temperature or top_k or top_p != 1.0 or seed:
+            self._reject(InvalidRequestError(
+                "sampling parameters (temperature/top_k/top_p/seed) are a "
+                "decode-mode surface — a forward request has no token "
+                "distribution to sample"))
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        arr = np.array(x)
+        req = Request(arr, 0, None, 0.0, 0, 1.0, 0)
+        req.shape_key = (tuple(arr.shape), str(arr.dtype))
+        self._count("submitted")
+        try:
+            self._batcher.put(req)
+        except QueueFullError:
+            self._count("shed")
+            raise
+        return req.future
+
     def _reject(self, exc: BaseException):
         self._count("rejected")
         raise exc
@@ -439,49 +553,68 @@ class InferenceEngine:
                            top_p, seed).result()
 
     # ---------------------------------------------------------------- warmup
-    def warmup(self) -> int:
-        """Run the decode step, every (batch, seq) point of the full and
-        the chunked prefill lattices (capped at the ``prefill_chunk``
-        bucket) and, with speculation, the draft and the verify window
-        once on scratch rows, so the first request pays
-        no one-time cost (kernel builds, library handles, allocator
-        growth).  Needs an idle engine; returns the number of shapes
-        run."""
+    def warmup(self, example_shape: Optional[Sequence[int]] = None,
+               dtype: str = "float32") -> int:
+        """Compile the whole lattice, so that no request pays a capture
+        and ``compiles`` stays where it is afterwards.  Decode mode: the
+        decode step, every (batch, seq) point of the full and the chunk
+        prefill lattices (capped at the ``prefill_chunk`` bucket), with
+        speculation the draft and the verify window, and with a prefix
+        cache the row copy (one program: src, dst and length are device
+        scalars), each run once on scratch rows.  Forward mode: one
+        forward per batch bucket for examples of ``example_shape`` (no
+        batch dim) and ``dtype``.  Needs an idle engine; returns the
+        number of programs compiled, as the reference's does."""
         with self._step_lock:
+            before = self._counters["compiles"]
+            if self.mode == "forward":
+                if example_shape is None:
+                    raise ServingError("forward-mode warmup needs "
+                                       "example_shape (per-example, no "
+                                       "batch dim)")
+                shape = tuple(int(d) for d in example_shape)
+                dt = np.dtype(dtype)
+                for bb in self.lattice.batch_buckets:
+                    self._forward_program(np.zeros((bb,) + shape, dt),
+                                          (shape, str(dt)))
+                return self._counters["compiles"] - before
             if self._alloc.active_count:
                 raise ServingError("warmup needs an idle engine")
             s1 = self.num_slots + 1
             scratch = self._alloc.scratch
-            self._ensure_caches()
             self._sync_table()
             idle_tok = np.zeros((s1,), np.int32)
             idle_pos = np.full((s1,), self.max_length, np.int32)
             self._run_decode(idle_tok, idle_pos, self._samp_rows([], s1))
-            n = 1
             if self.spec_tokens:
                 self._run_spec(idle_tok, idle_pos, self._samp_rows([], s1))
-                n += 2
             for bb, tb in self.lattice.prefill_points(self.prefill_chunk):
                 args = (np.zeros((bb, tb), np.int32), np.ones((bb,), np.int32),
                         np.full((bb,), scratch, np.int32),
                         self._samp_rows([], bb))
                 self._run_prefill(*args)
                 self._run_prefill(*args, off=np.zeros((bb,), np.int32))
-                n += 2
+            if self._prefix is not None:
+                # the paged layout's tail-page copy: the zero page onto
+                # itself, length 0
+                scr = self._pool.scratch if self._paged else scratch
+                self._copy_rows(scr, scr, 0)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-            return n
+            return self._counters["compiles"] - before
 
     # ----------------------------------------------------------------- stats
     def stats(self) -> dict:
         with self._counters_lock:
             c = dict(self._counters)
         pref = c["prefix_hits"] + c["prefix_misses"]
+        lookups = c["bucket_hits"] + c["compiles"]
         return {
             "counters": c,
             "latency": {"ttft": _percentiles(list(self._ttft)),
                         "request": _percentiles(list(self._latency))},
             "engine": {"device": str(self.device),
+                       "mode": self.mode,
                        "queued": len(self._batcher),
                        "active_slots": self._alloc.active_count,
                        "num_slots": self.num_slots,
@@ -508,33 +641,74 @@ class InferenceEngine:
                     4) if c["spec_tokens_proposed"] else None},
             "quantized_kv": {"kv_quant": self.kv_quant,
                              "paged_attention": self.paged_attention},
+            # one engine serves one mesh point; the port has one
+            "compile": {"mesh_point": _MESH_POINT,
+                        "by_mesh_point": {_MESH_POINT: c["compiles"]}
+                        if c["compiles"] else {},
+                        "compiles": c["compiles"],
+                        "bucket_hits": c["bucket_hits"],
+                        # each program compiles once
+                        "programs": c["compiles"]},
+            "compile_cache": {"bucket_hits": c["bucket_hits"],
+                              "compiles": c["compiles"],
+                              "hit_rate": round(c["bucket_hits"] / lookups,
+                                                4) if lookups else None},
         }
 
-    # -------------------------------------------------------------- device
+    # ------------------------------------------------------------- programs
+    def _call(self, key, fn, *args):
+        """Run program ``key`` (``fn`` over static buffers shaped by
+        ``args``): its first call compiles it (a capture on the card),
+        every later one is a bucket hit.  Caches and the page table are
+        allocated before the first program runs."""
+        self._ensure_caches()
+        prog = self._programs.get(key)
+        if prog is None:
+            self._count("compiles")
+            graph = self._graphs and self.device.type == "cuda"
+            if graph and self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+                self._graph_stream = torch.cuda.Stream(self.device)
+            prog = Program(key, fn, args, self.device, graph=graph,
+                           pool=self._graph_pool, stream=self._graph_stream)
+            self._programs[key] = prog
+        else:
+            self._count("bucket_hits")
+        return prog(*args)
+
     def _ensure_caches(self):
-        if self._caches is None:
-            if self._paged:
-                self._caches = self.net.init_page_cache(
-                    self.num_pages + 1, self.page_size,
-                    kv_quant=self.kv_quant)
-            else:
-                # slots + scratch + prefix pool rows
-                self._caches = self.net.init_slot_cache(
-                    self.num_slots + 1 + self.prefix_pool_rows,
-                    self.max_length)
+        """The persistent device state every program captures: the KV
+        caches and the page table.  Allocated once; a failure zeroes
+        them in place (``_fail_all``)."""
+        if self._caches is not None:
+            return
+        if self._paged:
+            self._caches = self.net.init_page_cache(
+                self.num_pages + 1, self.page_size,
+                kv_quant=self.kv_quant)
+            self._table_dev = torch.from_numpy(
+                self._page_table.copy()).to(self.device)
+            self._table_stale = False
+        else:
+            # slots + scratch + prefix pool rows
+            self._caches = self.net.init_slot_cache(
+                self.num_slots + 1 + self.prefix_pool_rows,
+                self.max_length)
 
     def _sync_table(self):
-        """Upload the page table if it changed: once a cycle, after every
-        claim and before the first launch.  Changes made later in the
-        cycle (a release at the first or last token, a speculation
-        rewind) only drop pages from rows that no later launch of the
-        cycle writes through: a released row is parked at ``Tmax`` and a
-        rewound one writes at positions its kept pages cover, and no
-        page is claimed again before the next cycle's upload."""
+        """Upload the page table into its static device buffer if it
+        changed: once a cycle, after every claim and before the first
+        launch.  Changes made later in the cycle (a release at the first
+        or last token, a speculation rewind) only drop pages from rows
+        that no later launch of the cycle writes through: a released row
+        is parked at ``Tmax`` and a rewound one writes at positions its
+        kept pages cover, and no page is claimed again before the next
+        cycle's upload."""
+        self._ensure_caches()
         if self._paged and self._table_stale:
-            # a snapshot: on the CPU ``.to`` would return a view that
-            # follows every later host edit, which the card's copy does not
-            self._table_dev = self._dev(self._page_table.copy())
+            # a snapshot: the host table changes during the cycle, the
+            # device copy stays as uploaded (as the card's does)
+            self._table_dev.copy_(torch.from_numpy(self._page_table))
             self._table_stale = False
 
     def _paged_kw(self):
@@ -561,54 +735,98 @@ class InferenceEngine:
                                                    r.top_p, r.seed)
         return temp, topk, topp, seeds
 
-    def _sample(self, logits, samp, positions):
-        temp, topk, topp, seeds = samp
-        tok = sample_tokens(logits, self._dev(temp), self._dev(topk),
-                            self._dev(topp), seeds, positions)
-        return tok.cpu().numpy()
+    # The programs' functions: device tensors in, device tensors out, no
+    # host read; each reads the caches and the page table it captured.
+    def _prog_decode(self, tok, pos, temp, topk, topp, seeds):
+        logits, _ = self.net.decode_step(tok, self._caches, pos,
+                                         **self._paged_kw())
+        return sample_tokens(logits, temp, topk, topp, seeds, pos)
 
+    def _prog_prefill(self, toks, lens, sidx, temp, topk, topp, seeds):
+        logits, _ = self.net.prefill_slots(toks, lens, self._caches, sidx,
+                                           **self._paged_kw())
+        return sample_tokens(logits, temp, topk, topp, seeds, lens - 1)
+
+    def _prog_chunk(self, toks, lens, sidx, off, temp, topk, topp, seeds):
+        logits, _ = self.net.prefill_slots(toks, lens, self._caches, sidx,
+                                           offset=off, **self._paged_kw())
+        return sample_tokens(logits, temp, topk, topp, seeds,
+                             off + lens - 1)
+
+    def _prog_draft(self, tok, pos, temp, topk, topp, seeds):
+        return self.net.draft_slots(
+            tok, self._caches, pos, self.spec_tokens, self.draft_layers,
+            temp, topk, topp, seeds,
+            page_table=self._table_dev if self._paged else None)
+
+    def _prog_verify(self, tok, draft, pos, temp, topk, topp, seeds):
+        """The (S, k + 1) window [tok, drafts]: its K/V are written and
+        every column is sampled at its own position ``pos + i``, the
+        (request seed, position) plain decode would use there.  Returns
+        the verify tokens and the drafts (this program's own input
+        buffer, which no later replay overwrites)."""
+        logits, _ = self.net.verify_slots(
+            torch.cat([tok[:, None], draft], dim=1), self._caches, pos,
+            **self._paged_kw())
+        s, w, v = logits.shape
+
+        def rep(a):
+            return a[:, None].expand(s, w).reshape(s * w)
+        fpos = (pos[:, None].to(torch.int64)
+                + torch.arange(w, device=pos.device)).reshape(s * w)
+        vt = sample_tokens(logits.reshape(s * w, v), rep(temp), rep(topk),
+                           rep(topp), rep(seeds), fpos)
+        return vt.reshape(s, w), draft
+
+    def _prog_copy(self, src, dst, length):
+        copy_cache_rows(self._caches, src, dst, length)
+
+    def _prog_forward(self, xs):
+        """The block's output: one tensor, or a tuple of them."""
+        with training_mode(False):
+            out = self.net(xs)
+        return out if isinstance(out, torch.Tensor) else tuple(out)
+
+    # The engine's device calls, each one program call.
     def _run_prefill(self, toks, lens, sidx, samp, off=None):
         """One full (``off=None``) or chunked prefill call; the token
         sampled at each row's last real position."""
-        self._ensure_caches()
-        logits, self._caches = self.net.prefill_slots(
-            self._dev(toks), self._dev(lens), self._caches, self._dev(sidx),
-            offset=None if off is None else self._dev(off),
-            **self._paged_kw())
-        return self._sample(logits, samp,
-                            lens - 1 if off is None else off + lens - 1)
+        bb, tb = toks.shape
+        if off is None:
+            tok = self._call(("prefill", bb, tb), self._prog_prefill, toks,
+                             lens, sidx, *samp)
+        else:
+            tok = self._call(("chunk", bb, tb), self._prog_chunk, toks,
+                             lens, sidx, off, *samp)
+        return _host(tok)
 
     def _run_decode(self, tok, pos, samp):
-        self._ensure_caches()
-        logits, self._caches = self.net.decode_step(
-            self._dev(tok), self._caches, self._dev(pos), **self._paged_kw())
-        return self._sample(logits, samp, pos)
+        return _host(self._call(("decode",), self._prog_decode, tok, pos,
+                                *samp))
 
     def _run_spec(self, tok, pos, samp):
         """Draft k tokens per row (read-only on the caches), then verify
-        the (S, k + 1) window [tok, drafts]: its K/V are written and
-        every window column is sampled at its own position ``pos + i``,
-        the (request seed, position) the plain engine would use there.
-        Returns (drafts (S, k), verify tokens (S, k + 1)) on the host."""
-        self._ensure_caches()
-        k = self.spec_tokens
-        temp, topk, topp, seeds = samp
-        tok_d, pos_d = self._dev(tok), self._dev(pos)
-        draft = self.net.draft_slots(
-            tok_d, self._caches, pos_d, k, self.draft_layers,
-            self._dev(temp), self._dev(topk), self._dev(topp), seeds,
-            page_table=self._table_dev if self._paged else None)
-        logits, self._caches = self.net.verify_slots(
-            torch.cat([tok_d[:, None], draft], dim=1), self._caches, pos_d,
-            **self._paged_kw())
-        s, w, v = logits.shape
-        fpos = (pos[:, None] + np.arange(w, dtype=np.int64)).reshape(-1)
-        vt = self._sample(logits.reshape(s * w, v),
-                          tuple(np.repeat(a, w) for a in samp), fpos)
-        return draft.cpu().numpy(), vt.reshape(s, w)
+        the window.  Returns (drafts (S, k), verify tokens (S, k + 1))
+        on the host."""
+        draft = self._call(("draft",), self._prog_draft, tok, pos, *samp)
+        vt, draft = self._call(("verify",), self._prog_verify, tok, draft,
+                               pos, *samp)
+        return _host(draft), _host(vt)
+
+    def _copy_rows(self, src, dst, length):
+        """Positions ``[0, length)`` of cache row (or page) ``src`` into
+        ``dst``: the prefix copy program."""
+        self._call(("prefix_copy",), self._prog_copy,
+                   *(np.asarray(v, np.int64) for v in (src, dst, length)))
+
+    def _forward_program(self, xs, shape_key):
+        return self._call(("forward", xs.shape[0]) + shape_key,
+                          self._prog_forward, xs)
 
     # ------------------------------------------------------------- scheduler
     def _loop(self):
+        cycle = self._forward_cycle if self.mode == "forward" \
+            else self._cycle
         while True:
             with self._cond:
                 if self._batcher.empty() and self._alloc.active_count == 0:
@@ -618,7 +836,7 @@ class InferenceEngine:
                     continue
             try:
                 with self._step_lock:
-                    self._cycle()
+                    cycle()
             except Exception as e:  # boundary: never leave futures hung
                 _log.exception("serving cycle failed; failing in-flight "
                                "requests")
@@ -656,14 +874,41 @@ class InferenceEngine:
             else:
                 self._decode_step()
 
+    def _forward_cycle(self):
+        """One forward batch: requests of one (shape, dtype), padded to
+        a batch bucket, one program call, rows scattered back."""
+        reqs = self._batcher.get_batch(self.max_batch, self.MAX_WAIT_US,
+                                       compatible=lambda r: r.shape_key)
+        if not reqs:
+            return
+        bb = self.lattice.batch(len(reqs))
+        xs = np.stack([r.payload for r in reqs] +
+                      [np.zeros_like(reqs[0].payload)] * (bb - len(reqs)))
+        self._count("admitted", len(reqs))
+        self._count("forward_batches")
+        try:
+            out = self._forward_program(xs, reqs[0].shape_key)
+            single = isinstance(out, torch.Tensor)
+            outs = [_host(o) for o in ((out,) if single else out)]
+        except Exception as e:  # the popped batch fails, the queue stays
+            for r in reqs:
+                self._fail(r, e)
+            return
+        done = time.monotonic()
+        for i, r in enumerate(reqs):
+            self._latency.append(done - r.t_submit)
+            self._count("completed")
+            r.future.set_result(outs[0][i] if single
+                                else tuple(o[i] for o in outs))
+
     def _fail(self, req: Request, exc: BaseException):
         req.future.set_exception(exc)
         self._count("failed")
 
     def _fail_all(self, exc: BaseException):
         """Fail every queued and in-flight request.  If any was in
-        flight, drop the device caches too (a failed step may have left
-        them half-written), and with them every prefix entry and page
+        flight, zero the device caches too (a failed step may have left
+        them half-written), and drop every prefix entry and page
         claim."""
         for req in self._batcher.drain():
             self._fail(req, exc)
@@ -672,7 +917,11 @@ class InferenceEngine:
             self._release(slot)
             self._fail(st.request, exc)
         if inflight:
-            self._caches = None
+            if self._caches is not None:
+                # in place: the programs hold the caches' addresses
+                for cache in self._caches:
+                    for a in cache.values():
+                        a.zero_()
             if self._prefix is not None:
                 self._prefix.reset()
             if self._paged:
@@ -752,8 +1001,7 @@ class InferenceEngine:
             self._prefix_admit_paged(st, slot, entry, match)
             return
         self._prefix.pin(entry)
-        self._ensure_caches()
-        copy_cache_rows(self._caches, entry.row, slot, match)
+        self._copy_rows(entry.row, slot, match)
         st.filled = match
         st.pinned = entry             # read-pinned until prefill completes
         self._count("prefix_hits")
@@ -778,9 +1026,7 @@ class InferenceEngine:
             self._prefix.pin(entry)   # the tail's source must survive
             newp = self._claim_pages(1)
             if newp is not None:
-                self._ensure_caches()
-                copy_cache_rows(self._caches, entry.pages[n_full], newp[0],
-                                rem)
+                self._copy_rows(entry.pages[n_full], newp[0], rem)
                 st.pages.append(newp[0])
                 self._page_table[slot, n_full] = newp[0]
                 filled += rem
@@ -824,7 +1070,7 @@ class InferenceEngine:
         self._count("prefix_evictions", self._prefix.evictions - ev0)
         if entry is None:
             return
-        copy_cache_rows(self._caches, slot, entry.row, length)
+        self._copy_rows(slot, entry.row, length)
         self._count("prefix_inserts")
 
     # ---------------------------------------------------------- paged pages

@@ -14,7 +14,7 @@ import numpy as onp
 import pytest
 import torch
 
-from mxnet_tpu_torch.ops import attention, flash, paged
+from mxnet_tpu_torch.ops import attention, flash, launches, paged
 
 pytestmark = pytest.mark.cuda
 
@@ -1145,3 +1145,222 @@ def test_nd_samplers_draw_on_card_from_its_generator(dev):
             assert a.tensor.is_cuda and not b.tensor.is_cuda, name
             assert a.shape == b.shape and a.dtype == b.dtype, name
             assert torch.equal(a.tensor, c.tensor), name
+
+
+# ------------------------------------------------ the compiled programs
+# The engine's programs as CUDA graphs (``serving/graphs.py``) against
+# the same programs run eagerly (``_graphs = False``) on the card: the
+# same kernels in the same order, so tokens are identical and the
+# caches they write agree to 1e-5 (a cuBLAS algorithm picked under
+# capture may sum in another order).
+
+GRAPH_TOL = 1e-5
+
+
+def _engines(net, **kw):
+    """A graphed and an eager engine of one configuration, warmed up."""
+    from mxnet_tpu_torch.serving import InferenceEngine
+    cfg = dict(num_slots=2, max_batch=2, kv_layout="paged", page_size=16,
+               seq_buckets=(32, 256), spec_tokens=2, draft_layers=1)
+    cfg.update(kw)
+    out = {}
+    for graphs in (True, False):
+        eng = InferenceEngine(net, **cfg)
+        eng._graphs = graphs
+        n = eng.warmup()
+        assert n == len(eng._programs) == eng.stats()["compile"]["compiles"]
+        out[graphs] = eng
+    return out[True], out[False]
+
+
+def _cache_err(a, b):
+    """Max-abs between two paged engines' caches, the trash page (the
+    last; duplicate writes land there in any order) left out."""
+    return max(_maxabs(x[:-1], y[:-1])
+               for ca, cb in zip(a._caches, b._caches)
+               for x, y in zip(ca.values(), cb.values()))
+
+
+def _program_calls(eng, rs):
+    """One call of every program kind of a paged engine with spec and
+    prefix copy, from seeded inputs: (name, thunk) pairs.  Rows 0-1
+    prefill (256 bucket: B1) into slot pages, then decode, draft,
+    verify and the tail-page copy read and write them."""
+    s1 = eng.num_slots + 1
+    npt = eng._n_logical
+    eng._page_table[:2, :20] = onp.arange(40).reshape(2, 20)
+    eng._table_stale = True
+    eng._sync_table()
+    lens = onp.array([200, 150], "int32")
+    toks = rs.randint(0, 256, (2, 256)).astype("int32")
+    samp = eng._samp_rows([], 2)
+    samp1 = (onp.array([0.8, 0.0, 0.0], "float32"), onp.zeros(s1, "int32"),
+             onp.ones(s1, "float32"), onp.array([7, 0, 0], "int64"))
+    pos = onp.array([200, 150, eng.max_length], "int32")
+    tok = rs.randint(0, 256, (s1,)).astype("int32")
+    del npt
+    return [
+        ("prefill", lambda: eng._run_prefill(toks, lens, onp.array(
+            [0, 1], "int32"), samp)),
+        ("chunk", lambda: eng._run_prefill(
+            toks[:, :32], onp.array([32, 20], "int32"),
+            onp.array([0, 1], "int32"), samp, off=lens.copy())),
+        ("decode", lambda: eng._run_decode(tok, pos + 32, samp1)),
+        ("spec", lambda: eng._run_spec(tok, pos + 60, samp1)),
+        ("prefix_copy", lambda: eng._copy_rows(3, 45, 9)),
+    ]
+
+
+PROGRAM_KINDS = ["prefill", "chunk", "decode", "spec", "prefix_copy"]
+
+
+@pytest.mark.parametrize("kind", PROGRAM_KINDS)
+def test_program_replays_equal_eager_calls_after_new_inputs(dev, kind):
+    """Each program kind, twice with different inputs (the calls before
+    it in ``_program_calls`` set up its state): the graphed engine's
+    replay gives the eager engine's tokens, and the caches both wrote
+    agree.  A graph that lacked a kernel would replay stale attention
+    and part at the second call."""
+    net = _small_gpt2(5)
+    eg, ee = _engines(net)
+    upto = PROGRAM_KINDS.index(kind) + 1
+    for rnd in range(2):
+        calls = {e: _program_calls(e, onp.random.RandomState(rnd))[:upto]
+                 for e in (eg, ee)}
+        for (name, fg), (_n, fe) in zip(calls[eg], calls[ee]):
+            got, want = fg(), fe()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            for a, b in zip(got, want):
+                if a is not None:
+                    onp.testing.assert_array_equal(a, b, err_msg=name)
+            torch.cuda.synchronize()
+            assert _cache_err(eg, ee) <= GRAPH_TOL, (rnd, name)
+    c = eg.stats()["compile"]
+    assert c["compiles"] == len(eg._programs)
+    # a speculative cycle is two programs, draft and verify
+    assert c["bucket_hits"] == 2 * sum(2 if n == "spec" else 1
+                                       for n in PROGRAM_KINDS[:upto])
+
+
+def test_forward_program_replays_equal_eager_and_direct_forward(no_tf32):
+    """Forward mode on the card: a small conv net's B4 forward program,
+    replayed with two inputs, equals the eager program and the block's
+    own predict-mode forward; served requests are its rows."""
+    from mxnet_tpu_torch.base import training_mode
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.serving import InferenceEngine
+    dev = no_tf32
+    net = nn.HybridSequential()
+    net.add(nn.Conv2D(8, 3, padding=1, in_channels=3),
+            nn.BatchNorm(in_channels=8), nn.Activation("relu"),
+            nn.GlobalAvgPool2D(), nn.Flatten(), nn.Dense(5, in_units=8))
+    net.initialize(device=dev, seed=0)
+    shape, key = (3, 16, 16), ((3, 16, 16), "float32")
+    engs = {}
+    for graphs in (True, False):
+        eng = InferenceEngine(net, max_batch=4, device=dev)
+        eng._graphs = graphs
+        assert eng.warmup(example_shape=shape) == 3
+        engs[graphs] = eng
+    rs = onp.random.RandomState(0)
+    for _ in range(2):
+        xs = rs.uniform(-1, 1, (4,) + shape).astype("float32")
+        got, want = (engs[g]._forward_program(xs, key).cpu()
+                     for g in (True, False))
+        with torch.no_grad(), training_mode(False):
+            direct = net(torch.from_numpy(xs).to(dev)).cpu()
+        assert _maxabs(got, want) <= GRAPH_TOL
+        assert _maxabs(got, direct) <= GRAPH_TOL
+    with engs[True] as eng:
+        rows = [eng.submit(x).result(timeout=60) for x in xs[:3]]
+    onp.testing.assert_allclose(onp.stack(rows), direct[:3].numpy(),
+                                rtol=GRAPH_TOL, atol=GRAPH_TOL)
+    c = engs[True].stats()["counters"]
+    assert c["compiles"] == 3 and c["forward_batches"] >= 1
+
+
+def test_program_launch_counters_move_on_replay(dev):
+    """A replay runs no Python, so the program adds its captured
+    launches: a decode replay counts one B4 launch a layer, a verify
+    replay one multi-query launch a layer, a 256 prefill one B1 a layer
+    — the counts the eager engine makes for the same calls."""
+    net = _small_gpt2(6)
+    eg, ee = _engines(net)
+    counts = {}
+    for eng in (eg, ee):
+        launches.reset()
+        for _name, fn in _program_calls(eng, onp.random.RandomState(0)):
+            fn()
+        total = launches.totals()
+        assert total["flash_dq"] == total["flash_dkv"] == 0
+        counts[eng._graphs] = (total["paged_attention"],
+                               paged.paged_attention.multi_query_launches,
+                               total["flash_fwd"])
+    assert counts[True] == counts[False]
+    n = len(net.blocks)
+    # chunk + decode + verify through B4; chunk and verify with Tq > 1
+    assert counts[True] == (3 * n, 2 * n, n)
+
+
+def test_engine_freeze_and_streams_through_feature_traffic(dev):
+    """Chunked prefill, prefix hits, page pressure with preemption and
+    speculative cycles on the graphed engine: ``compiles`` stays at the
+    ``warmup()`` count, every call is a bucket hit, and the greedy
+    streams equal the eager engine's."""
+    net = _small_gpt2(3)
+    rs = onp.random.RandomState(1)
+    shared = rs.randint(0, 256, (200,))
+    waves = [[rs.randint(0, 256, (n,)).astype("int32") for n in (300, 400)]]
+    waves += [[onp.concatenate([shared, rs.randint(0, 256, (n,))])
+               .astype("int32")] for n in (20, 40)]
+    outs, stats = {}, {}
+    for kw in (dict(prefill_chunk=128, seq_buckets=(32, 64, 128)),
+               dict(num_pages=40, seq_buckets=(32, 64, 128))):
+        for graphs, eng in zip((True, False), _engines(net, num_slots=4,
+                                                        max_batch=4, **kw)):
+            n_warm = eng.stats()["compile"]["compiles"]
+            res = []
+            with eng:
+                for wave in waves:
+                    futs = [eng.submit(p, max_new_tokens=24) for p in wave]
+                    res += [f.result(timeout=300) for f in futs]
+            outs[graphs], stats[graphs] = res, eng.stats()
+            c = stats[graphs]["counters"]
+            assert c["compiles"] == n_warm and c["bucket_hits"] > 0
+        for a, b in zip(outs[True], outs[False]):
+            onp.testing.assert_array_equal(a, b)
+        c = stats[True]["counters"]
+        assert c["prefill_chunks"] > 0 and c["prefix_hits"] > 0
+        assert c["spec_cycles"] > 0
+        assert c["bucket_hits"] == stats[False]["counters"]["bucket_hits"]
+    assert c["preemptions"] > 0
+
+
+def test_failed_capture_raises_and_never_falls_back(dev):
+    """A program whose capture fails raises ``ServingError`` naming it,
+    at every call: nothing runs it eagerly instead."""
+    from mxnet_tpu_torch.serving import ServingError
+    from mxnet_tpu_torch.serving.graphs import Program
+    calls = []
+
+    def fn(x):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        if calls[-1]:
+            raise RuntimeError("refused under capture")
+        return x * 2
+    prog = Program(("decode",), fn, (onp.ones(4, "float32"),), dev,
+                   graph=True, pool=torch.cuda.graph_pool_handle(),
+                   stream=torch.cuda.Stream(dev))
+    for _ in range(2):
+        with pytest.raises(ServingError, match=r"\('decode',\)"):
+            prog(onp.ones(4, "float32"))
+    assert prog.outputs is None and calls == [False, True] * 2
+    # a host read inside the capture is refused by CUDA itself
+    bad = Program(("prefix_copy",), lambda x: x.sum().item(),
+                  (onp.ones(4, "float32"),), dev, graph=True,
+                  pool=torch.cuda.graph_pool_handle(),
+                  stream=torch.cuda.Stream(dev))
+    with pytest.raises(ServingError, match="prefix_copy"):
+        bad(onp.ones(4, "float32"))
+    assert float(torch.ones(3, device=dev).sum()) == 3.0
