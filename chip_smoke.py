@@ -228,11 +228,35 @@ Phases (any failure exits non-zero and prints no result line):
    program's replay against its eager call, and a profile of one call
    of each; no kernel of the port
    launches (``launches_by_path["forward"]``).
-16. A ``{"kernels": [...]}`` line, the card line again, and the last
+16. The compiled training programs: a hybridized block's CachedOp
+   (forward and backward graphs replayed as one autograd node) and
+   ``ShardedTrainer``'s step as one CUDA graph, each against its eager
+   arm (not hybridized; the trainer's private ``_graphs = False``), the
+   arms in turns over ``GRAPH_ROUNDS`` rounds.  (a) Phase 11 (b)'s
+   BERT-large loop (amp, ``remat='dots'``, dropout 0.1, B8 x T512), the
+   net hybridized in the graphed arm: ms/step, samples/s, host CPU ms a
+   step, the idle share of a profiled step, peak memory, and B1/B2/B3
+   48/24/24 bf16 launches a step in both arms; gate at batch 4 and
+   dropout 0: the loss and every gradient, hybridized against not
+   (``TOL_GRAPHED``).  (b) Phase 4's GPT-2 124M ``ShardedTrainer`` (16 x
+   1024, Adam), float32 and under amp: ms/step, tokens/s, idle share,
+   peak memory, 12/12/12 launches; gate: the six losses and the final
+   parameters graphed against eager.  (c) Phase 10's ResNet-50 v1 NHWC
+   ``ShardedTrainer``: images/s; gate: the moving statistics after 3
+   steps graphed against eager under deterministic cuDNN algorithms
+   (with cuDNN's default ones two eager runs part too: printed as a
+   control).  (d) A guarded GPT-2 replay whose loss is NaN: parameters,
+   aux and optimizer state bit-identical, the loss scale halved, the
+   next finite replay updates.  (e) GPT-2 at dropout 0.1 under remat,
+   learning rate 0: replays draw new masks, the recomputation draws its
+   forward's (B1 24 a step), a reseeded run repeats the losses.
+17. A ``{"kernels": [...]}`` line, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.  ``launches_by_path`` holds
-   every phase's launches (``bert``, ``bert_amp``, ``nmt``, ``lstm``
-   and ``ops`` among them); the flash kernels carry their numbers at phases 11-12's
-   shapes (``shapes``), phase 12's launches by attention and the
+   every phase's launches (``bert``, ``bert_amp``, ``nmt``, ``lstm``,
+   ``ops``, and phase 16's graphed arms ``hybrid_bert_amp``,
+   ``graph_train``, ``graph_amp`` and ``graph_vision`` among them); the
+   flash kernels carry their numbers at phases 11-12's shapes
+   (``shapes``), phase 12's launches by attention and the
    cross-attention call's times.
 
 Phase 2 also times B1, B2 and B3 in bf16 at the training shape, the
@@ -472,6 +496,17 @@ TOL_REPLAY = 1e-5
 # size, which sum in another order)
 FWD_REQUESTS, FWD_WAVES, FWD_BATCH = 96, 3, 32
 TOL_FORWARD = 1e-4
+# phase 16: the compiled training programs, each part's eager and
+# graphed arms in turns over GRAPH_ROUNDS rounds.  Graphed against eager
+# from the same weights and batches: the same kernels in the same order,
+# but cuBLAS and cuDNN may pick another algorithm for a call under
+# capture (phase 15's TOL_REPLAY), so losses, gradients, parameters and
+# moving statistics are held as max-abs error over their own max-abs
+TOL_GRAPHED = 1e-5
+# (d) the guarded replay and (e) dropout under replay: GPT-2 124M at
+# this batch x 1024 tokens; (e) at dropout 0.1 under remat, learning
+# rate 0 so that only the masks move the loss
+GUARD_B, DROP_B = 4, 4
 
 # H100 SXM published peaks (dense): HBM bytes/s; bf16 on the tensor
 # cores; float32 at float32 accuracy on the tensor cores, which takes
@@ -1177,12 +1212,19 @@ def logits_parity(torch, net, prompts, kv_quant):
     return worst
 
 
+def _device_events(torch, prof):
+    """The kernels and copies a profile recorded on the card: its
+    device events but for the step annotation (``ProfilerStep*``) that a
+    profiler schedule puts on the card's timeline too."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
+
+
 def _device_rows(torch, prof):
     """(name, device ms) of the kernels and copies a profile recorded."""
     rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in _device_events(torch, prof):
         us = getattr(e, "device_time_total", None)
         if us is None:
             us = e.cuda_time_total
@@ -1191,18 +1233,36 @@ def _device_rows(torch, prof):
     return sorted(rows, key=lambda r: -r[1])
 
 
-def report_profile(torch, name, wall, prof, card, marks=(), classes=()):
+def _device_counts(torch, prof, marks):
+    """How many kernels whose names hold each of ``marks`` the profile
+    recorded on the card (a graph's replay is traced kernel by
+    kernel)."""
+    counts = dict.fromkeys(marks, 0)
+    for e in _device_events(torch, prof):
+        for mark in marks:
+            if mark in e.key:
+                counts[mark] += e.count
+    return counts
+
+
+def report_profile(torch, name, wall, prof, card, marks=(), classes=(),
+                   want=None):
     """Print wall time, device-busy time and share, each kernel of
-    ``marks`` (substrings of kernel names) with its share, the share of
-    each of ``classes`` ((label, marks): a kernel counts in the first
-    class one of whose marks its lower-cased name holds), and the
-    kernels that took the most device time."""
+    ``marks`` (substrings of kernel names) with its share and the count
+    of its launches the profiler saw, the share of each of ``classes``
+    ((label, marks): a kernel counts in the first class one of whose
+    marks its lower-cased name holds), and the kernels that took the
+    most device time.  With ``want`` ({mark: launches}), fail unless the
+    profiler saw that many of each."""
     rows = _device_rows(torch, prof)
+    counts = _device_counts(torch, prof, marks)
     busy = sum(ms for _k, ms in rows)
     if not rows:
         print(f"  {name}: wall {wall:.3f} ms; the profiler recorded no "
               f"device time [{card}]", flush=True)
-        return
+        if want:
+            raise AssertionError(f"{name}: the profiler saw no kernel")
+        return None
     print(f"  {name}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
           f"({busy / wall:.1%}; idle {1 - busy / wall:.1%}) [{card}]",
           flush=True)
@@ -1213,8 +1273,9 @@ def report_profile(torch, name, wall, prof, card, marks=(), classes=()):
         ms = sum(t for k, t in rows if mark in k)
         names = sorted({k[:k.find(">(") + 1] if ">(" in k else k[:80]
                         for k, _t in rows if mark in k})
-        print(f"    {mark}: {ms:.3f} ms, {ms / busy:.1%} of busy "
-              f"({', '.join(names)})", flush=True)
+        print(f"    {mark}: {ms:.3f} ms, {ms / busy:.1%} of busy, "
+              f"{counts[mark]} launches seen ({', '.join(names)})",
+              flush=True)
     if classes:
         by_class = dict.fromkeys([label for label, _m in classes]
                                  + ["other"], 0.0)
@@ -1228,6 +1289,10 @@ def report_profile(torch, name, wall, prof, card, marks=(), classes=()):
             for label, ms in by_class.items()), flush=True)
     for key, ms in rows[:8]:
         print(f"    {ms:9.3f} ms {ms / busy:6.1%}  {key[:100]}", flush=True)
+    if want is not None and any(counts[m] != n for m, n in want.items()):
+        raise AssertionError(f"{name}: the profiler saw {counts} kernel "
+                             f"launches, the counters credit {want}")
+    return 1 - busy / wall
 
 
 def profile_steps(torch, net, prompts, card):
@@ -1607,8 +1672,6 @@ def train_batch():
 
 
 def train_path(torch, card):
-    from torch.profiler import ProfilerActivity, profile
-
     from mxnet_tpu_torch.models import get_gpt2, gpt2_lm_loss
     from mxnet_tpu_torch.parallel import ShardedTrainer
     net = get_gpt2("gpt2_124m", dropout=0.0)
@@ -1636,8 +1699,8 @@ def train_path(torch, card):
     print(f"  {TRAIN_STEPS} steps in {wall:.3f} s: "
           f"{wall / TRAIN_STEPS * 1e3:.1f} ms/step, "
           f"{TRAIN_STEPS * TRAIN_B * TRAIN_T / wall:.1f} tokens/s, peak "
-          f"memory {peak:.0f} MiB, launches per step {per_step} [{card}]",
-          flush=True)
+          f"memory {peak:.0f} MiB (reserved {reserved_mib(torch):.0f}), "
+          f"launches per step {per_step} [{card}]", flush=True)
     n_layers = len(net.blocks)
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         if per_step[name] != n_layers:
@@ -1648,15 +1711,13 @@ def train_path(torch, card):
         raise AssertionError(f"training losses not finite and falling: "
                              f"{losses}")
     print("where the time goes (one training step):", flush=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.step(toks, labels)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof, wall_ms = profiled(torch, lambda: trainer.step(toks, labels))
+    # the step replays its graph: the profiler's count of each kernel
+    # holds the counters, which replays credit from the capture
     report_profile(torch, f"train step B{TRAIN_B} T{TRAIN_T}", wall_ms, prof,
-                   card, marks=("flash_fwd", "flash_dq", "flash_dkv"))
+                   card, marks=("flash_fwd", "flash_dq", "flash_dkv"),
+                   want=dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"),
+                                      n_layers))
     return launches, losses
 
 
@@ -1733,8 +1794,8 @@ def gluon_path(torch, card, toks, labels, want_losses):
     print(f"  {TRAIN_STEPS} steps in {wall:.3f} s: "
           f"{wall / TRAIN_STEPS * 1e3:.1f} ms/step, "
           f"{TRAIN_STEPS * TRAIN_B * TRAIN_T / wall:.1f} tokens/s, peak "
-          f"memory {peak:.0f} MiB, launches per step {per_step} [{card}]",
-          flush=True)
+          f"memory {peak:.0f} MiB (reserved {reserved_mib(torch):.0f}), "
+          f"launches per step {per_step} [{card}]", flush=True)
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         if per_step[name] != len(net.blocks):
             raise AssertionError(f"gluon loop launched {name} "
@@ -2206,15 +2267,18 @@ def moe_path(torch, card, toks, labels):
                                      "after a step")
         return out
 
-    losses = steps(1)                                   # warm-up
     n_layers = len(net.blocks)
     readings = {}
+    losses = []
     for remat, n in ((True, TRAIN_STEPS), (False, 2)):
+        # the step's program holds the remat form it was captured with:
+        # each form compiles its own in its warm-up step, which the peak
+        # takes in (a graph's pool is not allocated memory after it)
         net._remat = remat
-        if not remat:       # its own warm-up: the allocator grows first
-            losses += steps(1)
+        trainer._programs.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        losses += steps(1)
         reset_launches()
         t0 = time.monotonic()
         losses += steps(n)
@@ -2248,6 +2312,8 @@ def moe_path(torch, card, toks, labels):
           f"of peak for {readings[True][0] / readings[False][0]:.3f}x the "
           "step time", flush=True)
     net._remat = True
+    trainer._programs.clear()
+    trainer.step(toks, labels)          # compiles the remat form again
     print("where the time goes (one routed step, remat):", flush=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2602,10 +2668,12 @@ def timed_steps(torch, step, n, tokens, card, what, flop=None, peak=None):
     share = "" if flop is None else (
         f", {flop * n / wall / peak:.1%} of {peak / 1e12:g} TFLOP/s at "
         f"{flop:.4g} FLOP a step")
+    # a captured step's activations live in its graph's pool, which the
+    # allocated peak after the capture leaves out and reserved holds
     print(f"  {what}: {n} steps in {wall:.3f} s: {wall / n * 1e3:.1f} "
           f"ms/step, {count * n / wall:.1f} {unit}/s, peak memory "
-          f"{mib:.0f} MiB{share}, launches per step {launches} [{card}]",
-          flush=True)
+          f"{mib:.0f} MiB (reserved {reserved_mib(torch):.0f}){share}, "
+          f"launches per step {launches} [{card}]", flush=True)
     return [float(x) for x in losses], wall / n * 1e3, mib, launches
 
 
@@ -2616,17 +2684,34 @@ def finite_and_falling(losses, what):
                              f"{losses}")
 
 
-def profile_step(torch, name, fn, card):
-    from torch.profiler import ProfilerActivity, profile
+def profiled(torch, fn):
+    """``fn()`` twice under the profiler, the first call untraced: the
+    profiler can lose the records of the first kernels that run while
+    its tracing starts (one B1 launch and ~2.4 ms of kernels at the head
+    of a GPT-2 step on an H100), so the traced call runs with tracing
+    already on.  Returns the profile and the traced call's wall ms."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    report_profile(torch, name, wall_ms, prof, card,
-                   marks=("flash_fwd", "flash_dq", "flash_dkv"))
+    return prof, wall_ms
+
+
+def profile_step(torch, name, fn, card, want=None):
+    """Profile one call of ``fn`` after one more (see :func:`profiled`
+    and :func:`report_profile`; ``want`` holds the flash kernels'
+    launches to the profiler's count)."""
+    prof, wall_ms = profiled(torch, fn)
+    return report_profile(torch, name, wall_ms, prof, card,
+                          marks=("flash_fwd", "flash_dq", "flash_dkv"),
+                          want=want)
 
 
 def free(torch):
@@ -2770,7 +2855,9 @@ def nmt_batch(b=NMT_B):
 def nmt_attribution(torch, net):
     """Hooks on every attention module that credit the flash launches
     made inside its forward and inside its backward to its kind
-    (encoder, decoder, cross).  Returns (counts, handles)."""
+    (encoder, decoder, cross).  Returns (counts, handles).  The hooks
+    run again while ``ShardedTrainer`` captures its step, which launches
+    nothing: they count only outside a capture."""
     counts = {kind: dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"),
                                   0)
               for kind in ("encoder", "decoder", "cross")}
@@ -2781,11 +2868,14 @@ def nmt_attribution(torch, net):
 
     def before(key):
         def hook(*_a):
-            mark[key] = read_launches()
+            if not torch.cuda.is_current_stream_capturing():
+                mark[key] = read_launches()
         return hook
 
     def after(key, kind):
         def hook(*_a):
+            if torch.cuda.is_current_stream_capturing():
+                return
             now = read_launches()
             for name in counts[kind]:
                 counts[kind][name] += now[name] - mark[key][name]
@@ -3888,6 +3978,366 @@ def programs_path(torch, card, prompts):
     return launches, fwd_launches
 
 
+def in_turns(torch, run, what):
+    """``run(graphed, rnd)`` for both arms, ``GRAPH_ROUNDS`` rounds, the
+    eager arm first in odd rounds: {True: [results], False: [...]}."""
+    print(f"{what}, {GRAPH_ROUNDS} rounds in turns:", flush=True)
+    runs = {True: [], False: []}
+    for rnd in range(1, GRAPH_ROUNDS + 1):
+        for graphed in ((False, True) if rnd % 2 else (True, False)):
+            runs[graphed].append(run(graphed, rnd))
+            free(torch)
+    return runs
+
+
+def arm_summary(runs, keys):
+    return {arm_name(g): [{k: r[k] for k in keys} for r in rs]
+            for g, rs in runs.items()}
+
+
+def reserved_mib(torch):
+    """MiB the allocator holds: a graph's pool, which the peak of
+    ``max_memory_allocated`` after the capture leaves out, is in it (the
+    arms free the allocator's cache after their warm-up step)."""
+    return torch.cuda.memory_reserved() / 2 ** 20
+
+
+def worst_relerr(got, want):
+    """The largest max-abs error over max-abs of paired tensors."""
+    return max((relerr(a, b) for a, b in zip(got, want)), default=0.0)
+
+
+def replayed(graphed, per_step):
+    """The flash kernels' launches a step that a graphed arm's profiled
+    step must show the profiler (replays credit their counts from the
+    capture, so the profiler's count is what measures them); None for
+    the eager arm, whose wrappers count each launch as it happens."""
+    if not graphed:
+        return None
+    return {k: v for k, v in per_step.items() if k.startswith("flash")}
+
+
+def bert_graph_gate(torch, mx, card):
+    """16a's gate: one recorded step of BERT-large at batch
+    ``BERT_PARITY_B`` and dropout 0 under amp, hybridized (the second
+    call, a replay) against not: the loss and every gradient."""
+    batch = bert_batch(BERT_PARITY_B)
+    runs = {}
+    for graphed in (False, True):
+        net = bert_net(0.0)
+        if graphed:
+            net.hybridize()
+        x = [mx.nd.array(a) for a in batch]
+        for _ in range(2):
+            with mx.autograd.record():
+                loss = bert_loss(net(x[0], x[1], None, x[3]), x[4],
+                                 x[5]).mean()
+            loss.backward()
+        torch.cuda.synchronize()
+        runs[graphed] = (loss.tensor.detach().clone(),
+                         [p.grad.clone() for p in net.parameters()
+                          if p.requires_grad])
+        del net, loss
+        free(torch)
+    (lg, gg), (le, ge) = runs[True], runs[False]
+    check(f"16a gate: BERT-large B4 dropout 0 amp, hybridized loss vs not "
+          f"(relative) [{card}]", relerr(lg, le), TOL_GRAPHED)
+    check(f"16a gate: {len(gg)} gradients hybridized vs not (worst, over "
+          f"its max-abs) [{card}]", worst_relerr(gg, ge), TOL_GRAPHED)
+
+
+def bert_graph_arm(torch, mx, card, graphed, rnd):
+    """One arm of 16a: phase 11 (b)'s loop (amp, remat='dots', dropout
+    0.1, B8 x T512), the net hybridized in the graphed arm."""
+    batch = bert_batch()
+    net = bert_net(BERT_DROPOUT)
+    if graphed:
+        net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": BERT_LR})
+    x = [mx.nd.array(a) for a in batch]
+
+    def step():
+        with mx.autograd.record():
+            loss = bert_loss(net(x[0], x[1], None, x[3]), x[4], x[5])
+        loss.backward()
+        trainer.step(BERT_B)
+        return loss.mean().asscalar()
+    first = [float(step())]                  # warm-up (graphed: capture)
+    free(torch)
+    what = f"16a round {rnd} {arm_name(graphed)} BERT-large amp"
+    cpu0 = time.process_time()
+    losses, ms, mib, per = timed_steps(
+        torch, step, BERT_STEPS, ("samples", BERT_B), card, what,
+        BERT_FLOP_PER_SAMPLE * BERT_B, PEAK_FLOPS["bfloat16"])
+    cpu = (time.process_time() - cpu0) / BERT_STEPS * 1e3
+    by_dtype = read_launches_by_dtype()
+    expect_launches(by_dtype, {"flash_fwd": 48 * BERT_STEPS,
+                               "flash_dq": 24 * BERT_STEPS,
+                               "flash_dkv": 24 * BERT_STEPS}, what,
+                    dtype="bfloat16")
+    finite_and_falling(first + losses, what)
+    idle = profile_step(torch, f"{what} step", step, card,
+                        want=replayed(graphed, per))
+    reserved = reserved_mib(torch)
+    print(f"  {what}: host CPU {cpu:.1f} ms a step over {ms:.1f} ms of "
+          f"wall, idle {idle:.1%}, reserved {reserved:.0f} MiB [{card}]",
+          flush=True)
+    if graphed and len(net._cached_op._jit_cache) != 1:
+        raise AssertionError("the hybridized BERT compiled more than one "
+                             "signature")
+    return dict(ms=ms, rate=BERT_B * 1e3 / ms, cpu=cpu, idle=idle,
+                peak=mib, reserved=reserved, launches={k: int(v * BERT_STEPS)
+                                    for k, v in per.items()})
+
+
+def gpt2_graph_arm(torch, mx, card, graphed, rnd, amp):
+    """One arm of 16b: phase 4's GPT-2 124M ``ShardedTrainer`` step
+    (16 x 1024, Adam), float32 or under amp, its private ``_graphs``
+    set by arm."""
+    from mxnet_tpu_torch.models import get_gpt2, gpt2_lm_loss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    toks, labels = train_batch()
+    dtype = "bfloat16" if amp else "float32"
+    if amp:
+        mx.amp.init("bfloat16")
+    try:
+        net = get_gpt2("gpt2_124m", dropout=0.0).initialize(seed=SEED)
+        tr = ShardedTrainer(net, "adam", loss=gpt2_lm_loss,
+                            optimizer_params={"learning_rate": TRAIN_LR})
+        tr._graphs = graphed
+        first = [float(tr.step(toks, labels))]      # warm-up (capture)
+        free(torch)
+        what = f"16b round {rnd} {arm_name(graphed)} GPT-2 {dtype}"
+        losses, ms, mib, per = timed_steps(
+            torch, lambda: tr.step(toks, labels), TRAIN_STEPS,
+            ("tokens", TRAIN_B * TRAIN_T), card, what)
+        expect_launches(read_launches_by_dtype(),
+                        {k: 12 * TRAIN_STEPS for k in
+                         ("flash_fwd", "flash_dq", "flash_dkv")}, what,
+                        dtype=dtype)
+        params = [p.detach().clone() for p in net.parameters()]
+        idle = profile_step(torch, f"{what} step",
+                            lambda: tr.step(toks, labels), card,
+                            want=replayed(graphed, per))
+        reserved = reserved_mib(torch)
+        print(f"  {what}: idle {idle:.1%}, reserved {reserved:.0f} MiB "
+              f"[{card}]", flush=True)
+        if graphed and len(tr._programs) != 1:
+            raise AssertionError(f"{what}: {len(tr._programs)} programs")
+    finally:
+        mx.amp.reset()
+    return dict(ms=ms, rate=TRAIN_B * TRAIN_T * 1e3 / ms, idle=idle,
+                peak=mib, reserved=reserved, losses=first + losses, params=params,
+                launches={k: int(v * TRAIN_STEPS) for k, v in per.items()})
+
+
+def vision_graph_steps(torch, graphed, n=3):
+    """Phase 10's ResNet-50 v1 NHWC ``ShardedTrainer`` (batch 128 x 224²,
+    SGD momentum) from the seed, ``n`` steps: the trainer, and each
+    step's loss and moving statistics."""
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    x, y = vision_batch()
+    net = resnet50()
+    net.initialize(seed=SEED)
+    tr = ShardedTrainer(net, "sgd", loss=vision_ce,
+                        optimizer_params=VISION_OPT)
+    tr._graphs = graphed
+    losses, stats = [], []
+    for _ in range(n):
+        losses.append(float(tr.step(x, (y,))))
+        stats.append([p.detach().clone() for _n, p in tr._aux])
+    return tr, losses, stats
+
+
+def vision_graph_gate(torch, card):
+    """16c's gate: 3 steps graphed and eager under deterministic cuDNN
+    algorithms.  Its default backward-filter algorithms are not
+    deterministic, so two eager runs part after one step too (the timed
+    arms print that control)."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for graphed in (False, True):
+            _tr, losses, stats = vision_graph_steps(torch, graphed)
+            runs[graphed] = (losses, stats)
+            del _tr
+            free(torch)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (lg, sg), (le, se) = runs[True], runs[False]
+    print(f"  16c gate losses graphed {lg}, eager {le} [{card}]", flush=True)
+    check(f"16c gate: moving statistics after 3 steps graphed vs eager, "
+          f"deterministic cuDNN (worst, over its max-abs) [{card}]",
+          worst_relerr(sg[2], se[2]), TOL_GRAPHED)
+
+
+def vision_graph_arm(torch, card, graphed, rnd):
+    """One timed arm of 16c: 3 steps, then ``VISION_STEPS`` timed
+    ones."""
+    x, y = vision_batch()
+    tr, losses, stats = vision_graph_steps(torch, graphed)
+    free(torch)
+    what = f"16c round {rnd} {arm_name(graphed)} ResNet-50"
+    _l, ms, mib, per = timed_steps(torch, lambda: tr.step(x, (y,)),
+                                   VISION_STEPS, ("images", VISION_B),
+                                   card, what)
+    reserved = reserved_mib(torch)
+    print(f"  {what}: reserved {reserved:.0f} MiB [{card}]", flush=True)
+    if any(per.values()):
+        raise AssertionError(f"{what} launched a kernel of the port: {per}")
+    return dict(ms=ms, rate=VISION_B * 1e3 / ms, peak=mib,
+                reserved=reserved, stats=stats[2],
+                losses=losses, launches={k: int(v * VISION_STEPS)
+                                         for k, v in per.items()})
+
+
+def guarded_replay(torch, mx, card):
+    """16d: GPT-2 124M under the loss scaler, graphed: a finite step
+    (captured, then replayed), a finite replay, a replay whose loss is NaN
+    (a poisoned label), then a finite replay."""
+    from mxnet_tpu_torch.models import get_gpt2, gpt2_lm_loss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    toks, labels = (a[:GUARD_B] for a in train_batch())
+    ok = np.zeros(GUARD_B, np.float32)
+    nan = np.full(GUARD_B, np.nan, np.float32)
+
+    def loss(out, y, poison):
+        return gpt2_lm_loss(out, y) + poison.sum()
+    net = get_gpt2("gpt2_124m", dropout=0.0).initialize(seed=SEED)
+    tr = ShardedTrainer(net, "adam", loss=loss,
+                        optimizer_params={"learning_rate": TRAIN_LR},
+                        loss_scaler=mx.amp.LossScaler(2.0 ** 16, 2.0, 2000))
+    for poison in (ok, ok):
+        _l, finite = tr.step(toks, (labels, poison))
+        if not bool(finite):
+            raise AssertionError("16d: a finite step reported non-finite")
+    before = {k: v.clone() for k, v in tr.state_dict().items()
+              if not k.startswith("meta:")}
+    scale = tr.loss_scale
+    reset_launches()
+    _l, finite = tr.step(toks, (labels, nan))
+    after = tr.state_dict()
+    same = all(torch.equal(after[k], v) for k, v in before.items())
+    print(f"  16d NaN replay: all_finite {bool(finite)}, {len(before)} "
+          f"parameter, aux and state tensors bit-identical: {same}, scale "
+          f"{scale} -> {tr.loss_scale}, finite steps "
+          f"{int(after['meta:good_steps'][0])}, launches "
+          f"{read_launches()} [{card}]", flush=True)
+    if bool(finite) or not same or tr.loss_scale != scale / 2:
+        raise AssertionError("16d: the NaN replay changed the state or "
+                             "did not halve the scale")
+    _l, finite = tr.step(toks, (labels, ok))
+    moved = not torch.equal(tr.state_dict()["param:0"], before["param:0"])
+    print(f"  16d finite replay after it: all_finite {bool(finite)}, "
+          f"parameters updated: {moved} [{card}]", flush=True)
+    if not bool(finite) or not moved:
+        raise AssertionError("16d: the step after the NaN replay did not "
+                             "update")
+    if len(tr._programs) != 1:
+        raise AssertionError(f"16d: {len(tr._programs)} programs")
+
+
+def dropout_replays(torch, mx, card):
+    """16e: GPT-2 124M at dropout 0.1 under remat, graphed, learning
+    rate 0: each replay draws new masks (the loss moves with nothing
+    else), the recomputation draws its forward's (B1 2 a layer), and a
+    reseeded run repeats the first loss for loss."""
+    from mxnet_tpu_torch.models import get_gpt2, gpt2_lm_loss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    toks, labels = (a[:DROP_B] for a in train_batch())
+
+    def run():
+        mx.random.seed(SEED)
+        net = get_gpt2("gpt2_124m", dropout=0.1, remat=True)
+        net.initialize(seed=SEED)
+        tr = ShardedTrainer(net, "adam", loss=gpt2_lm_loss,
+                            optimizer_params={"learning_rate": 0.0})
+        reset_launches()
+        losses = [float(tr.step(toks, labels)) for _ in range(4)]
+        return losses, read_launches()
+    first, n = run()
+    again, _n = run()
+    print(f"  16e losses by step {first}, reseeded {again}, launches "
+          f"{n} [{card}]", flush=True)
+    if len(set(first[1:])) != 3:
+        raise AssertionError("16e: two replays drew the same masks")
+    if again != first:
+        raise AssertionError("16e: a reseeded run did not repeat")
+    # four replays, and the first step's warm-up before its capture
+    if n["flash_fwd"] != 5 * 24 or n["flash_dq"] != 5 * 12:
+        raise AssertionError(f"16e: launches {n}, not 24 / 12 / 12 a step "
+                             "and a warm-up")
+
+
+def training_programs_path(torch, card):
+    """Phase 16: the compiled training programs.  Returns the graphed
+    arms' launches by path."""
+    import mxnet_tpu_torch as mx
+    t_phase = time.monotonic()
+    summary, launches = {}, {}
+    print("16a BERT-large, phase 11 (b)'s loop, hybridized vs not:",
+          flush=True)
+    try:
+        mx.amp.init("bfloat16")
+        bert_graph_gate(torch, mx, card)
+        runs = in_turns(
+            torch, lambda g, r: bert_graph_arm(torch, mx, card, g, r),
+            "16a BERT-large B8 T512 amp, remat='dots'")
+    finally:
+        mx.amp.reset()
+    summary["a"] = arm_summary(runs, ("ms", "rate", "cpu", "idle", "peak",
+                                      "reserved"))
+    launches["hybrid_bert_amp"] = runs[True][0]["launches"]
+    for amp in (False, True):
+        dtype = "bfloat16" if amp else "float32"
+        runs = in_turns(
+            torch, lambda g, r: gpt2_graph_arm(torch, mx, card, g, r, amp),
+            f"16b GPT-2 124M ShardedTrainer {dtype}")
+        ge, gg = runs[False][0], runs[True][0]
+        check(f"16b {dtype} {len(gg['losses'])} graphed losses vs eager "
+              f"(worst, relative) [{card}]",
+              max(abs(a - b) / abs(b) for a, b in zip(gg["losses"],
+                                                      ge["losses"])),
+              TOL_GRAPHED)
+        check(f"16b {dtype} final parameters graphed vs eager (worst, over "
+              f"its max-abs) [{card}]",
+              worst_relerr(gg["params"], ge["params"]), TOL_GRAPHED)
+        summary[f"b_{dtype}"] = arm_summary(runs, ("ms", "rate", "idle",
+                                                   "peak", "reserved"))
+        launches["graph_amp" if amp else "graph_train"] = gg["launches"]
+        del runs, ge, gg
+        free(torch)
+    print("16c ResNet-50 v1 NHWC ShardedTrainer float32:", flush=True)
+    vision_graph_gate(torch, card)
+    runs = in_turns(torch,
+                    lambda g, r: vision_graph_arm(torch, card, g, r),
+                    "16c ResNet-50 v1 NHWC, cuDNN's default algorithms")
+    e1, e2, g1 = runs[False][0], runs[False][1], runs[True][0]
+    print(f"  16c control: moving statistics after 3 steps, eager round 1 "
+          f"vs round 2 {worst_relerr(e1['stats'], e2['stats']):.3e}, "
+          f"graphed vs eager round 1 "
+          f"{worst_relerr(g1['stats'], e1['stats']):.3e} (worst, over its "
+          f"max-abs) [{card}]", flush=True)
+    del e1, e2, g1
+    summary["c"] = arm_summary(runs, ("ms", "rate", "peak", "reserved"))
+    launches["graph_vision"] = runs[True][0]["launches"]
+    del runs
+    free(torch)
+    print("16d guarded replay, GPT-2 124M under the loss scaler:",
+          flush=True)
+    guarded_replay(torch, mx, card)
+    free(torch)
+    print("16e dropout under replay, GPT-2 124M, remat:", flush=True)
+    dropout_replays(torch, mx, card)
+    free(torch)
+    print(json.dumps({"training_programs": summary}), flush=True)
+    print(f"phase 16: {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3965,6 +4415,8 @@ def main() -> int:
     free(torch)
     by_path["programs"], by_path["forward"] = programs_path(torch, card,
                                                             prompts)
+    free(torch)
+    by_path.update(training_programs_path(torch, card))
     # each kernel's launches on the path that is its own: the training
     # path for the flash kernels, the serving path for paged attention;
     # the flash kernels' bf16 numbers (phase 2 at the training shape)

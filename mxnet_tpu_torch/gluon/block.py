@@ -23,10 +23,18 @@ from its first call's inputs (:meth:`Block.infer_shape`, given tensors)
 and draws them before its forward runs, as the reference's ``__call__``
 retry does.  Forward hooks and pre-hooks are torch's; they see tensors.
 
-``hybridize`` runs eagerly: it records ``_active`` and the flags
-(``static_alloc``, ``static_shape``), and the block computes exactly
-what it computes unhybridized.  The reference compiles here (its
-CachedOp); the port's compiled form, CUDA graphs, is ROADMAP A2.2.
+``hybridize`` compiles, as the reference's does: a hybridized block's
+call goes through its :class:`~.cached_op.CachedOp`, one CUDA graph per
+signature on the card (its forward, and under ``autograd.record()`` a
+forward and a backward graph replayed as one autograd node), the same
+function on the same static buffers on the CPU.  The children run
+inside the parent's graphs, and a hybridized block called inside
+another program (a ``ShardedTrainer`` step, a serving program) runs
+inline in it.  ``static_alloc`` and ``static_shape`` are
+recorded hints, as in the reference, which compiles whatever they say.
+A block whose parameters wait for their first input settles them with
+one imperative call and calls its CachedOp again (the reference's
+deferred-initialization retry).
 """
 from __future__ import annotations
 
@@ -41,10 +49,12 @@ from .. import initializer as init_mod
 from ..base import MXNetError, torch_dtype
 from ..context import resolve_device
 from ..ndarray.ndarray import NDArray
-from .parameter import (Parameter, ParameterDict, SeededDraws, defer,
-                        deferred_device, finish_deferred, is_initialized,
-                        materialize, new_parameter, replace_parameter,
-                        set_shape, shape_known)
+from ..utils.graphs import in_program
+from .parameter import (DeferredInitializationError, Parameter,
+                        ParameterDict, SeededDraws, defer, deferred_device,
+                        finish_deferred, is_initialized, materialize,
+                        new_parameter, replace_parameter, set_shape,
+                        shape_known)
 
 __all__ = ["Block", "HybridBlock"]
 
@@ -327,24 +337,55 @@ class Block(torch.nn.Module):
 
 
 class HybridBlock(Block):
-    """A Block the reference could compile into one XLA program; the
-    port runs it eagerly.  A subclass defines ``forward`` over tensors,
-    or ``hybrid_forward(self, F, x, *args, **params)`` over NDArrays."""
+    """A Block that ``hybridize`` compiles: its calls then replay one
+    CUDA graph per signature (:class:`~.cached_op.CachedOp`).  A
+    subclass defines ``forward`` over tensors, or
+    ``hybrid_forward(self, F, x, *args, **params)`` over NDArrays."""
 
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._active = False
         self._flags = {}
+        self._cached_op = None
+        # False runs the CachedOp's functions without graphs on the card
+        self._graphs = True
 
     def hybridize(self, active=True, static_alloc=False, static_shape=False,
                   inline_limit=2, forward_bulk_size=None,
                   backward_bulk_size=None, **kwargs):
-        """Record ``active`` and the flags; the children run inside this
-        block, as in the reference.  Eager: outputs are unchanged."""
+        """Compile this block (``active``), dropping any program compiled
+        before; the flags are recorded.  The children run inside this
+        block's programs, as in the reference."""
         self._active = active
         self._flags = dict(static_alloc=static_alloc,
                            static_shape=static_shape, **kwargs)
+        self._cached_op = None
         super().hybridize(active=False)
+
+    def __call__(self, *args, **kwargs):
+        # inside another program (a ShardedTrainer step, a serving
+        # program) the block runs inline, as jax inlines a jitted call
+        # into an enclosing trace
+        if not self._active or in_program():
+            return super().__call__(*args, **kwargs)
+        for _ in range(2):
+            try:
+                return self._call_cached_op(*args, **kwargs)
+            except DeferredInitializationError:
+                self._settle_deferred(*args, **kwargs)
+        return self._call_cached_op(*args, **kwargs)
+
+    def _settle_deferred(self, *args, **kwargs):
+        """One imperative call settles every deferred shape (each layer
+        infers from its own input), as the reference's first dynamic
+        run does."""
+        Block.__call__(self, *args, **kwargs)
+
+    def _call_cached_op(self, *args, **kwargs):
+        from .cached_op import CachedOp
+        if self._cached_op is None:
+            self._cached_op = CachedOp(self, self._flags)
+        return self._cached_op(*args, **kwargs)
 
     def forward(self, *args, **kwargs):
         if type(self).hybrid_forward is HybridBlock.hybrid_forward:

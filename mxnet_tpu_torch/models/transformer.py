@@ -29,6 +29,7 @@ products' kept outputs back (:mod:`~mxnet_tpu_torch.ops.dots`).
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 import torch.utils.checkpoint as _ckpt
@@ -375,9 +376,25 @@ def _remat_layer(blk, x, mask, remat, memory=None):
     are recorded once; those of the recomputation are dropped.  B1
     (``ops/flash.py``, a ctypes launch) is no product: it runs again in
     the recomputation under either form, as the reference's policy
-    saves no Pallas call's output either."""
+    saves no Pallas call's output either.
+
+    Inside a graphed program (``utils/graphs.py``) the generator's
+    state cannot be read or set on the host: the layer's forward draws
+    from one of its program's twin states and the recomputation from
+    the other (:class:`~mxnet_tpu_torch.random.GraphDraws`), which the
+    program aligns before each replay.  ``torch.utils.checkpoint`` keeps
+    no RNG state of its own (``preserve_rng_state=False``): the port
+    never draws from torch's global generators."""
     dev = x.device
-    rng = _random.generator(dev).get_state()
+    draws = _random.graph_draws()
+    if draws is not None:
+        fwd_state, rec_state = draws.twin()
+        fwd_rng = functools.partial(_random.drawing_from, dev, fwd_state)
+        rec_rng = functools.partial(_random.drawing_from, dev, rec_state)
+    else:
+        rng = _random.generator(dev).get_state()
+        fwd_rng = contextlib.nullcontext
+        rec_rng = functools.partial(_random.replay, dev, rng)
     flags = (_base.is_training(), _base.is_recording(),
              _base.aux_collection_active(), _amp.current_policy())
     forward_done = []
@@ -390,21 +407,21 @@ def _remat_layer(blk, x, mask, remat, memory=None):
     def run(h, mem):
         if not forward_done:
             forward_done.append(True)
-            with keep(False):
+            with keep(False), fwd_rng():
                 out, aux = _own_aux(blk, h, mask, mem)
             return (out, *aux)
         prev = (_base.set_training(flags[0]), _base.set_recording(flags[1]),
                 _base.set_aux_collection(flags[2]))
         try:
-            with _amp.policy_scope(flags[3]), _random.replay(dev, rng), \
-                    keep(True):
+            with _amp.policy_scope(flags[3]), rec_rng(), keep(True):
                 _own_aux(blk, h, mask, mem)
         finally:
             _base.set_training(prev[0])
             _base.set_recording(prev[1])
             _base.set_aux_collection(prev[2])
 
-    out, *aux = _ckpt.checkpoint(run, x, memory, use_reentrant=False)
+    out, *aux = _ckpt.checkpoint(run, x, memory, use_reentrant=False,
+                                 preserve_rng_state=False)
     for a in aux:
         _base.record_aux_loss(a)
     return out

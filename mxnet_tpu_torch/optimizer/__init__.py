@@ -19,6 +19,13 @@ their per-tensor norms with ``torch._foreach_norm``): the port's form of
 the reference's single compiled update (``parallel/trainer.py:636-650``),
 which ``gluon.Trainer`` and ``ShardedTrainer`` always use.  A rule with
 no list-wise form (Ftrl) runs its ``update`` per parameter there.
+
+Inside :meth:`Optimizer.traced` the learning rate and the update count
+may be 0-d tensors on the device (``ShardedTrainer`` passes them so, the
+reference's traced ``lr`` and ``t``): every rule then computes its
+step-dependent factors (Adam's ``beta ** t``, LAMB's bias correction,
+Signum's decay) on the device, once per step, so a CUDA graph of the
+step reads the values the host writes before each replay.
 """
 from __future__ import annotations
 
@@ -98,8 +105,10 @@ class Optimizer:
         return 1.0
 
     def _get_lr(self, index):
-        return self.learning_rate * self._mult(index, self.lr_mult,
-                                               "lr_mult")
+        mult = self._mult(index, self.lr_mult, "lr_mult")
+        # a traced step's lr tensor stays one object where mult is 1
+        return self.learning_rate if mult == 1.0 else \
+            self.learning_rate * mult
 
     def _get_wd(self, index):
         return self.wd * self._mult(index, self.wd_mult, "wd_mult")
@@ -117,7 +126,9 @@ class Optimizer:
         count bookkeeping is suspended.  The reference uses it to run the
         optimizer inside its jitted step; ``ShardedTrainer`` uses it here
         so that every parameter of a step sees ``t = num_update``
-        (``parallel/trainer.py:711-713``)."""
+        (``parallel/trainer.py:711-713``).  ``lr`` and ``t`` may be
+        numbers or 0-d tensors on the parameters' device (float32 and
+        int32, as the reference traces them)."""
         return _TracedMode(self, lr, t)
 
     # -- state ------------------------------------------------------------
@@ -237,9 +248,49 @@ def _zeros_like(weight):
 # -- list-wise helpers: each rounds its products as the per-parameter
 # rule's expressions do, one op at a time --------------------------------
 
+def _each(fn, *cols):
+    """``fn`` over the columns' entries, computed once per distinct
+    entry: a traced step's 0-d tensors are one object for every index,
+    so a step-dependent factor costs a few launches a step, not a few a
+    parameter."""
+    memo, out = {}, []
+    for args in zip(*cols):
+        key = tuple(id(a) if isinstance(a, torch.Tensor) else a
+                    for a in args)
+        if key not in memo:
+            memo[key] = fn(*args)
+        out.append(memo[key])
+    return out
+
+
+def _shared(scalars):
+    """The one value every entry of ``scalars`` is, or None."""
+    first = scalars[0] if scalars else None
+    return first if all(s is first for s in scalars) else None
+
+
+def _mul(xs, scalars):
+    """``xs[i] * scalars[i]`` (numbers or 0-d tensors): one list-wise
+    product by a shared value where they are one."""
+    one = _shared(scalars)
+    return torch._foreach_mul(xs, one if one is not None else scalars)
+
+
+def _mul_(xs, scalars):
+    """:func:`_mul` in place."""
+    one = _shared(scalars)
+    torch._foreach_mul_(xs, one if one is not None else scalars)
+
+
+def _div(xs, scalars):
+    """``xs[i] / scalars[i]``, as :func:`_mul`."""
+    one = _shared(scalars)
+    return torch._foreach_div(xs, one if one is not None else scalars)
+
+
 def _plus_wd_(gs, weights, wds):
     """``g + wd * weight`` for every pair, into ``gs``."""
-    torch._foreach_add_(gs, torch._foreach_mul(weights, wds))
+    torch._foreach_add_(gs, _mul(weights, wds))
 
 
 def _ema_(xs, beta, ys):
@@ -269,7 +320,7 @@ def _norms(xs):
 def _scale_each(xs, vector, scalars):
     """``xs[i] * (vector[i] * scalars[i])``: per-tensor factors from a
     device vector, without a copy from the host."""
-    factors = torch._foreach_mul(list(vector.unbind(0)), scalars)
+    factors = _mul(list(vector.unbind(0)), scalars)
     return torch._foreach_mul(xs, factors)
 
 
@@ -299,7 +350,7 @@ class SGD(Optimizer):
 
     def _multi(self, weights, gs, states, lrs, wds, ts):
         _plus_wd_(gs, weights, wds)
-        step = torch._foreach_mul(gs, lrs)
+        step = _mul(gs, lrs)
         if self.momentum == 0.0:
             torch._foreach_sub_(weights, step)
             return
@@ -325,7 +376,7 @@ class NAG(SGD):
 
     def _multi(self, weights, gs, states, lrs, wds, ts):
         _plus_wd_(gs, weights, wds)
-        step = torch._foreach_mul(gs, lrs)
+        step = _mul(gs, lrs)
         if self.momentum != 0.0:
             torch._foreach_mul_(states, self.momentum)
             torch._foreach_sub_(states, step)
@@ -379,8 +430,8 @@ class Adam(Optimizer):
         means, variances = self._moments_multi(gs, states)
         denom = torch._foreach_sqrt(variances)
         torch._foreach_add_(denom, self.epsilon)
-        step = torch._foreach_mul(
-            means, [lr * self._coef(t) for lr, t in zip(lrs, ts)])
+        step = _mul(means, _each(lambda lr, t: lr * self._coef(t), lrs,
+                                 ts))
         torch._foreach_div_(step, denom)
         torch._foreach_sub_(weights, step)
 
@@ -403,10 +454,10 @@ class AdamW(Adam):
         means, variances = self._moments_multi(gs, states)
         denom = torch._foreach_sqrt(variances)
         torch._foreach_add_(denom, self.epsilon)
-        step = torch._foreach_mul(means, [self._coef(t) for t in ts])
+        step = _mul(means, _each(self._coef, ts))
         torch._foreach_div_(step, denom)
         torch._foreach_add_(step, torch._foreach_mul(weights, wds))
-        torch._foreach_mul_(step, lrs)
+        _mul_(step, lrs)
         torch._foreach_sub_(weights, step)
 
 
@@ -448,7 +499,7 @@ class RMSProp(Optimizer):
         cols = _columns(states, 3 if self.centered else 1)
         ns = cols[0]
         _ema_(ns, self.rho, _square(gs))
-        step = torch._foreach_mul(gs, lrs)
+        step = _mul(gs, lrs)
         if self.centered:
             gbars, deltas = cols[1], cols[2]
             _ema_(gbars, self.rho, gs)
@@ -491,7 +542,7 @@ class Adagrad(Optimizer):
         torch._foreach_add_(states, _square(gs))
         denom = torch._foreach_add(states, self.float_stable_eps)
         torch._foreach_sqrt_(denom)
-        step = torch._foreach_mul(gs, lrs)
+        step = _mul(gs, lrs)
         torch._foreach_div_(step, denom)
         torch._foreach_sub_(weights, step)
 
@@ -564,8 +615,8 @@ class Adamax(Optimizer):
         _ema_(means, self.beta1, gs)
         torch._foreach_mul_(us, self.beta2)
         torch._foreach_maximum_(us, torch._foreach_abs(gs))
-        step = torch._foreach_mul(
-            means, [lr / (1.0 - self.beta1 ** t) for lr, t in zip(lrs, ts)])
+        step = _mul(means, _each(lambda lr, t: lr / (1.0 - self.beta1 ** t),
+                                 lrs, ts))
         torch._foreach_div_(step, torch._foreach_add(us, 1e-8))
         torch._foreach_sub_(weights, step)
 
@@ -648,10 +699,8 @@ class LAMB(Optimizer):
         _ema_(means, self.beta1, gs)
         _ema_(variances, self.beta2, _square(gs))
         if self.bias_correction:
-            m_hat = torch._foreach_div(
-                means, [1 - self.beta1 ** t for t in ts])
-            v_hat = torch._foreach_div(
-                variances, [1 - self.beta2 ** t for t in ts])
+            m_hat = _div(means, _each(lambda t: 1 - self.beta1 ** t, ts))
+            v_hat = _div(variances, _each(lambda t: 1 - self.beta2 ** t, ts))
         else:
             m_hat, v_hat = means, variances
         denom = torch._foreach_sqrt(v_hat)
@@ -708,7 +757,7 @@ class LARS(Optimizer):
                             torch.stack(scaled))
         _plus_wd_(gs, weights, wds)
         gs = torch._foreach_mul(gs, list(trust.unbind(0)))
-        step = torch._foreach_mul(gs, lrs)
+        step = _mul(gs, lrs)
         if self.momentum == 0.0:
             torch._foreach_sub_(weights, step)
             return
@@ -752,8 +801,8 @@ class Signum(Optimizer):
         else:
             step = torch._foreach_sign(gs)
             torch._foreach_neg_(step)
-        torch._foreach_mul_(weights, [1 - lr * self.wd_lh for lr in lrs])
-        torch._foreach_add_(weights, torch._foreach_mul(step, lrs))
+        _mul_(weights, _each(lambda lr: 1 - lr * self.wd_lh, lrs))
+        torch._foreach_add_(weights, _mul(step, lrs))
 
 
 @register()

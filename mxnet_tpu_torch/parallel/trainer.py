@@ -2,15 +2,28 @@
 ``mxnet_tpu/parallel/trainer.py``).
 
 The reference compiles forward, backward and the optimizer update into
-one jitted program over a device mesh.  The port runs the same step
-eagerly on the net's device: forward in training mode, the loss, the
-gradients by ``torch.autograd.grad``, and the registered optimizer's
-update, which writes parameters and optimizer state in place.  The step
+one jitted program over a device mesh (``_compile``, ``_step``,
+``trainer.py:596-760``).  The port compiles the same step into one CUDA
+graph per batch signature (the batch's shapes and dtypes;
+``utils/graphs.py``): the forward in training mode, the loss, the
+gradients by ``torch.autograd.grad`` (``grad_accum`` microbatches
+included), the guard, the clip and the loss scaler's schedule, and the
+registered optimizer's update, which writes parameters and optimizer
+state in place.  The first step of a signature runs once on the
+capture stream as a warm-up whose writes are put back, is captured, and
+is then replayed; later steps replay.  A new shape (the last short
+batch) captures another program, as jax retraces.  A capture that fails
+raises ``MXNetError`` naming the trainer and the signature before any
+step is applied, as jax compiles before it runs.  On the CPU,
+and on the card where the private ``_graphs`` is False, the same
+function runs on the same static buffers at every step.  The step
 semantics are the reference's:
 
 - ``num_update += 1``, then every parameter's update sees
   ``t = num_update`` and the learning rate of that count
-  (``trainer.py:711-713``, through :meth:`Optimizer.traced`);
+  (``trainer.py:711-713``, through :meth:`Optimizer.traced`): the host
+  writes both into the program's static inputs (float32 and int32, as
+  the reference traces them) with the batch, one copy a step;
 - the parameters that take no gradient (BatchNorm's moving statistics)
   are aux state: the layers move them in place during the forward, once
   per (micro)batch in microbatch order, as the reference threads them
@@ -24,7 +37,10 @@ semantics are the reference's:
   a non-finite step leaves parameters, aux and optimizer state
   bit-identical and the host never waits for the flag;
 - deferred parameter shapes settle at the first step (or ``build``) by
-  one forward of a one-sample slice in inference mode.
+  one forward of a one-sample slice in inference mode;
+- the loss scale and the count of finite steps are device scalars the
+  step rewrites in place, so ``save_states``, ``load_states``,
+  ``state_dict`` and ``set_learning_rate`` work between replays.
 
 A mesh of more than one device raises: multi-GPU training is ROADMAP
 queue A6.  Orbax checkpoints, ``ResilientLoop``, the ``trainer.step``
@@ -39,9 +55,11 @@ import torch
 
 from .. import base as _base
 from .. import optimizer as opt_mod
+from .. import random as _random
 from ..context import resolve_device
 from ..gluon.parameter import is_initialized
 from ..ndarray.ndarray import NDArray
+from ..utils.graphs import Program
 
 __all__ = ["ShardedTrainer"]
 
@@ -136,6 +154,9 @@ class ShardedTrainer:
         self._states: list = []
         self._state_flat: List[torch.Tensor] = []
         self._pending_states: Optional[dict] = None
+        self._programs: Dict[tuple, "_StepProgram"] = {}
+        # False runs the step's function without graphs on the card
+        self._graphs = True
 
     # ----------------------------------------------------------- guardrails
     @property
@@ -309,9 +330,36 @@ class ShardedTrainer:
             self._build(data)
         opt = self.optimizer
         opt.num_update += 1
-        lr, t = opt.learning_rate, opt.num_update
-        data = [self._to_device(x) for x in data]
-        labels = [self._to_device(x) for x in labels]
+        batch = [self._as_input(x) for x in (*data, *labels)]
+        key = tuple((tuple(x.shape), str(x.dtype)) for x in batch)
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = _StepProgram(self, key, batch,
+                                                      len(data))
+        try:
+            return prog(batch, np.float32(opt.learning_rate),
+                        np.int32(opt.num_update))
+        except BaseException:
+            if prog.prog.graphed and not prog.prog.built:
+                # the capture failed before the step was applied: nothing
+                # moved, and the next call of the signature builds anew
+                del self._programs[key]
+                opt.num_update -= 1
+            raise
+
+    def _as_input(self, x):
+        """A batch array as a program input: numpy arrays stay on the
+        host (the program stages them), tensors and NDArrays move to the
+        trainer's device."""
+        if isinstance(x, NDArray):
+            x = x.tensor
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        return np.asarray(x)
+
+    def _step_fn(self, data, labels, lr, t):
+        """The whole step over static buffers: ``lr`` and ``t`` are 0-d
+        device tensors.  Returns ``(loss,)`` or ``(loss, all_finite)``."""
         scaler = self._loss_scaler
         # the forward moves aux state (BatchNorm's moving statistics) in
         # place; a guarded step that turns out non-finite puts it back
@@ -321,7 +369,7 @@ class ShardedTrainer:
             data, labels, self._scale if scaler is not None else None)
         if not self._guarded:
             self._update(grads, lr, t)
-            return loss
+            return (loss,)
 
         if scaler is not None:       # unscale before clip/flag/update
             inv = 1.0 / self._scale
@@ -342,19 +390,20 @@ class ShardedTrainer:
         with torch.no_grad():
             for (_n, p), old in zip(self._aux, aux_before):
                 torch.where(finite, p, old, out=p)
-
-        zero = torch.zeros_like(self._good)
-        if scaler is not None:
-            factor = float(scaler._scale_factor)
-            good = self._good + 1
-            grow = good >= int(scaler._scale_window)
-            grown = torch.where(grow, self._scale * factor, self._scale)
-            good = torch.where(grow, zero, good)
-            shrunk = torch.clamp(self._scale / factor, min=1.0)
-            self._scale = torch.where(finite, grown, shrunk)
-            self._good = torch.where(finite, good, zero)
-        else:
-            self._good = torch.where(finite, self._good + 1, zero)
+            # the guard state is rewritten in place: a replay writes the
+            # tensors it captured
+            zero = torch.zeros_like(self._good)
+            if scaler is not None:
+                factor = float(scaler._scale_factor)
+                good = self._good + 1
+                grow = good >= int(scaler._scale_window)
+                grown = torch.where(grow, self._scale * factor, self._scale)
+                good = torch.where(grow, zero, good)
+                shrunk = torch.clamp(self._scale / factor, min=1.0)
+                self._scale.copy_(torch.where(finite, grown, shrunk))
+                self._good.copy_(torch.where(finite, good, zero))
+            else:
+                self._good.copy_(torch.where(finite, self._good + 1, zero))
         return loss, finite
 
     # ------------------------------------------------------------------
@@ -475,3 +524,58 @@ class ShardedTrainer:
             t.copy_(d[key])
         self.optimizer.num_update = int(d["meta:num_update"][0])
         self._load_guard(d.get("meta:loss_scale"), d.get("meta:good_steps"))
+
+
+class _StepProgram:
+    """``ShardedTrainer``'s step for one batch signature: static inputs
+    for the batch, ``lr`` and ``t``, and on the card one CUDA graph,
+    captured before the signature's first step is applied."""
+
+    def __init__(self, trainer: ShardedTrainer, key, batch, n_data):
+        self.trainer, self.key, self.n_data = trainer, key, n_data
+        self.prog = Program([*batch, np.float32(0), np.int32(0)],
+                            trainer.device, trainer._graphs, self._failed,
+                            draws=_random.GraphDraws(trainer.device))
+        self.outputs = None
+
+    def _failed(self, e):
+        return _base.MXNetError(
+            f"ShardedTrainer({type(self.trainer.net).__name__}): capturing "
+            f"the step of batch signature {self.key} failed: "
+            f"{type(e).__name__}: {e}")
+
+    def _fn(self):
+        *batch, lr, t = self.prog.inputs
+        n = self.n_data
+        return self.trainer._step_fn(batch[:n], batch[n:], lr, t)
+
+    def _warm(self):
+        """The step once, with everything it writes put back: the
+        parameters, aux state, optimizer state, guard state and the
+        device generator."""
+        tr = self.trainer
+        state = [p for _n, p in tr._trainable + tr._aux] + \
+            tr._state_flat + [x for x in (tr._scale, tr._good)
+                              if x is not None]
+        saved = [x.detach().clone() for x in state]
+        gen = _random.generator(tr.device)
+        rng = gen.get_state()
+        try:
+            self._fn()
+        finally:
+            with torch.no_grad():
+                for x, old in zip(state, saved):
+                    x.copy_(old)
+            gen.set_state(rng)
+
+    def __call__(self, batch, lr, t):
+        prog = self.prog
+        prog.copy_in([*batch, lr, t])
+        if not prog.graphed:
+            outs = prog.run(self._fn)
+        else:
+            if not prog.built:
+                self.outputs, = prog.build(self._warm, self._fn)
+            prog.replay()
+            outs = tuple(o.clone() for o in self.outputs)
+        return outs[0] if len(outs) == 1 else outs

@@ -168,7 +168,9 @@ def test_flash_route_is_differentiable_on_card(dev):
 def test_trainer_step_on_card_matches_cpu(dev):
     """Two Adam steps of a small GPT-2 at T = 256 (the card's run takes
     B1/B2/B3) agree with the same steps on the CPU (reference
-    attention): losses relative 1e-5, parameters max-abs 1e-4."""
+    attention): losses relative 1e-5, parameters max-abs 1e-4.  On the
+    card the step is one graph: B3 launches once a layer in the first
+    step's warm-up (before its capture) and once a layer a replay."""
     from mxnet_tpu_torch.models import gpt2_lm_loss
     from mxnet_tpu_torch.parallel import ShardedTrainer
     rs = onp.random.RandomState(0)
@@ -182,7 +184,7 @@ def test_trainer_step_on_card_matches_cpu(dev):
         tr = ShardedTrainer(net, "adam", loss=gpt2_lm_loss,
                             optimizer_params={"learning_rate": 1e-3})
         losses[where] = [float(tr.step(toks, labels)) for _ in range(2)]
-    assert _launches(flash.flash_dkv) == n0 + 2 * 2
+    assert _launches(flash.flash_dkv) == n0 + 2 + 2 * 2
     assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-5)
     for (name, a), b in zip(nets["cuda"].named_parameters(),
                             nets["cpu"].parameters()):
@@ -1364,3 +1366,358 @@ def test_failed_capture_raises_and_never_falls_back(dev):
     with pytest.raises(ServingError, match="prefix_copy"):
         bad(onp.ones(4, "float32"))
     assert float(torch.ones(3, device=dev).sum()) == 3.0
+
+
+# ------------------------------------------------ graphed training (A2.2b)
+
+def _gpt2_pair(seed, remat=False, dropout=0.0):
+    """Two GPT-2s on the card with one set of weights (flash at D = 64)."""
+    from mxnet_tpu_torch.models import get_gpt2
+    nets = []
+    for _ in range(2):
+        net = get_gpt2("gpt2_124m", vocab_size=256, units=128, num_layers=2,
+                       num_heads=2, max_length=256, dropout=dropout,
+                       remat=remat)
+        nets.append(net.initialize(seed=seed))
+    return nets
+
+
+def _flash_totals():
+    t = launches.totals()
+    return tuple(t[k] for k in ("flash_fwd", "flash_dq", "flash_dkv"))
+
+
+def test_cached_op_replays_equal_eager_calls_after_new_inputs(dev):
+    """A hybridized GPT-2 recorded forward and backward: the replays of
+    its forward and backward graphs against the same CachedOp run
+    without graphs (its private ``_graphs``), three calls with new
+    inputs each: logits, loss and every gradient within 1e-5 of max-abs
+    (cuBLAS may pick another algorithm under capture), B1-B3 launches
+    from replays equal the eager calls', and one signature.  The
+    captured backward's B2 launches on the capture stream (autograd's
+    device thread takes the forward's stream) and writes its output in
+    the graph's private pool."""
+    from mxnet_tpu_torch.models import gpt2_lm_loss
+    seen = []
+    dq = flash.flash_dq
+
+    def watched(*a, **k):
+        out = dq(*a, **k)
+        if torch.cuda.is_current_stream_capturing():
+            seen.append((torch.cuda.current_stream().cuda_stream,
+                         out[0].data_ptr()))
+        return out
+    graphed, eager = _gpt2_pair(4)
+    eager._graphs = False
+    for net in (graphed, eager):
+        net.hybridize()
+    rs = onp.random.RandomState(0)
+    for call in range(3):
+        toks = torch.from_numpy(rs.randint(0, 256, (2, 256))).to(dev)
+        labels = torch.from_numpy(rs.randint(0, 256, (2, 256))).to(dev)
+        runs = []
+        for net in (graphed, eager):
+            launches.reset()
+            net.zero_grad()
+            # the wrapper counts through its module's name: the dict
+            # that launches.reset() just gave it
+            watched.launches_by_dtype = dq.launches_by_dtype
+            flash.flash_dq = watched
+            try:
+                logits = net(toks)
+            finally:
+                flash.flash_dq = dq
+            loss = gpt2_lm_loss(logits, labels)
+            loss.backward()
+            torch.cuda.synchronize()
+            runs.append((logits.detach().clone(), float(loss),
+                         [p.grad.clone() for p in net.parameters()],
+                         _flash_totals()))
+            del logits, loss
+        (lg, vg, gg, ng), (le, ve, ge, ne) = runs
+        assert _relerr(lg, le) <= 1e-5
+        assert vg == pytest.approx(ve, rel=1e-5)
+        for a, b in zip(gg, ge):
+            assert _relerr(a, b) <= 1e-5
+        # the first call warms up (eager launches) before its replay
+        assert ng == ne == (2, 2, 2) or call == 0, call
+    assert len(graphed._cached_op._jit_cache) == 1
+    assert graphed._cached_op._jit_cache[
+        next(iter(graphed._cached_op._jit_cache))]._train
+    # the first call captured the backward: 2 layers' B2 on the stream
+    # of the capture, their dQ in a private (graph) pool's segment
+    assert [h for h, _p in seen] == [graphed._cached_op._stream
+                                     .cuda_stream] * 2
+    segments = torch.cuda.memory._snapshot()["segments"]
+    for _h, ptr in seen:
+        seg = next(g for g in segments
+                   if g["address"] <= ptr < g["address"] + g["total_size"])
+        assert tuple(seg["segment_pool_id"]) != (0, 0)
+
+
+def _bn_net(seed):
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential()
+    net.add(nn.Conv2D(8, 3, padding=1, layout="NHWC"),
+            nn.BatchNorm(axis=3), nn.Activation("relu"),
+            nn.GlobalAvgPool2D(layout="NHWC"), nn.Dense(5))
+    net.initialize(seed=seed)
+    net(torch.zeros((2, 8, 8, 3), device="cuda"))
+    return net
+
+
+@pytest.mark.parametrize("model", ["gpt2", "batchnorm"])
+def test_graphed_trainer_steps_equal_eager_steps(no_tf32, model):
+    """``ShardedTrainer``'s step captured at its first step and
+    replayed, against the same trainer without graphs: 3 steps' losses
+    and the parameters and aux state after them within 1e-5 of max-abs,
+    B1-B3 launches a step equal (GPT-2: 2 of each) but for the first
+    graphed step's warm-up before its capture (2 more), one program.
+    The graphed GPT-2 is hybridized: it runs inline in the step's
+    program and builds no CachedOp of its own."""
+    from mxnet_tpu_torch.models import gpt2_lm_loss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    if model == "gpt2":
+        nets, loss = _gpt2_pair(5), gpt2_lm_loss
+        nets[0].hybridize()
+        rs = onp.random.RandomState(1)
+        batches = [(rs.randint(0, 256, (2, 256)).astype("int32"),
+                    rs.randint(0, 256, (2, 256)).astype("int32"))
+                   for _ in range(3)]
+    else:
+        nets = [_bn_net(6), _bn_net(6)]
+
+        def loss(out, y):
+            return ((out - y) ** 2).mean(-1)
+        rs = onp.random.RandomState(2)
+        batches = [(rs.randn(4, 8, 8, 3).astype("float32"),
+                    rs.randn(4, 5).astype("float32")) for _ in range(3)]
+    runs = []
+    for graphs, net in zip((True, False), nets):
+        tr = ShardedTrainer(net, "adam", loss=loss,
+                            optimizer_params={"learning_rate": 1e-3})
+        tr._graphs = graphs
+        losses, counts = [], []
+        for x, y in batches:
+            launches.reset()
+            losses.append(float(tr.step(x, y)))
+            counts.append(_flash_totals())
+        assert len(tr._programs) == 1
+        runs.append((losses, counts, [p.detach().clone() for p in
+                                      net.parameters()]))
+    (lg, cg, pg), (le, ce, pe) = runs
+    assert lg == pytest.approx(le, rel=1e-5)
+    if model == "gpt2":
+        assert ce == [(2, 2, 2)] * 3
+        assert cg == [(4, 4, 4)] + ce[1:]
+        assert nets[0]._cached_op is None
+    else:
+        assert cg == ce
+    for a, b in zip(pg, pe):
+        assert _relerr(a, b) <= 1e-5
+
+
+def test_remat_dropout_under_replay_draws_the_forward_masks(dev):
+    """A remat layer ``dropout(x * w)`` inside a hybridized block with
+    ``w = 1``: d(sum)/dw is the sum itself only if the recomputation in
+    the replayed backward draws the forward's mask.  Two replays draw
+    other masks; a reseeded block repeats the first."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.models.transformer import run_blocks
+
+    class Scaled(nn.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.w = self._new_param("w", (1,), init="ones")
+            self.drop = nn.Dropout(0.5)
+
+        def forward(self, x):
+            return self.drop(x * self.w)
+
+    class Net(nn.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.blk = Scaled()
+
+        def forward(self, x):
+            return run_blocks([self.blk], x, remat=True)
+
+    def run(seed):
+        mx.random.seed(seed)
+        net = Net()
+        net.initialize(device=dev)
+        net.hybridize()
+        x = torch.rand((64, 256), device=dev, generator=torch.Generator(
+            device=dev).manual_seed(0)) + 0.5
+        out = []
+        for _ in range(3):
+            with mx.autograd.record():
+                y = net(mx.nd.array(x)).sum()
+            y.backward()
+            grad = float(net.blk.w.grad[0])
+            net.blk.w.grad.zero_()
+            out.append((float(y.tensor), grad))
+        return out
+    first = run(7)
+    for total, grad in first:
+        assert grad == pytest.approx(total, rel=1e-5)
+    assert len({t for t, _g in first}) == 3
+    assert run(7) == first
+
+
+def test_capture_with_a_host_read_raises_naming_the_block(dev):
+    """A host read inside a capture: the hybridized block raises
+    ``MXNetError`` naming its class and the signature, at every call,
+    and ``ShardedTrainer`` names itself; the card works on."""
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    class Reads(nn.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.dense = nn.Dense(4, in_units=4)
+
+        def forward(self, x):
+            y = self.dense(x)
+            return y * float(y.sum())
+
+    net = Reads()
+    net.initialize(device=dev)
+    net.hybridize()
+    x = torch.ones((2, 4), device=dev)
+    for _ in range(2):
+        with pytest.raises(MXNetError, match=r"CachedOp\(Reads\).*\(2, 4\)"):
+            with torch.no_grad():
+                net(x)
+    tr = ShardedTrainer(net, "sgd", loss=lambda out, y: (out - y).sum(-1))
+    net.hybridize(False)
+    with pytest.raises(MXNetError, match=r"ShardedTrainer\(Reads\)"):
+        tr.step(onp.ones((2, 4), "float32"), onp.ones((2, 4), "float32"))
+    assert float(torch.ones(3, device=dev).sum()) == 3.0
+
+
+def test_cached_op_results_outlive_later_calls_and_gan_step(no_tf32):
+    """Each call's outputs and gradients are its own: predictions
+    collected over batches, and recorded outputs kept across calls,
+    equal the eager block's per batch (a replay rewrites the static
+    buffers; the caller holds copies).  Gluon's DCGAN discriminator step
+    (the hybridized ``netD`` on real and on detached fake data under one
+    ``record()``: one signature, two outstanding calls, two programs)
+    and the generator's step after it equal the eager arm's."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn
+    dev = no_tf32
+
+    def mlp(units, seed):
+        net = nn.HybridSequential()
+        net.add(nn.Dense(32, activation="tanh"), nn.Dense(units))
+        net.initialize(device=dev, seed=seed)
+        net(torch.zeros((4, 10 if units == 5 else 6), device=dev))
+        return net
+    rs = onp.random.RandomState(0)
+    batches = [torch.from_numpy(rs.randn(4, 10).astype("float32")).to(dev)
+               for _ in range(3)]
+    z = torch.from_numpy(rs.randn(4, 6).astype("float32")).to(dev)
+    runs = {}
+    for graphs in (True, False):
+        d, g = mlp(5, 1), mlp(10, 2)
+        for net in (d, g):
+            net._graphs = graphs
+            net.hybridize()
+        with torch.no_grad():
+            preds = [d(x) for x in batches]
+        with mx.autograd.record():
+            recorded = [d(mx.nd.array(x)) for x in batches]
+            total = recorded[0].sum() + recorded[1].sum() + \
+                recorded[2].sum()
+        total.backward()
+        d.zero_grad()
+        with mx.autograd.record():
+            err_real = (d(mx.nd.array(batches[0])) ** 2).mean()
+            fake = g(mx.nd.array(z))
+            err_fake = ((d(fake.detach()) - 1) ** 2).mean()
+            err_d = err_real + err_fake
+        err_d.backward()
+        d_grads = [p.grad.clone() for p in d.parameters()]
+        g.zero_grad()
+        with mx.autograd.record():
+            err_g = (d(fake) ** 2).mean()
+        err_g.backward()
+        g_grads = [p.grad.clone() for p in g.parameters()]
+        torch.cuda.synchronize()
+        runs[graphs] = ([p.clone() for p in preds],
+                        [r.tensor.detach().clone() for r in recorded],
+                        float(err_d.tensor), float(err_g.tensor),
+                        d_grads, g_grads)
+        if graphs:
+            sigs = d._cached_op._jit_cache
+            assert [len(p) for e in sigs.values()
+                    for p in e._train.values()] == [3, 1]
+    (pg, rg, dg, gg, dgr, ggr), (pe, re_, de, ge, dge, gge) = \
+        runs[True], runs[False]
+    for a, b in zip(pg + rg + dgr + ggr, pe + re_ + dge + gge):
+        assert _maxabs(a, b) <= GRAPH_TOL
+    assert not torch.equal(pg[0], pg[-1])
+    assert dg == pytest.approx(de, rel=1e-5)
+    assert gg == pytest.approx(ge, rel=1e-5)
+
+
+def test_failed_step_capture_applies_nothing(dev):
+    """A ``ShardedTrainer`` step whose capture fails raises before the
+    step is applied, at every call: parameters, optimizer state and the
+    count stay as they were, and no program is kept."""
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    class Reads(nn.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.dense = nn.Dense(4, in_units=4)
+
+        def forward(self, x):
+            y = self.dense(x)
+            return y * float(y.sum())
+
+    net = Reads()
+    net.initialize(device=dev)
+    tr = ShardedTrainer(net, "adam", loss=lambda out, y: (out - y).sum(-1),
+                        optimizer_params={"learning_rate": 0.1})
+    tr.build(onp.ones((2, 4), "float32"))
+    before = {k: v.clone() for k, v in tr.state_dict().items()}
+    for _ in range(2):
+        with pytest.raises(MXNetError, match=r"ShardedTrainer\(Reads\)"):
+            tr.step(onp.ones((2, 4), "float32"), onp.ones((2, 4), "float32"))
+        after = tr.state_dict()
+        for k, v in before.items():
+            assert torch.equal(after[k].cpu(), v.cpu()), k
+        assert tr.optimizer.num_update == 0 and not tr._programs
+
+
+def test_hybridized_block_served_in_forward_mode_runs_inline(no_tf32):
+    """A hybridized block behind the engine's forward mode: the engine's
+    captured program runs it inline (no CachedOp program of its own is
+    built or replayed inside the capture), and served rows equal the
+    block's direct forward."""
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.serving import InferenceEngine
+    dev = no_tf32
+    net = nn.HybridSequential()
+    net.add(nn.Conv2D(8, 3, padding=1, in_channels=3),
+            nn.BatchNorm(in_channels=8), nn.Activation("relu"),
+            nn.GlobalAvgPool2D(), nn.Flatten(), nn.Dense(5, in_units=8))
+    net.initialize(device=dev, seed=0)
+    xs = onp.random.RandomState(1).uniform(
+        -1, 1, (3, 3, 16, 16)).astype("float32")
+    with torch.no_grad():
+        direct = net(torch.from_numpy(xs).to(dev)).cpu()
+    net.hybridize()
+    eng = InferenceEngine(net, max_batch=4, device=dev)
+    assert eng.warmup(example_shape=(3, 16, 16)) == 3
+    with eng:
+        rows = [eng.submit(x).result(timeout=60) for x in xs]
+    onp.testing.assert_allclose(onp.stack(rows), direct.numpy(),
+                                rtol=GRAPH_TOL, atol=GRAPH_TOL)
+    assert net._cached_op is None

@@ -157,6 +157,10 @@ def test_explicit_in_units_no_deferred():
 
 @pytest.mark.parametrize("act", ["relu", "tanh"])
 def test_hybridize_equivalence(act):
+    """The hybridized call goes through the compiled form (one
+    signature, as the reference's ``_jit_cache`` holds), computes what
+    the imperative call computes, and a new ``hybridize`` drops what was
+    compiled."""
     x = _rand(2, 5, 20)
     ref = _ref_mlp(x, act)
     want = ref(nd.array(x))
@@ -164,15 +168,23 @@ def test_hybridize_equivalence(act):
     net.initialize(tmx.init.Xavier())
     load_numpy_params(net, _ref_params(ref))
     imp = net(tmx.nd.array(x))
+    assert net._cached_op is None
     net.hybridize()
     assert net._active and net._flags["static_alloc"] is False
     hyb = net(tmx.nd.array(x))
     assert torch.equal(imp.tensor, hyb.tensor)
     _close(hyb, want)
+    ref.hybridize()
+    ref(nd.array(x))
+    assert len(net._cached_op._jit_cache) == \
+        len(ref._cached_op._jit_cache) == 1
     net.hybridize(static_alloc=True, static_shape=True)
     assert net._flags == {"static_alloc": True, "static_shape": True}
+    assert net._cached_op is None              # recompiles
     assert not net[0]._active                  # children run inside
     _close(net(tmx.nd.array(x)), want)
+    assert len(net._cached_op._jit_cache) == 1
+    assert net[0]._cached_op is None
 
 
 def _grads(pkg, net, x, y):
@@ -423,6 +435,20 @@ def test_static_arg_changes_recompile():
     x = tmx.nd.array([1.0])
     assert net(x, True).asscalar() == 2.0
     assert net(x, False).asscalar() == 3.0
+    # one compiled signature per static value, each reused
+    assert net(x, True).asscalar() == 2.0
+    assert len(net._cached_op._jit_cache) == 2
+
+    class RefScaler(gluon.HybridBlock):
+        def forward(self, x, flag):
+            return x + 1 if flag else x + 2
+
+    ref = RefScaler()
+    ref.initialize()
+    ref.hybridize()
+    for flag in (True, False, True):
+        ref(nd.array([1.0]), flag)
+    assert len(ref._cached_op._jit_cache) == 2
 
 
 def test_explicit_initializer_honored():

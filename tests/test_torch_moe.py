@@ -164,7 +164,8 @@ def test_full_topk_equals_dense_mixture():
 
 
 def test_hybridized_equals_imperative_and_records_once_per_call():
-    """``hybridize`` is eager in the port: the same output and aux bit
+    """The hybridized layer (its CachedOp) computes what the imperative
+    one does: the same output and aux bit
     for bit, one aux entry per call inside ``autograd.record()``, none
     outside it, and ``moe_ffn`` as an op on NDArrays records too."""
     rs = onp.random.RandomState(3)
