@@ -250,11 +250,35 @@ Phases (any failure exits non-zero and prints no result line):
    next finite replay updates.  (e) GPT-2 at dropout 0.1 under remat,
    learning rate 0: replays draw new masks, the recomputation draws its
    forward's (B1 24 a step), a reseeded run repeats the losses.
-17. A ``{"kernels": [...]}`` line, the card line again, and the last
+17. Resilient training at full width: phase 4's GPT-2 124M step under
+   amp (B1-B3 in bf16), guarded with the dynamic loss scaler, dropout
+   0.1, driven by ``ResilientLoop`` (12 seeded batches, a commit every
+   4, two kept, in a temporary directory the phase removes).  (a) The
+   fault-free run under a tracer: its spans (``loop.step``,
+   ``trainer.step``, ``checkpoint.save``, ``checkpoint.commit``), each
+   commit's bytes and ms (snapshot to the host, write with its digest,
+   rename), B1/B2/B3 12 a step from replays; then ms/step of the bare
+   trainer against the loop with tracing off and on, in turns.  (b) A
+   ``FaultPlan`` kills at three ``trainer.step`` hits and at one commit
+   and raises one retried fault; a fresh trainer and loop resume after
+   each kill, and parameters, optimizer state, loss scale, finite-step
+   count and the last loss end bit-identical to (a).  (c) Loss and
+   gradient poisons at two replays: each step non-finite, every other
+   tensor bit-identical across it, the scale halved; under
+   ``on_bad_step='rewind'`` two poisoned steps in a row restore the
+   last commit.  (d) Bit rot in a commit: the resume quarantines it,
+   falls back one commit and still ends bit-identical to (a).  (e)
+   SIGTERM mid-run: a final commit, ``preempted``, and a fresh loop
+   ends bit-identical to (a).  (f) The registry's Prometheus text, a
+   flight-recorder bundle with the card's facts, and a torch.profiler
+   trace of one replayed step with the spans as ranges
+   (``span:trainer.step``, 12/12/12 B1-B3 records).
+18. A ``{"kernels": [...]}`` line, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.  ``launches_by_path`` holds
    every phase's launches (``bert``, ``bert_amp``, ``nmt``, ``lstm``,
-   ``ops``, and phase 16's graphed arms ``hybrid_bert_amp``,
-   ``graph_train``, ``graph_amp`` and ``graph_vision`` among them); the
+   ``ops``, phase 16's graphed arms ``hybrid_bert_amp``,
+   ``graph_train``, ``graph_amp`` and ``graph_vision``, and phase 17's
+   fault-free run ``resilient`` among them); the
    flash kernels carry their numbers at phases 11-12's shapes
    (``shapes``), phase 12's launches by attention and the
    cross-attention call's times.
@@ -507,6 +531,16 @@ TOL_GRAPHED = 1e-5
 # this batch x 1024 tokens; (e) at dropout 0.1 under remat, learning
 # rate 0 so that only the masks move the loss
 GUARD_B, DROP_B = 4, 4
+# phase 17: phase 4's GPT-2 124M step (16 x 1024, Adam at TRAIN_LR) under
+# amp, guarded with the dynamic loss scaler, at dropout 0.1 (so the
+# per-step reseed must reach the generator every captured graph
+# registered), driven by ResilientLoop over RES_STEPS seeded batches, a
+# commit every RES_SAVE steps (two kept), reseeded from RES_SEED
+RES_STEPS, RES_SAVE, RES_SEED, RES_DROPOUT = 12, 4, 7, 0.1
+RES_SCALE = 2.0 ** 16
+# (a)'s timing: the bare trainer and the loop with tracing off and on,
+# RES_TIMED steps each, in turns over RES_ROUNDS rounds
+RES_TIMED, RES_ROUNDS = 8, 2
 
 # H100 SXM published peaks (dense): HBM bytes/s; bf16 on the tensor
 # cores; float32 at float32 accuracy on the tensor cores, which takes
@@ -2689,7 +2723,11 @@ def profiled(torch, fn):
     profiler can lose the records of the first kernels that run while
     its tracing starts (one B1 launch and ~2.4 ms of kernels at the head
     of a GPT-2 step on an H100), so the traced call runs with tracing
-    already on.  Returns the profile and the traced call's wall ms."""
+    already on.  The traced window's start is also set after
+    ``prof.step()`` returns: a replayed step launched at once lost its
+    first ~5 ms of kernel records, one B1 among them, on an H100, so the
+    traced call waits 0.1 s on the host first.  Returns the profile and
+    the traced call's wall ms."""
     from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -2697,6 +2735,7 @@ def profiled(torch, fn):
         fn()
         torch.cuda.synchronize()
         prof.step()
+        time.sleep(0.1)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -4338,6 +4377,435 @@ def training_programs_path(torch, card):
     return launches
 
 
+RES_FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+def res_batches():
+    """Phase 17's data: a fresh iterator over one seeded (tokens, labels)
+    batch a global step."""
+    for i in range(max(RES_STEPS, RES_TIMED)):
+        rs = np.random.RandomState(SEED + 1000 + i)
+        yield tuple(rs.randint(0, VOCAB, (TRAIN_B, TRAIN_T))
+                    .astype(np.int32) for _ in range(2))
+
+
+def res_trainer(mx):
+    """A fresh phase 17 trainer, the same weights every time (amp is on:
+    the caller's ``amp.init``)."""
+    from mxnet_tpu_torch.models import get_gpt2, gpt2_lm_loss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    net = get_gpt2("gpt2_124m", dropout=RES_DROPOUT).initialize(seed=SEED)
+    return ShardedTrainer(net, "adam", loss=gpt2_lm_loss,
+                          optimizer_params={"learning_rate": TRAIN_LR},
+                          guard_nonfinite=True,
+                          loss_scaler=mx.amp.LossScaler(RES_SCALE, 2.0,
+                                                        2000))
+
+
+def res_loop(tr, directory, commits=None, save_every=RES_SAVE, **kw):
+    """A ResilientLoop over ``tr``; with ``commits`` (a list), each
+    commit's bytes and seconds by phase (the checkpointer's
+    ``last_save``) and the whole save's seconds are appended to it."""
+    from mxnet_tpu_torch.resilience import ResilientLoop
+    loop = ResilientLoop(tr, directory, save_every=save_every,
+                         seed=RES_SEED, max_to_keep=2, backoff=0.0, **kw)
+    if commits is not None:
+        ck = loop.checkpointer
+        save = ck.save
+
+        def timed(step, tree, meta=None):
+            t0 = time.monotonic()
+            out = save(step, tree, meta)
+            commits.append(dict(ck.last_save,
+                                total_s=time.monotonic() - t0))
+            return out
+        ck.save = timed
+    return loop
+
+
+def res_state(tr):
+    """Every tensor of the trainer's state (parameters, optimizer state,
+    step count, loss scale, finite-step count), cloned."""
+    return {k: v.clone() for k, v in tr.state_dict().items()}
+
+
+def res_differ(torch, got, want):
+    """The keys of ``want`` whose tensors ``got`` does not hold bit for
+    bit."""
+    return sorted(k for k, v in want.items()
+                  if k not in got or not torch.equal(got[k], v))
+
+
+def res_gate(what, ok, detail=""):
+    print(f"  {what}: {'ok' if ok else 'FAIL'}{detail}", flush=True)
+    if not ok:
+        raise AssertionError(f"{what}{detail}")
+
+
+def commit_line(rows):
+    """Per commit: MB, ms for the snapshot (device to host), the write
+    with its digest, the rename, and the whole save."""
+    return ", ".join(
+        f"step {r['step']}: {r['bytes'] / 1e6:.1f} MB, snapshot "
+        f"{r['snapshot_s'] * 1e3:.1f} + write {r['write_s'] * 1e3:.1f} + "
+        f"rename {r['rename_s'] * 1e3:.2f} = {r['total_s'] * 1e3:.1f} ms"
+        for r in rows)
+
+
+def res_reference(torch, mx, card, root):
+    """17a: the fault-free run under a tracer, then the bare trainer
+    against the loop, tracing off and on, in turns.  Returns the
+    trainer, its final state and loss, the launches and the commits."""
+    from mxnet_tpu_torch import observability as obs
+    tr, commits = res_trainer(mx), []
+    loop = res_loop(tr, f"{root}/a", commits)
+    tracer = obs.enable_tracing()
+    try:
+        reset_launches()
+        t0 = time.monotonic()
+        report = loop.run(res_batches, RES_STEPS)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        spans = [s.name for s in tracer.spans()]
+    finally:
+        obs.disable_tracing()
+    by_dtype = read_launches_by_dtype()
+    launches = read_launches()
+    want, loss = res_state(tr), report["final_loss"]
+    print(f"  17a fault-free: {RES_STEPS} steps in {wall:.3f} s (a capture "
+          f"and {len(commits)} commits in), final loss {loss!r}, scale "
+          f"{tr.loss_scale}, reserved {reserved_mib(torch):.0f} MiB "
+          f"[{card}]", flush=True)
+    print(f"  17a commits: {commit_line(commits)} [{card}]", flush=True)
+    # a fresh trainer warms its step up once before the capture
+    expect_launches(by_dtype, dict.fromkeys(RES_FLASH, 12 * (RES_STEPS + 1)),
+                    "17a", dtype="bfloat16")
+    counts = {n: spans.count(n) for n in ("loop.step", "trainer.step",
+                                          "checkpoint.save",
+                                          "checkpoint.commit")}
+    res_gate(f"17a spans {counts}",
+             counts == {"loop.step": RES_STEPS, "trainer.step": RES_STEPS,
+                        "checkpoint.save": RES_STEPS // RES_SAVE,
+                        "checkpoint.commit": RES_STEPS // RES_SAVE})
+    res_gate("17a report", report["completed_steps"] == RES_STEPS
+             and report["bad_steps"] == 0 and len(tr._programs) == 1,
+             f" {report}")
+    arms = res_timing(torch, card, tr, root)
+    return tr, want, loss, launches, commits, arms
+
+
+def res_timing(torch, card, tr, root):
+    """17a's timing: ms/step of the captured trainer bare (``step`` in a
+    loop, one sync at the end) against ``ResilientLoop`` with tracing
+    off and on (which reads each step's finite flag), RES_TIMED steps an
+    arm, in turns; a loop arm commits once, at its last step, and its
+    ms/step leave the commit out.  Each arm launches B1-B3 12 times a
+    step from replays."""
+    from mxnet_tpu_torch import observability as obs
+    arms = {"bare": [], "loop": [], "loop+trace": []}
+    order = list(arms)
+    for rnd in range(RES_ROUNDS):
+        for arm in (order if rnd % 2 == 0 else order[::-1]):
+            commits = []
+            tracer = obs.enable_tracing() if arm == "loop+trace" else None
+            try:
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.monotonic()
+                if arm == "bare":
+                    for x, y in list(res_batches())[:RES_TIMED]:
+                        tr.step(x, y)
+                else:
+                    res_loop(tr, f"{root}/t{rnd}{arm}", commits,
+                             save_every=RES_TIMED).run(res_batches,
+                                                       RES_TIMED)
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+            finally:
+                obs.disable_tracing()
+            expect_launches(read_launches_by_dtype(),
+                            dict.fromkeys(RES_FLASH, 12 * RES_TIMED),
+                            f"17a {arm}", dtype="bfloat16")
+            spent = wall - sum(r["total_s"] for r in commits)
+            ms = spent / RES_TIMED * 1e3
+            arms[arm].append(ms)
+            extra = "" if tracer is None else \
+                f", {len(tracer.spans())} spans"
+            print(f"  17a round {rnd + 1} {arm}: {ms:.2f} ms/step over "
+                  f"{RES_TIMED} steps{extra}"
+                  + (f"; commit {commit_line(commits)}" if commits else "")
+                  + f" [{card}]", flush=True)
+    print(f"  17a ms/step in turns: {arms} [{card}]", flush=True)
+    return arms
+
+
+def res_observability(torch, card, tr, root):
+    """17f: the registry's Prometheus text, a flight-recorder bundle, and
+    a torch.profiler trace of one replayed step with the spans as
+    ranges: the ``trainer.step`` range and 12/12/12 B1-B3 records."""
+    from mxnet_tpu_torch import observability as obs
+    text = obs.to_prometheus(obs.default_registry().collect())
+    parsed = obs.parse_prometheus(text)
+    steps = parsed.get(("mxtpu_trainer_steps_total", ()), 0)
+    commits = parsed.get(("mxtpu_checkpoint_commits_total", ()), 0)
+    res_gate(f"17f Prometheus text ({len(text)} bytes, {len(parsed)} "
+             f"series): mxtpu_trainer_steps_total {steps}, "
+             f"mxtpu_checkpoint_commits_total {commits}",
+             steps >= RES_STEPS and commits >= RES_STEPS // RES_SAVE)
+    fr = obs.enable_flight_recorder(bundle_dir=f"{root}/flight")
+    try:
+        bundle = json.load(open(fr.dump("phase17.dump")))
+    finally:
+        obs.disable_flight_recorder()
+    v = bundle["versions"]
+    res_gate(f"17f flight bundle versions {v}",
+             v["devices"] == [torch.cuda.get_device_name(0)]
+             and v["device_count"] == torch.cuda.device_count()
+             and v["torch"] == torch.__version__
+             and v["cuda"] == torch.version.cuda)
+    x, y = next(res_batches())
+    obs.enable_tracing(profiler_markers=True)
+    try:
+        prof, wall_ms = profiled(torch, lambda: tr.step(x, y))
+    finally:
+        obs.disable_tracing()
+    # the range is a host event, and its annotation on the card's
+    # timeline around the replay's kernels a device one
+    ranges = {str(e.device_type).split(".")[-1]: e.count
+              for e in prof.key_averages() if e.key == "span:trainer.step"}
+    seen = _device_counts(torch, prof, RES_FLASH)
+    res_gate(f"17f profiled replay ({wall_ms:.1f} ms): span:trainer.step "
+             f"ranges {ranges}, B1-B3 records {seen}",
+             ranges.get("CPU") == 1
+             and seen == dict.fromkeys(RES_FLASH, 12))
+
+
+def res_chaos(torch, mx, card, root, want, want_loss):
+    """17b: kills at three distinct ``trainer.step`` hits and one at the
+    commit, and a retried fault; a fresh trainer and loop resume after
+    each kill, and the run ends bit-identical to 17a."""
+    from mxnet_tpu_torch.resilience import FaultPlan, SimulatedPreemption
+    plan = (FaultPlan(seed=0)
+            .kill_at("trainer.step", at=6)
+            .kill_at("trainer.step", at=11)
+            .kill_at("trainer.step", at=14)
+            .kill_at("checkpoint.commit", at=3)
+            .raise_at("trainer.step", at=20, retryable=True))
+    kills, report, loop, commits = 0, None, None, []
+    with plan:
+        for _ in range(8):
+            loop = None
+            free(torch)
+            loop = res_loop(res_trainer(mx), f"{root}/b", commits)
+            try:
+                report = loop.run(res_batches, RES_STEPS)
+                break
+            except SimulatedPreemption:
+                kills += 1
+                print(f"  17b killed ({plan.log[-1]}), latest commit "
+                      f"{loop.checkpointer.latest_step()}, reserved "
+                      f"{reserved_mib(torch):.0f} MiB", flush=True)
+    got = res_state(loop.trainer)
+    differ = res_differ(torch, got, want)
+    print(f"  17b report {report}, counters resumes "
+          f"{loop.metrics.counters['resumes']} retries "
+          f"{loop.metrics.counters['retries']}", flush=True)
+    res_gate(f"17b {kills} kills, {plan.fired()} faults fired, "
+             f"{len(want)} tensors vs 17a, bit-identical",
+             kills == 4 and plan.fired() == 5 and not differ
+             and report["final_loss"] == want_loss
+             and report["retries"] == 1
+             and loop.metrics.counters["resumes"] >= 1,
+             f" (differ: {differ[:6]}, loss {report['final_loss']!r} vs "
+             f"{want_loss!r})")
+    return commits
+
+
+class ResRecorder:
+    """Each step's finite flag (wrapping ``tr.step``) and, at chosen
+    ``trainer.step`` hits, the state before that step (a ``call_at``
+    fires before the step moves anything)."""
+
+    def __init__(self, tr):
+        self.tr, self.flags, self.states, self.scales = tr, [], {}, {}
+        step = tr.step
+
+        def rec(data, labels):
+            out = step(data, labels)
+            self.flags.append(bool(out[1]))
+            return out
+        tr.step = rec
+
+    def at(self, hit):
+        def snap():
+            self.states[hit] = res_state(self.tr)
+            self.scales[hit] = self.tr.loss_scale
+        return snap
+
+
+def res_poison(torch, mx, card, root):
+    """17c: a loss poison at step 3 and a gradient poison (Inf) at step 6
+    of the replayed graph: each step non-finite, every tensor but the
+    count and the guard state bit-identical across it, the scale halved;
+    then two poisoned steps in a row under ``on_bad_step='rewind'``
+    restore the step-4 commit."""
+    from mxnet_tpu_torch.resilience import AtomicCheckpointer, FaultPlan
+    n = 2 * RES_SAVE
+    tr = res_trainer(mx)
+    rec = ResRecorder(tr)
+    plan = (FaultPlan()
+            .nonfinite_at("trainer.loss_nonfinite", at=3)
+            .nonfinite_at("trainer.grad_nonfinite", at=6,
+                          value=float("inf")))
+    for hit in (3, 4, 6, 7, 8):
+        plan.call_at("trainer.step", at=hit, fn=rec.at(hit))
+    with plan:                   # one commit, at the end
+        report = res_loop(tr, f"{root}/c", save_every=n).run(res_batches,
+                                                              n)
+    guard = {"meta:num_update", "meta:loss_scale", "meta:good_steps"}
+    for hit in (3, 6):
+        before, after = rec.states[hit], rec.states[hit + 1]
+        moved = set(res_differ(torch, after, before))
+        res_gate(f"17c poisoned step {hit}: flag {rec.flags[hit - 1]}, "
+                 f"{len(before) - len(moved)} of {len(before)} tensors "
+                 f"bit-identical, scale {rec.scales[hit]} -> "
+                 f"{rec.scales[hit + 1]}",
+                 rec.flags[hit - 1] is False and moved == guard
+                 and rec.scales[hit + 1] == rec.scales[hit] / 2)
+    moved = res_differ(torch, rec.states[8], rec.states[7])
+    res_gate(f"17c flags {rec.flags}, bad_steps {report['bad_steps']}, "
+             f"the step after updates ({len(moved)} tensors moved)",
+             rec.flags == [True, True, False, True, True, False, True, True]
+             and report["bad_steps"] == 2 and "param:0" in moved)
+    del rec, tr
+    free(torch)
+    tr = res_trainer(mx)
+    rec = ResRecorder(tr)
+    plan = (FaultPlan()
+            .nonfinite_at("trainer.loss_nonfinite", at=6)
+            .nonfinite_at("trainer.loss_nonfinite", at=7)
+            .call_at("trainer.step", at=8, fn=rec.at(8)))
+    with plan:
+        report = res_loop(tr, f"{root}/c-rewind", on_bad_step="rewind",
+                          rewind_after=2).run(res_batches, n)
+    committed, meta = AtomicCheckpointer(f"{root}/c-rewind").restore(
+        RES_SAVE)
+    differ = sorted(k for k, v in committed.items()
+                    if not k.startswith("meta:")
+                    and not torch.equal(rec.states[8][k].cpu(), v))
+    res_gate(f"17c rewind: rewinds {report['rewinds']}, bad_steps "
+             f"{report['bad_steps']}, step 8 starts from the step-"
+             f"{meta['step']} commit ({len(committed)} tensors)",
+             report["rewinds"] == 1 and report["bad_steps"] == 2
+             and meta["step"] == RES_SAVE and not differ,
+             f" (differ: {differ[:6]})")
+
+
+def res_rot(torch, mx, card, root, want, want_loss):
+    """17d: bit rot in the step-8 commit, then a kill at step 9: the
+    resume quarantines step 8, falls back to step 4, and the run ends
+    bit-identical to 17a."""
+    from mxnet_tpu_torch.resilience import FaultPlan, SimulatedPreemption
+    plan = (FaultPlan().corrupt_at("checkpoint.corrupt", at=2)
+            .kill_at("trainer.step", at=2 * RES_SAVE + 2))
+    with plan:
+        loop = res_loop(res_trainer(mx), f"{root}/d")
+        try:
+            loop.run(res_batches, RES_STEPS)
+            killed = False
+        except SimulatedPreemption:
+            killed = True
+        loop = None
+        free(torch)
+        loop = res_loop(res_trainer(mx), f"{root}/d")
+        report = loop.run(res_batches, RES_STEPS)
+    c = loop.metrics.counters
+    differ = res_differ(torch, res_state(loop.trainer), want)
+    res_gate(f"17d rot at the step-{2 * RES_SAVE} commit: resumed from "
+             f"{report['resumed_from']}, quarantines "
+             f"{c['checkpoint_quarantines']}, fallbacks "
+             f"{c['checkpoint_fallbacks']} ({loop.checkpointer.quarantined()}"
+             f"), bit-identical to 17a",
+             killed and report["resumed_from"] == RES_SAVE
+             and c["checkpoint_quarantines"] == 1
+             and c["checkpoint_fallbacks"] == 1 and not differ
+             and report["final_loss"] == want_loss,
+             f" (differ: {differ[:6]})")
+
+
+def res_sigterm(torch, mx, card, root, want, want_loss):
+    """17e: SIGTERM to the process at step 6: the loop finishes the step,
+    commits and returns preempted; a fresh loop completes bit-identical
+    to 17a (commits every 8 steps, so the resume is from the SIGTERM's
+    commit alone)."""
+    import os
+    import signal
+    from mxnet_tpu_torch.resilience import FaultPlan
+    at = RES_SAVE + 2
+    with FaultPlan().call_at("trainer.step", at=at,
+                             fn=lambda: os.kill(os.getpid(),
+                                                signal.SIGTERM)):
+        loop = res_loop(res_trainer(mx), f"{root}/e",
+                        save_every=2 * RES_SAVE)
+        first = loop.run(res_batches, RES_STEPS)
+        latest = loop.checkpointer.latest_step()
+    loop = None
+    free(torch)
+    loop = res_loop(res_trainer(mx), f"{root}/e", save_every=2 * RES_SAVE)
+    report = loop.run(res_batches, RES_STEPS)
+    differ = res_differ(torch, res_state(loop.trainer), want)
+    res_gate(f"17e SIGTERM at step {at}: preempted {first['preempted']} "
+             f"after {first['completed_steps']} steps, latest commit "
+             f"{latest}; resumed from {report['resumed_from']}, "
+             f"bit-identical to 17a",
+             first["preempted"] is True and first["completed_steps"] == at
+             and latest == at and report["resumed_from"] == at
+             and not differ and report["final_loss"] == want_loss,
+             f" (differ: {differ[:6]})")
+
+
+def resilient_path(torch, card):
+    """Phase 17: resilient training at full width.  Returns the fault-free
+    run's launches."""
+    import shutil
+    import tempfile
+    import mxnet_tpu_torch as mx
+    t_phase = time.monotonic()
+    root = tempfile.mkdtemp(prefix="mxtpu-phase17-")
+    print(f"17 GPT-2 124M amp, guarded, dropout {RES_DROPOUT}, under "
+          f"ResilientLoop: {RES_STEPS} steps of {TRAIN_B} x {TRAIN_T}, a "
+          f"commit every {RES_SAVE}, seed {RES_SEED}:", flush=True)
+    mx.amp.init("bfloat16")
+    try:
+        tr, want, want_loss, launches, commits, arms = res_reference(
+            torch, mx, card, root)
+        res_observability(torch, card, tr, root)
+        del tr
+        free(torch)
+        parts = {}
+        for name, fn in (
+                ("b", lambda: res_chaos(torch, mx, card, root, want,
+                                        want_loss)),
+                ("c", lambda: res_poison(torch, mx, card, root)),
+                ("d", lambda: res_rot(torch, mx, card, root, want,
+                                      want_loss)),
+                ("e", lambda: res_sigterm(torch, mx, card, root, want,
+                                          want_loss))):
+            t0 = time.monotonic()
+            fn()
+            parts[name] = round(time.monotonic() - t0, 1)
+            free(torch)
+    finally:
+        mx.amp.reset()
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"resilient_training": {
+        "commits": commits, "ms_per_step": arms, "seconds": parts}}),
+        flush=True)
+    print(f"phase 17: {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4417,6 +4885,8 @@ def main() -> int:
                                                             prompts)
     free(torch)
     by_path.update(training_programs_path(torch, card))
+    free(torch)
+    by_path["resilient"] = resilient_path(torch, card)
     # each kernel's launches on the path that is its own: the training
     # path for the flash kernels, the serving path for paged attention;
     # the flash kernels' bf16 numbers (phase 2 at the training shape)

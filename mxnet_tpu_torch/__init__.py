@@ -11,15 +11,16 @@ for paged attention.  Entry points run on the current CUDA device unless
 the caller asks for the CPU (``device="cpu"``, ``ctx=mx.cpu()`` or
 ``with mx.cpu():``); without a card they raise.
 """
-from . import (amp, autograd, base, context, gluon, initializer,
-               lr_scheduler, models, ndarray, ops, optimizer, parallel,
-               random, serving)
+from . import (amp, analysis, autograd, base, context, gluon, initializer,
+               lr_scheduler, models, ndarray, observability, ops, optimizer,
+               parallel, profiler, random, resilience, serving)
 from . import initializer as init
 from . import ndarray as nd
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "amp",
-           "autograd", "base", "context", "gluon", "init", "initializer",
-           "lr_scheduler", "models", "nd", "ndarray", "ops", "optimizer",
-           "parallel", "random", "serving"]
+           "analysis", "autograd", "base", "context", "gluon", "init",
+           "initializer", "lr_scheduler", "models", "nd", "ndarray",
+           "observability", "ops", "optimizer", "parallel", "profiler",
+           "random", "resilience", "serving"]

@@ -1,0 +1,292 @@
+"""Fleet exporters: Prometheus text format, JSON lines, and a
+background exporter thread with graceful drain (counterpart of
+``mxnet_tpu/observability/export.py``, the same text byte for byte).
+
+``to_prometheus(snapshot)`` renders a :meth:`MetricsRegistry.collect`
+snapshot in the Prometheus text exposition format (0.0.4): counters as
+``_total``-suffixed samples, gauges plain, histograms as cumulative
+``_bucket{le=...}`` series plus ``_sum``/``_count``.
+``parse_prometheus`` is the inverse (enough of it for round-trip tests;
+real fleets scrape with a real parser).
+
+:class:`BackgroundExporter` is the push-side: a daemon thread that
+periodically collects and writes the rendering ATOMICALLY (temp file +
+``os.replace``), so a scrape — or a SIGTERM, or an engine crash —
+can never observe a torn file.  ``stop(flush=True)`` performs one final
+export and joins; the serving engine calls it from ``stop()`` (and
+therefore from its SIGTERM handler), which is the graceful-drain wiring
+the ``exporter_storm`` chaos scenario exercises.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import tempfile
+import threading
+from typing import Callable, Dict, Optional, Tuple
+
+from .registry import MetricsRegistry, default_registry
+
+__all__ = ["to_prometheus", "to_json_lines", "parse_prometheus",
+           "flatten", "BackgroundExporter"]
+
+
+def _escape_label_value(v) -> str:
+    """Prometheus label-value escaping (exposition format 0.0.4):
+    backslash, double-quote and NEWLINE are the three escapes.  Engine
+    and fleet names are user-supplied strings, so a raw newline here
+    would tear the sample line in half — half a metric for the scraper
+    and a parse failure for everyone honest."""
+    return (str(v).replace("\\", r"\\").replace('"', r"\"")
+            .replace("\n", r"\n"))
+
+
+def _fmt_labels(labels: Dict[str, str]) -> str:
+    if not labels:
+        return ""
+    inner = ",".join('%s="%s"' % (k, _escape_label_value(v))
+                     for k, v in sorted(labels.items()))
+    return "{%s}" % inner
+
+
+def _fmt_value(v) -> str:
+    if v == float("inf"):
+        return "+Inf"
+    f = float(v)
+    return repr(int(f)) if f == int(f) else repr(f)
+
+
+_NAME_RE = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def _sanitize(name: str) -> str:
+    return _NAME_RE.sub("_", name)
+
+
+def to_prometheus(snapshot: dict) -> str:
+    """Render a collect() snapshot as Prometheus text format."""
+    lines = []
+    seen_header = set()
+
+    def header(name, kind, help):
+        if name in seen_header:
+            return
+        seen_header.add(name)
+        if help:
+            lines.append(f"# HELP {name} {help}")
+        lines.append(f"# TYPE {name} {kind}")
+
+    for s in snapshot.get("samples", ()):
+        name = _sanitize(s["name"])
+        labels = s.get("labels", {})
+        if s["kind"] == "counter":
+            pname = name if name.endswith("_total") else name + "_total"
+            header(pname, "counter", s.get("help", ""))
+            lines.append(f"{pname}{_fmt_labels(labels)} "
+                         f"{_fmt_value(s['value'])}")
+        elif s["kind"] == "gauge":
+            header(name, "gauge", s.get("help", ""))
+            lines.append(f"{name}{_fmt_labels(labels)} "
+                         f"{_fmt_value(s['value'])}")
+        elif s["kind"] == "histogram":
+            header(name, "histogram", s.get("help", ""))
+            for le, cum in s["buckets"]:
+                bl = dict(labels)
+                bl["le"] = "+Inf" if le == float("inf") else repr(float(le))
+                lines.append(f"{name}_bucket{_fmt_labels(bl)} {cum}")
+            lines.append(f"{name}_sum{_fmt_labels(labels)} "
+                         f"{_fmt_value(s['sum'])}")
+            lines.append(f"{name}_count{_fmt_labels(labels)} "
+                         f"{s['count']}")
+    return "\n".join(lines) + "\n" if lines else ""
+
+
+_SAMPLE_RE = re.compile(
+    # labels are matched GREEDILY to the last `}` before the value: a
+    # label VALUE may legally contain `}` (only \ " and newline are
+    # escaped), so `[^}]*` would truncate `{name="a}b"}` mid-value
+    r"^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)"
+    r"(?:\{(?P<labels>.*)\})?\s+(?P<value>\S+)\s*$")
+_LABEL_RE = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+_UNESCAPE_RE = re.compile(r"\\(.)")
+_UNESCAPES = {"n": "\n", '"': '"', "\\": "\\"}
+
+
+def _unescape_label_value(v: str) -> str:
+    """Single-pass inverse of :func:`_escape_label_value`.  Sequential
+    ``str.replace`` calls are WRONG here: with ``\\n`` in the escape
+    set, the wire text ``\\\\n`` (a literal backslash followed by the
+    letter n) contains the two-char sequence ``\\n`` and a naive
+    replace would turn it into a real newline."""
+    return _UNESCAPE_RE.sub(
+        lambda m: _UNESCAPES.get(m.group(1), m.group(1)), v)
+
+
+def parse_prometheus(text: str) \
+        -> Dict[Tuple[str, Tuple[Tuple[str, str], ...]], float]:
+    """Parse Prometheus text back into ``{(name, labels): value}``.
+    Raises ``ValueError`` on any malformed non-comment line — a torn or
+    truncated export must FAIL parsing, not half-succeed (that property
+    is what the chaos scenario asserts)."""
+    out: Dict[Tuple[str, Tuple[Tuple[str, str], ...]], float] = {}
+    for ln in text.splitlines():
+        ln = ln.strip()
+        if not ln or ln.startswith("#"):
+            continue
+        m = _SAMPLE_RE.match(ln)
+        if m is None:
+            raise ValueError(f"malformed prometheus sample line: {ln!r}")
+        labels = tuple(sorted(
+            (k, _unescape_label_value(v))
+            for k, v in _LABEL_RE.findall(m.group("labels") or "")))
+        raw = m.group("value")
+        value = float("inf") if raw == "+Inf" else \
+            float("-inf") if raw == "-Inf" else float(raw)
+        out[(m.group("name"), labels)] = value
+    return out
+
+
+def to_json_lines(snapshot: dict) -> str:
+    """One JSON object per sample line, prefixed by a meta line carrying
+    ``schema_version``/``collected_at`` — greppable, appendable, and
+    each line parses on its own.  STRICT JSON: the open-ended
+    histogram bucket bound is rendered as the string ``"+Inf"`` (the
+    Prometheus spelling), never the non-RFC ``Infinity`` token Python
+    would otherwise emit — jq / JSON.parse / Go consumers must not
+    choke on every histogram line."""
+    lines = [json.dumps({"schema_version": snapshot.get("schema_version"),
+                         "collected_at": snapshot.get("collected_at")})]
+    for s in snapshot.get("samples", ()):
+        if s["kind"] == "histogram":
+            s = dict(s)
+            s["buckets"] = [
+                ["+Inf" if le == float("inf") else le, cum]
+                for le, cum in s["buckets"]]
+        lines.append(json.dumps(s, default=str, allow_nan=False))
+    return "\n".join(lines) + "\n"
+
+
+def flatten(snapshot: Optional[dict] = None,
+            prefix: Optional[str] = None,
+            include_zero: bool = False) -> Dict[str, float]:
+    """Compact ``{"name{label=value}": value}`` flattening of counters
+    and gauges (histograms contribute their count/sum) — the form bench
+    records embed so perf numbers and process counters travel in one
+    JSON line.  ``snapshot=None`` collects the default registry."""
+    if snapshot is None:
+        snapshot = default_registry().collect()
+    out: Dict[str, float] = {}
+    for s in snapshot.get("samples", ()):
+        if prefix is not None and not s["name"].startswith(prefix):
+            continue
+        key = s["name"] + _fmt_labels(s.get("labels", {}))
+        if s["kind"] == "histogram":
+            if s["count"] or include_zero:
+                out[key + ":count"] = s["count"]
+                out[key + ":p50_ms"] = round(1e3 * s["p50"], 3)
+                out[key + ":p99_ms"] = round(1e3 * s["p99"], 3)
+        else:
+            if s["value"] or include_zero:
+                out[key] = s["value"]
+    return out
+
+
+class BackgroundExporter(threading.Thread):
+    """Periodic collect-and-write on a daemon thread.
+
+    Parameters
+    ----------
+    path : output file; each export is written to a temp file in the
+        same directory and ``os.replace``'d in — readers never see a
+        torn file.  Mutually exclusive with ``sink``.
+    sink : callable taking the rendered string (push gateways, tests).
+    interval : seconds between exports.
+    fmt : ``"prometheus"`` | ``"jsonl"``.
+    registry : defaults to the process-global registry.
+
+    ``stop(flush=True)`` wakes the thread, joins it, and performs one
+    final synchronous export so the last counters of a draining process
+    are never lost.  Exceptions inside an export are counted
+    (``errors``) and retried next tick — a transient full disk must not
+    kill the exporter.  Also usable as a context manager.
+    """
+
+    def __init__(self, path: Optional[str] = None,
+                 sink: Optional[Callable[[str], None]] = None,
+                 interval: float = 5.0, fmt: str = "prometheus",
+                 registry: Optional[MetricsRegistry] = None,
+                 name: str = "mxtpu-metrics-exporter"):
+        if (path is None) == (sink is None):
+            raise ValueError("pass exactly one of path= or sink=")
+        if fmt not in ("prometheus", "jsonl"):
+            raise ValueError(f"fmt must be 'prometheus'|'jsonl', got {fmt}")
+        super().__init__(name=name, daemon=True)
+        self.path = os.path.abspath(path) if path else None
+        self.sink = sink
+        self.interval = float(interval)
+        self.fmt = fmt
+        self.registry = registry or default_registry()
+        self.exports = 0
+        self.errors = 0
+        self._stop_ev = threading.Event()
+        self._stopped = False
+
+    # --------------------------------------------------------------- export
+    def _render(self) -> str:
+        snap = self.registry.collect()
+        return to_prometheus(snap) if self.fmt == "prometheus" \
+            else to_json_lines(snap)
+
+    def export_once(self) -> bool:
+        """One synchronous collect + write; True on success."""
+        try:
+            text = self._render()
+            if self.sink is not None:
+                self.sink(text)
+            else:
+                d = os.path.dirname(self.path)
+                os.makedirs(d, exist_ok=True)
+                fd, tmp = tempfile.mkstemp(dir=d, prefix=".obs-export-")
+                try:
+                    with os.fdopen(fd, "w") as f:
+                        f.write(text)
+                        f.flush()
+                        os.fsync(f.fileno())
+                    os.replace(tmp, self.path)     # atomic publish
+                except BaseException:
+                    try:
+                        os.unlink(tmp)
+                    except OSError:
+                        pass
+                    raise
+            self.exports += 1
+            return True
+        except Exception:
+            self.errors += 1
+            return False
+
+    # ------------------------------------------------------------ lifecycle
+    def run(self):
+        while not self._stop_ev.wait(self.interval):
+            self.export_once()
+
+    def stop(self, flush: bool = True,
+             timeout: Optional[float] = 10.0) -> None:
+        """Graceful drain: signal, join, final export.  Idempotent and
+        safe to call from any thread (including a SIGTERM helper
+        thread racing an explicit engine stop)."""
+        self._stop_ev.set()
+        if self.is_alive():
+            self.join(timeout)
+        if flush and not self._stopped:
+            self._stopped = True
+            self.export_once()
+
+    def __enter__(self):
+        if not self.is_alive() and not self._stop_ev.is_set():
+            self.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop(flush=True)

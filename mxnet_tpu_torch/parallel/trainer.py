@@ -42,9 +42,23 @@ semantics are the reference's:
   step rewrites in place, so ``save_states``, ``load_states``,
   ``state_dict`` and ``set_learning_rate`` work between replays.
 
+- the resilience and observability hooks (``trainer.py:679-733``): the
+  ``trainer.step`` span when a tracer is active (one global load and a
+  ``None`` check when not), the ``trainer.step`` fault site as the very
+  first thing a step does, before ``num_update`` moves, the
+  ``mxtpu_trainer_steps_total`` counter, ``attach_data_source``, and on
+  the guarded step the poison splice: ``trainer.loss_nonfinite`` and
+  ``trainer.grad_nonfinite`` are two float32 inputs of the step's
+  program, written with the batch at every step (0.0 when no fault plan
+  poisons them), and the step replaces the loss, or every gradient, by
+  a non-finite value of theirs with ``torch.where`` on the device, so a
+  captured graph poisons exactly the replays the plan picks.
+  ``ResilientLoop`` drives the trainer through ``step``,
+  ``state_dict`` and ``load_state_dict``.
+
 A mesh of more than one device raises: multi-GPU training is ROADMAP
-queue A6.  Orbax checkpoints, ``ResilientLoop``, the ``trainer.step``
-span and the fault-injection sites are queue A3.
+queue A6, and the orbax-style ``save_checkpoint`` / ``load_checkpoint``
+(the sharded format) come with it.
 """
 from __future__ import annotations
 
@@ -59,6 +73,8 @@ from .. import random as _random
 from ..context import resolve_device
 from ..gluon.parameter import is_initialized
 from ..ndarray.ndarray import NDArray
+from ..observability.trace import active as _trace_active
+from ..resilience.faults import inject as _inject, poison as _poison
 from ..utils.graphs import Program
 
 __all__ = ["ShardedTrainer"]
@@ -157,6 +173,13 @@ class ShardedTrainer:
         self._programs: Dict[tuple, "_StepProgram"] = {}
         # False runs the step's function without graphs on the card
         self._graphs = True
+        self._data_source = None   # attach_data_source: stats()/span stamp
+        # fleet counter (docs/observability.md): process-wide step count,
+        # shared across trainer instances
+        from ..observability.registry import default_registry
+        self._obs_steps = default_registry().counter(
+            "mxtpu_trainer_steps_total",
+            help="ShardedTrainer.step calls, all trainers")
 
     # ----------------------------------------------------------- guardrails
     @property
@@ -263,11 +286,18 @@ class ShardedTrainer:
         return [torch.zeros_like(p) if g is None else g
                 for p, g in zip(params, grads)]
 
-    def _loss_and_grads(self, data, labels, scale):
+    def _loss_and_grads(self, data, labels, scale, lpoison=None):
         """The (unscaled) loss and the gradients of the loss times
-        ``scale`` (None: unscaled), over ``grad_accum`` microbatches."""
+        ``scale`` (None: unscaled), over ``grad_accum`` microbatches.
+        ``lpoison`` (a 0-d float32 device tensor, or None) replaces each
+        microbatch's loss where it is not finite."""
         def one(d, l):
             lval = self._forward_loss(d, l)
+            if lpoison is not None:
+                # loss poison splice: 0.0 keeps the real loss, NaN/Inf
+                # from the fault plan replaces it
+                lval = torch.where(torch.isfinite(lpoison), lval,
+                                   lpoison.to(lval.dtype))
             g = self._grads(lval * scale.to(lval.dtype)
                             if scale is not None else lval)
             return lval.detach(), g
@@ -319,7 +349,24 @@ class ShardedTrainer:
         bool tensor, False iff this step's loss or gradients were not
         finite, in which case parameters and optimizer state were left
         bit-identical and the loss scale shrank.  Neither forces a host
-        sync."""
+        sync.  With a tracer active the step is a ``trainer.step`` span
+        (host time: a replay's enqueue, not its device time)."""
+        tr = _trace_active()
+        if tr is None:              # zero-cost: one global + None check
+            return self._step(data, labels)
+        attrs = {}
+        if self._data_source is not None:
+            # per-step input-wait stamp: how long the caller's last batch
+            # acquisition blocked on the input pipeline (0 = fully hidden)
+            attrs["input_wait"] = round(getattr(
+                self._data_source, "last_wait_seconds", 0.0), 6)
+        with tr.span("trainer.step", step=self.optimizer.num_update + 1,
+                     guarded=self._guarded, **attrs):
+            return self._step(data, labels)
+
+    def _step(self, data, labels=()):
+        _inject("trainer.step")
+        self._obs_steps.inc()
         data, labels = _as_tuple(data), _as_tuple(labels)
         if self._grad_accum > 1 and data and \
                 data[0].shape[0] % self._grad_accum:
@@ -336,9 +383,15 @@ class ShardedTrainer:
         if prog is None:
             prog = self._programs[key] = _StepProgram(self, key, batch,
                                                       len(data))
+        lp = gp = None
+        if self._guarded:
+            lp = _poison("trainer.loss_nonfinite")
+            gp = _poison("trainer.grad_nonfinite")
         try:
             return prog(batch, np.float32(opt.learning_rate),
-                        np.int32(opt.num_update))
+                        np.int32(opt.num_update),
+                        np.float32(0.0 if lp is None else lp),
+                        np.float32(0.0 if gp is None else gp))
         except BaseException:
             if prog.prog.graphed and not prog.prog.built:
                 # the capture failed before the step was applied: nothing
@@ -357,16 +410,19 @@ class ShardedTrainer:
             return x.to(self.device)
         return np.asarray(x)
 
-    def _step_fn(self, data, labels, lr, t):
-        """The whole step over static buffers: ``lr`` and ``t`` are 0-d
-        device tensors.  Returns ``(loss,)`` or ``(loss, all_finite)``."""
+    def _step_fn(self, data, labels, lr, t, lpoison, gpoison):
+        """The whole step over static buffers: ``lr``, ``t`` and the two
+        poisons are 0-d device tensors (the poisons are read on the
+        guarded step only, as the reference's).  Returns ``(loss,)`` or
+        ``(loss, all_finite)``."""
         scaler = self._loss_scaler
         # the forward moves aux state (BatchNorm's moving statistics) in
         # place; a guarded step that turns out non-finite puts it back
         aux_before = [p.detach().clone() for _, p in self._aux] \
             if self._guarded else []
         loss, grads = self._loss_and_grads(
-            data, labels, self._scale if scaler is not None else None)
+            data, labels, self._scale if scaler is not None else None,
+            lpoison if self._guarded else None)
         if not self._guarded:
             self._update(grads, lr, t)
             return (loss,)
@@ -374,6 +430,9 @@ class ShardedTrainer:
         if scaler is not None:       # unscale before clip/flag/update
             inv = 1.0 / self._scale
             grads = [g * inv.to(g.dtype) for g in grads]
+        # grad poison splice (the loss poison's contract)
+        keep = torch.isfinite(gpoison)
+        grads = [torch.where(keep, g, gpoison.to(g.dtype)) for g in grads]
         finite = torch.isfinite(loss)
         for g in grads:
             finite = finite & torch.isfinite(g).all()
@@ -407,10 +466,22 @@ class ShardedTrainer:
         return loss, finite
 
     # ------------------------------------------------------------------
+    def attach_data_source(self, source):
+        """Associate the input pipeline (anything with ``stats()`` and
+        ``last_wait_seconds``) so ``stats()['data']`` and the
+        ``trainer.step`` span report it.  Returns ``source``."""
+        self._data_source = source
+        return source
+
     def stats(self) -> dict:
-        """Point-in-time trainer facts: step counter, built, guarded."""
-        return {"num_update": int(self.optimizer.num_update),
-                "built": self._built, "guarded": self._guarded}
+        """Point-in-time trainer facts: step counter, built, guarded,
+        and a ``data`` section from the attached input pipeline."""
+        out = {"num_update": int(self.optimizer.num_update),
+               "built": self._built, "guarded": self._guarded}
+        src = self._data_source
+        if src is not None and hasattr(src, "stats"):
+            out["data"] = src.stats()
+        return out
 
     @property
     def learning_rate(self):
@@ -528,12 +599,14 @@ class ShardedTrainer:
 
 class _StepProgram:
     """``ShardedTrainer``'s step for one batch signature: static inputs
-    for the batch, ``lr`` and ``t``, and on the card one CUDA graph,
-    captured before the signature's first step is applied."""
+    for the batch, ``lr``, ``t`` and the loss and gradient poisons, and
+    on the card one CUDA graph, captured before the signature's first
+    step is applied."""
 
     def __init__(self, trainer: ShardedTrainer, key, batch, n_data):
         self.trainer, self.key, self.n_data = trainer, key, n_data
-        self.prog = Program([*batch, np.float32(0), np.int32(0)],
+        self.prog = Program([*batch, np.float32(0), np.int32(0),
+                             np.float32(0), np.float32(0)],
                             trainer.device, trainer._graphs, self._failed,
                             draws=_random.GraphDraws(trainer.device))
         self.outputs = None
@@ -545,9 +618,9 @@ class _StepProgram:
             f"{type(e).__name__}: {e}")
 
     def _fn(self):
-        *batch, lr, t = self.prog.inputs
+        *batch, lr, t, lp, gp = self.prog.inputs
         n = self.n_data
-        return self.trainer._step_fn(batch[:n], batch[n:], lr, t)
+        return self.trainer._step_fn(batch[:n], batch[n:], lr, t, lp, gp)
 
     def _warm(self):
         """The step once, with everything it writes put back: the
@@ -568,9 +641,9 @@ class _StepProgram:
                     x.copy_(old)
             gen.set_state(rng)
 
-    def __call__(self, batch, lr, t):
+    def __call__(self, batch, lr, t, lpoison, gpoison):
         prog = self.prog
-        prog.copy_in([*batch, lr, t])
+        prog.copy_in([*batch, lr, t, lpoison, gpoison])
         if not prog.graphed:
             outs = prog.run(self._fn)
         else:

@@ -29,6 +29,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .analysis.lockwitness import named_lock as _named_lock
 from .context import Context
 
 __all__ = ["seed", "generator", "replay", "GraphDraws", "graph_draws",
@@ -39,7 +40,7 @@ __all__ = ["seed", "generator", "replay", "GraphDraws", "graph_draws",
 # its per-context root keys
 _DEVTYPE_ID = {"cpu": 1, "cuda": 2}
 
-_LOCK = threading.Lock()
+_LOCK = _named_lock("random.generator", "seeded generator state")
 _GENS: Dict[torch.device, torch.Generator] = {}
 _BASE = [int(np.random.randint(0, 2 ** 31 - 1))]
 # twin states made since the last seed(), by device

@@ -1,0 +1,414 @@
+"""End-to-end state integrity: prove state good before trusting it.
+
+Two failure classes the rest of :mod:`mxnet_tpu_torch.resilience` and
+:mod:`mxnet_tpu_torch.fleet` never covered are *silent corruption* (a
+committed checkpoint whose bytes rotted, tore, or vanished after the
+atomic rename) and *gray failure* (a replica that answers ``health()``
+but serves an order of magnitude slow).  Both break the same contract:
+state you read and replicas you route to must be **proven** good, not
+assumed good.  This module holds the shared machinery
+(docs/integrity.md):
+
+- **Checkpoint manifests** — :func:`write_manifest` records a per-file
+  BLAKE2b digest + size (plus a schema version) in ``MANIFEST.json``
+  *inside* the checkpoint directory, so the manifest commits atomically
+  with the data it describes (:mod:`.checkpoint` writes it in the tmp
+  dir before the commit rename).  :func:`verify_step_dir` re-hashes the
+  files and classifies the directory ``intact`` / ``legacy``
+  (pre-manifest, still restorable) / ``corrupt`` (digest or size
+  mismatch, missing file, torn manifest).  A corrupt step is
+  QUARANTINED by the checkpointer (renamed ``corrupt-<step>``, never
+  deleted — forensics beat disk space) and restore falls back down the
+  chain to the newest intact step, raising the typed
+  :class:`CheckpointCorruptError` only when nothing intact remains.
+
+- **Latency outlier tracking** — :class:`LatencyTracker` keeps a
+  per-replica completion-latency EWMA plus a bounded sample window with
+  p50/p99 queries.  The fleet router feeds it from its completion path
+  and ejects a replica whose window sits a configurable multiple above
+  the median of its peers (self-excluded) into the ``SUSPECT`` state
+  (:mod:`mxnet_tpu_torch.fleet.replica`) — HRW-skipped like a dead replica
+  but still finishing its in-flight work, re-admitted through the
+  existing probation/backoff ladder without a rebuild.
+
+:func:`flip_bytes` is the chaos half: the ``checkpoint.corrupt`` fault
+site uses it to flip bytes in a just-committed file, making the whole
+verify → quarantine → fallback path deterministically testable.
+"""
+from __future__ import annotations
+
+import collections
+import hashlib
+import json
+import math
+import os
+import threading
+import warnings
+from typing import Dict, Optional, Tuple
+
+from ..analysis.lockwitness import named_lock as _named_lock
+from ..base import MXNetError
+
+__all__ = ["CheckpointCorruptError", "LatencyTracker", "MANIFEST_FILE",
+           "MANIFEST_SCHEMA_VERSION", "TreeHasher", "file_digest",
+           "flip_array_bytes", "flip_bytes", "verify_step_dir",
+           "write_manifest"]
+
+MANIFEST_FILE = "MANIFEST.json"
+#: bump when the manifest layout changes; a manifest from a NEWER
+#: schema than this build understands is treated as corrupt (refusing
+#: to trust what we cannot verify), never silently accepted
+MANIFEST_SCHEMA_VERSION = 1
+
+_DIGEST_SIZE = 16          # BLAKE2b-128: collision-safe for bit rot
+# leaf size of the chunked digest tree: small enough that checkpoints a
+# few MB up get real leaf-level parallelism (a 4 MB leaf left typical
+# CPU-sanity state files single-leaf = single-core)
+_TREE_CHUNK = 1 << 20
+_DIGEST_WORKERS = max(2, min(8, os.cpu_count() or 2))
+_POOL_LOCK = _named_lock("integrity.digest_pool",
+                         "lazy shared leaf-hash executor")
+_POOL = None
+
+
+def _digest_pool():
+    """Shared lazy executor for leaf hashing — one pool per process, so
+    neither per-save ``TreeHasher`` tees nor per-restore verifications
+    pay pool construction."""
+    global _POOL
+    with _POOL_LOCK:
+        if _POOL is None:
+            import concurrent.futures as _cf
+            _POOL = _cf.ThreadPoolExecutor(
+                _DIGEST_WORKERS, thread_name_prefix="mxtpu-digest")
+        return _POOL
+
+
+class CheckpointCorruptError(MXNetError):
+    """Every candidate checkpoint failed integrity verification.
+
+    Raised by ``AtomicCheckpointer.restore`` only after the fallback
+    chain is exhausted — each corrupt step was quarantined (renamed
+    ``corrupt-<step>``, never deleted) on the way down.  ``quarantined``
+    carries the step numbers quarantined by the failing call, newest
+    first, so the operator knows exactly which directories to autopsy.
+    """
+
+    def __init__(self, msg: str, quarantined=()):
+        super().__init__(msg)
+        self.quarantined = list(quarantined)
+
+
+def _leaf_digest(data: bytes) -> bytes:
+    return hashlib.blake2b(data, digest_size=_DIGEST_SIZE).digest()
+
+
+def file_digest(path: str) -> str:
+    """Chunked-tree BLAKE2b-128 hex digest of one file: the file is
+    hashed in ``_TREE_CHUNK`` (1 MB) leaves and the root is the BLAKE2b
+    of the leaf digests.  The tree shape is a pure function of content, so digests
+    are stable across processes/hosts; multi-leaf files hash their
+    leaves on a small thread pool (hashlib releases the GIL for large
+    updates), keeping save/restore verification near memory-bandwidth
+    instead of single-core hash speed — this is what keeps the
+    verification overhead inside checkpoint-timing trial noise."""
+    root = hashlib.blake2b(digest_size=_DIGEST_SIZE)
+    with open(path, "rb") as f:
+        first = f.read(_TREE_CHUNK)
+        if len(first) < _TREE_CHUNK:           # common small-file case
+            root.update(_leaf_digest(first))
+            return root.hexdigest()
+        ex = _digest_pool()
+        pending: collections.deque = collections.deque()
+        buf = first
+        while buf:
+            pending.append(ex.submit(_leaf_digest, buf))
+            # bound in-flight buffers: 2x workers x 1 MB of RAM
+            if len(pending) >= 2 * _DIGEST_WORKERS:
+                root.update(pending.popleft().result())
+            buf = f.read(_TREE_CHUNK)
+        while pending:
+            root.update(pending.popleft().result())
+    return root.hexdigest()
+
+
+class TreeHasher:
+    """Incremental counterpart of :func:`file_digest`: feed it a file's
+    byte stream in any write-sized pieces and ``hexdigest()`` equals
+    ``file_digest`` of the resulting file.  Lets a writer digest while
+    writing (one pass) instead of re-reading what it just wrote — full
+    leaves hash on the shared pool so the digest overlaps the writer's
+    own serialize/IO work instead of stalling it.
+
+    The leaves that lie whole inside one ``bytes`` piece are hashed from
+    it in place (it cannot change); only a leaf that straddles pieces,
+    or one of a mutable buffer, is copied.  The reference copies every
+    byte three times on the way to the pool, which kept its hashing to
+    about one core's rate on the card's host (``tools/time_commit.py``)."""
+
+    def __init__(self):
+        self._root = hashlib.blake2b(digest_size=_DIGEST_SIZE)
+        self._buf = bytearray()
+        self._leaves = 0
+        self._pending: collections.deque = collections.deque()
+
+    def _submit(self, leaf) -> None:
+        self._leaves += 1
+        self._pending.append(_digest_pool().submit(_leaf_digest, leaf))
+        # bound in-flight leaves: 2x workers x 1 MB
+        while len(self._pending) >= 2 * _DIGEST_WORKERS:
+            self._root.update(self._pending.popleft().result())
+
+    def update(self, data) -> None:
+        view = memoryview(data).cast("B")
+        shared = isinstance(data, bytes)
+        i = 0
+        if self._buf:                       # complete the straddling leaf
+            i = min(_TREE_CHUNK - len(self._buf), len(view))
+            self._buf += view[:i]
+            if len(self._buf) < _TREE_CHUNK:
+                return
+            self._submit(bytes(self._buf))
+            self._buf.clear()
+        while len(view) - i >= _TREE_CHUNK:
+            leaf = view[i:i + _TREE_CHUNK]
+            self._submit(leaf if shared else bytes(leaf))
+            i += _TREE_CHUNK
+        self._buf += view[i:]
+
+    def hexdigest(self) -> str:
+        while self._pending:
+            self._root.update(self._pending.popleft().result())
+        if self._buf or not self._leaves:
+            self._root.update(_leaf_digest(bytes(self._buf)))
+            self._buf.clear()
+            self._leaves += 1
+        return self._root.hexdigest()
+
+
+def write_manifest(dirpath: str,
+                   precomputed: Optional[Dict[str, str]] = None) -> str:
+    """Digest every regular file in ``dirpath`` (except the manifest
+    itself) into ``MANIFEST.json``; returns the manifest path.  Callers
+    must write it BEFORE their atomic commit point so manifest and data
+    can never disagree about which commit they belong to.
+    ``precomputed`` maps file names to digests the caller already holds
+    (a :class:`TreeHasher` tee on its own write path) — those files are
+    not re-read."""
+    files: Dict[str, dict] = {}
+    for name in sorted(os.listdir(dirpath)):
+        if name == MANIFEST_FILE:
+            continue
+        path = os.path.join(dirpath, name)
+        if not os.path.isfile(path):
+            continue
+        digest = (precomputed or {}).get(name) or file_digest(path)
+        files[name] = {"blake2b": digest,
+                       "size": os.path.getsize(path)}
+    manifest = os.path.join(dirpath, MANIFEST_FILE)
+    with open(manifest, "w") as f:
+        json.dump({"schema_version": MANIFEST_SCHEMA_VERSION,
+                   "files": files}, f)
+        # no fsync: a manifest torn by an OS crash is DETECTED at
+        # restore and the step falls back — verification makes the
+        # manifest the one file whose durability the design does not
+        # depend on
+    return manifest
+
+
+def _count_registry(name: str, help: str = "", n: int = 1):
+    """Best-effort bump of a process-wide registry counter — integrity
+    accounting must never be the thing that breaks a save/restore."""
+    try:
+        from ..observability.registry import default_registry
+        default_registry().counter(name, help=help).inc(n)
+    except Exception:
+        pass
+
+
+def _count_verify_failure():
+    _count_registry(
+        "mxtpu_integrity_verify_failures_total",
+        help="checkpoint directories that failed manifest "
+             "verification (digest/size mismatch, missing file, "
+             "torn manifest)")
+
+
+def verify_step_dir(dirpath: str,
+                    meta_file: str = "meta.json") -> Tuple[str, Optional[str]]:
+    """Classify one checkpoint directory WITHOUT deserializing it.
+
+    Returns ``(status, reason)`` where status is:
+
+    - ``"intact"`` — manifest present, every listed file exists with
+      matching size and BLAKE2b digest;
+    - ``"legacy"`` — no manifest and the meta file does not declare one
+      (a pre-manifest checkpoint: restorable, but unverifiable);
+    - ``"corrupt"`` — anything else: torn/unreadable manifest, a listed
+      file missing/resized/digest-mismatched, or a manifest that the
+      meta file says should exist but does not (deleted manifest ≠
+      legacy).  ``reason`` names the first failure found.
+
+    Corrupt classifications bump
+    ``mxtpu_integrity_verify_failures_total``.
+    """
+    manifest = os.path.join(dirpath, MANIFEST_FILE)
+    if not os.path.exists(manifest):
+        # distinguish "written before manifests existed" from "manifest
+        # deleted": new saves stamp the meta file with an integrity flag.
+        # A true legacy save always committed a READABLE meta.json — no
+        # manifest AND no readable meta is damage, not age (else the
+        # offline CLI would bless a destroyed step as merely legacy).
+        try:
+            with open(os.path.join(dirpath, meta_file)) as f:
+                declared = json.load(f).get("integrity")
+        except Exception as e:
+            _count_verify_failure()
+            return "corrupt", ("manifest missing and meta file "
+                               f"unreadable: {e!r}")
+        if declared:
+            _count_verify_failure()
+            return "corrupt", ("manifest missing but meta declares "
+                               f"integrity schema {declared}")
+        return "legacy", None
+    try:
+        with open(manifest) as f:
+            doc = json.load(f)
+        version = int(doc["schema_version"])
+        files = dict(doc["files"])
+    except Exception as e:
+        _count_verify_failure()
+        return "corrupt", f"torn/unreadable manifest: {e!r}"
+    if version > MANIFEST_SCHEMA_VERSION:
+        _count_verify_failure()
+        return "corrupt", (f"manifest schema {version} is newer than "
+                           f"supported {MANIFEST_SCHEMA_VERSION}")
+    for name, spec in files.items():
+        path = os.path.join(dirpath, name)
+        if not os.path.isfile(path):
+            _count_verify_failure()
+            return "corrupt", f"missing file {name!r}"
+        size = os.path.getsize(path)
+        if size != int(spec["size"]):
+            _count_verify_failure()
+            return "corrupt", (f"size mismatch on {name!r}: "
+                               f"{size} != {spec['size']}")
+        if file_digest(path) != spec["blake2b"]:
+            _count_verify_failure()
+            return "corrupt", f"digest mismatch on {name!r}"
+    return "intact", None
+
+
+def flip_bytes(path: str, count: int = 1, offset: Optional[int] = None):
+    """Chaos helper: XOR ``count`` bytes of ``path`` with 0xFF, in the
+    middle of the file by default — the ``checkpoint.corrupt`` fault
+    site's model of post-commit bit rot.  No-op on an empty file."""
+    size = os.path.getsize(path)
+    if size == 0:
+        return
+    off = size // 2 if offset is None else min(offset, size - 1)
+    count = max(1, min(count, size - off))
+    with open(path, "r+b") as f:
+        f.seek(off)
+        data = f.read(count)
+        f.seek(off)
+        f.write(bytes(b ^ 0xFF for b in data))
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def flip_array_bytes(arr, count: int = 1, offset: Optional[int] = None):
+    """In-memory counterpart of :func:`flip_bytes`: XOR ``count`` bytes
+    of a writable numpy array's buffer with 0xFF, mid-buffer by default
+    — the ``serving.tier_rot`` fault site's model of host-RAM rot in a
+    demoted KV bundle.  Mutates ``arr`` in place; no-op on an empty
+    array."""
+    import numpy as onp
+    flat = arr.view(onp.uint8).reshape(-1)
+    size = flat.shape[0]
+    if size == 0:
+        return
+    off = size // 2 if offset is None else min(int(offset), size - 1)
+    count = max(1, min(int(count), size - off))
+    flat[off:off + count] ^= 0xFF
+
+
+# one warning per process, not per restore: a long fallback chain of
+# legacy steps must not spam (tests reset via _reset_legacy_warning)
+_LEGACY_WARNED = False
+
+
+def _warn_legacy_once(dirpath: str):
+    global _LEGACY_WARNED
+    if _LEGACY_WARNED:
+        return
+    _LEGACY_WARNED = True
+    warnings.warn(
+        f"restoring manifest-less (pre-integrity) checkpoint "
+        f"{dirpath!r}: bytes cannot be verified — re-save to upgrade "
+        "(this warning fires once per process)", UserWarning,
+        stacklevel=3)
+
+
+def _reset_legacy_warning():
+    global _LEGACY_WARNED
+    _LEGACY_WARNED = False
+
+
+class LatencyTracker:
+    """Completion-latency EWMA + bounded sample window with percentile
+    queries — the per-replica signal behind gray-failure ejection
+    (docs/integrity.md).  Lock-guarded: the router's completion path
+    (caller threads) writes while the monitor thread reads snapshots.
+    """
+
+    def __init__(self, window: int = 64, alpha: float = 0.25):
+        if not 0.0 < alpha <= 1.0:
+            raise MXNetError(f"alpha must be in (0, 1], got {alpha}")
+        self.alpha = float(alpha)
+        self._win: collections.deque = collections.deque(
+            maxlen=max(1, int(window)))
+        self.ewma = 0.0
+        self.total = 0          # lifetime observations (never reset back)
+        self._lock = _named_lock("integrity.latency_tracker",
+                                 "gray-failure latency window")
+
+    def observe(self, seconds: float):
+        s = max(0.0, float(seconds))
+        with self._lock:
+            self.ewma = s if not self._win else \
+                self.alpha * s + (1.0 - self.alpha) * self.ewma
+            self._win.append(s)
+            self.total += 1
+
+    def reset(self):
+        """Drop the window and EWMA (suspect re-admission: the replica
+        must be judged on FRESH samples, not the storm that ejected
+        it)."""
+        with self._lock:
+            self._win.clear()
+            self.ewma = 0.0
+
+    @staticmethod
+    def _pct(xs, q: float) -> float:
+        # nearest-rank over the sorted window: exact for the small
+        # windows this tracks, no interpolation surprises at the tails
+        idx = max(0, min(len(xs) - 1, int(math.ceil(q / 100.0 * len(xs))) - 1))
+        return xs[idx]
+
+    def snapshot(self) -> Dict[str, float]:
+        """``{count, ewma, p50, p99}`` over the CURRENT window —
+        ``count`` is window occupancy (what minimum-sample gates read),
+        not the lifetime total."""
+        with self._lock:
+            xs = sorted(self._win)
+            ewma = self.ewma
+        if not xs:
+            return {"count": 0, "ewma": 0.0, "p50": 0.0, "p99": 0.0}
+        return {"count": len(xs), "ewma": ewma,
+                "p50": self._pct(xs, 50), "p99": self._pct(xs, 99)}
+
+    def __repr__(self):
+        s = self.snapshot()
+        return (f"LatencyTracker(n={s['count']}, ewma={s['ewma']:.4f}s, "
+                f"p99={s['p99']:.4f}s)")

@@ -15,6 +15,7 @@ import time
 from collections import deque
 from typing import Callable, List, Optional, Sequence, Tuple
 
+from ..analysis.lockwitness import named_condition as _named_condition
 from .errors import EngineStoppedError, QueueFullError, ServingError
 
 __all__ = ["BucketLattice", "DynamicBatcher"]
@@ -83,7 +84,8 @@ class DynamicBatcher:
     def __init__(self, max_depth: int = 64,
                  cond: Optional[threading.Condition] = None):
         self.max_depth = max_depth
-        self._cond = cond or threading.Condition()
+        self._cond = cond or _named_condition(
+            "serving.batcher.cond", "standalone-batcher admission queue")
         self._q: deque = deque()
         self._closed = False
 

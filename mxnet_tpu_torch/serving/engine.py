@@ -67,8 +67,10 @@ no autograd recording.
 
 Not in this slice: deadlines and ``cancel``, priority classes and
 overload control, the watchdog, fault sites and NaN guard, KV tiers,
-migration, meshes, the metrics registry and ``debug_parity``.  The
-counters in ``stats()`` are plain integers under the reference's
+migration, meshes, the wiring to ``serving/metrics.py`` and the metrics
+registry, and ``debug_parity`` (ROADMAP queue A2.6).  The counters in
+``stats()`` are plain integers under the reference's names.  The
+engine's locks come from the lock witness under the reference's site
 names.
 """
 from __future__ import annotations
@@ -82,6 +84,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..analysis.lockwitness import (named_condition as _named_condition,
+                                    named_lock as _named_lock)
 from ..base import training_mode
 from ..context import resolve_device
 from ..models.transformer import copy_cache_rows
@@ -273,15 +277,18 @@ class InferenceEngine:
         self.max_batch = int(max_batch)
         self.eos_id = eos_id
         self.default_max_new_tokens = int(default_max_new_tokens)
-        self._cond = threading.Condition()
+        self._cond = _named_condition(
+            "serving.engine.cond", "admission queue + scheduler wakeups")
         self._batcher = DynamicBatcher(self.QUEUE_DEPTH, cond=self._cond)
-        self._step_lock = threading.Lock()
+        self._step_lock = _named_lock(
+            "serving.engine.step", "in-flight state vs stop()")
         self._thread: Optional[threading.Thread] = None
         self._stopping = False
         self._caches = None
         self._table_dev = None
         self._counters = dict.fromkeys(_COUNTERS, 0)
-        self._counters_lock = threading.Lock()
+        self._counters_lock = _named_lock(
+            "serving.metrics", "per-engine counter/histogram state")
         self._ttft = []
         self._latency = []
         # the compiled programs by key, their shared memory pool and

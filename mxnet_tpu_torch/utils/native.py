@@ -20,11 +20,11 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+from ..analysis.lockwitness import named_lock as _named_lock
 from ..base import MXNetError
 
 __all__ = ["KERNELS", "BUILD_DIR", "build", "load", "build_log",
@@ -38,7 +38,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_LOCK = threading.Lock()
+_LOCK = _named_lock("native.build", "one-shot kernel library builds")
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 

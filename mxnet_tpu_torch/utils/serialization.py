@@ -20,6 +20,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..resilience.faults import inject as _inject
+
 MAGIC = b"MXTPU1\n"
 
 __all__ = ["MAGIC", "save", "load"]
@@ -37,10 +39,17 @@ def _payload(arr):
     return str(a.dtype), list(a.shape), a.tobytes()
 
 
-def save(fname: str, data: Dict[str, object]):
+def save(fname: str, data: Dict[str, object], tee=None):
     """Write ``data`` (name → numpy array or tensor) atomically: the
     container is assembled in a temp file beside ``fname`` and committed
-    with one ``os.replace``."""
+    with one ``os.replace`` (the ``serialization.commit`` fault site sits
+    right before it), so a kill mid-write leaves an existing ``fname``
+    untouched.
+
+    ``tee`` (an object with ``update(bytes)``, e.g.
+    :class:`~mxnet_tpu_torch.resilience.integrity.TreeHasher`) observes
+    every byte in write order, so a checkpoint manifest digests the file
+    in the same pass that writes it."""
     metas, blobs = [], []
     for name, arr in data.items():
         dtype_name, shape, payload = _payload(arr)
@@ -52,13 +61,21 @@ def save(fname: str, data: Dict[str, object]):
     fd, tmp = tempfile.mkstemp(prefix=os.path.basename(fname) + ".tmp-",
                                dir=dirname)
     try:
-        os.fchmod(fd, 0o644)
+        # mkstemp creates 0600: keep an existing target's mode, else 0644
+        try:
+            mode = os.stat(fname).st_mode & 0o777
+        except OSError:
+            mode = 0o644
+        os.fchmod(fd, mode)
         with os.fdopen(fd, "wb") as f:
             for piece in (MAGIC, struct.pack("<Q", len(header)), header,
                           *blobs):
                 f.write(piece)
+                if tee is not None:
+                    tee.update(piece)
             f.flush()
             os.fsync(f.fileno())
+        _inject("serialization.commit")
         os.replace(tmp, fname)
     except BaseException:
         try:

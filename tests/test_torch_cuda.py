@@ -1721,3 +1721,76 @@ def test_hybridized_block_served_in_forward_mode_runs_inline(no_tf32):
     onp.testing.assert_allclose(onp.stack(rows), direct.numpy(),
                                 rtol=GRAPH_TOL, atol=GRAPH_TOL)
     assert net._cached_op is None
+
+
+def _guarded_gpt2(seed):
+    from mxnet_tpu_torch.amp import LossScaler
+    from mxnet_tpu_torch.models import gpt2_lm_loss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    from mxnet_tpu_torch.models import get_gpt2
+    net = get_gpt2("gpt2_124m", vocab_size=256, units=128, num_layers=2,
+                   num_heads=2, max_length=256, dropout=0.0)
+    return ShardedTrainer(net.initialize(seed=seed), "adam",
+                          loss=gpt2_lm_loss,
+                          optimizer_params={"learning_rate": 1e-3},
+                          loss_scaler=LossScaler(2.0 ** 10, 2.0, 2000))
+
+
+def _lm_batch(seed):
+    rs = onp.random.RandomState(seed)
+    return (rs.randint(0, 256, (2, 256)).astype("int32"),
+            rs.randint(0, 256, (2, 256)).astype("int32"))
+
+
+@pytest.mark.parametrize("site", ["trainer.loss_nonfinite",
+                                  "trainer.grad_nonfinite"])
+def test_poison_at_a_replay_leaves_state_and_next_replay_updates(dev, site):
+    """The poisons are device inputs of the step's graph: a fault plan
+    that poisons replay k makes exactly that replay non-finite (every
+    parameter and optimizer-state tensor bit-identical, the loss scale
+    halved), and the replays before and after it update."""
+    from mxnet_tpu_torch.resilience import FaultPlan
+    tr = _guarded_gpt2(7).build(_lm_batch(0)[0])
+    flags, moved = [], []
+    with FaultPlan().nonfinite_at(site, at=3):
+        for i in range(5):
+            before = {k: v.clone() for k, v in tr.state_dict().items()
+                      if not k.startswith("meta:")}
+            scale = tr.loss_scale
+            _loss, finite = tr.step(*_lm_batch(i))
+            flags.append(bool(finite))
+            after = tr.state_dict()
+            moved.append(sum(not torch.equal(after[k], v)
+                             for k, v in before.items()))
+            if i == 2:
+                assert tr.loss_scale == scale / 2
+    assert len(tr._programs) == 1 and tr._programs[next(iter(
+        tr._programs))].prog.built
+    assert flags == [True, True, False, True, True]
+    assert moved[2] == 0 and all(m > 0 for i, m in enumerate(moved)
+                                 if i != 2)
+
+
+def test_load_state_dict_into_a_captured_trainer_steers_the_next_replay(
+        no_tf32):
+    """``load_state_dict`` writes in place into the tensors a captured
+    step reads: the next replay continues from the loaded state, equal
+    to an eager step from the same state."""
+    a, b = _guarded_gpt2(3), _guarded_gpt2(3)
+    b._graphs = False
+    for i in range(2):
+        a.step(*_lm_batch(i))                # captured, then replayed
+    src = _guarded_gpt2(11)
+    for i in range(3):
+        src.step(*_lm_batch(10 + i))
+    state = {k: v.clone() for k, v in src.state_dict().items()}
+    a.load_state_dict(state)
+    b.build(_lm_batch(0)[0])
+    b.load_state_dict(state)
+    la, fa = a.step(*_lm_batch(20))
+    lb, fb = b.step(*_lm_batch(20))
+    assert bool(fa) and bool(fb) and a.optimizer.num_update == 4
+    assert _relerr(la, lb) <= 1e-5
+    sa, sb = a.state_dict(), b.state_dict()
+    for k in sa:
+        assert _relerr(sa[k].float(), sb[k].float()) <= 1e-5, k
