@@ -273,12 +273,42 @@ Phases (any failure exits non-zero and prints no result line):
    flight-recorder bundle with the card's facts, and a torch.profiler
    trace of one replayed step with the spans as ranges
    (``span:trainer.step``, 12/12/12 B1-B3 records).
-18. A ``{"kernels": [...]}`` line, the card line again, and the last
+18. The hardened serving engine at full width: phase 3's engine,
+   prompts and 32 new tokens, its lattice cut to the B8 x T512 point
+   (``HARD_LATTICE``), graphs captured by ``warmup()``.  (a) The NaN
+   guard on float32 and int8 pages: row ``HARD_NAN_POS`` of the
+   position embedding NaN before ``warmup()`` (a position only the
+   longest prompt's decode reaches): that request fails with
+   ``NonFiniteOutputError``, the other 7 streams equal a clean
+   engine's, the next tenant (its cycles driven by hand so that it
+   takes the victim's slot and scrubbed pages) equals the clean
+   engine's stream, ``nonfinite_outputs`` is 1 and the pool finite;
+   int8 also a ``serving.kv_scale`` poison: one typed failure, one
+   dequant fault.  (b) A retryable raise at the third
+   ``serving.decode_step``: the fault-free streams bit for bit, one
+   retry, ``compiles`` at ``warmup()``'s; a kill at
+   ``serving.scheduler``: the watchdog trips within ``hang_timeout``
+   plus two intervals, every rider fails with ``EngineCrashedError``,
+   a fresh engine serves.  (c) 24 arrivals in one burst (8 a class) at
+   ``queue_depth`` 8: no interactive request shed, sheds printed by
+   reason and class; an interactive arrival preempts a best_effort
+   decode whose resumed stream equals its clean stream; a cancel
+   mid-decode returns its pages.  (d) ``debug_parity``: the int8 and
+   float32 kernel arms against their float32 gather twins, the
+   histogram's count, p50 and max, float32 held to ``TOL_LOGITS``.
+   (f) The registry's ``mxtpu_serving_*`` series and a flight bundle
+   naming the live engine.  B1 and B4 must launch on the path
+   (``launches_by_path["hardened"]``).  (e) The cost of the guard,
+   the metrics and the watchdog against the guard off, in turns over
+   ``HARD_ROUNDS`` rounds: tokens/s and 8 decode cycles' idle share
+   (printed, not gated).
+19. A ``{"kernels": [...]}`` line, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.  ``launches_by_path`` holds
    every phase's launches (``bert``, ``bert_amp``, ``nmt``, ``lstm``,
    ``ops``, phase 16's graphed arms ``hybrid_bert_amp``,
-   ``graph_train``, ``graph_amp`` and ``graph_vision``, and phase 17's
-   fault-free run ``resilient`` among them); the
+   ``graph_train``, ``graph_amp`` and ``graph_vision``, phase 17's
+   fault-free run ``resilient`` and phase 18's ``hardened`` among
+   them); the
    flash kernels carry their numbers at phases 11-12's shapes
    (``shapes``), phase 12's launches by attention and the
    cross-attention call's times.
@@ -1246,13 +1276,20 @@ def logits_parity(torch, net, prompts, kv_quant):
     return worst
 
 
+# annotations the card's timeline also shows: a profiler schedule's
+# steps, and the ranges of ``profiler.Marker`` (the serving metrics'
+# spans around each program call) and of the tracer's span bridge; each
+# covers kernels rather than running any
+_ANNOTATIONS = ("ProfilerStep", "marker:", "span:")
+
+
 def _device_events(torch, prof):
     """The kernels and copies a profile recorded on the card: its
-    device events but for the step annotation (``ProfilerStep*``) that a
-    profiler schedule puts on the card's timeline too."""
+    device events but for the annotations (``_ANNOTATIONS``) on the
+    card's timeline."""
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith("ProfilerStep")]
+            and not e.key.startswith(_ANNOTATIONS)]
 
 
 def _device_rows(torch, prof):
@@ -1385,9 +1422,9 @@ def main_path(torch, card, prompts):
                       for a, b, p in zip(outs, outs_q, prompts)])
     print(f"  greedy tokens identical int8 vs f32 pages: {same_q:.4f}",
           flush=True)
-    logits_parity(torch, net, prompts, "int8")
+    int8_logits = logits_parity(torch, net, prompts, "int8")
     profile_steps(torch, net, prompts, card)
-    return launches
+    return launches, int8_logits
 
 
 # ------------------------------------------------- the serving features
@@ -4806,6 +4843,459 @@ def resilient_path(torch, card):
     return launches
 
 
+# ------------------------------------------------ the hardened engine
+
+# phase 18: phase 3's engine (its prompts, 32 new tokens, paged, the
+# kernel arm, graphs captured by warmup()) with its lattice cut to the
+# one point phase 3's prompts use, B8 x T512, so that its many engines
+# warm up in seconds
+HARD_LATTICE = dict(batch_buckets=(8,), seq_buckets=(512,))
+HARD_NEW = 32
+# (a) the position-embedding row poisoned: only the 495-token prompt's
+# decode reaches it (its steps consume positions 495-525; the next
+# longest, 492 tokens, ends at 522), and no prefill pads to it
+HARD_NAN_POS = 524
+# the next tenant's prompt length (phase 3's shortest)
+HARD_TENANT = 309
+# (b) the kill's watchdog: dead-thread detection polls every interval
+HARD_HANG, HARD_INTERVAL = 1.0, 0.1
+# (e) the cost of the guard: arms in turns, this many rounds, each
+# serving the prompts with this many new tokens
+HARD_ROUNDS, HARD_COST_NEW = 3, 64
+
+
+def hard_engine(torch, net, **kw):
+    """Phase 3's engine, the lattice cut to ``HARD_LATTICE``, warmed up:
+    (engine, programs compiled)."""
+    eng = serving_engine(torch, net, True, **HARD_LATTICE, **kw)
+    return eng, eng.warmup()
+
+
+def outcome(fut):
+    """A served sequence, or the class name of the request's error."""
+    try:
+        return fut.result(600)
+    except Exception as e:
+        return type(e).__name__
+
+
+def same_stream(a, b):
+    return not isinstance(a, str) and not isinstance(b, str) and \
+        np.array_equal(a, b)
+
+
+def pool_finite(torch, eng):
+    """Every real page of every leaf finite (int8 pages through their
+    scales), the zero page all zeros."""
+    n = eng.num_pages
+    for layer in eng._caches:
+        for a in layer.values():
+            if not bool(torch.isfinite(a[:n].float()).all()) or \
+                    bool(a[n].any()):
+                return False
+    return True
+
+
+def wait_for(cond, what, limit=60.0):
+    """Poll ``cond()`` while the scheduler thread runs."""
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > limit:
+            raise AssertionError(f"phase 18: waited {limit} s for {what}")
+        time.sleep(0.001)
+
+
+def drive_until(eng, done, limit=2000):
+    """The engine's cycles on this thread (no scheduler thread) until
+    ``done()``."""
+    for _ in range(limit):
+        if done():
+            return
+        with eng._step_lock:
+            eng._cycle()
+    raise AssertionError("phase 18: the engine's cycles did not get there")
+
+
+def nan_guard_part(torch, net, prompts, tenant, card, kv_quant):
+    """(a) on one page type: a clean engine's streams, then a poisoned
+    one's (row ``HARD_NAN_POS`` of the position embedding NaN before its
+    warmup()): one typed failure, the other 7 streams unchanged, the
+    next tenant (admitted into the victim's slot and scrubbed pages, the
+    cycles driven by hand so that it is) equal to the clean engine's,
+    ``nonfinite_outputs`` 1, the pool finite.  int8 also: a
+    ``serving.kv_scale`` poison fails its reader typed, one dequant
+    fault, the others unchanged.  Returns the clean streams."""
+    from mxnet_tpu_torch.resilience import FaultPlan
+    tag = f"kv_quant={kv_quant}"
+    eng, _n = hard_engine(torch, net, kv_quant=kv_quant)
+    with eng:
+        clean = [f.result(600) for f in
+                 [eng.submit(p, max_new_tokens=HARD_NEW) for p in prompts]]
+        clean_tenant = eng.infer(tenant, max_new_tokens=HARD_NEW)
+    del eng
+    wpe = dict(net.named_parameters())["wpe.weight"]
+    keep = wpe[HARD_NAN_POS].clone()
+    with torch.no_grad():
+        wpe[HARD_NAN_POS] = float("nan")
+    try:
+        eng, _n = hard_engine(torch, net, kv_quant=kv_quant)
+        freed = []
+        scrub = eng._scrub_pages
+
+        def record(pages, count=True):
+            if count:
+                freed.extend(pages)
+            scrub(pages, count)
+        eng._scrub_pages = record
+        futs = [eng.submit(p, max_new_tokens=HARD_NEW) for p in prompts]
+        victim = int(np.argmax([len(p) for p in prompts]))
+        drive_until(eng, futs[victim].done)
+        fut_t = eng.submit(tenant, max_new_tokens=HARD_NEW)
+
+        def tenant_pages():
+            return [pid for _s, st in eng._alloc.items()
+                    if st.request.future is fut_t for pid in st.pages]
+        drive_until(eng, lambda: tenant_pages() or fut_t.done())
+        tenant_pages = tenant_pages()
+        drive_until(eng, lambda: all(f.done() for f in futs + [fut_t]))
+        outs = [outcome(f) for f in futs]
+        got_t = outcome(fut_t)
+        c = eng.metrics.counters
+        finite = pool_finite(torch, eng)
+        eng.stop()
+    finally:
+        with torch.no_grad():
+            wpe[HARD_NAN_POS] = keep
+    others = [i for i in range(len(prompts)) if i != victim]
+    print(f"18a NaN guard ({tag}): wpe row {HARD_NAN_POS} NaN; victim "
+          f"(prompt {len(prompts[victim])}) -> {outs[victim]}; "
+          f"nonfinite_outputs {c['nonfinite_outputs']}, pages_scrubbed "
+          f"{c['pages_scrubbed']}, tenant pages {tenant_pages} of the "
+          f"scrubbed {sorted(freed)} [{card}]", flush=True)
+    res_gate(f"({tag}) the victim fails typed",
+              outs[victim] == "NonFiniteOutputError")
+    res_gate(f"({tag}) the other 7 streams equal the clean engine's",
+              all(same_stream(outs[i], clean[i]) for i in others))
+    res_gate(f"({tag}) the next tenant, on the victim's scrubbed pages, "
+              "equals the clean engine's stream",
+              same_stream(got_t, clean_tenant)
+              and bool(set(tenant_pages) & set(freed)))
+    res_gate(f"({tag}) nonfinite_outputs 1 and the pool finite",
+              c["nonfinite_outputs"] == 1 and finite)
+    if kv_quant:
+        eng, _n = hard_engine(torch, net, kv_quant=kv_quant)
+        futs = [eng.submit(p, max_new_tokens=HARD_NEW) for p in prompts]
+        with FaultPlan().nonfinite_at("serving.kv_scale", at=1) as plan:
+            with eng:
+                outs = [outcome(f) for f in futs]
+        c = eng.metrics.counters
+        failed = [i for i, o in enumerate(outs) if isinstance(o, str)]
+        print(f"18a serving.kv_scale poison ({tag}): fired "
+              f"{plan.fired('serving.kv_scale')}, failed {failed} "
+              f"{[outs[i] for i in failed]}, kv_dequant_faults "
+              f"{c['kv_dequant_faults']} [{card}]", flush=True)
+        res_gate(f"({tag}) the scale poison fails one reader typed, one "
+                  "dequant fault, the rest unchanged",
+                  len(failed) == 1
+                  and outs[failed[0]] == "NonFiniteOutputError"
+                  and c["kv_dequant_faults"] == 1
+                  and all(same_stream(outs[i], clean[i])
+                          for i in range(len(prompts)) if i not in failed)
+                  and pool_finite(torch, eng))
+        eng.stop()
+    return clean, clean_tenant
+
+
+def faults_part(torch, net, prompts, clean, card):
+    """(b) a retryable raise at the third ``serving.decode_step``: the
+    fault-free streams bit for bit, one retry, ``compiles`` at
+    warmup()'s; a kill at ``serving.scheduler``: the watchdog trips
+    within ``hang_timeout`` plus two intervals of the kill, every rider
+    fails with ``EngineCrashedError``, and a fresh engine serves."""
+    from mxnet_tpu_torch.resilience import FaultPlan
+    eng, n_warm = hard_engine(torch, net, retry_backoff=0.001)
+    futs = [eng.submit(p, max_new_tokens=HARD_NEW) for p in prompts]
+    t0 = time.monotonic()
+    with FaultPlan().raise_at("serving.decode_step", at=3,
+                              retryable=True) as plan:
+        with eng:
+            outs = [outcome(f) for f in futs]
+    wall = time.monotonic() - t0
+    c = eng.metrics.counters
+    print(f"18b retryable fault at decode step 3: fired {plan.fired()}, "
+          f"retries {c['retries']}, compiles {c['compiles']} (warmup "
+          f"{n_warm}), {c['tokens_generated']} tokens in {wall:.3f} s "
+          f"[{card}]", flush=True)
+    res_gate("the retried run is bit-identical to the fault-free one, "
+              "one retry, nothing compiled",
+              all(same_stream(o, r) for o, r in zip(outs, clean))
+              and c["retries"] == 1 and c["compiles"] == n_warm)
+    del eng
+    eng, _n = hard_engine(torch, net, hang_timeout=HARD_HANG,
+                          watchdog_interval=HARD_INTERVAL)
+    futs = [eng.submit(p, max_new_tokens=HARD_NEW) for p in prompts]
+    killed = []
+    plan = (FaultPlan()
+            .call_at("serving.scheduler", lambda: killed.append(
+                time.monotonic()), at=5)
+            .kill_at("serving.scheduler", at=5))
+    with plan:
+        eng.start()
+        outs = [outcome(f) for f in futs]
+        h = eng.health()
+        eng.stop(timeout=30)
+    trip = min(f.t_done for f in futs) - killed[0]
+    limit = HARD_HANG + 2 * HARD_INTERVAL
+    print(f"18b kill at serving.scheduler: watchdog tripped {trip:.3f} s "
+          f"after the kill (limit {limit:.1f}), riders {sorted(set(outs))}, "
+          f"health live={h['live']} crashed={bool(h['crashed'])}, "
+          f"watchdog_trips {eng.metrics.counters['watchdog_trips']} "
+          f"[{card}]", flush=True)
+    res_gate("the watchdog trips in time and every rider fails typed",
+              trip <= limit and outs == ["EngineCrashedError"] * len(futs)
+              and not h["live"] and h["crashed"])
+    del eng
+    eng, _n = hard_engine(torch, net)
+    futs = [eng.submit(p, max_new_tokens=HARD_NEW) for p in prompts]
+    t0 = time.monotonic()
+    with eng:
+        outs = [f.result(600) for f in futs]
+    print(f"18b a fresh engine, fault-free: {HARD_NEW * len(prompts)} "
+          f"tokens in {time.monotonic() - t0:.3f} s (the retried run "
+          f"{wall:.3f} s) [{card}]", flush=True)
+    res_gate("a fresh engine then serves the clean streams",
+              all(np.array_equal(o, r) for o, r in zip(outs, clean)))
+
+
+def overload_part(torch, net, prompts, tenant, clean, clean_tenant, card):
+    """(c) 24 arrivals in one burst, 8 of each class in turn, at
+    ``queue_depth`` 8: no interactive request shed; an interactive
+    arrival with every slot busy preempts a best_effort decode, whose
+    resumed stream equals its solo stream; a cancel mid-decode returns
+    its pages to the pool."""
+    classes = ("interactive", "batch", "best_effort")
+    eng, _n = hard_engine(torch, net, queue_depth=8)
+    burst = []
+    for i in range(24):
+        cls = classes[i % 3]
+        try:
+            burst.append((cls, eng.submit(prompts[i % 8],
+                                          max_new_tokens=HARD_NEW,
+                                          priority=cls)))
+        except Exception as e:
+            burst.append((cls, type(e).__name__))
+    with eng:
+        res = [(cls, f if isinstance(f, str) else outcome(f))
+               for cls, f in burst]
+        sheds = eng.stats()["overload"]["sheds"]
+        served = eng.stats()["overload"]["served"]
+    del eng
+    # a fresh engine (no prefix cached): every stream but the resumed
+    # one's prefills whole, as (a)'s clean engine did
+    eng, _n = hard_engine(torch, net)
+    with eng:
+        base = eng.metrics.counters["decode_steps"]
+        be = [eng.submit(p, max_new_tokens=HARD_NEW, priority="best_effort")
+              for p in prompts]
+        wait_for(lambda: eng.metrics.counters["decode_steps"] >= base + 3,
+                 "the best_effort wave decodes")
+        ia = eng.submit(tenant, max_new_tokens=HARD_NEW,
+                        priority="interactive")
+        be_outs = [outcome(f) for f in be]
+        ia_out = outcome(ia)
+        c = dict(eng.metrics.counters)
+        victim = eng.submit(prompts[0], max_new_tokens=HARD_NEW)
+        wait_for(lambda: eng.metrics.counters["decode_steps"]
+                 >= c["decode_steps"] + 3, "the request decodes")
+        cancelled = eng.cancel(victim)
+        got = outcome(victim)
+        wait_for(lambda: not eng._alloc.active_count, "the slot frees")
+        pages_back = eng._pool.free_count + eng._prefix.evictable_pages()
+    shed_ia = [r for cls, r in res if cls == "interactive"
+               and isinstance(r, str)]
+    print(f"18c burst of 24 (8 a class) at queue_depth 8: sheds "
+          f"{json.dumps(sheds)}, served {json.dumps(served)} [{card}]",
+          flush=True)
+    res_gate("no interactive request shed", not shed_ia)
+    print(f"18c preemption: {c['preemptions']} preemptions, "
+          f"{c['preempt_resumes']} resumes, {c['prefix_hits']} prefix hits "
+          f"[{card}]", flush=True)
+    res_gate("an interactive arrival preempts a best_effort decode that "
+              "resumes token-identically",
+              c["preemptions"] >= 1 and c["preempt_resumes"] >= 1
+              and all(same_stream(o, r) for o, r in zip(be_outs, clean))
+              and same_stream(ia_out, clean_tenant))
+    print(f"18c cancel mid-decode: cancel() {cancelled}, the request "
+          f"{got}, pages back {pages_back} of {eng.num_pages} [{card}]",
+          flush=True)
+    res_gate("a cancel mid-decode returns its pages",
+              cancelled and got == "RequestCancelledError"
+              and pages_back == eng.num_pages)
+
+
+def parity_part(torch, net, prompts, int8_logits, card):
+    """(d) ``debug_parity``: the kernel arm against its float32 gather
+    twin over phase 3's requests: the int8 arm's histogram printed
+    beside phase 3's int8 logits reading; the float32 arm's max held to
+    ``TOL_LOGITS``."""
+    worst = {}
+    for quant in ("int8", None):
+        eng, n_warm = hard_engine(torch, net, kv_quant=quant,
+                                  debug_parity=True)
+        with eng:
+            for f in [eng.submit(p, max_new_tokens=HARD_NEW)
+                      for p in prompts]:
+                f.result(600)
+        s = eng.stats()
+        err = s["quantized_kv"]["error"]
+        p50 = eng.metrics.kv_quant_error.percentile(50)
+        worst[quant] = err["max"]
+        print(f"18d debug_parity kv_quant={quant}: {err['count']} steps, "
+              f"max-abs logit delta p50 {p50:.3e} max {err['max']:.3e}; "
+              f"compiles {s['compile']['compiles']} (warmup {n_warm}) "
+              f"[{card}]", flush=True)
+        res_gate(f"(kv_quant={quant}) the twin ran every step and "
+                  "compiled nothing after warmup()",
+                  err["count"] > 0 and s["quantized_kv"]["debug_parity"]
+                  and s["compile"]["compiles"] == n_warm)
+        del eng
+    print(f"18d int8: the twin's max {worst['int8']:.3e} beside phase 3's "
+          f"int8 kernel-vs-gather logits {int8_logits:.3e} [{card}]",
+          flush=True)
+    check("debug_parity float32 kernel arm vs its gather twin", worst[None],
+          TOL_LOGITS)
+
+
+def cost_arm(torch, net, prompts, guard, card, rnd):
+    """One arm of (e): tokens/s serving the prompts with
+    ``HARD_COST_NEW`` new tokens, and the idle share of 8 decode cycles
+    driven by hand under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    kw = dict(hang_timeout=HARD_HANG) if guard else \
+        dict(guard_nonfinite=False)
+    eng, _n = hard_engine(torch, net, **kw)
+    futs = [eng.submit(p, max_new_tokens=HARD_COST_NEW) for p in prompts]
+    drive_until(eng, lambda: eng.metrics.counters["decode_steps"]
+                >= 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(8):
+            with eng._step_lock:
+                eng._cycle()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    name = "guard, metrics, watchdog" if guard else "guard off"
+    idle = report_profile(torch, f"round {rnd} {name}: 8 decode cycles",
+                          wall, prof, card)
+    drive_until(eng, lambda: all(f.done() for f in futs))
+    gen0 = eng.metrics.counters["tokens_generated"]
+    t0 = time.monotonic()
+    with eng:
+        for f in [eng.submit(p, max_new_tokens=HARD_COST_NEW)
+                  for p in prompts]:
+            f.result(600)
+    tps = (eng.metrics.counters["tokens_generated"] - gen0) / \
+        (time.monotonic() - t0)
+    print(f"  round {rnd} {name}: {tps:.1f} tokens/s [{card}]", flush=True)
+    del eng
+    return tps, idle
+
+
+def observability_part(torch, net, prompts, card):
+    """(f) the registry's Prometheus text carries the engine's
+    ``mxtpu_serving_*`` series under the reference's names, and a flight
+    bundle's live-engine section names the running engine."""
+    import shutil
+    import tempfile
+    import mxnet_tpu_torch.observability as obs
+    from mxnet_tpu_torch.serving.metrics import ServingMetrics
+    root = tempfile.mkdtemp(prefix="mxtpu-phase18-")
+    fr = obs.enable_flight_recorder(bundle_dir=root)
+    try:
+        eng, _n = hard_engine(torch, net, name="phase18")
+        with eng:
+            eng.infer(prompts[0], max_new_tokens=4)
+            text = obs.to_prometheus(obs.default_registry().collect())
+            with open(fr.dump("phase18.dump")) as f:
+                engines = json.load(f)["engines"]
+    finally:
+        obs.disable_flight_recorder()
+        shutil.rmtree(root, ignore_errors=True)
+    series = {n for n, labels in obs.parse_prometheus(text)
+              if dict(labels).get("engine") == eng.name}
+    want = {f"mxtpu_serving_{c}_total" for c in ServingMetrics._COUNTERS}
+    want |= {"mxtpu_serving_queue_depth", "mxtpu_serving_kv_pages_free",
+             "mxtpu_serving_kv_bytes_per_token", "mxtpu_serving_compiles",
+             "mxtpu_serving_brownout", "mxtpu_serving_overload_factor",
+             "mxtpu_serving_latency_seconds_bucket",
+             "mxtpu_serving_ttft_seconds_count",
+             "mxtpu_serving_kv_quant_error_sum"}
+    print(f"18f Prometheus: {len(series)} series names under "
+          f"engine={eng.name}, {len(want - series)} of the reference's "
+          f"{len(want)} missing; the flight bundle's engines: "
+          f"{sorted(engines)} [{card}]", flush=True)
+    res_gate("the reference's series and the live engine in the bundle",
+              not (want - series) and eng.name in engines)
+
+
+def hardened_path(torch, card, prompts, int8_logits):
+    """Phase 18: the hardened engine at full width.  Returns its
+    launches (every engine of the phase, warm-ups in)."""
+    from mxnet_tpu_torch.models import get_gpt2
+    t_phase = time.monotonic()
+    print(f"18 the hardened engine: GPT-2 124M, phase 3's prompts, "
+          f"{HARD_NEW} new tokens, lattice {HARD_LATTICE}:", flush=True)
+    net = get_gpt2("gpt2_124m", dropout=0.0)
+    net.initialize(seed=SEED)
+    rs = np.random.RandomState(SEED + 18)
+    tenant = rs.randint(0, VOCAB, (HARD_TENANT,)).astype(np.int32)
+    reset_launches()
+    parts = {}
+    t0 = time.monotonic()
+    clean, clean_tenant = nan_guard_part(torch, net, prompts, tenant, card,
+                                         None)
+    nan_guard_part(torch, net, prompts, tenant, card, "int8")
+    parts["a"] = round(time.monotonic() - t0, 1)
+    for name, fn in (
+            ("b", lambda: faults_part(torch, net, prompts, clean, card)),
+            ("c", lambda: overload_part(torch, net, prompts, tenant, clean,
+                                        clean_tenant, card)),
+            ("d", lambda: parity_part(torch, net, prompts, int8_logits,
+                                      card)),
+            ("f", lambda: observability_part(torch, net, prompts, card))):
+        t0 = time.monotonic()
+        fn()
+        parts[name] = round(time.monotonic() - t0, 1)
+        free(torch)
+    launches = read_launches()
+    res_gate("B1 and B4 launched on the hardened path",
+              launches["flash_fwd"] > 0 and launches["paged_attention"] > 0,
+              f" {launches}")
+    t0 = time.monotonic()
+    print(f"18e cost of the guard, the metrics and the watchdog: "
+          f"{HARD_ROUNDS} rounds in turns, {HARD_COST_NEW} new tokens",
+          flush=True)
+    cost = {True: [], False: []}
+    for rnd in range(1, HARD_ROUNDS + 1):
+        order = (True, False) if rnd % 2 else (False, True)
+        for guard in order:
+            cost[guard].append(cost_arm(torch, net, prompts, guard, card,
+                                        rnd))
+            free(torch)
+    parts["e"] = round(time.monotonic() - t0, 1)
+    summary = {("on" if g else "off"): {
+        "tokens_per_s": [round(t, 1) for t, _i in runs],
+        "idle": [None if i is None else round(i, 4) for _t, i in runs]}
+        for g, runs in cost.items()}
+    print(json.dumps({"hardened_engine": {"cost": summary,
+                                          "seconds": parts}}), flush=True)
+    print(f"phase 18: {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4835,7 +5325,8 @@ def main() -> int:
     record = {"flash_fwd": fwd_f32, **bwd["float32"],
               "paged_attention": paged_main}
     record_bf16 = {"flash_fwd": fwd_bf16, **bwd["bfloat16"]}
-    by_path = {"serve": main_path(torch, card, prompts)}
+    serve_launches, int8_logits = main_path(torch, card, prompts)
+    by_path = {"serve": serve_launches}
     by_path["train"], train_losses = train_path(torch, card)
     gc.collect()                 # the training phase's net and trainer
     torch.cuda.empty_cache()
@@ -4887,6 +5378,8 @@ def main() -> int:
     by_path.update(training_programs_path(torch, card))
     free(torch)
     by_path["resilient"] = resilient_path(torch, card)
+    free(torch)
+    by_path["hardened"] = hardened_path(torch, card, prompts, int8_logits)
     # each kernel's launches on the path that is its own: the training
     # path for the flash kernels, the serving path for paged attention;
     # the flash kernels' bf16 numbers (phase 2 at the training shape)

@@ -218,7 +218,8 @@ class GPT2Model(HybridBlock):
 
     @torch.no_grad()
     def draft_slots(self, tok, caches, pos, n_tokens, draft_layers,
-                    temperature, top_k, top_p, seeds, page_table=None):
+                    temperature, top_k, top_p, seeds, poison=None,
+                    page_table=None):
         """Self-speculative drafter: propose ``n_tokens`` tokens per slot
         by early exit after the first ``draft_layers`` blocks (then
         ``ln_f`` and the tied head); the caches' leading layers are its
@@ -230,7 +231,11 @@ class GPT2Model(HybridBlock):
         compiled loop: positions, sampling rows and seeds are device
         tensors (``seeds`` may be a host sequence), nothing is read back
         to the host, and the ``n_tokens`` steps can be captured together
-        in one CUDA graph.  Returns (S, n_tokens) int32."""
+        in one CUDA graph.  ``poison`` (a float32 scalar tensor, 0.0
+        unless a fault plan poisons it; None adds nothing) is added to
+        the draft logits: the ``serving.draft_logits`` fault site rides
+        it as a program input, so a plan's NaN reaches a replay of the
+        graph captured clean.  Returns (S, n_tokens) int32."""
         from ..serving.sampling import sample_tokens
         _dense_blocks_only(self)
         if not 1 <= int(draft_layers) <= len(self.blocks):
@@ -257,6 +262,8 @@ class GPT2Model(HybridBlock):
             for blk, (wk, wv), r in zip(blocks, wins, rows):
                 x = blk.forward_step_window(x, r, pos, wk, wv, i)
             lg = self._logits(self.ln_f(x)).reshape(s, self.vocab_size)
+            if poison is not None:
+                lg = lg + poison
             cur = sample_tokens(lg, temperature, top_k, top_p, seeds,
                                 pos + i)
             out.append(cur)

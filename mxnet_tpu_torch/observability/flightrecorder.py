@@ -360,10 +360,9 @@ class FlightRecorder:
         """``stats()`` of every LIVE engine, from the serving engine's
         registry of live names: a condemned engine's counters are
         host-side state that survives until GC, which is why the bundle
-        snapshots them.  Empty while the port's engine registers no
-        names (ROADMAP queue A2.6)."""
+        snapshots them."""
         from ..serving import engine as _engine_mod
-        live = getattr(_engine_mod, "_LIVE_NAMES", {})
+        live = _engine_mod._LIVE_NAMES
         out = {}
         for name in sorted(live.keys()):
             eng = live.get(name)

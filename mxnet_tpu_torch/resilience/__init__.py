@@ -14,8 +14,8 @@ Three coupled layers (docs/resilience.md has the cookbook):
    a kill at any instant cannot corrupt and a fresh process resumes
    deterministically (same data offset, same per-step RNG).
 3. :class:`Watchdog` — the generic dead/hung-thread detector the serving
-   engine will use (ROADMAP queue A2.6) to fail stranded requests with
-   ``EngineCrashedError`` instead of hanging callers.
+   engine uses to fail stranded requests with ``EngineCrashedError``
+   instead of hanging callers.
 4. :mod:`~mxnet_tpu_torch.resilience.integrity` — end-to-end state integrity
    (docs/integrity.md): per-file BLAKE2b checkpoint manifests with
    verify → quarantine → fallback-chain restore

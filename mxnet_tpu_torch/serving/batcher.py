@@ -1,12 +1,17 @@
 """Dynamic batching + the shape-bucket lattice (counterpart of
-``mxnet_tpu/serving/batcher.py``, without priority classes).
+``mxnet_tpu/serving/batcher.py``).
 
 :class:`BucketLattice` pads every batch up to a fixed (batch, seq)
 lattice point, so the engine runs a bounded set of shapes.
 :class:`DynamicBatcher` is the bounded admission queue in front of the
-scheduler: overflow is shed at ``put`` (backpressure, not backlog), and
-a batch closes at ``max_batch`` requests or when the oldest has waited
-``max_wait_us``.
+scheduler, one FIFO per priority class: batches form highest class
+first and close at ``max_batch`` compatible requests or when the oldest
+has waited ``max_wait_us``.  At depth an arrival evicts the youngest
+queued request of the lowest class strictly below its own (``put``
+returns it; the engine fails its future typed), never a preempted
+continuation (its progress is parked, the most expensive queued work);
+with nothing to evict the arrival sheds with
+:class:`~.errors.QueueFullError`.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 from ..analysis.lockwitness import named_condition as _named_condition
 from .errors import EngineStoppedError, QueueFullError, ServingError
+from .overload import PRIORITIES, PRIORITY_BATCH
 
 __all__ = ["BucketLattice", "DynamicBatcher"]
 
@@ -75,80 +81,209 @@ class BucketLattice:
             tuple(s for s in self.seq_buckets if s <= self.seq(max_seq))
         return [(b, s) for b in self.batch_buckets for s in sb]
 
+    def __len__(self):
+        return len(self.batch_buckets) * len(self.seq_buckets)
+
+    def __repr__(self):
+        return (f"BucketLattice(batch={self.batch_buckets}, "
+                f"seq={self.seq_buckets})")
+
+
+def _ordinal(req) -> int:
+    # requests without a priority attribute (direct DynamicBatcher
+    # users, tests) ride the default middle class
+    return getattr(req, "priority", PRIORITY_BATCH)
+
 
 class DynamicBatcher:
-    """Bounded FIFO admission queue with max-batch/max-wait batch
-    forming.  The engine and the batcher share one Condition: ``put``
-    notifies the scheduler thread."""
+    """Bounded, priority-aware admission queue with max-batch/max-wait
+    batch forming (see the module docstring for the shed/evict
+    contract).
+
+    The engine and the batcher share one Condition: producers
+    (``put``) notify the scheduler thread; the scheduler blocks in
+    ``get_batch`` only when it has nothing else to do (idle engine) and
+    otherwise drains whatever is ready without waiting (continuous
+    batching never stalls running requests on arriving ones).
+    """
 
     def __init__(self, max_depth: int = 64,
                  cond: Optional[threading.Condition] = None):
         self.max_depth = max_depth
         self._cond = cond or _named_condition(
             "serving.batcher.cond", "standalone-batcher admission queue")
-        self._q: deque = deque()
+        # one FIFO per priority class, highest (ordinal 0) first
+        self._qs: Tuple[deque, ...] = tuple(
+            deque() for _ in PRIORITIES)
+        self._n = 0
         self._closed = False
+        # deepest the queue has ever been (exported as the
+        # mxtpu_serving_queue_depth_highwater gauge): the capacity-
+        # planning number — how close admission came to shedding
+        self.depth_highwater = 0
+
+    @property
+    def cond(self) -> threading.Condition:
+        return self._cond
 
     def __len__(self):
-        return len(self._q)
+        # an atomic int read: probes must not contend with admission
+        return self._n
 
     def empty(self) -> bool:
-        return not self._q
+        # the scheduler re-checks under the shared cond before waiting
+        return self._n == 0
+
+    def depth_at_or_above(self, ordinal: int) -> int:
+        """Queued requests at class ``ordinal`` or higher — the queue a
+        new request of that class actually waits behind (deadline-
+        admission's wait estimate; lower classes never delay it)."""
+        with self._cond:
+            return sum(len(q) for q in self._qs[:ordinal + 1])
+
+    def waiting_at_or_above(self, ordinal: int, now: float) -> int:
+        """Like :meth:`depth_at_or_above`, but counting only requests
+        whose deadline has not already passed — the arrivals preemption
+        would actually serve (an expired request fails at its next
+        admission; evicting a healthy victim for it is pure churn)."""
+        with self._cond:
+            return sum(1 for q in self._qs[:ordinal + 1] for r in q
+                       if not r.expired(now))
 
     def put(self, req):
-        """Enqueue, or shed with :class:`QueueFullError` at depth."""
+        """Enqueue, evict-and-enqueue, or shed.  Never blocks the
+        caller; O(1) below depth — only the at-depth eviction scan is
+        O(depth), and only while overloaded.  Returns the EVICTED
+        victim request (priority shed — the caller owns failing its
+        future typed) or ``None``; raises :class:`QueueFullError` when
+        the queue is at depth and no strictly-lower-class request is
+        queued."""
         with self._cond:
             if self._closed:
                 raise EngineStoppedError(
                     "engine is stopped — request not accepted")
-            if len(self._q) >= self.max_depth:
-                raise QueueFullError(f"request queue at configured depth "
-                                     f"{self.max_depth} — shedding load")
+            victim = None
+            if self._n >= self.max_depth:
+                pr = _ordinal(req)
+                # evict the YOUNGEST non-preempted request of the
+                # LOWEST class strictly below the arrival — the
+                # cheapest queued work.  A preempted continuation is
+                # the most expensive item in the queue (its progress is
+                # parked in the prefix pool awaiting resume), so it is
+                # never the cheapest to shed.
+                for lvl in range(len(self._qs) - 1, pr, -1):
+                    q = self._qs[lvl]
+                    for r in reversed(q):
+                        if not getattr(r, "preempted", 0):
+                            q.remove(r)
+                            victim = r
+                            self._n -= 1
+                            break
+                    if victim is not None:
+                        break
+                if victim is None:
+                    raise QueueFullError(
+                        f"request queue at configured depth "
+                        f"{self.max_depth} — shedding load")
             req.t_enqueue = time.monotonic()
-            self._q.append(req)
+            self._qs[_ordinal(req)].append(req)
+            self._n += 1
+            if self._n > self.depth_highwater:
+                self.depth_highwater = self._n
+            self._cond.notify_all()
+            return victim
+
+    def requeue(self, req) -> None:
+        """Put a PREEMPTED request back at the FRONT of its class so it
+        resumes as soon as capacity returns.  Exempt from the depth
+        bound (bounded by num_slots concurrent preemptions) — a parked
+        victim must never be lost to queue-full — and from the closed
+        check only insofar as a closed queue fails it at drain like any
+        other queued request."""
+        with self._cond:
+            if self._closed:
+                raise EngineStoppedError(
+                    "engine is stopped — request not accepted")
+            self._qs[_ordinal(req)].appendleft(req)
+            self._n += 1
+            if self._n > self.depth_highwater:
+                self.depth_highwater = self._n
             self._cond.notify_all()
 
-    def requeue(self, req):
-        """Put an accepted request back at the FRONT (admission blocked on
-        pages); exempt from the depth bound and from ``close`` so that a
-        draining engine still finishes it."""
+    def remove(self, fut):
+        """Remove and return the queued request whose future is ``fut``
+        (the hedged-loser cancellation path), or ``None``."""
         with self._cond:
-            self._q.appendleft(req)
-            self._cond.notify_all()
+            for q in self._qs:
+                for r in q:
+                    if r.future is fut:
+                        q.remove(r)
+                        self._n -= 1
+                        return r
+        return None
+
+    def _head(self):
+        for q in self._qs:
+            if q:
+                return q[0]
+        return None
 
     def get_batch(self, max_batch: int, max_wait_us: float,
-                  compatible: Optional[Callable] = None) -> List:
-        """Form one batch without blocking on an empty queue: collect
-        until ``max_batch`` requests are ready or the oldest has waited
-        ``max_wait_us``.  ``compatible`` maps a request to a grouping
-        key (the forward mode's input shape): the batch takes the
-        head's key and skips over other keys without reordering them.
-        [] if nothing is queued."""
+                  compatible: Optional[Callable] = None,
+                  wait: bool = True) -> List:
+        """Form one batch, highest priority class first.
+
+        Blocks (if ``wait``) until at least one request is queued, then
+        keeps collecting until ``max_batch`` COMPATIBLE requests are
+        ready or the oldest (highest-class) has waited ``max_wait_us``.
+        ``compatible`` maps a request to a grouping key (e.g. input
+        shape); the batch takes the head's key and skips over
+        mismatches without reordering them.  Returns [] if
+        closed-and-empty or ``wait`` is False with nothing queued.
+        """
         with self._cond:
-            if not self._q:
+            if wait:
+                while self._n == 0 and not self._closed:
+                    self._cond.wait(0.1)
+            if self._n == 0:
                 return []
-            deadline = self._q[0].t_enqueue + max_wait_us * 1e-6
-            while len(self._q) < max_batch and not self._closed:
+            head = self._head()
+            deadline = head.t_enqueue + max_wait_us * 1e-6
+            while self._n < max_batch and not self._closed:
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
                     break
                 self._cond.wait(remaining)
-            key = compatible(self._q[0]) if compatible else None
-            batch, leftover = [], deque()
-            while self._q and len(batch) < max_batch:
-                r = self._q.popleft()
-                if compatible is None or compatible(r) == key:
-                    batch.append(r)
-                else:
-                    leftover.append(r)
-            self._q.extendleft(reversed(leftover))
+            head = self._head()          # may have been evicted/removed
+            if head is None:
+                return []
+            key = compatible(head) if compatible else None
+            batch: List = []
+            for q in self._qs:
+                if len(batch) >= max_batch:
+                    break
+                leftover = deque()
+                while q and len(batch) < max_batch:
+                    r = q.popleft()
+                    if compatible is None or compatible(r) == key:
+                        batch.append(r)
+                    else:
+                        leftover.append(r)
+                leftover.extend(q)
+                q.clear()
+                q.extend(leftover)
+            self._n -= len(batch)
             return batch
 
     def drain(self) -> List:
-        """Remove and return everything queued."""
+        """Remove and return everything queued (shutdown/cancel path),
+        highest class first."""
         with self._cond:
-            out = list(self._q)
-            self._q.clear()
+            out: List = []
+            for q in self._qs:
+                out.extend(q)
+                q.clear()
+            self._n = 0
             return out
 
     def close(self):
@@ -159,4 +294,5 @@ class DynamicBatcher:
 
     @property
     def closed(self) -> bool:
+        # close is one-way: a stale False only delays one probe
         return self._closed

@@ -95,11 +95,20 @@ class PagePool:
         """Drop one reader from each of ``pids``; the ids that freed."""
         return [pid for pid in pids if self.unref(pid)]
 
+    def mark_dirty(self, pids):
+        """Record pages that hold non-finite K/V but are still
+        referenced (the scrub-on-NaN path could not zero them); the
+        engine scrubs them at their next claim."""
+        self.dirty.update(int(p) for p in pids)
+
     def reset(self):
-        """Forget every claim (paired with the engine dropping its device
+        """Forget every claim (paired with the engine zeroing its device
         caches)."""
         self._free: List[int] = list(range(self.num_pages - 1, -1, -1))
         self._refs: List[int] = [0] * self.num_pages
+        # pages a non-finite victim wrote that another reader still
+        # held at its release: scrubbed when next claimed
+        self.dirty: set = set()
 
     def __repr__(self):
         return (f"PagePool(pages={self.num_pages}, "

@@ -27,11 +27,16 @@ class SlotState:
     prefill chunks); ``pos`` is the position of ``last_token``, where
     the next decode step writes its K/V.  ``pinned`` holds the prefix
     entry this slot copied from, read-pinned until its prefill ends;
-    ``t_schedule`` is the admission time (the page-victim order)."""
+    ``t_schedule`` is the admission time (the page-victim order).  In the
+    paged layout ``pages`` are the slot's pages in logical order, the
+    first ``pages_shared`` shared whole from a prefix entry and read-only
+    to it (the NaN scrub must know which pages the slot could have
+    written); ``waiting`` marks a slot whose page claim was deferred this
+    cycle (it sits out prefill and decode until the pages come)."""
 
     __slots__ = ("request", "prompt_len", "pos", "last_token", "generated",
                  "max_new_tokens", "tokens", "filled", "pinned", "t_first",
-                 "t_schedule", "pages")
+                 "t_schedule", "pages", "pages_shared", "waiting")
 
     def __init__(self, request, prompt_len: int, max_new_tokens: int,
                  tokens=None):
@@ -46,9 +51,9 @@ class SlotState:
         self.pinned = None            # prefix entry read while prefilling
         self.t_first: Optional[float] = None
         self.t_schedule: Optional[float] = None
-        # paged layout: the slot's physical pages in logical order (those
-        # shared whole from a prefix entry are read-only to it)
         self.pages: List[int] = []
+        self.pages_shared = 0
+        self.waiting = False
 
     @property
     def done(self) -> bool:

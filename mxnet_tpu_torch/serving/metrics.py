@@ -9,8 +9,9 @@ exported two ways —
   batch, so a ``torch.profiler`` trace of a serving process shows
   prefill/decode batches around the kernels they launched.
 
+The serving engine keeps its counters in one (``engine.metrics``), and
 ``ResilientLoop`` counts its commits, resumes, retries and bad steps
-into one; the engine's wiring to it is ROADMAP queue A2.6.
+into one.
 
 Histograms are log-spaced (10µs … ~2min) so one shape covers both a
 CPU-sanity test and a GPU fleet; percentile queries interpolate inside

@@ -1794,3 +1794,182 @@ def test_load_state_dict_into_a_captured_trainer_steers_the_next_replay(
     sa, sb = a.state_dict(), b.state_dict()
     for k in sa:
         assert _relerr(sa[k].float(), sb[k].float()) <= 1e-5, k
+
+
+# ------------------------------------------------ NaN through the kernels
+
+def _nonfinite_rows(x):
+    """(rows,) bool: rows of a (B, T, H, D) output with a non-finite
+    value, over every (T, H, D)."""
+    return ~torch.isfinite(x.float()).flatten(1).all(dim=1)
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+def test_paged_kernel_nan_at_live_and_masked_keys(dev, kind):
+    """B4 at decode (Tq 1), one row per case, each row on pages of its
+    own.  A NaN at a live key of the row — in K (int8: its K scale), in
+    V (its V scale), and (int8) a whole page's K scale — gives the row
+    non-finite values, in the kernel as in the plain version (the
+    engine's guard reads it there).  A NaN in K and V at keys past the
+    row's position, on pages the row maps, leaves the kernel's row equal
+    to the plain version's over clean pages: the walk ends at the row's
+    position, so those keys are never read."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    b, h, d, ps, npt = 4, 4, 64, 16, 4
+    n = b * npt + 1
+    kf = torch.randn((n, ps, h, d), generator=g, device=dev)
+    vf = torch.randn((n, ps, h, d), generator=g, device=dev)
+    kf[-1] = 0
+    vf[-1] = 0
+    table = torch.arange(b * npt, device=dev).reshape(b, npt) \
+        .to(torch.int32)
+    pos = [40, 40, 40, 20]
+    qpos = torch.tensor(pos, dtype=torch.int32, device=dev)[:, None]
+    q = torch.randn((b, 1, h, d), generator=g, device=dev)
+    if kind == "int8":
+        kp, ks = paged.kv_quantize(kf)
+        vp, vs = paged.kv_quantize(vf)
+    else:
+        kp, vp, ks, vs = kf.clone(), vf.clone(), None, None
+    clean = paged._paged_plain(q, kp, vp, table, qpos, ks, vs, d ** -0.5)
+
+    def at(row, key):
+        return int(table[row, key // ps]), key % ps
+    nan = float("nan")
+    live = {0: ("k", at(0, 17)), 1: ("v", at(1, 33)),
+            2: ("page", at(2, 40))}
+    kp2, vp2 = kp.clone(), vp.clone()
+    ks2 = None if ks is None else ks.clone()
+    vs2 = None if vs is None else vs.clone()
+    for row, (what, (pid, off)) in live.items():
+        if kind == "int8":
+            if what == "page":
+                ks2[pid] = nan
+            else:
+                (ks2 if what == "k" else vs2)[pid, off] = nan
+        elif what == "page":
+            kp2[pid, off, 1, 3] = nan
+        else:
+            (kp2 if what == "k" else vp2)[pid, off, 2, 5] = nan
+    # row 3 (position 20): NaN at keys 21 and 47, past its position
+    for key in (21, 47):
+        pid, off = at(3, key)
+        if kind == "int8":
+            ks2[pid, off] = nan
+            vs2[pid, off] = nan
+        else:
+            kp2[pid, off] = nan
+            vp2[pid, off] = nan
+    out = paged.paged_attention(q, kp2, vp2, table, qpos, k_scale=ks2,
+                                v_scale=vs2)
+    torch.cuda.synchronize()
+    plain = paged._paged_plain(q, kp2, vp2, table, qpos, ks2, vs2,
+                               d ** -0.5)
+    assert _nonfinite_rows(out)[:3].tolist() == [True] * 3
+    assert _nonfinite_rows(plain)[:3].tolist() == [True] * 3
+    assert bool(torch.isfinite(out[3]).all())
+    assert _maxabs(out[3], clean[3]) <= TOL[torch.float32]
+
+
+def test_flash_kernel_nan_at_live_and_masked_keys(dev):
+    """B1, causal, float32.  Head 0: NaN in K at key 150 — rows 150 on
+    (the key is live) are non-finite in the kernel and the plain
+    version; rows before it (the key is masked: its score is replaced,
+    not added to) equal the plain version over clean inputs.  Head 1:
+    NaN in V at key 250 — rows 250 on non-finite; rows of the query
+    tiles before the key's tile (rows < 192: their walk ends before
+    key tile 3) equal the clean output; rows 192-249 read the key with
+    a zero weight, and 0 · NaN is NaN: non-finite in the kernel as in
+    the plain version, where every earlier row reads it so."""
+    g = torch.Generator(device=dev).manual_seed(150)
+    b, t, h, d = 1, 300, 2, 64
+    q, k, v = (torch.randn((b, t, h, d), generator=g, device=dev)
+               for _ in range(3))
+    scale = d ** -0.5
+    clean, _ = flash._fwd_plain(q, k, v, None, None, True, scale)
+    k[0, 150, 0, 7] = float("nan")
+    v[0, 250, 1, 9] = float("nan")
+    out, _lse = flash.flash_fwd(q, k, v, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    plain, _ = flash._fwd_plain(q, k, v, None, None, True, scale)
+
+    def bad(x, head):
+        return ~torch.isfinite(x[0, :, head]).all(dim=-1)
+    want0 = torch.arange(t, device=dev) >= 150
+    assert torch.equal(bad(out, 0), want0)
+    assert torch.equal(bad(plain, 0), want0)
+    assert _maxabs(out[0, :150, 0], clean[0, :150, 0]) <= TOL[torch.float32]
+    assert bool(bad(out, 1)[250:].all()) and bool(bad(plain, 1)[250:].all())
+    assert not bool(bad(out, 1)[:192].any())
+    assert _maxabs(out[0, :192, 1], clean[0, :192, 1]) <= TOL[torch.float32]
+    assert bool(bad(out, 1)[192:250].all())
+
+
+def _guarded_engine(net, **kw):
+    from mxnet_tpu_torch.serving import InferenceEngine
+    cfg = dict(num_slots=2, max_batch=2, kv_layout="paged", page_size=16,
+               seq_buckets=(32,))
+    cfg.update(kw)
+    eng = InferenceEngine(net, **cfg)
+    n = eng.warmup()
+    assert all(p.graph for p in eng._programs.values())
+    return eng, n
+
+
+def test_in_place_scrub_reaches_the_next_replay(dev):
+    """The decode program captured the caches: a NaN written in place
+    into a page row 0 reads makes the next replay's finite flag for row
+    0 drop (the flag rides the tokens' copy), and ``_scrub_pages``,
+    which zeroes the page in place, makes the replay after it finite
+    again — no capture in between, launches credited by replays."""
+    net = _small_gpt2(8)
+    eng, n_warm = _guarded_engine(net)
+    s1 = eng.num_slots + 1
+    eng._page_table[0, :2] = [3, 4]
+    eng._table_stale = True
+    eng._sync_table()
+    g = torch.Generator(device=dev).manual_seed(3)
+    for layer in eng._caches:
+        for a in layer.values():
+            a[3:5] = torch.randn(a[3:5].shape, generator=g, device=dev)
+    tok = onp.arange(s1, dtype=onp.int32)
+    pos = onp.array([20] + [eng.max_length] * (s1 - 1), onp.int32)
+    samp = eng._samp_rows([], s1)
+    flags = []
+    launches.reset()
+    flags.append(eng._run_decode(tok, pos, samp)[1, 0])
+    eng._caches[0]["k"][3, 5] = float("nan")
+    flags.append(eng._run_decode(tok, pos, samp)[1, 0])
+    eng._scrub_pages([3])
+    assert not bool(eng._caches[0]["k"][3].any())
+    flags.append(eng._run_decode(tok, pos, samp)[1, 0])
+    assert flags == [1, 0, 1]
+    assert eng.stats()["compile"]["compiles"] == n_warm
+    assert launches.totals()["paged_attention"] == 3 * len(net.blocks)
+    assert eng.metrics.counters["pages_scrubbed"] == 1
+
+
+def test_draft_poison_input_is_read_at_a_replay(dev):
+    """``serving.draft_logits`` is a float32 input of the draft program:
+    replays of the graph captured with 0.0 read a NaN poison (every
+    draft proposes the NaN row's argmax) and then 0.0 again (the clean
+    drafts come back bit for bit), with no capture between."""
+    net = _small_gpt2(9)
+    eng, n_warm = _guarded_engine(net, spec_tokens=2, draft_layers=1)
+    s1 = eng.num_slots + 1
+    rs = onp.random.RandomState(4)
+    eng._page_table[:2, :2] = [[3, 4], [5, 6]]
+    eng._table_stale = True
+    eng._sync_table()
+    toks = rs.randint(0, 256, (2, 32)).astype("int32")
+    eng._run_prefill(toks, onp.array([30, 25], "int32"),
+                     onp.array([0, 1], "int32"), eng._samp_rows([], 2))
+    tok = rs.randint(0, 256, (s1,)).astype("int32")
+    pos = onp.array([30, 25, eng.max_length], "int32")
+    samp = eng._samp_rows([], s1)
+    runs = [eng._run_draft(tok, pos, samp, pois=p).cpu().numpy()
+            for p in (0.0, float("nan"), 0.0)]
+    assert onp.array_equal(runs[0], runs[2])
+    assert not onp.array_equal(runs[0][:2], runs[1][:2])
+    assert len(set(runs[1][:2].ravel().tolist())) == 1
+    assert eng.stats()["compile"]["compiles"] == n_warm
