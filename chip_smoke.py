@@ -302,13 +302,35 @@ Phases (any failure exits non-zero and prints no result line):
    the metrics and the watchdog against the guard off, in turns over
    ``HARD_ROUNDS`` rounds: tokens/s and 8 decode cycles' idle share
    (printed, not gated).
-19. A ``{"kernels": [...]}`` line, the card line again, and the last
+19. The data pipeline at full width, each arm against the same batches
+   resident on the card, in turns over ``DATA_ROUNDS`` rounds of
+   ``DATA_STEPS`` timed steps.  (a) Phase 16's GPT-2 124M step under
+   amp, graphed, fed ``TRAIN_B`` x (``TRAIN_T`` + 1)-token records
+   written with ``MXIndexedRecordIO``, read through
+   ``RecordFileDataset`` → ``transform`` → ``DataLoader(pin_memory=
+   True)`` → ``DevicePrefetcher`` → ``ShardedTrainer.step``: every loss
+   bit-identical to the resident arm's, B1-B3 12 bf16 launches a step
+   (``launches_by_path["data"]``); ms/step, ``input_wait`` p50 and max,
+   bytes shipped a step.  (b) Phase 16's ResNet-50 v1 NHWC step at 128 x
+   224², graphed, fed seeded ``DATA_IMG``² uint8 images (the card host
+   has no libjpeg, so from memory through ``ArrayDataset``, not JPEG
+   records) through ``DataLoader(pin_memory=True)`` →
+   ``DevicePrefetcher`` → ``DeviceTransform`` (224² crop, mirror,
+   ImageNet normalization, channels-last) on the feeder's stream, the
+   resident arm sending the same uint8 batches through the same
+   transform on the step's stream: transformed batches bit-identical,
+   losses held as phase 16 (c) holds them (deterministic cuDNN,
+   ``TOL_GRAPHED``); float32 and amp: images/s, ``input_wait``, the
+   source's host images/s alone, bytes shipped a step, and from one
+   profiled step the host-to-device copies' µs and how many of them ran
+   beside the step's kernels.  No kernel of the port launches in (b).
+20. A ``{"kernels": [...]}`` line, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.  ``launches_by_path`` holds
    every phase's launches (``bert``, ``bert_amp``, ``nmt``, ``lstm``,
    ``ops``, phase 16's graphed arms ``hybrid_bert_amp``,
    ``graph_train``, ``graph_amp`` and ``graph_vision``, phase 17's
-   fault-free run ``resilient`` and phase 18's ``hardened`` among
-   them); the
+   fault-free run ``resilient``, phase 18's ``hardened`` and phase 19's
+   ``data`` among them); the
    flash kernels carry their numbers at phases 11-12's shapes
    (``shapes``), phase 12's launches by attention and the
    cross-attention call's times.
@@ -571,6 +593,28 @@ RES_SCALE = 2.0 ** 16
 # (a)'s timing: the bare trainer and the loop with tracing off and on,
 # RES_TIMED steps each, in turns over RES_ROUNDS rounds
 RES_TIMED, RES_ROUNDS = 8, 2
+
+
+# phase 19: the data pipeline.  The card host has no libjpeg (nor its
+# headers): its probe found PIL but neither jpeglib.h nor -ljpeg, so the
+# native reader cannot build there and (b) reads seeded uint8 images
+# from memory (gluon.data.ArrayDataset), not JPEG records; the native
+# reader is held to the JAX package's on the CPU (tests).  (a) phase 4's
+# GPT-2 124M step under amp, graphed, fed token records:
+# DATA_WARM + DATA_ROUNDS x DATA_STEPS batches of TRAIN_B records of
+# TRAIN_T + 1 seeded int32 tokens; (b) phase 10's ResNet-50 v1 NHWC
+# step, graphed, fed DATA_IMG x DATA_IMG x 3 uint8 images cropped to
+# VISION_SIZE and mirrored on the card (DeviceTransform), float32 and
+# amp; two more batches for (b)'s profiled step, and a ring's worth
+# (DATA_DEPTH) past it, so that the feeder is still copying while that
+# step runs
+DATA_WARM, DATA_ROUNDS, DATA_STEPS, DATA_PROFILE = 1, 2, 5, 2
+DATA_DEPTH = 2
+DATA_IMG = 256
+DATA_MEAN = (123.68, 116.779, 103.939)
+DATA_STD = (58.393, 57.12, 57.375)
+# (b)'s gate: 3 steps an arm under deterministic cuDNN algorithms
+DATA_GATE_STEPS = 3
 
 # H100 SXM published peaks (dense): HBM bytes/s; bf16 on the tensor
 # cores; float32 at float32 accuracy on the tensor cores, which takes
@@ -5296,6 +5340,381 @@ def hardened_path(torch, card, prompts, int8_logits):
     return launches
 
 
+def data_token_records(root):
+    """(a)'s records: one ``MXIndexedRecordIO`` file of DATA_BATCHES x
+    TRAIN_B records, each TRAIN_T + 1 seeded int32 tokens packed with an
+    ``IRHeader``.  Returns the file's path."""
+    from mxnet_tpu_torch import recordio
+    path = f"{root}/tokens.rec"
+    rec = recordio.MXIndexedRecordIO(f"{root}/tokens.idx", path, "w")
+    rs = np.random.RandomState(SEED)
+    n = (DATA_WARM + DATA_ROUNDS * DATA_STEPS) * TRAIN_B
+    for i in range(n):
+        toks = rs.randint(0, VOCAB, TRAIN_T + 1).astype(np.int32)
+        rec.write_idx(i, recordio.pack(recordio.IRHeader(0, 0.0, i, 0),
+                                       toks.tobytes()))
+    rec.close()
+    return path
+
+
+def data_token_loader(mx, path):
+    """Records → ``RecordFileDataset`` → ``transform`` (unpack to
+    (inputs, labels)) → ``DataLoader(pin_memory=True)``."""
+    def split(raw):
+        toks = np.frombuffer(mx.recordio.unpack(raw)[1], np.int32)
+        return toks[:-1], toks[1:]
+    ds = mx.gluon.data.RecordFileDataset(path).transform(split)
+    return mx.gluon.data.DataLoader(ds, batch_size=TRAIN_B, pin_memory=True)
+
+
+def quantiles(waits):
+    w = sorted(waits)
+    return w[len(w) // 2] * 1e3, w[-1] * 1e3
+
+
+def data_arm_steps(torch, tokens, feed, tr, what, card):
+    """DATA_STEPS timed steps of ``tr`` fed by ``feed()`` (a batch and
+    the wait it cost): (losses, ms/step, waits, launches a step)."""
+    waits = []
+
+    def step():
+        (d, l), wait = feed()
+        waits.append(wait)
+        return tr.step(d, l)
+    losses, ms, _mib, per = timed_steps(torch, step, DATA_STEPS, tokens,
+                                        card, what)
+    return losses, ms, waits, per
+
+
+def first_step(tr, feed):
+    """A signature's first step (its capture): the loss."""
+    (d, l), _w = feed()
+    return float(tr.step(d, l))
+
+
+def data_gpt2(torch, mx, card, root):
+    """19 (a): GPT-2 124M amp, graphed, fed from token records through
+    the DataLoader and DevicePrefetcher, against the same batches
+    resident on the card.  Returns the pipeline arm's launches."""
+    from mxnet_tpu_torch.data import DevicePrefetcher
+    from mxnet_tpu_torch.models import get_gpt2, gpt2_lm_loss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    path = data_token_records(root)
+    resident = [(d.tensor.cuda(), l.tensor.cuda())
+                for d, l in data_token_loader(mx, path)]
+    torch.cuda.synchronize()
+    mx.amp.init("bfloat16")
+    try:
+        arms = {}
+        for arm in ("pipeline", "resident"):
+            net = get_gpt2("gpt2_124m", dropout=0.0).initialize(seed=SEED)
+            tr = ShardedTrainer(net, "adam", loss=gpt2_lm_loss,
+                                optimizer_params={"learning_rate": TRAIN_LR})
+            if arm == "pipeline":
+                pf = tr.attach_data_source(DevicePrefetcher(
+                    data_token_loader(mx, path), depth=DATA_DEPTH))
+
+                def feed(pf=pf):
+                    b = pf.next()
+                    return b, pf.last_wait_seconds
+            else:
+                it = iter(resident)
+
+                def feed(it=it):
+                    return next(it), 0.0
+            reset_launches()
+            losses = [first_step(tr, feed)]
+            arms[arm] = dict(tr=tr, feed=feed, losses=losses, ms=[],
+                             waits=[], launches=read_launches())
+        for rnd in range(1, DATA_ROUNDS + 1):
+            for arm in (("pipeline", "resident") if rnd % 2 else
+                        ("resident", "pipeline")):
+                a = arms[arm]
+                what = f"19a round {rnd} {arm} GPT-2 124M amp"
+                losses, ms, waits, per = data_arm_steps(
+                    torch, ("tokens", TRAIN_B * TRAIN_T), a["feed"],
+                    a["tr"], what, card)
+                expect_launches(read_launches_by_dtype(),
+                                {k: 12 * DATA_STEPS for k in RES_FLASH},
+                                what, dtype="bfloat16")
+                a["losses"] += losses
+                a["ms"].append(ms)
+                a["waits"] += waits
+                for k, v in per.items():
+                    a["launches"][k] += int(v * DATA_STEPS)
+    finally:
+        mx.amp.reset()
+    p, r = arms["pipeline"], arms["resident"]
+    st = p["tr"].stats()["data"]
+    p["tr"]._data_source.close()
+    if p["losses"] != r["losses"]:
+        raise AssertionError(f"19a losses through the pipeline "
+                             f"{p['losses']} differ from the resident "
+                             f"batches' {r['losses']}")
+    finite_and_falling(p["losses"], "19a pipeline")
+    p50, mx_ = quantiles(p["waits"])
+    print(f"  19a {len(p['losses'])} losses bit-identical, pipeline vs "
+          f"resident; ms/step by round pipeline {p['ms']}, resident "
+          f"{r['ms']}; input_wait p50 {p50:.3f} ms, max {mx_:.3f} ms; "
+          f"{st['bytes_shipped'] / st['batches_shipped']:.0f} bytes "
+          f"shipped a step; B1/B2/B3 launches (pipeline arm) "
+          f"{p['launches']} [{card}]", flush=True)
+    # the first step's eager warm-up launches each kernel 12 times, then
+    # every step's replay 12
+    if any(p["launches"][k] != 12 * (len(p["losses"]) + 1)
+           for k in RES_FLASH):
+        raise AssertionError(f"19a: B1-B3 did not launch 12 times a step: "
+                             f"{p['launches']}")
+    summary = dict(ms_pipeline=p["ms"], ms_resident=r["ms"],
+                   input_wait_ms_p50=p50, input_wait_ms_max=mx_,
+                   bytes_a_step=st["bytes_shipped"] / st["batches_shipped"],
+                   losses=p["losses"])
+    launches = p["launches"]
+    del arms, p, r, resident
+    free(torch)
+    return launches, summary
+
+
+def data_images():
+    """(b)'s source: seeded uint8 DATA_IMG² RGB images (NHWC) and labels
+    in [0, 100), enough for every batch an arm takes."""
+    n = (DATA_WARM + DATA_ROUNDS * DATA_STEPS + DATA_PROFILE
+         + DATA_DEPTH) * VISION_B
+    rs = np.random.RandomState(SEED)
+    x = rs.randint(0, 256, (n, DATA_IMG, DATA_IMG, 3), dtype=np.uint8)
+    return x, rs.randint(0, 100, (n,)).astype(np.int32)
+
+
+def data_transform():
+    from mxnet_tpu_torch.data import DeviceTransform
+    return DeviceTransform(mean=DATA_MEAN, std=DATA_STD, crop=VISION_SIZE,
+                           mirror=True, layout="NHWC", seed=SEED)
+
+
+def copy_overlap(torch, fn, root):
+    """One profiled call of ``fn`` (after one untraced, as
+    :func:`profiled`): the host-to-device copies the trace holds, their
+    µs, and the µs of them that ran while a kernel of another stream
+    did.  From the chrome trace (``ts``/``dur`` in µs, ``stream`` in
+    ``args``)."""
+    prof, wall_ms = profiled(torch, fn)
+    trace = f"{root}/copy_trace.json"
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)
+    events = events.get("traceEvents", events)
+    copies, kernels = [], []
+    for e in events:
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        cat, name = e.get("cat", ""), e.get("name", "")
+        span = (float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                e.get("args", {}).get("stream"))
+        if cat == "gpu_memcpy" and "HtoD" in name:
+            copies.append(span)
+        elif cat == "kernel":
+            kernels.append(span)
+    copy_us = sum(b - a for a, b, _s in copies)
+    overlap = 0.0
+    for a, b, s in copies:
+        cuts = sorted((max(a, ka), min(b, kb)) for ka, kb, ks in kernels
+                      if ks != s and ka < b and kb > a)
+        end = a
+        for lo, hi in cuts:
+            lo = max(lo, end)
+            if hi > lo:
+                overlap += hi - lo
+                end = hi
+    return dict(copies=len(copies), copy_us=copy_us, overlap_us=overlap,
+                wall_ms=wall_ms)
+
+
+def data_vision_arm(torch, mx, arm, x, y):
+    """One (b) arm: a fresh ResNet-50 ``ShardedTrainer`` and its feed:
+    the pipeline (DataLoader → DevicePrefetcher → DeviceTransform on
+    the feeder's stream) or the same uint8 batches resident on the card
+    through the same transform on the step's stream."""
+    from mxnet_tpu_torch.data import DevicePrefetcher
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    net = resnet50()
+    net.initialize(seed=SEED)
+    tr = ShardedTrainer(net, "sgd", loss=vision_ce,
+                        optimizer_params=VISION_OPT)
+    tf = data_transform()
+    # the transform's one lattice point, met once and frozen: a batch of
+    # another shape on the loop raises
+    tf.apply(torch.from_numpy(x[:VISION_B]).cuda(), 0)
+    tf.freeze()
+    if arm == "pipeline":
+        ds = mx.gluon.data.ArrayDataset(x, y)
+        dl = mx.gluon.data.DataLoader(ds, batch_size=VISION_B,
+                                      pin_memory=True, num_workers=2)
+        pf = tr.attach_data_source(DevicePrefetcher(dl, depth=DATA_DEPTH,
+                                                    transform=tf))
+
+        def feed():
+            d, l = pf.next()
+            return (d, (l,)), pf.last_wait_seconds
+    else:
+        batches = [(torch.from_numpy(x[i:i + VISION_B]).cuda(),
+                    torch.from_numpy(y[i:i + VISION_B]).cuda())
+                   for i in range(0, len(x), VISION_B)]
+        step_no = iter(range(len(batches)))
+
+        def feed():
+            i = next(step_no)
+            d, l = batches[i]
+            return (tf.apply(d, i), (l,)), 0.0
+    return dict(tr=tr, feed=feed, tf=tf, losses=[], ms=[], waits=[])
+
+
+def data_vision(torch, mx, card, root):
+    """19 (b): ResNet-50 v1 NHWC at 128 x 224², graphed, fed uint8
+    images through the pipeline, against the same batches resident on
+    the card through the same transform; float32 and amp."""
+    x, y = data_images()
+    per_img = DATA_IMG * DATA_IMG * 3
+    print(f"  19b source: {len(x)} seeded uint8 {DATA_IMG}x{DATA_IMG}x3 "
+          f"images in memory ({per_img} bytes an image; no libjpeg on the "
+          f"card host: gluon.data.ArrayDataset, not JPEG records)",
+          flush=True)
+    ds = mx.gluon.data.ArrayDataset(x, y)
+    dl = mx.gluon.data.DataLoader(ds, batch_size=VISION_B, pin_memory=True,
+                                  num_workers=2)
+    t0 = time.perf_counter()
+    n = 0
+    for i, (d, _l) in enumerate(dl):
+        n += d.shape[0]
+        if i == 4:
+            break
+    host_rate = n / (time.perf_counter() - t0)
+    print(f"  19b the source alone (DataLoader, 2 workers, pinned): "
+          f"{host_rate:.1f} images/s on the host [{card}]", flush=True)
+    # the transformed batches, pipeline against resident: bit for bit
+    arms = {a: data_vision_arm(torch, mx, a, x, y)
+            for a in ("pipeline", "resident")}
+    got = [arms["pipeline"]["feed"]()[0][0].tensor for _ in range(3)]
+    want = [arms["resident"]["feed"]()[0][0] for _ in range(3)]
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    print(f"  19b transformed batches 0-2, pipeline vs resident: "
+          f"{'bit-identical' if same else 'DIFFER'}; "
+          f"{tuple(got[0].shape)} {got[0].dtype}, channels-last "
+          f"{got[0].is_contiguous()} [{card}]", flush=True)
+    if not same:
+        raise AssertionError("19b: the pipeline's transformed batches "
+                             "differ from the resident ones")
+    arms["pipeline"]["tr"]._data_source.close()
+    del arms, got, want
+    free(torch)
+    # the losses, as phase 16 holds them: deterministic cuDNN algorithms
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        gate = {}
+        for a in ("pipeline", "resident"):
+            arm = data_vision_arm(torch, mx, a, x, y)
+            gate[a] = [first_step(arm["tr"], arm["feed"])] + [
+                float(arm["tr"].step(*arm["feed"]()[0]))
+                for _ in range(DATA_GATE_STEPS - 1)]
+            if a == "pipeline":
+                arm["tr"]._data_source.close()
+            del arm
+            free(torch)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    check(f"19b gate: {DATA_GATE_STEPS} losses, pipeline vs resident, "
+          f"deterministic cuDNN (worst, relative) [{card}]",
+          max(abs(a - b) / abs(b) for a, b in zip(gate["pipeline"],
+                                                  gate["resident"])),
+          TOL_GRAPHED)
+    out, launches = {}, {}
+    for amp in (False, True):
+        dtype = "bfloat16" if amp else "float32"
+        if amp:
+            mx.amp.init("bfloat16")
+        try:
+            arms = {a: data_vision_arm(torch, mx, a, x, y)
+                    for a in ("pipeline", "resident")}
+            launches[dtype] = {}
+            for a in arms.values():
+                a["losses"].append(first_step(a["tr"], a["feed"]))
+            free(torch)
+            for rnd in range(1, DATA_ROUNDS + 1):
+                for name in (("pipeline", "resident") if rnd % 2 else
+                             ("resident", "pipeline")):
+                    a = arms[name]
+                    what = f"19b round {rnd} {name} ResNet-50 {dtype}"
+                    losses, ms, waits, per = data_arm_steps(
+                        torch, ("images", VISION_B), a["feed"], a["tr"],
+                        what, card)
+                    if any(per.values()):
+                        raise AssertionError(f"{what} launched a kernel of "
+                                             f"the port: {per}")
+                    if name == "pipeline":
+                        for k, v in per.items():
+                            launches[dtype][k] = launches[dtype].get(
+                                k, 0) + int(v * DATA_STEPS)
+                    a["losses"] += losses
+                    a["ms"].append(ms)
+                    a["waits"] += waits
+            p = arms["pipeline"]
+
+            def one(p=p):
+                (d, l), _w = p["feed"]()
+                return p["tr"].step(d, l)
+            ov = copy_overlap(torch, one, root)
+            st = p["tr"].stats()["data"]
+            p["tr"]._data_source.close()
+        finally:
+            mx.amp.reset()
+        r = arms["resident"]
+        p50, mx_ = quantiles(p["waits"])
+        rates = {k: [VISION_B * 1e3 / ms for ms in arms[k]["ms"]]
+                 for k in arms}
+        print(f"  19b {dtype}: images/s by round pipeline "
+              f"{[round(v, 1) for v in rates['pipeline']]}, resident "
+              f"{[round(v, 1) for v in rates['resident']]}; input_wait "
+              f"p50 {p50:.3f} ms, max {mx_:.3f} ms; "
+              f"{st['bytes_shipped'] / st['batches_shipped']:.0f} bytes "
+              f"shipped a step; profiled step: {ov['copies']} host-to-"
+              f"device copies, {ov['copy_us']:.1f} µs, of which "
+              f"{ov['overlap_us']:.1f} µs overlap the step's kernels "
+              f"(wall {ov['wall_ms']:.1f} ms) [{card}]", flush=True)
+        finite = all(np.isfinite(p["losses"] + r["losses"]))
+        if not finite:
+            raise AssertionError(f"19b {dtype} losses not finite: "
+                                 f"{p['losses']}, {r['losses']}")
+        out[dtype] = dict(rate_pipeline=rates["pipeline"],
+                          rate_resident=rates["resident"],
+                          input_wait_ms_p50=p50, input_wait_ms_max=mx_,
+                          bytes_a_step=st["bytes_shipped"]
+                          / st["batches_shipped"], **ov)
+        del arms, p, r
+        free(torch)
+    out["host_images_per_s"] = host_rate
+    return launches, out
+
+
+def data_path(torch, card):
+    """Phase 19: the data pipeline.  Returns (a)'s launches and (b)'s
+    (no kernel of the port)."""
+    import tempfile
+    import mxnet_tpu_torch as mx
+    t_phase = time.monotonic()
+    with tempfile.TemporaryDirectory() as root:
+        print("19a GPT-2 124M amp, graphed, fed from token records:",
+              flush=True)
+        launches, summary_a = data_gpt2(torch, mx, card, root)
+        print("19b ResNet-50 v1 NHWC, graphed, fed uint8 images:",
+              flush=True)
+        vision, summary_b = data_vision(torch, mx, card, root)
+    print(json.dumps({"data_pipeline": {"a": summary_a, "b": summary_b}}),
+          flush=True)
+    print(f"phase 19: {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return launches, vision
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5380,6 +5799,14 @@ def main() -> int:
     by_path["resilient"] = resilient_path(torch, card)
     free(torch)
     by_path["hardened"] = hardened_path(torch, card, prompts, int8_logits)
+    free(torch)
+    reset_launches()
+    by_path["data"], vision_launches = data_path(torch, card)
+    for dtype, counts in vision_launches.items():
+        if any(counts.values()):
+            raise AssertionError(f"19b {dtype} launched a kernel of the "
+                                 f"port: {counts}")
+        by_path[f"data_vision_{dtype}"] = counts
     # each kernel's launches on the path that is its own: the training
     # path for the flash kernels, the serving path for paged attention;
     # the flash kernels' bf16 numbers (phase 2 at the training shape)

@@ -14,13 +14,16 @@ the caller asks for the CPU (``device="cpu"``, ``ctx=mx.cpu()`` or
 from . import (amp, analysis, autograd, base, context, gluon, initializer,
                lr_scheduler, models, ndarray, observability, ops, optimizer,
                parallel, profiler, random, resilience, serving)
+from . import data, io, recordio  # the input pipeline, over the above
 from . import initializer as init
 from . import ndarray as nd
 from .base import MXNetError
-from .context import Context, cpu, current_context, gpu
+from .context import (Context, Device, cpu, cpu_pinned, current_context,
+                      current_device, gpu, num_gpus)
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context", "amp",
-           "analysis", "autograd", "base", "context", "gluon", "init",
-           "initializer", "lr_scheduler", "models", "nd", "ndarray",
-           "observability", "ops", "optimizer", "parallel", "profiler",
-           "random", "resilience", "serving"]
+__all__ = ["MXNetError", "Context", "Device", "cpu", "gpu", "cpu_pinned",
+           "num_gpus", "current_context", "current_device", "amp",
+           "analysis", "autograd", "base", "context", "data", "gluon",
+           "init", "initializer", "io", "lr_scheduler", "models", "nd",
+           "ndarray", "observability", "ops", "optimizer", "parallel",
+           "profiler", "random", "recordio", "resilience", "serving"]

@@ -158,11 +158,9 @@ def init_trainer(trainer, loss_scaler=None):
     A ``ShardedTrainer`` runs its schedule on the device, so it must be
     attached before the first ``build()``/``step()``."""
     scaler = loss_scaler or LossScaler()
-    if hasattr(trainer, "_loss_scaler"):         # ShardedTrainer
-        if trainer._built:
-            raise MXNetError("attach the loss scaler before the "
-                             "ShardedTrainer's first build()/step()")
-        trainer._loss_scaler = scaler
+    attach = getattr(trainer, "attach_loss_scaler", None)
+    if attach is not None:                       # ShardedTrainer
+        attach(scaler)
     else:
         trainer._amp_loss_scaler = scaler
         trainer._amp_original_scale = getattr(trainer, "_scale", 1.0)

@@ -11,7 +11,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "registry", "is_training", "set_training",
+__all__ = ["MXNetError", "numeric_types", "integer_types", "string_types",
+           "registry", "is_training", "set_training",
            "training_mode", "is_recording", "set_recording", "torch_dtype",
            "aux_collection_active", "set_aux_collection", "record_aux_loss",
            "pop_aux_losses"]
@@ -19,6 +20,12 @@ __all__ = ["MXNetError", "registry", "is_training", "set_training",
 
 class MXNetError(RuntimeError):
     """Framework-level error (parity with mxnet.base.MXNetError)."""
+
+
+# MXNet's type tuples (``mxnet.base``)
+numeric_types = (float, int, np.generic, np.ndarray)
+integer_types = (int, np.integer)
+string_types = (str,)
 
 
 _DTYPES = {

@@ -16,7 +16,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "resolve_device"]
+__all__ = ["Context", "Device", "cpu", "gpu", "cpu_pinned", "num_gpus",
+           "current_context", "current_device", "resolve_device"]
 
 _SCOPES = threading.local()
 
@@ -25,7 +26,8 @@ class Context:
     """A device handle, ``Context('gpu', 0)``; entering it makes it the
     default device of this thread until the scope ends."""
 
-    devtype2id = {"cpu": 1, "gpu": 2}
+    devtype2id = {"cpu": 1, "gpu": 2, "cpu_pinned": 3, "cpu_shared": 5}
+    devid2type = {v: k for k, v in devtype2id.items()}
 
     def __init__(self, device_type="cpu", device_id: int = 0):
         if isinstance(device_type, torch.device):
@@ -39,9 +41,16 @@ class Context:
 
     @property
     def torch_device(self) -> torch.device:
-        if self.device_type == "cpu":
+        if self.device_type != "gpu":
             return torch.device("cpu")
         return torch.device("cuda", self.device_id)
+
+    def empty_cache(self):
+        """Give the caching allocator's free blocks on this card back to
+        the driver (MXNet's ``ctx.empty_cache()``); a no-op on the CPU."""
+        if self.device_type == "gpu" and torch.cuda.is_available():
+            with torch.cuda.device(self.device_id):
+                torch.cuda.empty_cache()
 
     def __eq__(self, other):
         return (isinstance(other, Context)
@@ -73,6 +82,21 @@ def gpu(device_id: int = 0) -> Context:
     return Context("gpu", device_id)
 
 
+def cpu_pinned(device_id: int = 0) -> Context:
+    """Host memory the card copies from without staging: arrays made on
+    it are page-locked when a card is present."""
+    return Context("cpu_pinned", device_id)
+
+
+def num_gpus() -> int:
+    """The number of CUDA devices, so ``mx.gpu() if mx.context.num_gpus()
+    else mx.cpu()`` picks the card."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+Device = Context  # MXNet 2.x's name
+
+
 def _scope():
     stack = getattr(_SCOPES, "stack", None)
     return stack[-1] if stack else None
@@ -82,6 +106,9 @@ def current_context() -> Context:
     """The innermost ``with ctx:`` scope's context, else the current CUDA
     device (raises without one)."""
     return _scope() or Context(resolve_device(None))
+
+
+current_device = current_context
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,5 +1,5 @@
 """Gluon core (counterpart of ``mxnet_tpu.gluon``)."""
-from . import loss, model_zoo, nn, rnn, utils
+from . import data, loss, model_zoo, nn, rnn, utils
 from .block import Block, HybridBlock
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
@@ -7,5 +7,5 @@ from .trainer import Trainer
 from .utils import split_and_load
 
 __all__ = ["Block", "HybridBlock", "Parameter", "ParameterDict", "Constant",
-           "DeferredInitializationError", "Trainer", "loss", "model_zoo",
+           "DeferredInitializationError", "Trainer", "data", "loss", "model_zoo",
            "nn", "rnn", "utils", "split_and_load"]

@@ -370,6 +370,16 @@ class Parameter:
         replace_parameter(self._module, self._attr,
                           t.detach().to(torch_dtype(dtype)), t.requires_grad)
 
+    def reset_ctx(self, ctx):
+        """Move an initialized parameter to ``ctx`` (the first of a list);
+        its gradient buffer starts again from zero there."""
+        t = self.tensor
+        if is_initialized(t):
+            dev = resolve_device(ctx[0] if isinstance(ctx, (list, tuple))
+                                 else ctx)
+            replace_parameter(self._module, self._attr,
+                              t.detach().to(dev), t.requires_grad)
+
 
 class Constant(Parameter):
     """A non-trainable parameter holding ``value`` (MXNet's
@@ -397,9 +407,10 @@ class ParameterDict:
     """Ordered name → :class:`Parameter` mapping.  A block's own
     (``block.params``) creates parameters on the block in :meth:`get`."""
 
-    def __init__(self, prefix="", owner=None):
+    def __init__(self, prefix="", shared=None, owner=None):
         self._prefix = prefix
         self._params: "OrderedDict[str, Parameter]" = OrderedDict()
+        self._shared = shared
         self._owner = owner
 
     @property
@@ -442,7 +453,10 @@ class ParameterDict:
             return h
         full = self._prefix + name
         if full not in self._params:
-            self._params[full] = Parameter(name=full, **kwargs)
+            if self._shared is not None and full in self._shared:
+                self._params[full] = self._shared[full]
+            else:
+                self._params[full] = Parameter(name=full, **kwargs)
         return self._params[full]
 
     def update(self, other):
@@ -458,6 +472,10 @@ class ParameterDict:
     def zero_grad(self):
         for p in self._params.values():
             p.zero_grad()
+
+    def reset_ctx(self, ctx):
+        for p in self._params.values():
+            p.reset_ctx(ctx)
 
     def setattr(self, name, value):
         for p in self._params.values():

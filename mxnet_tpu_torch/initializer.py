@@ -43,10 +43,17 @@ class Initializer:
     def __call__(self, name, arr, explicit=False):
         """Fill ``arr`` (an NDArray or a tensor) in place from
         ``mx.random``'s generator of its device."""
+        self.init_array(name if isinstance(name, str) else str(name), arr,
+                        explicit=explicit)
+
+    def init_array(self, name: str, arr, explicit=False):
+        """Fill ``arr`` (an NDArray or a tensor) in place by the name
+        rules of :meth:`init_tensor`; ``explicit=True`` (the user attached
+        this initializer to this parameter) skips them."""
         from . import random as _random
         t = arr.tensor if hasattr(arr, "tensor") else arr
         with torch.no_grad():
-            self.init_tensor(str(name), t, _random.generator(t.device),
+            self.init_tensor(name, t, _random.generator(t.device),
                              explicit=explicit)
 
     def init_tensor(self, name: str, t: torch.Tensor,

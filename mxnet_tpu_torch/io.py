@@ -1,0 +1,711 @@
+"""``mx.io`` — data iterators (counterpart of ``mxnet_tpu/io.py``;
+MXNet's ``src/io/*`` registry and ``python/mxnet/io/``).
+
+Batches live on the host: every iterator hands out NDArrays on
+``mx.cpu()``, as upstream MXNet's do, whatever the current context.  (The
+port's ``nd.array`` defaults to the card, so this module passes the CPU
+context explicitly; the reference's arrays land on jax's default device.)
+The copy to the card is the consumer's: the trainer's step, or
+:class:`mxnet_tpu_torch.data.DevicePrefetcher`, which ships batch N+1 from
+page-locked memory while step N runs.  The prefetcher role of
+``src/io/iter_prefetcher.h`` is a thread here (:class:`PrefetchingIter`),
+and the heavy decode path uses the native reader
+(:mod:`mxnet_tpu_torch.utils.native_io`) when it builds.
+"""
+from __future__ import annotations
+
+import os
+import struct
+import threading
+import queue as _queue
+from collections import namedtuple
+from typing import Dict, List, Optional, Sequence
+
+import numpy as onp
+
+from . import base as _base
+from .context import cpu as _cpu
+from .ndarray import NDArray, array as _nd_array
+from .resilience.faults import poison as _poison
+
+# native scan marks multipart logical records with the top bit of the length
+# (mxtpu_io.cc kMultipartBit)
+_MULTIPART_BIT = 1 << 63
+
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "CSVIter",
+           "MNISTIter", "ImageRecordIter", "PrefetchingIter", "ResizeIter"]
+
+
+def _host_nd(a) -> NDArray:
+    """A host batch array: an NDArray on ``mx.cpu()``."""
+    return _nd_array(a, ctx=_cpu())
+
+
+class DataDesc(namedtuple("DataDesc", ["name", "shape", "dtype", "layout"])):
+    def __new__(cls, name, shape, dtype=onp.float32, layout="NCHW"):
+        return super().__new__(cls, name, tuple(shape), onp.dtype(dtype),
+                               layout)
+
+
+class DataBatch:
+    """One batch: ``data``/``label`` lists of NDArray + pad/index bookkeeping
+    (parity: mx.io.DataBatch)."""
+
+    def __init__(self, data, label=None, pad=0, index=None,
+                 provide_data=None, provide_label=None):
+        self.data = data
+        self.label = label if label is not None else []
+        self.pad = pad
+        self.index = index
+        self.provide_data = provide_data
+        self.provide_label = provide_label
+
+    def __repr__(self):
+        shapes = [tuple(d.shape) for d in self.data]
+        return f"DataBatch: data shapes: {shapes} pad: {self.pad}"
+
+
+class DataIter:
+    """Iterator base (parity: mx.io.DataIter)."""
+
+    def __init__(self, batch_size=0):
+        self.batch_size = batch_size
+
+    def __iter__(self):
+        return self
+
+    def reset(self):
+        pass
+
+    def next(self) -> DataBatch:
+        if self.iter_next():
+            return DataBatch(self.getdata(), self.getlabel(),
+                             pad=self.getpad(), index=self.getindex())
+        raise StopIteration
+
+    def __next__(self):
+        return self.next()
+
+    def iter_next(self):
+        raise NotImplementedError
+
+    def getdata(self):
+        raise NotImplementedError
+
+    def getlabel(self):
+        raise NotImplementedError
+
+    def getindex(self):
+        return None
+
+    def getpad(self):
+        return 0
+
+
+def _init_data(data, allow_empty, default_name):
+    """Normalize data into an ordered list of (name, ndarray)."""
+    if data is None:
+        if not allow_empty:
+            raise _base.MXNetError("data cannot be None")
+        return []
+    if isinstance(data, (NDArray, onp.ndarray)):
+        data = [data]
+    if isinstance(data, (list, tuple)):
+        if len(data) == 1:
+            data = {default_name: data[0]}
+        else:
+            data = {f"_{i}_{default_name}": d for i, d in enumerate(data)}
+    out = []
+    for k, v in data.items():
+        if isinstance(v, NDArray):
+            v = v.asnumpy()
+        out.append((k, onp.asarray(v)))
+    return out
+
+
+def _first_float_nonfinite(arrs) -> bool:
+    """True iff any float-dtype array in ``arrs`` holds a NaN/Inf
+    (integer arrays cannot go non-finite and are skipped)."""
+    for d in arrs:
+        a = d.asnumpy() if isinstance(d, NDArray) else onp.asarray(d)
+        if onp.issubdtype(a.dtype, onp.floating) and \
+                not onp.isfinite(a).all():
+            return True
+    return False
+
+
+def _corrupt_batch(batch: DataBatch, value: float) -> bool:
+    """Splice ``value`` (NaN/Inf from the ``io.bad_batch`` fault site)
+    into the first float-dtype data array of ``batch``; no-op (False)
+    when the batch carries no float data to poison."""
+    for i, d in enumerate(batch.data):
+        a = d.asnumpy() if isinstance(d, NDArray) else onp.asarray(d)
+        if onp.issubdtype(a.dtype, onp.floating) and a.size:
+            a = a.copy()
+            a.flat[0] = value
+            batch.data[i] = _host_nd(a)
+            return True
+    return False
+
+
+class NDArrayIter(DataIter):
+    """Iterate over in-memory arrays (parity: mx.io.NDArrayIter), with
+    pad/discard/roll_over last-batch handling.
+
+    ``quarantine_nonfinite=True`` adds input-health quarantine: each emitted batch's float data/labels are
+    checked host-side and a batch carrying NaN/Inf is SKIPPED and
+    counted (``.quarantined``) instead of being fed to the trainer —
+    the poisoned record never reaches the device, so the training-step
+    guardrails stay a second line of defense, not the first.  The
+    ``io.bad_batch`` fault site injects such batches for chaos tests.
+    Pass ``metrics=`` (a ServingMetrics, e.g. ``ResilientLoop.metrics``)
+    to ALSO export the count as ``quarantined_batches`` through the
+    shared ``stats()["resilience"]`` surface.
+    """
+
+    def __init__(self, data, label=None, batch_size=1, shuffle=False,
+                 last_batch_handle="pad", data_name="data",
+                 label_name="softmax_label", dtype=None,
+                 quarantine_nonfinite=False, metrics=None):
+        super().__init__(batch_size)
+        self.quarantine_nonfinite = bool(quarantine_nonfinite)
+        self.quarantined = 0
+        self._metrics = metrics
+        self.data = _init_data(data, False, data_name)
+        self.label = _init_data(label, True, label_name)
+        self.num_data = self.data[0][1].shape[0]
+        self.shuffle = shuffle
+        self.last_batch_handle = last_batch_handle
+        self.cursor = -batch_size
+        self._cache_idx = onp.arange(self.num_data)
+        if last_batch_handle == "discard":
+            self.num_batches = self.num_data // batch_size
+        else:
+            self.num_batches = (self.num_data + batch_size - 1) // batch_size
+        self.reset()
+
+    @property
+    def provide_data(self):
+        return [DataDesc(k, (self.batch_size,) + v.shape[1:], v.dtype)
+                for k, v in self.data]
+
+    @property
+    def provide_label(self):
+        return [DataDesc(k, (self.batch_size,) + v.shape[1:], v.dtype)
+                for k, v in self.label]
+
+    def reset(self):
+        if self.shuffle:
+            onp.random.shuffle(self._cache_idx)
+        if self.last_batch_handle == "roll_over" and \
+                0 < self.cursor < self.num_data:
+            self.cursor = -self.batch_size + (self.cursor % self.num_data) \
+                % self.batch_size
+        else:
+            self.cursor = -self.batch_size
+
+    def iter_next(self):
+        self.cursor += self.batch_size
+        if self.last_batch_handle == "discard":
+            return self.cursor + self.batch_size <= self.num_data
+        return self.cursor < self.num_data
+
+    def _take(self, arrs):
+        end = self.cursor + self.batch_size
+        if end <= self.num_data:
+            idx = self._cache_idx[self.cursor:end]
+        else:  # pad by wrapping
+            idx = onp.concatenate([self._cache_idx[self.cursor:],
+                                   self._cache_idx[:end - self.num_data]])
+        return [_host_nd(onp.take(v, idx, axis=0)) for _, v in arrs]
+
+    def next(self) -> DataBatch:
+        while True:
+            if not self.iter_next():
+                raise StopIteration
+            batch = DataBatch(self.getdata(), self.getlabel(),
+                              pad=self.getpad(), index=self.getindex())
+            bad = _poison("io.bad_batch")
+            if bad is not None:
+                _corrupt_batch(batch, bad)
+            if self.quarantine_nonfinite and _first_float_nonfinite(
+                    list(batch.data) + list(batch.label)):
+                self.quarantined += 1
+                if self._metrics is not None:
+                    self._metrics.count("quarantined_batches")
+                # fleet-stable name, independent of whether a metrics=
+                # sink was attached (quarantine is rare; the registry
+                # get-or-create is off any hot path)
+                from .observability.registry import default_registry
+                default_registry().counter(
+                    "mxtpu_io_quarantined_batches_total",
+                    help="input batches skipped by non-finite "
+                         "quarantine").inc()
+                continue             # skip the poisoned batch entirely
+            return batch
+
+    def getdata(self):
+        return self._take(self.data)
+
+    def getlabel(self):
+        return self._take(self.label)
+
+    def getpad(self):
+        end = self.cursor + self.batch_size
+        if self.last_batch_handle == "pad" and end > self.num_data:
+            return end - self.num_data
+        return 0
+
+    def getindex(self):
+        end = min(self.cursor + self.batch_size, self.num_data)
+        return self._cache_idx[self.cursor:end]
+
+
+class CSVIter(DataIter):
+    """CSV file iterator (parity: src/io/iter_csv.cc)."""
+
+    def __init__(self, data_csv, data_shape, label_csv=None, label_shape=(1,),
+                 batch_size=1, dtype="float32", **kwargs):
+        super().__init__(batch_size)
+        data = onp.loadtxt(data_csv, delimiter=",",
+                           dtype=onp.dtype(dtype), ndmin=2)
+        data = data.reshape((-1,) + tuple(data_shape))
+        label = None
+        if label_csv is not None:
+            label = onp.loadtxt(label_csv, delimiter=",",
+                                dtype=onp.float32, ndmin=2)
+            label = label.reshape((-1,) + tuple(label_shape))
+        else:
+            label = onp.zeros((data.shape[0], 1), dtype=onp.float32)
+        self._it = NDArrayIter(data, label, batch_size,
+                               last_batch_handle="discard")
+
+    @property
+    def provide_data(self):
+        return self._it.provide_data
+
+    @property
+    def provide_label(self):
+        return self._it.provide_label
+
+    def reset(self):
+        self._it.reset()
+
+    def next(self):
+        return self._it.next()
+
+
+def _load_mnist_images(path):
+    import gzip
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        magic, n, rows, cols = struct.unpack(">IIII", f.read(16))
+        data = onp.frombuffer(f.read(), dtype=onp.uint8)
+        return data.reshape(n, rows, cols)
+
+
+def _load_mnist_labels(path):
+    import gzip
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        magic, n = struct.unpack(">II", f.read(8))
+        return onp.frombuffer(f.read(), dtype=onp.uint8)
+
+
+class MNISTIter(DataIter):
+    """MNIST idx-format iterator (parity: src/io/iter_mnist.cc); falls back
+    to the deterministic synthetic digits used by gluon's MNIST dataset when
+    the raw files are absent (no network egress)."""
+
+    def __init__(self, image="train-images-idx3-ubyte",
+                 label="train-labels-idx1-ubyte", batch_size=128, shuffle=True,
+                 flat=False, seed=0, num_parts=1, part_index=0, **kwargs):
+        super().__init__(batch_size)
+        if os.path.exists(image) and os.path.exists(label):
+            imgs = _load_mnist_images(image).astype(onp.float32) / 255.0
+            labs = _load_mnist_labels(label).astype(onp.float32)
+            self.synthetic = False
+        else:
+            from .gluon.data.vision.datasets import _synthetic_images
+            imgs, labs = _synthetic_images(2048, (28, 28), 10, seed, 7)
+            imgs = imgs.astype(onp.float32) / 255.0
+            labs = labs.astype(onp.float32)
+            self.synthetic = True
+        if flat:
+            imgs = imgs.reshape(imgs.shape[0], -1)
+        else:
+            imgs = imgs.reshape(imgs.shape[0], 1, 28, 28)
+        if num_parts > 1:
+            imgs = imgs[part_index::num_parts]
+            labs = labs[part_index::num_parts]
+        self._it = NDArrayIter(imgs, labs, batch_size, shuffle=shuffle,
+                               last_batch_handle="discard")
+
+    @property
+    def provide_data(self):
+        return self._it.provide_data
+
+    @property
+    def provide_label(self):
+        return self._it.provide_label
+
+    def reset(self):
+        self._it.reset()
+
+    def next(self):
+        return self._it.next()
+
+
+class ImageRecordIter(DataIter):
+    """RecordIO image iterator with decode + augmentation worker pool
+    (parity: src/io/iter_image_recordio_2.cc).
+
+    Decode runs on a Python thread pool (PIL); resize/crop/mirror match the
+    default augmenter (src/io/image_aug_default.cc) semantics.  mean/std
+    normalization and NCHW layout are applied host-side so the device step
+    receives ready tensors.
+    """
+
+    def __init__(self, path_imgrec, data_shape, batch_size=1,
+                 path_imgidx=None, shuffle=False, rand_crop=False,
+                 rand_mirror=False, mean_r=0., mean_g=0., mean_b=0.,
+                 std_r=1., std_g=1., std_b=1., resize=-1,
+                 label_width=1, preprocess_threads=None, seed=0,
+                 dtype="float32", **kwargs):
+        super().__init__(batch_size)
+        from .recordio import MXIndexedRecordIO, MXRecordIO, unpack_img
+        self._unpack_img = unpack_img
+        # dtype="uint8" (upstream int8-data parity) emits raw pixel batches:
+        # 4x less host->device traffic, with cast + normalization left to
+        # the device step where they fuse into the first conv.  Raw pixels
+        # cannot carry host-side normalization, so it must be off.
+        if dtype not in ("float32", "uint8"):
+            raise ValueError("dtype must be 'float32' or 'uint8', got %r"
+                             % (dtype,))
+        if dtype == "uint8" and (mean_r or mean_g or mean_b
+                                 or std_r != 1. or std_g != 1.
+                                 or std_b != 1.):
+            raise ValueError("dtype='uint8' emits raw pixels; mean/std "
+                             "normalization must be left at defaults and "
+                             "applied on-device instead")
+        self._dtype = dtype
+        self.data_shape = tuple(data_shape)   # (C, H, W)
+        self.rand_crop = rand_crop
+        self.rand_mirror = rand_mirror
+        self.resize = resize
+        self.label_width = label_width
+        self.mean = onp.array([mean_r, mean_g, mean_b],
+                              dtype=onp.float32).reshape(3, 1, 1)
+        self.std = onp.array([std_r, std_g, std_b],
+                             dtype=onp.float32).reshape(3, 1, 1)
+        self.shuffle = shuffle
+        self.rng = onp.random.RandomState(seed)
+        # MXNET_CPU_WORKER_NTHREADS keeps the upstream knob name
+        # (SURVEY.md §5.6.2): a DEFAULT for the decode pool size — an
+        # explicit preprocess_threads argument wins
+        if preprocess_threads is None:
+            try:
+                preprocess_threads = int(
+                    os.environ.get("MXNET_CPU_WORKER_NTHREADS", 4))
+            except ValueError:
+                preprocess_threads = 4
+        self.n_threads = max(1, preprocess_threads)
+        self._path = path_imgrec
+        # native C++ fast path: offset scan + threaded pread/decode/augment
+        # pipeline (parity: src/io/iter_image_recordio_2.cc); Python-side
+        # records stay unloaded.  Falls back to the pure-Python pool.
+        self._native = None
+        self._offsets = self._lengths = None
+        from .utils import native_io as _native_mod
+        scan = None
+        if self.data_shape[0] == 3 and _native_mod.available():
+            scan = _native_mod.scan_record_offsets(path_imgrec)
+        if scan is not None and path_imgidx and os.path.exists(path_imgidx):
+            # honor the .idx sidecar (it may subset/reorder records):
+            # map each idx record-start offset to its scanned slot.  Scanned
+            # single-part entries hold the PAYLOAD offset (start + 8);
+            # multipart entries (high bit of len set) hold the record start
+            # itself, so key both forms by record start.
+            offs, lens = scan
+            by_start = {}
+            for o, l in zip(offs, lens):
+                start = int(o) if int(l) & _MULTIPART_BIT else int(o) - 8
+                by_start[start] = (int(o), int(l))
+            sel_offs, sel_lens = [], []
+            ok = True
+            with open(path_imgidx) as f:
+                for line in f:
+                    parts = line.strip().split("\t")
+                    if len(parts) < 2:
+                        continue
+                    start = int(parts[1])
+                    if start not in by_start:
+                        ok = False
+                        break
+                    o, l = by_start[start]
+                    sel_offs.append(o)
+                    sel_lens.append(l)
+            scan = (onp.asarray(sel_offs, onp.uint64),
+                    onp.asarray(sel_lens, onp.uint64)) if ok else None
+        if scan is not None:
+            self._offsets, self._lengths = scan
+            self._native = _native_mod.NativeImagePipeline(
+                path_imgrec, self._offsets, self._lengths, self.data_shape,
+                resize=resize, rand_crop=rand_crop, rand_mirror=rand_mirror,
+                mean=self.mean.ravel(), std=self.std.ravel(), seed=seed,
+                label_width=label_width, threads=self.n_threads)
+            self._records = None
+            self._n = len(self._offsets)
+        elif path_imgidx and os.path.exists(path_imgidx):
+            rec = MXIndexedRecordIO(path_imgidx, path_imgrec, "r")
+            self._records = [rec.read_idx(k) for k in rec.keys]
+            rec.close()
+            self._n = len(self._records)
+        else:
+            rec = MXRecordIO(path_imgrec, "r")
+            self._records = []
+            while True:
+                r = rec.read()
+                if r is None:
+                    break
+                self._records.append(r)
+            rec.close()
+            self._n = len(self._records)
+        self._order = onp.arange(self._n)
+        self.reset()
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size,) + self.data_shape,
+                         dtype=self._dtype)]
+
+    @property
+    def provide_label(self):
+        shp = (self.batch_size,) if self.label_width == 1 else \
+            (self.batch_size, self.label_width)
+        return [DataDesc("softmax_label", shp)]
+
+    def reset(self):
+        if self.shuffle:
+            self.rng.shuffle(self._order)
+        self._pos = 0
+        if self._native is not None:
+            self._native.schedule(self._order)
+
+    def _read_raw(self, i):
+        if self._records is not None:
+            return self._records[i]
+        length = int(self._lengths[i])
+        with open(self._path, "rb") as f:
+            f.seek(int(self._offsets[i]))
+            raw = f.read(length & ~_MULTIPART_BIT)
+        if length & _MULTIPART_BIT:
+            # span starts at the first frame HEADER: reassemble parts
+            # (magic re-inserted between them, dmlc semantics)
+            from .recordio import reassemble_span
+            raw = reassemble_span(raw)
+        return raw
+
+    def _process_one(self, raw):
+        header, img = self._unpack_img(raw, iscolor=1)
+        c, h, w = self.data_shape
+        from PIL import Image
+        pil = Image.fromarray(img)
+        if self.resize > 0:
+            ow, oh = pil.size
+            scale = self.resize / min(ow, oh)
+            pil = pil.resize((max(1, int(ow * scale)),
+                              max(1, int(oh * scale))), Image.BILINEAR)
+        ow, oh = pil.size
+        if ow < w or oh < h:
+            pil = pil.resize((max(w, ow), max(h, oh)), Image.BILINEAR)
+            ow, oh = pil.size
+        if self.rand_crop:
+            x0 = self.rng.randint(0, ow - w + 1)
+            y0 = self.rng.randint(0, oh - h + 1)
+        else:
+            x0, y0 = (ow - w) // 2, (oh - h) // 2
+        pil = pil.crop((x0, y0, x0 + w, y0 + h))
+        arr = onp.asarray(pil, dtype=onp.float32)
+        if arr.ndim == 2:
+            arr = onp.stack([arr] * 3, axis=-1)
+        arr = arr.transpose(2, 0, 1)  # HWC → CHW
+        if self.rand_mirror and self.rng.randint(2):
+            arr = arr[:, :, ::-1]
+        if self._dtype == "uint8":
+            arr = onp.ascontiguousarray(arr).astype(onp.uint8)
+        else:
+            arr = ((arr - self.mean) / self.std).astype(onp.float32)
+        label = header.label
+        if isinstance(label, onp.ndarray):
+            label = label[:self.label_width]
+            if self.label_width == 1:
+                label = float(label[0])
+        return arr, label
+
+    def next(self):
+        if self._pos + self.batch_size > self._n:
+            raise StopIteration
+        idxs = self._order[self._pos:self._pos + self.batch_size]
+        self._pos += self.batch_size
+        if self._native is not None:
+            data, labels, ok, n = self._native.next_batch(self.batch_size)
+            assert n == self.batch_size
+            if not ok.all():
+                # rare non-JPEG/corrupt records: re-decode in Python
+                for j in onp.nonzero(~ok)[0]:
+                    arr, lab = self._process_one(self._read_raw(idxs[j]))
+                    data[j] = arr
+                    # restore the FULL label vector (a failed native read
+                    # leaves columns 1+ zeroed when label_width > 1); a
+                    # record's label may be shorter than label_width —
+                    # fill what exists, zero the rest
+                    lw = labels.shape[1]
+                    vec = onp.asarray(lab, dtype=onp.float32).ravel()
+                    n = min(vec.size, lw)
+                    labels[j, :n] = vec[:n]
+                    labels[j, n:] = 0.0
+            label = labels[:, 0] if self.label_width == 1 else labels
+            if self._dtype == "uint8":  # native plane fills f32 buffers
+                data = data.astype(onp.uint8)
+            return DataBatch([_host_nd(data)],
+                             [_host_nd(label.astype(onp.float32))],
+                             provide_data=self.provide_data,
+                             provide_label=self.provide_label)
+        from concurrent.futures import ThreadPoolExecutor
+        if not hasattr(self, "_pool"):
+            self._pool = ThreadPoolExecutor(self.n_threads)
+        results = list(self._pool.map(
+            lambda i: self._process_one(self._read_raw(i)), idxs))
+        data = onp.stack([r[0] for r in results])
+        label = onp.asarray([r[1] for r in results], dtype=onp.float32)
+        return DataBatch([_host_nd(data)], [_host_nd(label)],
+                         provide_data=self.provide_data,
+                         provide_label=self.provide_label)
+
+
+class PrefetchingIter(DataIter):
+    """Background-thread prefetcher wrapping any DataIter
+    (parity: src/io/iter_prefetcher.h).
+
+    ``prefetch_depth`` (default 2) bounds how many decoded batches the
+    worker may run ahead of the consumer — honored end-to-end: the
+    hand-off queue holds at most ``depth`` batches and the worker holds
+    at most one more in flight, so a stalled consumer caps host memory
+    at ``depth + 1`` batches.
+
+    This is the HOST half of the pipeline; for device-side double
+    buffering compose :class:`mxnet_tpu_torch.data.DevicePrefetcher` on
+    top — it ships batches to the card while the previous step
+    computes.
+    """
+
+    def __init__(self, iters, rename_data=None, rename_label=None,
+                 prefetch_depth=2):
+        if not isinstance(iters, (list, tuple)):
+            iters = [iters]
+        if not isinstance(prefetch_depth, int) or prefetch_depth < 1:
+            raise _base.MXNetError(
+                f"prefetch_depth must be an int >= 1, "
+                f"got {prefetch_depth!r}")
+        self.iters = iters
+        super().__init__(iters[0].batch_size)
+        self._depth = prefetch_depth
+        self._start()
+
+    @property
+    def provide_data(self):
+        return sum([i.provide_data for i in self.iters], [])
+
+    @property
+    def provide_label(self):
+        return sum([i.provide_label for i in self.iters], [])
+
+    def _start(self):
+        self._q: _queue.Queue = _queue.Queue(self._depth)
+        self._stop = False
+
+        def put(item):
+            # bounded put that re-checks the stop flag: a worker parked
+            # on a full queue must notice reset() within 50ms, or the
+            # old thread races the new one on the shared inner iters
+            # (the zombie the old join(timeout=5) silently tolerated)
+            while not self._stop:
+                try:
+                    self._q.put(item, timeout=0.05)
+                    return True
+                except _queue.Full:
+                    continue
+            return False
+
+        def worker():
+            while not self._stop:
+                try:
+                    batches = [it.next() for it in self.iters]
+                except StopIteration:
+                    put(None)
+                    return
+                put(batches)
+
+        self._thread = threading.Thread(target=worker, daemon=True)
+        self._thread.start()
+
+    def reset(self):
+        self._stop = True
+        try:
+            while True:
+                self._q.get_nowait()
+        except _queue.Empty:
+            pass
+        self._thread.join(timeout=5)
+        if self._thread.is_alive():
+            raise _base.MXNetError(
+                "PrefetchingIter worker failed to stop on reset — "
+                "inner iterator blocked?")
+        for it in self.iters:
+            it.reset()
+        self._start()
+
+    def next(self):
+        batches = self._q.get()
+        if batches is None:
+            raise StopIteration
+        if len(batches) == 1:
+            return batches[0]
+        return DataBatch(sum([b.data for b in batches], []),
+                         sum([b.label for b in batches], []))
+
+
+class ResizeIter(DataIter):
+    """Resize an iterator to a fixed number of batches
+    (parity: mx.io.ResizeIter)."""
+
+    def __init__(self, data_iter, size, reset_internal=True):
+        super().__init__(data_iter.batch_size)
+        self.data_iter = data_iter
+        self.size = size
+        self.reset_internal = reset_internal
+        self.cur = 0
+
+    @property
+    def provide_data(self):
+        return self.data_iter.provide_data
+
+    @property
+    def provide_label(self):
+        return self.data_iter.provide_label
+
+    def reset(self):
+        self.cur = 0
+        if self.reset_internal:
+            self.data_iter.reset()
+
+    def next(self):
+        if self.cur >= self.size:
+            raise StopIteration
+        self.cur += 1
+        try:
+            return self.data_iter.next()
+        except StopIteration:
+            self.data_iter.reset()
+            return self.data_iter.next()

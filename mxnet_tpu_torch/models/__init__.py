@@ -6,10 +6,14 @@ from .bert import BERTForPretrain, BERTModel, get_bert
 from .gpt2 import GPT2Model, get_gpt2, gpt2_lm_loss
 from .moe import (MoELayer, MoETransformerBlock, aux_loss_scope, moe_ffn,
                   pop_aux_losses)
-from .nmt import TransformerNMT, get_nmt, nmt_loss
+from .nmt import TransformerDecoderBlock, TransformerNMT, get_nmt, nmt_loss
+from .transformer import (MultiHeadAttention, PositionwiseFFN,
+                          TransformerBlock, TransformerEncoderLayer)
 from .vision import get_model
 
 __all__ = ["vision", "get_model", "GPT2Model", "get_gpt2", "gpt2_lm_loss",
            "MoELayer", "MoETransformerBlock", "moe_ffn", "pop_aux_losses",
            "aux_loss_scope", "get_bert", "BERTModel", "BERTForPretrain",
-           "get_nmt", "TransformerNMT", "nmt_loss"]
+           "get_nmt", "TransformerNMT", "TransformerDecoderBlock",
+           "nmt_loss", "MultiHeadAttention", "PositionwiseFFN",
+           "TransformerBlock", "TransformerEncoderLayer"]

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from .. import amp as _amp
 from .. import base as _base
+from ..base import torch_dtype
 from ..context import resolve_device
 from ..gluon.block import HybridBlock
 from ..gluon.nn import Dropout, Embedding, LayerNorm
@@ -106,33 +107,75 @@ class GPT2Model(HybridBlock):
         return dt if dt in (torch.bfloat16, torch.float16,
                             torch.float32) else torch.float32
 
-    def init_slot_cache(self, num_slots, max_length=None):
-        """Persistent dense serving cache: per layer {'k','v'} of
-        (num_slots, Tmax + 1, H, D) zeros on the parameters' device;
-        column Tmax is the trash column that out-of-range writes land in
-        and nothing reads."""
+    def init_cache(self, batch, max_length=None, dtype=None):
+        """Per-layer dense KV caches {'k','v'} of (B, Tmax, H, D) zeros on
+        the parameters' device; the dtype follows the parameters unless
+        given.  :meth:`prefill` and :meth:`forward_step` write them in
+        place."""
+        _dense_blocks_only(self)
         t = max_length or self.max_length
         h, d = self.kv_heads()
         dev = self.wte.weight.device
-        dt = self._cache_dtype()
+        dt = self._cache_dtype() if dtype is None else torch_dtype(dtype)
+        return [{"k": torch.zeros((batch, t, h, d), dtype=dt, device=dev),
+                 "v": torch.zeros((batch, t, h, d), dtype=dt, device=dev)}
+                for _ in self.blocks]
+
+    @torch.no_grad()
+    def prefill(self, tokens_nd, caches):
+        """Batched cache fill over the prompt (B, Tp): one causal forward
+        writes every layer's K/V for positions [0, Tp) and returns the
+        last position's logits (B, vocab) and the caches."""
+        tok, wrap = _tokens(tokens_nd, self.wte.weight.device)
+        b, t = tok.shape
+        pos = torch.arange(t, dtype=torch.int32, device=tok.device)
+        x = self.wte(tok) + self.wpe(pos)[None]
+        for blk, cache in zip(self.blocks, caches):
+            x, _ = blk.forward_prefill(x, cache)
+        x = self.ln_f(x[:, -1:])
+        return wrap(self._logits(x).reshape(b, self.vocab_size)), caches
+
+    @torch.no_grad()
+    def forward_step(self, tok, caches, idx):
+        """One decode position: tok (B, 1) int32 at position ``idx`` →
+        (logits (B, vocab), caches).  Inference mode assumed."""
+        tok, wrap = _tokens(tok, self.wte.weight.device)
+        b = tok.shape[0]
+        x = self.wte(tok) + self.wpe(torch.full_like(tok, int(idx)))
+        for blk, cache in zip(self.blocks, caches):
+            x, _ = blk.forward_step(x, cache, idx)
+        x = self.ln_f(x)
+        return wrap(self._logits(x).reshape(b, self.vocab_size)), caches
+
+    def init_slot_cache(self, num_slots, max_length=None, dtype=None):
+        """Persistent dense serving cache: per layer {'k','v'} of
+        (num_slots, Tmax + 1, H, D) zeros on the parameters' device, in
+        the parameters' dtype unless given; column Tmax is the trash
+        column that out-of-range writes land in and nothing reads."""
+        t = max_length or self.max_length
+        h, d = self.kv_heads()
+        dev = self.wte.weight.device
+        dt = self._cache_dtype() if dtype is None else torch_dtype(dtype)
         return [{"k": torch.zeros((num_slots, t + 1, h, d), dtype=dt,
                                   device=dev),
                  "v": torch.zeros((num_slots, t + 1, h, d), dtype=dt,
                                   device=dev)}
                 for _ in self.blocks]
 
-    def init_page_cache(self, num_pages, page_size, kv_quant=None):
+    def init_page_cache(self, num_pages, page_size, dtype=None,
+                        kv_quant=None):
         """Persistent paged serving cache.  ``num_pages`` counts the zero
         page, as in the reference (the engine passes its pool size + 1);
         one trash page is added past it, so each leaf holds
-        ``num_pages + 1`` pages.  ``kv_quant='int8'`` stores int8 pages
-        with float32 per-position-per-head scales in ``k_scale``/
-        ``v_scale`` leaves of shape (N, ps, H, 1)."""
+        ``num_pages + 1`` pages, in the parameters' dtype unless given.
+        ``kv_quant='int8'`` stores int8 pages with float32
+        per-position-per-head scales in ``k_scale``/``v_scale`` leaves of
+        shape (N, ps, H, 1)."""
         h, d = self.kv_heads()
         dev = self.wte.weight.device
         n = num_pages + 1
         if kv_quant is None:
-            dt = self._cache_dtype()
+            dt = self._cache_dtype() if dtype is None else torch_dtype(dtype)
             return [{"k": torch.zeros((n, page_size, h, d), dtype=dt,
                                       device=dev),
                      "v": torch.zeros((n, page_size, h, d), dtype=dt,
@@ -150,7 +193,7 @@ class GPT2Model(HybridBlock):
                 for _ in self.blocks]
 
     @torch.no_grad()
-    def prefill_slots(self, tokens, lens, caches, slot_idx, offset=None,
+    def prefill_slots(self, tokens_nd, lens, caches, slot_idx, offset=None,
                       page_table=None, paged_kernel=False):
         """Admission prefill for a bucketed batch: tokens (B, Tb) int32
         right-padded, ``lens`` (B,) true lengths, ``slot_idx`` (B,) cache
@@ -160,6 +203,7 @@ class GPT2Model(HybridBlock):
         positions [offset[i], offset[i] + Tb); ``page_table`` (S+1, P)
         selects the paged layout and ``paged_kernel`` its in-place read
         arm."""
+        tokens = tokens_nd
         b, t = tokens.shape
         ar = torch.arange(t, dtype=torch.int32, device=tokens.device)
         if offset is None:
@@ -193,7 +237,7 @@ class GPT2Model(HybridBlock):
         return self._logits(self.ln_f(x)).reshape(s, self.vocab_size), caches
 
     @torch.no_grad()
-    def verify_slots(self, tokens, caches, pos, page_table=None,
+    def verify_slots(self, tokens_nd, caches, pos, page_table=None,
                      paged_kernel=False):
         """Speculative verify forward: the decode step over an (S, W)
         window.  Row s consumes the window tokens at positions
@@ -203,6 +247,7 @@ class GPT2Model(HybridBlock):
         (S, W, vocab): ``logits[s, i]`` follows window token i.  Row i is
         slot i (``slot_idx=None``).  In the paged kernel arm each layer
         launches the paged-attention kernel with ``Tq = W``."""
+        tokens = tokens_nd
         _dense_blocks_only(self)
         s, t = tokens.shape
         ar = torch.arange(t, dtype=torch.int32, device=tokens.device)
@@ -305,6 +350,16 @@ class GPT2Model(HybridBlock):
             tok = sample_tokens(logits, temp, topk, topp, seeds, [t] * b)
             out.append(tok[:, None])
         return torch.cat(out, dim=1)
+
+
+def _tokens(tokens, device):
+    """Token ids as an int32 tensor on ``device``, and the wrapper that
+    hands results back in the caller's type (NDArray in, NDArray out)."""
+    if isinstance(tokens, NDArray):
+        return tokens.tensor.to(device, torch.int32), NDArray
+    t = tokens if isinstance(tokens, torch.Tensor) else \
+        torch.as_tensor(np.asarray(tokens))
+    return t.to(device, torch.int32), (lambda x: x)
 
 
 def gpt2_lm_loss(logits, labels, aux_weight=0.01):

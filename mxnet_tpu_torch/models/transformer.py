@@ -40,6 +40,7 @@ from .. import random as _random
 from ..base import MXNetError
 from ..gluon.block import HybridBlock
 from ..gluon.nn import GELU, Dense, Dropout, LayerNorm
+from ..ndarray.ops import ACTIVATION_FNS as _ACTIVATIONS
 from ..ops import dot_product_attention
 from ..ops import dots as _dots
 from ..ops.paged import kv_quantize, paged_attention
@@ -141,6 +142,32 @@ class MultiHeadAttention(HybridBlock):
         if self.dropout is not None:
             out = self.dropout(out)
         return out
+
+    def forward_step(self, x, cache, idx):
+        """Incremental decode: x (B, 1, U) at position ``idx`` against the
+        dense cache {'k','v': (B, Tmax, H, D)}, written in place at
+        ``idx``; attends positions <= idx.  Returns (out (B, 1, U),
+        cache).  Inference only."""
+        b = x.shape[0]
+        q, k_new, v_new = self._qkv(x)
+        cache["k"][:, idx] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, idx] = v_new[:, 0].to(cache["v"].dtype)
+        pos = torch.full((b,), int(idx), dtype=torch.int32, device=x.device)
+        out = _attention_step_slots(q, cache["k"], cache["v"], pos,
+                                    1.0 / (self._head_dim ** 0.5))
+        return self._out(out), cache
+
+    def forward_prefill(self, x, cache):
+        """Batched cache fill: causal attention over the prompt x
+        (B, T, U) in one pass, writing K/V for positions [0, T) into the
+        dense cache in place.  Returns (out (B, T, U), cache).
+        Inference only."""
+        t = x.shape[1]
+        q, k, v = self._qkv(x)
+        cache["k"][:, :t] = k.to(cache["k"].dtype)
+        cache["v"][:, :t] = v.to(cache["v"].dtype)
+        out = dot_product_attention(q, k, v, causal=True)
+        return self._out(out), cache
 
     def forward_step_slots(self, x, cache, pos, page_table=None,
                            paged_kernel=False):
@@ -321,17 +348,25 @@ def _attention_step_slots(q, k_cache, v_cache, pos, scale):
 
 
 class PositionwiseFFN(HybridBlock):
-    """Transformer FFN: Dense(hidden) → GELU → Dense(units)."""
+    """Transformer FFN: Dense(hidden) → activation (GELU, or any
+    ``Activation`` type) → Dense(units)."""
 
-    def __init__(self, units, hidden_size, dropout=0.0):
-        super().__init__()
-        self.fc1 = Dense(hidden_size, flatten=False, in_units=units)
-        self.act = GELU()
-        self.fc2 = Dense(units, flatten=False, in_units=hidden_size)
+    def __init__(self, units, hidden_size, dropout=0.0, activation="gelu",
+                 use_bias=True, **kwargs):
+        super().__init__(**kwargs)
+        self.fc1 = Dense(hidden_size, use_bias=use_bias, flatten=False,
+                         in_units=units)
+        self.act = GELU() if activation == "gelu" else None
+        self._activation = activation
+        self.fc2 = Dense(units, use_bias=use_bias, flatten=False,
+                         in_units=hidden_size)
         self.dropout = Dropout(dropout) if dropout else None
 
     def forward(self, x):
-        h = self.fc2(self.act(self.fc1(x)))
+        h = self.fc1(x)
+        h = self.act(h) if self.act is not None else \
+            _ACTIVATIONS[self._activation](h)
+        h = self.fc2(h)
         if self.dropout is not None:
             h = self.dropout(h)
         return h
@@ -464,6 +499,20 @@ class TransformerBlock(HybridBlock):
     def forward(self, x, mask=None):
         x = x + self.attn(self.ln1(x), mask)
         return x + self.ffn(self.ln2(x))
+
+    def forward_step(self, x, cache, idx):
+        """Incremental decode through the block (see
+        :meth:`MultiHeadAttention.forward_step`)."""
+        a, cache = self.attn.forward_step(self.ln1(x), cache, idx)
+        x = x + a
+        return x + self.ffn(self.ln2(x)), cache
+
+    def forward_prefill(self, x, cache):
+        """Batched cache fill through the block (see
+        :meth:`MultiHeadAttention.forward_prefill`)."""
+        a, cache = self.attn.forward_prefill(self.ln1(x), cache)
+        x = x + a
+        return x + self.ffn(self.ln2(x)), cache
 
     def forward_step_slots(self, x, cache, pos, page_table=None,
                            paged_kernel=False):

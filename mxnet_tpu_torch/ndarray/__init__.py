@@ -3,8 +3,8 @@
 import torch as _torch
 
 from . import ops
-from .ndarray import (NDArray, arange, array, concatenate, empty, full, ones,
-                      zeros)
+from .ndarray import (NDArray, arange, array, concatenate, empty, eye, full,
+                      linspace, ones, zeros)
 from .ops import *  # noqa: F401,F403
 from .ops import invoke
 

@@ -32,7 +32,7 @@ from ..base import torch_dtype
 from ..context import Context, resolve_device
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
-           "concatenate"]
+           "eye", "linspace", "concatenate"]
 
 
 def _numpy_dtype(dt: torch.dtype):
@@ -84,6 +84,19 @@ class NDArray:
         return Context(self._t.device)
 
     ctx = context
+    device = context
+
+    @property
+    def itemsize(self) -> int:
+        return self._t.element_size()
+
+    @property
+    def flat(self):
+        """A read-only flat iterator over a host copy (a writable one
+        would change only the copy)."""
+        a = self.asnumpy()
+        a.flags.writeable = False
+        return a.flat
 
     @property
     def T(self) -> "NDArray":
@@ -128,6 +141,7 @@ class NDArray:
         if self._t.device.type == "cuda":
             torch.cuda.current_stream(self._t.device).synchronize()
 
+    wait_to_write = wait_to_read
 
     def copy(self) -> "NDArray":
         return NDArray(self._t.detach().clone())
@@ -141,6 +155,9 @@ class NDArray:
 
     def as_in_context(self, ctx) -> "NDArray":
         return NDArray(self._t.detach().to(resolve_device(ctx)))
+
+    as_in_ctx = as_in_context
+    to_device = as_in_context
 
 
     def astype(self, dtype, copy=True) -> "NDArray":
@@ -374,12 +391,84 @@ class NDArray:
     def repeat(self, repeats, axis=None):
         return self._unary("repeat", repeats=repeats, axis=axis)
     def flip(self, axis): return self._unary("flip", axis=axis)
+    def pad(self, *a, **kw): return _ops().pad(self, *a, **kw)
     def zeros_like(self): return self._unary("zeros_like")
     def ones_like(self): return self._unary("ones_like")
+
+    # numpy-semantics methods (the reference routes them through mx.np):
+    # population statistics, integer results in int32 as jax's defaults
+    def _np(self, name, fn, differentiable=True):
+        return _ops().invoke(name, fn, [self], differentiable=differentiable)
+
+    def std(self, axis=None, keepdims=False):
+        return self._np("std", lambda x: torch.std(
+            _float(x), dim=_dims(axis), correction=0, keepdim=keepdims))
+
+    def var(self, axis=None, keepdims=False):
+        return self._np("var", lambda x: torch.var(
+            _float(x), dim=_dims(axis), correction=0, keepdim=keepdims))
+
+    def cumsum(self, axis=None):
+        def f(x):
+            out = torch.cumsum(x.reshape(-1) if axis is None else x,
+                               dim=0 if axis is None else axis)
+            return out if out.is_floating_point() else out.to(torch.int32)
+        return self._np("cumsum", f)
+
+    # sort/argsort follow numpy's semantics (a stable sort along ``axis``,
+    # integer indices), as the reference's methods do; ``nd.sort`` and
+    # ``nd.argsort`` keep MXNet's
+    def sort(self, axis=-1):
+        return self._np("sort", lambda x: _flat_or(x, axis).sort(
+            dim=-1 if axis is None else axis, stable=True).values)
+
+    def argsort(self, axis=-1):
+        return self._np("argsort", lambda x: _flat_or(x, axis).argsort(
+            dim=-1 if axis is None else axis, stable=True).to(torch.int32),
+            differentiable=False)
+
+    def nonzero(self):
+        return tuple(self._np("nonzero", lambda x: [
+            i.to(torch.int32) for i in torch.nonzero(x, as_tuple=True)],
+            differentiable=False))
+
+    def all(self, axis=None, keepdims=False):
+        return self._np("all", lambda x: _reduce_bool(
+            torch.all, x, axis, keepdims), differentiable=False)
+
+    def any(self, axis=None, keepdims=False):
+        return self._np("any", lambda x: _reduce_bool(
+            torch.any, x, axis, keepdims), differentiable=False)
+
+    def ravel(self): return self._np("ravel", lambda x: x.reshape(-1))
 
     def __array__(self, dtype=None, copy=None):
         a = self.asnumpy()
         return a.astype(dtype) if dtype is not None else a
+
+
+def _dims(axis):
+    return None if axis is None else \
+        (tuple(axis) if isinstance(axis, (tuple, list)) else axis)
+
+
+def _float(x):
+    return x if x.is_floating_point() else x.to(torch.float32)
+
+
+def _flat_or(x, axis):
+    return x.reshape(-1) if axis is None else x
+
+
+def _reduce_bool(fn, x, axis, keepdims):
+    x = x.bool()
+    if axis is None:
+        out = fn(x)
+        return out.reshape((1,) * x.dim()) if keepdims else out
+    for a in sorted((axis if isinstance(axis, (tuple, list)) else (axis,)),
+                    key=lambda a: a % x.dim(), reverse=True):
+        x = fn(x, dim=a, keepdim=keepdims)
+    return x
 
 
 # ----------------------------------------------------------------- creation
@@ -417,7 +506,16 @@ def array(source, ctx=None, dtype=None) -> NDArray:
     t = torch.from_numpy(np.array(_host_array(source, dtype), order="C"))
     if dtype is not None and torch_dtype(dtype) == torch.bfloat16:
         t = t.to(torch.bfloat16)
+    if _pinned(ctx):
+        return NDArray(t.pin_memory())
     return NDArray(t.to(dev))
+
+
+def _pinned(ctx) -> bool:
+    """Whether ``ctx`` asks for page-locked host memory and a card is
+    there to lock it for."""
+    return (isinstance(ctx, Context) and ctx.device_type == "cpu_pinned"
+            and torch.cuda.is_available())
 
 
 def _shape(shape):
@@ -451,6 +549,22 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None,
     if repeat > 1:
         a = np.repeat(a, repeat)
     return NDArray(torch.from_numpy(a).to(resolve_device(ctx)))
+
+
+def _host_dtype(dtype):
+    dt = torch_dtype(dtype)
+    return np.float32 if dt == torch.bfloat16 else _numpy_dtype(dt)
+
+
+def eye(N, M=None, k=0, ctx=None, dtype="float32") -> NDArray:
+    return array(np.eye(N, M, k, dtype=_host_dtype(dtype)), ctx=ctx,
+                 dtype=dtype)
+
+
+def linspace(start, stop, num, endpoint=True, ctx=None,
+             dtype="float32") -> NDArray:
+    return array(np.linspace(start, stop, num, endpoint=endpoint,
+                             dtype=_host_dtype(dtype)), ctx=ctx, dtype=dtype)
 
 
 def concatenate(arrays, axis=0) -> NDArray:

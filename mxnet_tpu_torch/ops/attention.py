@@ -128,3 +128,9 @@ def dot_product_attention(query, key, value, *, causal=False, mask=None,
     return _attention_ref(query, key, value, causal=causal, mask=full_mask,
                           scale=scale,
                           dropout=dropout if _base.is_training() else 0.0)
+
+
+# MXNet's fused self-attention ops live in ``nd``; re-exported here as the
+# reference's ``ops`` namespace does
+from ..ndarray.ops import (interleaved_matmul_selfatt_qk,  # noqa: E402,F401
+                           interleaved_matmul_selfatt_valatt)

@@ -18,6 +18,8 @@ from typing import Optional
 
 import torch
 
+from ..base import torch_dtype
+
 from ..base import MXNetError
 from . import launches as _launches
 
@@ -35,17 +37,18 @@ SPLIT_KEYS = 64
 
 # ------------------------------------------------------------ quantization
 
-def kv_quantize(x):
+def kv_quantize(x, scale_dtype=torch.float32):
     """Symmetric per-position-per-head int8 quantization over the last
     (head_dim) axis: ``scale = max(|x|) / 127``, ``q = round(x / scale)``.
-    Returns ``(int8 values, float32 scale)`` with the scale shaped like
-    ``x`` but with a trailing dim of 1.  The 1e-8 floor keeps an all-zero
-    input (padding, the zero page) exact: q = 0 dequantizes to 0.0."""
+    Returns ``(int8 values, scale)`` with the scale (``scale_dtype``)
+    shaped like ``x`` but with a trailing dim of 1.  The 1e-8 floor keeps
+    an all-zero input (padding, the zero page) exact: q = 0 dequantizes
+    to 0.0."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
     scale = torch.clamp(amax, min=1e-8) / 127.0
     q = torch.clamp(torch.round(xf / scale), -127.0, 127.0)
-    return q.to(torch.int8), scale
+    return q.to(torch.int8), scale.to(torch_dtype(scale_dtype))
 
 
 def kv_dequantize(q, scale):

@@ -73,6 +73,12 @@ class Optimizer:
         self.lr_mult: Dict[Any, float] = {}
         self.wd_mult: Dict[Any, float] = {}
 
+    @staticmethod
+    def create_optimizer(name, **kwargs):
+        """An optimizer by registered name (MXNet's
+        ``Optimizer.create_optimizer``)."""
+        return _registry.get(name)(**kwargs)
+
     # -- lr/wd ------------------------------------------------------------
     @property
     def learning_rate(self):

@@ -33,7 +33,7 @@ from .analysis.lockwitness import named_lock as _named_lock
 from .context import Context
 
 __all__ = ["seed", "generator", "replay", "GraphDraws", "graph_draws",
-           "drawing_from"]
+           "drawing_from", "RandomState", "get_state", "host_rng"]
 
 # MXNet's device type ids (``Context.devtype2id``): a device's generator
 # is seeded with base + (type id << 8) + index, as the reference derives
@@ -66,9 +66,42 @@ def _new(dev: torch.device, base: int) -> torch.Generator:
     return g
 
 
+class RandomState:
+    """The process's random state: each device's generator (created on
+    first use from the seed) and the host-side numpy ``RandomState`` the
+    data samplers shuffle with.  ``mx.random.seed`` reseeds both, so the
+    same seed gives the reference's shuffle orders bit for bit (the
+    device draws keep the contracts, not the bits)."""
+
+    def __init__(self, seed_: int = 0):
+        self._host_rng = np.random.RandomState(int(seed_) & 0x7FFFFFFF)
+
+    def seed(self, seed_: int, ctx=None):
+        _seed_devices(seed_, ctx)
+        if ctx is None:
+            self._host_rng = np.random.RandomState(int(seed_) & 0x7FFFFFFF)
+
+    def generator(self, device=None) -> torch.Generator:
+        return generator(device)
+
+
 def seed(seed_state: int, ctx=None):
-    """``mx.random.seed``: reseed every device's generator, or only that
-    of ``ctx`` (a device)."""
+    """``mx.random.seed``: reseed every device's generator and the host
+    shuffle state, or only the generator of ``ctx`` (a device)."""
+    _STATE.seed(seed_state, ctx=ctx)
+
+
+def get_state() -> RandomState:
+    return _STATE
+
+
+def host_rng() -> np.random.RandomState:
+    """The process-global host-side numpy ``RandomState`` (follows
+    ``mx.random.seed``); the data samplers shuffle with it."""
+    return _STATE._host_rng
+
+
+def _seed_devices(seed_state: int, ctx=None):
     with _LOCK:
         if ctx is None:
             _BASE[0] = int(seed_state)
@@ -83,6 +116,9 @@ def seed(seed_state: int, ctx=None):
             else:
                 _GENS[dev] = _new(dev, int(seed_state))
             _TWINS.pop(dev, None)
+
+
+_STATE = RandomState(_BASE[0])
 
 
 def generator(device: Optional[torch.device] = None) -> torch.Generator:

@@ -46,6 +46,10 @@ class PagePool:
         return len(self._free)
 
     @property
+    def used_count(self) -> int:
+        return self.num_pages - len(self._free)
+
+    @property
     def shared_count(self) -> int:
         """Pages with two readers or more."""
         return sum(1 for r in self._refs if r >= 2)

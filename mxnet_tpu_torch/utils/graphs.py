@@ -30,7 +30,10 @@ a capture and not during it: a graph that died during another's capture
 would free its memory there, which invalidates the capture.  A host
 read, an allocation the pool cannot serve, or a generator that is not
 registered makes the capture raise; the caller names what failed and
-never runs the function eagerly instead.
+never runs the function eagerly instead.  A capture that fails leaves
+its generators as it found them: torch takes a generator out of capture
+mode only where a capture ends well, so after a failure an empty capture
+of the same generators (the device's default one included) does it.
 
 The kernel wrappers count their launches in Python, and a replay runs
 no Python: a graph records the change of the registered counters
@@ -43,6 +46,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import threading
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
@@ -182,6 +186,10 @@ class Graph:
                                   capture_error_mode="thread_local"), \
                     inside():
                 out = fn()
+        except BaseException:
+            del graph
+            self._end_capture_mode()
+            raise
         finally:
             if collecting:
                 gc.enable()
@@ -192,6 +200,21 @@ class Graph:
             _launches.add({k: -d for k, d in delta.items()})
         self._graph, self._delta = graph, delta
         return out
+
+    def _end_capture_mode(self):
+        """Take the generators out of capture mode after a failed
+        capture (otherwise every later draw from them outside a capture
+        raises): an empty capture of them, whose end runs torch's
+        epilogue for each."""
+        graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            graph.register_generator_state(g)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")          # the graph is empty
+            with torch.cuda.device(self.device), \
+                    torch.cuda.graph(graph, stream=torch.cuda.Stream(
+                        self.device), capture_error_mode="thread_local"):
+                pass
 
     def replay(self):
         """Run the captured work on the current stream's device and

@@ -10,6 +10,8 @@ against the plain version's own dequantize of the same pages.  The
 backward kernels are held as max-abs error over the plain version's
 max-abs, at the same two numbers: their gradients reach O(10).
 """
+import time
+
 import numpy as onp
 import pytest
 import torch
@@ -1696,6 +1698,44 @@ def test_failed_step_capture_applies_nothing(dev):
         assert tr.optimizer.num_update == 0 and not tr._programs
 
 
+def test_failed_step_capture_leaves_the_generators_usable(dev):
+    """After a ``ShardedTrainer`` step whose capture failed, the card's
+    default generator and the port's own draw again outside a capture
+    (torch leaves a generator in capture mode when a capture cannot
+    end), and a later graph drawing from the default one replays fresh
+    numbers."""
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    class Reads(nn.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.dense = nn.Dense(4, in_units=4)
+
+        def forward(self, x):
+            y = self.dense(x)
+            return y * float(y.sum())
+
+    net = Reads()
+    net.initialize(device=dev)
+    tr = ShardedTrainer(net, "sgd", loss=lambda out, y: (out - y).sum(-1))
+    with pytest.raises(MXNetError, match=r"ShardedTrainer\(Reads\)"):
+        tr.step(onp.ones((2, 4), "float32"), onp.ones((2, 4), "float32"))
+    a, b = torch.randn(8, device=dev), torch.randn(8, device=dev)
+    assert not torch.equal(a, b)
+    assert torch.rand(8, device=dev,
+                      generator=mxrandom.generator(dev)).is_cuda
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = torch.rand(4, device=dev)
+    g.replay()
+    first = out.clone()
+    g.replay()
+    assert not torch.equal(first, out)
+
+
 def test_hybridized_block_served_in_forward_mode_runs_inline(no_tf32):
     """A hybridized block behind the engine's forward mode: the engine's
     captured program runs it inline (no CachedOp program of its own is
@@ -1973,3 +2013,148 @@ def test_draft_poison_input_is_read_at_a_replay(dev):
     assert not onp.array_equal(runs[0][:2], runs[1][:2])
     assert len(set(runs[1][:2].ravel().tolist())) == 1
     assert eng.stats()["compile"]["compiles"] == n_warm
+
+
+# ------------------------------------------------------- the data pipeline
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+def test_prefetcher_delivers_the_bytes_while_a_graph_replays(dev, depth):
+    """``DevicePrefetcher`` over a ring of ``depth`` hands over the same
+    bytes as a synchronous ``.to("cuda")``, while a captured graph
+    replays on the consumer's stream between batches and reads each
+    batch after its hand-over (~2 ms of work a replay): a slot rewritten
+    before its reader finished would show as a wrong sum."""
+    from mxnet_tpu_torch.data import DevicePrefetcher
+    rs = onp.random.RandomState(depth)
+    host = [(rs.randint(0, 255, (64, 256, 256)).astype("uint8"),
+             onp.full(4, i, "float32")) for i in range(12)]
+    static = torch.zeros((64, 256, 256), dtype=torch.uint8, device=dev)
+    a = torch.randn((2048, 2048), device=dev)
+    g = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        for _ in range(2):                       # warm up, then capture
+            busy = a
+            for _ in range(8):
+                busy = busy @ a / 2048
+            out = static.sum(dtype=torch.int64) + busy.sum().to(torch.int64) * 0
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    with torch.cuda.graph(g):
+        busy = a
+        for _ in range(8):
+            busy = busy @ a / 2048
+        out = static.sum(dtype=torch.int64) + busy.sum().to(torch.int64) * 0
+    pf = DevicePrefetcher(host, shardings=dev, depth=depth)
+    got = []
+    for d, l in pf:
+        static.copy_(d.tensor)                   # the graph's input
+        g.replay()
+        got.append((out.clone(), l.tensor.clone(), d.tensor.sum(
+            dtype=torch.int64)))
+    pf.close()
+    torch.cuda.synchronize()
+    assert len(got) == len(host)
+    for (s_graph, lab, s_direct), (x, y) in zip(got, host):
+        want = int(torch.from_numpy(x).to(dev).sum(dtype=torch.int64))
+        assert int(s_graph) == want and int(s_direct) == want
+        assert torch.equal(lab.cpu(), torch.from_numpy(y))
+    st = pf.stats()
+    assert st["batches_shipped"] == 12 and st["batches_fallback"] == 0
+
+
+def test_device_transform_on_the_card_equals_the_cpu(dev):
+    """The transform on the card against the same transform on the CPU,
+    at several steps, NHWC and NCHW in: bit for bit (integer draws, a
+    gather, a cast, one subtraction and one division a value)."""
+    from mxnet_tpu_torch.data import DeviceTransform
+    x = torch.from_numpy(onp.random.RandomState(0).randint(
+        0, 256, (16, 40, 40, 3)).astype("uint8"))
+    kw = dict(mean=(123.68, 116.779, 103.939), std=(58.393, 57.12, 57.375),
+              crop=32, mirror=True, layout="NHWC", seed=5)
+    tf = DeviceTransform(**kw)
+    for step in (0, 1, 7, 1 << 33):
+        a, b = tf.apply(x.to(dev), step), tf.apply(x, step)
+        assert a.is_cuda and a.is_contiguous() and torch.equal(a.cpu(), b)
+    assert tf.compile_count == 1          # one (shape, dtype) point
+    nchw = DeviceTransform(**dict(kw, layout="NCHW", out_layout="NHWC"))
+    assert torch.equal(nchw.apply(x.permute(0, 3, 1, 2).contiguous().to(dev),
+                                  7).cpu(), tf.apply(x, 7))
+
+
+def test_step_capture_meets_a_working_feeder(no_tf32):
+    """A ``ShardedTrainer``'s first step is captured while the
+    prefetcher's feeder is still at work (pinning, copying and
+    transforming a batch every few ms on its stream, with nothing
+    settled first): the losses equal those of the same transformed
+    batches fed resident."""
+    from mxnet_tpu_torch.data import DevicePrefetcher, DeviceTransform
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    rs = onp.random.RandomState(11)
+    n = 32
+    host = [(rs.randint(0, 256, (64, 128, 128, 3)).astype("uint8"),
+             rs.uniform(-1, 1, (64, 10)).astype("float32"))
+            for _ in range(n)]
+
+    def slow():
+        for b in host:
+            time.sleep(0.003)
+            yield b
+
+    def trainer():
+        net = nn.HybridSequential()
+        net.add(nn.Flatten(), nn.Dense(10, in_units=112 * 112 * 3))
+        net.initialize(device=no_tf32, seed=0)
+        return ShardedTrainer(net, "adam",
+                              loss=lambda out, y: ((out - y) ** 2).sum(-1),
+                              optimizer_params={"learning_rate": 1e-3})
+
+    kw = dict(mean=(123.68, 116.779, 103.939), std=(58.393, 57.12, 57.375),
+              crop=112, mirror=True, layout="NHWC", seed=3)
+    tr = trainer()
+    pf = tr.attach_data_source(DevicePrefetcher(
+        slow(), depth=n, transform=DeviceTransform(**kw)))
+    d, l = pf.next()
+    piped = [float(tr.step(d, l))]
+    fed = pf.stats()["fed"]
+    piped += [float(tr.step(d, l)) for d, l in pf]
+    pf.close()
+    assert fed < n, "the feeder finished before the capture did"
+    tf, tr = DeviceTransform(**kw), trainer()
+    resident = [float(tr.step(tf.apply(torch.from_numpy(x).to(no_tf32), i),
+                              torch.from_numpy(y).to(no_tf32)))
+                for i, (x, y) in enumerate(host)]
+    assert piped == resident
+
+
+def test_prefetched_batch_trains_like_a_resident_one(no_tf32):
+    """A batch fed into a ``ShardedTrainer`` graph from the prefetcher
+    (page-locked ``DataLoader`` → feeder stream) gives the losses of the
+    same batches fed as resident tensors."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.context import cpu
+    from mxnet_tpu_torch.data import DevicePrefetcher
+    from mxnet_tpu_torch.models import gpt2_lm_loss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    rs = onp.random.RandomState(3)
+    toks = rs.randint(0, 256, (20, 129)).astype("int32")
+    ds = gluon.data.ArrayDataset(toks[:, :-1], toks[:, 1:])
+    losses = {}
+    for arm, net in zip(("pipeline", "resident"), _gpt2_pair(7)):
+        tr = ShardedTrainer(net, "adam", loss=gpt2_lm_loss,
+                            optimizer_params={"learning_rate": 1e-3})
+        dl = gluon.data.DataLoader(ds, batch_size=4, pin_memory=True)
+        if arm == "pipeline":
+            src = tr.attach_data_source(DevicePrefetcher(dl, depth=2))
+        else:
+            src = [(d.tensor.to(no_tf32), l.tensor.to(no_tf32))
+                   for d, l in dl]
+        losses[arm] = [float(tr.step(d, l)) for d, l in src]
+        if arm == "pipeline":
+            assert src.stats()["batches_shipped"] == 5
+            assert next(iter(dl))[0].tensor.is_pinned()
+            assert next(iter(dl))[0].context == cpu()
+            src.close()
+    assert len(losses["pipeline"]) == 5
+    assert losses["pipeline"] == losses["resident"]

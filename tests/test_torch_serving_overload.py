@@ -185,6 +185,11 @@ def _queue_script(DynamicBatcher, Request):
         q5.put(req(0))
     except Exception as e:
         log.append(type(e).__name__)
+    try:                                    # a closed queue takes no
+        q5.requeue(req(1, preempted=1))     # continuation either
+        log.append("requeued after close")
+    except Exception as e:
+        log.append(type(e).__name__)
     return log
 
 
@@ -192,6 +197,7 @@ def test_batcher_order_and_eviction_equal_the_reference():
     from mxnet_tpu.serving import DynamicBatcher as JDynamicBatcher
     ref = _queue_script(JDynamicBatcher, JRequest)
     got = _queue_script(DynamicBatcher, TRequest)
+    assert ref[-2:] == ["EngineStoppedError"] * 2
     assert got == ref
     # the script's pivots, spelled out: the interactive arrival evicted
     # request 1 (the younger best_effort); the full queue of one class
