@@ -324,16 +324,39 @@ Phases (any failure exits non-zero and prints no result line):
    source's host images/s alone, bytes shipped a step, and from one
    profiled step the host-to-device copies' µs and how many of them ran
    beside the step's kernels.  No kernel of the port launches in (b).
-20. A ``{"kernels": [...]}`` line, the card line again, and the last
+20. Data- and sequence-parallel training, GPT-2 124M at full width,
+   float32 unless named.  The card host has one H100 and NCCL refuses
+   two ranks on one device, so a real collective runs as two ranks on
+   the one card over gloo (``tools/launch.py -n 2`` starts this script
+   with ``--phase20-rank``; gloo stages CUDA tensors through pinned host
+   memory), and a one-rank mesh runs under NCCL.  (a) ``ShardedTrainer(
+   mesh=make_mesh(dp=1))`` under a one-rank NCCL group, amp, 16 x 1024:
+   graphed, its losses bit-identical to ``mesh=None``'s over
+   ``DP_STEPS`` steps.  (b) dp = 2: two gloo ranks, 8 x 1024 each of
+   the global 16 x 1024, Adam, ``DP_STEPS`` steps from rank 0's weights
+   (rank 1 seeded apart), against the one-process step: losses
+   (``TOL_LOSS``) and final parameters (``TOL_DP_PARAM``); a DCP
+   checkpoint at step 2 loaded in this process continues to the ranks'
+   step-3 loss; ms/step, the gloo all-reduce's share of it and the
+   bytes staged.  (c) sp = 2: two gloo ranks, T = 1024 in chunks of 512
+   (``SP_B`` rows), the balanced ring, then Ulysses (6 of 12 heads a
+   rank): one step's loss and gradients, summed over the ranks, against
+   the one-process step through B1-B3 (phase 11's ``TOL_GRAD``); each
+   rank's B1, B2 and B3 launches (all above 0) and B2's by mode.  B2's
+   ring modes (``partial``, ``given``) are held to their plain versions
+   at the ring's block shapes first.
+21. A ``{"kernels": [...]}`` line, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.  ``launches_by_path`` holds
    every phase's launches (``bert``, ``bert_amp``, ``nmt``, ``lstm``,
    ``ops``, phase 16's graphed arms ``hybrid_bert_amp``,
    ``graph_train``, ``graph_amp`` and ``graph_vision``, phase 17's
    fault-free run ``resilient``, phase 18's ``hardened`` and phase 19's
-   ``data`` among them); the
-   flash kernels carry their numbers at phases 11-12's shapes
-   (``shapes``), phase 12's launches by attention and the
-   cross-attention call's times.
+   ``data`` among them, and phase 20's ``parallel_ring`` /
+   ``parallel_ulysses``, rank 0's); the flash kernels carry their
+   numbers at phases 11-12's shapes (``shapes``), phase 12's launches by
+   attention and the cross-attention call's times.  B2's ring modes are
+   entries of their own (``flash_dq[partial]``, ``flash_dq[given]``),
+   their launches phase 20 (c)'s ring's on rank 0.
 
 Phase 2 also times B1, B2 and B3 in bf16 at the training shape, the
 shape phase 7 gives them, B4 at phase 9's chunk shape (8 rows x 256
@@ -557,9 +580,9 @@ TOL_LINALG = {"potrf": 1e-5, "trsm": 1e-5, "inverse": 1e-5,
 SIGMAS = 6.0
 
 # phase 15: the compiled programs.  (a) phase 3's engine, the eager and
-# the graphed arm in turns, 3 rounds, each arm serving phase 3's prompts
-# with 32 then 256 new tokens (decode dominates)
-GRAPH_ROUNDS, GRAPH_NEW = 3, (32, 256)
+# the graphed arm in turns, 2 rounds, each arm serving phase 3's prompts
+# with 32 then 128 new tokens (decode dominates)
+GRAPH_ROUNDS, GRAPH_NEW = 2, (32, 128)
 # (b) a replay against the eager call from the same inputs: the same
 # kernels in the same order, so tokens are identical and the caches the
 # programs wrote agree but for a float32 GEMM whose cuBLAS algorithm
@@ -592,7 +615,7 @@ RES_STEPS, RES_SAVE, RES_SEED, RES_DROPOUT = 12, 4, 7, 0.1
 RES_SCALE = 2.0 ** 16
 # (a)'s timing: the bare trainer and the loop with tracing off and on,
 # RES_TIMED steps each, in turns over RES_ROUNDS rounds
-RES_TIMED, RES_ROUNDS = 8, 2
+RES_TIMED, RES_ROUNDS = 5, 2
 
 
 # phase 19: the data pipeline.  The card host has no libjpeg (nor its
@@ -610,6 +633,16 @@ RES_TIMED, RES_ROUNDS = 8, 2
 # step runs
 DATA_WARM, DATA_ROUNDS, DATA_STEPS, DATA_PROFILE = 1, 2, 5, 2
 DATA_DEPTH = 2
+# phase 20: steps of (a) and (b); (b)'s final parameters against the
+# one-process run's: Adam moves an element by at most ~lr a step, so two
+# runs whose float32 gradients differ only in rounding (the dp sum's
+# order) part by at most 2 * lr a step where a near-zero gradient flips
+# sign; (c)'s rows of 1024 tokens; the ring's block shape for B2's
+# modes (SP_B rows x 256, a zigzag half-chunk of 512)
+DP_STEPS = 3
+TOL_DP_PARAM = 2 * TRAIN_LR * DP_STEPS
+SP_B = 8
+RING_BLOCK = (SP_B, 256, 12, 64)
 DATA_IMG = 256
 DATA_MEAN = (123.68, 116.779, 103.939)
 DATA_STD = (58.393, 57.12, 57.375)
@@ -5715,6 +5748,388 @@ def data_path(torch, card):
     return launches, vision
 
 
+# ------------------------------------------------ phase 20: dp x sp
+
+
+def ring_mode_cases(torch, dev, timer, card):
+    """B2's ring modes against their plain versions at the ring's block
+    shapes (a zigzag half-chunk against itself, causal, and against
+    another chunk, full), float32 and bf16, and D = 256; the main
+    shape's numbers for the kernels line: each mode's time, its plain
+    version's, its bound, and SDPA's whole backward at the same shape as
+    the library's yardstick."""
+    from mxnet_tpu_torch.ops import flash as F
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 20)
+
+    def run(tag, shape, dtype, causal):
+        b, t, h, d = shape
+        dname = str(dtype).split(".")[1]
+        q, k, v, do = (torch.randn(shape, generator=g, device=dev)
+                       .to(dtype) for _ in range(4))
+        scale = d ** -0.5
+        _o, lse = F.flash_fwd(q, k, v, causal=causal, scale=scale)
+        # another chunk's keys: the global lse lies above this one's, so
+        # the partial sums fall below 1, as on a ring
+        lse = (lse + 0.5).contiguous()
+        args = (q, k, v, do, lse)
+        kw = dict(causal=causal, scale=scale)
+        pdp, psum = F.flash_dq(*args, mode="partial", **kw)
+        delta = (pdp / psum).contiguous()
+        dq = F.flash_dq(*args, mode="given", delta=delta, **kw)
+        torch.cuda.synchronize()
+        rp, rs = F._dq_partial_plain(*args, None, None, causal, scale)
+        rdq, _d = F._dq_plain(*args, None, None, causal, scale, delta)
+        err = {"partial": max(relerr(pdp, rp), relerr(psum, rs)),
+               "given": relerr(dq, rdq)}
+        for mode, e in err.items():
+            check(f"flash_dq[{mode}] {tag} (over plain max-abs)", e,
+                  TOL_BWD[dname])
+        again = F.flash_dq(*args, mode="given", delta=delta, **kw)
+        if not torch.equal(dq, again):
+            raise AssertionError(f"flash_dq[given] {tag}: a second launch "
+                                 "gave other bits")
+        ms = {"partial": timer(lambda: F.flash_dq(*args, mode="partial",
+                                                  **kw)),
+              "given": timer(lambda: F.flash_dq(*args, mode="given",
+                                                delta=delta, **kw))}
+        plain = {"partial": timer(lambda: F._dq_partial_plain(
+                     *args, None, None, causal, scale)),
+                 "given": timer(lambda: F._dq_plain(
+                     *args, None, None, causal, scale, delta))}
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal)
+        lib_ms = timer(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+        # per attended pair: partial computes S and dP (4*D operations),
+        # given S, dP and dQ (6*D); bytes: q, k, v, dO and lse read once,
+        # partial writes its two row sums, given reads delta and writes dQ
+        pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+        n = b * t * h * d * q.element_size()
+        rows = b * h * t * 4
+        work = {"partial": (4 * n + 3 * rows, 4 * d * pairs),
+                "given": (5 * n + 2 * rows, 6 * d * pairs)}
+        res = {}
+        for mode, (nbytes, flops) in work.items():
+            b_ms, b_by = bound(nbytes, flops, dname)
+            res[mode] = dict(max_abs_err=maxabs(pdp, rp) if mode ==
+                             "partial" else maxabs(dq, rdq),
+                             rel_err=err[mode], ms=ms[mode],
+                             plain_ms=plain[mode], bound_ms=b_ms,
+                             bound_by=b_by, library_ms=lib_ms)
+            print(f"    flash_dq[{mode}]: kernel {ms[mode]:.4f} ms, plain "
+                  f"{plain[mode]:.4f} ms, bound {b_ms:.4f} ms ({b_by} at "
+                  f"{rate(b_by, dname)}), sdpa backward {lib_ms:.4f} ms "
+                  f"[{card}]", flush=True)
+        return res
+
+    print("B2's ring modes vs plain at the ring's blocks:", flush=True)
+    b, t, h, d = RING_BLOCK
+    run(f"causal B{b} T{t} H{h} D{d} float32", RING_BLOCK, torch.float32,
+        True)
+    run(f"full B{b} T{t} H{h} D{d} bfloat16", RING_BLOCK, torch.bfloat16,
+        False)
+    run("causal B2 T300 H3 D256 float32", (2, 300, 3, 256), torch.float32,
+        True)
+    # the main shape: a block against another chunk's keys, full
+    return run(f"main: full B{b} T{t} H{h} D{d} float32", RING_BLOCK,
+               torch.float32, False)
+
+
+def launch_ranks(part, d, n=2, timeout=900):
+    """Run ``part`` of phase 20 on ``n`` gloo ranks of this card through
+    ``tools/launch.py``, in a session of their own that is killed
+    whole if it outlives ``timeout``; returns the ranks' npz outputs."""
+    import os
+    import signal
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, MXNET_TPU_DIST_TIMEOUT="600")
+    cmd = [sys.executable, os.path.join(root, "tools", "launch.py"), "-n",
+           str(n), sys.executable, os.path.abspath(__file__),
+           "--phase20-rank", part, d]
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"phase 20 {part}: ranks outlived {timeout} s")
+    for line in out.splitlines():
+        if line.startswith("  "):
+            print(line, flush=True)
+    if proc.returncode:
+        raise AssertionError(f"phase 20 {part}: ranks failed:\n"
+                             f"{out[-6000:]}")
+    return [dict(np.load(os.path.join(d, f"{part}_r{r}.npz")))
+            for r in range(n)]
+
+
+def phase20_rank(part, d) -> int:
+    """One gloo rank of phase 20 (b) (``dp2``) or (c) (``sp2``)."""
+    import os
+    import torch
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch.models import get_gpt2, gpt2_lm_loss
+    from mxnet_tpu_torch.parallel import collectives as coll
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    par.init_distributed(backend="gloo")
+    r = par.rank()
+    torch.cuda.set_device(par.distributed.local_device())
+    out = {}
+    toks, labels = train_batch()
+    if part == "dp2":
+        # rank 1 seeded apart: the trainer's broadcast starts it from
+        # rank 0's weights
+        net = get_gpt2("gpt2_124m", dropout=0.0).initialize(
+            seed=SEED if r == 0 else SEED + 1)
+        tr = par.ShardedTrainer(net, "adam", loss=gpt2_lm_loss,
+                                optimizer_params={"learning_rate":
+                                                  TRAIN_LR},
+                                mesh=par.make_mesh(dp=2))
+        losses, ms, share, staged = [], [], [], []
+        for i in range(DP_STEPS):
+            coll.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            losses.append(float(tr.step(toks, labels)))
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            st = coll.stats()
+            ms.append(wall * 1e3)
+            share.append(st["all_reduce_seconds"] / wall)
+            staged.append(st.get("staged_bytes_d2h", 0)
+                          + st.get("staged_bytes_h2d", 0))
+            if i == 1:
+                t1 = time.monotonic()
+                tr.save_checkpoint(os.path.join(d, "ckpt"),
+                                   2).wait_until_finished()
+                out["ckpt_s"] = np.array(time.monotonic() - t1)
+        stats = tr.stats()
+        out.update(losses=np.array(losses), ms=np.array(ms),
+                   share=np.array(share), staged=np.array(staged),
+                   graphed=np.array(stats["graphed"]),
+                   checksum=np.array([float(p.detach().double().abs().sum())
+                                      for p in net.parameters()]))
+        if r == 0:
+            torch.save({n: p.detach().cpu() for n, p in
+                        net.named_parameters()},
+                       os.path.join(d, "dp2_params.pt"))
+        print(f"  20b rank {r}: losses {losses}, ms/step "
+              f"{[round(x, 1) for x in ms]}, all-reduce share "
+              f"{[round(x, 3) for x in share]}, bytes staged a step "
+              f"{staged}, graphed {stats['graphed']} backend "
+              f"{stats['backend']}", flush=True)
+    else:
+        mesh = par.make_mesh(dp=1, sp=2)
+        t = TRAIN_T // 2
+        x = torch.as_tensor(toks[:SP_B, r * t:(r + 1) * t]).cuda()
+        y = torch.as_tensor(labels[:SP_B, r * t:(r + 1) * t]).cuda()
+        for mode in ("ring", "ulysses"):
+            os.environ["MXNET_TPU_SEQ_PARALLEL"] = mode
+            net = get_gpt2("gpt2_124m", dropout=0.0).initialize(seed=SEED)
+            params = list(net.parameters())
+            reset_launches()
+            coll.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            with par.use_mesh(mesh):
+                loss = gpt2_lm_loss(net(x), y).mean()
+            grads = list(torch.autograd.grad(loss, params))
+            # each rank's share of the global mean: 1/2
+            flat = [loss.detach().reshape(1)] + grads
+            coll.all_reduce_(flat, mesh.group("sp"))
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            st = coll.stats()
+            from mxnet_tpu_torch.ops import flash as F
+            launches = {n: sum(getattr(F, n).launches_by_dtype.values())
+                        for n in ("flash_fwd", "flash_dq", "flash_dkv")}
+            by_mode = dict(F.flash_dq.launches_by_mode)
+            out[f"{mode}:loss"] = np.array(float(flat[0]) / 2)
+            out[f"{mode}:launches"] = np.array(
+                [launches[n] for n in ("flash_fwd", "flash_dq",
+                                       "flash_dkv")])
+            out[f"{mode}:by_mode"] = np.array(
+                [by_mode[m] for m in ("own", "partial", "given")])
+            out[f"{mode}:ms"] = np.array(wall * 1e3)
+            out[f"{mode}:staged"] = np.array(
+                st.get("staged_bytes_d2h", 0) + st.get("staged_bytes_h2d",
+                                                       0))
+            if r == 0:
+                torch.save([g.detach().div(2).cpu() for g in flat[1:]],
+                           os.path.join(d, f"sp2_{mode}_grads.pt"))
+            print(f"  20c {mode} rank {r}: loss {float(flat[0]) / 2:.6f}, "
+                  f"{wall * 1e3:.1f} ms (forward, backward, all-reduce), "
+                  f"launches {launches}, B2 by mode {by_mode}, bytes "
+                  f"staged {int(out[f'{mode}:staged'])}", flush=True)
+            del net, params, grads, flat, loss
+            free(torch)
+    np.savez(os.path.join(d, f"{part}_r{r}.npz"), **out)
+    par.barrier()
+    return 0
+
+
+def one_rank_mesh(torch, card):
+    """20a: the amp step under a one-rank NCCL mesh, graphed, against
+    ``mesh=None``: losses bit for bit."""
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch.models import get_gpt2, gpt2_lm_loss
+    toks, labels = train_batch()
+    par.init_distributed(None, 1, 0, backend="nccl")
+    losses = {}
+    try:
+        mx.amp.init("bfloat16")
+        for arm in ("none", "mesh"):
+            net = get_gpt2("gpt2_124m", dropout=0.0).initialize(seed=SEED)
+            mesh = par.make_mesh(dp=1) if arm == "mesh" else None
+            tr = par.ShardedTrainer(net, "adam", loss=gpt2_lm_loss,
+                                    optimizer_params={"learning_rate":
+                                                      TRAIN_LR},
+                                    mesh=mesh)
+            got = [float(tr.step(toks, labels)) for _ in range(DP_STEPS)]
+            # without a mesh stats() keeps the reference's keys
+            graphed = tr.stats().get("graphed", tr._graphs)
+            losses[arm] = got
+            print(f"  20a mesh={arm}: losses {got}, graphed {graphed}, "
+                  f"backend {tr.stats().get('backend')}, programs "
+                  f"{len(tr._programs)} [{card}]", flush=True)
+            if not graphed:
+                raise AssertionError(f"20a mesh={arm}: the step is not "
+                                     "graphed")
+            del net, tr
+            free(torch)
+    finally:
+        mx.amp.reset()
+        dist.destroy_process_group()
+    if losses["mesh"] != losses["none"]:
+        raise AssertionError(f"20a: one-rank NCCL mesh {losses['mesh']} "
+                             f"against mesh=None {losses['none']}")
+    print("  20a one-rank NCCL mesh: losses bit-identical to mesh=None",
+          flush=True)
+
+
+def parallel_path(torch, card):
+    """Phase 20.  Returns rank 0's launches on the ring and on Ulysses,
+    and B2's launches by mode on the ring."""
+    import os
+    import tempfile
+    from mxnet_tpu_torch.models import get_gpt2, gpt2_lm_loss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    t_phase = time.monotonic()
+    print("phase 20: data and sequence parallel GPT-2 124M "
+          f"(two gloo ranks on this card) [{card}]", flush=True)
+    one_rank_mesh(torch, card)
+    free(torch)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build")
+    os.makedirs(root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as d:
+        # (b) dp = 2 against one process
+        ranks = launch_ranks("dp2", d)
+        toks, labels = train_batch()
+        net = get_gpt2("gpt2_124m", dropout=0.0).initialize(seed=SEED)
+        tr = ShardedTrainer(net, "adam", loss=gpt2_lm_loss,
+                            optimizer_params={"learning_rate": TRAIN_LR})
+        one, one_ms = [], []
+        for _ in range(DP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            one.append(float(tr.step(toks, labels)))
+            torch.cuda.synchronize()
+            one_ms.append((time.monotonic() - t0) * 1e3)
+        print(f"  20b one process: losses {one}, ms/step "
+              f"{[round(x, 1) for x in one_ms]} (graphed) [{card}]",
+              flush=True)
+        for r, out in enumerate(ranks):
+            check(f"20b rank {r} losses vs one process (relative)",
+                  max(abs(a - b) / abs(b) for a, b in
+                      zip(out["losses"], one)), TOL_LOSS)
+        if not np.array_equal(ranks[0]["checksum"], ranks[1]["checksum"]):
+            raise AssertionError("20b: the two ranks' parameters differ")
+        dp2 = torch.load(os.path.join(d, "dp2_params.pt"))
+        check("20b final parameters vs one process (max-abs)",
+              max(maxabs(p.detach().cpu(), dp2[n])
+                  for n, p in net.named_parameters()), TOL_DP_PARAM)
+        del net, tr, dp2
+        free(torch)
+        # the step-2 checkpoint, loaded by one process, continues the run
+        net = get_gpt2("gpt2_124m", dropout=0.0).initialize(seed=SEED + 2)
+        tr = ShardedTrainer(net, "adam", loss=gpt2_lm_loss,
+                            optimizer_params={"learning_rate": TRAIN_LR})
+        tr.build(toks, labels)
+        tr.load_checkpoint(os.path.join(d, "ckpt"))
+        resumed = float(tr.step(toks, labels))
+        check("20b step 3 from the dp = 2 checkpoint vs the ranks' "
+              "(relative)", abs(resumed - ranks[0]["losses"][2])
+              / abs(ranks[0]["losses"][2]), TOL_LOSS)
+        del net, tr
+        free(torch)
+        ms = float(np.mean(ranks[0]["ms"][1:]))
+        share = float(np.mean(ranks[0]["share"][1:]))
+        print(f"  20b dp = 2 over gloo: {ms:.1f} ms/step (steps 2-"
+              f"{DP_STEPS}, rank 0), the all-reduce {share * 100:.1f} % of "
+              f"it, {int(ranks[0]['staged'][-1])} bytes staged a step, "
+              f"checkpoint {float(ranks[0]['ckpt_s']):.2f} s, eager "
+              f"(graphed {bool(ranks[0]['graphed'])}) [{card}]",
+              flush=True)
+        # (c) sp = 2: ring, then Ulysses, against one process
+        ranks = launch_ranks("sp2", d)
+        net = get_gpt2("gpt2_124m", dropout=0.0).initialize(seed=SEED)
+        x = torch.as_tensor(toks[:SP_B]).cuda()
+        y = torch.as_tensor(labels[:SP_B]).cuda()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        loss = gpt2_lm_loss(net(x), y).mean()
+        names = [n for n, _ in net.named_parameters()]
+        ref = torch.autograd.grad(loss, list(net.parameters()))
+        torch.cuda.synchronize()
+        one_ms = (time.monotonic() - t0) * 1e3
+        loss = float(loss.detach())
+        base = read_launches()
+        for mode in ("ring", "ulysses"):
+            got = [g.cuda() for g in torch.load(
+                os.path.join(d, f"sp2_{mode}_grads.pt"))]
+            check(f"20c {mode} loss vs one process (relative)",
+                  abs(float(ranks[0][f"{mode}:loss"]) - loss) / abs(loss),
+                  TOL_LOSS)
+            errs = grad_errors(names, got, ref)
+            worst = int(np.argmax(errs))
+            check(f"20c {mode}: {len(errs)} gradients vs one process "
+                  f"(worst {names[worst]}, over its max-abs)", errs[worst],
+                  TOL_GRAD)
+            for r, out in enumerate(ranks):
+                n = out[f"{mode}:launches"]
+                if not all(n > 0):
+                    raise AssertionError(f"20c {mode} rank {r}: B1-B3 "
+                                         f"launches {n}")
+            by_mode = ranks[0]["ring:by_mode"]
+            if mode == "ring" and not (by_mode[1] > 0 and by_mode[2] > 0):
+                raise AssertionError(f"20c ring: B2 by mode {by_mode}")
+        print(f"  20c one process: {one_ms:.1f} ms (forward, backward; "
+              f"its first call), launches {base} [{card}]", flush=True)
+        del net, ref, loss
+        free(torch)
+    launches = {mode: dict(zip(("flash_fwd", "flash_dq", "flash_dkv"),
+                               (int(c) for c in
+                                ranks[0][f"{mode}:launches"])))
+                for mode in ("ring", "ulysses")}
+    for counts in launches.values():
+        counts["paged_attention"] = 0
+    by_mode = dict(zip(("own", "partial", "given"),
+                       (int(c) for c in ranks[0]["ring:by_mode"])))
+    print(f"phase 20: {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return launches, by_mode
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5738,6 +6153,7 @@ def main() -> int:
     prompts = make_prompts()
     fwd_f32, fwd_bf16, fwd_lang = flash_cases(torch, dev, timer, card)
     bwd, bwd_lang = flash_bwd_cases(torch, dev, timer, card)
+    ring_modes = ring_mode_cases(torch, dev, timer, card)
     cross_ms = cross_case(torch, dev, timer, card)
     paged_main, paged_multi = paged_cases(torch, dev, timer, card,
                                           [len(p) for p in prompts])
@@ -5807,6 +6223,10 @@ def main() -> int:
             raise AssertionError(f"19b {dtype} launched a kernel of the "
                                  f"port: {counts}")
         by_path[f"data_vision_{dtype}"] = counts
+    free(torch)
+    ring_launches, ring_by_mode = parallel_path(torch, card)
+    by_path["parallel_ring"] = ring_launches["ring"]
+    by_path["parallel_ulysses"] = ring_launches["ulysses"]
     # each kernel's launches on the path that is its own: the training
     # path for the flash kernels, the serving path for paged attention;
     # the flash kernels' bf16 numbers (phase 2 at the training shape)
@@ -5834,6 +6254,13 @@ def main() -> int:
             k["nmt_launches_by_attention"] = {
                 kind: c[k["name"]] for kind, c in nmt_split.items()}
             k["cross_fwd_bwd_ms"] = cross_ms
+    for mode in ("partial", "given"):
+        # B2's ring modes: phase 20 (c)'s ring on rank 0
+        kernels.append(dict(name=f"flash_dq[{mode}]", route="cuda",
+                            source="mxnet_tpu_torch/csrc/flash_dq_ring.cu",
+                            replaces=REPLACES["flash_dq"],
+                            launches=ring_by_mode[mode],
+                            **ring_modes[mode]))
     print(f"chip_smoke: {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -5844,4 +6271,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase20-rank"]:
+        sys.exit(phase20_rank(*sys.argv[2:4]))
     sys.exit(main())

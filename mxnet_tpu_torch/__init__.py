@@ -15,6 +15,8 @@ from . import (amp, analysis, autograd, base, context, gluon, initializer,
                lr_scheduler, models, ndarray, observability, ops, optimizer,
                parallel, profiler, random, resilience, serving)
 from . import data, io, recordio  # the input pipeline, over the above
+from . import kvstore
+from . import kvstore as kv
 from . import initializer as init
 from . import ndarray as nd
 from .base import MXNetError
@@ -24,6 +26,7 @@ from .context import (Context, Device, cpu, cpu_pinned, current_context,
 __all__ = ["MXNetError", "Context", "Device", "cpu", "gpu", "cpu_pinned",
            "num_gpus", "current_context", "current_device", "amp",
            "analysis", "autograd", "base", "context", "data", "gluon",
-           "init", "initializer", "io", "lr_scheduler", "models", "nd",
+           "init", "initializer", "io", "kv", "kvstore", "lr_scheduler",
+           "models", "nd",
            "ndarray", "observability", "ops", "optimizer", "parallel",
            "profiler", "random", "recordio", "resilience", "serving"]

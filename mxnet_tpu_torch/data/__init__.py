@@ -11,8 +11,9 @@ to the card:
   current step computes; the consumer's stream waits on each batch's
   event, with no host synchronization.
 - :class:`~mxnet_tpu_torch.data.sharded_loader.ShardedLoader` —
-  deterministic global-batch loading for the one-device layout (the
-  multi-host split is ROADMAP queue A6).
+  deterministic global-batch loading, on one device or split over a
+  ``dp`` x ``sp`` mesh (each rank loads its rows and keeps its sequence
+  slice).
 - :class:`~mxnet_tpu_torch.data.transforms.DeviceTransform` — ship raw
   uint8 pixels and crop / mirror / normalize on the card, one CUDA graph
   per (shape, dtype) lattice point, with the serving lattice's

@@ -135,20 +135,35 @@ def _nbytes(arrays) -> int:
     return sum(int(_tensor(a).nbytes) for a in arrays)
 
 
+def _named(shardings):
+    """The per-array mesh placements when ``shardings`` is a sequence of
+    ``NamedSharding`` (checked), else None."""
+    from ..parallel.sharding import NamedSharding, check_placement
+    if isinstance(shardings, (list, tuple)) and shardings and all(
+            isinstance(s, NamedSharding) for s in shardings):
+        for s in shardings:
+            check_placement(s)
+        return list(shardings)
+    return None
+
+
 def _device_of(shardings, n):
     """The one device every batch array goes to, from ``shardings`` (a
-    device or Context, or a sequence of them with one per array)."""
+    device or Context, a sequence of them with one per array, or one
+    mesh placement per array: this rank's device)."""
     if isinstance(shardings, (str, torch.device, Context)):
         return resolve_device(shardings)
     if len(shardings) != n:
         raise DataPipelineError(
             f"{len(shardings)} shardings for {n} batch arrays")
+    if _named(shardings) is not None:
+        from ..parallel.distributed import local_device
+        return local_device()
     devs = {resolve_device(s) for s in shardings}
     if len(devs) != 1:
         raise DataPipelineError(
-            "DevicePrefetcher places a batch on one device; shardings "
-            f"over {sorted(map(str, devs))} need a mesh (ROADMAP queue "
-            "A6)")
+            "DevicePrefetcher places a batch on one device or over a "
+            f"mesh (NamedSharding); got devices {sorted(map(str, devs))}")
     return devs.pop()
 
 
@@ -165,8 +180,11 @@ class DevicePrefetcher:
         Target placement of the flattened ``data + labels`` arrays —
         pass ``trainer.batch_shardings`` after the trainer's first step,
         or a device.  A callable is invoked per batch with the array
-        tuple.  One device only: a placement over several needs a mesh
-        (queue A6).  ``None``: the current context at construction.
+        tuple.  Mesh placements (``NamedSharding``, one per array) ship
+        this rank's block of each global array to this rank's device,
+        marked as a local shard; a mesh with ``tp``, ``ep`` or ``pp``
+        above 1 raises (queue A6).  ``None``: the current context at
+        construction.
     depth : int
         Ring capacity (>= 1; default 2 = double buffering).  The feeder
         blocks when the ring is full — a slow consumer can never make
@@ -273,11 +291,14 @@ class DevicePrefetcher:
         self._thread.start()
 
     # ------------------------------------------------------------ feeder
-    def _target(self, arrays) -> torch.device:
+    def _target(self, arrays):
+        """(device, mesh placements or None) for one batch."""
         sh = self._shardings
         if callable(sh):
             sh = sh(arrays)
-        return self._device if sh is None else _device_of(sh, len(arrays))
+        if sh is None:
+            return self._device, None
+        return _device_of(sh, len(arrays)), _named(sh)
 
     def _copy(self, tensors, dev: torch.device):
         """The tensors on ``dev``; on the card, copied on the feeder's
@@ -304,8 +325,20 @@ class DevicePrefetcher:
         for attempt in (0, 1):
             try:
                 _inject("data.device_put")
-                dev = self._target(arrays)
-                out, event = self._copy([_tensor(a) for a in arrays], dev)
+                dev, named = self._target(arrays)
+                tensors = [_tensor(a) for a in arrays]
+                if named is not None:
+                    from ..parallel.sharding import (is_local_shard,
+                                                     mark_local_shard)
+                    # this rank's block of each global array
+                    tensors = [t if is_local_shard(t) else
+                               t[sh.local_slices(tuple(t.shape))]
+                               .contiguous()
+                               for t, sh in zip(tensors, named)]
+                out, event = self._copy(tensors, dev)
+                if named is not None:
+                    out = [mark_local_shard(t, sh)
+                           for t, sh in zip(out, named)]
                 out = [NDArray(t) for t in out]
                 nd = len(data)
                 return (tuple(out[:nd]), tuple(out[nd:]),

@@ -1,14 +1,19 @@
-"""Per-host sharded global-batch loading, on one device.
+"""Per-host sharded global-batch loading.
 
 Counterpart of ``mxnet_tpu/data/sharded_loader.py``.  The reference
 materializes on each process only the rows of the global batch that its
 addressable devices own and stitches the global array shard by shard.
-The port runs on one device, so the layout here is the trivial one: the
-"sharding" is one device (a ``torch.device``, a :class:`Context` or a
-device string), this process owns every row (``host_batch_rows`` is
-``(0, batch)``), and ``assemble_global`` is one copy to that device.  A
-placement over several devices or processes raises ``MXNetError``
-naming ROADMAP queue A6, as the trainers do.
+The port runs one rank per process, so a placement is either one device
+(a ``torch.device``, a :class:`Context` or a device string: this process
+owns every row, ``host_batch_rows`` is ``(0, batch)``, and
+``assemble_global`` is one copy to that device) or a
+:class:`~mxnet_tpu_torch.parallel.NamedSharding` over a ``dp`` x ``sp``
+mesh (``parallel.global_batch_sharding``, or the trainer's
+``batch_shardings``): this process loads only its ``dp`` block of rows,
+and ``assemble_global`` keeps its ``sp`` slice of the sequence and puts
+it on this rank's device, marked as a local shard that
+``ShardedTrainer.step`` takes as it is.  A mesh with ``tp``, ``ep`` or
+``pp`` above 1 raises ``MXNetError`` naming ROADMAP queue A6.
 
 Shard assignment is deterministic in ``(epoch, step)``: the sample
 permutation is seeded by ``(seed, epoch)`` with plain arithmetic (no
@@ -36,6 +41,15 @@ from ..observability.registry import default_registry as _registry
 __all__ = ["ShardedLoader", "host_batch_rows", "assemble_global"]
 
 
+def _named(sharding):
+    """``sharding`` if it is a mesh placement (checked), else None."""
+    from ..parallel.sharding import NamedSharding, check_placement
+    if isinstance(sharding, NamedSharding):
+        check_placement(sharding)
+        return sharding
+    return None
+
+
 def _one_device(sharding) -> torch.device:
     """The device of a one-device layout; anything wider raises."""
     if isinstance(sharding, (str, torch.device, Context)):
@@ -44,21 +58,43 @@ def _one_device(sharding) -> torch.device:
             {resolve_device(s) for s in sharding}) == 1:
         return resolve_device(sharding[0])
     raise _base.MXNetError(
-        f"ShardedLoader runs on one device; the layout {sharding!r} "
-        "spans several devices or processes (a mesh: ROADMAP queue A6)")
+        f"the layout {sharding!r} is neither one device nor a mesh "
+        "placement (parallel.NamedSharding; meshes: ROADMAP queue A6)")
 
 
 def host_batch_rows(sharding, global_shape) -> Tuple[int, int]:
     """The contiguous ``[lo, hi)`` batch-dim row range this process
-    must materialize under ``sharding``: on one device, every row."""
+    must materialize under ``sharding``: on one device, every row; under
+    a mesh placement, this rank's ``dp`` block."""
+    named = _named(sharding)
+    if named is not None:
+        rows = named.local_slices(tuple(global_shape))[0]
+        return rows.start, rows.stop
     _one_device(sharding)
     return 0, int(tuple(global_shape)[0])
 
 
 def assemble_global(host_part, sharding, global_shape, lo: int = 0):
-    """The global batch on the layout's one device, from this process's
-    host rows (all of them)."""
+    """The batch as this process holds it under ``sharding``, from its
+    host rows: on one device the global batch (all rows) on that device;
+    under a mesh placement this rank's block (its ``sp`` slice of its
+    rows) on its device, marked as a local shard."""
     global_shape = tuple(global_shape)
+    named = _named(sharding)
+    if named is not None:
+        from ..parallel.distributed import local_device
+        from ..parallel.sharding import mark_local_shard
+        sl = named.local_slices(global_shape)
+        host_part = onp.asarray(host_part)
+        if lo != sl[0].start or host_part.shape[0] != \
+                sl[0].stop - sl[0].start:
+            raise _base.MXNetError(
+                f"host rows {tuple(host_part.shape)} from {lo} are not "
+                f"this rank's rows [{sl[0].start}, {sl[0].stop}) of "
+                f"{global_shape}")
+        part = onp.ascontiguousarray(host_part[(slice(None),) + sl[1:]])
+        return mark_local_shard(
+            torch.from_numpy(part).to(local_device()), named)
     dev = _one_device(sharding)
     host_part = onp.asarray(host_part)
     if lo != 0 or tuple(host_part.shape) != global_shape:
@@ -84,8 +120,9 @@ class ShardedLoader:
         GLOBAL batch size (all hosts combined).
     sample_shape, label_shape : tuple
         Per-sample shapes (data rows are ``(batch,) + sample_shape``).
-    data_sharding, label_sharding : device, optional
-        Target placement (one device).  ``None`` keeps host arrays on
+    data_sharding, label_sharding : device or NamedSharding, optional
+        Target placement (one device, or a ``dp`` x ``sp`` mesh
+        placement: this rank's block).  ``None`` keeps host arrays on
         ``mx.cpu()`` (the trainer or a ``DevicePrefetcher`` does the
         placement).
     shuffle : bool

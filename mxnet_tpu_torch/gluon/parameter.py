@@ -42,7 +42,7 @@ __all__ = ["DeferredInitializationError", "new_parameter", "is_initialized",
 
 # the tensor attributes a parameter keeps its settings in
 CARRIED_ATTRS = ("_mx_grad_req", "_mx_lr_mult", "_mx_wd_mult", "_mx_init",
-                 "_mx_allow_deferred")
+                 "_mx_allow_deferred", "_logical_axes")
 
 
 class DeferredInitializationError(MXNetError):

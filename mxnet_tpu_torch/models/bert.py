@@ -20,7 +20,7 @@ from ..context import resolve_device
 from ..gluon.block import HybridBlock
 from ..gluon.nn import Dense, Dropout, Embedding, LayerNorm
 from ..ndarray.ops import apply_op
-from .transformer import TransformerEncoderLayer, run_blocks
+from .transformer import TransformerEncoderLayer, run_blocks, seq_offset
 
 __all__ = ["BERTModel", "BERTForPretrain", "get_bert"]
 
@@ -67,7 +67,9 @@ class BERTModel(HybridBlock):
             raise ValueError(f"sequence length {t} exceeds max_length="
                              f"{self.max_length} (position table size)")
         steps = torch.arange(t, dtype=torch.int32, device=tokens.device)
-        x = self.word_embed(tokens) + self.position_embed(steps)[None]
+        # positions of this rank's chunk under an sp mesh
+        x = self.word_embed(tokens) + \
+            self.position_embed(steps + seq_offset(t))[None]
         if token_types is not None:
             x = x + self.token_type_embed(token_types)
         x = self.embed_ln(x)

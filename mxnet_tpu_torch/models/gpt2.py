@@ -23,8 +23,9 @@ from ..gluon.block import HybridBlock
 from ..gluon.nn import Dropout, Embedding, LayerNorm
 from ..ndarray.ndarray import NDArray
 from ..ndarray.ops import _as_nd, invoke
+from ..parallel.sharding import annotate
 from .moe import MoETransformerBlock
-from .transformer import TransformerBlock, run_blocks
+from .transformer import TransformerBlock, run_blocks, seq_offset
 
 __all__ = ["GPT2Model", "get_gpt2", "gpt2_lm_loss"]
 
@@ -58,7 +59,9 @@ class GPT2Model(HybridBlock):
         self.vocab_size = vocab_size
         self.max_length = max_length
         self.wte = Embedding(vocab_size, units)
+        annotate(self.wte.weight, "vocab", "embed")
         self.wpe = Embedding(max_length, units)
+        annotate(self.wpe.weight, "seq", "embed")
         self.drop = Dropout(dropout) if dropout else None
         blocks = []
         for i in range(num_layers):
@@ -82,11 +85,17 @@ class GPT2Model(HybridBlock):
         return F.linear(*_amp.cast("FullyConnected", x, self.wte.weight))
 
     def forward(self, tokens):
+        """Logits of ``tokens`` (B, T).  Under a mesh with ``sp`` above 1
+        the tokens are this rank's sequence chunk, positions
+        ``[i * T, (i + 1) * T)`` for the rank's ``sp`` index i."""
         t = tokens.shape[1]
-        if t > self.max_length:
-            raise ValueError(f"sequence length {t} exceeds max_length="
-                             f"{self.max_length} (position table size)")
-        pos = torch.arange(t, dtype=torch.int32, device=tokens.device)
+        off = seq_offset(t)
+        if off + t > self.max_length:
+            raise ValueError(f"sequence length {off + t} exceeds "
+                             f"max_length={self.max_length} (position "
+                             "table size)")
+        pos = torch.arange(off, off + t, dtype=torch.int32,
+                           device=tokens.device)
         x = self.wte(tokens) + self.wpe(pos)[None]
         if self.drop is not None:
             x = self.drop(x)

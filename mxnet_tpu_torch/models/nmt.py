@@ -30,7 +30,8 @@ from ..gluon.block import HybridBlock
 from ..gluon.nn import Dropout, Embedding, LayerNorm
 from ..ndarray.ops import apply_op
 from .transformer import (MultiHeadAttention, PositionwiseFFN,
-                          TransformerEncoderLayer, _remat_layer, run_blocks)
+                          TransformerEncoderLayer, _remat_layer, run_blocks,
+                          seq_offset)
 
 __all__ = ["TransformerDecoderBlock", "TransformerNMT", "nmt_loss",
            "get_nmt"]
@@ -46,7 +47,9 @@ def _sinusoidal_positions(x, units):
     """``x`` (B, T, U) plus the sinusoidal position encoding (sin over
     the first U/2 lanes, cos over the rest; no learned table)."""
     t = x.shape[1]
-    pos = torch.arange(t, dtype=torch.float32, device=x.device)[:, None]
+    off = seq_offset(t)       # this rank's chunk under an sp mesh
+    pos = torch.arange(off, off + t, dtype=torch.float32,
+                       device=x.device)[:, None]
     dim = torch.arange(units // 2, dtype=torch.float32,
                        device=x.device)[None, :]
     ang = pos / torch.pow(10000.0, 2.0 * dim / units)

@@ -30,12 +30,14 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import os
 
 import torch
 import torch.utils.checkpoint as _ckpt
 
 from .. import amp as _amp
 from .. import base as _base
+from .. import parallel as _par
 from .. import random as _random
 from ..base import MXNetError
 from ..gluon.block import HybridBlock
@@ -44,9 +46,11 @@ from ..ndarray.ops import ACTIVATION_FNS as _ACTIVATIONS
 from ..ops import dot_product_attention
 from ..ops import dots as _dots
 from ..ops.paged import kv_quantize, paged_attention
+from ..parallel.sharding import annotate
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerBlock",
-           "TransformerEncoderLayer", "run_blocks", "copy_cache_rows"]
+           "TransformerEncoderLayer", "run_blocks", "copy_cache_rows",
+           "seq_offset"]
 
 _NEG = -1e30
 
@@ -105,21 +109,45 @@ class MultiHeadAttention(HybridBlock):
     from ``memory``: the encoder-decoder attention of NMT).
     ``attention_dropout`` drops attention weights in training; above 0
     it sends attention to the reference path, as the reference's
-    dispatch does."""
+    dispatch does.
+
+    Under a mesh with ``sp`` above 1 (``parallel.use_mesh``), ``x`` is
+    this rank's sequence chunk and self-attention without a mask or
+    attention dropout runs sequence-parallel, as the reference routes it
+    (``transformer.py:75-113``): ``seq_parallel='ring'`` (default, or
+    ``MXNET_TPU_SEQ_PARALLEL``) through ``ops.ring_attention``,
+    ``'ulysses'`` through ``ops.ulysses_attention`` where the local heads
+    divide by |sp| (else the ring, with the reference's warning)."""
 
     def __init__(self, units, num_heads, dropout=0.0, attention_dropout=0.0,
-                 use_bias=True, causal=False):
+                 use_bias=True, causal=False, seq_parallel=None):
         super().__init__()
         if units % num_heads:
             raise ValueError(f"units {units} not divisible by heads "
                              f"{num_heads}")
+        if seq_parallel is None:
+            seq_parallel = os.environ.get("MXNET_TPU_SEQ_PARALLEL", "ring")
+        if seq_parallel not in ("ring", "ulysses"):
+            raise ValueError(
+                f"seq_parallel must be 'ring' or 'ulysses', "
+                f"got {seq_parallel!r}")
+        self._seq_parallel = seq_parallel
         self._num_heads = num_heads
         self._head_dim = units // num_heads
         self._causal = causal
         self._att_dropout = attention_dropout
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            setattr(self, name, Dense(units, use_bias=use_bias,
-                                      flatten=False, in_units=units))
+            d = Dense(units, use_bias=use_bias, flatten=False,
+                      in_units=units)
+            if name == "out_proj":
+                annotate(d.weight, "embed", "heads")
+                if d.bias is not None:
+                    annotate(d.bias, "norm")
+            else:
+                annotate(d.weight, "heads", "embed")
+                if d.bias is not None:
+                    annotate(d.bias, "heads")
+            setattr(self, name, d)
         self.dropout = Dropout(dropout) if dropout else None
 
     def _qkv(self, x, memory=None):
@@ -136,9 +164,21 @@ class MultiHeadAttention(HybridBlock):
 
     def forward(self, x, mask=None, memory=None):
         q, k, v = self._qkv(x, memory)
-        out = self._out(dot_product_attention(
-            q, k, v, causal=self._causal, mask=mask,
-            dropout=self._att_dropout))
+        out = None
+        if mask is None and memory is None and self._att_dropout == 0.0:
+            out = _seq_parallel_attention(self, q, k, v)
+        elif _sp_size() > 1:
+            # the reference's GSPMD path attends over the global arrays;
+            # the port's sequence chunks meet only through ring / Ulysses
+            raise MXNetError(
+                "attention with a mask, memory or attention dropout under "
+                "an sp mesh: the port runs sequence parallelism for plain "
+                "self-attention (ring, Ulysses); the rest is ROADMAP "
+                "queue A6")
+        if out is None:
+            out = dot_product_attention(q, k, v, causal=self._causal,
+                                        mask=mask, dropout=self._att_dropout)
+        out = self._out(out)
         if self.dropout is not None:
             out = self.dropout(out)
         return out
@@ -296,6 +336,49 @@ def copy_cache_rows(caches, src, dst, length):
                                               a.index_select(0, dst)))
 
 
+_WARNED_ULYSSES_FALLBACK = False
+
+
+def seq_offset(t: int) -> int:
+    """The first position of this rank's sequence chunk of length ``t``
+    under the current mesh's ``sp`` axis (0 without one): the models add
+    it to the positions they embed."""
+    mesh = _par.current_mesh()
+    if mesh is None or _par.axis_size(mesh, "sp") == 1:
+        return 0
+    return mesh.axis_index("sp") * t
+
+
+def _sp_size() -> int:
+    mesh = _par.current_mesh()
+    return _par.axis_size(mesh, "sp") if mesh is not None else 1
+
+
+def _seq_parallel_attention(attn, q, k, v):
+    """Attention of this rank's sequence chunk under an ``sp`` mesh (ring
+    or Ulysses), or None where there is none to run."""
+    sp = _sp_size()
+    if sp == 1:
+        return None
+    mesh = _par.current_mesh()
+    h = attn._num_heads
+    if attn._seq_parallel == "ulysses":
+        if (h // _par.axis_size(mesh, "tp")) % sp == 0:
+            from ..ops.ulysses import ulysses_attention
+            return ulysses_attention(q, k, v, causal=attn._causal,
+                                     mesh=mesh)
+        global _WARNED_ULYSSES_FALLBACK
+        if not _WARNED_ULYSSES_FALLBACK:
+            import logging
+            logging.warning(
+                "seq_parallel='ulysses' needs local heads (%d/|tp|) "
+                "divisible by |sp|=%d; falling back to ring attention", h,
+                sp)
+            _WARNED_ULYSSES_FALLBACK = True
+    from ..ops.ring import ring_attention
+    return ring_attention(q, k, v, causal=attn._causal, mesh=mesh)
+
+
 def _paged_rows(pages, table_rows):
     """Gather per-slot pages back into contiguous rows: (N+2, ps, H, D)
     pages and (B, P) tables → (B, P*ps, H, D), the dense row view, so
@@ -356,10 +439,14 @@ class PositionwiseFFN(HybridBlock):
         super().__init__(**kwargs)
         self.fc1 = Dense(hidden_size, use_bias=use_bias, flatten=False,
                          in_units=units)
+        annotate(self.fc1.weight, "mlp", "embed")
+        if self.fc1.bias is not None:
+            annotate(self.fc1.bias, "mlp")
         self.act = GELU() if activation == "gelu" else None
         self._activation = activation
         self.fc2 = Dense(units, use_bias=use_bias, flatten=False,
                          in_units=hidden_size)
+        annotate(self.fc2.weight, "embed", "mlp")
         self.dropout = Dropout(dropout) if dropout else None
 
     def forward(self, x):

@@ -1,5 +1,6 @@
 """Flash attention, forward and backward: the CUDA kernels
-``csrc/flash_fwd.cu`` (B1) and ``csrc/flash_bwd.cu`` (B2 dQ, B3 dK/dV)
+``csrc/flash_fwd.cu`` (B1) and ``csrc/flash_bwd.cu`` (B2 dQ, B3 dK/dV;
+B2's ring modes in ``csrc/flash_dq_ring.cu``)
 and their plain PyTorch versions (counterpart of
 ``mxnet_tpu/ops/flash.py``).
 
@@ -85,32 +86,50 @@ def _own_delta(p, dp):
                        torch.zeros_like(psum))
 
 
-def _bwd_tiles(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale):
-    """P, dS (B, H, Tq, Tk) float32 and delta (B, H, Tq, 1), recomputed
-    from lse as the kernels do (masked pairs give P = 0); ``delta`` None
-    (B2's case) is computed from P and dP (:func:`_own_delta`), else it
-    is B2's, (B*H, 1, Tq) (B3's case)."""
+def _p_dp(q, k, v, do, lse, q_seg, kv_seg, causal, scale):
+    """P and dP (B, H, Tq, Tk) float32, P recomputed from lse as the
+    kernels do (masked pairs give P = 0)."""
     b, tq, h, _d = q.shape
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     s = torch.where(_keep(q, k, q_seg, kv_seg, causal), s,
                     torch.full_like(s, _MASK))
     p = torch.where(s <= _MASK * 0.5, torch.zeros_like(s),
                     torch.exp(s - lse.reshape(b, h, tq, 1)))
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+
+
+def _bwd_tiles(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale):
+    """P, dS (B, H, Tq, Tk) float32 and delta (B, H, Tq, 1); ``delta``
+    None (B2's own mode) is computed from P and dP
+    (:func:`_own_delta`), else it is given, (B*H, 1, Tq) (B3, and B2's
+    given mode)."""
+    b, tq, h, _d = q.shape
+    p, dp = _p_dp(q, k, v, do, lse, q_seg, kv_seg, causal, scale)
     delta = _own_delta(p, dp) if delta is None else \
         delta.reshape(b, h, tq, 1)
     return p, p * (dp - delta) * scale, delta
 
 
-def _dq_plain(q, k, v, do, lse, q_seg, kv_seg, causal, scale):
+def _dq_plain(q, k, v, do, lse, q_seg, kv_seg, causal, scale,
+              delta=None):
     """B2's plain version: (dQ (B, T, H, D) in q's dtype, delta (B*H, 1,
-    T) float32) with delta computed as B2 computes it."""
-    _p, ds, delta = _bwd_tiles(q, k, v, do, lse, None, q_seg, kv_seg,
+    T) float32) with delta computed as B2 computes it, or the given
+    ``delta`` (B2's given mode)."""
+    _p, ds, delta = _bwd_tiles(q, k, v, do, lse, delta, q_seg, kv_seg,
                                causal, scale)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(),
                       k.float()).to(q.dtype)
     b, t, h, _d = q.shape
     return dq, delta.reshape(b * h, 1, t).contiguous()
+
+
+def _dq_partial_plain(q, k, v, do, lse, q_seg, kv_seg, causal, scale):
+    """B2's partial mode, plain: (sum_j P dP, sum_j P), each (B*H, 1, T)
+    float32, over these keys."""
+    p, dp = _p_dp(q, k, v, do, lse, q_seg, kv_seg, causal, scale)
+    b, t, h, _d = q.shape
+    return ((p * dp).sum(-1).reshape(b * h, 1, t).contiguous(),
+            p.sum(-1).reshape(b * h, 1, t).contiguous())
 
 
 def _dkv_plain(q, k, v, do, lse, delta, q_seg, kv_seg, causal, scale):
@@ -222,37 +241,93 @@ _launches.register(flash_fwd,
                   launches_by_dtype=dict.fromkeys(_DTYPE_CODE, 0))
 
 
+_DQ_MODES = {"own": 0, "partial": 1, "given": 2}
+
+
 def flash_dq(q, k, v, do, lse, q_seg=None, kv_seg=None, *, causal: bool,
-             scale: float):
-    """(dQ, delta) of self-attention (B2).  ``lse`` is the forward's,
-    (B*H, 1, T) float32.  B2 computes each row's delta itself from its
-    own P and dP (sum_j P dP / sum_j P, a first pass over the keys), which
-    keeps each query's dS summing to 0 (see ``csrc/flash_bwd.cu``), and
-    returns it, (B*H, 1, T) float32, for B3.  CUDA tensors launch
-    ``mxt_flash_dq`` of ``csrc/flash_bwd.cu`` (counted in
-    ``flash_dq.launches_by_dtype``); CPU tensors take the plain
+             scale: float, mode: str = "own", delta=None):
+    """dQ of self-attention (B2).  ``lse`` is the forward's, (B*H, 1, T)
+    float32.  ``mode``:
+
+    - ``"own"`` (the single call) returns (dQ, delta): B2 computes each
+      row's delta itself from its own P and dP (sum_j P dP / sum_j P, a
+      first pass over the keys), which keeps each query's dS summing to
+      0 (see ``csrc/flash_bwd.cu``), and returns it, (B*H, 1, T)
+      float32, for B3;
+    - ``"partial"`` returns (sum_j P dP, sum_j P), each (B*H, 1, T)
+      float32, over these keys only, undivided, and no dQ: ring attention
+      adds them over its key chunks (``ops/ring.py``);
+    - ``"given"`` returns dQ computed with the given ``delta`` (B*H, 1,
+      T) float32, skipping the first pass.
+
+    CUDA tensors launch ``mxt_flash_dq`` of ``csrc/flash_bwd.cu`` (own)
+    or ``mxt_flash_dq_mode`` of ``csrc/flash_dq_ring.cu`` (the ring modes;
+    the same kernel, ``csrc/flash_bwd.cuh``), counted in
+    ``flash_dq.launches_by_dtype``
+    and ``flash_dq.launches_by_mode``; CPU tensors take the plain
     version."""
+    if mode not in _DQ_MODES:
+        raise MXNetError(f"flash_dq: mode {mode!r} not in "
+                         f"{tuple(_DQ_MODES)}")
+    if (delta is not None) != (mode == "given"):
+        raise MXNetError("flash_dq: delta is given in the 'given' mode "
+                         "and only there")
     if _device_type("flash_dq", q) == "cpu":
-        return _dq_plain(q, k, v, do, lse, q_seg, kv_seg, causal, scale)
+        if mode == "partial":
+            return _dq_partial_plain(q, k, v, do, lse, q_seg, kv_seg,
+                                     causal, scale)
+        out = _dq_plain(q, k, v, do, lse, q_seg, kv_seg, causal, scale,
+                        delta)
+        return out[0] if mode == "given" else out
     _check_cuda("flash_dq", q, k, v, q_seg, kv_seg, (do,))
-    _check_rows("flash_dq", q, lse)
+    _check_rows("flash_dq", q, lse, *(() if delta is None else (delta,)))
     b, t, h, d = q.shape
-    dq = torch.empty_like(q)
-    delta = torch.empty((b * h, 1, t), dtype=torch.float32, device=q.device)
+    rows = (b * h, 1, t)
+    dq = None if mode == "partial" else torch.empty_like(q)
+    delta_out = None if mode == "given" else \
+        torch.empty(rows, dtype=torch.float32, device=q.device)
+    psum = torch.empty(rows, dtype=torch.float32, device=q.device) \
+        if mode == "partial" else None
     from ..utils.native import stream_ptr
-    err = _kernel_fn("flash_bwd", "mxt_flash_dq", 9)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
-        dq.data_ptr(), b, t, h, d, int(bool(causal)), float(scale),
-        _DTYPE_CODE[q.dtype], stream_ptr(q.device))
+    tail = (b, t, h, d, int(bool(causal)), float(scale),
+            _DTYPE_CODE[q.dtype])
+    if mode == "own":
+        err = _kernel_fn("flash_bwd", "mxt_flash_dq", 9)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta_out.data_ptr(), _ptr(q_seg),
+            _ptr(kv_seg), dq.data_ptr(), *tail, stream_ptr(q.device))
+    else:
+        err = _dq_mode_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), _ptr(delta), _ptr(delta_out), _ptr(psum),
+            _ptr(q_seg), _ptr(kv_seg), _ptr(dq), *tail, _DQ_MODES[mode],
+            stream_ptr(q.device))
     if err:
         raise MXNetError(f"flash_dq: kernel launch failed (cudaError {err})")
     flash_dq.launches_by_dtype[q.dtype] += 1
-    return dq, delta
+    # by mode on the wrapper itself: a caller that stands another
+    # function in for the module's name carries the dtype counter only
+    _FLASH_DQ.launches_by_mode[mode] += 1
+    if mode == "partial":
+        return delta_out, psum
+    return dq if mode == "given" else (dq, delta_out)
 
 
-_launches.register(flash_dq,
-                  launches_by_dtype=dict.fromkeys(_DTYPE_CODE, 0))
+def _dq_mode_fn():
+    """``mxt_flash_dq_mode``: 11 pointers, then (batch, seq, heads,
+    head_dim, causal), scale, dtype, mode, stream."""
+    from ..utils import native
+    fn = native.load("flash_dq_ring").mxt_flash_dq_mode
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 11 + [i] * 5 + [ctypes.c_float, i, i, p]
+        fn.restype = i
+    return fn
+
+
+_FLASH_DQ = _launches.register(
+    flash_dq, launches_by_dtype=dict.fromkeys(_DTYPE_CODE, 0),
+    launches_by_mode=dict.fromkeys(_DQ_MODES, 0))
 
 
 def flash_dkv(q, k, v, do, lse, delta, q_seg=None, kv_seg=None, *,

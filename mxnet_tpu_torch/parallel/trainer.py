@@ -56,9 +56,37 @@ semantics are the reference's:
   ``ResilientLoop`` drives the trainer through ``step``,
   ``state_dict`` and ``load_state_dict``.
 
-A mesh of more than one device raises: multi-GPU training is ROADMAP
-queue A6, and the orbax-style ``save_checkpoint`` / ``load_checkpoint``
-(the sharded format) come with it.
+**Over a mesh** (``mesh=make_mesh(dp=..., sp=...)``, one process per
+rank after ``init_distributed``), the reference's pjit step becomes SPMD
+in each process with explicit collectives:
+
+- every rank passes the same global batch, as every process does in the
+  reference; the step keeps this rank's block of each array under its
+  ``NamedSharding`` (``batch_shardings``: dim 0 over ``dp``, ``seq_axis``
+  over ``sp``, or ``data_specs`` / ``label_specs``).  A batch that is
+  already this rank's block (``sharding.local_shard``, a loader over a
+  mesh placement) is taken as it is;
+- the parameters stay whole on every rank and start equal:
+  ``shard_params`` broadcasts rank 0's at build (KVStore's broadcast);
+- the forward runs under ``use_mesh``, so attention over an ``sp`` axis
+  runs ring or Ulysses attention (``models/transformer.py``);
+- the local loss is a mean over this rank's rows and positions, so each
+  rank's loss and gradients carry its share of the global batch x
+  sequence, 1 / (|dp| * |sp|): the gradients and the loss are summed over
+  the mesh in flat buckets (``collectives.all_reduce_``) and scaled by
+  that share, which gives the reference's global-mean gradient and loss
+  on every rank.  ``grad_accum`` accumulates locally and reduces once;
+  the gradient poison is spliced before the reduction and the guard's
+  finite flag, the clip's global norm and the loss scaler's schedule are
+  taken after it, so every rank makes the same decision;
+- the step stays one CUDA graph where its collectives can be captured
+  (NCCL, or a mesh of one rank); under gloo, whose transport stages
+  through the host, it runs eagerly.  The choice is made at construction
+  and shown in ``stats()`` (``graphed``, ``backend``).
+
+``save_checkpoint`` / ``load_checkpoint`` write and read
+``torch.distributed.checkpoint`` directories (``utils/checkpoint.py``):
+a checkpoint saved under one mesh loads under another.
 """
 from __future__ import annotations
 
@@ -76,6 +104,10 @@ from ..ndarray.ndarray import NDArray
 from ..observability.trace import active as _trace_active
 from ..resilience.faults import inject as _inject, poison as _poison
 from ..utils.graphs import Program
+from . import collectives as _coll
+from .mesh import Mesh, current_mesh, make_mesh, use_mesh
+from .sharding import (NamedSharding, ShardingRules, batch_spec,
+                       is_local_shard, shard_params)
 
 __all__ = ["ShardedTrainer"]
 
@@ -92,12 +124,13 @@ def _leaves(state) -> List[torch.Tensor]:
     raise _base.MXNetError(f"unsupported optimizer state {type(state)}")
 
 
-def _mesh_size(mesh) -> int:
-    """Devices in ``mesh``: an int, a sequence of devices, or an object
-    with a ``devices`` array (a mesh)."""
-    if isinstance(mesh, int):
+def _as_mesh(mesh) -> Optional[Mesh]:
+    """``mesh`` as a :class:`Mesh`: a mesh, a device count or a sequence
+    of devices (one rank each), or None (one device, no mesh)."""
+    if mesh is None or isinstance(mesh, Mesh):
         return mesh
-    return int(np.asarray(getattr(mesh, "devices", mesh), dtype=object).size)
+    n = mesh if isinstance(mesh, int) else len(mesh)
+    return make_mesh(dp=n, devices=list(range(n)))
 
 
 def _as_tuple(x) -> tuple:
@@ -114,10 +147,12 @@ class ShardedTrainer:
         device.
     optimizer : str or Optimizer — any registered optimizer.
     loss : callable(out, *labels) -> tensor, reduced to its mean.
-    mesh : None, or a mesh of one device.  More devices raise
-        ``MXNetError`` (ROADMAP queue A6).
-    rules, data_specs, label_specs, seq_axis : sharding specifications;
-        they need a mesh, so anything but None raises.
+    mesh : a :class:`~mxnet_tpu_torch.parallel.Mesh` over ``dp`` and
+        ``sp`` (default: the ambient ``use_mesh`` one), or None: one
+        device, no collectives.
+    rules : ShardingRules recording each parameter's spec.
+    data_specs/label_specs : PartitionSpecs per input; default dim 0
+        over ``dp`` (and ``seq_axis`` over ``sp``).
     donate, donate_batch : accepted for the reference's signature; the
         port always updates parameters and state in place.
     grad_accum : microbatch count; the batch dim must divide by it.
@@ -142,17 +177,21 @@ class ShardedTrainer:
             raise _base.MXNetError(
                 f"grad_accum must be a positive integer, got {grad_accum}")
         self._grad_accum = int(grad_accum)
-        if mesh is not None and _mesh_size(mesh) != 1:
+        self.mesh = _as_mesh(mesh) if mesh is not None else current_mesh()
+        if self.mesh is None and any(
+                x is not None for x in (data_specs, label_specs, seq_axis)):
             raise _base.MXNetError(
-                f"a mesh of {_mesh_size(mesh)} devices: the port's "
-                "ShardedTrainer runs on one device; data/tensor/sequence "
-                "parallel training is ROADMAP queue A6")
-        if any(x is not None for x in (rules, data_specs, label_specs,
-                                       seq_axis)):
-            raise _base.MXNetError(
-                "rules/data_specs/label_specs/seq_axis shard over a mesh; "
-                "the port's ShardedTrainer runs on one device (ROADMAP "
-                "queue A6)")
+                "data_specs/label_specs/seq_axis shard a batch over a mesh: "
+                "pass mesh= (parallel.make_mesh) or run under use_mesh")
+        self.rules = rules or ShardingRules()
+        self._data_specs = data_specs
+        self._label_specs = label_specs
+        self._seq_axis = seq_axis
+        # the gradient reduction's group over every axis of the mesh, and
+        # each rank's share of the global batch x sequence
+        self._group = self.mesh.group(self.mesh.axis_names) \
+            if self.mesh is not None else None
+        self._share = 1.0 / (self.mesh.size if self.mesh is not None else 1)
         self.optimizer = opt_mod.create(optimizer,
                                         **(optimizer_params or {}))
         self._guard_nonfinite = bool(guard_nonfinite)
@@ -171,8 +210,10 @@ class ShardedTrainer:
         self._state_flat: List[torch.Tensor] = []
         self._pending_states: Optional[dict] = None
         self._programs: Dict[tuple, "_StepProgram"] = {}
-        # False runs the step's function without graphs on the card
-        self._graphs = True
+        # False runs the step's function without graphs on the card; the
+        # gloo transport stages through the host and cannot be captured
+        self._graphs = self._group is None or \
+            not _coll.staging(self._group)
         self._data_source = None   # attach_data_source: stats()/span stamp
         # fleet counter (docs/observability.md): process-wide step count,
         # shared across trainer instances
@@ -241,6 +282,9 @@ class ShardedTrainer:
         if not self._trainable:
             raise _base.MXNetError("the net has no trainable parameters")
         self.device = self._trainable[0][1].device
+        if self.mesh is not None:
+            # ranks seeded apart start from rank 0's weights
+            shard_params(self.net, self.mesh, self.rules)
         opt = self.optimizer
         opt.param_dict = {i: p for i, (_, p) in enumerate(self._trainable)}
         for i, (_, p) in enumerate(self._trainable):
@@ -266,11 +310,38 @@ class ShardedTrainer:
         needed."""
         if not self._built:
             self._build(_as_tuple(data) if data is not None else ())
-        n = sum(len(_as_tuple(x)) for x in (data, labels)
-                if x is not None)
-        if n and self.batch_shardings is None:
-            self._batch_shardings = [self.device] * n
+        data = _as_tuple(data) if data is not None else ()
+        labels = _as_tuple(labels) if labels is not None else ()
+        if (data or labels) and self.batch_shardings is None:
+            self._batch_shardings = self._shardings(data, labels)
         return self
+
+    def _shardings(self, data, labels) -> list:
+        """Each batch array's placement: this device without a mesh,
+        else a :class:`NamedSharding` of the mesh (``data_specs`` /
+        ``label_specs``, default dim 0 over ``dp`` and ``seq_axis`` over
+        ``sp``)."""
+        if self.mesh is None:
+            return [self.device] * (len(data) + len(labels))
+
+        def specs(given, arrays):
+            return list(given) if given is not None else [
+                batch_spec(np.ndim(x) if not hasattr(x, "ndim") else x.ndim,
+                           0, self._seq_axis) for x in arrays]
+        return [NamedSharding(self.mesh, sp) for sp in
+                specs(self._data_specs, data)
+                + specs(self._label_specs, labels)]
+
+    def _localize(self, x, sharding):
+        """This rank's block of the global batch array ``x`` (a block made
+        for this rank already is kept)."""
+        if not isinstance(sharding, NamedSharding) or is_local_shard(x):
+            return x
+        if isinstance(x, NDArray):
+            x = x.tensor
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x)
+        return x[sharding.local_slices(tuple(x.shape))]
 
     # ------------------------------------------------------------------
     def _to_device(self, x, device=None) -> torch.Tensor:
@@ -292,7 +363,7 @@ class ShardedTrainer:
         _base.pop_aux_losses()
         prev = _base.set_aux_collection(True)
         try:
-            with _base.training_mode(True):
+            with _base.training_mode(True), self._mesh_scope():
                 out = self.net(*data)
             lval = self.loss(out, *labels) if self.loss is not None \
                 else out
@@ -300,6 +371,25 @@ class ShardedTrainer:
         finally:
             _base.set_aux_collection(prev)
             _base.pop_aux_losses()
+
+    def _mesh_scope(self):
+        """``use_mesh(self.mesh)``, so the layers see the mesh (attention
+        over ``sp``), or nothing without a mesh."""
+        import contextlib
+        return use_mesh(self.mesh) if self.mesh is not None else \
+            contextlib.nullcontext()
+
+    def _reduce(self, loss, grads):
+        """The loss and gradients summed over the mesh and scaled by this
+        rank's share: the global mean's on every rank.  Unchanged without
+        a group (no mesh, or a mesh of one rank outside a job)."""
+        if self._group is None:
+            return loss, grads
+        flat = [loss.reshape(1).float()] + list(grads)
+        _coll.all_reduce_(flat, self._group)
+        share = self._share
+        return (flat[0].reshape(()) * share,
+                [g.mul_(share) for g in flat[1:]])
 
     def _grads(self, lval) -> List[torch.Tensor]:
         params = [p for _, p in self._trainable]
@@ -394,6 +484,13 @@ class ShardedTrainer:
             raise _base.MXNetError(
                 f"batch dim {data[0].shape[0]} not divisible by "
                 f"grad_accum={self._grad_accum}")
+        shardings = self._shardings(data, labels) \
+            if self.mesh is not None else None
+        if shardings is not None:
+            data = tuple(self._localize(x, sh)
+                         for x, sh in zip(data, shardings))
+            labels = tuple(self._localize(x, sh) for x, sh in
+                           zip(labels, shardings[len(data):]))
         if not self._built:
             self._build(data)
         opt = self.optimizer
@@ -404,7 +501,7 @@ class ShardedTrainer:
         if prog is None:
             prog = self._programs[key] = _StepProgram(self, key, batch,
                                                       len(data))
-            self._batch_shardings = [self.device] * len(batch)
+            self._batch_shardings = shardings or [self.device] * len(batch)
         lp = gp = None
         if self._guarded:
             lp = _poison("trainer.loss_nonfinite")
@@ -452,6 +549,13 @@ class ShardedTrainer:
         loss, grads = self._loss_and_grads(
             data, labels, self._scale if scaler is not None else None,
             lpoison if self._guarded else None)
+        if self._guarded:
+            # grad poison splice (the loss poison's contract), before the
+            # reduction so that a rank's poison reaches every rank
+            keep = torch.isfinite(gpoison)
+            grads = [torch.where(keep, g, gpoison.to(g.dtype))
+                     for g in grads]
+        loss, grads = self._reduce(loss, grads)
         if not self._guarded:
             self._update(grads, lr, t)
             return (loss,)
@@ -459,9 +563,6 @@ class ShardedTrainer:
         if scaler is not None:       # unscale before clip/flag/update
             inv = 1.0 / self._scale
             grads = [g * inv.to(g.dtype) for g in grads]
-        # grad poison splice (the loss poison's contract)
-        keep = torch.isfinite(gpoison)
-        grads = [torch.where(keep, g, gpoison.to(g.dtype)) for g in grads]
         finite = torch.isfinite(loss)
         for g in grads:
             finite = finite & torch.isfinite(g).all()
@@ -512,9 +613,21 @@ class ShardedTrainer:
 
     def stats(self) -> dict:
         """Point-in-time trainer facts: step counter, built, guarded,
-        and a ``data`` section from the attached input pipeline."""
+        and a ``data`` section from the attached input pipeline (the
+        reference's keys); over a mesh also the mesh's axis sizes,
+        ``graphed`` (the step is a CUDA graph on the card; False for
+        eager steps, always under gloo), the process group's backend and
+        the collectives' counters."""
+        import torch.distributed as dist
         out = {"num_update": int(self.optimizer.num_update),
                "built": self._built, "guarded": self._guarded}
+        if self.mesh is not None:
+            out.update(
+                mesh=dict(self.mesh.shape),
+                graphed=bool(self._graphs and self.device is not None
+                             and self.device.type == "cuda"),
+                backend=dist.get_backend() if dist.is_initialized()
+                else None, collectives=_coll.stats())
         src = self._data_source
         if src is not None and hasattr(src, "stats"):
             out["data"] = src.stats()
@@ -578,6 +691,85 @@ class ShardedTrainer:
             self._scale.fill_(float(scale[0]))
         if good is not None:
             self._good.fill_(int(good[0]))
+
+    # -------------------------------------------------- sharded checkpoints
+    def _checkpoint_tree(self):
+        tree = {
+            "params": {n: p.detach() for n, p in self._trainable},
+            "aux": {n: p.detach() for n, p in self._aux},
+            "states": {f"s{i}": leaf
+                       for i, leaf in enumerate(self._state_flat)},
+            "num_update": torch.tensor(self.optimizer.num_update,
+                                       dtype=torch.int64)}
+        if self._guarded:
+            tree["loss_scale"] = self._scale.detach().float()
+            tree["good_steps"] = self._good.detach().to(torch.int64)
+        return tree
+
+    def save_checkpoint(self, directory, step: int, async_save=True,
+                        max_to_keep=5):
+        """Checkpoint parameters, aux, optimizer states, the step counter
+        and the guard state (``utils/checkpoint.py``, DCP; every rank
+        calls it together and each tensor is written once).  One manager
+        is kept per directory; it is returned so a caller can
+        ``wait_until_finished`` before exit."""
+        from ..utils.checkpoint import CheckpointManager
+        import os
+        self._require_built("save_checkpoint")
+        if not hasattr(self, "_ckpt_managers"):
+            self._ckpt_managers = {}
+        key = os.path.abspath(str(directory))
+        cached = self._ckpt_managers.get(key)
+        if cached is not None and cached[1] != (max_to_keep, async_save):
+            cached[0].close()
+            cached = None
+        if cached is None:
+            m = CheckpointManager(directory, max_to_keep=max_to_keep,
+                                  async_save=async_save,
+                                  **self._checkpoint_group())
+            self._ckpt_managers[key] = (m, (max_to_keep, async_save))
+        else:
+            m = cached[0]
+        m.save(step, self._checkpoint_tree())
+        return m
+
+    def _checkpoint_group(self) -> dict:
+        """The saving group's arguments: the mesh's ranks in a gloo group
+        of the checkpoints' own (made once, by those ranks only), or this
+        process alone."""
+        if self._group is None:
+            return {"no_dist": True}
+        if getattr(self, "_ckpt_group", None) is None:
+            import torch.distributed as dist
+            ranks = sorted(int(r) for r in self.mesh.devices.flat)
+            self._ckpt_group = dist.new_group(
+                ranks, backend="gloo", use_local_synchronization=True)
+        return {"process_group": self._ckpt_group}
+
+    @torch.no_grad()
+    def load_checkpoint(self, directory, step=None):
+        """Restore a :meth:`save_checkpoint` directory (the latest step
+        unless ``step``), whatever mesh saved it."""
+        from ..utils.checkpoint import CheckpointManager
+        import os
+        self._require_built("load_checkpoint")
+        cached = getattr(self, "_ckpt_managers", {}).get(
+            os.path.abspath(str(directory)))
+        if cached is not None:
+            cached[0].wait_until_finished()
+        with CheckpointManager(directory, async_save=False,
+                               **self._checkpoint_group()) as m:
+            got = m.restore(step, like=self._checkpoint_tree())
+        for n, p in self._trainable:
+            p.copy_(got["params"][n])
+        for n, p in self._aux:
+            p.copy_(got["aux"][n])
+        for i, leaf in enumerate(self._state_flat):
+            leaf.copy_(got["states"][f"s{i}"])
+        self.optimizer.num_update = int(got["num_update"])
+        if self._guarded:
+            self._scale.fill_(float(got["loss_scale"]))
+            self._good.fill_(int(got["good_steps"]))
 
     # ------------------------------------------------------- flat state dict
     def state_dict(self) -> Dict[str, torch.Tensor]:

@@ -8,7 +8,10 @@ Libraries are built at first use from the sources in the checkout into
 source, every shared header (``csrc/*.cuh``) and the flags, so an
 edited source or header is rebuilt and a stale library is never
 loaded.  :func:`build` starts one ``nvcc`` per source, all at once,
-and waits for them.
+and waits for them.  A build holds a thread lock and a file lock
+(``build/kernels/.lock``), so two processes of one job (the ranks that
+``tools/launch.py`` starts) never write the same library at once: the
+second finds it built.
 
 Nothing here runs at import time: the CPU tests import every module,
 and this host has no ``nvcc``.
@@ -16,6 +19,7 @@ and this host has no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -31,7 +35,7 @@ __all__ = ["KERNELS", "BUILD_DIR", "build", "load", "build_log",
            "stream_ptr"]
 
 #: every kernel source of the package, by name (csrc/<name>.cu)
-KERNELS = ("flash_fwd", "flash_bwd", "paged_attention")
+KERNELS = ("flash_fwd", "flash_bwd", "flash_dq_ring", "paged_attention")
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -77,30 +81,37 @@ def build(names: Iterable[str] = KERNELS) -> float:
     t0 = time.monotonic()
     with _LOCK:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        procs = []
-        for name in names:
-            out = _lib_path(name)
-            if out.exists():
-                continue
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            log = open(out.with_suffix(".log"), "w")
-            cmd = [_nvcc(), *_FLAGS, "-o", str(tmp),
-                   str(_CSRC / f"{name}.cu")]
-            procs.append((name, out, tmp, log,
-                          subprocess.Popen(cmd, stdout=log,
-                                           stderr=subprocess.STDOUT)))
-        failed = []
-        for name, out, tmp, log, proc in procs:
-            rc = proc.wait()
-            log.close()
-            if rc == 0:
-                os.replace(tmp, out)
-            else:
-                failed.append(f"{name} (nvcc exit {rc}):\n"
-                              + out.with_suffix(".log").read_text())
-        if failed:
-            raise MXNetError("kernel build failed:\n" + "\n".join(failed))
+        with open(BUILD_DIR / ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            _build_locked(names)
     return time.monotonic() - t0
+
+
+def _build_locked(names):
+    """Start an ``nvcc`` for each library not built yet and wait."""
+    procs = []
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        log = open(out.with_suffix(".log"), "w")
+        cmd = [_nvcc(), *_FLAGS, "-o", str(tmp),
+               str(_CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, log,
+                      subprocess.Popen(cmd, stdout=log,
+                                       stderr=subprocess.STDOUT)))
+    failed = []
+    for name, out, tmp, log, proc in procs:
+        rc = proc.wait()
+        log.close()
+        if rc == 0:
+            os.replace(tmp, out)
+        else:
+            failed.append(f"{name} (nvcc exit {rc}):\n"
+                          + out.with_suffix(".log").read_text())
+    if failed:
+        raise MXNetError("kernel build failed:\n" + "\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:

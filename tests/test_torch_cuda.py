@@ -124,6 +124,50 @@ def _check_bwd(args, dtype, causal, scale):
                                           (False, False, 128),
                                           (True, True, 64),
                                           (True, False, 256),
+                                          (False, True, 256)])
+def test_flash_dq_ring_modes_match_plain_and_compose(dev, dtype, causal,
+                                                     seg, d):
+    """B2's ring modes at T = 300: ``partial`` (sum P dP, sum P) and
+    ``given`` (dQ from a given delta) within ``TOL`` of their plain
+    versions, one launch each, counted by mode; and composed they are
+    the single call bit for bit: the single call's delta is partial's
+    sums divided, and ``given`` fed it returns the single call's dQ."""
+    g = torch.Generator(device=dev).manual_seed(7 * d + causal)
+    b, t, h = 2, 300, 3
+    q, k, v, do = (torch.randn((b, t, h, d), generator=g, device=dev)
+                   .to(dtype) for _ in range(4))
+    qseg = _segments(dev, b, t) if seg else None
+    scale = d ** -0.5
+    _o, lse = flash.flash_fwd(q, k, v, qseg, qseg, causal=causal,
+                              scale=scale)
+    args = (q, k, v, do, lse, qseg, qseg)
+    kw = dict(causal=causal, scale=scale)
+    modes0 = dict(flash.flash_dq.launches_by_mode)
+    pdp, psum = flash.flash_dq(*args, mode="partial", **kw)
+    dq_own, delta_own = flash.flash_dq(*args, **kw)
+    dq_given = flash.flash_dq(*args, mode="given", delta=delta_own, **kw)
+    torch.cuda.synchronize()
+    assert {m: flash.flash_dq.launches_by_mode[m] - modes0[m]
+            for m in modes0} == {"own": 1, "partial": 1, "given": 1}
+    rp, rs = flash._dq_partial_plain(*args, causal, scale)
+    rdq, _ = flash._dq_plain(*args, causal, scale, delta_own)
+    for a, r in ((pdp, rp), (psum, rs), (dq_given, rdq)):
+        assert bool(torch.isfinite(a).all())
+        assert _maxabs(a, r) <= TOL[dtype] * float(r.float().abs().max())
+    delta = torch.where(psum > 0, pdp / torch.where(psum > 0, psum,
+                                                    torch.ones_like(psum)),
+                        torch.zeros_like(psum))
+    assert torch.equal(delta, delta_own)
+    assert torch.equal(dq_given, dq_own)
+    with pytest.raises(Exception, match="given"):
+        flash.flash_dq(*args, mode="given", **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,seg,d", [(True, False, 64),
+                                          (False, False, 128),
+                                          (True, True, 64),
+                                          (True, False, 256),
                                           (False, False, 256)])
 def test_flash_bwd_kernels_match_plain_and_repeat(dev, dtype, causal, seg,
                                                   d):

@@ -514,11 +514,18 @@ def test_bad_shard_quarantined_and_skipped():
 
 
 def test_one_device_layout_and_wider_ones_raise():
+    """One device takes every row; a layout that is neither a device nor
+    a mesh placement raises naming queue A6, as does a mesh placement
+    past dp and sp (mesh placements: ``tests/test_torch_parallel.py``)."""
+    from mxnet_tpu_torch import parallel as tpar
     assert host_batch_rows("cpu", (8, 3)) == (0, 8)
     g = assemble_global(onp.ones((8, 3), "float32"), P.cpu(), (8, 3))
     assert g.device.type == "cpu" and tuple(g.shape) == (8, 3)
     with pytest.raises(MXNetError, match="queue A6"):
         host_batch_rows(object(), (8, 3))
+    tp = tpar.Mesh(onp.arange(2, dtype=object).reshape(1, 1, 1, 1, 2))
+    with pytest.raises(MXNetError, match="queue A6"):
+        host_batch_rows(tpar.global_batch_sharding(tp, 2), (8, 3))
     with pytest.raises(MXNetError):
         assemble_global(onp.ones((4, 3), "float32"), "cpu", (8, 3), lo=4)
 

@@ -254,11 +254,15 @@ def test_flash_sources_use_tensor_cores_and_no_library_kernel():
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in header
     assert "mma3(d, a, p[0], p[4]);" in header
     assert "cp.async.cg.shared.global" in header
-    for name in ("flash_fwd", "flash_bwd"):
-        src = (csrc / f"{name}.cu").read_text()
+    # the backward's kernels live in flash_bwd.cuh, which both of its
+    # libraries (the single calls, B2's ring modes) include
+    for name in ("flash_bwd", "flash_dq_ring"):
+        assert '#include "flash_bwd.cuh"' in (csrc / f"{name}.cu").read_text()
+    for name in ("flash_fwd.cu", "flash_bwd.cuh"):
+        src = (csrc / name).read_text()
         assert '#include "flash_tc.cuh"' in src
         assert "M::mma_n(" in src and "M::mma_k(" in src
-    bwd = (csrc / "flash_bwd.cu").read_text()
+    bwd = (csrc / "flash_bwd.cuh").read_text()
     for kernel in ("flash_dq_tc_kernel", "flash_dkv_tc_kernel"):
         assert f"launch_{kernel.split('_')[1]}_tc<T, 64," in bwd, kernel
     for path in list(csrc.glob("*.cu")) + list(csrc.glob("*.cuh")):

@@ -46,10 +46,7 @@ MODULES = {
     "autograd.tape": "by design: torch's autograd records the tape",
     "ops._smap": "by design: jax's shard_map",
     "utils.platform": "by design: the TPU plugin's platform forcing",
-    "parallel.distributed": _A6, "parallel.mesh": _A6,
-    "parallel.pipeline": _A6, "parallel.sharding": _A6, "kvstore": _A6,
-    "models.stacked": _A6, "ops.ring": _A6, "ops.ulysses": _A6,
-    "utils.checkpoint": _A6,
+    "parallel.pipeline": _A6, "models.stacked": _A6,
     "serving.kv_tiers": _A7, "serving.migration": _A7, "fleet": _A7,
     "fleet.autoscaler": _A7, "fleet.directory": _A7, "fleet.policy": _A7,
     "fleet.replica": _A7, "fleet.router": _A7,
@@ -125,20 +122,14 @@ GAPS = {
     **{f"analysis:{n}": _A8 for n in (
         "Finding", "RULES", "build_guard_map", "corroborate", "raceguard",
         "run_lint")},
-    **{f"parallel:{n}": _A6 for n in (
-        "AXES", "DEFAULT_RULES", "Mesh", "NamedSharding", "PartitionSpec",
-        "ShardingRules", "annotate", "axis_size", "barrier", "batch_spec",
-        "current_mesh", "divisible_spec", "global_batch_sharding", "gpipe",
-        "init_distributed", "logical_axes_of", "make_mesh", "num_workers",
-        "param_sharding", "rank", "shard_params", "use_mesh",
-        "with_sharding_constraint")},
-    "parallel.trainer.ShardedTrainer.save_checkpoint": _A6,
-    "parallel.trainer.ShardedTrainer.load_checkpoint": _A6,
-    "models.transformer.MultiHeadAttention.__init__(seq_parallel)": _A6,
+    # jax's own mesh and sharding classes: the port's Mesh is a grid of
+    # ranks with process groups, its NamedSharding a mesh and a spec that
+    # compute a rank's block
+    "_src.mesh.Mesh.*": _JAX, "sharding.NamedSharding.*": _JAX,
+    "sharding.PartitionSpec.*": _JAX,
+    "kvstore.KVStore.row_sparse_pull": _A9 + " (sparse storage)",
+    "parallel:gpipe": _A6,
     "models:StackedGPT2Model": _A6, "models:get_stacked_gpt2": _A6,
-    **{f"ops:{n}": _A6 for n in (
-        "nd_ring_attention", "ring_attention", "nd_ulysses_attention",
-        "ulysses_attention")},
     **{f"serving:{n}": _A7 for n in (
         "HostKVTier", "MIGRATION_SCHEMA_VERSION", "MigrationBundle",
         "TierHandle", "bundle_digest", "export_bundle", "verify_bundle")},
