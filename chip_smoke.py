@@ -258,7 +258,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``trainer.step``, ``checkpoint.save``, ``checkpoint.commit``), each
    commit's bytes and ms (snapshot to the host, write with its digest,
    rename), B1/B2/B3 12 a step from replays; then ms/step of the bare
-   trainer against the loop with tracing off and on, in turns.  (b) A
+   trainer against the loop with tracing off and on, in turns (no
+   commit inside the timed arms).  (b) A
    ``FaultPlan`` kills at three ``trainer.step`` hits and at one commit
    and raises one retried fault; a fresh trainer and loop resume after
    each kill, and parameters, optimizer state, loss scale, finite-step
@@ -345,16 +346,35 @@ Phases (any failure exits non-zero and prints no result line):
    rank's B1, B2 and B3 launches (all above 0) and B2's by mode.  B2's
    ring modes (``partial``, ``given``) are held to their plain versions
    at the ring's block shapes first.
-21. A ``{"kernels": [...]}`` line, the card line again, and the last
+21. Tensor, expert and pipeline parallel training, two gloo ranks on
+   the card (``tools/launch.py -n 2`` starts this script with
+   ``--phase21-rank``), float32, dropout 0, Adam at ``TRAIN_LR``,
+   ``DP_STEPS`` steps of ``PAR_B`` x ``TRAIN_T`` a part, each part
+   against one process from the same weights (rank 1 seeded apart) and
+   batches: losses (``TOL_LOSS``), every parameter's block on each rank
+   (``TOL_DP_PARAM``), B1-B3 launches a rank a step (``PAR_LAUNCHES``).
+   (a) tp = 2: GPT-2 124M with ``PAR_VOCAB`` (nanoGPT's 50304), 6 heads
+   a rank, the vocabulary split.  (b) ep = 2: phase 8's routed GPT-2
+   124M (``MOE_CFG``), 4 experts a rank; each MoE layer's dropped share
+   at each step equal to one process's.  (c) pp = 2: the stacked GPT-2
+   124M, 6 layers a stage, ``PAR_MICRO`` microbatches under GPipe; first
+   the piped forward's logits against the unpiped model's
+   (``TOL_PAR_LOGITS``).  Printed: each part's ms/step against one
+   process, its axis's collectives' host seconds and share of the step,
+   the bytes staged a step.  (d) is phase 2's: B1-B3 at the tp rank's
+   shape (``parallel_shapes``) against their plain versions.
+22. A ``{"kernels": [...]}`` line, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.  ``launches_by_path`` holds
    every phase's launches (``bert``, ``bert_amp``, ``nmt``, ``lstm``,
    ``ops``, phase 16's graphed arms ``hybrid_bert_amp``,
    ``graph_train``, ``graph_amp`` and ``graph_vision``, phase 17's
    fault-free run ``resilient``, phase 18's ``hardened`` and phase 19's
-   ``data`` among them, and phase 20's ``parallel_ring`` /
-   ``parallel_ulysses``, rank 0's); the flash kernels carry their
-   numbers at phases 11-12's shapes (``shapes``), phase 12's launches by
-   attention and the cross-attention call's times.  B2's ring modes are
+   ``data`` among them, phase 20's ``parallel_ring`` /
+   ``parallel_ulysses`` and phase 21's ``parallel_tp`` / ``parallel_ep``
+   / ``parallel_pp``, rank 0's over its steps); the flash kernels carry
+   their numbers at phases 11-12's shapes and phase 21's tp shape
+   (``shapes``), phase 12's launches by attention and the
+   cross-attention call's times.  B2's ring modes are
    entries of their own (``flash_dq[partial]``, ``flash_dq[given]``),
    their launches phase 20 (c)'s ring's on rank 0.
 
@@ -614,7 +634,8 @@ GUARD_B, DROP_B = 4, 4
 RES_STEPS, RES_SAVE, RES_SEED, RES_DROPOUT = 12, 4, 7, 0.1
 RES_SCALE = 2.0 ** 16
 # (a)'s timing: the bare trainer and the loop with tracing off and on,
-# RES_TIMED steps each, in turns over RES_ROUNDS rounds
+# RES_TIMED steps each, in turns over RES_ROUNDS rounds, no commit
+# inside them (17a's run commits RES_STEPS // RES_SAVE times)
 RES_TIMED, RES_ROUNDS = 5, 2
 
 
@@ -643,6 +664,22 @@ DP_STEPS = 3
 TOL_DP_PARAM = 2 * TRAIN_LR * DP_STEPS
 SP_B = 8
 RING_BLOCK = (SP_B, 256, 12, 64)
+# phase 21: (a) GPT-2 124M at tp = 2 with nanoGPT's vocabulary, GPT-2's
+# 50257 rounded up to a multiple of 64 (karpathy/nanoGPT model.py,
+# GPTConfig.vocab_size = 50304), which tp divides as the vocabulary
+# split needs; (b) phase 8's routed GPT-2 124M at ep = 2; (c) the stacked
+# GPT-2 124M at pp = 2, 6 layers a stage, in PAR_MICRO microbatches.
+# PAR_B x TRAIN_T rows, DP_STEPS Adam steps at TRAIN_LR each, held to one
+# process by TOL_LOSS and TOL_DP_PARAM; (c)'s piped forward logits to the
+# unpiped model's, over their max-abs: the same float32 products in other
+# GEMM shapes (microbatches of 2 rows)
+PAR_B, PAR_VOCAB, PAR_MICRO = 8, 50304, 4
+PAR_PARTS = (("tp2", "tp"), ("ep2", "ep"), ("pp2", "pp"))
+TOL_PAR_LOGITS = 1e-5
+# B1, B2, B3 a rank a step: (a) 12 layers of 6 heads; (b) 12 layers;
+# (c) 6 layers x 4 microbatches, B1 again in remat's recomputation
+PAR_LAUNCHES = {"tp2": [12, 12, 12], "ep2": [12, 12, 12],
+                "pp2": [48, 24, 24]}
 DATA_IMG = 256
 DATA_MEAN = (123.68, 116.779, 103.939)
 DATA_STD = (58.393, 57.12, 57.375)
@@ -841,7 +878,8 @@ def flash_cases(torch, dev, timer, card):
                TRAIN_B, TRAIN_T, 12, 64, torch.bfloat16, True, tol=TOL_BF16)
     lang = {tag: run(tag, *shape, tol=TOL_F32 if dt == torch.float32
                      else TOL_BF16)
-            for tag, shape, dt in language_shapes(torch)}
+            for tag, shape, dt in language_shapes(torch)
+            + parallel_shapes(torch)}
     return f32, bf16, lang
 
 
@@ -861,6 +899,14 @@ def language_shapes(torch):
         out.append((f"{model} {kind} B{b} T{t} H16 D64 {name}",
                     (b, t, 16, 64, dt, causal), dt))
     return out
+
+
+def parallel_shapes(torch):
+    """Phase 21 (d): the shape phase 21 (a) gives B1-B3 on each tp rank,
+    GPT-2 124M's 12 heads split over tp = 2, at PAR_B x TRAIN_T, float32
+    (as ``language_shapes``)."""
+    return [(f"tp2 causal B{PAR_B} T{TRAIN_T} H6 D64 float32",
+             (PAR_B, TRAIN_T, 6, 64, torch.float32, True), torch.float32)]
 
 
 def flash_bwd_cases(torch, dev, timer, card):
@@ -971,7 +1017,7 @@ def flash_bwd_cases(torch, dev, timer, card):
                     True)
             for dt in ("float32", "bfloat16")}
     lang = {tag: run(tag, *shape) for tag, shape, _dt in
-            language_shapes(torch)}
+            language_shapes(torch) + parallel_shapes(torch)}
     return main, lang
 
 
@@ -4612,9 +4658,8 @@ def res_timing(torch, card, tr, root):
     """17a's timing: ms/step of the captured trainer bare (``step`` in a
     loop, one sync at the end) against ``ResilientLoop`` with tracing
     off and on (which reads each step's finite flag), RES_TIMED steps an
-    arm, in turns; a loop arm commits once, at its last step, and its
-    ms/step leave the commit out.  Each arm launches B1-B3 12 times a
-    step from replays."""
+    arm, in turns; a loop arm does not commit (17a's run times the
+    commits).  Each arm launches B1-B3 12 times a step from replays."""
     from mxnet_tpu_torch import observability as obs
     arms = {"bare": [], "loop": [], "loop+trace": []}
     order = list(arms)
@@ -4631,8 +4676,8 @@ def res_timing(torch, card, tr, root):
                         tr.step(x, y)
                 else:
                     res_loop(tr, f"{root}/t{rnd}{arm}", commits,
-                             save_every=RES_TIMED).run(res_batches,
-                                                       RES_TIMED)
+                             save_every=RES_TIMED + 1).run(res_batches,
+                                                           RES_TIMED)
                 torch.cuda.synchronize()
                 wall = time.monotonic() - t0
             finally:
@@ -5838,17 +5883,18 @@ def ring_mode_cases(torch, dev, timer, card):
                torch.float32, False)
 
 
-def launch_ranks(part, d, n=2, timeout=900):
-    """Run ``part`` of phase 20 on ``n`` gloo ranks of this card through
-    ``tools/launch.py``, in a session of their own that is killed
-    whole if it outlives ``timeout``; returns the ranks' npz outputs."""
+def launch_ranks(part, d, n=2, timeout=900, flag="--phase20-rank"):
+    """Run ``part`` of phase 20 (or 21, ``flag``) on ``n`` gloo ranks of
+    this card through ``tools/launch.py``, in a session of their own
+    that is killed whole if it outlives ``timeout``; returns the ranks'
+    npz outputs."""
     import os
     import signal
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, MXNET_TPU_DIST_TIMEOUT="600")
     cmd = [sys.executable, os.path.join(root, "tools", "launch.py"), "-n",
-           str(n), sys.executable, os.path.abspath(__file__),
-           "--phase20-rank", part, d]
+           str(n), sys.executable, os.path.abspath(__file__), flag, part,
+           d]
     proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
                             start_new_session=True)
@@ -5857,12 +5903,12 @@ def launch_ranks(part, d, n=2, timeout=900):
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         proc.communicate()
-        raise AssertionError(f"phase 20 {part}: ranks outlived {timeout} s")
+        raise AssertionError(f"{flag} {part}: ranks outlived {timeout} s")
     for line in out.splitlines():
         if line.startswith("  "):
             print(line, flush=True)
     if proc.returncode:
-        raise AssertionError(f"phase 20 {part}: ranks failed:\n"
+        raise AssertionError(f"{flag} {part}: ranks failed:\n"
                              f"{out[-6000:]}")
     return [dict(np.load(os.path.join(d, f"{part}_r{r}.npz")))
             for r in range(n)]
@@ -6130,6 +6176,219 @@ def parallel_path(torch, card):
     return launches, by_mode
 
 
+# ------------------------------- phase 21: tensor, expert and pipeline
+
+def par_batch():
+    """Phase 21's batch: the first PAR_B rows of the training batch."""
+    toks, labels = train_batch()
+    return toks[:PAR_B], labels[:PAR_B]
+
+
+def par_net(part):
+    """Phase 21's model of ``part``, not initialized: (a) GPT-2 124M with
+    nanoGPT's vocabulary, (b) phase 8's routed GPT-2 124M, (c) the
+    stacked GPT-2 124M in PAR_MICRO microbatches."""
+    from mxnet_tpu_torch.models import get_gpt2, get_stacked_gpt2
+    if part == "tp2":
+        return get_gpt2("gpt2_124m", vocab_size=PAR_VOCAB, dropout=0.0)
+    if part == "ep2":
+        return get_gpt2("gpt2_124m", dropout=0.0, **MOE_CFG)
+    return get_stacked_gpt2("gpt2_124m", num_microbatches=PAR_MICRO)
+
+
+def par_trainer(net, mesh=None):
+    from mxnet_tpu_torch.models import gpt2_lm_loss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    return ShardedTrainer(net, "adam", loss=gpt2_lm_loss,
+                          optimizer_params={"learning_rate": TRAIN_LR},
+                          mesh=mesh)
+
+
+def dropped_shares(net):
+    """Each MoE layer's dropped share at the last forward."""
+    return [float(b.moe.last_dropped) for b in net.blocks
+            if hasattr(b, "moe")]
+
+
+def phase21_rank(d) -> int:
+    """One of phase 21's two gloo ranks: (a) tp = 2, (b) ep = 2, (c) pp =
+    2, one after another; each part's losses, ms, collectives and
+    launches a step, and this rank's blocks of the final parameters."""
+    import os
+    import torch
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch.parallel import collectives as coll
+    from mxnet_tpu_torch.parallel.sharding import global_shape, is_block
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    par.init_distributed(backend="gloo")
+    r = par.rank()
+    torch.cuda.set_device(par.distributed.local_device())
+    toks, labels = par_batch()
+    out = {}
+    for part, axis in PAR_PARTS:
+        mesh = par.make_mesh(**{axis: 2})
+        # rank 1 seeded apart: the trainer starts it from rank 0's weights
+        net = par_net(part).initialize(seed=SEED if r == 0 else SEED + 1)
+        if part == "pp2":
+            par.shard_params(net, mesh)
+            reset_launches()
+            with par.use_mesh(mesh), torch.no_grad():
+                logits = net(torch.as_tensor(toks).cuda())
+            out["pp2:forward_launches"] = np.array(
+                [read_launches()[n] for n in RES_FLASH])
+            if r == 0:
+                torch.save(logits.cpu(), os.path.join(d, "pp2_logits.pt"))
+            del logits
+        tr = par_trainer(net, mesh)
+        rows = {k: [] for k in ("losses", "ms", "coll_s", "staged",
+                                "launches", "dropped")}
+        for _ in range(DP_STEPS):
+            reset_launches()
+            coll.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            rows["losses"].append(float(tr.step(toks, labels)))
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            st = coll.stats()
+            rows["ms"].append(wall * 1e3)
+            rows["coll_s"].append(st.get(f"seconds:{axis}", 0.0))
+            rows["staged"].append(st.get("staged_bytes_d2h", 0)
+                                  + st.get("staged_bytes_h2d", 0))
+            by_dtype = read_launches_by_dtype()
+            rows["launches"].append([by_dtype[n].get("float32", 0)
+                                     for n in RES_FLASH])
+            if sum(sum(by_dtype[n].values()) for n in RES_FLASH) != \
+                    sum(rows["launches"][-1]):
+                raise AssertionError(f"21 {part}: launches {by_dtype}")
+            if part == "ep2":
+                rows["dropped"].append(dropped_shares(net))
+        for k, v in rows.items():
+            out[f"{part}:{k}"] = np.array(v)
+        out[f"{part}:graphed"] = np.array(tr.stats()["graphed"])
+        torch.save({n: (p.detach().cpu(),
+                        [(x.start, x.stop) for x in
+                         p._sharding.local_slices(global_shape(p))]
+                        if is_block(p) else None)
+                    for n, p in net.named_parameters()},
+                   os.path.join(d, f"{part}_params_r{r}.pt"))
+        share = np.array(rows["coll_s"]) / (np.array(rows["ms"]) / 1e3)
+        print(f"  21 {part} rank {r}: losses {rows['losses']}, ms/step "
+              f"{[round(x, 1) for x in rows['ms']]}, {axis} collectives "
+              f"{[round(x, 3) for x in rows['coll_s']]} s "
+              f"({[round(float(x), 3) for x in share]} of the step), "
+              f"bytes staged a step {rows['staged']}, B1-B3 a step "
+              f"{rows['launches']}", flush=True)
+        del net, tr
+        free(torch)
+    np.savez(os.path.join(d, f"models_r{r}.npz"), **out)
+    par.barrier()
+    return 0
+
+
+def par_one_process(torch, part, toks, labels):
+    """The one-process run of phase 21's ``part`` from rank 0's weights:
+    (losses, ms a step, parameters, dropped shares a step, logits of the
+    unpiped forward for (c))."""
+    net = par_net(part).initialize(seed=SEED)
+    logits = None
+    if part == "pp2":
+        with torch.no_grad():
+            logits = net(torch.as_tensor(toks).cuda())
+    tr = par_trainer(net)
+    losses, ms, dropped = [], [], []
+    for _ in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        losses.append(float(tr.step(toks, labels)))
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+        if part == "ep2":
+            dropped.append(dropped_shares(net))
+    params = {n: p.detach() for n, p in net.named_parameters()}
+    return losses, ms, params, dropped, logits
+
+
+def parallel_models_path(torch, card):
+    """Phase 21.  Returns rank 0's B1-B3 launches over the steps of each
+    part, by path."""
+    import os
+    import tempfile
+    t_phase = time.monotonic()
+    print(f"phase 21: tensor, expert and pipeline parallel training, two "
+          f"gloo ranks on this card, {PAR_B} x {TRAIN_T}, float32, "
+          f"{DP_STEPS} Adam steps a part [{card}]", flush=True)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build")
+    os.makedirs(root, exist_ok=True)
+    toks, labels = par_batch()
+    by_path = {}
+    with tempfile.TemporaryDirectory(dir=root) as d:
+        ranks = launch_ranks("models", d, flag="--phase21-rank")
+        for letter, (part, axis) in zip("abc", PAR_PARTS):
+            one, one_ms, params, dropped, logits = par_one_process(
+                torch, part, toks, labels)
+            if part == "pp2":
+                piped = torch.load(os.path.join(d, "pp2_logits.pt"))
+                check("21c piped forward logits vs the unpiped model "
+                      "(over its max-abs)", relerr(piped.cuda(), logits),
+                      TOL_PAR_LOGITS)
+                del piped, logits
+            for r, out in enumerate(ranks):
+                check(f"21{letter} {part} rank {r} losses vs one process "
+                      "(relative)", max(abs(a - b) / abs(b) for a, b in
+                                        zip(out[f"{part}:losses"], one)),
+                      TOL_LOSS)
+                blocks = torch.load(os.path.join(
+                    d, f"{part}_params_r{r}.pt"))
+                worst = max(maxabs(b.cuda(), params[n] if sl is None else
+                                   params[n][tuple(slice(*x) for x in sl)])
+                            for n, (b, sl) in blocks.items())
+                check(f"21{letter} {part} rank {r}: {len(blocks)} "
+                      "parameters (its blocks) vs one process (max-abs)",
+                      worst, TOL_DP_PARAM)
+                got = out[f"{part}:launches"]
+                want = PAR_LAUNCHES[part]
+                if not (got == np.array(want)[None]).all():
+                    raise AssertionError(f"21{letter} {part} rank {r}: "
+                                         f"B1-B3 a step {got.tolist()}, "
+                                         f"not {want}")
+                if part == "ep2" and \
+                        out["ep2:dropped"].tolist() != dropped:
+                    raise AssertionError(
+                        f"21b rank {r}: dropped shares "
+                        f"{out['ep2:dropped'].tolist()} vs one process "
+                        f"{dropped}")
+            r0 = ranks[0]
+            ms = float(np.mean(r0[f"{part}:ms"][1:]))
+            share = float(np.mean(r0[f"{part}:coll_s"][1:])) / ms * 1e3
+            print(f"  21{letter} {part}: {ms:.1f} ms/step (steps 2-"
+                  f"{DP_STEPS}, rank 0; eager, graphed "
+                  f"{bool(r0[f'{part}:graphed'])}) against one process's "
+                  f"{float(np.mean(one_ms[1:])):.1f} (graphed); {axis} "
+                  f"collectives {share * 100:.1f} % of the step, "
+                  f"{int(r0[f'{part}:staged'][-1])} bytes staged a step, "
+                  f"B1-B3 {r0[f'{part}:launches'][-1].tolist()} a step a "
+                  f"rank [{card}]", flush=True)
+            if part == "ep2":
+                print(f"  21b dropped shares a step by MoE layer (both "
+                      f"ranks and one process): {dropped}", flush=True)
+            if part == "pp2":
+                print(f"  21c piped forward: B1-B3 "
+                      f"{r0['pp2:forward_launches'].tolist()} a rank",
+                      flush=True)
+            counts = dict(zip(RES_FLASH, (int(c) for c in
+                                          r0[f"{part}:launches"].sum(0))))
+            counts["paged_attention"] = 0
+            by_path[f"parallel_{axis}"] = counts
+            del params
+            free(torch)
+    print(f"phase 21: {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return by_path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6227,6 +6486,8 @@ def main() -> int:
     ring_launches, ring_by_mode = parallel_path(torch, card)
     by_path["parallel_ring"] = ring_launches["ring"]
     by_path["parallel_ulysses"] = ring_launches["ulysses"]
+    free(torch)
+    by_path.update(parallel_models_path(torch, card))
     # each kernel's launches on the path that is its own: the training
     # path for the flash kernels, the serving path for paged attention;
     # the flash kernels' bf16 numbers (phase 2 at the training shape)
@@ -6273,4 +6534,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase20-rank"]:
         sys.exit(phase20_rank(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--phase21-rank"]:
+        sys.exit(phase21_rank(sys.argv[3]))
     sys.exit(main())

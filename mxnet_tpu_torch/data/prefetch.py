@@ -182,9 +182,9 @@ class DevicePrefetcher:
         or a device.  A callable is invoked per batch with the array
         tuple.  Mesh placements (``NamedSharding``, one per array) ship
         this rank's block of each global array to this rank's device,
-        marked as a local shard; a mesh with ``tp``, ``ep`` or ``pp``
-        above 1 raises (queue A6).  ``None``: the current context at
-        construction.
+        marked as a local shard (the same rows on every rank of a
+        ``tp``, ``ep`` or ``pp`` line).  ``None``: the current context
+        at construction.
     depth : int
         Ring capacity (>= 1; default 2 = double buffering).  The feeder
         blocks when the ring is full — a slow consumer can never make

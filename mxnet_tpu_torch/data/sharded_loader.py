@@ -7,13 +7,14 @@ The port runs one rank per process, so a placement is either one device
 (a ``torch.device``, a :class:`Context` or a device string: this process
 owns every row, ``host_batch_rows`` is ``(0, batch)``, and
 ``assemble_global`` is one copy to that device) or a
-:class:`~mxnet_tpu_torch.parallel.NamedSharding` over a ``dp`` x ``sp``
-mesh (``parallel.global_batch_sharding``, or the trainer's
+:class:`~mxnet_tpu_torch.parallel.NamedSharding` over a mesh
+(``parallel.global_batch_sharding``, or the trainer's
 ``batch_shardings``): this process loads only its ``dp`` block of rows,
 and ``assemble_global`` keeps its ``sp`` slice of the sequence and puts
 it on this rank's device, marked as a local shard that
-``ShardedTrainer.step`` takes as it is.  A mesh with ``tp``, ``ep`` or
-``pp`` above 1 raises ``MXNetError`` naming ROADMAP queue A6.
+``ShardedTrainer.step`` takes as it is.  Every rank of a ``tp``, ``ep``
+or ``pp`` line gets the same rows; a placement that splits the batch
+over one of those axes raises ``MXNetError``.
 
 Shard assignment is deterministic in ``(epoch, step)``: the sample
 permutation is seeded by ``(seed, epoch)`` with plain arithmetic (no
@@ -59,7 +60,7 @@ def _one_device(sharding) -> torch.device:
         return resolve_device(sharding[0])
     raise _base.MXNetError(
         f"the layout {sharding!r} is neither one device nor a mesh "
-        "placement (parallel.NamedSharding; meshes: ROADMAP queue A6)")
+        "placement (parallel.NamedSharding)")
 
 
 def host_batch_rows(sharding, global_shape) -> Tuple[int, int]:

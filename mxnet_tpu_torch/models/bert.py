@@ -20,7 +20,8 @@ from ..context import resolve_device
 from ..gluon.block import HybridBlock
 from ..gluon.nn import Dense, Dropout, Embedding, LayerNorm
 from ..ndarray.ops import apply_op
-from .transformer import TransformerEncoderLayer, run_blocks, seq_offset
+from .transformer import (TransformerEncoderLayer, refuse_tp, run_blocks,
+                          seq_offset)
 
 __all__ = ["BERTModel", "BERTForPretrain", "get_bert"]
 
@@ -62,6 +63,7 @@ class BERTModel(HybridBlock):
                             in_units=units)
 
     def forward(self, tokens, token_types=None, valid_length=None):
+        refuse_tp(self.word_embed, "BERT")
         b, t = tokens.shape
         if t > self.max_length:
             raise ValueError(f"sequence length {t} exceeds max_length="

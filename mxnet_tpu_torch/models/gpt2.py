@@ -8,6 +8,19 @@ tied to ``wte``.  The reference's routed family is here too:
 ``num_experts`` puts an :class:`~.moe.MoETransformerBlock` at every
 ``moe_every``-th layer, whose router aux losses ``gpt2_lm_loss`` adds;
 ``remat`` recomputes layers in backward (:func:`.transformer.run_blocks`).
+
+**Tensor parallelism** (a mesh with ``tp`` above 1, after
+``parallel.shard_params``): the layers split as ``transformer.py`` says,
+and ``wte`` is split by vocabulary, rank r holding rows
+``[r·V/tp, (r+1)·V/tp)``.  The lookup zeroes the ids outside that range
+and sums over ``tp``; the tied head gives the rank's vocabulary block of
+the logits, marked as a local block (``sharding.mark_local_shard``, spec
+``(dp, sp, tp)``), as a sequence chunk is under ``sp``; and
+:func:`gpt2_lm_loss` computes the loss of such a block from reductions
+over ``tp`` (the row maxima, then the sums of exponentials with the
+picked logits, which the rank owning each label gives).  GSPMD gathers
+the reference's logits instead; the local block is a divergence by
+design (ROADMAP queue C).
 """
 from __future__ import annotations
 
@@ -23,7 +36,9 @@ from ..gluon.block import HybridBlock
 from ..gluon.nn import Dropout, Embedding, LayerNorm
 from ..ndarray.ndarray import NDArray
 from ..ndarray.ops import _as_nd, invoke
-from ..parallel.sharding import annotate
+from ..parallel import collectives as _coll
+from ..parallel.sharding import (NamedSharding, PartitionSpec, annotate,
+                                 block_mesh, mark_local_shard)
 from .moe import MoETransformerBlock
 from .transformer import TransformerBlock, run_blocks, seq_offset
 
@@ -82,7 +97,10 @@ class GPT2Model(HybridBlock):
 
     def _logits(self, x):
         # tied LM head: logits = x · wteᵀ, the reference's FullyConnected
-        return F.linear(*_amp.cast("FullyConnected", x, self.wte.weight))
+        return vocab_logits(self.wte.weight, x)
+
+    def _embed(self, tokens):
+        return vocab_embed(self.wte, tokens)
 
     def forward(self, tokens):
         """Logits of ``tokens`` (B, T).  Under a mesh with ``sp`` above 1
@@ -96,7 +114,7 @@ class GPT2Model(HybridBlock):
                              "table size)")
         pos = torch.arange(off, off + t, dtype=torch.int32,
                            device=tokens.device)
-        x = self.wte(tokens) + self.wpe(pos)[None]
+        x = self._embed(tokens) + self.wpe(pos)[None]
         if self.drop is not None:
             x = self.drop(x)
         x = run_blocks(self.blocks, x, scan=self._scan_layers,
@@ -361,6 +379,64 @@ class GPT2Model(HybridBlock):
         return torch.cat(out, dim=1)
 
 
+def vocab_embed(embedding, tokens):
+    """``embedding(tokens)``; where its table is this rank's block of rows
+    split over ``tp``, the embedding of the ids in its rows (zeros for the
+    others; ids clipped to the vocabulary) summed over ``tp``."""
+    weight = embedding.weight
+    mesh = block_mesh(weight, "tp")
+    if mesh is None:
+        return embedding(tokens)
+    rows = weight.shape[0]
+    ids = tokens.clamp(0, rows * mesh.shape["tp"] - 1)
+    local = ids.long() - mesh.axis_index("tp") * rows
+    inside = (local >= 0) & (local < rows)
+    e = F.embedding(torch.where(inside, local, 0), weight)
+    e = e * inside[..., None].to(e.dtype)
+    return _coll.reduce_from(e, mesh.group("tp"))
+
+
+def vocab_logits(weight, x):
+    """The tied head ``x · weightᵀ``; where ``weight`` is split over
+    ``tp`` by vocabulary, this rank's block of the logits, marked as a
+    local block of spec ``(dp, sp, tp)``."""
+    mesh = block_mesh(weight, "tp")
+    if mesh is None:
+        return F.linear(*_amp.cast("FullyConnected", x, weight))
+    x = _coll.copy_to(x, mesh.group("tp"))
+    out = F.linear(*_amp.cast("FullyConnected", x, weight))
+    return mark_local_shard(out, NamedSharding(
+        mesh, PartitionSpec("dp", "sp", "tp")))
+
+
+def _vocab_block(logits):
+    """The mesh over whose ``tp`` ``logits`` is this rank's vocabulary
+    block, or None for whole logits."""
+    sh = getattr(logits, "_mxt_sharding", None)
+    if sh is None or len(sh.spec) < 3 or sh.spec[-1] != "tp" or \
+            sh.mesh.shape.get("tp", 1) == 1:
+        return None
+    return sh.mesh
+
+
+def _vocab_parallel_ce(x, labels, mesh):
+    """Per-token ``logsumexp - picked`` of this rank's float32 vocabulary
+    block ``x``: the row maxima reduced by max over ``tp``, then the sums
+    of exponentials and the picked logits (given by the rank that owns
+    each label) summed over ``tp`` in one reduction."""
+    group = mesh.group("tp")
+    rows = x.shape[-1]
+    lo = mesh.axis_index("tp") * rows
+    idx = labels.long().clamp(0, rows * mesh.shape["tp"] - 1) - lo
+    inside = (idx >= 0) & (idx < rows)
+    m = _coll.all_reduce(x.detach().amax(dim=-1), group, op="max")
+    z = x - m[..., None]
+    picked = z.gather(-1, idx.clamp(0, rows - 1)[..., None])[..., 0]
+    both = _coll.reduce_from(torch.stack(
+        [z.exp().sum(dim=-1), picked * inside.to(z.dtype)]), group)
+    return torch.log(both[0]) - both[1]
+
+
 def _tokens(tokens, device):
     """Token ids as an int32 tensor on ``device``, and the wrapper that
     hands results back in the caller's type (NDArray in, NDArray out)."""
@@ -380,16 +456,22 @@ def gpt2_lm_loss(logits, labels, aux_weight=0.01):
     vocabulary (``pick(mode='clip')``).  The router aux losses the
     forward recorded (MoE layers) are drained and added, each times
     ``aux_weight``; a dense model records none.  NDArray inputs give an
-    NDArray, recorded inside ``autograd.record()``."""
+    NDArray, recorded inside ``autograd.record()``.  A rank's vocabulary
+    block of the logits (tensor parallelism) gives the loss of the whole
+    logits (module docstring)."""
     if isinstance(logits, NDArray) or isinstance(labels, NDArray):
         like = logits if isinstance(logits, NDArray) else labels
         return invoke("gpt2_lm_loss",
                       lambda x, y: gpt2_lm_loss(x, y, aux_weight),
                       [_as_nd(logits, like), _as_nd(labels, like)])
+    mesh = _vocab_block(logits)
     x = logits.float()
-    idx = labels.long().clamp(0, x.shape[-1] - 1)
-    picked = x.gather(-1, idx[..., None])[..., 0]
-    loss = (torch.logsumexp(x, dim=-1) - picked).mean()
+    if mesh is not None:
+        loss = _vocab_parallel_ce(x, labels, mesh).mean()
+    else:
+        idx = labels.long().clamp(0, x.shape[-1] - 1)
+        picked = x.gather(-1, idx[..., None])[..., 0]
+        loss = (torch.logsumexp(x, dim=-1) - picked).mean()
     for aux in _base.pop_aux_losses():
         loss = loss + aux * aux_weight
     return loss

@@ -30,8 +30,8 @@ from ..gluon.block import HybridBlock
 from ..gluon.nn import Dropout, Embedding, LayerNorm
 from ..ndarray.ops import apply_op
 from .transformer import (MultiHeadAttention, PositionwiseFFN,
-                          TransformerEncoderLayer, _remat_layer, run_blocks,
-                          seq_offset)
+                          TransformerEncoderLayer, _remat_layer, refuse_tp,
+                          run_blocks, seq_offset)
 
 __all__ = ["TransformerDecoderBlock", "TransformerNMT", "nmt_loss",
            "get_nmt"]
@@ -163,6 +163,7 @@ class TransformerNMT(HybridBlock):
                                    self.tgt_embed.weight))
 
     def forward(self, src, tgt, src_valid_length=None):
+        refuse_tp(self.src_embed, "Transformer NMT")
         memory = self.encode(src, src_valid_length)
         return self.decode(tgt, memory, src, src_valid_length)
 

@@ -1,5 +1,17 @@
 """Transformer building blocks (counterpart of
-``mxnet_tpu/models/transformer.py``), single device, eager.
+``mxnet_tpu/models/transformer.py``), eager.
+
+**Tensor parallelism.**  Once ``parallel.shard_params`` has kept each
+rank's block of the weights annotated ``heads`` or ``mlp`` (over a mesh
+with ``tp`` above 1), the layers run Megatron-LM's split, the
+collectives GSPMD inserts in the reference written out: ``q_proj``,
+``k_proj``, ``v_proj`` and ``fc1`` are column-parallel (each rank
+computes its H/tp heads, or its share of the hidden units, from the
+whole input, entered through ``collectives.copy_to``), ``out_proj`` and
+``fc2`` row-parallel (each rank's partial product, summed over ``tp`` by
+``collectives.reduce_from``, then the replicated bias added once).  The
+attention kernels (B1-B3) run on the rank's heads, and so do ring and
+Ulysses attention under ``sp``.
 
 The serving entry points (``forward_step_slots``,
 ``forward_prefill_slots``, the speculative drafter's read-only
@@ -46,11 +58,12 @@ from ..ndarray.ops import ACTIVATION_FNS as _ACTIVATIONS
 from ..ops import dot_product_attention
 from ..ops import dots as _dots
 from ..ops.paged import kv_quantize, paged_attention
-from ..parallel.sharding import annotate
+from ..parallel import collectives as _coll
+from ..parallel.sharding import annotate, block_mesh
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerBlock",
            "TransformerEncoderLayer", "run_blocks", "copy_cache_rows",
-           "seq_offset"]
+           "seq_offset", "tp_group", "row_parallel", "refuse_tp"]
 
 _NEG = -1e30
 
@@ -102,6 +115,35 @@ def _gather_rows(cache, table_rows):
     return krow, vrow
 
 
+def tp_group(weight):
+    """The ``tp`` group over which ``weight`` is split into this rank's
+    block (raises outside its mesh), or None where it is whole."""
+    mesh = block_mesh(weight, "tp")
+    return mesh.group("tp") if mesh is not None else None
+
+
+def row_parallel(dense, x, group):
+    """``dense`` whose weight is this rank's block of input columns,
+    applied to this rank's part ``x`` of its input: the partial products
+    summed over ``group``, then the (replicated) bias added once."""
+    x, w, b = _amp.cast("FullyConnected", x, dense.weight, dense.bias)
+    y = _coll.reduce_from(_dots.linear(x, w, None), group)
+    return y if b is None else y + b
+
+
+def refuse_tp(embedding, what):
+    """Raise for a model whose heads are not split by vocabulary yet
+    under a mesh with ``tp`` above 1, or whose ``embedding`` table is a
+    block."""
+    mesh = _par.current_mesh()
+    if (mesh is not None and _par.axis_size(mesh, "tp") > 1) or \
+            getattr(embedding.weight, "_mxt_global_shape", None) is not None:
+        raise MXNetError(
+            f"{what} under tensor parallelism (tp > 1): its embeddings "
+            "and output heads are not split by vocabulary yet (ROADMAP "
+            "queue A6); GPT-2 and the stacked GPT-2 run under tp")
+
+
 class MultiHeadAttention(HybridBlock):
     """Multi-head attention with separate q/k/v/out projections (the
     reference's parameter tree): self-attention over ``x``, or
@@ -117,7 +159,9 @@ class MultiHeadAttention(HybridBlock):
     (``transformer.py:75-113``): ``seq_parallel='ring'`` (default, or
     ``MXNET_TPU_SEQ_PARALLEL``) through ``ops.ring_attention``,
     ``'ulysses'`` through ``ops.ulysses_attention`` where the local heads
-    divide by |sp| (else the ring, with the reference's warning)."""
+    divide by |sp| (else the ring, with the reference's warning).  Under
+    ``tp`` (projections split by ``parallel.shard_params``) it computes
+    the rank's H/tp heads (module docstring)."""
 
     def __init__(self, units, num_heads, dropout=0.0, attention_dropout=0.0,
                  use_bias=True, causal=False, seq_parallel=None):
@@ -151,16 +195,24 @@ class MultiHeadAttention(HybridBlock):
         self.dropout = Dropout(dropout) if dropout else None
 
     def _qkv(self, x, memory=None):
-        kv = x if memory is None else memory
+        group = tp_group(self.q_proj.weight)
+        x = _coll.copy_to(x, group)
+        kv = x if memory is None else _coll.copy_to(memory, group)
         b, t, tk = x.shape[0], x.shape[1], kv.shape[1]
-        h, d = self._num_heads, self._head_dim
+        # this rank's heads: all of them, or H/tp of a split projection
+        d = self._head_dim
+        h = self.q_proj.weight.shape[0] // d
         return (self.q_proj(x).reshape(b, t, h, d),
                 self.k_proj(kv).reshape(b, tk, h, d),
                 self.v_proj(kv).reshape(b, tk, h, d))
 
     def _out(self, out):
         b, t = out.shape[0], out.shape[1]
-        return self.out_proj(out.reshape(b, t, -1))
+        out = out.reshape(b, t, -1)
+        group = tp_group(self.out_proj.weight)
+        if group is None:
+            return self.out_proj(out)
+        return row_parallel(self.out_proj, out, group)
 
     def forward(self, x, mask=None, memory=None):
         q, k, v = self._qkv(x, memory)
@@ -363,7 +415,8 @@ def _seq_parallel_attention(attn, q, k, v):
     mesh = _par.current_mesh()
     h = attn._num_heads
     if attn._seq_parallel == "ulysses":
-        if (h // _par.axis_size(mesh, "tp")) % sp == 0:
+        # this rank's heads: H / |tp| under tensor parallelism
+        if q.shape[2] % sp == 0:
             from ..ops.ulysses import ulysses_attention
             return ulysses_attention(q, k, v, causal=attn._causal,
                                      mesh=mesh)
@@ -432,7 +485,8 @@ def _attention_step_slots(q, k_cache, v_cache, pos, scale):
 
 class PositionwiseFFN(HybridBlock):
     """Transformer FFN: Dense(hidden) → activation (GELU, or any
-    ``Activation`` type) → Dense(units)."""
+    ``Activation`` type) → Dense(units); under ``tp`` ``fc1`` is
+    column-parallel and ``fc2`` row-parallel (module docstring)."""
 
     def __init__(self, units, hidden_size, dropout=0.0, activation="gelu",
                  use_bias=True, **kwargs):
@@ -450,10 +504,12 @@ class PositionwiseFFN(HybridBlock):
         self.dropout = Dropout(dropout) if dropout else None
 
     def forward(self, x):
-        h = self.fc1(x)
+        group = tp_group(self.fc1.weight)
+        h = self.fc1(_coll.copy_to(x, group))
         h = self.act(h) if self.act is not None else \
             _ACTIVATIONS[self._activation](h)
-        h = self.fc2(h)
+        h = self.fc2(h) if group is None else \
+            row_parallel(self.fc2, h, group)
         if self.dropout is not None:
             h = self.dropout(h)
         return h

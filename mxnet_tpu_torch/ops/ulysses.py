@@ -42,9 +42,11 @@ def ulysses_attention(q, k, v, *, causal: bool = False,
                       scale: Optional[float] = None, mesh=None,
                       axis: str = "sp", batch_axis: str = "dp",
                       heads_axis: str = "tp"):
-    """Sequence-parallel attention on this rank's (B/dp, T/sp, H, D)
-    chunks via head/sequence all-to-all re-sharding.  Requires the local
-    head count (H / |heads_axis|) divisible by |axis|."""
+    """Sequence-parallel attention on this rank's (B/dp, T/sp, H', D)
+    chunks via head/sequence all-to-all re-sharding, where H' is this
+    rank's heads: H / |heads_axis| where tensor parallelism splits them
+    (``models/transformer.py``), else H.  Requires H' divisible by
+    |axis|."""
     mesh = mesh or current_mesh()
     sp = axis_size(mesh, axis) if mesh is not None else 1
     d = q.shape[-1]
@@ -57,6 +59,8 @@ def ulysses_attention(q, k, v, *, causal: bool = False,
         raise ValueError(
             f"ulysses attention needs tq == tk divisible by |{axis}|={sp},"
             f" got tq={t * sp}, tk={k.shape[1] * sp}")
+    # the whole model's heads: this rank holds H / |tp| of them
+    h = h * tp
     if h % tp or (h // tp) % sp:
         raise ValueError(
             f"ulysses attention needs heads {h} divisible by "

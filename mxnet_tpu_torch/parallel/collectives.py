@@ -9,7 +9,18 @@ as explicit ``torch.distributed`` calls over a mesh axis's group.
   receives the previous rank's (``batch_isend_irecv``);
 - :func:`all_to_all` splits a tensor along one dim over the group and
   concatenates what arrives along another; :func:`all_gather` and
-  :func:`broadcast_` complete the set.
+  :func:`broadcast_` complete the set;
+- the autograd functions of tensor, expert and pipeline parallelism
+  (Megatron-LM's pair): :func:`copy_to` (identity forward, sum over the
+  group backward) before a layer whose ranks each hold a block of its
+  weights, :func:`reduce_from` (sum forward, identity backward) after
+  it; :func:`psum` (sum both ways: the reference's ``psum`` and its
+  transpose), :func:`all_reduce` with a max for the vocab-parallel
+  loss's row maxima, :func:`pipe_shift`, the pipeline's send to the
+  next stage and receive from the previous, whose backward sends the
+  gradient back, and :func:`from_owner`, the pipeline's output handed
+  from the last stage to every stage, whose gradient returns to the
+  last stage alone.
 
 **The gloo transport.**  On a host with one GPU two ranks can only share
 it over gloo (NCCL refuses two ranks on one device), and gloo moves host
@@ -35,7 +46,8 @@ import torch.distributed as dist
 
 __all__ = ["all_reduce_", "ring_shift", "exchange", "all_to_all",
            "all_gather", "broadcast_", "stats", "reset_stats", "staging",
-           "BUCKET_BYTES"]
+           "tag_group", "BUCKET_BYTES", "all_reduce", "copy_to",
+           "reduce_from", "psum", "pipe_shift", "from_owner"]
 
 #: DDP's default bucket size
 BUCKET_BYTES = 25 << 20
@@ -64,6 +76,31 @@ def stats() -> dict:
 
 def _count(key: str, n=1):
     _STATS[key] = _STATS.get(key, 0) + n
+
+
+# the mesh axes each group spans, by the group's id (Mesh._make_groups)
+_TAGS: Dict[int, str] = {}
+
+
+def tag_group(group, axes) -> None:
+    """Record that ``group`` spans mesh ``axes`` (for :func:`stats`)."""
+    _TAGS[id(group)] = "+".join(axes)
+
+
+class _timed:
+    """Adds the wall time of its body and ``nbytes`` to the counters of
+    ``group``'s axes."""
+
+    def __init__(self, group, nbytes):
+        self.tag = _TAGS.get(id(group), "other")
+        self.nbytes = nbytes
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *a):
+        _count(f"seconds:{self.tag}", time.perf_counter() - self.t0)
+        _count(f"bytes:{self.tag}", self.nbytes)
 
 
 def staging(group=None) -> bool:
@@ -122,6 +159,12 @@ def all_reduce_(tensors: Sequence[torch.Tensor], group=None,
     if group is None or not tensors:
         return
     t0 = time.perf_counter()
+    with _timed(group, sum(t.numel() * t.element_size() for t in tensors)):
+        _all_reduce_buckets(tensors, group, bucket_bytes)
+    _count("all_reduce_seconds", time.perf_counter() - t0)
+
+
+def _all_reduce_buckets(tensors, group, bucket_bytes):
     for idx in _flat_buckets(tensors, bucket_bytes):
         parts = [tensors[i] for i in idx]
         flat = torch.cat([p.reshape(-1) for p in parts]) if len(parts) > 1 \
@@ -139,7 +182,6 @@ def all_reduce_(tensors: Sequence[torch.Tensor], group=None,
             n = p.numel()
             p.copy_(flat[off:off + n].view_as(p))
             off += n
-    _count("all_reduce_seconds", time.perf_counter() - t0)
 
 
 def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0, group=None,
@@ -152,12 +194,13 @@ def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0, group=None,
         flat = torch.cat([p.reshape(-1) for p in parts])
         _count("broadcast")
         _count("bytes", flat.numel() * flat.element_size())
-        if _staged(flat, group):
-            host = _to_host(flat)
-            dist.broadcast(host, src, group=group)
-            _from_host(flat, host)
-        else:
-            dist.broadcast(flat, src, group=group)
+        with _timed(group, flat.numel() * flat.element_size()):
+            if _staged(flat, group):
+                host = _to_host(flat)
+                dist.broadcast(host, src, group=group)
+                _from_host(flat, host)
+            else:
+                dist.broadcast(flat, src, group=group)
         off = 0
         for p in parts:
             n = p.numel()
@@ -201,8 +244,10 @@ def exchange(sends, recvs, group) -> List[torch.Tensor]:
                               dist.get_global_rank(group, src), group))
     _count("exchange")
     if ops:
-        for w in dist.batch_isend_irecv(ops):
-            w.wait()
+        with _timed(group, sum(op.tensor.numel() * op.tensor.element_size()
+                               for op in ops)):
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
     if not staged:
         return outs
     devs = []
@@ -230,7 +275,8 @@ def all_to_all(x: torch.Tensor, group, split_dim: int,
     recv = torch.empty_like(send)
     _count("all_to_all")
     _count("bytes", send.numel() * send.element_size())
-    dist.all_to_all_single(recv, send, group=group)
+    with _timed(group, send.numel() * send.element_size()):
+        dist.all_to_all_single(recv, send, group=group)
     if staged:
         dev = torch.empty(recv.shape, dtype=recv.dtype, device=x.device)
         _from_host(dev, recv)
@@ -250,7 +296,8 @@ def all_gather(x: torch.Tensor, group) -> List[torch.Tensor]:
     outs = [torch.empty_like(src) for _ in range(n)]
     _count("all_gather")
     _count("bytes", src.numel() * src.element_size())
-    dist.all_gather(outs, src, group=group)
+    with _timed(group, src.numel() * src.element_size()):
+        dist.all_gather(outs, src, group=group)
     if staged:
         devs = []
         for o in outs:
@@ -259,3 +306,133 @@ def all_gather(x: torch.Tensor, group) -> List[torch.Tensor]:
             devs.append(d)
         outs = devs
     return outs
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``x`` reduced over ``group`` (``op`` 'sum' or 'max'), a new
+    tensor; not differentiable."""
+    if group is None:
+        return x.clone()
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    flat = x.detach().contiguous().clone()
+    nbytes = flat.numel() * flat.element_size()
+    _count("all_reduce")
+    _count("bytes", nbytes)
+    with _timed(group, nbytes):
+        if _staged(flat, group):
+            host = _to_host(flat)
+            dist.all_reduce(host, op=red, group=group)
+            _from_host(flat, host)
+        else:
+            dist.all_reduce(flat, op=red, group=group)
+    return flat
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """Enter a model-parallel region: ``x`` as it is, whose gradient is
+    summed over ``group`` (each rank's block of the next layer gives a
+    part of it)."""
+    return x if group is None else _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """Leave a model-parallel region: the sum over ``group`` of each
+    rank's partial ``x``; the gradient passes as it is (every rank goes on
+    with the same sum)."""
+    return x if group is None else _ReduceFrom.apply(x, group)
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, whose backward sums the
+    cotangents too (the reference's ``psum`` and its transpose)."""
+    return x if group is None else _Psum.apply(x, group)
+
+
+def _shift(x, group, me, n, step):
+    """Send ``x`` to the group rank ``me + step`` (if any) and return what
+    the group rank ``me - step`` sent (zeros if none)."""
+    sends = [(x, me + step)] if 0 <= me + step < n else []
+    recvs = [(x, me - step)] if 0 <= me - step < n else []
+    got = exchange(sends, recvs, group)
+    return got[0] if got else torch.zeros_like(x)
+
+
+class _PipeShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, me, n):
+        ctx.meta = (group, me, n)
+        _count("pipe_shift")
+        return _shift(x.detach(), group, me, n, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, me, n = ctx.meta
+        return _shift(g.contiguous(), group, me, n, -1), None, None, None
+
+
+def pipe_shift(x: torch.Tensor, group) -> torch.Tensor:
+    """The pipeline's hand-over along ``group`` (the ``pp`` line): each
+    rank sends ``x`` to the next rank of the group and returns what the
+    previous one sent (zeros on the first); the last sends nothing.  The
+    backward sends each gradient back the other way (the reference's
+    ``ppermute`` over ``(i, i + 1)`` and its transpose).  Every rank of
+    the group calls it together."""
+    if group is None:
+        return torch.zeros_like(x)
+    return _PipeShift.apply(x, group, dist.get_rank(group),
+                            dist.get_world_size(group))
+
+
+class _FromOwner(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, mine):
+        ctx.mine = mine
+        return all_reduce(x if mine else torch.zeros_like(x), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.mine else torch.zeros_like(g)), None, None
+
+
+def from_owner(x: torch.Tensor, group, mine: bool) -> torch.Tensor:
+    """The ``x`` of the one rank of ``group`` where ``mine`` is True, on
+    every rank of the group (a sum of the owner's ``x`` and zeros).  The
+    gradient goes back to the owner only, as its own cotangent: every
+    rank computes the same thing from the value, and it counts once
+    (``ShardedTrainer`` takes the loss's gradient on the last pipeline
+    stage)."""
+    if group is None:
+        return x
+    return _FromOwner.apply(x, group, bool(mine))

@@ -5,14 +5,17 @@ process, and GSPMD inserts the collectives.  The port runs SPMD the
 PyTorch way: one process per rank, one device per rank, and explicit
 collectives.  So a :class:`Mesh` here is the grid of ranks laid out over
 the same five named axes, with one ``torch.distributed`` process group
-per line of ranks along an axis (:meth:`Mesh.group`), built when the mesh
-is made (every rank builds every group, in the same order, as
+per line of ranks along a set of axes (:meth:`Mesh.group`), built when
+the mesh is made (every rank builds every group, in the same order, as
 ``new_group`` requires).
 
 Canonical axes, outermost first: ``pp`` (pipeline), ``dp`` (data),
-``ep`` (expert), ``sp`` (sequence), ``tp`` (tensor).  This slice runs
-``dp`` and ``sp``; a mesh with ``tp``, ``ep`` or ``pp`` above 1 raises
-``MXNetError`` naming ROADMAP queue A6.
+``ep`` (expert), ``sp`` (sequence), ``tp`` (tensor); any of them may be
+above 1.  The groups are those of every set of live axes (:meth:`Mesh.
+group` takes any tuple of axis names): the data axes for the gradient
+sum, ``tp`` for the layers' reductions, ``(ep, tp)`` for the expert
+layer's, ``pp`` for the pipeline's sends and its output's broadcast, and
+the model axes together for the trainer's global norm and generator.
 """
 from __future__ import annotations
 
@@ -81,21 +84,26 @@ class Mesh:
                 for line in grid.reshape(-1, n)]
 
     def _make_groups(self):
+        import itertools
         live = tuple(a for a in self.axis_names if self.shape[a] > 1)
-        combos = [(a,) for a in live]
-        if len(live) > 1:
-            combos.append(live)
+        # every set of live axes, in one order on every rank (new_group
+        # is collective over the job)
+        combos = [c for n in range(1, len(live) + 1)
+                  for c in itertools.combinations(live, n)]
+        from .collectives import tag_group
         me = _dist.rank()
         for axes in combos:
             lines = self._lines(axes)
             if len(lines) == 1 and lines[0] == list(
                     range(dist.get_world_size())):
                 self._groups[axes] = dist.group.WORLD
+                tag_group(dist.group.WORLD, axes)
                 continue
             for line in lines:
                 g = dist.new_group(line)
                 if me in line:
                     self._groups[axes] = g
+                    tag_group(g, axes)
 
     def group(self, axes="dp"):
         """The process group of this rank's line along ``axes`` (an axis
@@ -138,12 +146,6 @@ def make_mesh(dp: Optional[int] = None, tp: int = 1, pp: int = 1,
     if dp * fixed != n:
         raise _base.MXNetError(
             f"mesh {dp}x{fixed} needs {dp * fixed} devices, have {n}")
-    wider = {a: s for a, s in (("tp", tp), ("ep", ep), ("pp", pp)) if s > 1}
-    if wider:
-        raise _base.MXNetError(
-            f"mesh axes {wider}: the port runs data and sequence "
-            "parallelism (dp, sp); tensor, expert and pipeline "
-            "parallelism are ROADMAP queue A6")
     ranks = list(devices) if all(isinstance(d, (int, np.integer))
                                  for d in devices) else list(range(n))
     if n > world or any(not 0 <= r < world for r in ranks) or \

@@ -5,12 +5,16 @@ Parameters carry logical axis names ("embed", "mlp", "heads", "vocab",
 ...) and a rules table maps them to mesh axes; the specs equal the
 reference's.  What differs is what a spec does.  Under GSPMD a
 ``NamedSharding`` places a global array's shards on the devices.  The
-port runs one process per rank with explicit collectives, and under the
-data and sequence parallelism it runs (``dp``, ``sp``) every parameter
-stays whole on every rank: :func:`shard_params` is MXNet's KVStore
-broadcast (rank 0's values to every rank of the group), and a batch's
-:class:`NamedSharding` says which block of the global batch each rank
-holds (:meth:`NamedSharding.local_slices`, :func:`local_shard`).
+port runs one process per rank with explicit collectives:
+:func:`shard_params` makes every rank start from rank 0's values
+(MXNet's KVStore broadcast), then keeps on each rank only its block of
+every parameter whose spec names a live ``tp``, ``ep`` or ``pp`` axis
+(:meth:`NamedSharding.local_slices`, the shard the reference's device
+holds); the layers see that their weights are blocks
+(:func:`block_mesh`) and write out the collectives GSPMD inserts.  A
+batch's :class:`NamedSharding` says which block of the global batch each
+rank holds (:func:`local_shard`): rows over ``dp``, the sequence over
+``sp``, the same rows on every rank of a ``tp``, ``ep`` or ``pp`` line.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import base as _base
 from .mesh import Mesh, axis_size
@@ -27,7 +32,13 @@ __all__ = ["DEFAULT_RULES", "ShardingRules", "PartitionSpec",
            "mesh_device_put", "param_sharding", "divisible_spec",
            "shard_params", "batch_spec", "global_batch_sharding",
            "local_shard", "is_local_shard", "mark_local_shard",
-           "check_placement"]
+           "check_placement", "block_mesh", "global_shape", "MODEL_AXES",
+           "DATA_AXES"]
+
+#: the axes that split parameters into blocks, and those that split
+#: batches
+MODEL_AXES = ("pp", "ep", "tp")
+DATA_AXES = ("dp", "sp")
 
 # Default logical→mesh mapping (Megatron-style TP + sequence axis).
 DEFAULT_RULES: Dict[str, Optional[str]] = {
@@ -169,25 +180,78 @@ def divisible_spec(shape, logical_axes, mesh: Mesh, mapping
 def shard_params(block, mesh: Mesh, rules: Optional[ShardingRules] = None):
     """Make every initialized parameter of ``block`` equal rank 0's on
     every rank of the mesh (MXNet's KVStore broadcast, parity
-    ``src/kvstore/comm.h`` Comm::Broadcast): ranks that initialized from
-    different seeds start from one set of weights.  Under dp and sp every
-    parameter stays whole, so the rules only record each parameter's
-    spec (``p._sharding``)."""
+    ``src/kvstore/comm.h`` Comm::Broadcast), so ranks that initialized
+    from different seeds start from one set of weights, then keep on
+    each rank its block of every parameter whose spec (``p._sharding``)
+    names a ``tp``, ``ep`` or ``pp`` axis above 1: rank 0's whole value
+    sliced as :meth:`NamedSharding.local_slices` says.  A dimension that
+    its axis does not divide raises before any parameter changes, as
+    ``jax.device_put`` refuses it.  A parameter that is a block already
+    is left as it is."""
     from . import collectives
     rules = rules or ShardingRules()
-    params = []
+    params, cuts = [], []
     for p in block.parameters():
         if not _initialized(p):
             continue
-        p._sharding = NamedSharding(mesh, rules.spec(logical_axes_of(p)))
-        params.append(p)
-    group = mesh.group(tuple(a for a in mesh.axis_names))
-    if group is not None and params:
-        with torch.no_grad():
-            collectives.broadcast_([p.data for p in params],
-                                   src=int(mesh.devices.flat[0]),
+        sh = NamedSharding(mesh, rules.spec(logical_axes_of(p)))
+        shape = global_shape(p)
+        cut = any(a in MODEL_AXES and axis_size(mesh, a) > 1
+                  for a in sh.spec)
+        # raises on a dimension its axis does not divide
+        cuts.append(sh.local_slices(shape) if cut and not is_block(p)
+                    else None)
+        params.append((p, sh))
+    whole = [p.data for (p, _), c in zip(params, cuts)
+             if not is_block(p)]
+    # outside a job (no groups) this process keeps rank 0's blocks
+    group = mesh.group(mesh.axis_names) if dist.is_initialized() else None
+    with torch.no_grad():
+        if group is not None and whole:
+            collectives.broadcast_(whole, src=int(mesh.devices.flat[0]),
                                    group=group)
+        for (p, sh), sl in zip(params, cuts):
+            if sl is not None:
+                p._mxt_global_shape = tuple(p.shape)
+                p.data = p.data[sl].clone()
+            p._sharding = sh
     return block
+
+
+def is_block(param) -> bool:
+    """Whether ``param`` holds a rank's block of a larger parameter
+    (:func:`shard_params`)."""
+    return getattr(param, "_mxt_global_shape", None) is not None
+
+
+def global_shape(param) -> Tuple[int, ...]:
+    """The shape of the whole parameter ``param`` is (a block of)."""
+    return tuple(getattr(param, "_mxt_global_shape", None)
+                 or tuple(param.shape))
+
+
+def block_mesh(param, axis: str) -> Optional[Mesh]:
+    """The mesh whose ``axis`` splits ``param`` into this rank's block,
+    or None where the parameter is whole along ``axis``.  A block used
+    outside a ``use_mesh`` of that mesh raises ``MXNetError``: its
+    layer's collectives need the mesh (the reference's sharded arrays
+    gather silently instead; a divergence by design, ROADMAP queue C)."""
+    sh = getattr(param, "_sharding", None)
+    if sh is None or not is_block(param) or axis not in tuple(sh.spec) \
+            or axis_size(sh.mesh, axis) == 1:
+        return None
+    from .mesh import current_mesh
+    cur = current_mesh()
+    if cur is not sh.mesh and (cur is None or cur.devices.shape !=
+                               sh.mesh.devices.shape or
+                               not (cur.devices == sh.mesh.devices).all()):
+        raise _base.MXNetError(
+            f"a parameter of shape {tuple(param.shape)} is this rank's "
+            f"block of {global_shape(param)} split over mesh axis "
+            f"{axis!r}: call the net under parallel.use_mesh(mesh) of the "
+            "mesh it was sharded over (its layers' collectives run over "
+            "that mesh)")
+    return sh.mesh
 
 
 def _initialized(p) -> bool:
@@ -244,11 +308,14 @@ def mark_local_shard(t: torch.Tensor, sharding: NamedSharding):
 
 
 def check_placement(sharding: NamedSharding):
-    """Raise unless ``sharding``'s mesh runs only ``dp`` and ``sp``."""
-    wider = {a: n for a, n in sharding.mesh.shape.items()
-             if a not in ("dp", "sp") and n > 1}
+    """Raise unless ``sharding`` splits a batch over ``dp`` and ``sp``
+    only: along ``tp``, ``ep`` and ``pp`` every rank takes the same rows,
+    as :func:`batch_spec` places them."""
+    wider = {a: axis_size(sharding.mesh, a) for a in sharding.spec
+             if a is not None and a not in DATA_AXES
+             and axis_size(sharding.mesh, a) > 1}
     if wider:
         raise _base.MXNetError(
-            f"a placement over mesh axes {wider}: the port places batches "
-            "over dp and sp; tensor, expert and pipeline parallelism are "
-            "ROADMAP queue A6")
+            f"a batch placement {tuple(sharding.spec)} over mesh axes "
+            f"{wider}: batches split over dp and sp, and every rank of a "
+            "tp, ep or pp line takes the same rows")

@@ -56,9 +56,10 @@ semantics are the reference's:
   ``ResilientLoop`` drives the trainer through ``step``,
   ``state_dict`` and ``load_state_dict``.
 
-**Over a mesh** (``mesh=make_mesh(dp=..., sp=...)``, one process per
-rank after ``init_distributed``), the reference's pjit step becomes SPMD
-in each process with explicit collectives:
+**Over a mesh** (``mesh=make_mesh(dp=..., sp=..., tp=..., ep=...,
+pp=...)``, one process per rank after ``init_distributed``), the
+reference's pjit step becomes SPMD in each process with explicit
+collectives:
 
 - every rank passes the same global batch, as every process does in the
   reference; the step keeps this rank's block of each array under its
@@ -66,19 +67,35 @@ in each process with explicit collectives:
   over ``sp``, or ``data_specs`` / ``label_specs``).  A batch that is
   already this rank's block (``sharding.local_shard``, a loader over a
   mesh placement) is taken as it is;
-- the parameters stay whole on every rank and start equal:
-  ``shard_params`` broadcasts rank 0's at build (KVStore's broadcast);
+- the parameters start equal, from rank 0's (``shard_params`` at build,
+  KVStore's broadcast), and each rank keeps its block of those split
+  over ``tp``, ``ep`` or ``pp``; the optimizer's states follow the
+  blocks.  The device generator is made equal along the ``tp``, ``ep``
+  and ``pp`` lines, so dropout draws the same masks on activations those
+  ranks share;
 - the forward runs under ``use_mesh``, so attention over an ``sp`` axis
-  runs ring or Ulysses attention (``models/transformer.py``);
+  runs ring or Ulysses attention, and the layers run their ``tp``,
+  ``ep`` and ``pp`` collectives (``models/transformer.py``, ``moe.py``,
+  ``stacked.py``);
 - the local loss is a mean over this rank's rows and positions, so each
   rank's loss and gradients carry its share of the global batch x
   sequence, 1 / (|dp| * |sp|): the gradients and the loss are summed over
-  the mesh in flat buckets (``collectives.all_reduce_``) and scaled by
-  that share, which gives the reference's global-mean gradient and loss
-  on every rank.  ``grad_accum`` accumulates locally and reduces once;
-  the gradient poison is spliced before the reduction and the guard's
-  finite flag, the clip's global norm and the loss scaler's schedule are
-  taken after it, so every rank makes the same decision;
+  the data axes in flat buckets (``collectives.all_reduce_``) and scaled
+  by that share, which gives the reference's global-mean gradient and
+  loss on every rank.  Never over ``tp`` or ``ep``: there a rank's block
+  of a parameter is its own, and the layers' collectives already give a
+  parameter that the ranks share the same whole gradient on each.  Under
+  ``pp`` every stage gets the pipeline's output and computes the head
+  and the loss from it (``parallel.gpipe``), which count once: the
+  loss's gradient is taken on the last stage, whose backward runs the
+  reverse pipeline through every stage, and the gradients of the
+  parameters every stage holds (the embeddings, ``ln_f``, the tied head)
+  are summed over ``pp`` as well, each stage giving what it used.
+  ``grad_accum`` accumulates locally and reduces once; the gradient
+  poison is spliced before the reduction and the guard's finite flag,
+  the clip's global norm (each block's squares summed over its axes, a
+  shared element counted once) and the loss scaler's schedule are taken
+  after it over the whole model, so every rank makes the same decision;
 - the step stays one CUDA graph where its collectives can be captured
   (NCCL, or a mesh of one rank); under gloo, whose transport stages
   through the host, it runs eagerly.  The choice is made at construction
@@ -86,10 +103,13 @@ in each process with explicit collectives:
 
 ``save_checkpoint`` / ``load_checkpoint`` write and read
 ``torch.distributed.checkpoint`` directories (``utils/checkpoint.py``):
-a checkpoint saved under one mesh loads under another.
+each rank writes its blocks with their offsets in the whole parameter,
+so a checkpoint saved under one mesh loads under another (a tp = 2 save
+at tp = 1 and the reverse).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -106,8 +126,9 @@ from ..resilience.faults import inject as _inject, poison as _poison
 from ..utils.graphs import Program
 from . import collectives as _coll
 from .mesh import Mesh, current_mesh, make_mesh, use_mesh
-from .sharding import (NamedSharding, ShardingRules, batch_spec,
-                       is_local_shard, shard_params)
+from .sharding import (DATA_AXES, MODEL_AXES, NamedSharding,
+                       ShardingRules, axis_size, batch_spec, global_shape,
+                       is_block, is_local_shard, shard_params)
 
 __all__ = ["ShardedTrainer"]
 
@@ -147,10 +168,10 @@ class ShardedTrainer:
         device.
     optimizer : str or Optimizer — any registered optimizer.
     loss : callable(out, *labels) -> tensor, reduced to its mean.
-    mesh : a :class:`~mxnet_tpu_torch.parallel.Mesh` over ``dp`` and
-        ``sp`` (default: the ambient ``use_mesh`` one), or None: one
-        device, no collectives.
-    rules : ShardingRules recording each parameter's spec.
+    mesh : a :class:`~mxnet_tpu_torch.parallel.Mesh` (default: the
+        ambient ``use_mesh`` one), or None: one device, no collectives.
+    rules : ShardingRules giving each parameter's spec, and so the
+        blocks it is split into.
     data_specs/label_specs : PartitionSpecs per input; default dim 0
         over ``dp`` (and ``seq_axis`` over ``sp``).
     donate, donate_batch : accepted for the reference's signature; the
@@ -187,11 +208,22 @@ class ShardedTrainer:
         self._data_specs = data_specs
         self._label_specs = label_specs
         self._seq_axis = seq_axis
-        # the gradient reduction's group over every axis of the mesh, and
-        # each rank's share of the global batch x sequence
-        self._group = self.mesh.group(self.mesh.axis_names) \
-            if self.mesh is not None else None
-        self._share = 1.0 / (self.mesh.size if self.mesh is not None else 1)
+        # the group of every rank of the mesh, the data axes' (the loss
+        # and gradient sum) and the model axes' (the global norm, the
+        # guard's flag); each rank's share of the global batch x sequence
+        m = self.mesh
+        self._group = m.group(m.axis_names) if m is not None else None
+        self._data_group = m.group(DATA_AXES) if m is not None else None
+        self._model_group = m.group(MODEL_AXES) if m is not None else None
+        self._share = 1.0 / (axis_size(m, "dp") * axis_size(m, "sp")) \
+            if m is not None else 1.0
+        # the loss's gradient counts on the last pipeline stage only
+        pp = axis_size(m, "pp") if m is not None else 1
+        self._loss_weight = 1.0 if pp == 1 or \
+            m.axis_index("pp") == pp - 1 else 0.0
+        # each gradient's reduction group and weight in the global norm
+        # (_plan_reduction, over a mesh)
+        self._grad_groups = self._norm_weights = None
         self.optimizer = opt_mod.create(optimizer,
                                         **(optimizer_params or {}))
         self._guard_nonfinite = bool(guard_nonfinite)
@@ -283,14 +315,19 @@ class ShardedTrainer:
             raise _base.MXNetError("the net has no trainable parameters")
         self.device = self._trainable[0][1].device
         if self.mesh is not None:
-            # ranks seeded apart start from rank 0's weights
+            # ranks seeded apart start from rank 0's weights, each with
+            # its blocks
             shard_params(self.net, self.mesh, self.rules)
+            self._same_draws()
+            self._plan_reduction()
         opt = self.optimizer
         opt.param_dict = {i: p for i, (_, p) in enumerate(self._trainable)}
+        self._state_param = []      # each state leaf's parameter
         for i, (_, p) in enumerate(self._trainable):
             st = opt.create_state_multi_precision(i, p.detach())
             self._states.append(st)
             self._state_flat.extend(_leaves(st))
+            self._state_param.extend([p] * len(_leaves(st)))
         if self._guarded:
             init = (self._loss_scaler.loss_scale
                     if self._loss_scaler is not None else 1.0)
@@ -302,6 +339,37 @@ class ShardedTrainer:
         if self._pending_states is not None:
             self._apply_loaded_states(self._pending_states)
             self._pending_states = None
+
+    def _same_draws(self):
+        """Give every rank of a ``tp``, ``ep`` or ``pp`` line the device
+        generator state of the line's first rank: their layers draw
+        dropout masks for activations they share."""
+        if self._model_group is None:
+            return
+        import torch.distributed as dist
+        gen = _random.generator(self.device)
+        state = gen.get_state()
+        buf = [state.to(self.device) if self.device.type == "cuda"
+               else state.clone()]
+        _coll.broadcast_(buf, src=dist.get_global_rank(self._model_group, 0),
+                         group=self._model_group)
+        gen.set_state(buf[0].cpu())
+
+    def _plan_reduction(self):
+        """Each trainable parameter's gradient group (the data axes, and
+        ``pp`` where every stage holds the parameter) and its weight in
+        the global norm (1 over the ranks of the model axes that hold the
+        same block)."""
+        m = self.mesh
+        self._grad_groups, self._norm_weights = [], []
+        for _n, p in self._trainable:
+            spec = tuple(p._sharding.spec)
+            shared = [a for a in MODEL_AXES
+                      if axis_size(m, a) > 1 and a not in spec]
+            axes = DATA_AXES + (("pp",) if "pp" in shared else ())
+            self._grad_groups.append(m.group(axes))
+            self._norm_weights.append(
+                1.0 / float(np.prod([axis_size(m, a) for a in shared])))
 
     def build(self, data=(), labels=()):
         """Create optimizer state without stepping, so a resume can load
@@ -380,16 +448,35 @@ class ShardedTrainer:
             contextlib.nullcontext()
 
     def _reduce(self, loss, grads):
-        """The loss and gradients summed over the mesh and scaled by this
-        rank's share: the global mean's on every rank.  Unchanged without
-        a group (no mesh, or a mesh of one rank outside a job)."""
+        """The loss summed over the data axes and the gradients over
+        their groups (the data axes, and ``pp`` for parameters every
+        stage holds), scaled by this rank's share: the global mean's on
+        every rank.  Unchanged without a group (no mesh, or a mesh of one
+        rank outside a job)."""
         if self._group is None:
             return loss, grads
-        flat = [loss.reshape(1).float()] + list(grads)
-        _coll.all_reduce_(flat, self._group)
+        loss = loss.reshape(1).float()
+        by_group: Dict[int, list] = {}
+        for i, g in enumerate(self._grad_groups):
+            by_group.setdefault(id(g), [g, []])[1].append(i)
+        for group, idx in by_group.values():
+            flat = [grads[i] for i in idx]
+            if group is self._data_group:
+                flat = [loss] + flat
+            _coll.all_reduce_(flat, group)
+        if id(self._data_group) not in by_group:
+            _coll.all_reduce_([loss], self._data_group)
         share = self._share
-        return (flat[0].reshape(()) * share,
-                [g.mul_(share) for g in flat[1:]])
+        return (loss.reshape(()) * share, [g.mul_(share) for g in grads])
+
+    def _model_sum(self, x):
+        """``x`` summed over the ``tp``, ``ep`` and ``pp`` lines (as it
+        is without them)."""
+        if self._model_group is None:
+            return x
+        flat = [x.clone()]
+        _coll.all_reduce_(flat, self._model_group)
+        return flat[0]
 
     def _grads(self, lval) -> List[torch.Tensor]:
         params = [p for _, p in self._trainable]
@@ -409,8 +496,13 @@ class ShardedTrainer:
                 # from the fault plan replaces it
                 lval = torch.where(torch.isfinite(lpoison), lval,
                                    lpoison.to(lval.dtype))
-            g = self._grads(lval * scale.to(lval.dtype)
-                            if scale is not None else lval)
+            target = lval * scale.to(lval.dtype) if scale is not None \
+                else lval
+            if self._loss_weight != 1.0:
+                # a pipeline stage before the last: its backward carries
+                # the pipeline's gradients only
+                target = target * self._loss_weight
+            g = self._grads(target)
             return lval.detach(), g
 
         accum = self._grad_accum
@@ -566,9 +658,14 @@ class ShardedTrainer:
         finite = torch.isfinite(loss)
         for g in grads:
             finite = finite & torch.isfinite(g).all()
+        if self._model_group is not None:
+            # a block's non-finite value stops every rank's step
+            finite = self._model_sum((~finite).float()) == 0
         if self._clip_global_norm is not None:
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                                   for g in grads))
+            weights = self._norm_weights or [1.0] * len(grads)
+            gnorm = torch.sqrt(self._model_sum(sum(
+                torch.sum(torch.square(g.float())) * w
+                for g, w in zip(grads, weights))))
             coef = torch.clamp(self._clip_global_norm / (gnorm + 1e-6),
                                max=1.0)
             grads = [g * coef.to(g.dtype) for g in grads]
@@ -693,12 +790,39 @@ class ShardedTrainer:
             self._good.fill_(int(good[0]))
 
     # -------------------------------------------------- sharded checkpoints
-    def _checkpoint_tree(self):
+    def _ckpt_leaf(self, t, p, whole=False):
+        """``t`` (parameter ``p`` or a state leaf of its shape) as a
+        checkpoint leaf: itself, or where ``p`` is a block a
+        ``checkpoint.Block`` with the layout of every rank's (``whole``:
+        an empty tensor of the whole shape to restore into)."""
+        from ..utils.checkpoint import Block
+        if not is_block(p) or tuple(t.shape) != tuple(p.shape):
+            return t.detach()
+        shape = global_shape(p)
+        if whole:
+            return torch.empty(shape, dtype=t.dtype)
+        import torch.distributed as dist
+        sh, m = p._sharding, self.mesh
+        group = self._checkpoint_group()["process_group"]
+        blocks = []
+        for r in (int(x) for x in m.devices.flat):
+            c = m.coords(r)
+            # one writer a block: index 0 on every axis it is shared over
+            if all(c[a] == 0 for a in m.axis_names if a not in sh.spec):
+                sl = sh.local_slices(shape, r)
+                blocks.append(([x.start for x in sl],
+                               [x.stop - x.start for x in sl],
+                               dist.get_group_rank(group, r)))
+        mine = sh.local_slices(shape)
+        return Block(t.detach(), shape, [x.start for x in mine], blocks)
+
+    def _checkpoint_tree(self, whole=False):
+        leaf = functools.partial(self._ckpt_leaf, whole=whole)
         tree = {
-            "params": {n: p.detach() for n, p in self._trainable},
+            "params": {n: leaf(p, p) for n, p in self._trainable},
             "aux": {n: p.detach() for n, p in self._aux},
-            "states": {f"s{i}": leaf
-                       for i, leaf in enumerate(self._state_flat)},
+            "states": {f"s{i}": leaf(x, p) for i, (x, p) in enumerate(
+                zip(self._state_flat, self._state_param))},
             "num_update": torch.tensor(self.optimizer.num_update,
                                        dtype=torch.int64)}
         if self._guarded:
@@ -749,7 +873,8 @@ class ShardedTrainer:
     @torch.no_grad()
     def load_checkpoint(self, directory, step=None):
         """Restore a :meth:`save_checkpoint` directory (the latest step
-        unless ``step``), whatever mesh saved it."""
+        unless ``step``), whatever mesh saved it: each rank reads the
+        whole of a parameter it holds a block of, and keeps its block."""
         from ..utils.checkpoint import CheckpointManager
         import os
         self._require_built("load_checkpoint")
@@ -759,13 +884,20 @@ class ShardedTrainer:
             cached[0].wait_until_finished()
         with CheckpointManager(directory, async_save=False,
                                **self._checkpoint_group()) as m:
-            got = m.restore(step, like=self._checkpoint_tree())
+            got = m.restore(step, like=self._checkpoint_tree(whole=True))
+
+        def put(t, whole, p):
+            # a block takes its slice of the whole value
+            if is_block(p) and tuple(t.shape) == tuple(p.shape):
+                whole = whole[p._sharding.local_slices(tuple(whole.shape))]
+            t.copy_(whole)
         for n, p in self._trainable:
-            p.copy_(got["params"][n])
+            put(p, got["params"][n], p)
         for n, p in self._aux:
             p.copy_(got["aux"][n])
-        for i, leaf in enumerate(self._state_flat):
-            leaf.copy_(got["states"][f"s{i}"])
+        for i, (leaf, p) in enumerate(zip(self._state_flat,
+                                          self._state_param)):
+            put(leaf, got["states"][f"s{i}"], p)
         self.optimizer.num_update = int(got["num_update"])
         if self._guarded:
             self._scale.fill_(float(got["loss_scale"]))

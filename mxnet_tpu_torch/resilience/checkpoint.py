@@ -3,8 +3,8 @@
 read each other's step directories).
 
 The reference's orbax-backed ``utils/checkpoint.py`` is its sharded
-path (ROADMAP queue A6 in the port); this module is the *resilience*
-path — a synchronous, self-contained format whose commit point is a
+path (the port's writes DCP's); this module is the *resilience* path —
+a synchronous, self-contained format whose commit point is a
 single ``os.rename`` of a fully written temp directory, so a kill at
 ANY instant of a save leaves either the previous committed checkpoint
 or the new one, never a torn "latest":

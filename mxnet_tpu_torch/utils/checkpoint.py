@@ -8,7 +8,10 @@ written last, marks the step complete.  The file format differs from
 orbax's by design (ROADMAP queue C).  Every rank of a process group calls
 ``save`` together; a tensor that every rank holds whole (the parameters
 and optimizer state under data and sequence parallelism) is written
-once.  A checkpoint saved by one world size loads under another (DCP
+once.  A tensor of which each rank holds a block (a parameter split
+over ``tp``, ``ep`` or ``pp``) is given as a :class:`Block` and written
+as a sharded tensor, each block at its offsets by one rank.  A
+checkpoint saved by one world size or mesh loads under another (DCP
 reshards on load), and loads in a process with no group at all.
 
 ``save`` snapshots the tree into host memory before it returns (the
@@ -34,7 +37,41 @@ import torch
 from .. import base as _base
 from ..resilience.faults import inject as _inject
 
-__all__ = ["CheckpointManager", "save_checkpoint", "load_checkpoint"]
+__all__ = ["CheckpointManager", "save_checkpoint", "load_checkpoint",
+           "Block"]
+
+
+class Block:
+    """This rank's block ``local`` of a tensor of ``global_shape``, at
+    ``offsets`` in it.  ``blocks`` lists (offsets, sizes, rank in the
+    saving group) of every block that is written, one rank each; this
+    rank writes ``local`` where it is among them."""
+
+    def __init__(self, local, global_shape, offsets, blocks):
+        self.local = local
+        self.global_shape = tuple(global_shape)
+        self.offsets = tuple(offsets)
+        self.blocks = [(tuple(o), tuple(z), int(r)) for o, z, r in blocks]
+
+    def sharded(self, group):
+        """A CPU copy as a ``ShardedTensor`` over ``group`` (no
+        communication: every rank knows the layout)."""
+        import torch.distributed as dist
+        from torch.distributed._shard.metadata import ShardMetadata
+        from torch.distributed._shard.sharded_tensor import (
+            Shard, ShardedTensor, ShardedTensorMetadata)
+        from torch.distributed._shard.sharded_tensor.metadata import \
+            TensorProperties
+        me = dist.get_rank(group)
+        metas = [ShardMetadata(list(o), list(z), f"rank:{r}/cpu")
+                 for o, z, r in self.blocks]
+        mine = [Shard(self.local.detach().to("cpu", copy=True), m)
+                for m, (o, _z, r) in zip(metas, self.blocks)
+                if r == me and o == self.offsets]
+        md = ShardedTensorMetadata(metas, torch.Size(self.global_shape),
+                                   TensorProperties(dtype=self.local.dtype))
+        return ShardedTensor._init_from_local_shards_and_global_metadata(
+            mine, md, process_group=group)
 
 
 def _tensor_tree(tree):
@@ -42,6 +79,8 @@ def _tensor_tree(tree):
     from ..ndarray.ndarray import NDArray
     if isinstance(tree, dict):
         return {str(k): _tensor_tree(v) for k, v in tree.items()}
+    if isinstance(tree, Block):
+        return tree
     if isinstance(tree, NDArray):
         return tree.tensor
     if isinstance(tree, torch.Tensor):
@@ -49,11 +88,38 @@ def _tensor_tree(tree):
     return torch.as_tensor(tree)
 
 
-def _snapshot(tree):
-    """Every leaf copied into host memory this save owns."""
+def _snapshot(tree, group=None):
+    """Every leaf copied into host memory this save owns (a
+    :class:`Block` as a sharded tensor over ``group``)."""
     if isinstance(tree, dict):
-        return {k: _snapshot(v) for k, v in tree.items()}
+        return {k: _snapshot(v, group) for k, v in tree.items()}
+    if isinstance(tree, Block):
+        return tree.sharded(group if group is not None else
+                            torch.distributed.group.WORLD)
     return tree.detach().to("cpu", copy=True)
+
+
+def _has_block(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_has_block(v) for v in tree.values())
+    return isinstance(tree, Block)
+
+
+class _Staged:
+    """``dcp.async_save``'s stager of a state that is a host snapshot
+    already: nothing to copy."""
+
+    _synchronize_after_execute = False
+    should_synchronize_after_execute = False
+
+    def stage(self, state_dict):
+        return state_dict
+
+    def synchronize_staging(self):
+        pass
+
+    def close(self):
+        pass
 
 
 def _coordinator(group, no_dist) -> bool:
@@ -98,10 +164,15 @@ class CheckpointManager:
         if step % self._interval:
             return False
         self.wait_until_finished()
-        state = _snapshot(_tensor_tree(tree))
+        tree = _tensor_tree(tree)
+        state = _snapshot(tree, self._group)
         kw = dict(checkpoint_id=self._path(step),
                   process_group=self._group, no_dist=self._no_dist)
         if self._async:
+            if _has_block(tree):
+                # the snapshot is the staged copy (DCP's own stager cannot
+                # copy a sharded tensor)
+                kw["async_stager"] = _Staged()
             self._pending = dcp.async_save(state, **kw)
         else:
             dcp.save(state, **kw)

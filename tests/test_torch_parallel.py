@@ -215,13 +215,46 @@ def test_parameter_annotations_equal_the_reference():
 
 
 def test_meshes_past_dp_and_sp_raise_naming_a6():
-    from mxnet_tpu_torch.data.sharded_loader import host_batch_rows
-    for kw in (dict(tp=2), dict(ep=2), dict(pp=2)):
-        with pytest.raises(MXNetError, match="queue A6"):
-            tpar.make_mesh(devices=[0, 1], **kw)
+    """What still raises past dp and sp: a mesh axis that does not divide
+    the devices (the reference's error), a vocabulary that tp does not
+    divide (as ``jax.device_put`` refuses it), BERT and NMT under tp and
+    the serving engine's mesh (both ROADMAP queue A6)."""
+    from mxnet_tpu_torch.models import get_bert, get_nmt
+    from mxnet_tpu_torch.serving import InferenceEngine
+    with pytest.raises(MXNetError) as te:
+        tpar.make_mesh(devices=[0, 1, 2, 3], tp=3)
+    with pytest.raises(Exception) as je:
+        jpar.make_mesh(devices=jax.devices()[:4], tp=3)
+    assert str(te.value) == str(je.value)
     tm = tpar.Mesh(onp.arange(2, dtype=object).reshape(1, 1, 1, 1, 2))
+    net = tget_gpt2("gpt2_124m", device="cpu", **dict(W.GPT_CFG,
+                                                      vocab_size=63))
+    net.initialize(seed=0)
+    with pytest.raises(MXNetError, match="does not divide"):
+        tpar.shard_params(net, tm)
+    assert all(not hasattr(p, "_mxt_global_shape")
+               for p in net.parameters())
+    jm = jpar.make_mesh(dp=4, tp=2, devices=jax.devices()[:8])
+    jn = jget_gpt2("gpt2_124m", **dict(W.GPT_CFG, vocab_size=63))
+    jn.initialize()
+    with pytest.raises(Exception):
+        jpar.shard_params(jn, jm)
+    bert = get_bert("bert_base", vocab_size=64, units=32, num_layers=1,
+                    num_heads=4, max_length=16, dropout=0.0, device="cpu")
+    bert.initialize(seed=0)
+    nmt = get_nmt("transformer_base", src_vocab_size=32, units=32,
+                  hidden_size=64, num_layers=1, num_heads=4, dropout=0.0,
+                  device="cpu")
+    nmt.initialize(seed=0)
+    toks = torch.zeros((1, 8), dtype=torch.int32)
+    with tpar.use_mesh(tm):
+        with pytest.raises(MXNetError, match="queue A6"):
+            bert(toks)
+        with pytest.raises(MXNetError, match="queue A6"):
+            nmt(toks, toks)
     with pytest.raises(MXNetError, match="queue A6"):
-        host_batch_rows(tpar.global_batch_sharding(tm, 2), (4, 8))
+        InferenceEngine(tget_gpt2("gpt2_124m", device="cpu", **W.GPT_CFG),
+                        mesh=tm, device="cpu")
 
 
 def test_one_rank_mesh_is_bit_identical_to_no_mesh():

@@ -35,7 +35,6 @@ import mxnet_tpu_torch
 _JAX = "the reference's jax machinery; the port's counterpart is torch's"
 _KEYS = ("jax's functional PRNG keys; the port draws from per-device "
          "torch generators (random.generator, GraphDraws) and Philox")
-_A6 = "queue A6 (multi-GPU: meshes, sharding, collectives)"
 _A7 = "queue A7 (serving tiers, migration and the fleet)"
 _A8 = "queue A8 (tools and analysis)"
 _A9 = "queue A9 (the long tail)"
@@ -46,7 +45,6 @@ MODULES = {
     "autograd.tape": "by design: torch's autograd records the tape",
     "ops._smap": "by design: jax's shard_map",
     "utils.platform": "by design: the TPU plugin's platform forcing",
-    "parallel.pipeline": _A6, "models.stacked": _A6,
     "serving.kv_tiers": _A7, "serving.migration": _A7, "fleet": _A7,
     "fleet.autoscaler": _A7, "fleet.directory": _A7, "fleet.policy": _A7,
     "fleet.replica": _A7, "fleet.router": _A7,
@@ -128,8 +126,6 @@ GAPS = {
     "_src.mesh.Mesh.*": _JAX, "sharding.NamedSharding.*": _JAX,
     "sharding.PartitionSpec.*": _JAX,
     "kvstore.KVStore.row_sparse_pull": _A9 + " (sparse storage)",
-    "parallel:gpipe": _A6,
-    "models:StackedGPT2Model": _A6, "models:get_stacked_gpt2": _A6,
     **{f"serving:{n}": _A7 for n in (
         "HostKVTier", "MIGRATION_SCHEMA_VERSION", "MigrationBundle",
         "TierHandle", "bundle_digest", "export_bundle", "verify_bundle")},

@@ -2,7 +2,9 @@
 
 Started by ``tools/launch.py -n N`` from a module-scoped fixture of
 ``tests/test_torch_parallel.py``, ``test_torch_ring_ulysses.py``,
-``test_torch_kvstore.py`` or ``test_torch_distributed.py``:
+``test_torch_kvstore.py``, ``test_torch_distributed.py``,
+``test_torch_tensor_parallel.py``, ``test_torch_expert_parallel.py`` or
+``test_torch_pipeline.py``:
 
     python tools/launch.py -n 4 python tests/torch_dist_worker.py SCENARIO DIR
 
@@ -55,19 +57,32 @@ def mlp_batches(n=MLP_STEPS, b=MLP_B, seed=5):
              rs.randint(0, 8, (b,)).astype("int32")) for _ in range(n)]
 
 
-def _gpt(params):
+def _gpt(params, **cfg):
     from mxnet_tpu_torch.models import get_gpt2
     from mxnet_tpu_torch.utils.convert import load_numpy_params
-    net = get_gpt2("gpt2_124m", device="cpu", **GPT_CFG)
+    net = get_gpt2("gpt2_124m", device="cpu", **dict(GPT_CFG, **cfg))
     # ranks seeded apart: shard_params must make them start equal
     net.initialize(seed=100 + par.rank())
     return load_numpy_params(net, params) if par.rank() == 0 else net
 
 
-def _train(out, tag, params, mesh, ckpt=None, **kw):
-    """GPT_STEPS Adam steps over the global batches on ``mesh``."""
+def _blocks(out, tag, net):
+    """Each parameter of ``net`` (this rank's block) and, for a block,
+    its slices of the whole parameter (``tag:slice:name``, (ndim, 2))."""
+    from mxnet_tpu_torch.parallel.sharding import global_shape, is_block
+    for n, p in net.named_parameters():
+        out[f"{tag}:param:{n}"] = p.detach().numpy()
+        if is_block(p):
+            out[f"{tag}:slice:{n}"] = np.array(
+                [[x.start, x.stop] for x in
+                 p._sharding.local_slices(global_shape(p))])
+
+
+def _train(out, tag, params, mesh, ckpt=None, net=None, probe=None, **kw):
+    """GPT_STEPS Adam steps over the global batches on ``mesh``
+    (``probe(i, net)`` after step i)."""
     from mxnet_tpu_torch.models import gpt2_lm_loss
-    net = _gpt(params)
+    net = _gpt(params) if net is None else net
     tr = par.ShardedTrainer(net, "adam", loss=gpt2_lm_loss, mesh=mesh,
                             optimizer_params={"learning_rate": GPT_LR},
                             **kw)
@@ -78,13 +93,14 @@ def _train(out, tag, params, mesh, ckpt=None, **kw):
             flags.append(bool(got[1]))
             got = got[0]
         losses.append(float(got))
+        if probe is not None:
+            probe(i, net)
         if ckpt is not None and i == 1:
             tr.save_checkpoint(ckpt, 2).wait_until_finished()
     out[f"{tag}:losses"] = np.array(losses)
     if flags:
         out[f"{tag}:flags"] = np.array(flags)
-    for n, p in net.named_parameters():
-        out[f"{tag}:param:{n}"] = p.detach().numpy()
+    _blocks(out, tag, net)
     out[f"{tag}:graphed"] = np.array(tr.stats()["graphed"])
     out[f"{tag}:shardings"] = np.array(
         [str(tuple(s.spec)) for s in tr.batch_shardings])
@@ -288,6 +304,151 @@ def scenario_dead_peer(out, d):
         out["raised"] = np.array(False)
     except Exception:
         out["raised"] = np.array(True)
+
+
+
+def scenario_tensor(out, d):
+    """Tensor parallelism on 4 ranks: GPT-2 at dp 2 x tp 2 (a checkpoint
+    at step 2), at tp 2 x sp 2 through the ring and Ulysses, with
+    dropout (the replicated parameters of a tp line stay equal), the MLP
+    at dp 2 x tp 2, and the vocabulary-parallel loss at tp 4."""
+    from mxnet_tpu_torch import random as trandom
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.models import gpt2_lm_loss
+    from mxnet_tpu_torch.utils.convert import load_numpy_params
+    params = dict(np.load(os.path.join(d, "params.npz")))
+    r = par.rank()
+    out["mesh:inferred_dp"] = np.array(par.axis_size(par.make_mesh(tp=2),
+                                                     "dp"))
+    try:
+        par.make_mesh(tp=3)
+    except mx.base.MXNetError as e:
+        out["mesh:tp3"] = np.array(str(e))
+    dptp = par.make_mesh(dp=2, tp=2)
+    _train(out, "dp2tp2", params, dptp, ckpt=os.path.join(d, "ckpt"))
+    tpsp = par.make_mesh(dp=1, sp=2, tp=2)
+    for mode in ("ring", "ulysses"):
+        os.environ["MXNET_TPU_SEQ_PARALLEL"] = mode
+        _train(out, f"tp2sp2_{mode}", params, tpsp, seq_axis=1)
+    os.environ.pop("MXNET_TPU_SEQ_PARALLEL")
+    # dropout: each rank's generator seeded apart; the trainer aligns the
+    # tp lines' generators, so the masks on shared activations agree
+    trandom.seed(1000 + r)
+    _train(out, "dropout", params, dptp, net=_gpt(params, dropout=0.1))
+    # the MLP: unannotated, so replicated along tp
+    mlp = dict(np.load(os.path.join(d, "mlp.npz")))
+    with mx.cpu():
+        net = nn.HybridSequential()
+        net.add(nn.Dense(32, activation="relu", in_units=16),
+                nn.Dense(8, in_units=32))
+        net.initialize(seed=r)
+        if r == 0:
+            load_numpy_params(net, mlp)
+        tr = par.ShardedTrainer(
+            net, "sgd", loss=lambda o, y: ((o - y) ** 2).mean(),
+            optimizer_params={"learning_rate": 0.1}, mesh=dptp)
+        x, y = (np.load(os.path.join(d, f"mlp_{k}.npy")) for k in "xy")
+        out["mlp:loss"] = np.array(float(tr.step(x, y)))
+        _blocks(out, "mlp", net)
+    # the loss of a rank's vocabulary block at tp = 4
+    tp4 = par.make_mesh(dp=1, tp=4)
+    logits = np.load(os.path.join(d, "logits.npy"))
+    labels = np.load(os.path.join(d, "labels.npy"))
+    v = logits.shape[-1] // 4
+    blk = torch.tensor(logits[..., r * v:(r + 1) * v]).requires_grad_()
+    marked = par.sharding.mark_local_shard(
+        blk * 1.0, par.NamedSharding(tp4, par.PartitionSpec("dp", "sp",
+                                                            "tp")))
+    loss = gpt2_lm_loss(marked, torch.tensor(labels))
+    loss.backward()
+    out["vocab:loss"] = loss.detach().numpy()
+    out["vocab:grad"] = blk.grad.numpy()
+
+
+
+MOE_CFG = dict(num_experts=4, moe_every=2, moe_top_k=2,
+               moe_capacity_factor=1.0)
+
+
+def _moe_probe(i, net, out, tag):
+    """Each MoE layer's aux loss and dropped share at step ``i`` and its
+    kept (token, choice) pairs at the first step."""
+    from mxnet_tpu_torch.models.moe import MoETransformerBlock
+    for j, blk in enumerate(net.blocks):
+        if isinstance(blk, MoETransformerBlock):
+            out[f"{tag}:aux{j}:{i}"] = blk.moe.last_aux.numpy()
+            out[f"{tag}:dropped{j}:{i}"] = blk.moe.last_dropped.numpy()
+            if i == 0:
+                out[f"{tag}:kept{j}"] = blk.moe._last_kept.numpy()
+
+
+def scenario_expert(out, d):
+    """The routed GPT-2 on 4 ranks: at dp 2 (ranks 0 and 1; global
+    routing) and at ep 2 x tp 2."""
+    params = dict(np.load(os.path.join(d, "params.npz")))
+    r = par.rank()
+    dp2 = par.make_mesh(dp=2, devices=[0, 1])
+    eptp = par.make_mesh(dp=1, ep=2, tp=2)
+    if r < 2:
+        _train(out, "dp2", params, dp2, net=_gpt(params, **MOE_CFG),
+               probe=lambda i, net: _moe_probe(i, net, out, "dp2"))
+    _train(out, "ep2tp2", params, eptp, net=_gpt(params, **MOE_CFG),
+           probe=lambda i, net: _moe_probe(i, net, out, "ep2tp2"))
+
+
+STACKED_CFG = dict(vocab_size=64, units=32, num_layers=4, num_heads=4,
+                   max_length=32)
+
+
+def _stage(p, x):
+    w, b = p
+    return torch.tanh(x @ w + b)
+
+
+def scenario_pipeline(out, d):
+    """GPipe on 4 ranks at pp 4 and at dp 2 x pp 2 (outputs and
+    gradients, and the microbatching error), the stacked GPT-2 at dp 2 x
+    pp 2: the piped forward and 3 Adam steps."""
+    from mxnet_tpu_torch.models import get_stacked_gpt2
+    r = par.rank()
+    g = dict(np.load(os.path.join(d, "gpipe.npz")))
+    for tag, kw in (("pp4", dict(dp=1, pp=4)), ("dp2pp2", dict(dp=2,
+                                                               pp=2))):
+        mesh = par.make_mesh(**kw)
+        p = kw["pp"]
+        ws = torch.tensor(g[f"ws{p}"]).requires_grad_()
+        bs = torch.tensor(g[f"bs{p}"]).requires_grad_()
+        rows = par.NamedSharding(mesh, par.PartitionSpec("dp")).local_slices(
+            g["x"].shape)
+        x = torch.tensor(g["x"][rows]).requires_grad_()
+        with par.use_mesh(mesh):
+            y = par.gpipe(_stage, (ws, bs), x, num_microbatches=2)
+        (y ** 2).sum().backward()
+        out[f"{tag}:y"] = y.detach().numpy()
+        out[f"{tag}:rows"] = np.array([rows[0].start, rows[0].stop])
+        out[f"{tag}:dws"] = ws.grad.numpy()
+        out[f"{tag}:dbs"] = bs.grad.numpy()
+        out[f"{tag}:dx"] = x.grad.numpy()
+        try:
+            with par.use_mesh(mesh):
+                par.gpipe(_stage, (ws, bs), x[:3], num_microbatches=2)
+            out[f"{tag}:error"] = np.array("")
+        except ValueError as e:
+            out[f"{tag}:error"] = np.array(str(e))
+    params = dict(np.load(os.path.join(d, "stacked.npz")))
+    mesh = par.make_mesh(dp=2, pp=2)
+    net = get_stacked_gpt2("gpt2_124m", device="cpu", **STACKED_CFG)
+    net.initialize(seed=100 + r)
+    if r == 0:
+        from mxnet_tpu_torch.utils.convert import load_numpy_params
+        load_numpy_params(net, params)
+    par.shard_params(net, mesh)
+    x, _y = batches()[0]
+    rows = par.NamedSharding(mesh, par.PartitionSpec("dp")).local_slices(
+        x.shape)
+    with par.use_mesh(mesh), torch.no_grad():
+        out["stacked:logits"] = net(torch.tensor(x[rows])).numpy()
+    _train(out, "stacked", params, mesh, net=net)
 
 
 def launch(n, scenario, d, timeout=300, dist_timeout=120):
