@@ -250,16 +250,17 @@ Phases (any failure exits non-zero and prints no result line):
    next finite replay updates.  (e) GPT-2 at dropout 0.1 under remat,
    learning rate 0: replays draw new masks, the recomputation draws its
    forward's (B1 24 a step), a reseeded run repeats the losses.
-17. Resilient training at full width: phase 4's GPT-2 124M step under
+17. Resilient training at full width, ``RES_LAYERS`` of the depth:
+   phase 4's GPT-2 124M step under
    amp (B1-B3 in bf16), guarded with the dynamic loss scaler, dropout
-   0.1, driven by ``ResilientLoop`` (12 seeded batches, a commit every
+   0.1, driven by ``ResilientLoop`` (8 seeded batches, a commit every
    4, two kept, in a temporary directory the phase removes).  (a) The
    fault-free run under a tracer: its spans (``loop.step``,
    ``trainer.step``, ``checkpoint.save``, ``checkpoint.commit``), each
    commit's bytes and ms (snapshot to the host, write with its digest,
    rename), B1/B2/B3 12 a step from replays; then ms/step of the bare
-   trainer against the loop with tracing off and on, in turns (no
-   commit inside the timed arms).  (b) A
+   trainer against the loop with tracing off and on, in turns (the
+   timed arms' loops write no commit).  (b) A
    ``FaultPlan`` kills at three ``trainer.step`` hits and at one commit
    and raises one retried fault; a fresh trainer and loop resume after
    each kill, and parameters, optimizer state, loss scale, finite-step
@@ -273,7 +274,7 @@ Phases (any failure exits non-zero and prints no result line):
    ends bit-identical to (a).  (f) The registry's Prometheus text, a
    flight-recorder bundle with the card's facts, and a torch.profiler
    trace of one replayed step with the spans as ranges
-   (``span:trainer.step``, 12/12/12 B1-B3 records).
+   (``span:trainer.step``, ``RES_LAYERS`` B1-B3 records each).
 18. The hardened serving engine at full width: phase 3's engine,
    prompts and 32 new tokens, its lattice cut to the B8 x T512 point
    (``HARD_LATTICE``), graphs captured by ``warmup()``.  (a) The NaN
@@ -325,11 +326,12 @@ Phases (any failure exits non-zero and prints no result line):
    source's host images/s alone, bytes shipped a step, and from one
    profiled step the host-to-device copies' µs and how many of them ran
    beside the step's kernels.  No kernel of the port launches in (b).
-20. Data- and sequence-parallel training, GPT-2 124M at full width,
-   float32 unless named.  The card host has one H100 and NCCL refuses
-   two ranks on one device, so a real collective runs as two ranks on
-   the one card over gloo (``tools/launch.py -n 2`` starts this script
-   with ``--phase20-rank``; gloo stages CUDA tensors through pinned host
+20. Data- and sequence-parallel training, GPT-2 124M at full width
+   ((b) and (c) at ``PAR_LAYERS`` of its depth), float32 unless named.
+   The card host has one H100 and NCCL refuses two ranks on one device,
+   so a real collective runs as two ranks on the one card over gloo
+   (``tools/launch.py -n 2`` starts this script with
+   ``--phase20-rank``; gloo stages CUDA tensors through pinned host
    memory), and a one-rank mesh runs under NCCL.  (a) ``ShardedTrainer(
    mesh=make_mesh(dp=1))`` under a one-rank NCCL group, amp, 16 x 1024:
    graphed, its losses bit-identical to ``mesh=None``'s over
@@ -363,15 +365,46 @@ Phases (any failure exits non-zero and prints no result line):
    process, its axis's collectives' host seconds and share of the step,
    the bytes staged a step.  (d) is phase 2's: B1-B3 at the tp rank's
    shape (``parallel_shapes``) against their plain versions.
-22. A ``{"kernels": [...]}`` line, the card line again, and the last
+22. Sharded serving and BERT / NMT under tensor parallelism, two gloo
+   ranks on the card (``tools/launch.py -n 2`` starts this script with
+   ``--phase22-rank``), float32.  (a) GPT-2 124M with ``PAR_VOCAB`` at
+   tp = 2 (every rank seeded alike): ``InferenceEngine(mesh=2)`` on each
+   rank, rank 0 scheduling, 8 slots, the lattice cut to phase 3's one
+   point (``HARD_LATTICE``), the paged gather arm then the dense layout;
+   phase 3's prompts and 32 new tokens, request ``SHARD_SAMPLED_ROW``
+   sampled (``SHARD_SAMPLED``).  Gates: every stream token-identical to a
+   one-process engine's on the same weights, the compile count frozen
+   after ``warmup()`` at mesh point ``2dev:tp=2``, B1 launched on each
+   rank and B4 not.  Printed: tokens/s and TTFT p50 of that window;
+   then, from a second window of other prompts with each program call
+   synchronized on rank 0, its tokens/s, bytes staged and the
+   collectives' share (the layers' and the plans') over the decode
+   steps.  Then a one-rank NCCL mesh engine, graphed, against
+   ``mesh=None``: streams bit-identical.  (b) BERT-large at tp = 2,
+   phase 11's batch without ``valid_length``, dropout 0, Adam at
+   ``SHARD_BERT_LR``; (c) Transformer-big with one shared vocabulary of
+   ``NMT_VOCAB`` at tp = 2, phase 12's batch, Adam at ``NMT_LR``; each
+   ``DP_STEPS`` steps against one process from rank 0's weights (rank 1
+   seeded apart): losses (``TOL_LOSS``), every rank's blocks
+   (``TOL_SHARD_PARAM``, or phase 20's 2 * lr a step where tighter) and
+   each parameter's travel from its start (``TOL_SHARD_TRAVEL``),
+   B1-B3 a rank a step (``SHARD_LAUNCHES``); then
+   (c)'s greedy ``translate`` of ``SHARD_SOURCES`` sources on both
+   ranks against the one-process net's: token-identical, or split only
+   where the one-process net's own logits tie within ``TOL_GREEDY``
+   (printed with the margin).
+23. A ``{"kernels": [...]}`` line, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.  ``launches_by_path`` holds
    every phase's launches (``bert``, ``bert_amp``, ``nmt``, ``lstm``,
    ``ops``, phase 16's graphed arms ``hybrid_bert_amp``,
    ``graph_train``, ``graph_amp`` and ``graph_vision``, phase 17's
    fault-free run ``resilient``, phase 18's ``hardened`` and phase 19's
    ``data`` among them, phase 20's ``parallel_ring`` /
-   ``parallel_ulysses`` and phase 21's ``parallel_tp`` / ``parallel_ep``
-   / ``parallel_pp``, rank 0's over its steps); the flash kernels carry
+   ``parallel_ulysses``, phase 21's ``parallel_tp`` / ``parallel_ep``
+   / ``parallel_pp`` and phase 22's ``sharded_serve`` /
+   ``parallel_bert`` / ``parallel_nmt``, rank 0's over its steps); the
+   seconds of every phase are printed and written to
+   ``chiprun_out/chip_smoke_phases.json``; the flash kernels carry
    their numbers at phases 11-12's shapes and phase 21's tp shape
    (``shapes``), phase 12's launches by attention and the
    cross-attention call's times.  B2's ring modes are
@@ -630,12 +663,19 @@ GUARD_B, DROP_B = 4, 4
 # amp, guarded with the dynamic loss scaler, at dropout 0.1 (so the
 # per-step reseed must reach the generator every captured graph
 # registered), driven by ResilientLoop over RES_STEPS seeded batches, a
-# commit every RES_SAVE steps (two kept), reseeded from RES_SEED
-RES_STEPS, RES_SAVE, RES_SEED, RES_DROPOUT = 12, 4, 7, 0.1
+# commit every RES_SAVE steps (two kept), reseeded from RES_SEED.  The
+# kill and rot schedules of (b) and (d) are written for RES_STEPS = 2 *
+# RES_SAVE (each 1.49 GB commit costs 3-5 s)
+RES_STEPS, RES_SAVE, RES_SEED, RES_DROPOUT = 8, 4, 7, 0.1
+# GPT-2 124M's widths at RES_LAYERS of its 12 layers: a commit of its
+# state (0.81 GB against 1.49) and a capture each fresh trainer makes
+# cost less, and the phase keeps every part
+RES_LAYERS = 4
 RES_SCALE = 2.0 ** 16
 # (a)'s timing: the bare trainer and the loop with tracing off and on,
-# RES_TIMED steps each, in turns over RES_ROUNDS rounds, no commit
-# inside them (17a's run commits RES_STEPS // RES_SAVE times)
+# RES_TIMED steps each, in turns over RES_ROUNDS rounds; a timed loop's
+# closing commit is not written (17a's run commits RES_STEPS // RES_SAVE
+# times)
 RES_TIMED, RES_ROUNDS = 5, 2
 
 
@@ -676,10 +716,42 @@ RING_BLOCK = (SP_B, 256, 12, 64)
 PAR_B, PAR_VOCAB, PAR_MICRO = 8, 50304, 4
 PAR_PARTS = (("tp2", "tp"), ("ep2", "ep"), ("pp2", "pp"))
 TOL_PAR_LOGITS = 1e-5
+# phase 20 (b) and (c) run GPT-2 124M's widths at PAR_LAYERS of its 12
+# layers: gloo's host staging, most of their time, grows with depth, and
+# the cut keeps the script inside its time.  Phase 21 keeps the 12: at 6
+# its routed part split one token's route at step 3 (a near-tie of
+# float32 rounding under an exact gate on the dropped shares; PERF.md)
+PAR_LAYERS = 6
 # B1, B2, B3 a rank a step: (a) 12 layers of 6 heads; (b) 12 layers;
 # (c) 6 layers x 4 microbatches, B1 again in remat's recomputation
 PAR_LAUNCHES = {"tp2": [12, 12, 12], "ep2": [12, 12, 12],
                 "pp2": [48, 24, 24]}
+# phase 22: (a)'s layouts, new tokens and the sampled request; (c)'s
+# translate: sources of SHARD_SRC_T tokens, at most SHARD_MAX_LEN out;
+# B1, B2, B3 a rank a step of (b) (24 layers, no remat) and (c) (6
+# encoder, 6 decoder self- and 6 cross-attention layers); parameters
+# held as phase 20 holds them, at (b)'s and (c)'s learning rate
+SHARD_LAYOUTS = ("paged", "dense")
+SHARD_NEW = 32
+SHARD_SAMPLED_ROW, SHARD_SAMPLED = 1, dict(temperature=0.8, top_k=50, seed=5)
+SHARD_SOURCES, SHARD_SRC_T, SHARD_MAX_LEN = 4, 64, 16
+SHARD_LAUNCHES = {"bert": [24, 24, 24], "nmt": [18, 18, 18]}
+# (b)'s learning rate: at phase 11's 1e-4, Adam's sign-like first steps
+# turn float32's rounding into a loss that is 4.3e-05 from float64 after
+# 3 steps on one process (tools/tp_loss_noise.py), above TOL_LOSS, so no
+# two float32 runs can be held to it; at 1e-5 the one-process run stays
+# within it (PERF.md).  Parameters are held to TOL_SHARD_PARAM, or
+# as phase 20 holds them (2 * lr a step) where that is tighter
+SHARD_BERT_LR = 1e-5
+TOL_SHARD_PARAM = 1e-4
+# at lr 1e-5 that max-abs gate is twice what Adam moves a parameter in
+# 3 steps, so it passes a block the step never updated; each parameter's
+# travel from its start is held to the one process's as well (relative
+# L2: 1.0 for a parameter left unchanged), but for the key projection's
+# bias: softmax ignores a shift shared by every key, so its gradient is
+# rounding alone, which Adam turns into steps of lr in any direction
+TOL_SHARD_TRAVEL = 0.1
+NO_GRADIENT = ("k_proj.bias",)
 DATA_IMG = 256
 DATA_MEAN = (123.68, 116.779, 103.939)
 DATA_STD = (58.393, 57.12, 57.375)
@@ -4554,7 +4626,8 @@ def res_trainer(mx):
     the caller's ``amp.init``)."""
     from mxnet_tpu_torch.models import get_gpt2, gpt2_lm_loss
     from mxnet_tpu_torch.parallel import ShardedTrainer
-    net = get_gpt2("gpt2_124m", dropout=RES_DROPOUT).initialize(seed=SEED)
+    net = get_gpt2("gpt2_124m", dropout=RES_DROPOUT,
+                   num_layers=RES_LAYERS).initialize(seed=SEED)
     return ShardedTrainer(net, "adam", loss=gpt2_lm_loss,
                           optimizer_params={"learning_rate": TRAIN_LR},
                           guard_nonfinite=True,
@@ -4562,14 +4635,19 @@ def res_trainer(mx):
                                                         2000))
 
 
-def res_loop(tr, directory, commits=None, save_every=RES_SAVE, **kw):
+def res_loop(tr, directory, commits=None, save_every=RES_SAVE, write=True,
+             **kw):
     """A ResilientLoop over ``tr``; with ``commits`` (a list), each
     commit's bytes and seconds by phase (the checkpointer's
-    ``last_save``) and the whole save's seconds are appended to it."""
+    ``last_save``) and the whole save's seconds are appended to it.
+    ``write=False`` (17a's timed arms) saves nothing: their ms/step
+    leaves the commits out, and nothing reads their directories."""
     from mxnet_tpu_torch.resilience import ResilientLoop
     loop = ResilientLoop(tr, directory, save_every=save_every,
                          seed=RES_SEED, max_to_keep=2, backoff=0.0, **kw)
-    if commits is not None:
+    if not write:
+        loop.checkpointer.save = lambda step, tree, meta=None: None
+    elif commits is not None:
         ck = loop.checkpointer
         save = ck.save
 
@@ -4638,7 +4716,8 @@ def res_reference(torch, mx, card, root):
           f"[{card}]", flush=True)
     print(f"  17a commits: {commit_line(commits)} [{card}]", flush=True)
     # a fresh trainer warms its step up once before the capture
-    expect_launches(by_dtype, dict.fromkeys(RES_FLASH, 12 * (RES_STEPS + 1)),
+    expect_launches(by_dtype,
+                    dict.fromkeys(RES_FLASH, RES_LAYERS * (RES_STEPS + 1)),
                     "17a", dtype="bfloat16")
     counts = {n: spans.count(n) for n in ("loop.step", "trainer.step",
                                           "checkpoint.save",
@@ -4659,7 +4738,8 @@ def res_timing(torch, card, tr, root):
     loop, one sync at the end) against ``ResilientLoop`` with tracing
     off and on (which reads each step's finite flag), RES_TIMED steps an
     arm, in turns; a loop arm does not commit (17a's run times the
-    commits).  Each arm launches B1-B3 12 times a step from replays."""
+    commits).  Each arm launches B1-B3 RES_LAYERS times a step from
+    replays."""
     from mxnet_tpu_torch import observability as obs
     arms = {"bare": [], "loop": [], "loop+trace": []}
     order = list(arms)
@@ -4676,14 +4756,14 @@ def res_timing(torch, card, tr, root):
                         tr.step(x, y)
                 else:
                     res_loop(tr, f"{root}/t{rnd}{arm}", commits,
-                             save_every=RES_TIMED + 1).run(res_batches,
-                                                           RES_TIMED)
+                             save_every=RES_TIMED + 1,
+                             write=False).run(res_batches, RES_TIMED)
                 torch.cuda.synchronize()
                 wall = time.monotonic() - t0
             finally:
                 obs.disable_tracing()
             expect_launches(read_launches_by_dtype(),
-                            dict.fromkeys(RES_FLASH, 12 * RES_TIMED),
+                            dict.fromkeys(RES_FLASH, RES_LAYERS * RES_TIMED),
                             f"17a {arm}", dtype="bfloat16")
             spent = wall - sum(r["total_s"] for r in commits)
             ms = spent / RES_TIMED * 1e3
@@ -4701,7 +4781,8 @@ def res_timing(torch, card, tr, root):
 def res_observability(torch, card, tr, root):
     """17f: the registry's Prometheus text, a flight-recorder bundle, and
     a torch.profiler trace of one replayed step with the spans as
-    ranges: the ``trainer.step`` range and 12/12/12 B1-B3 records."""
+    ranges: the ``trainer.step`` range and RES_LAYERS of each of B1-B3's
+    records."""
     from mxnet_tpu_torch import observability as obs
     text = obs.to_prometheus(obs.default_registry().collect())
     parsed = obs.parse_prometheus(text)
@@ -4736,20 +4817,25 @@ def res_observability(torch, card, tr, root):
     res_gate(f"17f profiled replay ({wall_ms:.1f} ms): span:trainer.step "
              f"ranges {ranges}, B1-B3 records {seen}",
              ranges.get("CPU") == 1
-             and seen == dict.fromkeys(RES_FLASH, 12))
+             and seen == dict.fromkeys(RES_FLASH, RES_LAYERS))
 
 
 def res_chaos(torch, mx, card, root, want, want_loss):
     """17b: kills at three distinct ``trainer.step`` hits and one at the
     commit, and a retried fault; a fresh trainer and loop resume after
-    each kill, and the run ends bit-identical to 17a."""
+    each kill, and the run ends bit-identical to 17a.  For RES_STEPS = 8,
+    RES_SAVE = 4 (hits count over every run): the first run commits step
+    4 and dies at step 6 (hit 6); the next two resume from 4 and die at
+    step 6 again (hits 8, 10); the fourth runs steps 5-8 and dies in the
+    step-8 commit (the commit's hit 2); the fifth retries step 6 once
+    (hit 16) and commits step 8."""
     from mxnet_tpu_torch.resilience import FaultPlan, SimulatedPreemption
     plan = (FaultPlan(seed=0)
-            .kill_at("trainer.step", at=6)
-            .kill_at("trainer.step", at=11)
-            .kill_at("trainer.step", at=14)
-            .kill_at("checkpoint.commit", at=3)
-            .raise_at("trainer.step", at=20, retryable=True))
+            .kill_at("trainer.step", at=RES_SAVE + 2)
+            .kill_at("trainer.step", at=RES_SAVE + 4)
+            .kill_at("trainer.step", at=RES_SAVE + 6)
+            .kill_at("checkpoint.commit", at=2)
+            .raise_at("trainer.step", at=3 * RES_SAVE + 4, retryable=True))
     kills, report, loop, commits = 0, None, None, []
     with plan:
         for _ in range(8):
@@ -4861,14 +4947,16 @@ def res_poison(torch, mx, card, root):
 
 
 def res_rot(torch, mx, card, root, want, want_loss):
-    """17d: bit rot in the step-8 commit, then a kill at step 9: the
-    resume quarantines step 8, falls back to step 4, and the run ends
-    bit-identical to 17a."""
+    """17d: a commit every ``every = RES_SAVE - 1`` steps (3 and 6 of 8),
+    bit rot in the second, then a kill at step 7: the resume quarantines
+    step 6, falls back to step 3, and the run ends bit-identical to
+    17a."""
     from mxnet_tpu_torch.resilience import FaultPlan, SimulatedPreemption
+    every = RES_SAVE - 1
     plan = (FaultPlan().corrupt_at("checkpoint.corrupt", at=2)
-            .kill_at("trainer.step", at=2 * RES_SAVE + 2))
+            .kill_at("trainer.step", at=2 * every + 1))
     with plan:
-        loop = res_loop(res_trainer(mx), f"{root}/d")
+        loop = res_loop(res_trainer(mx), f"{root}/d", save_every=every)
         try:
             loop.run(res_batches, RES_STEPS)
             killed = False
@@ -4876,16 +4964,16 @@ def res_rot(torch, mx, card, root, want, want_loss):
             killed = True
         loop = None
         free(torch)
-        loop = res_loop(res_trainer(mx), f"{root}/d")
+        loop = res_loop(res_trainer(mx), f"{root}/d", save_every=every)
         report = loop.run(res_batches, RES_STEPS)
     c = loop.metrics.counters
     differ = res_differ(torch, res_state(loop.trainer), want)
-    res_gate(f"17d rot at the step-{2 * RES_SAVE} commit: resumed from "
+    res_gate(f"17d rot at the step-{2 * every} commit: resumed from "
              f"{report['resumed_from']}, quarantines "
              f"{c['checkpoint_quarantines']}, fallbacks "
              f"{c['checkpoint_fallbacks']} ({loop.checkpointer.quarantined()}"
              f"), bit-identical to 17a",
-             killed and report["resumed_from"] == RES_SAVE
+             killed and report["resumed_from"] == every
              and c["checkpoint_quarantines"] == 1
              and c["checkpoint_fallbacks"] == 1 and not differ
              and report["final_loss"] == want_loss,
@@ -4931,7 +5019,8 @@ def resilient_path(torch, card):
     import mxnet_tpu_torch as mx
     t_phase = time.monotonic()
     root = tempfile.mkdtemp(prefix="mxtpu-phase17-")
-    print(f"17 GPT-2 124M amp, guarded, dropout {RES_DROPOUT}, under "
+    print(f"17 GPT-2 124M's widths at {RES_LAYERS} layers, amp, guarded, "
+          f"dropout {RES_DROPOUT}, under "
           f"ResilientLoop: {RES_STEPS} steps of {TRAIN_B} x {TRAIN_T}, a "
           f"commit every {RES_SAVE}, seed {RES_SEED}:", flush=True)
     mx.amp.init("bfloat16")
@@ -5931,7 +6020,8 @@ def phase20_rank(part, d) -> int:
     if part == "dp2":
         # rank 1 seeded apart: the trainer's broadcast starts it from
         # rank 0's weights
-        net = get_gpt2("gpt2_124m", dropout=0.0).initialize(
+        net = get_gpt2("gpt2_124m", dropout=0.0,
+                       num_layers=PAR_LAYERS).initialize(
             seed=SEED if r == 0 else SEED + 1)
         tr = par.ShardedTrainer(net, "adam", loss=gpt2_lm_loss,
                                 optimizer_params={"learning_rate":
@@ -5977,7 +6067,8 @@ def phase20_rank(part, d) -> int:
         y = torch.as_tensor(labels[:SP_B, r * t:(r + 1) * t]).cuda()
         for mode in ("ring", "ulysses"):
             os.environ["MXNET_TPU_SEQ_PARALLEL"] = mode
-            net = get_gpt2("gpt2_124m", dropout=0.0).initialize(seed=SEED)
+            net = get_gpt2("gpt2_124m", dropout=0.0,
+                           num_layers=PAR_LAYERS).initialize(seed=SEED)
             params = list(net.parameters())
             reset_launches()
             coll.reset_stats()
@@ -6080,7 +6171,8 @@ def parallel_path(torch, card):
         # (b) dp = 2 against one process
         ranks = launch_ranks("dp2", d)
         toks, labels = train_batch()
-        net = get_gpt2("gpt2_124m", dropout=0.0).initialize(seed=SEED)
+        net = get_gpt2("gpt2_124m", dropout=0.0,
+                       num_layers=PAR_LAYERS).initialize(seed=SEED)
         tr = ShardedTrainer(net, "adam", loss=gpt2_lm_loss,
                             optimizer_params={"learning_rate": TRAIN_LR})
         one, one_ms = [], []
@@ -6106,7 +6198,8 @@ def parallel_path(torch, card):
         del net, tr, dp2
         free(torch)
         # the step-2 checkpoint, loaded by one process, continues the run
-        net = get_gpt2("gpt2_124m", dropout=0.0).initialize(seed=SEED + 2)
+        net = get_gpt2("gpt2_124m", dropout=0.0,
+                       num_layers=PAR_LAYERS).initialize(seed=SEED + 2)
         tr = ShardedTrainer(net, "adam", loss=gpt2_lm_loss,
                             optimizer_params={"learning_rate": TRAIN_LR})
         tr.build(toks, labels)
@@ -6127,7 +6220,8 @@ def parallel_path(torch, card):
               flush=True)
         # (c) sp = 2: ring, then Ulysses, against one process
         ranks = launch_ranks("sp2", d)
-        net = get_gpt2("gpt2_124m", dropout=0.0).initialize(seed=SEED)
+        net = get_gpt2("gpt2_124m", dropout=0.0,
+                       num_layers=PAR_LAYERS).initialize(seed=SEED)
         x = torch.as_tensor(toks[:SP_B]).cuda()
         y = torch.as_tensor(labels[:SP_B]).cuda()
         reset_launches()
@@ -6389,6 +6483,455 @@ def parallel_models_path(torch, card):
     return by_path
 
 
+# -------------------- phase 22: sharded serving, BERT and NMT under tp
+
+def shard_gpt2():
+    """(a)'s GPT-2 124M with nanoGPT's vocabulary, seeded alike on every
+    rank (the engine's ranks must hold the same weights)."""
+    from mxnet_tpu_torch.models import get_gpt2
+    return get_gpt2("gpt2_124m", vocab_size=PAR_VOCAB,
+                    dropout=0.0).initialize(seed=SEED)
+
+
+def shard_engine(net, layout, **kw):
+    from mxnet_tpu_torch.serving import InferenceEngine
+    paged = dict(kv_layout="paged", page_size=16,
+                 paged_attention="gather") if layout == "paged" else {}
+    return InferenceEngine(net, num_slots=8, max_batch=8, **HARD_LATTICE,
+                           **paged, **kw)
+
+
+def shard_requests(eng, prompts):
+    """Phase 3's prompts through ``eng`` (started): the streams."""
+    futs = [eng.submit(p, max_new_tokens=SHARD_NEW,
+                       **(SHARD_SAMPLED if i == SHARD_SAMPLED_ROW else {}))
+            for i, p in enumerate(prompts)]
+    return [f.result(600) for f in futs]
+
+
+def shard_lang_net(kind):
+    """(b)'s BERT-large with the pretraining heads, taking no
+    ``valid_length`` (every row full: the flash path), or (c)'s
+    Transformer-big with one shared vocabulary; not initialized."""
+    from mxnet_tpu_torch.gluon.block import HybridBlock
+    from mxnet_tpu_torch.models import BERTForPretrain, get_bert, get_nmt
+    if kind == "nmt":
+        return get_nmt("transformer_big", src_vocab_size=NMT_VOCAB,
+                       shared_embed=True, dropout=0.0)
+
+    class FullRows(HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.bert = BERTForPretrain(get_bert(
+                "bert_large", vocab_size=BERT_VOCAB, max_length=BERT_T,
+                dropout=0.0))
+
+        def forward(self, tokens, types, positions):
+            return self.bert(tokens, types, None, positions)
+    return FullRows()
+
+
+def shard_lang_step(kind):
+    """(data, labels, loss, learning rate) of (b) or (c)."""
+    from mxnet_tpu_torch.models import nmt_loss
+    if kind == "nmt":
+        src, tgt, labels = nmt_batch()
+        return (src, tgt), (labels,), nmt_loss, NMT_LR
+    toks, types, _vlen, pos, mlm, nsp = bert_batch()
+    return (toks, types, pos), (mlm, nsp), bert_loss, SHARD_BERT_LR
+
+
+def shard_sources():
+    rs = np.random.RandomState(SEED + 1)
+    return rs.randint(0, NMT_VOCAB, (SHARD_SOURCES, SHARD_SRC_T)) \
+        .astype(np.int32)
+
+
+def staged_bytes(st) -> int:
+    return st.get("staged_bytes_d2h", 0) + st.get("staged_bytes_h2d", 0)
+
+
+def per_program(torch, eng, rows):
+    """Wrap ``eng._call``: each program call's wall (synchronized), the
+    bytes its collectives staged, and the host seconds of those
+    collectives and of the plan exchange, summed by program into
+    ``rows[kind] = [calls, wall s, bytes, collective s]``."""
+    from mxnet_tpu_torch.parallel import collectives as coll
+    call = eng._call
+
+    def timed(key, fn, *args, count=True):
+        st0, p0 = coll.stats(), eng._mesh.plans["seconds"]
+        t0 = time.monotonic()
+        res = call(key, fn, *args, count=count)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        st1 = coll.stats()
+        secs = sum(st1.get(k, 0) - st0.get(k, 0) for k in st1
+                   if k.startswith("seconds:"))
+        row = rows.setdefault(key[0], [0, 0.0, 0, 0.0])
+        row[0] += 1
+        row[1] += wall
+        row[2] += staged_bytes(st1) - staged_bytes(st0)
+        row[3] += secs + eng._mesh.plans["seconds"] - p0
+        return res
+    eng._call = timed
+
+
+def shard_serve_rank(torch, r, out):
+    """(a) on one rank: each layout's engine over tp = 2."""
+    from mxnet_tpu_torch.parallel import collectives as coll
+    net = shard_gpt2()
+    prompts = make_prompts()
+    for layout in SHARD_LAYOUTS:
+        eng = shard_engine(net, layout, mesh=2, name=f"shard_{layout}")
+        n_warm = eng.warmup()
+        torch.cuda.synchronize()
+        reset_launches()
+        rows = {}
+        with eng:
+            if not eng._follower:
+                # the engine as it runs: tokens/s and TTFT
+                t0 = time.monotonic()
+                outs = shard_requests(eng, prompts)
+                wall = time.monotonic() - t0
+                s = eng.stats()
+                # its own window, each program call synchronized: the
+                # breakdown by program (other prompts: no prefix hits)
+                coll.reset_stats()
+                per_program(torch, eng, rows)
+                t0 = time.monotonic()
+                shard_requests(eng, [(p + 1) % VOCAB for p in prompts])
+                wall2 = time.monotonic() - t0
+                s2 = eng.stats()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        out[f"{layout}:launches"] = np.array([launches[n]
+                                              for n in KERNELS])
+        if r == 0:
+            c = s["counters"]
+            dec = rows.get("decode", [0, 0.0, 0, 0.0])
+            for i, o in enumerate(outs):
+                out[f"{layout}:out{i}"] = o
+            out[f"{layout}:numbers"] = np.array([
+                c["tokens_generated"] / wall,
+                s["latency"]["ttft"]["p50"] * 1e3, *dec,
+                s2["plans"]["sent"] - s["plans"]["sent"],
+                s2["plans"]["bytes"] - s["plans"]["bytes"],
+                (s2["counters"]["tokens_generated"]
+                 - c["tokens_generated"]) / wall2])
+            out[f"{layout}:programs"] = np.array(json.dumps(rows))
+            out[f"{layout}:compile"] = np.array(json.dumps(
+                [n_warm, s["compile"], s["mesh"]]))
+        print(f"  22a {layout} rank {r}: warm-up programs {n_warm}, "
+              f"launches {launches}", flush=True)
+        del eng
+        free(torch)
+    del net
+    free(torch)
+
+
+def shard_train_rank(torch, kind, r, d, out):
+    """(b) or (c) on one rank: DP_STEPS steps at tp = 2 (rank 1 seeded
+    apart), then (c)'s translate."""
+    import os
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch.parallel import collectives as coll
+    from mxnet_tpu_torch.parallel.sharding import global_shape, is_block
+    data, labels, loss, lr = shard_lang_step(kind)
+    mesh = par.make_mesh(tp=2)
+    net = shard_lang_net(kind).initialize(seed=SEED if r == 0 else
+                                          SEED + 1)
+    tr = par.ShardedTrainer(net, "adam", loss=loss, mesh=mesh,
+                            optimizer_params={"learning_rate": lr})
+    rows = {k: [] for k in ("losses", "ms", "coll_s", "staged",
+                            "launches")}
+    for _ in range(DP_STEPS):
+        reset_launches()
+        coll.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        rows["losses"].append(float(tr.step(data, labels)))
+        torch.cuda.synchronize()
+        rows["ms"].append((time.monotonic() - t0) * 1e3)
+        st = coll.stats()
+        rows["coll_s"].append(st.get("seconds:tp", 0.0))
+        rows["staged"].append(st.get("staged_bytes_d2h", 0)
+                              + st.get("staged_bytes_h2d", 0))
+        by_dtype = read_launches_by_dtype()
+        rows["launches"].append([by_dtype[n].get("float32", 0)
+                                 for n in RES_FLASH])
+    for k, v in rows.items():
+        out[f"{kind}:{k}"] = np.array(v)
+    torch.save({n: (p.detach().cpu(),
+                    [(x.start, x.stop) for x in
+                     p._sharding.local_slices(global_shape(p))]
+                    if is_block(p) else None)
+                for n, p in net.named_parameters()},
+               os.path.join(d, f"{kind}_params_r{r}.pt"))
+    if kind == "nmt":
+        out["nmt:translate"] = net.translate(shard_sources(),
+                                             max_length=SHARD_MAX_LEN)
+    print(f"  22{'b' if kind == 'bert' else 'c'} {kind} rank {r}: losses "
+          f"{rows['losses']}, ms/step {[round(x, 1) for x in rows['ms']]}, "
+          f"B1-B3 a step {rows['launches']}", flush=True)
+    del net, tr
+    free(torch)
+
+
+def phase22_rank(d) -> int:
+    """One of phase 22's two gloo ranks: (a), (b) and (c) in turn."""
+    import os
+    import torch
+    from mxnet_tpu_torch import parallel as par
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    par.init_distributed(backend="gloo")
+    r = par.rank()
+    torch.cuda.set_device(par.distributed.local_device())
+    out = {}
+    shard_serve_rank(torch, r, out)
+    for kind in ("bert", "nmt"):
+        shard_train_rank(torch, kind, r, d, out)
+    np.savez(os.path.join(d, f"shard_r{r}.npz"), **out)
+    par.barrier()
+    return 0
+
+
+def graphed_programs(eng) -> bool:
+    """Whether every program the engine compiled is a CUDA graph."""
+    return all(p.graph for p in eng._programs.values())
+
+
+def shard_one_rank(torch, net, prompts, card):
+    """22a: a one-rank NCCL mesh engine, graphed, against ``mesh=None``:
+    the streams bit-identical."""
+    import torch.distributed as dist
+    from mxnet_tpu_torch import parallel as par
+    par.init_distributed(None, 1, 0, backend="nccl")
+    outs = {}
+    try:
+        for arm in ("none", "mesh"):
+            eng = shard_engine(net, "paged", name=f"one_rank_{arm}",
+                               mesh=1 if arm == "mesh" else None)
+            n_warm = eng.warmup()
+            graphed = graphed_programs(eng)
+            with eng:
+                outs[arm] = shard_requests(eng, prompts)
+            print(f"  22a one-rank NCCL mesh={arm}: mesh point "
+                  f"{eng.stats()['mesh']['mesh_point']}, programs "
+                  f"{n_warm}, graphed {graphed} [{card}]", flush=True)
+            if not graphed:
+                raise AssertionError(f"22a mesh={arm}: a program is not "
+                                     "graphed")
+            del eng
+            free(torch)
+    finally:
+        dist.destroy_process_group()
+    if not all(np.array_equal(a, b) for a, b in zip(outs["mesh"],
+                                                     outs["none"])):
+        raise AssertionError("22a: the one-rank NCCL mesh engine's streams "
+                             "differ from mesh=None's")
+    print("  22a one-rank NCCL mesh: streams bit-identical to mesh=None",
+          flush=True)
+
+
+def shard_serving(torch, ranks, card):
+    """(a)'s gates against one process, and its numbers."""
+    net = shard_gpt2()
+    prompts = make_prompts()
+    r0 = ranks[0]
+    for layout in SHARD_LAYOUTS:
+        eng = shard_engine(net, layout, name=f"one_{layout}")
+        eng.warmup()
+        t0 = time.monotonic()
+        with eng:
+            one = shard_requests(eng, prompts)
+        wall = time.monotonic() - t0
+        got = [r0[f"{layout}:out{i}"] for i in range(len(prompts))]
+        same = [bool(np.array_equal(a, b)) for a, b in zip(got, one)]
+        n_warm, comp, mesh = json.loads(str(r0[f"{layout}:compile"]))
+        tps, ttft, steps, dwall, staged, coll_s, plans, pbytes, tps2 = \
+            r0[f"{layout}:numbers"].tolist()
+        launches = [dict(zip(KERNELS, o[f"{layout}:launches"].tolist()))
+                    for o in ranks]
+        steps = max(steps, 1)
+        one_tps = sum(len(o) - len(p) for o, p in zip(one, prompts)) / wall
+        print(f"  22a {layout}: tp = 2 {tps:.1f} tokens/s, TTFT p50 "
+              f"{ttft:.1f} ms; with each program call synchronized "
+              f"(other prompts) {tps2:.1f} tokens/s, a decode step "
+              f"(rank 0, {steps:.0f} of them) "
+              f"{dwall / steps * 1e3:.2f} ms, {staged / steps:.0f} bytes "
+              f"staged, collectives and plan exchange "
+              f"{coll_s / steps * 1e3:.2f} ms "
+              f"({coll_s / max(dwall, 1e-9) * 100:.1f} %); "
+              f"by program {r0[f'{layout}:programs']} ({plans:.0f} plans, "
+              f"{pbytes:.0f} bytes of inputs); one process (graphed) "
+              f"{one_tps:.1f} tokens/s; mesh {mesh['mesh_point']}, "
+              f"warm-up programs {n_warm}, compiles {comp['compiles']} "
+              f"{comp['by_mesh_point']}; "
+              f"launches by rank {launches} [{card}]", flush=True)
+        if not all(same):
+            raise AssertionError(f"22a {layout}: streams against one "
+                                 f"process {same}")
+        if comp["compiles"] != n_warm or \
+                comp["by_mesh_point"] != {"2dev:tp=2": n_warm}:
+            raise AssertionError(f"22a {layout}: compiles moved after "
+                                 f"warmup(): {comp}")
+        if any(c["flash_fwd"] == 0 or c["paged_attention"] for c in
+               launches):
+            raise AssertionError(f"22a {layout}: launches {launches}")
+        print(f"  22a {layout}: {len(same)} streams (request "
+              f"{SHARD_SAMPLED_ROW} sampled) token-identical to one "
+              "process", flush=True)
+        del eng
+        free(torch)
+    shard_one_rank(torch, net, prompts, card)
+    del net
+    free(torch)
+
+
+def shard_translate(torch, net, got, card):
+    """(c)'s translate against the one-process net: identical tokens, or
+    a split where the one-process net's teacher-forced logits tie within
+    TOL_GREEDY (relative)."""
+    src = torch.from_numpy(shard_sources()).to(net.device)
+    want = net.translate(src, max_length=SHARD_MAX_LEN)
+    if got.shape == want.shape and np.array_equal(got, want):
+        print(f"  22c translate: {want.shape} tokens identical to one "
+              f"process [{card}]", flush=True)
+        return
+    for i in range(len(want)):
+        j = next((k for k in range(min(len(got[i]), len(want[i])))
+                  if got[i, k] != want[i, k]), None)
+        if j is None:
+            continue
+        lg = forced_logits(torch, net, src[i:i + 1], want[i:i + 1], 1)
+        row = lg[0, j].cpu().numpy()
+        margin = float((row[want[i, j]] - row[got[i, j]]) /
+                       abs(row[want[i, j]]))
+        print(f"  22c translate: source {i} splits at position {j} "
+              f"({got[i, j]} vs {want[i, j]}), one process's margin "
+              f"{margin:.3e} (relative) [{card}]", flush=True)
+        if margin > TOL_GREEDY:
+            raise AssertionError(f"22c translate: source {i} splits at "
+                                 f"{j} with margin {margin:.3e}")
+
+
+def shard_lang(torch, ranks, d, card):
+    """(b) and (c)'s gates against one process; their launches by path."""
+    import os
+    from mxnet_tpu_torch import parallel as par
+    by_path = {}
+    for letter, kind in (("b", "bert"), ("c", "nmt")):
+        data, labels, loss, lr = shard_lang_step(kind)
+        net = shard_lang_net(kind).initialize(seed=SEED)
+        init = {n: p.detach().clone() for n, p in net.named_parameters()}
+        tr = par.ShardedTrainer(net, "adam", loss=loss,
+                                optimizer_params={"learning_rate": lr})
+        one, one_ms = [], []
+        for _ in range(DP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            one.append(float(tr.step(data, labels)))
+            torch.cuda.synchronize()
+            one_ms.append((time.monotonic() - t0) * 1e3)
+        params = {n: p.detach() for n, p in net.named_parameters()}
+        print(f"  22{letter} {kind} one process: losses {one}", flush=True)
+        for r, out in enumerate(ranks):
+            check(f"22{letter} {kind} rank {r} losses vs one process "
+                  "(relative)", max(abs(a - b) / abs(b) for a, b in
+                                    zip(out[f"{kind}:losses"], one)),
+                  TOL_LOSS)
+            blocks = torch.load(os.path.join(d, f"{kind}_params_r{r}.pt"))
+            worst = max(maxabs(b.cuda(), cut(params[n], sl))
+                        for n, (b, sl) in blocks.items())
+            check(f"22{letter} {kind} rank {r}: {len(blocks)} parameters "
+                  "(its blocks) vs one process (max-abs)", worst,
+                  min(TOL_SHARD_PARAM, 2 * lr * DP_STEPS))
+            name, moved = max(((n, travel_gap(b.cuda(), cut(params[n], sl),
+                                              cut(init[n], sl)))
+                               for n, (b, sl) in blocks.items()
+                               if not n.endswith(NO_GRADIENT)),
+                              key=lambda x: x[1])
+            check(f"22{letter} {kind} rank {r}: the worst parameter's "
+                  f"travel vs one process's ({name}; relative L2, 1 if "
+                  "left unchanged)", moved, TOL_SHARD_TRAVEL)
+            got = out[f"{kind}:launches"]
+            if not (got == np.array(SHARD_LAUNCHES[kind])[None]).all():
+                raise AssertionError(f"22{letter} {kind} rank {r}: B1-B3 "
+                                     f"a step {got.tolist()}, not "
+                                     f"{SHARD_LAUNCHES[kind]}")
+        r0 = ranks[0]
+        ms = float(np.mean(r0[f"{kind}:ms"][1:]))
+        share = float(np.mean(r0[f"{kind}:coll_s"][1:])) / ms * 1e3
+        print(f"  22{letter} {kind}: {ms:.1f} ms/step (steps 2-{DP_STEPS}, "
+              f"rank 0, eager) against one process's "
+              f"{float(np.mean(one_ms[1:])):.1f} (graphed); tp collectives "
+              f"{share * 100:.1f} % of the step, "
+              f"{int(r0[f'{kind}:staged'][-1])} bytes staged a step, "
+              f"B1-B3 {r0[f'{kind}:launches'][-1].tolist()} a step a rank "
+              f"[{card}]", flush=True)
+        if kind == "nmt":
+            shard_translate(torch, net, r0["nmt:translate"], card)
+        by_path[f"parallel_{kind}"] = dict(
+            zip(RES_FLASH, (int(c) for c in r0[f"{kind}:launches"].sum(0))),
+            paged_attention=0)
+        del net, tr, params, init
+        free(torch)
+    return by_path
+
+
+def cut(t, sl):
+    """The block of ``t`` at slices ``sl`` ((start, stop) a dimension),
+    or all of it where ``sl`` is None."""
+    return t if sl is None else t[tuple(slice(*x) for x in sl)]
+
+
+def travel_gap(got, want, start) -> float:
+    """How far a parameter's travel from ``start`` strays from the
+    reference's: |(got - start) - (want - start)| / |want - start| (L2),
+    1.0 for a parameter the run left unchanged."""
+    ref = (want - start).double().norm().item()
+    gap = (got - want).double().norm().item()
+    return gap / ref if ref else (0.0 if gap == 0 else float("inf"))
+
+
+def shard_path(torch, card):
+    """Phase 22.  Returns rank 0's launches by path: the sharded serving
+    (both layouts, after warm-up) and (b)'s and (c)'s steps."""
+    import os
+    import tempfile
+    t_phase = time.monotonic()
+    print(f"phase 22: sharded serving (GPT-2 124M, vocabulary "
+          f"{PAR_VOCAB}), BERT-large and Transformer-big at tp = 2, two "
+          f"gloo ranks on this card, float32 [{card}]", flush=True)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build")
+    os.makedirs(root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as d:
+        ranks = launch_ranks("shard", d, flag="--phase22-rank")
+        shard_serving(torch, ranks, card)
+        by_path = shard_lang(torch, ranks, d, card)
+    r0 = ranks[0]
+    serve = sum(r0[f"{layout}:launches"] for layout in SHARD_LAYOUTS)
+    by_path["sharded_serve"] = dict(zip(KERNELS, (int(c) for c in serve)))
+    print(f"phase 22: {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return by_path
+
+
+def write_phase_seconds(seconds):
+    """Print the seconds of every phase and write them to
+    ``chiprun_out/chip_smoke_phases.json`` beside this script."""
+    import os
+    print(f"phase seconds: {json.dumps(seconds)}", flush=True)
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "chiprun_out")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "chip_smoke_phases.json"), "w") as f:
+        json.dump(seconds, f, indent=1)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6398,96 +6941,132 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.monotonic()
+    seconds = {}
+
+    @contextlib.contextmanager
+    def phase(name):
+        t0 = time.monotonic()
+        try:
+            yield
+        finally:
+            seconds[name] = round(time.monotonic() - t0, 1)
+
     dev = torch.device("cuda", 0)
     card = card_line()
     print(card, flush=True)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
           f"{torch.version.cuda} device {torch.cuda.get_device_name(0)}",
           flush=True)
-    secs = native.build()
+    with phase("1"):
+        secs = native.build()
     print(f"kernel build: {secs:.1f} s", flush=True)
     for name in native.KERNELS:
         print(f"--- ptxas {name}:\n{native.build_log(name).strip()}")
     timer = Timer(torch, dev)
     prompts = make_prompts()
-    fwd_f32, fwd_bf16, fwd_lang = flash_cases(torch, dev, timer, card)
-    bwd, bwd_lang = flash_bwd_cases(torch, dev, timer, card)
-    ring_modes = ring_mode_cases(torch, dev, timer, card)
-    cross_ms = cross_case(torch, dev, timer, card)
-    paged_main, paged_multi = paged_cases(torch, dev, timer, card,
-                                          [len(p) for p in prompts])
+    with phase("2"):
+        fwd_f32, fwd_bf16, fwd_lang = flash_cases(torch, dev, timer, card)
+        bwd, bwd_lang = flash_bwd_cases(torch, dev, timer, card)
+        ring_modes = ring_mode_cases(torch, dev, timer, card)
+        cross_ms = cross_case(torch, dev, timer, card)
+        paged_main, paged_multi = paged_cases(torch, dev, timer, card,
+                                              [len(p) for p in prompts])
     record = {"flash_fwd": fwd_f32, **bwd["float32"],
               "paged_attention": paged_main}
     record_bf16 = {"flash_fwd": fwd_bf16, **bwd["bfloat16"]}
-    serve_launches, int8_logits = main_path(torch, card, prompts)
+    with phase("3"):
+        serve_launches, int8_logits = main_path(torch, card, prompts)
     by_path = {"serve": serve_launches}
-    by_path["train"], train_losses = train_path(torch, card)
+    with phase("4"):
+        by_path["train"], train_losses = train_path(torch, card)
     gc.collect()                 # the training phase's net and trainer
     torch.cuda.empty_cache()
     toks, labels = train_batch()
-    by_path["gluon"], gluon_losses, gluon_grads = gluon_path(
-        torch, card, toks, labels, train_losses)
+    with phase("5"):
+        by_path["gluon"], gluon_losses, gluon_grads = gluon_path(
+            torch, card, toks, labels, train_losses)
     gc.collect()
     torch.cuda.empty_cache()
     by_path["mlp"] = {name: 0 for name in KERNELS}
     reset_launches()
-    mlp_path(torch, card)
+    with phase("6"):
+        mlp_path(torch, card)
     if any(read_launches().values()):
         raise AssertionError("the MLP program launched a kernel of the port")
     gc.collect()
     torch.cuda.empty_cache()
-    by_path["amp"] = amp_path(torch, card, toks, labels, gluon_losses[0],
-                              gluon_grads)
+    with phase("7"):
+        by_path["amp"] = amp_path(torch, card, toks, labels,
+                                  gluon_losses[0], gluon_grads)
     del gluon_grads
     gc.collect()
     torch.cuda.empty_cache()
-    by_path["moe"] = moe_path(torch, card, toks, labels)
+    with phase("8"):
+        by_path["moe"] = moe_path(torch, card, toks, labels)
     gc.collect()
     torch.cuda.empty_cache()
-    features, multi_by_path = features_path(torch, card, prompts)
+    with phase("9"):
+        features, multi_by_path = features_path(torch, card, prompts)
     by_path.update(features)
     gc.collect()
     torch.cuda.empty_cache()
     reset_launches()
-    vision_path(torch, card)
+    with phase("10"):
+        vision_path(torch, card)
     by_path["vision"] = read_launches()
     if any(by_path["vision"].values()):
         raise AssertionError(f"the vision phase launched a kernel of the "
                              f"port: {by_path['vision']}")
     free(torch)
-    by_path["bert"], by_path["bert_amp"] = bert_path(torch, card)
-    by_path["nmt"], nmt_split = nmt_path(torch, card)
-    by_path["lstm"] = lstm_path(torch, card)
+    with phase("11"):
+        by_path["bert"], by_path["bert_amp"] = bert_path(torch, card)
+    with phase("12"):
+        by_path["nmt"], nmt_split = nmt_path(torch, card)
+    with phase("13"):
+        by_path["lstm"] = lstm_path(torch, card)
     free(torch)
     reset_launches()
-    ops_path(torch, card, timer, dev)
+    with phase("14"):
+        ops_path(torch, card, timer, dev)
     by_path["ops"] = read_launches()
     if any(by_path["ops"].values()):
         raise AssertionError(f"the ops phase launched a kernel of the "
                              f"port: {by_path['ops']}")
     free(torch)
-    by_path["programs"], by_path["forward"] = programs_path(torch, card,
-                                                            prompts)
+    with phase("15"):
+        by_path["programs"], by_path["forward"] = programs_path(
+            torch, card, prompts)
     free(torch)
-    by_path.update(training_programs_path(torch, card))
+    with phase("16"):
+        by_path.update(training_programs_path(torch, card))
     free(torch)
-    by_path["resilient"] = resilient_path(torch, card)
+    with phase("17"):
+        by_path["resilient"] = resilient_path(torch, card)
     free(torch)
-    by_path["hardened"] = hardened_path(torch, card, prompts, int8_logits)
+    with phase("18"):
+        by_path["hardened"] = hardened_path(torch, card, prompts,
+                                            int8_logits)
     free(torch)
     reset_launches()
-    by_path["data"], vision_launches = data_path(torch, card)
+    with phase("19"):
+        by_path["data"], vision_launches = data_path(torch, card)
     for dtype, counts in vision_launches.items():
         if any(counts.values()):
             raise AssertionError(f"19b {dtype} launched a kernel of the "
                                  f"port: {counts}")
         by_path[f"data_vision_{dtype}"] = counts
     free(torch)
-    ring_launches, ring_by_mode = parallel_path(torch, card)
+    with phase("20"):
+        ring_launches, ring_by_mode = parallel_path(torch, card)
     by_path["parallel_ring"] = ring_launches["ring"]
     by_path["parallel_ulysses"] = ring_launches["ulysses"]
     free(torch)
-    by_path.update(parallel_models_path(torch, card))
+    with phase("21"):
+        by_path.update(parallel_models_path(torch, card))
+    free(torch)
+    with phase("22"):
+        by_path.update(shard_path(torch, card))
+    write_phase_seconds(seconds)
     # each kernel's launches on the path that is its own: the training
     # path for the flash kernels, the serving path for paged attention;
     # the flash kernels' bf16 numbers (phase 2 at the training shape)
@@ -6536,4 +7115,6 @@ if __name__ == "__main__":
         sys.exit(phase20_rank(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--phase21-rank"]:
         sys.exit(phase21_rank(sys.argv[3]))
+    if sys.argv[1:2] == ["--phase22-rank"]:
+        sys.exit(phase22_rank(sys.argv[3]))
     sys.exit(main())

@@ -9,19 +9,34 @@ attention: the flash kernels on the card at T >= 256 with no mask).
 attention to the reference path.  :class:`BERTForPretrain` adds the
 masked-LM head, tied to ``word_embed.weight`` (its gradient sums both
 uses), and the next-sentence head.
+
+Over a mesh (``parallel.shard_params``, ``ShardedTrainer(mesh=...)``):
+under ``tp`` the layers split as ``transformer.py`` says, and
+``word_embed`` by vocabulary (``gpt2.vocab_embed``); the masked-LM head
+computes this rank's block of the logits (``gpt2.vocab_logits``) and
+all-gathers it over ``tp``, so the logits BERT returns are the whole
+vocabulary, which any loss written with ``nd`` ops can take (at most
+B x M x V floats a step); the gather's backward keeps this rank's
+columns.  Position and type embeddings, the pooler and the heads are
+replicated.  Under ``sp`` each rank holds a chunk of the sequence: the
+key mask of ``valid_length`` is built at the chunk's global positions
+and gathered with the keys (``transformer.py``), and the pooler's first
+token and the masked positions are picked from the chunks that hold
+them and summed over ``sp`` (``collectives.psum``).
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from .. import amp as _amp
 from ..context import resolve_device
 from ..gluon.block import HybridBlock
 from ..gluon.nn import Dense, Dropout, Embedding, LayerNorm
 from ..ndarray.ops import apply_op
-from .transformer import (TransformerEncoderLayer, refuse_tp, run_blocks,
-                          seq_offset)
+from ..parallel import collectives as _coll
+from ..parallel.sharding import annotate, gather_vocab
+from .gpt2 import vocab_embed, vocab_logits
+from .transformer import (TransformerEncoderLayer, _sp_mesh, run_blocks,
+                          seq_first, seq_offset)
 
 __all__ = ["BERTModel", "BERTForPretrain", "get_bert"]
 
@@ -47,8 +62,10 @@ class BERTModel(HybridBlock):
         self.vocab_size = vocab_size
         self.max_length = max_length
         self.word_embed = Embedding(vocab_size, units)
+        annotate(self.word_embed.weight, "vocab", "embed")
         self.token_type_embed = Embedding(type_vocab_size, units)
         self.position_embed = Embedding(max_length, units)
+        annotate(self.position_embed.weight, "seq", "embed")
         self.embed_ln = LayerNorm(epsilon=layer_norm_eps, in_channels=units)
         self.embed_drop = Dropout(dropout) if dropout else None
         layers = []
@@ -63,15 +80,15 @@ class BERTModel(HybridBlock):
                             in_units=units)
 
     def forward(self, tokens, token_types=None, valid_length=None):
-        refuse_tp(self.word_embed, "BERT")
         b, t = tokens.shape
         if t > self.max_length:
             raise ValueError(f"sequence length {t} exceeds max_length="
                              f"{self.max_length} (position table size)")
-        steps = torch.arange(t, dtype=torch.int32, device=tokens.device)
         # positions of this rank's chunk under an sp mesh
-        x = self.word_embed(tokens) + \
-            self.position_embed(steps + seq_offset(t))[None]
+        steps = torch.arange(t, dtype=torch.int32, device=tokens.device) \
+            + seq_offset(t)
+        x = vocab_embed(self.word_embed, tokens) + \
+            self.position_embed(steps)[None]
         if token_types is not None:
             x = x + self.token_type_embed(token_types)
         x = self.embed_ln(x)
@@ -84,7 +101,7 @@ class BERTModel(HybridBlock):
                 valid_length.to(steps.device).reshape(b, 1, 1, 1)
         x = run_blocks(self.layers, x, mask, scan=self._scan_layers,
                        remat=self._remat)
-        return x, self.pooler(x[:, 0])
+        return x, self.pooler(seq_first(x))
 
 
 class BERTForPretrain(HybridBlock):
@@ -107,17 +124,33 @@ class BERTForPretrain(HybridBlock):
         if masked_positions is not None:
             seq = _gather_positions(seq, masked_positions)
         h = self.mlm_ln(self.mlm_dense(seq))
-        # tied to the word embedding: logits = h · word_embedᵀ
-        mlm_logits = F.linear(*_amp.cast("FullyConnected", h,
-                                         self.backbone.word_embed.weight))
+        # tied to the word embedding: logits = h · word_embedᵀ, the
+        # vocabulary whole (a block under tp, gathered)
+        mlm_logits = gather_vocab(vocab_logits(
+            self.backbone.word_embed.weight, h))
         return mlm_logits, self.nsp(pooled)
 
 
 def _gather_positions(seq, positions):
-    """(B, T, U) gathered at (B, M) per-row positions → (B, M, U)."""
+    """(B, T, U) gathered at (B, M) per-row positions → (B, M, U).  Under
+    ``sp`` ``seq`` is this rank's chunk and the positions are global: each
+    rank picks those inside its chunk (zeros elsewhere) and the picks are
+    summed over ``sp``."""
+    mesh = _sp_mesh()
+
     def f(x, pos):
-        idx = pos.long()[:, :, None].expand(-1, -1, x.shape[-1])
-        return torch.gather(x, 1, idx)
+        pos = pos.long()
+        if mesh is not None:
+            t = x.shape[1]
+            pos = pos - mesh.axis_index("sp") * t
+            inside = (pos >= 0) & (pos < t)
+            pos = pos.clamp(0, t - 1)
+        idx = pos[:, :, None].expand(-1, -1, x.shape[-1])
+        out = torch.gather(x, 1, idx)
+        if mesh is None:
+            return out
+        out = out * inside[..., None].to(out.dtype)
+        return _coll.psum(out, mesh.group("sp"))
     return apply_op("gather_positions", f, [seq, positions])
 
 

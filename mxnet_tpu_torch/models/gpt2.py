@@ -20,7 +20,11 @@ the logits, marked as a local block (``sharding.mark_local_shard``, spec
 over ``tp`` (the row maxima, then the sums of exponentials with the
 picked logits, which the rank owning each label gives).  GSPMD gathers
 the reference's logits instead; the local block is a divergence by
-design (ROADMAP queue C).
+design (ROADMAP queue C).  The serving surface (``prefill_slots``,
+``decode_step``, ``verify_slots``, ``draft_slots``, ``generate``) gives
+whole logits: each rank's block is all-gathered over ``tp``
+(``sharding.gather_vocab``), so every rank samples the same tokens, and
+its caches hold the rank's H/tp heads (:meth:`GPT2Model.kv_heads`).
 """
 from __future__ import annotations
 
@@ -38,7 +42,8 @@ from ..ndarray.ndarray import NDArray
 from ..ndarray.ops import _as_nd, invoke
 from ..parallel import collectives as _coll
 from ..parallel.sharding import (NamedSharding, PartitionSpec, annotate,
-                                 block_mesh, mark_local_shard)
+                                 block_mesh, gather_vocab, mark_local_shard,
+                                 vocab_block)
 from .moe import MoETransformerBlock
 from .transformer import TransformerBlock, run_blocks, seq_offset
 
@@ -99,6 +104,11 @@ class GPT2Model(HybridBlock):
         # tied LM head: logits = x · wteᵀ, the reference's FullyConnected
         return vocab_logits(self.wte.weight, x)
 
+    def _whole_logits(self, x):
+        """The serving surface's logits: whole, a vocabulary block
+        gathered over ``tp``."""
+        return gather_vocab(self._logits(x))
+
     def _embed(self, tokens):
         return vocab_embed(self.wte, tokens)
 
@@ -123,9 +133,11 @@ class GPT2Model(HybridBlock):
 
     # ------------------------------------------------------ serving surface
     def kv_heads(self):
-        """(num_heads, head_dim) of the serving KV caches."""
+        """(num_heads, head_dim) of the serving KV caches: this rank's
+        heads where the projections are blocks split over ``tp``."""
         attn = self.blocks[0].attn
-        return attn._num_heads, attn._head_dim
+        d = attn._head_dim
+        return attn.q_proj.weight.shape[0] // d, d
 
     def _cache_dtype(self):
         """Caches follow the parameter dtype (bf16 parameters → bf16
@@ -156,11 +168,12 @@ class GPT2Model(HybridBlock):
         tok, wrap = _tokens(tokens_nd, self.wte.weight.device)
         b, t = tok.shape
         pos = torch.arange(t, dtype=torch.int32, device=tok.device)
-        x = self.wte(tok) + self.wpe(pos)[None]
+        x = self._embed(tok) + self.wpe(pos)[None]
         for blk, cache in zip(self.blocks, caches):
             x, _ = blk.forward_prefill(x, cache)
         x = self.ln_f(x[:, -1:])
-        return wrap(self._logits(x).reshape(b, self.vocab_size)), caches
+        return wrap(self._whole_logits(x).reshape(b, self.vocab_size)), \
+            caches
 
     @torch.no_grad()
     def forward_step(self, tok, caches, idx):
@@ -168,11 +181,12 @@ class GPT2Model(HybridBlock):
         (logits (B, vocab), caches).  Inference mode assumed."""
         tok, wrap = _tokens(tok, self.wte.weight.device)
         b = tok.shape[0]
-        x = self.wte(tok) + self.wpe(torch.full_like(tok, int(idx)))
+        x = self._embed(tok) + self.wpe(torch.full_like(tok, int(idx)))
         for blk, cache in zip(self.blocks, caches):
             x, _ = blk.forward_step(x, cache, idx)
         x = self.ln_f(x)
-        return wrap(self._logits(x).reshape(b, self.vocab_size)), caches
+        return wrap(self._whole_logits(x).reshape(b, self.vocab_size)), \
+            caches
 
     def init_slot_cache(self, num_slots, max_length=None, dtype=None):
         """Persistent dense serving cache: per layer {'k','v'} of
@@ -241,13 +255,13 @@ class GPT2Model(HybridBlock):
             # logits are never read
             pos = torch.clamp(offset[:, None] + ar[None],
                               max=self.max_length - 1)
-        x = self.wte(tokens) + self.wpe(pos)
+        x = self._embed(tokens) + self.wpe(pos)
         for blk, cache in zip(self.blocks, caches):
             x, _ = blk.forward_prefill_slots(x, cache, slot_idx, offset,
                                              page_table, paged_kernel)
         x = self.ln_f(x)
         last = x[torch.arange(b, device=x.device), lens.long() - 1]
-        return self._logits(last), caches
+        return self._whole_logits(last), caches
 
     @torch.no_grad()
     def decode_step(self, tok, caches, pos, page_table=None,
@@ -257,11 +271,12 @@ class GPT2Model(HybridBlock):
         (S, vocab), caches).  Free rows run too, parked at pos = Tmax so
         their writes land in the trash target."""
         s = tok.shape[0]
-        x = self.wte(tok.reshape(s, 1)) + self.wpe(pos.reshape(s, 1))
+        x = self._embed(tok.reshape(s, 1)) + self.wpe(pos.reshape(s, 1))
         for blk, cache in zip(self.blocks, caches):
             x, _ = blk.forward_step_slots(x, cache, pos, page_table,
                                           paged_kernel)
-        return self._logits(self.ln_f(x)).reshape(s, self.vocab_size), caches
+        return self._whole_logits(self.ln_f(x)).reshape(
+            s, self.vocab_size), caches
 
     @torch.no_grad()
     def verify_slots(self, tokens_nd, caches, pos, page_table=None,
@@ -281,12 +296,12 @@ class GPT2Model(HybridBlock):
         # clamp the embedding lookup only: windows past Tmax write to the
         # trash target and their logits are never accepted
         apos = torch.clamp(pos[:, None] + ar[None], max=self.max_length - 1)
-        x = self.wte(tokens) + self.wpe(apos)
+        x = self._embed(tokens) + self.wpe(apos)
         for blk, cache in zip(self.blocks, caches):
             x, _ = blk.forward_prefill_slots(x, cache, None, pos,
                                              page_table, paged_kernel)
-        return (self._logits(self.ln_f(x)).reshape(s, t, self.vocab_size),
-                caches)
+        return (self._whole_logits(self.ln_f(x)).reshape(
+            s, t, self.vocab_size), caches)
 
     @torch.no_grad()
     def draft_slots(self, tok, caches, pos, n_tokens, draft_layers,
@@ -330,10 +345,11 @@ class GPT2Model(HybridBlock):
         out = []
         for i in range(int(n_tokens)):
             p = torch.clamp(pos + i, max=self.max_length - 1)
-            x = self.wte(cur.reshape(s, 1)) + self.wpe(p.reshape(s, 1))
+            x = self._embed(cur.reshape(s, 1)) + self.wpe(p.reshape(s, 1))
             for blk, (wk, wv), r in zip(blocks, wins, rows):
                 x = blk.forward_step_window(x, r, pos, wk, wv, i)
-            lg = self._logits(self.ln_f(x)).reshape(s, self.vocab_size)
+            lg = self._whole_logits(self.ln_f(x)).reshape(s,
+                                                          self.vocab_size)
             if poison is not None:
                 lg = lg + poison
             cur = sample_tokens(lg, temperature, top_k, top_p, seeds,
@@ -409,21 +425,14 @@ def vocab_logits(weight, x):
         mesh, PartitionSpec("dp", "sp", "tp")))
 
 
-def _vocab_block(logits):
-    """The mesh over whose ``tp`` ``logits`` is this rank's vocabulary
-    block, or None for whole logits."""
-    sh = getattr(logits, "_mxt_sharding", None)
-    if sh is None or len(sh.spec) < 3 or sh.spec[-1] != "tp" or \
-            sh.mesh.shape.get("tp", 1) == 1:
-        return None
-    return sh.mesh
-
-
-def _vocab_parallel_ce(x, labels, mesh):
-    """Per-token ``logsumexp - picked`` of this rank's float32 vocabulary
-    block ``x``: the row maxima reduced by max over ``tp``, then the sums
-    of exponentials and the picked logits (given by the rank that owns
-    each label) summed over ``tp`` in one reduction."""
+def vocab_parallel_terms(x, labels, mesh):
+    """(logsumexp, the picked logit, the row sum), each over the whole
+    vocabulary, of this rank's float32 vocabulary block ``x``, all three
+    shifted by the row maxima (so ``lse - picked`` and ``lse - sum / V``
+    are the whole logits'): the maxima reduced by max over ``tp``, then
+    the sums of exponentials, the picked logits (given by the rank that
+    owns each label) and the row sums summed over ``tp`` in one
+    reduction."""
     group = mesh.group("tp")
     rows = x.shape[-1]
     lo = mesh.axis_index("tp") * rows
@@ -432,9 +441,17 @@ def _vocab_parallel_ce(x, labels, mesh):
     m = _coll.all_reduce(x.detach().amax(dim=-1), group, op="max")
     z = x - m[..., None]
     picked = z.gather(-1, idx.clamp(0, rows - 1)[..., None])[..., 0]
-    both = _coll.reduce_from(torch.stack(
-        [z.exp().sum(dim=-1), picked * inside.to(z.dtype)]), group)
-    return torch.log(both[0]) - both[1]
+    sums = _coll.reduce_from(torch.stack(
+        [z.exp().sum(dim=-1), picked * inside.to(z.dtype), z.sum(dim=-1)]),
+        group)
+    return torch.log(sums[0]), sums[1], sums[2]
+
+
+def _vocab_parallel_ce(x, labels, mesh):
+    """Per-token ``logsumexp - picked`` of this rank's float32 vocabulary
+    block ``x`` (:func:`vocab_parallel_terms`)."""
+    lse, picked, _ = vocab_parallel_terms(x, labels, mesh)
+    return lse - picked
 
 
 def _tokens(tokens, device):
@@ -463,8 +480,9 @@ def gpt2_lm_loss(logits, labels, aux_weight=0.01):
         like = logits if isinstance(logits, NDArray) else labels
         return invoke("gpt2_lm_loss",
                       lambda x, y: gpt2_lm_loss(x, y, aux_weight),
-                      [_as_nd(logits, like), _as_nd(labels, like)])
-    mesh = _vocab_block(logits)
+                      [_as_nd(logits, like), _as_nd(labels, like)],
+                      vocab_blocks=True)
+    mesh = vocab_block(logits)
     x = logits.float()
     if mesh is not None:
         loss = _vocab_parallel_ce(x, labels, mesh).mean()

@@ -10,28 +10,45 @@ cross entropy.  On the card the flash kernels take the encoder's
 self-attention (non-causal), the decoder's (causal) and the
 cross-attention when source and target lengths are equal and no source
 mask is given; otherwise attention takes the reference path, as in the
-reference.  The reference's sharding annotations and ``_mesh_put``
-have no counterpart on one device.  ``translate`` is greedy or
-length-normalized beam search; like the reference's it re-decodes the
-whole prefix at each step.
+reference.  ``translate`` is greedy or length-normalized beam search;
+like the reference's it re-decodes the whole prefix at each step.
+
+Over a mesh (``parallel.shard_params``, ``ShardedTrainer(mesh=...)``):
+under ``tp`` the layers split as ``transformer.py`` says, and the
+embeddings by vocabulary (one table with ``shared_embed``), as the
+reference annotates them; ``decode`` gives this rank's block of the
+logits, marked as GPT-2's head marks it, and :func:`nmt_loss` handed a
+block reduces over ``tp`` (the row maxima, then the sums of
+exponentials, the picked logits and, for the label smoothing, the row
+sums of the logits).  ``translate`` (every rank of the ``tp`` line calls
+it together) enters the mesh its parameters were split over, as the
+reference's ``_mesh_put`` places its inputs there, runs the whole
+sequence (no ``sp`` chunks) and gathers only the last position's block.
+Under ``sp`` source and target are chunks: the source key mask is built
+at the chunk's global positions, and the encoder's masked
+self-attention and the decoder's cross-attention gather keys, values and
+mask over ``sp`` (``transformer.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from .. import amp as _amp
 from .. import base as _base
 from ..context import resolve_device
 from ..gluon.block import HybridBlock
 from ..gluon.nn import Dropout, Embedding, LayerNorm
 from ..ndarray.ops import apply_op
+from ..parallel import collectives as _coll
+from ..parallel.mesh import use_mesh
+from ..parallel.sharding import annotate, is_block, vocab_block
+from .gpt2 import vocab_embed, vocab_logits, vocab_parallel_terms
 from .transformer import (MultiHeadAttention, PositionwiseFFN,
-                          TransformerEncoderLayer, _remat_layer, refuse_tp,
-                          run_blocks, seq_offset)
+                          TransformerEncoderLayer, _remat_layer,
+                          no_seq_parallel, run_blocks, seq_offset)
 
 __all__ = ["TransformerDecoderBlock", "TransformerNMT", "nmt_loss",
            "get_nmt"]
@@ -98,12 +115,14 @@ class TransformerNMT(HybridBlock):
         self._scan_layers = scan_layers
         self._remat = remat
         self.src_embed = Embedding(src_vocab_size, units)
+        annotate(self.src_embed.weight, "vocab", "embed")
         if shared_embed:
             if tgt_vocab_size != src_vocab_size:
                 raise ValueError("shared_embed needs equal vocab sizes")
             self.tgt_embed = self.src_embed
         else:
             self.tgt_embed = Embedding(tgt_vocab_size, units)
+            annotate(self.tgt_embed.weight, "vocab", "embed")
         self.drop = Dropout(dropout) if dropout else None
         self.enc_layers = self._stack("enc", num_layers, lambda: (
             TransformerEncoderLayer(units, hidden_size, num_heads,
@@ -125,19 +144,20 @@ class TransformerNMT(HybridBlock):
     # ------------------------------------------------------------------
     @staticmethod
     def _src_mask(src, src_valid_length):
-        """(B, 1, 1, T_src) key mask of the real source positions, or
+        """(B, 1, 1, T_src) key mask of the real source positions (of
+        this rank's chunk under ``sp``, at its global positions), or
         None."""
         if src_valid_length is None:
             return None
         b, ts = src.shape
-        steps = torch.arange(ts, device=src.device)
+        steps = torch.arange(ts, device=src.device) + seq_offset(ts)
         return steps.reshape(1, 1, 1, ts) < \
             torch.as_tensor(src_valid_length, device=src.device) \
             .reshape(b, 1, 1, 1)
 
     def _embed(self, embed, tokens):
-        x = _sinusoidal_positions(embed(tokens) * math.sqrt(self._units),
-                                  self._units)
+        x = _sinusoidal_positions(vocab_embed(embed, tokens)
+                                  * math.sqrt(self._units), self._units)
         return self.drop(x) if self.drop is not None else x
 
     def encode(self, src, src_valid_length=None):
@@ -158,12 +178,11 @@ class TransformerNMT(HybridBlock):
             y = _remat_layer(blk, y, mem_mask, self._remat, memory) \
                 if remat else blk(y, memory, mem_mask)
         y = self.dec_ln(y)
-        # tied output projection: logits = y · tgt_embedᵀ
-        return F.linear(*_amp.cast("FullyConnected", y,
-                                   self.tgt_embed.weight))
+        # tied output projection: logits = y · tgt_embedᵀ (this rank's
+        # vocabulary block under tp)
+        return vocab_logits(self.tgt_embed.weight, y)
 
     def forward(self, src, tgt, src_valid_length=None):
-        refuse_tp(self.src_embed, "Transformer NMT")
         memory = self.encode(src, src_valid_length)
         return self.decode(tgt, memory, src, src_valid_length)
 
@@ -179,13 +198,32 @@ class TransformerNMT(HybridBlock):
                 device=dev).to(torch.int32)
         return src, src_valid_length
 
+    def _last_logits(self, tokens, memory, src, vlen):
+        """The whole logits of the last target position (B, V): a
+        vocabulary block gathered over ``tp``."""
+        logits = self.decode(tokens, memory, src, vlen)
+        mesh = vocab_block(logits)
+        last = logits[:, -1]
+        return last if mesh is None else \
+            _coll.gather_cat(last, mesh.group("tp"), -1, grad="slice")
+
     @torch.no_grad()
     def translate(self, src, src_valid_length=None, max_length=32,
                   bos_id=1, eos_id=2, beam_size=1, alpha=1.0):
         """Greedy (``beam_size=1``) or length-normalized beam decode
         (``alpha`` is the length-penalty exponent).  ``src`` (B, T)
         int32 (tensor or numpy).  Returns (B, <= max_length) int32 numpy
-        tokens, padded with EOS."""
+        tokens, padded with EOS.  A net split over ``tp`` translates on
+        every rank of its mesh together (module docstring)."""
+        mesh = next((p._sharding.mesh for p in self.parameters()
+                     if is_block(p)), None)
+        with (use_mesh(mesh) if mesh is not None
+              else contextlib.nullcontext()), no_seq_parallel():
+            return self._translate(src, src_valid_length, max_length,
+                                   bos_id, eos_id, beam_size, alpha)
+
+    def _translate(self, src, src_valid_length, max_length, bos_id, eos_id,
+                   beam_size, alpha):
         src, vlen = self._inputs(src, src_valid_length)
         if beam_size > 1:
             return self._beam_translate(src, vlen, max_length, bos_id,
@@ -196,9 +234,10 @@ class TransformerNMT(HybridBlock):
             tokens = np.full((b, 1), bos_id, dtype=np.int32)
             done = np.zeros((b,), dtype=bool)
             for _ in range(max_length):
-                logits = self.decode(torch.from_numpy(tokens).to(src.device),
-                                     memory, src, vlen)
-                nxt = logits[:, -1].argmax(-1).cpu().numpy().astype(np.int32)
+                last = self._last_logits(
+                    torch.from_numpy(tokens).to(src.device), memory, src,
+                    vlen)
+                nxt = last.argmax(-1).cpu().numpy().astype(np.int32)
                 nxt = np.where(done, eos_id, nxt)
                 done |= nxt == eos_id
                 tokens = np.concatenate([tokens, nxt[:, None]], axis=1)
@@ -233,9 +272,9 @@ class TransformerNMT(HybridBlock):
             scores[:, 0] = 0.0          # all beams start identical: keep 1
             done = np.zeros((b * k,), dtype=bool)
             for _ in range(max_length):
-                logits = self.decode(torch.from_numpy(tokens).to(src.device),
-                                     memory, src_rep, vlen_rep)
-                step = logits[:, -1].cpu().numpy().astype(np.float64)
+                step = self._last_logits(
+                    torch.from_numpy(tokens).to(src.device), memory,
+                    src_rep, vlen_rep).cpu().numpy().astype(np.float64)
                 mx = step.max(-1, keepdims=True)
                 logp = step - np.log(np.exp(step - mx).sum(-1,
                                                            keepdims=True)) \
@@ -275,18 +314,33 @@ class TransformerNMT(HybridBlock):
             return out
 
 
+def _smoothed_nll(x, y, label_smoothing, mesh):
+    """Per-position ``(1 - eps) · (lse - x[y]) + eps · (lse - mean(x))``
+    of float32 logits ``x``: whole, or this rank's vocabulary block
+    reduced over ``tp`` (``gpt2.vocab_parallel_terms``)."""
+    if mesh is None:
+        lse = torch.logsumexp(x, dim=-1)
+        idx = y.long().clamp(0, x.shape[-1] - 1)[..., None]
+        picked, mean = x.gather(-1, idx)[..., 0], x.mean(dim=-1)
+    else:
+        lse, picked, total = vocab_parallel_terms(x, y, mesh)
+        mean = total / (x.shape[-1] * mesh.shape["tp"])
+    return (1.0 - label_smoothing) * (lse - picked) \
+        + label_smoothing * (lse - mean)
+
+
 def nmt_loss(logits, labels, valid_length=None, label_smoothing=0.1):
     """Label-smoothed cross entropy, the mean over the positions before
     each row's ``valid_length`` (every position without it):
     ``(1 - eps) · (lse - logit[label]) + eps · (lse - mean(logits))``
     (Sockeye's training loss, eps = 0.1).  Labels clip to the
-    vocabulary."""
+    vocabulary.  A rank's vocabulary block of the logits (``decode``
+    under ``tp``) gives the loss of the whole logits (module
+    docstring)."""
+    mesh = vocab_block(logits._t if hasattr(logits, "_t") else logits)
+
     def f(x, y, *vl):
-        x = x.float()
-        lse = torch.logsumexp(x, dim=-1)
-        idx = y.long().clamp(0, x.shape[-1] - 1)[..., None]
-        nll = (1.0 - label_smoothing) * (lse - x.gather(-1, idx)[..., 0]) \
-            + label_smoothing * (lse - x.mean(dim=-1))
+        nll = _smoothed_nll(x.float(), y, label_smoothing, mesh)
         if not vl:
             return nll.mean()
         b, t = y.shape
@@ -295,7 +349,7 @@ def nmt_loss(logits, labels, valid_length=None, label_smoothing=0.1):
         return (nll * m).sum() / m.sum()
     ins = [logits, labels] + ([] if valid_length is None else
                               [valid_length])
-    return apply_op("nmt_loss", f, ins)
+    return apply_op("nmt_loss", f, ins, vocab_blocks=True)
 
 
 def get_nmt(name="transformer_base", device=None, **kwargs):

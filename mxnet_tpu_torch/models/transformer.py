@@ -13,6 +13,17 @@ whole input, entered through ``collectives.copy_to``), ``out_proj`` and
 attention kernels (B1-B3) run on the rank's heads, and so do ring and
 Ulysses attention under ``sp``.
 
+**Masked, cross and dropout attention under ``sp``.**  The reference
+attends over the global arrays under GSPMD, on its plain path (its
+dispatch refuses masks to flash).  Here each rank all-gathers K, V and
+the key mask over ``sp`` (cross-attention: the keys and values of the
+memory's chunks), and its query chunk attends through
+``dot_product_attention``'s plain path with the causal part written out
+at global positions; the gather's backward reduce-scatters dK and dV
+(:func:`~mxnet_tpu_torch.parallel.collectives.gather_cat`).  A mask is
+a key mask there, (B or 1, 1 or H, 1, T_chunk): a mask with a query
+axis has no chunk to gather and raises.
+
 The serving entry points (``forward_step_slots``,
 ``forward_prefill_slots``, the speculative drafter's read-only
 ``forward_step_window``) mirror the reference's, with two deliberate
@@ -43,6 +54,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import os
+import threading
 
 import torch
 import torch.utils.checkpoint as _ckpt
@@ -63,7 +75,8 @@ from ..parallel.sharding import annotate, block_mesh
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerBlock",
            "TransformerEncoderLayer", "run_blocks", "copy_cache_rows",
-           "seq_offset", "tp_group", "row_parallel", "refuse_tp"]
+           "seq_offset", "tp_group", "row_parallel", "no_seq_parallel",
+           "seq_first"]
 
 _NEG = -1e30
 
@@ -129,19 +142,6 @@ def row_parallel(dense, x, group):
     x, w, b = _amp.cast("FullyConnected", x, dense.weight, dense.bias)
     y = _coll.reduce_from(_dots.linear(x, w, None), group)
     return y if b is None else y + b
-
-
-def refuse_tp(embedding, what):
-    """Raise for a model whose heads are not split by vocabulary yet
-    under a mesh with ``tp`` above 1, or whose ``embedding`` table is a
-    block."""
-    mesh = _par.current_mesh()
-    if (mesh is not None and _par.axis_size(mesh, "tp") > 1) or \
-            getattr(embedding.weight, "_mxt_global_shape", None) is not None:
-        raise MXNetError(
-            f"{what} under tensor parallelism (tp > 1): its embeddings "
-            "and output heads are not split by vocabulary yet (ROADMAP "
-            "queue A6); GPT-2 and the stacked GPT-2 run under tp")
 
 
 class MultiHeadAttention(HybridBlock):
@@ -220,13 +220,7 @@ class MultiHeadAttention(HybridBlock):
         if mask is None and memory is None and self._att_dropout == 0.0:
             out = _seq_parallel_attention(self, q, k, v)
         elif _sp_size() > 1:
-            # the reference's GSPMD path attends over the global arrays;
-            # the port's sequence chunks meet only through ring / Ulysses
-            raise MXNetError(
-                "attention with a mask, memory or attention dropout under "
-                "an sp mesh: the port runs sequence parallelism for plain "
-                "self-attention (ring, Ulysses); the rest is ROADMAP "
-                "queue A6")
+            out = _gathered_attention(self, q, k, v, mask)
         if out is None:
             out = dot_product_attention(q, k, v, causal=self._causal,
                                         mask=mask, dropout=self._att_dropout)
@@ -391,19 +385,84 @@ def copy_cache_rows(caches, src, dst, length):
 _WARNED_ULYSSES_FALLBACK = False
 
 
+_SP_OFF = threading.local()
+
+
+@contextlib.contextmanager
+def no_seq_parallel():
+    """Run whole sequences under a mesh with ``sp`` above 1: inside, the
+    models see no sequence axis (no chunk offset, no ring), while their
+    ``tp`` blocks still meet through the mesh (inference of a net trained
+    under ``sp``, as ``TransformerNMT.translate``)."""
+    prev = getattr(_SP_OFF, "on", False)
+    _SP_OFF.on = True
+    try:
+        yield
+    finally:
+        _SP_OFF.on = prev
+
+
+def _sp_mesh():
+    """The current mesh where its ``sp`` axis is live, else None."""
+    mesh = _par.current_mesh()
+    if mesh is None or _par.axis_size(mesh, "sp") == 1 or \
+            getattr(_SP_OFF, "on", False):
+        return None
+    return mesh
+
+
 def seq_offset(t: int) -> int:
     """The first position of this rank's sequence chunk of length ``t``
     under the current mesh's ``sp`` axis (0 without one): the models add
     it to the positions they embed."""
-    mesh = _par.current_mesh()
-    if mesh is None or _par.axis_size(mesh, "sp") == 1:
-        return 0
-    return mesh.axis_index("sp") * t
+    mesh = _sp_mesh()
+    return 0 if mesh is None else mesh.axis_index("sp") * t
 
 
 def _sp_size() -> int:
-    mesh = _par.current_mesh()
-    return _par.axis_size(mesh, "sp") if mesh is not None else 1
+    mesh = _sp_mesh()
+    return 1 if mesh is None else _par.axis_size(mesh, "sp")
+
+
+def seq_first(x):
+    """``x[:, 0]`` of the whole sequence: under ``sp`` the first rank's
+    first position, summed over ``sp`` with zeros from the others
+    (``collectives.psum``, so each rank's share of the gradient returns
+    to the first rank's chunk)."""
+    mesh = _sp_mesh()
+    first = x[:, 0]
+    if mesh is None:
+        return first
+    if mesh.axis_index("sp"):
+        first = first * 0
+    return _coll.psum(first, mesh.group("sp"))
+
+
+def _gathered_attention(attn, q, k, v, mask):
+    """Attention of this rank's query chunk over the whole sequence's keys
+    under ``sp`` (module docstring): K, V and the key mask gathered over
+    ``sp``, the causal part at global positions, the plain path."""
+    mesh = _sp_mesh()
+    group = mesh.group("sp")
+    k = _coll.gather_cat(k, group, 1)
+    v = _coll.gather_cat(v, group, 1)
+    tq, tk = q.shape[1], k.shape[1]
+    full = None
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=q.device)
+        if mask.dim() != 4 or mask.shape[2] != 1:
+            raise MXNetError(
+                f"attention under an sp mesh takes a key mask (B, 1, 1, "
+                f"T_chunk); got a mask of shape {tuple(mask.shape)}: a "
+                "mask with a query axis has no sequence chunk to gather")
+        full = _coll.gather_cat(mask.to(torch.uint8), group, 3).bool()
+    if attn._causal:
+        qpos = torch.arange(tq, device=q.device) + mesh.axis_index("sp") * tq
+        kpos = torch.arange(tk, device=q.device)
+        c = (kpos[None, :] <= qpos[:, None])[None, None]
+        full = c if full is None else full & c
+    return dot_product_attention(q, k, v, mask=full,
+                                 dropout=attn._att_dropout)
 
 
 def _seq_parallel_attention(attn, q, k, v):
@@ -412,7 +471,7 @@ def _seq_parallel_attention(attn, q, k, v):
     sp = _sp_size()
     if sp == 1:
         return None
-    mesh = _par.current_mesh()
+    mesh = _sp_mesh()
     h = attn._num_heads
     if attn._seq_parallel == "ulysses":
         # this rank's heads: H / |tp| under tensor parallelism

@@ -44,14 +44,30 @@ def _alias(name, fn):
 
 # ---------------------------------------------------------------- dispatcher
 
-def invoke(name, fn, nd_inputs, nout=1, ctx=None, differentiable=True):
+def _whole(tensors):
+    """``tensors`` with every vocabulary block (a tied head's logits under
+    ``tp``, ``sharding.vocab_block``) gathered whole over ``tp``: an op
+    never computes on a rank's block as if it were the whole array."""
+    if not any(getattr(t, "_mxt_sharding", None) is not None
+               for t in tensors):
+        return tensors
+    from ..parallel.sharding import gather_vocab
+    return [gather_vocab(t) if isinstance(t, torch.Tensor) else t
+            for t in tensors]
+
+
+def invoke(name, fn, nd_inputs, nout=1, ctx=None, differentiable=True,
+           vocab_blocks=False):
     """Run ``fn`` over the tensors of ``nd_inputs`` and wrap what it
     returns (a tensor, or a tuple/list of them) as NDArrays; a graph is
     built only while recording and only for a differentiable op.  Under
     ``amp.init()`` the inputs are first cast as the policy casts op
-    ``name``'s."""
+    ``name``'s.  A vocabulary block among the inputs is gathered whole
+    first (:func:`_whole`) unless ``vocab_blocks`` says ``fn`` takes
+    blocks (the vocab-parallel losses)."""
     with torch.set_grad_enabled(_base.is_recording() and differentiable):
-        out = fn(*_amp.cast(name, *(x._t for x in nd_inputs)))
+        ts = [x._t for x in nd_inputs]
+        out = fn(*_amp.cast(name, *(ts if vocab_blocks else _whole(ts))))
     if isinstance(out, (tuple, list)):
         return [NDArray(o) for o in out]
     return NDArray(out)
@@ -70,15 +86,19 @@ def _first_nd(*xs):
     return next((x for x in xs if isinstance(x, NDArray)), None)
 
 
-def apply_op(name, fn, inputs):
+def apply_op(name, fn, inputs, vocab_blocks=False):
     """Op ``name`` as either convention calls it: with an NDArray among
     ``inputs``, through :func:`invoke` (a graph only inside
     ``autograd.record()``, NDArrays out); with tensors, ``fn`` on them as
     the amp policy casts op ``name``'s inputs, in the caller's grad
-    mode."""
+    mode.  Vocabulary blocks are gathered whole unless ``vocab_blocks``
+    (as :func:`invoke`)."""
     like = _first_nd(*inputs)
     if like is not None:
-        return invoke(name, fn, [_as_nd(x, like) for x in inputs])
+        return invoke(name, fn, [_as_nd(x, like) for x in inputs],
+                      vocab_blocks=vocab_blocks)
+    if not vocab_blocks:
+        inputs = _whole(inputs)
     return fn(*_amp.cast(name, *inputs))
 
 

@@ -16,7 +16,9 @@ as explicit ``torch.distributed`` calls over a mesh axis's group.
   weights, :func:`reduce_from` (sum forward, identity backward) after
   it; :func:`psum` (sum both ways: the reference's ``psum`` and its
   transpose), :func:`all_reduce` with a max for the vocab-parallel
-  loss's row maxima, :func:`pipe_shift`, the pipeline's send to the
+  loss's row maxima, :func:`gather_cat`, the blocks of a group joined
+  along one dim (the keys of attention under ``sp``, a vocabulary block
+  of the logits), :func:`pipe_shift`, the pipeline's send to the
   next stage and receive from the previous, whose backward sends the
   gradient back, and :func:`from_owner`, the pipeline's output handed
   from the last stage to every stage, whose gradient returns to the
@@ -47,7 +49,7 @@ import torch.distributed as dist
 __all__ = ["all_reduce_", "ring_shift", "exchange", "all_to_all",
            "all_gather", "broadcast_", "stats", "reset_stats", "staging",
            "tag_group", "BUCKET_BYTES", "all_reduce", "copy_to",
-           "reduce_from", "psum", "pipe_shift", "from_owner"]
+           "reduce_from", "psum", "pipe_shift", "from_owner", "gather_cat"]
 
 #: DDP's default bucket size
 BUCKET_BYTES = 25 << 20
@@ -436,3 +438,37 @@ def from_owner(x: torch.Tensor, group, mine: bool) -> torch.Tensor:
     if group is None:
         return x
     return _FromOwner.apply(x, group, bool(mine))
+
+
+class _GatherCat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, grad):
+        ctx.meta = (group, dim, grad)
+        return torch.cat(all_gather(x.detach(), group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim, grad = ctx.meta
+        n = dist.get_world_size(group)
+        size = g.shape[dim] // n
+        if grad == "sum":
+            g = all_reduce(g.contiguous(), group)
+        return g.narrow(dim, dist.get_rank(group) * size, size), None, \
+            None, None
+
+
+def gather_cat(x: torch.Tensor, group, dim: int,
+               grad: str = "sum") -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` joined along ``dim`` in rank order
+    (blocks of one shape).  The backward gives this rank's block of the
+    gradient: ``grad='sum'`` sums the gradients of the ranks first (a
+    reduce-scatter: each rank used the whole for its own part of the
+    work, as attention's queries of a sequence chunk use every key),
+    ``grad='slice'`` takes this rank's own (every rank computed the same
+    thing from the whole, as the replicated head after a vocabulary
+    block's gather)."""
+    if group is None:
+        return x
+    if grad not in ("sum", "slice"):
+        raise ValueError(f"grad={grad!r}: expected 'sum' or 'slice'")
+    return _GatherCat.apply(x, group, dim, grad)

@@ -33,7 +33,7 @@ __all__ = ["DEFAULT_RULES", "ShardingRules", "PartitionSpec",
            "shard_params", "batch_spec", "global_batch_sharding",
            "local_shard", "is_local_shard", "mark_local_shard",
            "check_placement", "block_mesh", "global_shape", "MODEL_AXES",
-           "DATA_AXES"]
+           "DATA_AXES", "vocab_block", "gather_vocab"]
 
 #: the axes that split parameters into blocks, and those that split
 #: batches
@@ -319,3 +319,26 @@ def check_placement(sharding: NamedSharding):
             f"a batch placement {tuple(sharding.spec)} over mesh axes "
             f"{wider}: batches split over dp and sp, and every rank of a "
             "tp, ep or pp line takes the same rows")
+
+
+def vocab_block(t) -> Optional[Mesh]:
+    """The mesh over whose ``tp`` tensor ``t`` is this rank's block of the
+    last (vocabulary) dimension (``mark_local_shard`` with a spec ending
+    in ``tp``: the tied heads' logits), or None for a whole tensor."""
+    sh = getattr(t, "_mxt_sharding", None)
+    if sh is None or len(sh.spec) < 1 or sh.spec[-1] != "tp" or \
+            axis_size(sh.mesh, "tp") == 1:
+        return None
+    return sh.mesh
+
+
+def gather_vocab(t: torch.Tensor) -> torch.Tensor:
+    """``t`` whole: a vocabulary block (:func:`vocab_block`) joined with
+    the other ``tp`` ranks' along the last dim, whose gradient is this
+    rank's columns of the whole's (every rank of the line computes the
+    same from it); any other tensor as it is."""
+    mesh = vocab_block(t)
+    if mesh is None:
+        return t
+    from . import collectives
+    return collectives.gather_cat(t, mesh.group("tp"), -1, grad="slice")

@@ -102,15 +102,24 @@ beside a paged engine (the kernel arm stays the engine's): it shares
 the page table, mirrors every cache write, and feeds each step's
 max-abs logit delta to ``stats()["quantized_kv"]["error"]``.
 
-Not in this slice: meshes (``mesh=``, ROADMAP queue A6), and KV tiers
-and migration (``host_pool_bytes``, ``disk_tier_dir``, prefill/decode
-``role``s, queue A7): the engine refuses those arguments.  ``stats()``
+Sharded decode (``mesh=``, ``mesh_axes=``): every rank of the mesh
+builds the engine; the mesh's first rank schedules and broadcasts each
+program call's plan, the others follow it on their own heads and, with
+a slot axis, their own KV rows (:mod:`.sharded`).  The compile
+accounting is by mesh point (``"2dev:tp=2"``).  Under gloo, whose
+transport stages through the host, the programs run eagerly; under
+NCCL (or a mesh of one rank) they are CUDA graphs as on one device.
+
+Not in this slice: KV tiers and migration (``host_pool_bytes``,
+``disk_tier_dir``, prefill/decode ``role``s, queue A7): the engine
+refuses those arguments.  ``stats()``
 carries the reference's sections and keeps the port's earlier
 ``counters`` (flat, with ``shed`` and ``rejected``), ``rates``,
 ``engine.device`` and ``latency``'s ``ttft``/``request`` percentiles.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import logging
 import math
@@ -132,6 +141,7 @@ from ..models.transformer import copy_cache_rows
 from ..observability.flightrecorder import active as _fr_active
 from ..observability.trace import active as _trace_active
 from ..ops.paged import KERNEL_HEAD_DIMS
+from ..parallel.mesh import use_mesh
 from ..resilience.faults import (RetryableFault, inject as _inject,
                                  poison as _poison)
 from .batcher import BucketLattice, DynamicBatcher
@@ -149,6 +159,7 @@ from .overload import (PRIORITY_BATCH, PRIORITY_BEST_EFFORT,
                        priority_name, priority_ordinal)
 from .prefix_cache import PrefixCache
 from .sampling import sample_tokens
+from .sharded import BEAT, PROGRAMS, ServingMesh
 
 __all__ = ["InferenceEngine", "InferenceFuture", "Request"]
 
@@ -274,6 +285,8 @@ class Request:
 
 
 _MESH_POINT = "1dev"
+# a plan's stand-in for a device input: the follower's own last output
+_PREV = "<previous output>"
 
 
 def _host(t):
@@ -331,9 +344,12 @@ class InferenceEngine:
     engine's metrics name, uniquified against live engines).
     ``device`` is where the engine runs (default: the current CUDA
     device; raises without one): the model's parameters must already
-    live there.  ``mesh``/``mesh_axes`` (queue A6) and
-    ``host_pool_bytes``/``tier_fault_limit``/``disk_tier_dir``/``role``
-    (queue A7) are accepted only at their defaults.
+    live there.  ``mesh`` is None, a device count (``make_mesh(dp=1,
+    tp=N)`` over a job of N ranks) or a :class:`~mxnet_tpu_torch.parallel.
+    Mesh`; ``mesh_axes`` names its model axis and an optional slot axis
+    (module docstring, :mod:`.sharded`).  ``host_pool_bytes``/
+    ``tier_fault_limit``/``disk_tier_dir``/``role`` (queue A7) are
+    accepted only at their defaults.
     """
 
     QUEUE_DEPTH = 64
@@ -409,10 +425,6 @@ class InferenceEngine:
         if int(host_pool_bytes) < 0:
             raise ServingError(f"host_pool_bytes must be >= 0, got "
                                f"{host_pool_bytes}")
-        if mesh is not None or mesh_axes != "tp":
-            raise MXNetError("mesh/mesh_axes: the port's engine serves on "
-                             "one device; sharded decode is ROADMAP queue "
-                             "A6")
         if role != "unified" or int(host_pool_bytes) or \
                 disk_tier_dir is not None or int(tier_fault_limit) != 3:
             raise MXNetError("role/host_pool_bytes/disk_tier_dir/"
@@ -456,6 +468,11 @@ class InferenceEngine:
                                      "lists")
         self.debug_parity = bool(debug_parity)
         if mode == "forward":
+            if mesh is not None:
+                raise ServingError(
+                    "mesh= is a decode-mode knob — forward mode has no "
+                    "sharded serving surface (shard the net's params with "
+                    "parallel.shard_params instead)")
             self._init_forward(batch_buckets, spec_tokens, draft_layers,
                                kv_quant, paged_attention,
                                prefix_min_tokens)
@@ -464,17 +481,18 @@ class InferenceEngine:
                               seq_buckets, prefix_pool_rows, prefill_chunk,
                               prefix_min_tokens, page_size, num_pages,
                               kv_quant, paged_attention, spec_tokens,
-                              draft_layers)
+                              draft_layers, mesh is not None)
         if self.debug_parity:
             if not self._paged:
                 raise ServingError("debug_parity compares against the "
                                    "float32 paged gather arm — it needs "
                                    "kv_layout='paged'")
-            if self.spec_tokens:
+            if self.spec_tokens or mesh is not None:
                 raise ServingError(
                     "debug_parity is a single-engine debug knob: "
-                    "incompatible with spec_tokens — the speculative "
-                    "window writes K/V the float32 twin cannot mirror")
+                    "incompatible with spec_tokens and mesh — those paths "
+                    "write K/V the float32 twin cannot mirror")
+        self._init_mesh(mesh, mesh_axes)
         # whether the sampling programs also return their raw logits for
         # the twin: fixed when the programs are built
         self._dbg = self.debug_parity
@@ -553,10 +571,28 @@ class InferenceEngine:
         self.spec_tokens = 0
         self.draft_layers = int(draft_layers)
 
+    def _init_mesh(self, mesh, mesh_axes):
+        """The reference's mesh attributes, and the :class:`ServingMesh`
+        (validation, this rank's shadow net, the plan exchange) when
+        ``mesh`` is given.  ``self._model`` is what the programs run:
+        the net, or its shadow over this rank's blocks."""
+        self._mesh = ServingMesh(self, mesh, mesh_axes) \
+            if mesh is not None else None
+        m = self._mesh
+        self.mesh = m.mesh if m is not None else None
+        self.mesh_axes = m.axes if m is not None else ()
+        self.mesh_devices = int(m.mesh.size) if m is not None else 1
+        self._model_axis = m.model_axis if m is not None else None
+        self._slot_axis = m.slot_axis if m is not None else None
+        self._mesh_key = m.key if m is not None else _MESH_POINT
+        self._model = m.shadow if m is not None else self.net
+        # followers only: warmup() runs on every rank in step, no plans
+        self._lockstep = False
+
     def _init_decode(self, net, num_slots, max_length, batch_buckets,
                      seq_buckets, prefix_pool_rows, prefill_chunk,
                      prefix_min_tokens, page_size, num_pages, kv_quant,
-                     paged_attention, spec_tokens, draft_layers):
+                     paged_attention, spec_tokens, draft_layers, meshed):
         self.max_length = int(max_length or net.max_length)
         if self.max_length > net.max_length:
             raise ServingError(
@@ -595,8 +631,15 @@ class InferenceEngine:
         if paged_attention and not self._paged:
             raise ServingError("paged_attention picks the paged read arm; "
                                "set kv_layout='paged' first")
+        if paged_attention == "kernel" and meshed:
+            raise ServingError(
+                "paged_attention='kernel' does not compose with a serving "
+                "mesh (the reference's paged kernel is not partitionable, "
+                "and the port keeps its refusal); use the 'gather' arm "
+                "under mesh")
         self.kv_quant = kv_quant
-        self.paged_attention = (paged_attention or "kernel") \
+        self.paged_attention = (paged_attention or
+                                ("gather" if meshed else "kernel")) \
             if self._paged else None
         self._paged_kernel = self.paged_attention == "kernel"
         if self._paged_kernel and self.device.type == "cuda":
@@ -753,7 +796,7 @@ class InferenceEngine:
             ("mxtpu_serving_mesh_devices",
              "devices the engine's compiled programs span (1 = unsharded "
              "single-device serving)",
-             lambda e: 1),
+             lambda e: e.mesh_devices),
             ("mxtpu_serving_overload_factor",
              "brownout degradation factor (1.0 = normal; lower = "
              "non-interactive token budgets capped at this fraction)",
@@ -781,7 +824,7 @@ class InferenceEngine:
             n = eng.metrics.counters["compiles"]
             return [{"name": "mxtpu_serving_compiles", "kind": "gauge",
                      "labels": {"engine": eng.metrics.name,
-                                "mesh_point": _MESH_POINT},
+                                "mesh_point": eng._mesh_key},
                      "value": n,
                      "help": "compiles at this (engine, mesh point) — "
                              "frozen after warmup()"}] if n else []
@@ -801,11 +844,17 @@ class InferenceEngine:
 
     # ------------------------------------------------------------- lifecycle
     def start(self):
+        """Start the scheduler.  On a mesh's follower rank this runs the
+        loop that follows rank 0's plans, and returns when rank 0 stops
+        (:mod:`.sharded`)."""
         if self._thread is not None:
             raise ServingError("engine already started")
         if self._batcher.closed:
             raise ServingError("engine cannot be restarted once stopped — "
                                "build a fresh InferenceEngine")
+        if self._follower:
+            self._follow()
+            return self
         from ..resilience.watchdog import Watchdog
         self._heartbeat = time.monotonic()
         self._thread = threading.Thread(target=self._loop,
@@ -1137,6 +1186,10 @@ class InferenceEngine:
         (None/0 = none), enforced while queued and mid-generation and,
         with ``deadline_admission``, on arrival.  ``priority`` is the
         request's class (default ``default_priority``)."""
+        if self._follower:
+            raise ServingError(
+                f"submit on rank {self._mesh.leader_rank} of the mesh: it "
+                "schedules the engine, and the other ranks follow its plans")
         try:
             pr = self.default_priority if priority is None \
                 else priority_ordinal(priority)
@@ -1310,7 +1363,7 @@ class InferenceEngine:
         bucket for examples of ``example_shape`` (no batch dim) and
         ``dtype``.  Needs an idle engine; returns the number of programs
         compiled, as the reference's does."""
-        with self._step_lock:
+        with self._step_lock, self._in_step():
             before = self.metrics.counters["compiles"]
             if self.mode == "forward":
                 if example_shape is None:
@@ -1406,12 +1459,16 @@ class InferenceEngine:
         s["quantized_kv"].update({"kv_quant": self.kv_quant,
                                   "paged_attention": self.paged_attention,
                                   "debug_parity": self.debug_parity})
-        # one engine serves one mesh point; the port has one
-        s["mesh"] = {"enabled": False, "devices": 1, "axes": {},
-                     "model_axis": None, "slot_axis": None,
-                     "mesh_point": _MESH_POINT}
-        s["compile"] = {"mesh_point": _MESH_POINT,
-                        "by_mesh_point": {_MESH_POINT: c["compiles"]}
+        # one engine serves one mesh point: its compiles all land there
+        s["mesh"] = self._mesh.stats() if self._mesh is not None else {
+            "enabled": False, "devices": 1, "axes": {}, "model_axis": None,
+            "slot_axis": None, "mesh_point": _MESH_POINT}
+        if self._mesh is not None:
+            # the port's plan exchange: plans rank 0 sent (their host
+            # inputs' bytes) and the seconds in the exchange and status
+            s["plans"] = dict(self._mesh.plans)
+        s["compile"] = {"mesh_point": self._mesh_key,
+                        "by_mesh_point": {self._mesh_key: c["compiles"]}
                         if c["compiles"] else {},
                         "compiles": c["compiles"],
                         "bucket_hits": c["bucket_hits"],
@@ -1445,11 +1502,26 @@ class InferenceEngine:
         allocated before the first program runs.  The watchdog's hang
         check is suspended while a program compiles."""
         self._ensure_caches()
+        m = self._mesh
+        if m is not None:
+            if self._leads():
+                # a device input is the last program's output (the
+                # verify's drafts), which every rank computed alike
+                m.send("call", key, tuple(
+                    _PREV if isinstance(a, torch.Tensor) else a
+                    for a in args), count)
+                if m.status(0):
+                    m.broken = True
+                    raise EngineCrashedError(
+                        "a follower rank of the mesh failed to apply a "
+                        "plan", engine=self.name)
+            m.refresh()
         prog = self._programs.get(key)
         first = prog is None
         if first:
             self.metrics.count("compiles")
-            graph = self._graphs and self.device.type == "cuda"
+            graph = self._graphs and self.device.type == "cuda" and \
+                not (m is not None and m.staged)
             if graph and self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
                 self._graph_stream = torch.cuda.Stream(self.device)
@@ -1460,12 +1532,127 @@ class InferenceEngine:
         elif count:
             self.metrics.count("bucket_hits")
         try:
-            with self.metrics.span(key[0]):
+            with self.metrics.span(key[0]), self._mesh_scope():
                 return prog(*args)
+        except BaseException:
+            if m is not None and m.followers:
+                # the ranks may have parted inside the program
+                m.broken = True
+            raise
         finally:
             if first:
                 self._compiling = False
                 self._heartbeat = time.monotonic()
+
+    # ----------------------------------------------------------------- mesh
+    @property
+    def _follower(self) -> bool:
+        return self._mesh is not None and not self._mesh.leader
+
+    def _leads(self) -> bool:
+        """Whether this call sends a plan: rank 0 of a mesh with
+        followers, outside ``warmup()`` (which every rank runs in step)."""
+        m = self._mesh
+        return m is not None and m.leader and m.followers and \
+            not self._lockstep
+
+    @contextlib.contextmanager
+    def _in_step(self):
+        prev, self._lockstep = self._lockstep, True
+        try:
+            yield
+        finally:
+            self._lockstep = prev
+
+    def _mesh_scope(self):
+        return use_mesh(self.mesh) if self.mesh is not None else \
+            contextlib.nullcontext()
+
+    def _effect(self, op, *args):
+        """Cache surgery ``op``: applied here at once, and sent to the
+        followers with the next plan."""
+        self._apply(op, *args)
+        if self._leads():
+            self._mesh.effects.append(
+                (op,) + tuple(a.copy() if isinstance(a, np.ndarray) else a
+                              for a in args))
+
+    def _apply(self, op, *args):
+        """In-place surgery on this rank's caches (the programs hold
+        their addresses): the page table's upload, scrubbed pages, every
+        cache zeroed, one dense row zeroed, a K scale poisoned."""
+        self._ensure_caches()
+        if op == "table":
+            self._table_dev.copy_(torch.from_numpy(args[0]))
+            return
+        if op == "kscale":
+            self._caches[0]["k_scale"][args[0]] = args[1]
+            return
+        row = None
+        if op == "zero_row":
+            row = self._mesh.local_row(args[0]) if self._mesh is not None \
+                else args[0]
+            if row is None:
+                return
+        idx = self._dev(np.asarray(args[0], np.int64)) \
+            if op == "scrub" else None
+        for caches in (self._caches, self._parity_caches):
+            for cache in caches or ():
+                for a in cache.values():
+                    if op == "scrub":
+                        a.index_fill_(0, idx, 0)
+                    elif op == "zero_row":
+                        a[row].zero_()
+                    else:
+                        a.zero_()
+
+    def _follow(self):
+        """A follower's loop: receive rank 0's plans, apply their surgery,
+        take part in the status word, run their programs, until ``stop``.
+        Surgery that fails on a beat is reported at the next call's
+        status word, before any program reads the caches.  A rank that
+        fails raises out of ``start()``."""
+        m = self._mesh
+        self._heartbeat = time.monotonic()
+        last = None
+        code = 0
+        try:
+            while True:
+                op, payload, effects = m.receive()
+                try:
+                    with self._step_lock:
+                        for e in effects:
+                            self._apply(*e)
+                except Exception:
+                    _log.exception("mesh follower: applying a plan failed")
+                    code = 1
+                if op == "stop":
+                    return
+                if op != "call":
+                    continue
+                if m.status(code):
+                    raise EngineCrashedError(
+                        "a rank of the mesh failed to apply a plan",
+                        engine=self.name)
+                key, args, count = payload
+                args = tuple(last if isinstance(a, str) and a == _PREV
+                             else a for a in args)
+                with self._step_lock:
+                    last = self._call(key, getattr(self, PROGRAMS[key[0]]),
+                                      *args, count=count)
+                self._heartbeat = time.monotonic()
+        finally:
+            self._batcher.close()
+
+    def _release_followers(self):
+        """Rank 0: end the followers' loops (the scheduler's last act)."""
+        m = self._mesh
+        if m is None or not m.leader or not m.followers or m.broken:
+            return
+        try:
+            m.send("stop")
+        except Exception:
+            _log.exception("mesh leader: the stop plan failed")
 
     def _run_step(self, site: Optional[str], key, fn, args, reqs=()):
         """One program call with the injection site ``site`` (None: no
@@ -1507,21 +1694,24 @@ class InferenceEngine:
         if self._caches is not None:
             return
         if self._paged:
-            self._caches = self.net.init_page_cache(
+            # this rank's heads under a mesh (the shadow's blocks)
+            self._caches = self._model.init_page_cache(
                 self.num_pages + 1, self.page_size,
                 kv_quant=self.kv_quant)
             if self.debug_parity:
                 # the float32 twin: same page geometry, never quantized
-                self._parity_caches = self.net.init_page_cache(
+                self._parity_caches = self._model.init_page_cache(
                     self.num_pages + 1, self.page_size)
             self._table_dev = torch.from_numpy(
                 self._page_table.copy()).to(self.device)
             self._table_stale = False
         else:
-            # slots + scratch + prefix pool rows
-            self._caches = self.net.init_slot_cache(
-                self.num_slots + 1 + self.prefix_pool_rows,
-                self.max_length)
+            # slots + scratch + prefix pool rows; under a slot axis this
+            # rank's block of them and a trash row
+            slot = self._mesh.slot_rows if self._mesh is not None else None
+            self._caches = self._model.init_slot_cache(
+                self.num_slots + 1 + self.prefix_pool_rows if slot is None
+                else slot[1] + 1, self.max_length)
 
     def _sync_table(self):
         """Upload the page table into its static device buffer if it
@@ -1536,7 +1726,7 @@ class InferenceEngine:
         if self._paged and self._table_stale:
             # a snapshot: the host table changes during the cycle, the
             # device copy stays as uploaded (as the card's does)
-            self._table_dev.copy_(torch.from_numpy(self._page_table))
+            self._effect("table", self._page_table)
             self._table_stale = False
 
     def _paged_kw(self):
@@ -1574,30 +1764,52 @@ class InferenceEngine:
         out = torch.stack([tokens, ok])
         return (out, logits) if self._dbg else out
 
+    # Under a slot axis (:mod:`.sharded`) the per-row inputs of decode,
+    # draft and verify are cut to this rank's rows and their outputs
+    # joined again; a prefill writes the rows this rank holds, and a
+    # chunk's logits come from the rank holding each row.  Without one
+    # the helpers pass everything through.
+    def _rows(self, a, fill):
+        return a if self._mesh is None else self._mesh.rows_local(a, fill)
+
+    def _joined(self, t, n):
+        return t if self._mesh is None else self._mesh.rows_global(t, n)
+
+    def _slot_idx(self, sidx):
+        return sidx if self._mesh is None else self._mesh.slots_local(sidx)
+
     def _prog_decode(self, tok, pos, temp, topk, topp, seeds):
-        logits, _ = self.net.decode_step(tok, self._caches, pos,
-                                         **self._paged_kw())
+        logits, _ = self._model.decode_step(
+            self._rows(tok, 0), self._caches,
+            self._rows(pos, self.max_length), **self._paged_kw())
+        logits = self._joined(logits, tok.shape[0])
         return self._sampled(
             sample_tokens(logits, temp, topk, topp, seeds, pos), logits)
 
     def _prog_prefill(self, toks, lens, sidx, temp, topk, topp, seeds):
-        logits, _ = self.net.prefill_slots(toks, lens, self._caches, sidx,
-                                           **self._paged_kw())
+        logits, _ = self._model.prefill_slots(
+            toks, lens, self._caches, self._slot_idx(sidx),
+            **self._paged_kw())
         return self._sampled(
             sample_tokens(logits, temp, topk, topp, seeds, lens - 1), logits)
 
     def _prog_chunk(self, toks, lens, sidx, off, temp, topk, topp, seeds):
-        logits, _ = self.net.prefill_slots(toks, lens, self._caches, sidx,
-                                           offset=off, **self._paged_kw())
+        logits, _ = self._model.prefill_slots(
+            toks, lens, self._caches, self._slot_idx(sidx), offset=off,
+            **self._paged_kw())
+        if self._mesh is not None:
+            logits = self._mesh.pick_owner(logits, sidx)
         return self._sampled(
             sample_tokens(logits, temp, topk, topp, seeds, off + lens - 1),
             logits)
 
     def _prog_draft(self, tok, pos, temp, topk, topp, seeds, pois):
-        return self.net.draft_slots(
-            tok, self._caches, pos, self.spec_tokens, self.draft_layers,
-            temp, topk, topp, seeds, poison=pois,
-            page_table=self._table_dev if self._paged else None)
+        out = self._model.draft_slots(
+            self._rows(tok, 0), self._caches, self._rows(pos, self.max_length),
+            self.spec_tokens, self.draft_layers, self._rows(temp, 0),
+            self._rows(topk, 0), self._rows(topp, 1), self._rows(seeds, 0),
+            poison=pois, page_table=self._table_dev if self._paged else None)
+        return self._joined(out, tok.shape[0])
 
     def _prog_verify(self, tok, draft, pos, temp, topk, topp, seeds):
         """The (S, k + 1) window [tok, drafts]: its K/V are written and
@@ -1606,9 +1818,11 @@ class InferenceEngine:
         one (S, 2k + 2) int32 tensor: the verify tokens, the drafts
         (this program's own input, copied out) and each row's finite
         flag over the whole window."""
-        logits, _ = self.net.verify_slots(
-            torch.cat([tok[:, None], draft], dim=1), self._caches, pos,
-            **self._paged_kw())
+        window = torch.cat([tok[:, None], draft], dim=1)
+        logits, _ = self._model.verify_slots(
+            self._rows(window, 0), self._caches,
+            self._rows(pos, self.max_length), **self._paged_kw())
+        logits = self._joined(logits, tok.shape[0])
         s, w, v = logits.shape
 
         def rep(a):
@@ -1623,7 +1837,11 @@ class InferenceEngine:
                           ok[:, None]], dim=1)
 
     def _prog_copy(self, src, dst, length):
-        copy_cache_rows(self._caches, src, dst, length)
+        m = self._mesh
+        if m is not None and m.slot_rows is not None:
+            m.copy_rows(self._caches, src, dst, length)
+        else:
+            copy_cache_rows(self._caches, src, dst, length)
 
     def _prog_forward(self, xs):
         """The block's output (one tensor, or a tuple of them) and each
@@ -1759,22 +1977,36 @@ class InferenceEngine:
 
     # ------------------------------------------------------------- scheduler
     def _loop(self):
+        try:
+            self._schedule()
+        finally:
+            # the scheduler's last act ends the mesh followers' loops
+            self._release_followers()
+
+    def _schedule(self):
         cycle = self._forward_cycle if self.mode == "forward" \
             else self._cycle
+        m = self._mesh
         while True:
             self._heartbeat = time.monotonic()
             # outside the recovery net: a raise here kills the scheduler,
             # which is the crash the watchdog exists to detect
             _inject("serving.scheduler", scope=self.name)
             with self._cond:
-                if self._batcher.empty() and self._alloc.active_count == 0:
+                idle = self._batcher.empty() and \
+                    self._alloc.active_count == 0
+                if idle:
                     if self._stopping:
                         return
                     # the controller keeps ticking while idle, or a
                     # brownout could never lift once the storm passed
                     self._overload_tick(time.monotonic())
                     self._cond.wait(0.05)
-                    continue
+            if idle:
+                if self._leads() and not m.broken and \
+                        time.monotonic() - m.last_plan > BEAT:
+                    m.send("beat")
+                continue
             try:
                 with self._step_lock:
                     self._cycle_busy = True
@@ -1786,6 +2018,14 @@ class InferenceEngine:
                 _log.exception("serving cycle failed; failing in-flight "
                                "requests")
                 with self._step_lock:
+                    if m is not None and m.broken:
+                        # the ranks parted: no plan reaches the followers,
+                        # so the engine is condemned before any rider's
+                        # future resolves
+                        self._watchdog_trip(
+                            f"mesh rank failed: {type(e).__name__}: {e}")
+                        self._fail_inflight(e)
+                        return
                     self._fail_inflight(e)
             # a BaseException (a simulated kill) escapes on purpose: the
             # dead thread is what the watchdog detects
@@ -1951,10 +2191,8 @@ class InferenceEngine:
             self._release(slot)
             self._fail(st.request, exc)
         if inflight:
-            for caches in (self._caches, self._parity_caches):
-                for cache in caches or ():
-                    for a in cache.values():
-                        a.zero_()
+            if self._caches is not None:
+                self._effect("zero")
             if self._prefix is not None:
                 self._prefix.reset()
             if self._paged:
@@ -2038,7 +2276,7 @@ class InferenceEngine:
                 break
         if pid is None or "k_scale" not in self._caches[0]:
             return
-        self._caches[0]["k_scale"][pid] = value
+        self._effect("kscale", pid, value)
 
     # ------------------------------------------------------------ admission
     def _admit(self, reqs):
@@ -2397,11 +2635,7 @@ class InferenceEngine:
         speculative rewind) keeps ``pages_scrubbed`` the NaN signal."""
         if not freed or self._caches is None:
             return
-        idx = self._dev(np.asarray(freed, np.int64))
-        for caches in (self._caches, self._parity_caches):
-            for cache in caches or ():
-                for a in cache.values():
-                    a.index_fill_(0, idx, 0)
+        self._effect("scrub", np.asarray(freed, np.int64))
         if count:
             self.metrics.count("pages_scrubbed", len(freed))
             fr = _fr_active()
@@ -2686,9 +2920,7 @@ class InferenceEngine:
             self._scrub_pages(sorted(scrub))
             self._pool.mark_dirty((set(written) | tainted) - scrub)
         elif self._caches is not None:
-            for cache in self._caches:
-                for a in cache.values():
-                    a[slot].zero_()
+            self._effect("zero_row", slot)
         self.metrics.count("nonfinite_outputs")
         fr = _fr_active()
         if fr is not None:

@@ -2202,3 +2202,44 @@ def test_prefetched_batch_trains_like_a_resident_one(no_tf32):
             src.close()
     assert len(losses["pipeline"]) == 5
     assert losses["pipeline"] == losses["resident"]
+
+
+def test_one_rank_nccl_mesh_engine_graphed_equals_no_mesh(dev):
+    """``InferenceEngine(mesh=1)`` under a one-rank NCCL group: every
+    program a CUDA graph, the mesh point ``1dev:tp=1``, and the greedy
+    and sampled streams of the paged gather arm and the dense layout
+    bit-identical to ``mesh=None``'s."""
+    import torch.distributed as dist
+    from mxnet_tpu_torch import parallel as par
+    from mxnet_tpu_torch.serving import InferenceEngine
+    if dist.is_initialized():
+        pytest.skip("a process group is already up")
+    net = _small_gpt2(5)
+    rs = onp.random.RandomState(4)
+    prompts = [rs.randint(0, 256, (n,)).astype("int32")
+               for n in (260, 30, 120)]
+    samp = [dict(), dict(temperature=0.9, top_k=20, seed=3), dict()]
+    par.init_distributed(None, 1, 0, backend="nccl")
+    try:
+        for layout in ("paged", "dense"):
+            kw = dict(kv_layout="paged", page_size=16,
+                      paged_attention="gather") if layout == "paged" else {}
+            outs = {}
+            for mesh in (None, 1):
+                eng = InferenceEngine(net, num_slots=4, max_batch=4,
+                                      seq_buckets=(32, 128, 384), **kw,
+                                      mesh=mesh)
+                n = eng.warmup()
+                assert all(p.graph for p in eng._programs.values())
+                with eng:
+                    futs = [eng.submit(p, max_new_tokens=16, **s)
+                            for p, s in zip(prompts, samp)]
+                    outs[mesh] = [f.result(timeout=300) for f in futs]
+                    st = eng.stats()
+                assert st["compile"]["compiles"] == n
+                assert st["mesh"]["mesh_point"] == \
+                    ("1dev" if mesh is None else "1dev:tp=1")
+            for a, b in zip(outs[None], outs[1]):
+                onp.testing.assert_array_equal(a, b)
+    finally:
+        dist.destroy_process_group()

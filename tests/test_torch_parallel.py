@@ -214,13 +214,10 @@ def test_parameter_annotations_equal_the_reference():
     assert any(v is not None for v in got.values())
 
 
-def test_meshes_past_dp_and_sp_raise_naming_a6():
+def test_meshes_past_dp_and_sp_raise():
     """What still raises past dp and sp: a mesh axis that does not divide
-    the devices (the reference's error), a vocabulary that tp does not
-    divide (as ``jax.device_put`` refuses it), BERT and NMT under tp and
-    the serving engine's mesh (both ROADMAP queue A6)."""
-    from mxnet_tpu_torch.models import get_bert, get_nmt
-    from mxnet_tpu_torch.serving import InferenceEngine
+    the devices (the reference's error), and a vocabulary that tp does
+    not divide (as ``jax.device_put`` refuses it)."""
     with pytest.raises(MXNetError) as te:
         tpar.make_mesh(devices=[0, 1, 2, 3], tp=3)
     with pytest.raises(Exception) as je:
@@ -239,22 +236,6 @@ def test_meshes_past_dp_and_sp_raise_naming_a6():
     jn.initialize()
     with pytest.raises(Exception):
         jpar.shard_params(jn, jm)
-    bert = get_bert("bert_base", vocab_size=64, units=32, num_layers=1,
-                    num_heads=4, max_length=16, dropout=0.0, device="cpu")
-    bert.initialize(seed=0)
-    nmt = get_nmt("transformer_base", src_vocab_size=32, units=32,
-                  hidden_size=64, num_layers=1, num_heads=4, dropout=0.0,
-                  device="cpu")
-    nmt.initialize(seed=0)
-    toks = torch.zeros((1, 8), dtype=torch.int32)
-    with tpar.use_mesh(tm):
-        with pytest.raises(MXNetError, match="queue A6"):
-            bert(toks)
-        with pytest.raises(MXNetError, match="queue A6"):
-            nmt(toks, toks)
-    with pytest.raises(MXNetError, match="queue A6"):
-        InferenceEngine(tget_gpt2("gpt2_124m", device="cpu", **W.GPT_CFG),
-                        mesh=tm, device="cpu")
 
 
 def test_one_rank_mesh_is_bit_identical_to_no_mesh():
@@ -283,16 +264,3 @@ def test_init_distributed_refuses_nccl_without_cuda():
         tpar.init_distributed("127.0.0.1:1", 1, 0, backend="nccl")
     import torch.distributed as dist
     assert not dist.is_initialized()
-
-
-def test_masked_attention_under_sp_raises_naming_a6():
-    """Ring and Ulysses run plain self-attention; a mask under an sp mesh
-    would attend only inside the rank's chunk, so it raises."""
-    from mxnet_tpu_torch.models.transformer import MultiHeadAttention
-    attn = MultiHeadAttention(16, 4)
-    attn.initialize(seed=0, device="cpu")
-    mesh = tpar.Mesh(onp.arange(2, dtype=object).reshape(1, 1, 1, 2, 1))
-    x = torch.zeros(1, 4, 16)
-    mask = torch.ones(1, 1, 4, 4, dtype=torch.bool)
-    with tpar.use_mesh(mesh), pytest.raises(MXNetError, match="queue A6"):
-        attn(x, mask)

@@ -3,8 +3,9 @@
 Started by ``tools/launch.py -n N`` from a module-scoped fixture of
 ``tests/test_torch_parallel.py``, ``test_torch_ring_ulysses.py``,
 ``test_torch_kvstore.py``, ``test_torch_distributed.py``,
-``test_torch_tensor_parallel.py``, ``test_torch_expert_parallel.py`` or
-``test_torch_pipeline.py``:
+``test_torch_tensor_parallel.py``, ``test_torch_expert_parallel.py``,
+``test_torch_pipeline.py``, ``test_torch_parallel_lang.py`` or
+``test_torch_sharded_serving.py``:
 
     python tools/launch.py -n 4 python tests/torch_dist_worker.py SCENARIO DIR
 
@@ -18,6 +19,7 @@ port only.
 """
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -449,6 +451,441 @@ def scenario_pipeline(out, d):
     with par.use_mesh(mesh), torch.no_grad():
         out["stacked:logits"] = net(torch.tensor(x[rows])).numpy()
     _train(out, "stacked", params, mesh, net=net)
+
+
+BERT_CFG = dict(vocab_size=64, units=32, num_layers=2, num_heads=4,
+                max_length=32, dropout=0.0)
+NMT_CFG = dict(src_vocab_size=32, shared_embed=True, units=32,
+               hidden_size=64, num_layers=2, num_heads=4, dropout=0.0)
+LANG_B, LANG_T, LANG_M = 4, 16, 4
+# an id the NMT test's weights emit, so translate's EOS handling runs
+NMT_EOS = 19
+# dp 2 x tp 2, and tp 2 x sp 2 (the sequence in chunks of 8)
+LANG_MESHES = {"dp2tp2": dict(dp=2, tp=2), "tp2sp2": dict(dp=1, sp=2, tp=2)}
+
+
+def bert_batches(n=GPT_STEPS, seed=21):
+    """(tokens, types, valid_length, masked positions), (MLM labels, NSP
+    labels) per step: valid lengths that end inside either sequence
+    chunk, masked positions below them."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        vlen = rs.randint(5, LANG_T + 1, (LANG_B,)).astype("int32")
+        pos = np.stack([rs.choice(v, LANG_M, replace=False)
+                        for v in vlen]).astype("int32")
+        out.append(((rs.randint(0, 64, (LANG_B, LANG_T)).astype("int32"),
+                     rs.randint(0, 2, (LANG_B, LANG_T)).astype("int32"),
+                     vlen, pos),
+                    (rs.randint(0, 64, (LANG_B, LANG_M)).astype("int32"),
+                     rs.randint(0, 2, (LANG_B,)).astype("int32"))))
+    return out
+
+
+def nmt_batches(n=GPT_STEPS, seed=22):
+    """(source, shifted target, source valid length), (labels,)."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        src = rs.randint(3, 32, (LANG_B, LANG_T)).astype("int32")
+        tgt = rs.randint(3, 32, (LANG_B, LANG_T + 1)).astype("int32")
+        tgt[:, 0] = 1
+        out.append(((src, tgt[:, :-1].copy(),
+                     rs.randint(5, LANG_T + 1, (LANG_B,)).astype("int32")),
+                    (tgt[:, 1:].copy(),)))
+    return out
+
+
+def lang_specs(par_mod, sp):
+    """The data and label specs of BERT's and NMT's batches: rows over
+    dp, the sequences over sp (valid lengths, masked positions and the
+    MLM labels are per row)."""
+    P = par_mod.PartitionSpec
+    seq = P("dp", "sp") if sp else P("dp", None)
+    return {"bert": ([seq, seq, P("dp"), P("dp", None)],
+                     [P("dp", None), P("dp")]),
+            "nmt": ([seq, seq, P("dp")], [seq])}
+
+
+def bert_loss(outs, mlm_labels, nsp_labels):
+    """bench.py's BERT loss per sample (MLM mean over the masked
+    positions plus NSP); its mean is bench.py's."""
+    from mxnet_tpu_torch.ndarray.ops import apply_op
+
+    def f(m, n, ym, yn):
+        m, n = m.float(), n.float()
+        lm = m.logsumexp(-1) - m.gather(-1, ym.long()[..., None])[..., 0]
+        ln = n.logsumexp(-1) - n.gather(-1, yn.long()[:, None])[:, 0]
+        return lm.mean(-1) + ln
+    return apply_op("bert_loss", f, [outs[0], outs[1], mlm_labels,
+                                     nsp_labels])
+
+
+def _lang_net(kind, params):
+    from mxnet_tpu_torch.models import BERTForPretrain, get_bert, get_nmt
+    from mxnet_tpu_torch.utils.convert import load_numpy_params
+    if kind == "bert":
+        net = BERTForPretrain(get_bert("bert_base", device="cpu",
+                                       **BERT_CFG))
+    else:
+        net = get_nmt("transformer_base", device="cpu", **NMT_CFG)
+    net.initialize(seed=100 + par.rank())
+    return load_numpy_params(net, params) if par.rank() == 0 else net
+
+
+def scenario_lang(out, d):
+    """BERT and NMT on 4 ranks at dp 2 x tp 2 and tp 2 x sp 2: 3 Adam
+    steps each (BERT with valid_length, so its masked attention runs;
+    NMT with its cross-attention), and NMT's greedy and beam translate
+    under each mesh from the starting weights."""
+    from mxnet_tpu_torch.models import nmt_loss
+    for kind, loss, batches in (("bert", bert_loss, bert_batches()),
+                                ("nmt", nmt_loss, nmt_batches())):
+        params = dict(np.load(os.path.join(d, f"{kind}.npz")))
+        for tag, kw in LANG_MESHES.items():
+            mesh = par.make_mesh(**kw)
+            net = _lang_net(kind, params)
+            specs = lang_specs(par, "sp" in kw)[kind]
+            tr = par.ShardedTrainer(net, "adam", loss=loss, mesh=mesh,
+                                    data_specs=specs[0],
+                                    label_specs=specs[1],
+                                    optimizer_params={"learning_rate":
+                                                      GPT_LR})
+            tr.build(*batches[0])
+            if kind == "nmt":
+                src, _t, vlen = batches[0][0]
+                for beam in (1, 4):
+                    out[f"{kind}{tag}:translate{beam}"] = net.translate(
+                        src[:3], vlen[:3], max_length=6, beam_size=beam,
+                        alpha=0.8, eos_id=NMT_EOS)
+            losses = [float(tr.step(x, y)) for x, y in batches]
+            out[f"{kind}{tag}:losses"] = np.array(losses)
+            _blocks(out, f"{kind}{tag}", net)
+    # an nd op handed a rank's vocabulary block computes on the whole
+    # logits (the block gathered over tp), and its gradient is the
+    # rank's columns of the whole's
+    mesh = par.make_mesh(dp=2, tp=2)
+    whole = np.random.RandomState(31).randn(2, 3, 8).astype("float32")
+    tp = mesh.axis_index("tp")
+    blk = torch.tensor(whole[..., 4 * tp:4 * tp + 4]).requires_grad_()
+    marked = par.sharding.mark_local_shard(blk * 1.0, par.NamedSharding(
+        mesh, par.PartitionSpec("dp", "sp", "tp")))
+    with mx.cpu():
+        with mx.autograd.record():
+            y = mx.nd.log_softmax(mx.nd.NDArray(marked), axis=-1)
+            loss = (y * mx.nd.NDArray(torch.tensor(whole))).sum()
+        loss.backward()
+    out["nd:log_softmax"] = y.asnumpy()
+    out["nd:grad"] = blk.grad.numpy()
+
+
+SERVE_CFG = dict(vocab_size=97, units=32, num_layers=2, num_heads=4,
+                 max_length=64, dropout=0.0)
+
+
+def serve_prompts(lens, seed=1, vocab=97):
+    """``tests/test_sharded_serving.py``'s ``_prompts``."""
+    rs = np.random.RandomState(seed)
+    return [rs.randint(0, vocab, (n,)).astype("int32") for n in lens]
+
+
+def shared_prompts(vocab=97):
+    """``test_sharded_serving_prefix...``'s three prompts sharing a
+    24-token prefix."""
+    rs = np.random.RandomState(5)
+    shared = rs.randint(0, vocab, (24,)).astype("int32")
+    return [np.concatenate([shared, rs.randint(0, vocab, (4,)).astype(
+        "int32")]) for _ in range(3)]
+
+
+SAMPLED = [dict(), dict(temperature=1.0, top_k=5, seed=7),
+           dict(temperature=0.8, top_p=0.9, seed=11),
+           dict(temperature=1.3, seed=13)]
+SPEC = [dict(), dict(temperature=1.0, top_k=5, seed=7), dict(),
+        dict(temperature=0.9, seed=23)]
+SAMPLED_2D = [dict(), dict(temperature=1.0, top_k=7, seed=3), dict(),
+              dict(temperature=0.7, seed=9), dict()]
+
+# the sharded-serving cases: (prompts, sampling, engine keywords, mesh)
+SERVE_CASES = {
+    "greedy": (dict(lens=(3, 5, 9, 12, 5, 16)), None, {}, "tp"),
+    "sampled": (dict(lens=(4, 7, 10, 6), seed=2), SAMPLED, {}, "tp"),
+    "spec": (dict(lens=(3, 9, 12, 5), seed=3), SPEC,
+             dict(spec_tokens=2, draft_layers=1), "tp"),
+    "paged": (dict(lens=(3, 9, 12, 5), seed=4), None,
+              dict(kv_layout="paged", page_size=8), "tp"),
+    "int8": (dict(lens=(3, 9, 12, 5), seed=4), SAMPLED,
+             dict(kv_layout="paged", page_size=8, kv_quant="int8"), "tp"),
+    "slot": (dict(lens=(3, 9, 5), seed=6), None,
+             dict(num_slots=3, max_batch=3, mesh_axes=("tp", "dp")),
+             "dp"),
+    "slot_spec": (dict(lens=(3, 9, 12, 5), seed=3), SPEC,
+                  dict(num_slots=3, max_batch=3, spec_tokens=2,
+                       draft_layers=1, mesh_axes=("tp", "dp")), "dp"),
+    "points": (dict(lens=(5, 9), seed=8), None, {}, "tp"),
+    "vocab96": (dict(lens=(3, 9, 12, 5), seed=10, vocab=96), SAMPLED,
+                dict(kv_layout="paged", page_size=8), "tp"),
+}
+SERVE_2D = (dict(lens=(3, 7, 12, 9, 5), seed=7), SAMPLED_2D,
+            dict(num_slots=3, max_batch=3, prefix_pool_rows=2,
+                 prefix_min_tokens=4))
+
+
+def _serve_net(params, **cfg):
+    from mxnet_tpu_torch.models import get_gpt2
+    from mxnet_tpu_torch.utils.convert import load_numpy_params
+    net = get_gpt2("gpt2_124m", device="cpu", **dict(SERVE_CFG, **cfg))
+    return load_numpy_params(net, params)
+
+
+def _engine(net, **kw):
+    from mxnet_tpu_torch.serving import InferenceEngine
+    for k, v in dict(num_slots=2, max_batch=2, seq_buckets=(8, 16),
+                     default_max_new_tokens=8, device="cpu").items():
+        kw.setdefault(k, v)
+    return InferenceEngine(net, **kw)
+
+
+def _serve(out, tag, eng, prompts, samp=None, max_new=8, infer=False):
+    """Warm ``eng`` up and serve ``prompts`` through it: rank 0 submits
+    (the others follow its plans inside ``with eng``) and records each
+    stream, the compile counts and the stats sections the tests read."""
+    import json
+    n_warm = eng.warmup()
+    with eng:
+        if not eng._follower:
+            if infer:
+                outs = [eng.infer(p, max_new_tokens=max_new)
+                        for p in prompts]
+            else:
+                futs = [eng.submit(p, max_new_tokens=max_new,
+                                   **((samp or [{}] * len(prompts))[i]))
+                        for i, p in enumerate(prompts)]
+                outs = [f.result(timeout=120) for f in futs]
+            st = eng.stats()
+    if eng._follower:
+        return
+    for i, o in enumerate(outs):
+        out[f"{tag}:out{i}"] = o
+    out[f"{tag}:warm"] = np.array(n_warm)
+    out[f"{tag}:stats"] = np.array(json.dumps({
+        k: st[k] for k in ("mesh", "compile", "speculative", "prefix_cache",
+                           "batches", "resilience", "requests", "slots",
+                           "plans") if k in st}))
+
+
+def _one_device(out, tag, net, prompts, samp=None, **kw):
+    """The port's one-device engine over the same prompts (rank 0)."""
+    if par.rank() == 0:
+        kw = {k: v for k, v in kw.items() if k not in ("mesh_axes",)}
+        _serve(out, f"{tag}:base", _engine(net, name=f"{tag}_base", **kw),
+               prompts, samp)
+
+
+def _serve_logits(out, net):
+    """The mesh engine's program net on 2 prompts of 8 tokens: the
+    prefill's last-position logits and one decode step's, beside the
+    one-device net's."""
+    eng = _engine(net, mesh=2, name="logits")
+    toks = torch.tensor(np.stack(serve_prompts((8, 8), seed=12)))
+    lens = torch.full((2,), 8, dtype=torch.int32)
+    sidx = torch.arange(2, dtype=torch.int32)
+    for tag, model in (("mesh", eng._model), ("one", net)):
+        with par.use_mesh(eng.mesh), torch.no_grad():
+            caches = model.init_slot_cache(2, 64)
+            pre, _ = model.prefill_slots(toks, lens, caches, sidx)
+            nxt = pre.argmax(-1).to(torch.int32)
+            dec, _ = model.decode_step(nxt, caches, lens)
+        out[f"logits:{tag}:prefill"] = pre.numpy()
+        out[f"logits:{tag}:decode"] = dec.numpy()
+        out[f"logits:{tag}:next"] = nxt.numpy()
+    out["logits:kv_heads"] = np.array(eng._model.kv_heads())
+    eng.stop(drain=False)
+
+
+def _validation(out):
+    """Every incompatible mesh configuration: the message of the
+    ServingError each raises at construction, on every rank."""
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.serving import InferenceEngine, ServingError
+    net = _serve_net(dict(np.load(os.path.join(_DIR[0], "params.npz"))))
+    dense = nn.Dense(4, in_units=4)
+    dense.initialize(seed=0, device="cpu")
+    cases = {
+        "heads": lambda: _engine(net, mesh=3),
+        "paged": lambda: _engine(net, mesh=2, kv_layout="paged",
+                                 page_size=8, mesh_axes=("tp", "dp")),
+        "devices": lambda: _engine(net, mesh=4),
+        "axis": lambda: _engine(net, mesh=2, mesh_axes="bogus"),
+        "distinct": lambda: _engine(net, mesh=2, mesh_axes=("tp", "tp")),
+        "zero": lambda: _engine(net, mesh=0),
+        "type": lambda: _engine(net, mesh="tp"),
+        "rows": lambda: _engine(net, mesh=par.make_mesh(dp=2, tp=1),
+                                mesh_axes=("tp", "dp"), num_slots=2,
+                                prefix_pool_rows=0),
+        "forward": lambda: InferenceEngine(dense, mode="forward", mesh=2,
+                                           device="cpu"),
+        "kernel": lambda: _engine(net, mesh=2, kv_layout="paged",
+                                  page_size=8, paged_attention="kernel"),
+        "parity": lambda: _engine(net, mesh=2, kv_layout="paged",
+                                  page_size=8, debug_parity=True),
+    }
+    for tag, make in cases.items():
+        try:
+            make()
+            out[f"invalid:{tag}"] = np.array("")
+        except ServingError as e:
+            out[f"invalid:{tag}"] = np.array(str(e))
+
+
+_DIR = []
+
+
+def scenario_serving(out, d):
+    """The sharded-serving contracts on 2 ranks
+    (``tests/test_sharded_serving.py``): each case's mesh engine and, on
+    rank 0, the one-device engine; the prefix cache with chunked
+    prefill; the step logits; the gauge and the stats section; the typed
+    validation; fault containment at the dispatch sites."""
+    import json
+    from mxnet_tpu_torch.observability.export import flatten
+    from mxnet_tpu_torch.resilience import FaultPlan
+    _DIR.append(d)
+    params = dict(np.load(os.path.join(d, "params.npz")))
+    net = _serve_net(params)
+    for tag, (pr, samp, kw, axis) in SERVE_CASES.items():
+        n = net
+        if "vocab" in pr:
+            n = _serve_net(dict(np.load(os.path.join(d, "params96.npz"))),
+                           vocab_size=pr["vocab"])
+        prompts = serve_prompts(**pr)
+        mesh = 2 if axis == "tp" else par.make_mesh(dp=2, tp=1)
+        _one_device(out, tag, n, prompts, samp, **kw)
+        _serve(out, tag, _engine(n, mesh=mesh, name=f"shard_{tag}", **kw),
+               prompts, samp)
+    # prefix hits and chunked prefill, one request at a time
+    _serve(out, "prefix", _engine(net, mesh=2, prefix_pool_rows=2,
+                                  prefill_chunk=8, prefix_min_tokens=4,
+                                  name="shard_prefix"),
+           shared_prompts(), max_new=4, infer=True)
+    _serve_logits(out, net)
+    # the gauge and the stats section, of a mesh engine and of one device
+    eng = _engine(net, mesh=2, name="shard_gauge")
+    flat = flatten(prefix="mxtpu_serving_mesh_devices")
+    out["gauge:mesh"] = np.array([v for k, v in flat.items()
+                                  if "shard_gauge" in k])
+    out["gauge:stats"] = np.array(json.dumps(eng.stats()["mesh"]))
+    eng.stop(drain=False)
+    one = _engine(net, name="shard_gauge1")
+    out["gauge:one"] = np.array([one.mesh_devices,
+                                 int(one.stats()["mesh"]["enabled"])])
+    one.stop(drain=False)
+    _validation(out)
+    # retryable faults at the dispatch sites, on rank 0 (they fire
+    # there, before the plan leaves)
+    plan = FaultPlan()
+    if par.rank() == 0:
+        plan.raise_at("serving.decode_step", at=2, retryable=True)
+        plan.raise_at("serving.prefill", at=1, retryable=True)
+    eng = _engine(net, mesh=2, name="shard_fault")
+    with plan:
+        _serve(out, "fault", eng, serve_prompts((5, 9), seed=9))
+    out["fault:fired"] = np.array([plan.fired("serving.decode_step"),
+                                   plan.fired("serving.prefill")])
+    _follower_fault(out, net)
+    _beat_fault(out, net)
+
+
+def _beat_fault(out, net):
+    """A fault at ``serving.decode_step`` fails rank 0's first request,
+    whose cleanup zeroes the caches; that surgery rides the next idle
+    beat, and rank 1 fails to apply it.  Rank 1 reports it at the next
+    call's status word, so rank 0's second request fails with
+    ``EngineCrashedError`` before any program reads the caches."""
+    from mxnet_tpu_torch.resilience import FaultPlan
+    from mxnet_tpu_torch.serving import EngineCrashedError
+    from mxnet_tpu_torch.serving.sharded import BEAT
+    eng = _engine(net, mesh=2, name="shard_beat")
+    eng.warmup()
+    plan, carriers = FaultPlan(), []
+    if par.rank() == 0:
+        plan.raise_at("serving.decode_step", at=1)
+    else:
+        apply, receive = eng._apply, eng._mesh.receive
+
+        def fail(op, *args):
+            if op == "zero":
+                raise RuntimeError("a follower's fault")
+            return apply(op, *args)
+
+        def watched():
+            msg = receive()
+            if any(e[0] == "zero" for e in msg[2]):
+                carriers.append(msg[0])
+            return msg
+        eng._apply, eng._mesh.receive = fail, watched
+    got, start = [], ""
+    try:
+        with plan, eng:
+            if par.rank() == 0:
+                for p in serve_prompts((5, 6), seed=9):
+                    try:
+                        eng.submit(p, max_new_tokens=4).result(timeout=60)
+                        got.append("")
+                    except Exception as e:
+                        got.append(type(e).__name__)
+                    time.sleep(3 * BEAT)
+                out["beat:health"] = np.array(eng.health()["live"])
+    except EngineCrashedError as e:
+        start = type(e).__name__
+    out["beat:requests"] = np.array(got)
+    out["beat:carriers"] = np.array(carriers)
+    out["beat:start"] = np.array(start)
+
+
+def _follower_fault(out, net):
+    """Rank 1 fails to apply a plan (the page table's upload): the status
+    word after that plan tells rank 0, which fails the request and
+    condemns the engine, and rank 1's ``start()`` raises; nothing
+    hangs."""
+    from mxnet_tpu_torch.serving import EngineCrashedError
+    eng = _engine(net, mesh=2, kv_layout="paged", page_size=8,
+                  name="shard_crash")
+    eng.warmup()
+    if par.rank() == 1:
+        apply = eng._apply
+
+        def fail(op, *args):
+            if op == "table":
+                raise RuntimeError("a follower's fault")
+            return apply(op, *args)
+        eng._apply = fail
+    out["crash:request"] = out["crash:start"] = np.array("")
+    try:
+        with eng:
+            if par.rank() == 0:
+                fut = eng.submit(serve_prompts((5,), seed=9)[0],
+                                 max_new_tokens=4)
+                try:
+                    fut.result(timeout=60)
+                except Exception as e:
+                    out["crash:request"] = np.array(type(e).__name__)
+                out["crash:health"] = np.array(eng.health()["live"])
+    except EngineCrashedError as e:
+        out["crash:start"] = np.array(type(e).__name__)
+
+
+def scenario_serving2d(out, d):
+    """The 2-D mesh on 4 ranks: tp 2 x a dp slot axis of 2, the prefix
+    cache on, greedy and sampled requests."""
+    params = dict(np.load(os.path.join(d, "params.npz")))
+    net = _serve_net(params)
+    pr, samp, kw = SERVE_2D
+    prompts = serve_prompts(**pr)
+    _one_device(out, "2d", net, prompts, samp, **kw)
+    mesh = par.make_mesh(dp=2, tp=2)
+    _serve(out, "2d", _engine(net, mesh=mesh, mesh_axes=("tp", "dp"),
+                              name="shard_2x2", **kw), prompts, samp)
 
 
 def launch(n, scenario, d, timeout=300, dist_timeout=120):
