@@ -393,7 +393,33 @@ Phases (any failure exits non-zero and prints no result line):
    ranks against the one-process net's: token-identical, or split only
    where the one-process net's own logits tie within ``TOL_GREEDY``
    (printed with the margin).
-23. A ``{"kernels": [...]}`` line, the card line again, and the last
+23. Queue A7 on GPT-2 124M, float32, TF32 off (``a7_path``).  (a)
+   Disaggregated serving, paged float32 and int8 pages, phase 3's
+   prompts with ``A7_NEW`` new tokens (odd requests sampled by seed) on
+   one (8, 512) lattice point (``A7_ENG``): a unified engine, then a
+   ``role="prefill"`` engine with ``migrate_to(decode.adopt)``; a first
+   run starts the decode engine only once every request has migrated,
+   so the engines' launches read apart, a second runs both.  Gates:
+   every stream identical to the unified engine's, compiles frozen after
+   ``warmup()`` on both roles, B1 launched on the prefill engine, B4 on
+   the decode engine and B1 not.  Printed: a bundle's bytes, export,
+   digest and adopt ms a request, TTFT p50 against the unified engine.
+   (b) The tiered prefix cache (``TIER_ENG``: a pool of 48 pages, 4
+   system-prompt families of ``TIER_SYSTEM`` tokens over
+   ``TIER_ROUNDS`` rounds, ``TIER_HOST_BYTES`` of host pool and a disk
+   tier in a temporary directory): streams identical with the tier on
+   and off, demotions, promotions and disk spills happen, and one
+   ``serving.tier_rot`` fault is refused at verify and quarantined with
+   the stream unchanged.  Printed: the counts, hits by tier, promote ms
+   (verify on the worker, install), prefill tokens saved.  (c) A
+   ``FleetRouter`` over 3 replicas (``FLEET_ENG``) and rounds of
+   ``FLEET_FAMILIES`` families x ``FLEET_MEMBERS``: the affinity hit
+   rate; one replica killed mid-round (0 lost, streams identical); a
+   rolling restart; ``scale_up`` (warm before it joins: 0 compiles on
+   traffic); ``scale_down`` of the replica most families route to (its
+   seeds planted, each of its families' next requests a hit on a
+   survivor).
+24. A ``{"kernels": [...]}`` line, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.  ``launches_by_path`` holds
    every phase's launches (``bert``, ``bert_amp``, ``nmt``, ``lstm``,
    ``ops``, phase 16's graphed arms ``hybrid_bert_amp``,
@@ -401,8 +427,10 @@ Phases (any failure exits non-zero and prints no result line):
    fault-free run ``resilient``, phase 18's ``hardened`` and phase 19's
    ``data`` among them, phase 20's ``parallel_ring`` /
    ``parallel_ulysses``, phase 21's ``parallel_tp`` / ``parallel_ep``
-   / ``parallel_pp`` and phase 22's ``sharded_serve`` /
-   ``parallel_bert`` / ``parallel_nmt``, rank 0's over its steps); the
+   / ``parallel_pp``, phase 22's ``sharded_serve`` /
+   ``parallel_bert`` / ``parallel_nmt``, rank 0's over its steps, and
+   phase 23's ``disagg_prefill``, ``disagg_decode``, ``tiered`` and
+   ``fleet``); the
    seconds of every phase are printed and written to
    ``chiprun_out/chip_smoke_phases.json``; the flash kernels carry
    their numbers at phases 11-12's shapes and phase 21's tp shape
@@ -6920,6 +6948,409 @@ def shard_path(torch, card):
     return by_path
 
 
+# ------------------------------------------------- phase 23: queue A7
+
+# (a)'s engines: phase 3's traffic on one (8, 512) lattice point
+A7_ENG = dict(kv_layout="paged", num_slots=8, max_batch=8, page_size=16,
+              batch_buckets=(8,), seq_buckets=(512,),
+              paged_attention="kernel")
+A7_NEW = 48
+# (b): 4 system-prompt families of 256 tokens (16 pages of 16) with a
+# 32-token question each, 3 rounds; a pool of 48 pages holds 2 of them
+TIER_FAMILIES, TIER_SYSTEM, TIER_QUESTION, TIER_ROUNDS = 4, 256, 32, 3
+TIER_ENG = dict(kv_layout="paged", num_slots=2, max_batch=2, page_size=16,
+                batch_buckets=(2,), seq_buckets=(512,), max_length=512,
+                num_pages=48, prefix_min_tokens=64,
+                paged_attention="kernel")
+# the host pool holds one family's bundle (18 pages x 16 positions x 12
+# layers x K and V x 768 float32 = 21.2 MB); the others spill to disk
+TIER_HOST_BYTES = 40 << 20
+TIER_NEW = 16
+# (c): 3 replicas, 6 families of a 128-token system prompt, 4 members
+FLEET_ENG = dict(kv_layout="paged", num_slots=4, max_batch=4, page_size=16,
+                 batch_buckets=(4,), seq_buckets=(256,), max_length=256,
+                 prefix_min_tokens=32, paged_attention="kernel")
+FLEET_FAMILIES, FLEET_MEMBERS, FLEET_SYSTEM, FLEET_TAIL = 6, 4, 128, 16
+FLEET_NEW = 16
+
+
+def a7_engine(net, **kw):
+    from mxnet_tpu_torch.serving import InferenceEngine
+    return InferenceEngine(net, **kw)
+
+
+def a7_sampling(i):
+    """Request i: odd ones sampled with seed i."""
+    return dict(seed=i, temperature=0.8 if i % 2 else 0.0)
+
+
+def same_streams(a, b, what):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if not np.array_equal(np.asarray(x), np.asarray(y)):
+            raise AssertionError(f"{what}: stream {i} differs")
+
+
+def frozen(eng, warm, what):
+    c = eng.stats()["compile_cache"]["compiles"]
+    if c != warm:
+        raise AssertionError(f"{what}: {c} compiles after a warm-up of "
+                             f"{warm}")
+
+
+def disagg_arm(torch, net, prompts, card, kv_quant):
+    """(a) one storage arm: a unified engine, then a prefill-role engine
+    handing off to a decode-role engine.  A first run starts the decode
+    engine only once every request has migrated, so the prefill
+    engine's launches and the decode engine's read apart; a second run
+    with both running reads the handoff's costs.  TTFT is one definition
+    in both arms: the request's submit to the engine's first token (the
+    unified engine's ``_ttft``; on the prefill engine the first token's
+    time as the handoff starts)."""
+    from mxnet_tpu_torch.serving import engine as engine_mod
+    from mxnet_tpu_torch.serving import migration as migration_mod
+    kw = dict(A7_ENG, kv_quant=kv_quant)
+    arm = kv_quant or "f32"
+    uni = a7_engine(net, name=f"a7u_{arm}", **kw)
+    warm_u = uni.warmup()
+    with uni:
+        futs = [uni.submit(p, max_new_tokens=A7_NEW, **a7_sampling(i))
+                for i, p in enumerate(prompts)]
+        want = [f.result(600) for f in futs]
+        ttft_u = float(np.median(uni._ttft)) * 1e3
+    frozen(uni, warm_u, f"23a {arm} unified")
+    pre = a7_engine(net, role="prefill", name=f"a7p_{arm}", **kw)
+    dec = a7_engine(net, role="decode", name=f"a7d_{arm}", **kw)
+    t_sub, nbytes = {}, []
+    ms = {k: [] for k in ("export", "copy", "digest", "adopt", "handoff",
+                          "ttft")}
+
+    def target(bundle, future):
+        t0 = time.monotonic()
+        dec.adopt(bundle, future)
+        t1 = time.monotonic()
+        ms["adopt"].append((t1 - t0) * 1e3)
+        nbytes.append(bundle.nbytes())
+        ms["handoff"].append((t1 - t_sub[bundle.prompt.tobytes()]) * 1e3)
+    pre.migrate_to(target)
+    warm = (pre.warmup(), dec.warmup())
+    out = {}
+    begin, seal = engine_mod.begin_export, migration_mod.PendingBundle.seal
+    migrate_out = pre._migrate_out
+
+    def timed_begin(*a):
+        t0 = time.monotonic()
+        p = begin(*a)
+        ms["export"].append((time.monotonic() - t0) * 1e3)
+        return p
+
+    def timed_seal(self):
+        t0 = time.monotonic()
+        arrays = self.copy.result()
+        t1 = time.monotonic()
+        b = migration_mod.MigrationBundle(arrays=arrays, **self.fields)
+        b.digest = migration_mod.bundle_digest(b)
+        ms["copy"].append((t1 - t0) * 1e3)
+        ms["digest"].append((time.monotonic() - t1) * 1e3)
+        return b
+
+    def timed_migrate_out(slot, st, token):
+        ok = migrate_out(slot, st, token)
+        r = st.request
+        ms["ttft"].append((r.t_first - r.t_submit) * 1e3)
+        return ok
+    engine_mod.begin_export = timed_begin
+    migration_mod.PendingBundle.seal = timed_seal
+    pre._migrate_out = timed_migrate_out
+    try:
+        with pre:
+            for run in ("attribution", "concurrent"):
+                torch.cuda.synchronize()
+                reset_launches()
+                for v in (*ms.values(), nbytes):
+                    del v[:]
+                m0 = pre.metrics.counters["migrations_out"]
+                for p in prompts:
+                    t_sub[p.tobytes()] = time.monotonic()
+                futs = [pre.submit(p, max_new_tokens=A7_NEW,
+                                   **a7_sampling(i))
+                        for i, p in enumerate(prompts)]
+                if run == "attribution":
+                    wait_for(lambda: pre.metrics.counters["migrations_out"]
+                             - m0 == len(prompts),
+                             "23a: every request migrates")
+                    torch.cuda.synchronize()
+                    out["prefill"] = read_launches()
+                    reset_launches()
+                    dec.start()
+                got = [f.result(600) for f in futs]
+                torch.cuda.synchronize()
+                if run == "attribution":
+                    out["decode"] = read_launches()
+                same_streams(got, want, f"23a {arm} {run}: disaggregated "
+                                        f"vs unified")
+            sp = pre.stats()
+    finally:
+        engine_mod.begin_export = begin
+        migration_mod.PendingBundle.seal = seal
+    dec.stop()
+    sd = dec.stats()
+    if sp["migration"]["migrations_out"] != 2 * len(prompts) or \
+            sd["migration"]["migrations_in"] != 2 * len(prompts):
+        raise AssertionError(f"23a {arm}: {sp['migration']} / "
+                             f"{sd['migration']}")
+    for eng, w, role in ((pre, warm[0], "prefill"), (dec, warm[1], "decode")):
+        frozen(eng, w, f"23a {arm} {role}")
+    p50 = {k: float(np.median(v)) for k, v in ms.items()}
+    print(f"  23a {arm}: streams identical (greedy and sampled, "
+          f"{len(prompts)} requests x {A7_NEW} tokens, twice); a "
+          f"request's bundle {int(np.mean(nbytes))} bytes; p50 a "
+          f"request, second run: on the prefill scheduler export "
+          f"{p50['export']:.2f} ms (gather, host copy enqueued); on the "
+          f"handoff worker host copy wait {p50['copy']:.2f} ms, digest "
+          f"{p50['digest']:.2f} ms, adopt (its digest check included) "
+          f"{p50['adopt']:.2f} ms; TTFT p50 (submit to the engine's first "
+          f"token) {p50['ttft']:.1f} ms disaggregated vs {ttft_u:.1f} ms "
+          f"unified; handoff complete (submit to adopt's return) p50 "
+          f"{p50['handoff']:.1f} ms [{card}]", flush=True)
+    b1, b4 = out["prefill"]["flash_fwd"], out["decode"]["paged_attention"]
+    if b1 <= 0 or b4 <= 0 or out["decode"]["flash_fwd"]:
+        raise AssertionError(f"23a {arm}: prefill engine launches "
+                             f"{out['prefill']}, decode engine "
+                             f"{out['decode']}")
+    print(f"  23a {arm}: launches on the prefill engine {out['prefill']}, on "
+          f"the decode engine {out['decode']}; compiles frozen after "
+          f"warmup() on both roles [{card}]", flush=True)
+    return out
+
+
+def tier_traffic(rs, vocab=VOCAB):
+    systems = [rs.randint(0, vocab, (TIER_SYSTEM,)).astype(np.int32)
+               for _ in range(TIER_FAMILIES)]
+    return [np.concatenate([systems[f], rs.randint(0, vocab, (
+        TIER_QUESTION,)).astype(np.int32)])
+        for _ in range(TIER_ROUNDS) for f in range(TIER_FAMILIES)]
+
+
+def tier_arm(torch, net, prompts, host_bytes, disk, rot=False):
+    """(b) the traffic one request at a time; returns the streams, the
+    stats, the launches and the promotion's install and verify times."""
+    from mxnet_tpu_torch.resilience import FaultPlan
+    eng = a7_engine(net, name=f"a7t_{host_bytes}_{int(rot)}",
+                    host_pool_bytes=host_bytes, disk_tier_dir=disk,
+                    **TIER_ENG)
+    warm = eng.warmup()
+    times = {"install": [], "verify": []}
+    if eng._tier is not None:
+        install, promote = eng._tier_install, eng._tier._do_promote
+
+        def timed_install(*a, install=install):
+            t0 = time.monotonic()
+            ok = install(*a)
+            times["install"].append((time.monotonic() - t0) * 1e3)
+            return ok
+
+        def timed_promote(*a, promote=promote):
+            t0 = time.monotonic()
+            promote(*a)
+            times["verify"].append((time.monotonic() - t0) * 1e3)
+        eng._tier_install = timed_install
+        eng._tier._do_promote = timed_promote
+    plan = FaultPlan()
+    if rot:
+        plan.corrupt_at("serving.tier_rot", at=1)
+    torch.cuda.synchronize()
+    reset_launches()
+    outs = []
+    with plan, eng:
+        for p in prompts:
+            outs.append(eng.infer(p, max_new_tokens=TIER_NEW))
+            if eng._tier is not None:
+                eng._tier.drain()
+        s = eng.stats()
+    torch.cuda.synchronize()
+    frozen(eng, warm, f"23b tier {host_bytes}")
+    if rot and plan.fired("serving.tier_rot") != 1:
+        raise AssertionError("23b: the tier_rot fault did not fire")
+    return outs, s, read_launches(), times
+
+
+def tier_path(torch, net, card):
+    import tempfile
+    prompts = tier_traffic(np.random.RandomState(SEED + 23))
+    off, s_off, _l, _t = tier_arm(torch, net, prompts, 0, None)
+    with tempfile.TemporaryDirectory() as d:
+        on, s_on, launches, times = tier_arm(torch, net, prompts,
+                                             TIER_HOST_BYTES, d)
+    same_streams(on, off, "23b: tier on vs off")
+    t = s_on["tier"]
+    if t["tier_demotes"] < 1 or t["tier_promotes"] < 1 or \
+            t["tier_disk_spills"] < 1:
+        raise AssertionError(f"23b: the tier did not demote, spill and "
+                             f"promote: {t}")
+    saved = (s_on["prefix_cache"]["prefix_tokens_saved"],
+             s_off["prefix_cache"]["prefix_tokens_saved"])
+    with tempfile.TemporaryDirectory() as d:
+        rot, s_rot, _l, _t = tier_arm(torch, net, prompts,
+                                      TIER_HOST_BYTES, d, rot=True)
+    same_streams(rot, off, "23b: a rotted bundle's recompute")
+    r = s_rot["tier"]
+    if r["tier_verify_failures"] != 1 or r["tier_quarantines"] != 1:
+        raise AssertionError(f"23b: the rotted bundle was not refused: {r}")
+    if launches["flash_fwd"] <= 0 or launches["paged_attention"] <= 0:
+        raise AssertionError(f"23b launches {launches}")
+    print(f"  23b: {len(prompts)} requests, streams identical tier on/off; "
+          f"{t['tier_demotes']} demotions, {t['tier_promotes']} promotions,"
+          f" {t['tier_disk_spills']} disk spills ({t['tier_disk_loads']} "
+          f"loads); hits: {s_on['prefix_cache']['prefix_hits']} prefix "
+          f"(tier 1 and promoted) vs {s_off['prefix_cache']['prefix_hits']}"
+          f" without the tier, {t['tier_hits']} tier-2; promote: verify "
+          f"p50 {np.median(times['verify']):.2f} ms on the worker, install "
+          f"p50 {np.median(times['install']):.2f} ms; prefill tokens saved "
+          f"{saved[0]} vs {saved[1]}; one tier_rot: "
+          f"{r['tier_verify_failures']} verify failure, "
+          f"{r['tier_quarantines']} quarantined, stream unchanged "
+          f"[{card}]", flush=True)
+    return launches
+
+
+def fleet_traffic(rs, vocab=VOCAB):
+    systems = [rs.randint(0, vocab, (FLEET_SYSTEM,)).astype(np.int32)
+               for _ in range(FLEET_FAMILIES)]
+    return [np.concatenate([systems[f], rs.randint(0, vocab, (
+        FLEET_TAIL,)).astype(np.int32)])
+        for m in range(FLEET_MEMBERS) for f in range(FLEET_FAMILIES)]
+
+
+def fleet_round(torch, fleet, prompts, launches=None):
+    """One round of the traffic.  Its kernel launches add to
+    ``launches``: the path counts served rounds only, never the rebuilds,
+    restarts and warm-ups between them."""
+    torch.cuda.synchronize()
+    reset_launches()
+    futs = [fleet.submit(p, max_new_tokens=FLEET_NEW) for p in prompts]
+    got = [f.result(600) for f in futs]
+    torch.cuda.synchronize()
+    if launches is not None:
+        for k, n in read_launches().items():
+            launches[k] += n
+    return got
+
+
+def fleet_path(torch, net, card):
+    """(c) a FleetRouter over 3 replicas: affinity, a replica killed
+    mid-traffic, a rolling restart, scale_up and scale_down."""
+    from mxnet_tpu_torch.fleet import FleetRouter
+    from mxnet_tpu_torch.resilience import FaultPlan
+
+    def factory(name):
+        return a7_engine(net, name=name, **FLEET_ENG)
+    prompts = fleet_traffic(np.random.RandomState(SEED + 24))
+    fleet = FleetRouter(factory=factory, num_replicas=3, name="a7f",
+                        probation=0.5)
+    warm = fleet.warmup()
+    launches = dict.fromkeys(KERNELS, 0)
+    with fleet:
+        want = fleet_round(torch, fleet, prompts, launches)
+        s = fleet.stats()
+        agg = s["aggregate"]
+        hit_rate = agg["prefix_hits"] / max(1, agg["prefix_hits"]
+                                            + agg["prefix_misses"])
+        routed = s["router"]["affinity_routed"]
+        for name, rep in s["replicas"].items():
+            if rep["stats"]["compile_cache"]["compiles"] != warm[name]:
+                raise AssertionError(f"23c: {name} compiled on traffic")
+        victim = fleet._handles[1].name
+        plan = FaultPlan().raise_at(f"serving.scheduler@{victim}", at=3)
+        with plan:
+            # not counted: the killed replica's rebuild warms up in it
+            got = fleet_round(torch, fleet, prompts)
+        same_streams(got, want, "23c: a replica killed mid-traffic")
+        if plan.fired(f"serving.scheduler@{victim}") != 1:
+            raise AssertionError("23c: the kill did not fire")
+        deaths = fleet.stats()["router"].get("replica_deaths", 0)
+        wait_for(lambda: len(fleet._healthy()) == 3,
+                 "23c: the killed replica is re-admitted")
+        fleet.rolling_restart(timeout=300)
+        same_streams(fleet_round(torch, fleet, prompts, launches), want,
+                     "23c: after a rolling restart")
+        new = fleet.scale_up(signals={"reason": "phase 23"})
+        h = fleet._by_name[new]
+        c0 = h.engine.stats()["compile_cache"]["compiles"]
+        same_streams(fleet_round(torch, fleet, prompts, launches), want,
+                     "23c: after scale_up")
+        if h.engine.stats()["compile_cache"]["compiles"] != c0:
+            raise AssertionError(f"23c: the new replica served "
+                                 f"{h.routed} requests, compiles "
+                                 f"{c0} -> {h.engine.stats()}")
+        # the families whose affinity target leaves: their next request
+        # lands on the survivor that took the seeds, and hits
+        first = prompts[FLEET_FAMILIES:2 * FLEET_FAMILIES]
+        owner = {i: fleet._order_candidates(p)[0][0].name
+                 for i, p in enumerate(first)}
+        gone = max(set(owner.values()),
+                   key=lambda n: list(owner.values()).count(n))
+        moved = [first[i] for i, n in owner.items() if n == gone]
+        fleet.scale_down(replica=gone)
+        seeds = fleet.stats()["router"].get("seeds_migrated", 0)
+        hits0 = hits1 = 0
+        for p, w in zip(moved, [want[FLEET_FAMILIES + i] for i, n in
+                                owner.items() if n == gone]):
+            before = sum(x.engine.metrics.counters.get("prefix_hits", 0)
+                         for x in fleet._handles)
+            same_streams(fleet_round(torch, fleet, [p], launches), [w],
+                         "23c: a moved family after scale_down")
+            hits1 += sum(x.engine.metrics.counters.get("prefix_hits", 0)
+                         for x in fleet._handles) - before
+            hits0 += 1
+        same_streams(fleet_round(torch, fleet, prompts, launches), want,
+                     "23c: after scale_down")
+        restarts = sum(r["restarts"] for r in
+                       fleet.health()["replicas"].values())
+    if not seeds or not moved or hits1 != hits0:
+        raise AssertionError(f"23c: scale_down seeds {seeds}; of the "
+                             f"{hits0} moved families' requests {hits1} hit")
+    if launches["flash_fwd"] <= 0 or launches["paged_attention"] <= 0:
+        raise AssertionError(f"23c launches {launches}")
+    print(f"  23c: 3 replicas, {len(prompts)} requests a round; affinity "
+          f"routed {routed}, prefix hit rate {hit_rate:.3f}; replica "
+          f"{victim} killed mid-round: 0 lost, streams identical "
+          f"({deaths} deaths counted); rolling restart ({restarts} "
+          f"restarts counted), "
+          f"scale_up {new} served {h.routed} with 0 compiles on traffic, "
+          f"scale_down {gone}: {seeds} seeds planted, its {hits0} "
+          f"families' next requests hit {hits1} times on the survivors; "
+          f"launches in the served rounds (the kill's round not counted) "
+          f"{launches} [{card}]", flush=True)
+    return launches
+
+
+def a7_path(torch, card, prompts):
+    """Phase 23.  Returns the launches by path: the prefill and decode
+    engines of (a) (each arm's together), the tiered engine and the
+    fleet."""
+    from mxnet_tpu_torch.models import get_gpt2
+    t_phase = time.monotonic()
+    print(f"phase 23: disaggregated prefill/decode, the tiered prefix cache"
+          f" and the fleet (GPT-2 124M, float32 and int8 pages) [{card}]",
+          flush=True)
+    net = get_gpt2("gpt2_124m", dropout=0.0)
+    net.initialize(seed=SEED)
+    by_path = {"disagg_prefill": dict.fromkeys(KERNELS, 0),
+               "disagg_decode": dict.fromkeys(KERNELS, 0)}
+    for kv_quant in (None, "int8"):
+        got = disagg_arm(torch, net, prompts, card, kv_quant)
+        for role in ("prefill", "decode"):
+            for k in KERNELS:
+                by_path[f"disagg_{role}"][k] += got[role][k]
+    free(torch)
+    by_path["tiered"] = tier_path(torch, net, card)
+    free(torch)
+    by_path["fleet"] = fleet_path(torch, net, card)
+    print(f"phase 23: {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return by_path
+
+
 def write_phase_seconds(seconds):
     """Print the seconds of every phase and write them to
     ``chiprun_out/chip_smoke_phases.json`` beside this script."""
@@ -7066,6 +7497,9 @@ def main() -> int:
     free(torch)
     with phase("22"):
         by_path.update(shard_path(torch, card))
+    free(torch)
+    with phase("23"):
+        by_path.update(a7_path(torch, card, prompts))
     write_phase_seconds(seconds)
     # each kernel's launches on the path that is its own: the training
     # path for the flash kernels, the serving path for paged attention;

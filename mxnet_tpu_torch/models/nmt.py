@@ -43,8 +43,8 @@ from ..gluon.block import HybridBlock
 from ..gluon.nn import Dropout, Embedding, LayerNorm
 from ..ndarray.ops import apply_op
 from ..parallel import collectives as _coll
-from ..parallel.mesh import use_mesh
-from ..parallel.sharding import annotate, is_block, vocab_block
+from ..parallel.mesh import axis_size, current_mesh, use_mesh
+from ..parallel.sharding import DATA_AXES, annotate, is_block, vocab_block
 from .gpt2 import vocab_embed, vocab_logits, vocab_parallel_terms
 from .transformer import (MultiHeadAttention, PositionwiseFFN,
                           TransformerEncoderLayer, _remat_layer,
@@ -336,7 +336,16 @@ def nmt_loss(logits, labels, valid_length=None, label_smoothing=0.1):
     (Sockeye's training loss, eps = 0.1).  Labels clip to the
     vocabulary.  A rank's vocabulary block of the logits (``decode``
     under ``tp``) gives the loss of the whole logits (module
-    docstring)."""
+    docstring).
+
+    With ``valid_length`` under a mesh whose data axes (``dp``, ``sp``)
+    are live (``use_mesh``, as ``ShardedTrainer`` runs its loss), the
+    labels are this rank's rows and sequence chunk (positions offset by
+    the chunk's start), and the ratio is the reference's global one: the
+    masked sum over the count summed over the data axes.  Each rank
+    returns its term of it, ``n · sum_r / count`` for ``n`` data ranks,
+    which the trainer's mean over the data axes completes (loss and
+    gradients)."""
     mesh = vocab_block(logits._t if hasattr(logits, "_t") else logits)
 
     def f(x, y, *vl):
@@ -344,9 +353,16 @@ def nmt_loss(logits, labels, valid_length=None, label_smoothing=0.1):
         if not vl:
             return nll.mean()
         b, t = y.shape
-        m = (torch.arange(t, device=y.device)[None, :] <
-             vl[0].reshape(b, 1)).float()
-        return (nll * m).sum() / m.sum()
+        pos = torch.arange(t, device=y.device) + seq_offset(t)
+        m = (pos[None, :] < vl[0].reshape(b, 1)).float()
+        num, count = (nll * m).sum(), m.sum()
+        dmesh = current_mesh()
+        n = 1 if dmesh is None else \
+            axis_size(dmesh, "dp") * axis_size(dmesh, "sp")
+        if n == 1:
+            return num / count
+        total = _coll.all_reduce(count, dmesh.group(DATA_AXES))
+        return num * (n / total)
     ins = [logits, labels] + ([] if valid_length is None else
                               [valid_length])
     return apply_op("nmt_loss", f, ins, vocab_blocks=True)

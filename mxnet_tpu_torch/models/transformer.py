@@ -440,22 +440,32 @@ def seq_first(x):
 
 def _gathered_attention(attn, q, k, v, mask):
     """Attention of this rank's query chunk over the whole sequence's keys
-    under ``sp`` (module docstring): K, V and the key mask gathered over
-    ``sp``, the causal part at global positions, the plain path."""
+    under ``sp`` (module docstring): K and V gathered over ``sp``, the
+    causal part at global positions, the plain path.  ``mask`` is a key
+    mask of this rank's chunk ``(B, 1, 1, T_chunk)`` (gathered over
+    ``sp``), or this rank's query rows over the whole key axis ``(B, 1,
+    T_chunk, T)`` (the local-chunk convention of sequence-parallel ops),
+    ``B`` possibly 1."""
     mesh = _sp_mesh()
     group = mesh.group("sp")
     k = _coll.gather_cat(k, group, 1)
     v = _coll.gather_cat(v, group, 1)
-    tq, tk = q.shape[1], k.shape[1]
+    b, tq, tk = q.shape[0], q.shape[1], k.shape[1]
     full = None
     if mask is not None:
         mask = torch.as_tensor(mask, device=q.device)
-        if mask.dim() != 4 or mask.shape[2] != 1:
+        shape = tuple(mask.shape)
+        batch = mask.dim() == 4 and shape[0] in (1, b) and shape[1] == 1
+        if batch and shape[2] == tq and shape[3] == tk:
+            full = mask.bool()
+        elif batch and shape[2] == 1 and shape[3] * _sp_size() == tk:
+            full = _coll.gather_cat(mask.to(torch.uint8), group, 3).bool()
+        else:
             raise MXNetError(
-                f"attention under an sp mesh takes a key mask (B, 1, 1, "
-                f"T_chunk); got a mask of shape {tuple(mask.shape)}: a "
-                "mask with a query axis has no sequence chunk to gather")
-        full = _coll.gather_cat(mask.to(torch.uint8), group, 3).bool()
+                f"attention under an sp mesh takes a key mask ({b}, 1, 1, "
+                f"{tk // _sp_size()}) of this rank's chunk or this rank's "
+                f"query rows over the whole key axis ({b}, 1, {tq}, {tk}); "
+                f"got a mask of shape {shape}")
     if attn._causal:
         qpos = torch.arange(tq, device=q.device) + mesh.axis_index("sp") * tq
         kpos = torch.arange(tk, device=q.device)

@@ -433,8 +433,10 @@ class ShardedTrainer:
         try:
             with _base.training_mode(True), self._mesh_scope():
                 out = self.net(*data)
-            lval = self.loss(out, *labels) if self.loss is not None \
-                else out
+                # under the mesh too: a loss normalized by a count
+                # (nmt_loss(valid_length=)) sums it over the data axes
+                lval = self.loss(out, *labels) if self.loss is not None \
+                    else out
             return lval.mean()
         finally:
             _base.set_aux_collection(prev)

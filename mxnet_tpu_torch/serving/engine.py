@@ -110,9 +110,20 @@ accounting is by mesh point (``"2dev:tp=2"``).  Under gloo, whose
 transport stages through the host, the programs run eagerly; under
 NCCL (or a mesh of one rank) they are CUDA graphs as on one device.
 
-Not in this slice: KV tiers and migration (``host_pool_bytes``,
-``disk_tier_dir``, prefill/decode ``role``s, queue A7): the engine
-refuses those arguments.  ``stats()``
+Disaggregated serving (``role=``): a ``'prefill'`` engine with
+``migrate_to(target)`` hands each request off at the end of its prefill
+as a digest-sealed :class:`~.migration.MigrationBundle` (host numpy in
+the reference's leaf order, so either package adopts the other's), and
+a ``'decode'`` engine's :meth:`InferenceEngine.adopt` writes it into its
+own pages in place and decodes on; any refusal serves the request where
+it was prefilled.  ``export_prefix_seeds`` / ``seed_prefix`` move cached
+prefixes between engines (the fleet's scale-down).  The tiered prefix
+cache (``host_pool_bytes``, ``disk_tier_dir``, ``tier_fault_limit``,
+:mod:`.kv_tiers`) demotes evicted paged entries to host RAM (and disk)
+and promotes them back on a hit.  On a mesh engine K/V leaving the
+engine is gathered to rank 0 over the model axis (a ``gather`` plan) and
+K/V coming in reaches each rank as whole heads with the next plan, each
+rank writing its block.  ``stats()``
 carries the reference's sections and keeps the port's earlier
 ``counters`` (flat, with ``shed`` and ``rejected``), ``rates``,
 ``engine.device`` and ``latency``'s ``ttft``/``request`` percentiles.
@@ -123,6 +134,7 @@ import contextlib
 import itertools
 import logging
 import math
+import queue
 import signal as _signal
 import threading
 import time
@@ -147,17 +159,20 @@ from ..resilience.faults import (RetryableFault, inject as _inject,
 from .batcher import BucketLattice, DynamicBatcher
 from .errors import (DeadlineInfeasibleError, EngineCrashedError,
                      EngineStoppedError, InvalidRequestError,
-                     NonFiniteOutputError, QueueFullError,
+                     MigrationError, NonFiniteOutputError, QueueFullError,
                      RequestCancelledError, RequestTimeoutError,
                      ServingError)
 from .graphs import Program
 from .kv_pages import PagedPrefixCache, PagePool
 from .kv_slots import SlotAllocator, SlotState
+from .kv_tiers import HostKVTier
 from .metrics import ServingMetrics
 from .overload import (PRIORITY_BATCH, PRIORITY_BEST_EFFORT,
                        PRIORITY_INTERACTIVE, OverloadController,
                        priority_name, priority_ordinal)
 from .prefix_cache import PrefixCache
+from .migration import (HostCopy, PrefixSeed, begin_export, cache_leaves,
+                        seed_digest, verify_bundle, verify_seed)
 from .sampling import sample_tokens
 from .sharded import BEAT, PROGRAMS, ServingMesh
 
@@ -246,14 +261,17 @@ class Request:
                  "eos_id", "deadline", "future", "t_submit", "t_enqueue",
                  "t_schedule", "t_first", "shape_key", "retries_left",
                  "trace_id", "priority", "preempted", "temperature",
-                 "top_k", "top_p", "seed")
+                 "top_k", "top_p", "seed", "route_hint")
 
     _ids = itertools.count()
 
     def __init__(self, kind, payload, max_new_tokens=0, eos_id=None,
                  deadline=None, priority=PRIORITY_BATCH, temperature=0.0,
-                 top_k=0, top_p=1.0, seed=0):
+                 top_k=0, top_p=1.0, seed=0, route_hint=None):
         self.retries_left = 0         # the engine grants the budget
+        # an opaque routing cookie (a fleet affinity key): the engine
+        # never reads it; it rides the request into a migration bundle
+        self.route_hint = None if route_hint is None else bytes(route_hint)
         self.trace_id = None
         self.id = next(self._ids)
         self.kind = kind
@@ -287,6 +305,62 @@ class Request:
 _MESH_POINT = "1dev"
 # a plan's stand-in for a device input: the follower's own last output
 _PREV = "<previous output>"
+
+
+class _Handoff:
+    """One request on its way to a migration target: the bundle whose host
+    copy is in flight, the first token, and where the handoff stands.
+    ``state`` moves ``pending`` -> ``sending`` -> ``ok`` or ``failed`` (the
+    scheduler then finishes the request itself), or to ``dropped`` when
+    the engine fails its requests before the target has it; it changes
+    under the engine's condition."""
+
+    __slots__ = ("pending", "token", "state", "error", "bundle", "late",
+                 "t0")
+
+    def __init__(self, pending, token: int):
+        self.pending, self.token = pending, int(token)
+        self.state = "pending"
+        self.error = self.bundle = self.late = None
+        self.t0 = time.monotonic()
+
+    def run(self, target, future, cond):
+        """On the handoff worker: seal the bundle and offer it.  Returns
+        the error to fail the request with if the engine gave it up while
+        the target held it and the target refused it, else None."""
+        try:
+            bundle = self.pending.seal()
+        except Exception as e:
+            with cond:
+                if self.state == "pending":
+                    self.state, self.error = "failed", e
+            return None
+        finally:
+            self.pending = None
+        with cond:
+            if self.state != "pending":
+                return None                  # dropped
+            self.state = "sending"
+        try:
+            target(bundle, future)
+        except Exception as e:
+            with cond:
+                self.state, self.error = "failed", e
+                return self.late
+        with cond:
+            self.state, self.bundle = "ok", bundle
+        return None
+
+    def drop(self, exc, cond) -> bool:
+        """The engine fails its requests: True if the target never took
+        this one (the engine fails it itself)."""
+        with cond:
+            if self.state in ("pending", "failed"):
+                self.state = "dropped"
+                return True
+            if self.state == "sending":
+                self.late = exc
+            return False
 
 
 def _host(t):
@@ -347,9 +421,11 @@ class InferenceEngine:
     live there.  ``mesh`` is None, a device count (``make_mesh(dp=1,
     tp=N)`` over a job of N ranks) or a :class:`~mxnet_tpu_torch.parallel.
     Mesh`; ``mesh_axes`` names its model axis and an optional slot axis
-    (module docstring, :mod:`.sharded`).  ``host_pool_bytes``/
-    ``tier_fault_limit``/``disk_tier_dir``/``role`` (queue A7) are
-    accepted only at their defaults.
+    (module docstring, :mod:`.sharded`).  ``role`` is ``'unified'``,
+    ``'prefill'`` or ``'decode'`` (disaggregated serving);
+    ``host_pool_bytes`` (0 = off), ``disk_tier_dir`` and
+    ``tier_fault_limit`` configure the tiered prefix cache of a paged
+    engine (inert on a dense one).
     """
 
     QUEUE_DEPTH = 64
@@ -422,14 +498,14 @@ class InferenceEngine:
         if role not in ("prefill", "decode", "unified"):
             raise ServingError(f"role must be 'prefill'|'decode'|"
                                f"'unified', got {role!r}")
+        if role != "unified" and mode != "decode":
+            raise ServingError(
+                f"role={role!r} is a decode-mode concept (prefill/decode "
+                f"disaggregation splits LM phases; forward mode has "
+                f"neither)")
         if int(host_pool_bytes) < 0:
             raise ServingError(f"host_pool_bytes must be >= 0, got "
                                f"{host_pool_bytes}")
-        if role != "unified" or int(host_pool_bytes) or \
-                disk_tier_dir is not None or int(tier_fault_limit) != 3:
-            raise MXNetError("role/host_pool_bytes/disk_tier_dir/"
-                             "tier_fault_limit: disaggregated serving and "
-                             "the tiered prefix cache are ROADMAP queue A7")
         self.mode = mode
         self.device = resolve_device(device)
         if net.device != self.device:
@@ -449,6 +525,10 @@ class InferenceEngine:
         self.name = _claim_engine_name(str(name), self)
         self.metrics = ServingMetrics(self.name)
         self.role = role
+        self._migrate_target = None
+        # the handoff worker and its queue (started at the first export)
+        self._handoff_q = None
+        self._handoff_thread = None
         self.kv_layout = kv_layout
         self._paged = kv_layout == "paged"
         # the programs by key, their shared memory pool and capture
@@ -487,12 +567,20 @@ class InferenceEngine:
                 raise ServingError("debug_parity compares against the "
                                    "float32 paged gather arm — it needs "
                                    "kv_layout='paged'")
-            if self.spec_tokens or mesh is not None:
+            if self.spec_tokens or int(host_pool_bytes) or \
+                    mesh is not None or role != "unified":
                 raise ServingError(
                     "debug_parity is a single-engine debug knob: "
-                    "incompatible with spec_tokens and mesh — those paths "
+                    "incompatible with spec_tokens, host_pool_bytes "
+                    "(tiering), mesh, and non-unified roles — those paths "
                     "write K/V the float32 twin cannot mirror")
+        self._init_tiers(host_pool_bytes, tier_fault_limit, disk_tier_dir)
         self._init_mesh(mesh, mesh_axes)
+        if self._slot_axis is not None and role != "unified":
+            raise ServingError(
+                f"role={role!r} with a slot axis in mesh_axes: a slot's "
+                "rows live on one rank of the slot axis, and migration "
+                "ships whole heads only — use the model axis alone")
         # whether the sampling programs also return their raw logits for
         # the twin: fixed when the programs are built
         self._dbg = self.debug_parity
@@ -520,6 +608,10 @@ class InferenceEngine:
         self._cond = _named_condition(
             "serving.engine.cond", "admission queue + scheduler wakeups")
         self._batcher = DynamicBatcher(queue_depth, cond=self._cond)
+        if self._tier is not None:
+            # wake a parked scheduler the moment a promotion resolves
+            self._tier.on_resolve = self._tier_wake
+            self._tier.start()
         self._step_lock = _named_lock(
             "serving.engine.step", "in-flight state vs stop()/watchdog")
         self._stop_lock = _named_lock(
@@ -543,6 +635,27 @@ class InferenceEngine:
     @property
     def max_wait_us(self) -> float:
         return self.MAX_WAIT_US
+
+    def _init_tiers(self, host_pool_bytes, tier_fault_limit, disk_tier_dir):
+        """The tiered prefix cache (:mod:`.kv_tiers`): a bounded host-RAM
+        (and disk) spill behind the paged prefix cache.  Other layouts
+        accept the knobs and stay inert: demotion exists only where
+        eviction frees pages."""
+        self.host_pool_bytes = int(host_pool_bytes)
+        self.tier_fault_limit = int(tier_fault_limit)
+        self.disk_tier_dir = disk_tier_dir
+        self._tier = None
+        self._tier_pending: dict = {}  # PrefixEntry -> in-flight TierHandle
+        self._tier_timeout = 5.0       # s a slot waits on one promotion
+        self._tier_parked = 0          # slots waiting on a promotion
+        if self.host_pool_bytes and self._paged:
+            # started once the scheduler's condition exists: the resolve
+            # hook pokes it
+            self._tier = HostKVTier(
+                self.host_pool_bytes, page_size=self.page_size,
+                fault_limit=self.tier_fault_limit,
+                disk_dir=self.disk_tier_dir, scope=self.name,
+                metrics=self.metrics, kv_quant=self.kv_quant)
 
     def _init_forward(self, batch_buckets, spec_tokens, draft_layers,
                       kv_quant, paged_attention, prefix_min_tokens):
@@ -675,7 +788,8 @@ class InferenceEngine:
             # evictable refcounts on the pool), so it is always on
             self.prefix_pool_rows = 0
             self._prefix = PagedPrefixCache(
-                self._pool, min_tokens=self.prefix_min_tokens)
+                self._pool, min_tokens=self.prefix_min_tokens,
+                demote_hook=self._tier_demote)
         else:
             self.page_size = None
             self.num_pages = 0
@@ -785,14 +899,15 @@ class InferenceEngine:
             ("mxtpu_serving_tier_host_bytes",
              "host-RAM bytes held by the tiered prefix cache's demoted KV "
              "bundles (0 = tier off)",
-             lambda e: 0),
+             lambda e: e._tier.used_bytes if e._tier is not None else 0),
             ("mxtpu_serving_tier_entries",
              "demoted KV bundles resident in the host (and disk) tier",
-             lambda e: 0),
+             lambda e: len(e._tier) if e._tier is not None else 0),
             ("mxtpu_serving_tier_disabled",
              "1 once the tier self-disabled after its fault limit (the "
              "engine serves from HBM only)",
-             lambda e: 0),
+             lambda e: 1 if e._tier is not None and not e._tier.enabled
+             else 0),
             ("mxtpu_serving_mesh_devices",
              "devices the engine's compiled programs span (1 = unsharded "
              "single-device serving)",
@@ -894,7 +1009,8 @@ class InferenceEngine:
                 if got:
                     for slot, st in list(self._alloc.items()):
                         self._alloc.free(slot)
-                        self._fail(st.request, exc)
+                        if self._owns(st, exc):
+                            self._fail(st.request, exc)
                     for req in self._inflight_fwd:
                         self._fail(req, exc)
                 else:
@@ -926,6 +1042,10 @@ class InferenceEngine:
         if self._watchdog is not None:
             self._watchdog.stop()
             self._watchdog = None
+        if self._tier is not None:
+            # after the scheduler is down: queued promotions fail (no
+            # slot waits anymore), queued demotions drop
+            self._tier.stop()
         exc = self._crashed or EngineStoppedError(
             "engine stopped — request was never scheduled")
         for req in self._batcher.drain():
@@ -934,7 +1054,14 @@ class InferenceEngine:
         if not alive:
             for slot, st in list(self._alloc.items()):
                 self._alloc.free(slot)
-                self._fail(st.request, exc)
+                if self._owns(st, exc):
+                    self._fail(st.request, exc)
+            if self._handoff_thread is not None:
+                # after the last drop: a handoff still sealing sees it;
+                # a target that never returns is not waited out
+                self._handoff_q.put(None)
+                self._handoff_thread.join(10.0)
+                self._handoff_thread = None
             # a stopped engine never runs again: its graphs and their
             # pool go now, not whenever a collection breaks the cycle
             # through the programs' bound methods
@@ -1172,7 +1299,8 @@ class InferenceEngine:
                eos_id: Optional[int] = None,
                priority: Optional[str] = None,
                temperature: float = 0.0, top_k: int = 0,
-               top_p: float = 1.0, seed: int = 0) -> InferenceFuture:
+               top_p: float = 1.0, seed: int = 0,
+               route_hint: Optional[bytes] = None) -> InferenceFuture:
         """Enqueue one request; returns its future.  Decode mode: ``x``
         is one prompt (1-D ints, or (1, T)) and the result the full
         sequence (prompt + generated) as np.int32; prompts longer than
@@ -1185,7 +1313,11 @@ class InferenceEngine:
         as numpy.  ``timeout`` is the server-side deadline in seconds
         (None/0 = none), enforced while queued and mid-generation and,
         with ``deadline_admission``, on arrival.  ``priority`` is the
-        request's class (default ``default_priority``)."""
+        request's class (default ``default_priority``).  ``route_hint``
+        is an opaque routing cookie (decode mode): the engine never reads
+        it, and a prefill-role engine copies it into the migration bundle
+        so a fleet router places the decode half by the affinity key it
+        routed the prefill by."""
         if self._follower:
             raise ServingError(
                 f"submit on rank {self._mesh.leader_rank} of the mesh: it "
@@ -1257,7 +1389,8 @@ class InferenceEngine:
             req = Request("decode", arr.copy(), mnt,
                           self.eos_id if eos_id is None else eos_id,
                           deadline, priority=pr, temperature=temperature,
-                          top_k=top_k, top_p=top_p, seed=seed)
+                          top_k=top_k, top_p=top_p, seed=seed,
+                          route_hint=route_hint)
         req.retries_left = self.max_request_retries
         tr = _trace_active()
         if tr is not None:
@@ -1405,6 +1538,459 @@ class InferenceEngine:
             return self.metrics.counters["compiles"] - before
 
     # ----------------------------------------------------------------- stats
+    # ------------------------------------------------------- disaggregation
+    def migrate_to(self, target) -> "InferenceEngine":
+        """Attach this prefill-role engine's migration egress.
+        ``target`` is a callable ``(bundle, future) -> None``, typically
+        a decode-role engine's :meth:`adopt` or a fleet router's decode
+        placement, that raises to refuse the handoff; a refusal makes
+        this engine finish the request itself.  Returns ``self``."""
+        if self.role != "prefill":
+            raise ServingError(
+                f"migrate_to() is the prefill-role egress; engine "
+                f"{self.name!r} has role={self.role!r}")
+        self._migrate_target = target
+        return self
+
+    def adopt(self, bundle, future=None):
+        """The decode side's ingress of a migrated request: verify the
+        bundle's digest, claim a slot (and pages under the paged
+        layout), write the prefilled K/V into this engine's caches in
+        place, and resume the request at its accepted position.  Runs
+        on the caller's thread under the step lock; the slot joins the
+        scheduler's next decode cycle.  ``future`` (optional) is the
+        origin request's future, which then resolves with the migrated
+        result; returns the future that carries ``prompt + generated``.
+
+        Every refusal is typed and leaves nothing claimed:
+        :class:`MigrationDigestError` for a torn bundle (checked first),
+        :class:`MigrationError` for a layout, page size, storage arm or
+        capacity mismatch.  A bundle of either package is accepted."""
+        if self.role == "prefill":
+            raise ServingError(
+                f"adopt() is the decode-side ingress; engine "
+                f"{self.name!r} has role='prefill'")
+        if self.mode != "decode":
+            raise ServingError("adopt() is a decode-mode surface "
+                               "(forward mode has no KV to adopt)")
+        if self._follower:
+            raise ServingError("adopt() on a follower rank of the mesh: "
+                               "rank 0 schedules the engine")
+        if self._crashed is not None:
+            raise EngineCrashedError(str(self._crashed), engine=self.name)
+        if self._stopping or self._batcher.closed:
+            raise EngineStoppedError(
+                f"engine {self.name!r} is stopping — cannot adopt")
+        # the digest first: a torn transfer is refused before any claim
+        verify_bundle(bundle)
+        if bundle.layout != self.kv_layout:
+            raise MigrationError(
+                f"bundle layout {bundle.layout!r} != engine kv_layout "
+                f"{self.kv_layout!r} — KV bytes are not portable "
+                f"across layouts")
+        if self._paged and bundle.page_size != self.page_size:
+            raise MigrationError(
+                f"bundle page_size={bundle.page_size} != engine "
+                f"page_size={self.page_size}")
+        if getattr(bundle, "kv_quant", None) != self.kv_quant:
+            raise MigrationError(
+                f"bundle kv_quant={getattr(bundle, 'kv_quant', None)!r} "
+                f"!= engine kv_quant={self.kv_quant!r} — KV bytes are "
+                f"not portable across storage arms")
+        if self.debug_parity:
+            raise MigrationError(
+                f"engine {self.name!r} runs debug_parity — adoption "
+                f"would desynchronise the reference twin")
+        if bundle.prompt_len + bundle.max_new_tokens > self.max_length:
+            raise MigrationError(
+                f"prompt len {bundle.prompt_len} + "
+                f"{bundle.max_new_tokens} new tokens does not fit the "
+                f"KV length ({self.max_length})")
+        with self._step_lock:
+            # an injected fault refuses the bundle before any claim
+            _inject("serving.migrate_in", scope=self.name)
+            if self._alloc.free_count == 0:
+                raise MigrationError(f"no free KV slot on {self.name!r}")
+            self._ensure_caches()
+            req = Request("decode", np.asarray(bundle.prompt, np.int32),
+                          bundle.max_new_tokens, bundle.eos_id,
+                          bundle.deadline, priority=bundle.priority,
+                          temperature=bundle.temperature,
+                          top_k=bundle.top_k, top_p=bundle.top_p,
+                          seed=bundle.seed,
+                          route_hint=getattr(bundle, "route_hint", None))
+            req.trace_id = bundle.trace_id
+            if future is not None:
+                req.future = future
+            req.retries_left = self.max_request_retries
+            st = SlotState(req, req.prompt_len, req.max_new_tokens,
+                           tokens=req.payload)
+            slot = self._alloc.alloc(st)
+            try:
+                self._install_kv(slot, st, bundle)
+            except BaseException:
+                self._release(slot)
+                raise
+            # adoption is this engine's admission: the same counters
+            self.metrics.count("submitted")
+            self.metrics.count("admitted")
+            self.metrics.count("prompt_tokens", st.prompt_len)
+            now = time.monotonic()
+            req.t_schedule = st.t_schedule = now
+            st.filled = st.prompt_len
+            st.t_first = now
+            if req.t_first is None:
+                req.t_first = now
+            # the adopted prompt joins the local prefix cache: followers
+            # of a hot family routed here hit it
+            self._prefix_insert(st, slot)
+            st.advance(bundle.first_token)
+            self.metrics.count("migrations_in")
+            self.metrics.count("migrated_pages", bundle.n_pages)
+            self.metrics.count_migration("in", "ok")
+            fr = _fr_active()
+            if fr is not None:
+                fr.record("serving.migrate_in", engine=self.name,
+                          request=req.id, source=bundle.source,
+                          pages=bundle.n_pages,
+                          prompt_len=bundle.prompt_len,
+                          trace_id=req.trace_id)
+            self._finish_if_done(slot, st)
+        with self._cond:
+            self._cond.notify_all()   # wake an idle scheduler
+        return req.future
+
+    def _install_kv(self, slot: int, st: SlotState, bundle):
+        """Write a bundle's arrays into this engine's caches, in place
+        (the programs captured the buffers): paged, claim the pages the
+        prompt needs (evicting idle prefix entries under pressure) and
+        point the slot's table row at them; dense, the slot's first
+        ``prompt_len`` rows."""
+        self._check_leaves(bundle.arrays, "bundle")
+        if self._paged:
+            need = self._pool.pages_for(bundle.prompt_len)
+            if need != bundle.n_pages:
+                raise MigrationError(
+                    f"bundle carries {bundle.n_pages} pages but "
+                    f"prompt_len={bundle.prompt_len} needs {need} at "
+                    f"page_size={self.page_size}")
+            pages = self._claim_pages(need)
+            if pages is None:
+                self.metrics.count("page_faults")
+                raise MigrationError(
+                    f"page pool on {self.name!r} cannot cover {need} "
+                    f"pages (free + evictable short)")
+            st.pages.extend(pages)
+            self._effect("pages", np.asarray(pages, np.int64),
+                         list(bundle.arrays))
+            self._page_table[slot, :need] = pages
+            self._table_stale = True
+        else:
+            self._effect("rows", slot, bundle.prompt_len,
+                         list(bundle.arrays))
+
+    def _check_leaves(self, arrays, what):
+        n = len(cache_leaves(self._caches))
+        if len(arrays) != n:
+            raise MigrationError(
+                f"{what} carries {len(arrays)} cache leaves, engine has "
+                f"{n} — model mismatch")
+
+    def _export_leaves(self, pages=None, row=None, length=None):
+        """Host numpy copies of the caches' contents, one per leaf in
+        :func:`~.migration.cache_leaves` order: the ``pages`` in their
+        order, or the first ``length`` positions of dense ``row``.  On a
+        mesh engine each leaf's head blocks are gathered over the model
+        axis first (rank 0 sends the followers a ``gather`` plan)."""
+        return HostCopy(self._gather_leaves(pages, row, length)).result()
+
+    def _gather_leaves(self, pages=None, row=None, length=None):
+        """The caches' contents as device tensors of whole heads: on a
+        mesh's rank 0 the followers are sent a ``gather`` plan first."""
+        self._ensure_caches()
+        if self._leads():
+            self._mesh.send("gather", pages, row, length)
+        return self._gathered_leaves(pages, row, length)
+
+    def _gathered_leaves(self, pages, row, length):
+        """Device gathers of this rank's contents, joined over the model
+        axis (every rank of the line takes part)."""
+        if pages is not None:
+            idx = self._dev(np.asarray(pages, np.int64))
+            local = [leaf.index_select(0, idx)
+                     for leaf in cache_leaves(self._caches)]
+        else:
+            local = [leaf[row, :length].clone()
+                     for leaf in cache_leaves(self._caches)]
+        m = self._mesh
+        return m.gather_heads(local) if m is not None else local
+
+    # ------------------------------------------------------- prefix seeding
+    @staticmethod
+    def _entry_tokens(entry):
+        """The tokens a prefix entry spells: the radix edges from the
+        root to its node."""
+        edges = []
+        node = entry.node
+        while node is not None:
+            edges.append(node.edge)
+            node = node.parent
+        toks: list = []
+        for e in reversed(edges):
+            toks.extend(e)
+        return toks
+
+    def export_prefix_seeds(self, limit: Optional[int] = None):
+        """Host copies of this engine's cached prefix entries as
+        digest-stamped :class:`~.migration.PrefixSeed` bundles, the most
+        recently used first (the fleet's scale-down path).  Runs on the
+        caller's thread under the step lock, on a live engine or a
+        stopped one whose caches are resident; an engine without a
+        prefix cache or entries exports ``[]``, and so does a mesh
+        engine whose followers have stopped or that has a slot axis (its
+        rows live on one rank of it)."""
+        if self.mode != "decode" or self._prefix is None or \
+                self._follower:
+            return []
+        m = self._mesh
+        if m is not None and (m.slot_rows is not None or (
+                m.followers and (self._thread is None or m.broken))):
+            return []
+        seeds = []
+        with self._step_lock:
+            if self._caches is None or not len(self._prefix):
+                return []
+            entries = sorted((e for e in self._prefix._entries
+                              if e.tier == 1),
+                             key=lambda e: e.last_used, reverse=True)
+            if limit is not None:
+                entries = entries[:int(limit)]
+            for entry in entries:
+                try:
+                    if self._paged:
+                        arrays = self._export_leaves(pages=entry.pages)
+                    else:
+                        arrays = self._export_leaves(row=entry.row,
+                                                     length=entry.length)
+                    s = PrefixSeed(
+                        source=self.name, layout=self.kv_layout,
+                        page_size=self.page_size if self._paged else 0,
+                        tokens=self._entry_tokens(entry),
+                        length=entry.length, arrays=arrays,
+                        kv_quant=self.kv_quant)
+                    s.digest = seed_digest(s)
+                    seeds.append(s)
+                except Exception:
+                    if m is not None and m.followers:
+                        raise        # the ranks may have parted
+                    continue   # one unreadable entry must not void the rest
+        self.metrics.count("prefix_seeds_out", len(seeds))
+        return seeds
+
+    def seed_prefix(self, seed) -> bool:
+        """Plant one :class:`~.migration.PrefixSeed` in this engine's
+        prefix cache (the survivor's side of scale-down).  The digest is
+        checked first; then, under the step lock, dense: a pool row
+        through the ordinary insert and the K/V written into it in
+        place; paged: fresh pages written in place and handed to the
+        cache's insert, which takes its own refcounts while the claims
+        drop.  True iff the seed now backs an entry; refusals are typed
+        (digest, layout, page size, storage arm) or False (already
+        cached, no room, no prefix cache)."""
+        verify_seed(seed)
+        if self.mode != "decode" or self._prefix is None or \
+                self._follower:
+            return False
+        if seed.layout != self.kv_layout:
+            raise MigrationError(
+                f"seed layout {seed.layout!r} != engine kv_layout "
+                f"{self.kv_layout!r} — KV bytes are not portable "
+                f"across layouts")
+        if self._paged and seed.page_size != self.page_size:
+            raise MigrationError(
+                f"seed page_size={seed.page_size} != engine "
+                f"page_size={self.page_size}")
+        if getattr(seed, "kv_quant", None) != self.kv_quant:
+            raise MigrationError(
+                f"seed kv_quant={getattr(seed, 'kv_quant', None)!r} != "
+                f"engine kv_quant={self.kv_quant!r} — KV bytes are not "
+                f"portable across storage arms")
+        if self.debug_parity or (self._mesh is not None
+                                 and self._mesh.slot_rows is not None):
+            return False
+        if seed.length > self.max_length or \
+                seed.length < self.prefix_min_tokens:
+            return False
+        with self._step_lock:
+            if self._crashed is not None or not self._prefix_usable():
+                return False
+            self._ensure_caches()
+            self._check_leaves(seed.arrays, "seed")
+            tokens = [int(t) for t in seed.tokens]
+            if self._paged:
+                need = self._pool.pages_for(seed.length)
+                if need != len(seed.arrays[0]):
+                    raise MigrationError(
+                        f"seed carries {len(seed.arrays[0])} pages but "
+                        f"length={seed.length} needs {need} at "
+                        f"page_size={self.page_size}")
+                pages = self._claim_pages(need)
+                if pages is None:
+                    self.metrics.count("page_faults")
+                    return False
+                self._effect("pages", np.asarray(pages, np.int64),
+                             list(seed.arrays))
+                entry = self._prefix.insert(tokens, pages, seed.length)
+                # the entry's own refs keep the pages; the claims drop
+                # (all of them, on a refused insert)
+                for pid in pages:
+                    self._pool.unref(pid)
+                if entry is None:
+                    return False
+            else:
+                entry = self._prefix.insert(tokens)
+                if entry is None:
+                    return False
+                try:
+                    self._effect("rows", entry.row, seed.length,
+                                 list(seed.arrays))
+                except BaseException:
+                    self._prefix.remove(entry)
+                    raise
+            self.metrics.count("prefix_seeds_in")
+            self.metrics.count("prefix_inserts")
+        return True
+
+    # ---------------------------------------------------- tiered prefix
+    def _tier_demote(self, entry) -> bool:
+        """The demotion gate of :meth:`PagedPrefixCache.evict_pages`,
+        called when an LRU sweep picked ``entry`` as a zero-reader
+        victim: True makes it a tier-2 claim (its pages free all the
+        same), False evicts it as without the tier.  Here the victim's
+        pages are only gathered on the device into fresh tensors (whole
+        heads on a mesh engine) and handed over; the copy to the host
+        runs on the tier's worker.  A page the pool marked dirty (a
+        non-finite victim wrote it) is never offered."""
+        tier = self._tier
+        if tier is None or not tier.enabled or self._caches is None:
+            return False
+        if entry.length < self.prefix_min_tokens or not entry.pages:
+            return False
+        if any(pid in self._pool.dirty for pid in entry.pages):
+            self.metrics.count("tier_drops")
+            return False
+        try:
+            tokens = tuple(self._entry_tokens(entry))
+            arrays = self._gather_leaves(pages=list(entry.pages))
+        except Exception:
+            m = self._mesh
+            if m is not None and m.followers:
+                raise            # the ranks may have parted
+            self.metrics.count("tier_drops")
+            return False
+        return tier.offer(tokens, arrays, entry.length)
+
+    def _tier_request(self, st: SlotState, entry) -> bool:
+        """Ask the tier to promote ``entry``'s bundle and park the slot
+        on the handle.  False: the claim was stale (the tier lost the
+        bundle), so it is pruned and the caller counts a miss."""
+        tier = self._tier
+        if tier is None:
+            self._tier_prune(entry)
+            return False
+        handle = self._tier_pending.get(entry)
+        if handle is None:
+            handle = tier.request(tuple(self._entry_tokens(entry)))
+            if handle is None:
+                self._tier_prune(entry)
+                return False
+            self._tier_pending[entry] = handle
+        self._prefix.pin(entry)      # the claim must survive the wait
+        if st.tier_promo is None:
+            self._tier_parked += 1
+        st.tier_promo = (entry, handle, time.monotonic())
+        return True
+
+    def _tier_wake(self):
+        """The tier worker's resolve hook: wake a parked scheduler."""
+        with self._cond:
+            self._cond.notify_all()
+
+    def _tier_prune(self, entry):
+        """Drop a tier-2 claim whose bundle is gone; only an unread one
+        (waiters on the same entry resolve their own handles first)."""
+        self._tier_pending.pop(entry, None)
+        if entry.tier == 2 and entry.refs == 0 and not entry.pages:
+            self._prefix.remove(entry)
+
+    def _tier_poll(self, st: SlotState, slot: int) -> bool:
+        """Resolve one slot's pending promotion: True while it is in
+        flight (the slot sits this prefill out); False once resolved.
+        On success the entry is tier 1 again and admission runs again
+        to share its pages; on a failure or timeout the slot
+        recomputes."""
+        entry, handle, t0 = st.tier_promo
+        tier = self._tier
+        status, arrays = tier.poll(handle)
+        if status == "pending":
+            if time.monotonic() - t0 <= self._tier_timeout:
+                return True
+            tier.abandon(handle)     # counted as a tier miss
+            status = "failed"
+        st.tier_promo = None
+        self._tier_parked = max(0, self._tier_parked - 1)
+        self._prefix.unpin(entry)
+        self._tier_pending.pop(entry, None)
+        ok = False
+        if status == "ready":
+            if entry.tier == 2:
+                ok = self._tier_install(entry, handle, arrays)
+                if not ok:
+                    self.metrics.count("tier_misses")
+            else:
+                ok = entry.tier == 1   # a sibling waiter installed it
+        if ok:
+            self._prefix_admit(st, slot)
+            return False
+        self.metrics.count("prefix_misses")
+        if not tier.contains(handle.key):
+            self._tier_prune(entry)
+        return False
+
+    def _tier_install(self, entry, handle, arrays) -> bool:
+        """Write a verified bundle's pages into freshly claimed pages in
+        place and re-back the tier-2 claim with them
+        (:meth:`PagedPrefixCache.upgrade` takes the entry's refs; the
+        claims drop)."""
+        length = int(handle.length)
+        need = self._pool.pages_for(length)
+        self._ensure_caches()
+        if (not arrays or len(arrays) != len(cache_leaves(self._caches))
+                or int(arrays[0].shape[0]) != need
+                or length != entry.length):
+            return False
+        pages = self._claim_pages(need)
+        if not pages:
+            self.metrics.count("page_faults")
+            return False
+        self._effect("pages", np.asarray(pages, np.int64), list(arrays))
+        self._prefix.upgrade(entry, pages, length)
+        for pid in pages:            # the entry's refs keep them
+            self._pool.unref(pid)
+        return True
+
+    def _tier_cancel(self, st: SlotState):
+        """Release a slot's promotion wait (its request ended mid-wait);
+        the upload itself is left to finish for the next hit."""
+        if st.tier_promo is None:
+            return
+        entry, _handle, _t0 = st.tier_promo
+        st.tier_promo = None
+        self._tier_parked = max(0, self._tier_parked - 1)
+        if self._prefix is not None:
+            self._prefix.unpin(entry)
+        self._tier_pending.pop(entry, None)
+
     def stats(self) -> dict:
         """The reference's sections (``requests``, ``batches``,
         ``tokens``, ``compile_cache``, ``prefix_cache``, ``ttft``,
@@ -1440,7 +2026,7 @@ class InferenceEngine:
             "spec_tokens": self.spec_tokens,
             "draft_layers": self.draft_layers,
             "role": self.role,
-            "migrate_target": False,
+            "migrate_target": self._migrate_target is not None,
         }
         s["slots"] = {
             "kv_layout": self.kv_layout,
@@ -1475,6 +2061,9 @@ class InferenceEngine:
                         # each program compiles once
                         "programs": c["compiles"]}
         s["overload"]["controller"] = self._overload.snapshot()
+        if self._tier is not None:
+            s["tier"]["store"] = self._tier.snapshot()
+            s["tier"]["enabled"] = self._tier.enabled
         with self._lat_lock:
             ttft, lat = list(self._ttft), list(self._latency)
         s["latency"]["ttft"] = _percentiles(ttft)
@@ -1580,13 +2169,18 @@ class InferenceEngine:
     def _apply(self, op, *args):
         """In-place surgery on this rank's caches (the programs hold
         their addresses): the page table's upload, scrubbed pages, every
-        cache zeroed, one dense row zeroed, a K scale poisoned."""
+        cache zeroed, one dense row zeroed, a K scale poisoned, migrated
+        or promoted K/V written into pages (``pages``) or a dense row's
+        first positions (``rows``), this rank's heads of each leaf."""
         self._ensure_caches()
         if op == "table":
             self._table_dev.copy_(torch.from_numpy(args[0]))
             return
         if op == "kscale":
             self._caches[0]["k_scale"][args[0]] = args[1]
+            return
+        if op in ("pages", "rows"):
+            self._write_leaves(op, *args)
             return
         row = None
         if op == "zero_row":
@@ -1605,6 +2199,40 @@ class InferenceEngine:
                         a[row].zero_()
                     else:
                         a.zero_()
+
+    def _write_leaves(self, op, where, *rest):
+        """Host arrays (whole heads, :func:`~.migration.cache_leaves`
+        order) into pages ``where`` or the first positions of dense row
+        ``where``, in place."""
+        m = self._mesh
+        if op == "pages":
+            idx = self._dev(np.asarray(where, np.int64))
+            arrays = rest[0]
+        else:
+            length, arrays = rest
+            where = m.local_row(where) if m is not None else where
+            if where is None:
+                return
+        for leaf, arr in zip(cache_leaves(self._caches), arrays):
+            if m is not None:
+                arr = m.local_heads(arr)
+            src = torch.from_numpy(np.ascontiguousarray(arr)).to(
+                device=leaf.device, dtype=leaf.dtype)
+            if op == "pages":
+                leaf.index_copy_(0, idx, src)
+            else:
+                leaf[where, :length].copy_(src)
+
+    def _scale_taint(self, pages):
+        """Flags (int32, one per page of ``pages``): whether any int8
+        scale this rank holds on the page is not finite."""
+        pids = self._dev(np.asarray(pages, np.int64))
+        bad = torch.zeros((len(pages),), dtype=torch.bool,
+                          device=self.device)
+        for layer in self._caches:
+            for key in ("k_scale", "v_scale"):
+                bad |= ~torch.isfinite(layer[key][pids]).flatten(1).all(1)
+        return bad.to(torch.int32)
 
     def _follow(self):
         """A follower's loop: receive rank 0's plans, apply their surgery,
@@ -1628,6 +2256,15 @@ class InferenceEngine:
                     code = 1
                 if op == "stop":
                     return
+                if op == "gather":
+                    # the leader exports K/V: this rank's heads join it
+                    with self._step_lock:
+                        self._gathered_leaves(*payload)
+                    continue
+                if op == "scan":
+                    with self._step_lock:
+                        m.union(self._scale_taint(payload[0]))
+                    continue
                 if op != "call":
                     continue
                 if m.status(code):
@@ -2002,10 +2639,25 @@ class InferenceEngine:
                     # brownout could never lift once the storm passed
                     self._overload_tick(time.monotonic())
                     self._cond.wait(0.05)
+                else:
+                    parked = self._tier_parked + sum(
+                        st.handoff is not None
+                        for _s, st in self._alloc.items())
+                    if self._batcher.empty() and parked and \
+                            parked >= self._alloc.active_count:
+                        # every live slot waits on a promotion or a
+                        # handoff: park on the condition (the tier's
+                        # resolve hook and the handoff worker notify)
+                        # rather than spin and starve the workers of the
+                        # GIL
+                        self._cond.wait(0.002)
             if idle:
                 if self._leads() and not m.broken and \
                         time.monotonic() - m.last_plan > BEAT:
-                    m.send("beat")
+                    # plans leave under the step lock: adopt() and the
+                    # seed export send theirs from the caller's thread
+                    with self._step_lock:
+                        m.send("beat")
                 continue
             try:
                 with self._step_lock:
@@ -2040,7 +2692,9 @@ class InferenceEngine:
         now = time.monotonic()
         self._sweep_cancelled()
         for slot, st in self._alloc.items():
-            if st.request.expired(now):
+            # a slot in a handoff waits for its outcome: the peer may
+            # own the request already
+            if st.handoff is None and st.request.expired(now):
                 self._release(slot)
                 self._fail(st.request, RequestTimeoutError(
                     f"request {st.request.id} timed out after "
@@ -2188,11 +2842,17 @@ class InferenceEngine:
             self._fail(req, exc)
         inflight = self._alloc.items()
         for slot, st in inflight:
+            owned = self._owns(st, exc)
             self._release(slot)
-            self._fail(st.request, exc)
+            if owned:
+                self._fail(st.request, exc)
         if inflight:
             if self._caches is not None:
                 self._effect("zero")
+            # promotions in flight target the zeroed pages; the tier's
+            # own store is host-side and stays valid
+            self._tier_pending.clear()
+            self._tier_parked = 0
             if self._prefix is not None:
                 self._prefix.reset()
             if self._paged:
@@ -2205,6 +2865,7 @@ class InferenceEngine:
         on every page it mapped (pages an entry or another slot still
         reads survive); returns the page ids that freed."""
         st = self._alloc.free(slot)
+        self._tier_cancel(st)
         if st.pinned is not None:
             if self._prefix is not None:
                 self._prefix.unpin(st.pinned)
@@ -2243,7 +2904,7 @@ class InferenceEngine:
         with self._cond:
             cancels, self._cancels = self._cancels, set()
         for slot, st in list(self._alloc.items()):
-            if st.request.future in cancels:
+            if st.request.future in cancels and st.handoff is None:
                 cancels.discard(st.request.future)
                 self._release(slot)
                 self._fail(st.request, RequestCancelledError(
@@ -2385,6 +3046,13 @@ class InferenceEngine:
         match = min(match, st.prompt_len - 1)
         if match < self.prefix_min_tokens:
             self.metrics.count("prefix_misses")
+            return
+        if self._paged and entry.tier == 2:
+            # a host-tier claim: its K/V rides a promotion before any
+            # page can be shared; the slot waits on the handle and
+            # _tier_poll runs this admission again once it resolves
+            if not self._tier_request(st, entry):
+                self.metrics.count("prefix_misses")
             return
         if self._paged:
             self._prefix_admit_paged(st, slot, entry, match)
@@ -2583,7 +3251,7 @@ class InferenceEngine:
         guarantees progress, as every request fits the pool alone) and
         never a class above the grower's (``floor``)."""
         cands = [(slot, st) for slot, st in self._alloc.items()
-                 if slot != exclude and st.pages
+                 if slot != exclude and st.pages and st.handoff is None
                  and st.request.priority >= floor]
         if not cands:
             return None
@@ -2749,6 +3417,11 @@ class InferenceEngine:
         for slot, st in self._alloc.items():
             if slot not in self._alloc or not st.prefilling:
                 continue
+            if st.handoff is not None:
+                self._handoff_poll(slot, st)
+                continue               # migrating, released or decoding
+            if st.tier_promo is not None and self._tier_poll(st, slot):
+                continue               # waiting on a tier promotion
             if self._paged:
                 take = min(st.prompt_len - st.filled, self.prefill_chunk)
                 got = self._ensure_pages(slot, st, st.filled + take)
@@ -2823,7 +3496,7 @@ class InferenceEngine:
                 self._fail_nonfinite(slot, st, "prefill")
                 continue
             st.filled = st.prompt_len
-            self._first_token(slot, st, int(out[0, i]))
+            self._finish_prefill(slot, st, int(out[0, i]))
 
     def _prefill_chunk_batch(self, rows):
         """One offset prefill over up to ``max_batch`` rows: row i writes
@@ -2868,7 +3541,113 @@ class InferenceEngine:
                 continue
             st.filled += take[i]
             if st.filled == st.prompt_len:
-                self._first_token(slot, st, int(out[0, i]))
+                self._finish_prefill(slot, st, int(out[0, i]))
+
+    def _finish_prefill(self, slot: int, st: SlotState, token: int):
+        """A prefill completed: a prefill-role engine with a migration
+        target hands the request to it; anything else (unified, no
+        target, a handoff that failed) enters decode here."""
+        if self.role == "prefill" and self._migrate_target is not None:
+            if self._migrate_out(slot, st, token):
+                return
+        self._first_token(slot, st, token)
+
+    def _migrate_out(self, slot: int, st: SlotState, token: int) -> bool:
+        """Start handing this slot's request to the migration target.
+        Here, on the scheduler thread, the slot's K/V is gathered on the
+        device and its copy to a page-locked host buffer enqueued; the
+        handoff worker waits for the copy, stamps the digest and calls
+        the target while this thread goes on scheduling.  The slot sits
+        out prefill and decode until :meth:`_handoff_poll` resolves it.
+        False (an injected fault) means the caller finishes the request
+        here.  Outside :meth:`_run_step`: migration has its own fallback
+        and spends no retry budget."""
+        req = st.request
+        try:
+            # before the copy: a faulted migration leaves the slot as
+            # the prefill left it
+            _inject("serving.migrate_out", scope=self.name)
+        except Exception as e:
+            self._migrate_fallback(req, e)
+            return False
+        if req.t_first is None:
+            req.t_first = time.monotonic()   # the first token exists
+        # a failed gather raises: on a mesh the ranks may have parted
+        st.handoff = _Handoff(begin_export(self, slot, st, token), token)
+        if self._handoff_thread is None:
+            self._handoff_q = queue.SimpleQueue()
+            self._handoff_thread = threading.Thread(
+                target=self._handoff_run, args=(self._handoff_q,),
+                name="mxnet_tpu_torch-serving-handoff", daemon=True)
+            self._handoff_thread.start()
+        self._handoff_q.put((st.handoff, req))
+        return True
+
+    def _handoff_run(self, q):
+        """The handoff worker: seal each bundle (wait for its host copy,
+        digest it) and offer it to the migration target, one request at
+        a time; every outcome wakes the scheduler."""
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            h, req = item
+            late = h.run(self._migrate_target, req.future, self._cond)
+            if h.state == "ok":
+                # counted as the peer takes it: its future may resolve
+                # before the scheduler next polls this slot
+                self._migrated(req, h)
+            elif late is not None:
+                # the engine failed its requests while this one was on
+                # its way, and the target refused it: it fails here
+                self._fail(req, late)
+            with self._cond:
+                self._cond.notify_all()
+
+    def _migrated(self, req, h):
+        bundle = h.bundle
+        self.metrics.count("migrations_out")
+        self.metrics.count("migrated_pages", bundle.n_pages)
+        self.metrics.count_migration("out", "ok")
+        self.metrics.observe_migration(time.monotonic() - h.t0)
+        fr = _fr_active()
+        if fr is not None:
+            fr.record("serving.migrate_out", engine=self.name,
+                      request=req.id, outcome="ok", pages=bundle.n_pages,
+                      bytes=bundle.nbytes(), trace_id=req.trace_id)
+
+    def _handoff_poll(self, slot: int, st: SlotState):
+        """Resolve one slot's handoff once the worker is done with it: an
+        accepted one releases the slot (the peer owns the request and
+        its future now), a refused one enters decode here."""
+        h = st.handoff
+        with self._cond:
+            state = h.state
+        if state in ("pending", "sending"):
+            return
+        st.handoff = None
+        if state == "failed":
+            self._migrate_fallback(st.request, h.error)
+            self._first_token(slot, st, h.token)
+        else:
+            self._release(slot)
+
+    def _migrate_fallback(self, req, e):
+        self.metrics.count("migrate_faults")
+        self.metrics.count_migration("out", "fallback")
+        fr = _fr_active()
+        if fr is not None:
+            fr.record("serving.migrate_out", engine=self.name,
+                      request=req.id, outcome="fallback",
+                      error=type(e).__name__, trace_id=req.trace_id)
+
+    def _owns(self, st: SlotState, exc) -> bool:
+        """Whether this engine still owns a failing slot's request: False
+        once its handoff has reached the target (the peer resolves the
+        future, or the worker fails it with ``exc`` if the peer
+        refuses)."""
+        h, st.handoff = st.handoff, None
+        return h is None or h.drop(exc, self._cond)
 
     def _first_token(self, slot: int, st: SlotState, token: int):
         """A prefill completed: release the read pin on its source
@@ -2896,12 +3675,14 @@ class InferenceEngine:
         written = list(st.pages[st.pages_shared:]) if self._paged else ()
         tainted: set = set()
         if self.kv_quant and self._caches is not None and st.pages:
-            pids = self._dev(np.asarray(st.pages, np.int64))
-            for layer in self._caches:
-                for key in ("k_scale", "v_scale"):
-                    bad = ~torch.isfinite(layer[key][pids]).flatten(1).all(1)
-                    tainted.update(int(p) for p, b in
-                                   zip(st.pages, bad.tolist()) if b)
+            flags = self._scale_taint(st.pages)
+            if self._leads():
+                # every rank scans the heads it holds: the union over
+                # the mesh, on this failure path only
+                self._mesh.send("scan", list(st.pages))
+                flags = self._mesh.union(flags)
+            tainted.update(int(p) for p, b in zip(st.pages, flags.tolist())
+                           if b)
             if tainted:
                 self.metrics.count("kv_dequant_faults")
                 fr0 = _fr_active()
@@ -2914,6 +3695,7 @@ class InferenceEngine:
             if tainted and self._prefix is not None:
                 for entry in [e for e in self._prefix._entries
                               if e.pages and tainted.intersection(e.pages)]:
+                    self._tier_pending.pop(entry, None)
                     self._prefix.remove(entry)
             scrub = set(freed) | {p for p in tainted
                                   if self._pool.refs(p) == 0}

@@ -7,9 +7,10 @@ retry elsewhere" (:class:`QueueFullError`), "missed its deadline"
 (:class:`RequestTimeoutError`), "engine going away"
 (:class:`EngineStoppedError`) and "request itself is malformed"
 (:class:`InvalidRequestError`).  Load shedding happens at ``submit()``
-time against a bounded queue.  The fleet and migration errors are the
-reference's plain classes, for the modules that raise them (ROADMAP
-queue A7).
+time against a bounded queue.  The fleet raises
+:class:`NoHealthyReplicaError` and :class:`FleetSaturatedError`; KV
+migration and the tiers' seeds raise :class:`MigrationError` and
+:class:`MigrationDigestError`.
 """
 from __future__ import annotations
 

@@ -140,11 +140,19 @@ class PagedPrefixCache(PrefixCache):
     """Radix tree over prompt prefixes mapping to shared pages.  An
     entry's pages are extra refcounts on pages a slot already filled, so
     an insert costs no copy; eviction is driven by :meth:`PagePool.alloc`
-    pressure through :meth:`evict_pages`."""
+    pressure through :meth:`evict_pages`.
 
-    def __init__(self, pool: PagePool, min_tokens: int = 1):
+    ``demote_hook`` (the tiered prefix cache) is called with each
+    zero-reader eviction victim before its pages are released: True
+    downgrades the entry to a page-less tier-2 claim, which stays in the
+    tree and can be promoted back, instead of detaching it.  The hook
+    must not block: it snapshots and enqueues."""
+
+    def __init__(self, pool: PagePool, min_tokens: int = 1,
+                 demote_hook: Optional[Callable] = None):
         self.pool = pool
         self._free: List[int] = []     # no rows: ``free_rows`` is 0
+        self.demote_hook = demote_hook
         self._init_tree(min_tokens)
 
     def evictable_pages(self) -> int:
@@ -172,6 +180,10 @@ class PagedPrefixCache(PrefixCache):
         n = len(tokens) if length is None else int(length)
         node = self._insert_node(tokens)
         if node.entry is not None:
+            if node.entry.tier == 2:
+                # a donor recomputed a family the tier holds only as a
+                # claim: its live pages re-back the claim
+                return self.upgrade(node.entry, pages, n)
             self._touch(node.entry)
             return None
         entry = PagedPrefixEntry(pages, n, node)
@@ -182,19 +194,43 @@ class PagedPrefixCache(PrefixCache):
         self._touch(entry)
         return entry
 
+    def upgrade(self, entry, pages, length: Optional[int] = None):
+        """Re-back a tier-2 claim with device pages (a promotion's
+        install, or a donor recomputing the family): the entry takes its
+        own refcount on each page, as :meth:`insert` does, and returns
+        to tier 1."""
+        if entry.tier != 2 or entry.pages:
+            raise ServingError(f"upgrade of non-tier-2 {entry!r}")
+        entry.pages = tuple(pages)
+        for pid in entry.pages:
+            self.pool.ref(pid)
+        entry.tier = 1
+        if length is not None:
+            entry.length = int(length)
+        self._touch(entry)
+        return entry
+
     def evict_pages(self, k: int) -> int:
         """Free at least ``k`` pages by evicting zero-reader entries in
         LRU order; returns how many freed.  A page still shared with a
-        live slot only loses the entry's claim."""
+        live slot only loses the entry's claim.  A victim the
+        ``demote_hook`` accepts becomes a tier-2 claim (its pages freed
+        all the same) instead of leaving the tree."""
         freed = 0
         while freed < k:
             victim = self._lru_victim()
             if victim is None:
                 break
+            demote = (self.demote_hook is not None
+                      and self.demote_hook(victim))
             for pid in victim.pages:
                 if self.pool.unref(pid):
                     freed += 1
-            self._detach(victim)
+            if demote:
+                victim.pages = ()
+                victim.tier = 2
+            else:
+                self._detach(victim)
             self.evictions += 1
         return freed
 

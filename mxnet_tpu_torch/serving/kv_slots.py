@@ -36,7 +36,8 @@ class SlotState:
 
     __slots__ = ("request", "prompt_len", "pos", "last_token", "generated",
                  "max_new_tokens", "tokens", "filled", "pinned", "t_first",
-                 "t_schedule", "pages", "pages_shared", "waiting")
+                 "t_schedule", "pages", "pages_shared", "waiting",
+                 "tier_promo", "handoff")
 
     def __init__(self, request, prompt_len: int, max_new_tokens: int,
                  tokens=None):
@@ -54,6 +55,10 @@ class SlotState:
         self.pages: List[int] = []
         self.pages_shared = 0
         self.waiting = False
+        # (entry, handle, t0) while waiting on a tier promotion
+        self.tier_promo = None
+        # the engine's handoff while its migration is in flight
+        self.handoff = None
 
     @property
     def done(self) -> bool:

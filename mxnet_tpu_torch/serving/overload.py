@@ -2,8 +2,7 @@
 ``mxnet_tpu/serving/overload.py``, the same classes, names and lock
 sites).
 
-The policy layer the serving engine (and, with ROADMAP queue A7, the
-fleet router) consults so that sustained overload and retry storms
+The policy layer the serving engine (and the fleet router) consults so that sustained overload and retry storms
 degrade service in a controlled, recoverable order:
 
 - **Priority classes**: every request carries one of :data:`PRIORITIES`

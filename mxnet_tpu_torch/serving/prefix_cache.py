@@ -43,9 +43,15 @@ class _Node:
 
 class PrefixEntry:
     """One cached prefix: pool row ``row`` holds K/V for positions
-    ``[0, length)`` of the sequence spelled by the tree path."""
+    ``[0, length)`` of the sequence spelled by the tree path.
 
-    __slots__ = ("row", "length", "refs", "last_used", "node")
+    ``tier`` is the storage that backs the K/V: 1 the device (a pool row
+    here, pool pages in the paged cache), 2 a page-less claim on the
+    host spill tier (:mod:`.kv_tiers`): the entry keeps its place in the
+    tree so lookups still match, and serving it needs a promotion first.
+    Dense entries are always tier 1."""
+
+    __slots__ = ("row", "length", "refs", "last_used", "node", "tier")
 
     def __init__(self, row: int, length: int, node: _Node):
         self.row = row
@@ -53,6 +59,7 @@ class PrefixEntry:
         self.refs = 0           # in-flight readers (engine pin/unpin)
         self.last_used = 0      # LRU tick, monotone per cache
         self.node = node
+        self.tier = 1
 
     def __repr__(self):
         return (f"PrefixEntry(row={self.row}, len={self.length}, "
@@ -198,11 +205,12 @@ class PrefixCache:
         return node
 
     def _lru_victim(self) -> Optional[PrefixEntry]:
-        """The least-recently-used zero-reader entry, or None:
+        """The least-recently-used zero-reader tier-1 entry, or None (a
+        tier-2 claim holds no device memory: evicting it frees nothing):
         the one eviction policy of the dense rows and the paged sweep."""
         victim = None
         for e in self._entries:
-            if e.refs == 0 and \
+            if e.refs == 0 and e.tier == 1 and \
                     (victim is None or e.last_used < victim.last_used):
                 victim = e
         return victim

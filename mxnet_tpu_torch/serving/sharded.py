@@ -182,6 +182,9 @@ class ServingMesh:
         self.leader_rank = ranks[0]
         self.leader = _dist.rank() == self.leader_rank
         self.group = mesh.group(mesh.axis_names) if mesh.size > 1 else None
+        # the model axis's group (None at size 1): a leaf's head blocks
+        # meet over it when K/V leaves the engine
+        self.heads_group = mesh.group(model_ax) if t > 1 else None
         self.followers = self.group is not None
         # gloo moves host memory: its collectives cannot be captured
         self.staged = self.followers and _coll.staging(self.group)
@@ -288,6 +291,34 @@ class ServingMesh:
                                    group=self.group,
                                    device=self._plan_device())
         return msg[0]
+
+    def union(self, flags: torch.Tensor) -> torch.Tensor:
+        """The max over the mesh of every rank's int32 ``flags`` (the
+        status word's exchange, for a vector): the leader sends a
+        ``scan`` plan first, and every rank calls this."""
+        t0 = time.perf_counter()
+        w = flags.to(device=self._plan_device(), dtype=torch.int32)
+        dist.all_reduce(w, op=dist.ReduceOp.MAX, group=self.group)
+        self.plans["seconds"] += time.perf_counter() - t0
+        return w
+
+    def gather_heads(self, tensors):
+        """Each leaf's head blocks (the second-to-last axis) joined over
+        the model axis; every rank of the line takes part."""
+        if self.heads_group is None:
+            return tensors
+        return [torch.cat(_coll.all_gather(t.contiguous(),
+                                           self.heads_group), dim=t.dim() - 2)
+                for t in tensors]
+
+    def local_heads(self, arr):
+        """This rank's head block of a host array of whole heads."""
+        if self.heads_group is None:
+            return arr
+        t = axis_size(self.mesh, self.model_axis)
+        h = arr.shape[-2] // t
+        i = self.mesh.axis_index(self.model_axis)
+        return arr[..., i * h:(i + 1) * h, :]
 
     def status(self, code: int) -> int:
         """The max over the mesh of every rank's status word (0: ok)."""

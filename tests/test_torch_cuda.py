@@ -2243,3 +2243,51 @@ def test_one_rank_nccl_mesh_engine_graphed_equals_no_mesh(dev):
                 onp.testing.assert_array_equal(a, b)
     finally:
         dist.destroy_process_group()
+
+
+def test_adopted_and_promoted_slots_decode_through_replayed_programs(dev):
+    """Migration and promotion write K/V into the caches the graphs
+    captured, in place: a decode engine continuing adopted requests and
+    a tiered engine decoding from promoted pages, both through replayed
+    CUDA graphs of the kernel arm, give the streams of the eager gather
+    arm (plain page reads); B4 runs on the decode side."""
+    from mxnet_tpu_torch.serving import InferenceEngine
+    net = _small_gpt2(2)
+    rs = onp.random.RandomState(3)
+    system = rs.randint(0, 256, (256,)).astype("int32")
+    family = [onp.concatenate([system, rs.randint(0, 256, (20,))
+                               .astype("int32")]) for _ in range(3)]
+    fillers = [rs.randint(0, 256, (300,)).astype("int32") for _ in range(3)]
+    traffic = [family[0]] + fillers + family[1:]
+    kw = dict(kv_layout="paged", num_slots=2, max_batch=2,
+              seq_buckets=(32, 256, 384), prefix_min_tokens=64)
+    plain = InferenceEngine(net, paged_attention="gather", **kw)
+    plain._graphs = False
+    with plain:
+        want = [plain.infer(p, max_new_tokens=8) for p in traffic]
+    dec = InferenceEngine(net, role="decode", **kw)
+    pre = InferenceEngine(net, role="prefill", **kw)
+    pre.migrate_to(dec.adopt)
+    warm = (pre.warmup(), dec.warmup())
+    assert any(p.graph for p in dec._programs.values())
+    n_paged = paged.paged_attention.launches
+    with dec, pre:
+        got = [pre.infer(p, max_new_tokens=8) for p in traffic]
+    assert paged.paged_attention.launches > n_paged
+    assert dec.stats()["migration"]["migrations_in"] == len(traffic)
+    assert (pre.stats()["compile_cache"]["compiles"],
+            dec.stats()["compile_cache"]["compiles"]) == warm
+    tiered = InferenceEngine(net, num_pages=48, host_pool_bytes=64 << 20,
+                             max_length=512, **kw)
+    n_warm = tiered.warmup()
+    promoted = []
+    with tiered:
+        for p in traffic:
+            promoted.append(tiered.infer(p, max_new_tokens=8))
+            tiered._tier.drain()
+        s = tiered.stats()
+    assert s["tier"]["tier_promotes"] >= 1
+    assert s["compile_cache"]["compiles"] == n_warm
+    for a, b, c in zip(want, got, promoted):
+        onp.testing.assert_array_equal(a, b)
+        onp.testing.assert_array_equal(a, c)

@@ -12,6 +12,15 @@ tp 2 and at tp 2 x sp 2.  Losses are held relative 1e-5 and each rank's
 blocks max-abs 1e-4 to the reference's slices (``torch_parallel_ref``).
 NMT's greedy and beam ``translate`` under each mesh, from the starting
 weights, give the reference's tokens.
+
+``nmt_loss(valid_length=)`` (kind ``nmtvl``: target valid lengths that
+differ across the rows, so the ranks' counts differ over dp and sp) is
+the reference's global ratio, the masked sum over the count of the whole
+batch, on every rank.  Causal attention handed a mask with a query axis
+under dp 2 x sp 2 (each rank its rows and its query chunk of the global
+mask over the whole key axis) gives the reference's output and input
+gradient on the global mask, and a mask of another shape raises a typed
+error that names the shapes it takes.
 """
 import os
 
@@ -27,17 +36,21 @@ from mxnet_tpu.ndarray import ops as F
 
 import torch_dist_worker as W
 from torch_parallel_ref import LOSS_RTOL, PARAM_TOL, block_of
+from torch_ref_nets import seeded
 
 EOS = W.NMT_EOS
 
 
 def _ref_net(kind):
-    if kind == "bert":
+    if kind == "attn":
+        from mxnet_tpu.models.transformer import MultiHeadAttention
+        net = MultiHeadAttention(32, 4, causal=True)
+    elif kind == "bert":
         net = BERTForPretrain(get_bert("bert_base", **W.BERT_CFG))
     else:
         net = get_nmt("transformer_base", **W.NMT_CFG)
-    mx.random.seed(0)
-    net.initialize()
+    with seeded(0):
+        net.initialize()
     return net
 
 
@@ -75,7 +88,7 @@ def _set(net, params):
 
 
 def _ref_loss(kind):
-    if kind == "nmt":
+    if kind in ("nmt", "nmtvl"):
         return nmt_loss
 
     def loss(outs, mlm_labels, nsp_labels):
@@ -93,7 +106,8 @@ def _ref_run(kind, params, tag):
     specs = W.lang_specs(jpar, "sp" in W.LANG_MESHES[tag])[kind]
     net = _set(_ref_net(kind), params)
     losses = []
-    batches = W.bert_batches() if kind == "bert" else W.nmt_batches()
+    batches = {"bert": W.bert_batches, "nmt": W.nmt_batches,
+               "nmtvl": W.nmt_vl_batches}[kind]()
     with jpar.use_mesh(mesh):
         tr = jpar.ShardedTrainer(net, "adam", loss=_ref_loss(kind),
                                  mesh=mesh, data_specs=specs[0],
@@ -112,6 +126,10 @@ def _ref_run(kind, params, tag):
 def run(tmp_path_factory):
     d = tmp_path_factory.mktemp("lang")
     params = {kind: _params(kind) for kind in ("bert", "nmt")}
+    params["nmtvl"] = params["nmt"]
+    attn = _ref_net("attn")
+    params["attn"] = {k: p.data().asnumpy() for k, p in
+                      attn._collect_params_with_prefix().items()}
     for kind, p in params.items():
         onp.savez(os.path.join(d, f"{kind}.npz"), **p)
     return params, W.launch(4, "lang", d)
@@ -120,11 +138,11 @@ def run(tmp_path_factory):
 @pytest.fixture(scope="module")
 def refs(run):
     return {(kind, tag): _ref_run(kind, run[0][kind], tag)
-            for kind in ("bert", "nmt") for tag in W.LANG_MESHES}
+            for kind in ("bert", "nmt", "nmtvl") for tag in W.LANG_MESHES}
 
 
 @pytest.mark.parametrize("tag", sorted(W.LANG_MESHES))
-@pytest.mark.parametrize("kind", ["bert", "nmt"])
+@pytest.mark.parametrize("kind", ["bert", "nmt", "nmtvl"])
 @pytest.mark.parametrize("rank", [0, 1, 2, 3])
 def test_three_adam_steps_match_the_reference(run, refs, kind, tag, rank):
     """Losses relative 1e-5 and every parameter this rank holds (its
@@ -135,8 +153,9 @@ def test_three_adam_steps_match_the_reference(run, refs, kind, tag, rank):
                                 rtol=LOSS_RTOL, atol=0)
     prefix = f"{kind}{tag}:param:"
     names = [k[len(prefix):] for k in out if k.startswith(prefix)]
-    assert len(names) == len({id(p) for p in _ref_net(kind)
-                               ._collect_params_with_prefix().values()})
+    assert len(names) == len({id(p) for p in _ref_net(
+        "nmt" if kind == "nmtvl" else kind)
+        ._collect_params_with_prefix().values()})
     for k in names:
         onp.testing.assert_allclose(
             out[prefix + k], block_of(out, f"{kind}{tag}", k, params[k]),
@@ -196,3 +215,36 @@ def test_an_nd_op_on_a_vocabulary_block_computes_on_the_whole(run):
         onp.testing.assert_allclose(out["nd:grad"],
                                     onp.asarray(g)[..., 4 * tp:4 * tp + 4],
                                     rtol=1e-5, atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def attn_ref(run):
+    """The reference's causal attention on the global inputs and mask:
+    its output and the input gradient of sum(out * w)."""
+    net = _set(_ref_net("attn"), run[0]["attn"])
+    x, mask, w = W.attn_inputs()
+    xs = mx.nd.array(x)
+    xs.attach_grad()
+    with mx.autograd.record():
+        y = net(xs, mask=mx.nd.array(mask.astype("float32")) > 0)
+        loss = (y * mx.nd.array(w)).sum()
+    loss.backward()
+    return y.asnumpy(), xs.grad.asnumpy()
+
+
+@pytest.mark.parametrize("rank", [0, 1, 2, 3])
+def test_a_query_axis_mask_under_sp_matches_the_reference(run, attn_ref,
+                                                          rank):
+    """Each rank's output and input gradient equal the reference's rows
+    and query chunk (dp 2 x sp 2: rank = 2 * dp + sp); a global mask
+    raises typed, naming the shapes it takes."""
+    out = run[1][rank]
+    y, dx = attn_ref
+    i, j, t = rank // 2, rank % 2, W.LANG_T // 2
+    rows, cols = slice(2 * i, 2 * i + 2), slice(t * j, t * j + t)
+    onp.testing.assert_allclose(out["attn:out"], y[rows, cols],
+                                rtol=1e-5, atol=1e-5)
+    onp.testing.assert_allclose(out["attn:dx"], dx[rows, cols],
+                                rtol=1e-4, atol=1e-4)
+    msg = str(out["attn:error"])
+    assert "(2, 1, 8, 16)" in msg and "(2, 1, 16, 16)" in msg

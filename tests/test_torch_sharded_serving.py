@@ -232,7 +232,7 @@ VALIDATION = {"heads": "attention heads", "paged": "paged",
               "devices": "devices", "axis": "axis", "distinct": "DISTINCT",
               "zero": ">= 1", "type": "Mesh", "rows": "row count",
               "forward": "decode-mode", "kernel": "kernel",
-              "parity": "debug_parity"}
+              "parity": "debug_parity", "role_slot": "slot axis"}
 
 
 @pytest.mark.parametrize("case", sorted(VALIDATION))
@@ -297,3 +297,101 @@ def test_a_follower_failing_a_beat_plan_condemns_the_engine_at_the_next_call(
     assert not bool(ranks[0]["beat:health"])
     assert str(ranks[1]["beat:start"]) == "EngineCrashedError"
     assert str(ranks[0]["beat:start"]) == ""
+
+
+# -------------------------------------- the int8 scale scan over ranks
+
+
+def test_a_nan_scale_in_a_head_only_rank_1_holds_is_found(run, nets):
+    """The scale scan takes the union over the ranks' heads: the reader
+    of a NaN scale in rank 1's heads fails typed, one dequant fault is
+    counted, the entry over the tainted page is dropped, and the
+    family's next member recomputes (no second hit) with the reference
+    mesh engine's tokens."""
+    out = run[0]
+    assert str(out["scan:victim"]) == "NonFiniteOutputError"
+    faults, hits, inserts = out["scan:counts"].tolist()
+    assert (faults, hits) == (1, 1) and inserts >= 2
+    assert int(out["scan:entries"]) == 0
+    fam = W.scan_family()
+    want, _s = _ref_serve(_ref_engine(nets[VOCAB], mesh=2, name="ref_scan",
+                                      kv_layout="paged", page_size=8,
+                                      kv_quant="int8", prefix_min_tokens=4),
+                          fam[2:], max_new=4)
+    onp.testing.assert_array_equal(out["scan:next"], want[0])
+
+
+# ------------------------------------------- migration and tiers at tp 2
+
+
+def _ref_bundles(net, prompts, mesh):
+    from mxnet_tpu.serving import MigrationError
+    got = []
+
+    def target(bundle, future):
+        got.append(bundle)
+        raise MigrationError("captured")
+    eng = _ref_engine(net, mesh=mesh, role="prefill", name=f"ref_mig{mesh}",
+                      **W.MIG_KW)
+    eng.migrate_to(target)
+    _ref_serve(eng, prompts)
+    return got
+
+
+def test_a_tp2_prefill_hands_off_to_one_process_and_back(run, nets):
+    """The tp = 2 prefill engine's bundles hold whole heads, equal to the
+    reference mesh engine's bundles (its digest recomputes in both
+    packages); a one-process decode engine continues them, and a tp = 2
+    decode engine continues a one-process engine's, greedy streams equal
+    to the reference's."""
+    from mxnet_tpu.serving.migration import bundle_digest as jdigest
+    out = run[0]
+    net = nets[VOCAB]
+    prompts = W.serve_prompts((5, 11, 14), seed=14)
+    want = _generate(net, prompts)
+    refs = _ref_bundles(net, prompts, 2)
+    for i, p in enumerate(prompts):
+        d_want, d_got = out[f"mig:digest{i}"].tolist()
+        assert d_want == d_got
+        onp.testing.assert_array_equal(out[f"mig:prompt{i}"], p)
+        leaves = [out[f"mig:b{i}:leaf{j}"]
+                  for j in range(len(refs[i].arrays))]
+        for a, b in zip(leaves, refs[i].arrays):
+            assert a.shape == onp.asarray(b).shape
+            onp.testing.assert_allclose(a, onp.asarray(b), rtol=1e-5,
+                                        atol=1e-5)
+        ref_b = refs[i]
+        ref_b.arrays = leaves
+        ref_b.digest = str(d_want)
+        assert jdigest(ref_b) == str(d_want)
+        onp.testing.assert_array_equal(out[f"mig:fwd{i}"], want[i])
+        onp.testing.assert_array_equal(out[f"mig:back{i}"], want[i])
+        onp.testing.assert_array_equal(out[f"mig:pre:out{i}"], want[i])
+
+
+def test_tiers_at_tp2_equal_the_reference_mesh_engine(run, nets):
+    """A demotion gathers the heads to rank 0 and a promotion sends each
+    rank its heads: greedy streams and the tier's counts equal the
+    reference mesh engine's on the same traffic, and an exported prefix
+    seed carries whole heads."""
+    out = run[0]
+    net = nets[VOCAB]
+    traffic = W.tier_traffic()
+    eng = _ref_engine(net, mesh=2, name="ref_tier", num_pages=12,
+                      prefix_min_tokens=8, seq_buckets=(8, 16, 32),
+                      host_pool_bytes=64 << 20, **W.MIG_KW)
+    eng.warmup()
+    with eng:
+        want = []
+        for i, p in enumerate(traffic):
+            if i == 7:
+                eng._tier.drain()
+            want.append(eng.infer(p, max_new_tokens=4))
+        eng._tier.drain()
+        s = eng.stats()["tier"]
+    for i, w in enumerate(want):
+        onp.testing.assert_array_equal(out[f"tier:out{i}"], w)
+    counts = [s["tier_demotes"], s["tier_promotes"], s["tier_hits"]]
+    assert out["tier:counts"].tolist() == counts and counts[1] >= 1
+    # the model's 4 heads, both ranks' blocks
+    assert all(sh[-2] == 4 for sh in out["tier:seed_shapes"].tolist())

@@ -35,7 +35,6 @@ import mxnet_tpu_torch
 _JAX = "the reference's jax machinery; the port's counterpart is torch's"
 _KEYS = ("jax's functional PRNG keys; the port draws from per-device "
          "torch generators (random.generator, GraphDraws) and Philox")
-_A7 = "queue A7 (serving tiers, migration and the fleet)"
 _A8 = "queue A8 (tools and analysis)"
 _A9 = "queue A9 (the long tail)"
 
@@ -45,9 +44,6 @@ MODULES = {
     "autograd.tape": "by design: torch's autograd records the tape",
     "ops._smap": "by design: jax's shard_map",
     "utils.platform": "by design: the TPU plugin's platform forcing",
-    "serving.kv_tiers": _A7, "serving.migration": _A7, "fleet": _A7,
-    "fleet.autoscaler": _A7, "fleet.directory": _A7, "fleet.policy": _A7,
-    "fleet.replica": _A7, "fleet.router": _A7,
     **{m: _A9 for m in (
         "attribute", "callback", "contrib", "contrib.quantization",
         "engine", "gluon.contrib", "gluon.contrib.estimator",
@@ -126,20 +122,7 @@ GAPS = {
     "_src.mesh.Mesh.*": _JAX, "sharding.NamedSharding.*": _JAX,
     "sharding.PartitionSpec.*": _JAX,
     "kvstore.KVStore.row_sparse_pull": _A9 + " (sparse storage)",
-    **{f"serving:{n}": _A7 for n in (
-        "HostKVTier", "MIGRATION_SCHEMA_VERSION", "MigrationBundle",
-        "TierHandle", "bundle_digest", "export_bundle", "verify_bundle")},
     "serving:request_key": _KEYS,
-    **{f"serving.engine.InferenceEngine.{n}": _A7 for n in (
-        "adopt", "export_prefix_seeds", "migrate_to", "seed_prefix")},
-    "serving.engine.InferenceEngine.submit(route_hint)": _A7,
-    "serving.engine.Request.route_hint": _A7,
-    "serving.engine.Request.__init__(route_hint)": _A7,
-    "serving.kv_pages.PagedPrefixCache.upgrade": _A7,
-    "serving.kv_pages.PagedPrefixCache.__init__(demote_hook)": _A7,
-    "serving.kv_pages.PagedPrefixEntry.tier": _A7,
-    "serving.prefix_cache.PrefixEntry.tier": _A7,
-    "serving.kv_slots.SlotState.tier_promo": _A7,
 }
 
 

@@ -496,6 +496,20 @@ def nmt_batches(n=GPT_STEPS, seed=22):
     return out
 
 
+def nmt_vl_batches(n=GPT_STEPS, seed=23):
+    """NMT batches whose labels carry the target's valid length: rows of
+    unequal lengths, so the ranks' counts differ over dp and sp."""
+    rs = np.random.RandomState(seed)
+    return [((src, tgt, vlen), (lab, rs.randint(3, LANG_T + 1, (LANG_B,))
+                                .astype("int32")))
+            for (src, tgt, vlen), (lab,) in nmt_batches(n, seed)]
+
+
+def nmt_vl_loss(logits, labels, valid_length):
+    from mxnet_tpu_torch.models import nmt_loss
+    return nmt_loss(logits, labels, valid_length)
+
+
 def lang_specs(par_mod, sp):
     """The data and label specs of BERT's and NMT's batches: rows over
     dp, the sequences over sp (valid lengths, masked positions and the
@@ -504,7 +518,8 @@ def lang_specs(par_mod, sp):
     seq = P("dp", "sp") if sp else P("dp", None)
     return {"bert": ([seq, seq, P("dp"), P("dp", None)],
                      [P("dp", None), P("dp")]),
-            "nmt": ([seq, seq, P("dp")], [seq])}
+            "nmt": ([seq, seq, P("dp")], [seq]),
+            "nmtvl": ([seq, seq, P("dp")], [seq, P("dp")])}
 
 
 def bert_loss(outs, mlm_labels, nsp_labels):
@@ -540,8 +555,10 @@ def scenario_lang(out, d):
     under each mesh from the starting weights."""
     from mxnet_tpu_torch.models import nmt_loss
     for kind, loss, batches in (("bert", bert_loss, bert_batches()),
-                                ("nmt", nmt_loss, nmt_batches())):
-        params = dict(np.load(os.path.join(d, f"{kind}.npz")))
+                                ("nmt", nmt_loss, nmt_batches()),
+                                ("nmtvl", nmt_vl_loss, nmt_vl_batches())):
+        params = dict(np.load(os.path.join(d, "nmt.npz" if kind == "nmtvl"
+                                           else f"{kind}.npz")))
         for tag, kw in LANG_MESHES.items():
             mesh = par.make_mesh(**kw)
             net = _lang_net(kind, params)
@@ -577,6 +594,46 @@ def scenario_lang(out, d):
         loss.backward()
     out["nd:log_softmax"] = y.asnumpy()
     out["nd:grad"] = blk.grad.numpy()
+    _masked_sp_attention(out, d)
+
+
+def attn_inputs():
+    """Causal self-attention's inputs: x (4, 16, 32), a mask with a query
+    axis (4, 1, 16, 16) that keeps the diagonal, and the output weights
+    of the scalar whose gradient is taken."""
+    rs = np.random.RandomState(41)
+    x = rs.randn(4, LANG_T, 32).astype("float32")
+    mask = rs.rand(4, 1, LANG_T, LANG_T) < 0.6
+    mask |= np.eye(LANG_T, dtype=bool)[None, None]
+    w = rs.randn(4, LANG_T, 32).astype("float32")
+    return x, mask, w
+
+
+def _masked_sp_attention(out, d):
+    """Attention under dp 2 x sp 2 with a mask that has a query axis:
+    each rank takes its rows and its query chunk of the global mask over
+    the whole key axis; its output, its input gradient and the typed
+    error of a global mask."""
+    from mxnet_tpu_torch.models.transformer import MultiHeadAttention
+    from mxnet_tpu_torch.utils.convert import load_numpy_params
+    net = MultiHeadAttention(32, 4, causal=True)
+    net.initialize(seed=0, device="cpu")
+    load_numpy_params(net, dict(np.load(os.path.join(d, "attn.npz"))))
+    mesh = par.make_mesh(dp=2, sp=2)
+    x, mask, w = attn_inputs()
+    i, j, t = mesh.axis_index("dp"), mesh.axis_index("sp"), LANG_T // 2
+    rows, cols = slice(2 * i, 2 * i + 2), slice(t * j, t * j + t)
+    xl = torch.tensor(x[rows, cols]).requires_grad_()
+    with par.use_mesh(mesh):
+        y = net(xl, mask=torch.tensor(mask[rows][:, :, cols]))
+        (y * torch.tensor(w[rows, cols])).sum().backward()
+        try:
+            net(xl.detach(), mask=torch.tensor(mask[rows]))
+            out["attn:error"] = np.array("")
+        except mx.base.MXNetError as e:
+            out["attn:error"] = np.array(str(e))
+    out["attn:out"] = y.detach().numpy()
+    out["attn:dx"] = xl.grad.numpy()
 
 
 SERVE_CFG = dict(vocab_size=97, units=32, num_layers=2, num_heads=4,
@@ -729,6 +786,9 @@ def _validation(out):
                                   page_size=8, paged_attention="kernel"),
         "parity": lambda: _engine(net, mesh=2, kv_layout="paged",
                                   page_size=8, debug_parity=True),
+        "role_slot": lambda: _engine(net, mesh=par.make_mesh(dp=2, tp=1),
+                                     mesh_axes=("tp", "dp"), num_slots=3,
+                                     max_batch=3, role="decode"),
     }
     for tag, make in cases.items():
         try:
@@ -794,6 +854,143 @@ def scenario_serving(out, d):
                                    plan.fired("serving.prefill")])
     _follower_fault(out, net)
     _beat_fault(out, net)
+    _scale_scan(out, net)
+    _mesh_migration(out, net)
+    _mesh_tiers(out, net)
+
+
+def scan_family(vocab=97):
+    """``tests/test_paged_attn.py``'s family: 12 shared tokens (1.5
+    pages of 8) and 3 of each member's own."""
+    rs = np.random.RandomState(31)
+    shared = rs.randint(0, vocab, (12,)).astype("int32")
+    return [np.concatenate([shared, rs.randint(0, vocab, (3,))
+                            .astype("int32")]) for _ in range(3)]
+
+
+def _scale_scan(out, net):
+    """A NaN int8 K scale (the ``kscale`` surgery of the
+    ``serving.kv_scale`` poison) on the first page of a cached prefix,
+    in heads only rank 1 holds (rank 0 skips the surgery on its own):
+    the family's next member reads it and fails typed, the scan over
+    both ranks' heads counts one dequant fault and drops the entry over
+    the page, and the member after recomputes clean.  Rank 0's own scan
+    sees only the NaN its victim wrote into its own tail page."""
+    from mxnet_tpu_torch.serving import NonFiniteOutputError
+    eng = _engine(net, mesh=2, kv_layout="paged", page_size=8,
+                  kv_quant="int8", prefix_min_tokens=4, name="shard_scan")
+    eng.warmup()
+    if par.rank() == 0:
+        apply = eng._apply
+
+        def skip(op, *args):
+            if op != "kscale":
+                return apply(op, *args)
+        eng._apply = skip
+    fam = scan_family()
+    with eng:
+        if par.rank() == 0:
+            eng.infer(fam[0], max_new_tokens=4)
+            with eng._step_lock:
+                entry, = eng._prefix._entries
+                eng._effect("kscale", entry.pages[0], float("nan"))
+            try:
+                eng.infer(fam[1], max_new_tokens=4)
+                out["scan:victim"] = np.array("")
+            except NonFiniteOutputError as e:
+                out["scan:victim"] = np.array(type(e).__name__)
+            out["scan:entries"] = np.array(len(eng._prefix))
+            out["scan:next"] = eng.infer(fam[2], max_new_tokens=4)
+            s = eng.stats()
+            out["scan:counts"] = np.array([
+                s["quantized_kv"]["kv_dequant_faults"],
+                s["prefix_cache"]["prefix_hits"],
+                s["prefix_cache"]["prefix_inserts"]])
+
+
+MIG_KW = dict(kv_layout="paged", page_size=8)
+
+
+def _capture(into):
+    from mxnet_tpu_torch.serving import MigrationError
+
+    def target(bundle, future):
+        into.append(bundle)
+        raise MigrationError("captured")
+    return target
+
+
+def _mesh_migration(out, net):
+    """A prefill engine at tp = 2 hands its requests to a one-process
+    decode engine, and a one-process prefill engine to a decode engine
+    at tp = 2: the mesh's bundles carry whole heads (gathered over tp),
+    and either decode side continues the colocated greedy streams."""
+    from mxnet_tpu_torch.serving.migration import bundle_digest
+    prompts = serve_prompts((5, 11, 14), seed=14)
+    one_bundles, mesh_bundles = [], []
+    if par.rank() == 0:
+        one = _engine(net, role="prefill", name="mig_one", **MIG_KW)
+        one.migrate_to(_capture(one_bundles))
+        _serve(out, "mig:one", one, prompts)
+    pre = _engine(net, mesh=2, role="prefill", name="mig_pre", **MIG_KW)
+    if par.rank() == 0:
+        pre.migrate_to(_capture(mesh_bundles))
+    _serve(out, "mig:pre", pre, prompts)
+    dec2 = _engine(net, mesh=2, role="decode", name="mig_dec2", **MIG_KW)
+    dec2.warmup()
+    with dec2:
+        if par.rank() == 0:
+            for i, b in enumerate(one_bundles):
+                out[f"mig:back{i}"] = dec2.adopt(b).result(timeout=60)
+    if par.rank():
+        return
+    for i, b in enumerate(mesh_bundles):
+        out[f"mig:digest{i}"] = np.array([b.digest, bundle_digest(b)])
+        out[f"mig:prompt{i}"] = b.prompt
+        for j, a in enumerate(b.arrays):
+            out[f"mig:b{i}:leaf{j}"] = a
+    dec = _engine(net, role="decode", name="mig_dec1", **MIG_KW)
+    dec.warmup()
+    with dec:
+        for i, b in enumerate(mesh_bundles):
+            out[f"mig:fwd{i}"] = dec.adopt(b).result(timeout=60)
+
+
+def tier_traffic(vocab=97):
+    """A family of 24 shared tokens, fillers that evict its pages, and
+    the family again (``tests/test_kv_tiers.py``'s shape)."""
+    rs = np.random.RandomState(3)
+    fam = rs.randint(0, vocab, (24,)).astype("int32")
+    members = [np.concatenate([fam, rs.randint(0, vocab, (4,))
+                               .astype("int32")]) for _ in range(3)]
+    fill = [np.random.RandomState(200 + i).randint(0, vocab, (16,))
+            .astype("int32") for i in range(6)]
+    return [members[0]] + fill + members[1:]
+
+
+def _mesh_tiers(out, net):
+    """The tiered prefix cache at tp = 2: a demotion gathers the heads
+    to rank 0, a promotion sends each rank its heads; the streams equal
+    the one-device engine's, and the prefix seeds a live mesh engine
+    exports carry whole heads."""
+    kw = dict(num_pages=12, prefix_min_tokens=8, seq_buckets=(8, 16, 32),
+              host_pool_bytes=64 << 20, **MIG_KW)
+    eng = _engine(net, mesh=2, name="tier_mesh", **kw)
+    eng.warmup()
+    with eng:
+        if par.rank() == 0:
+            for i, p in enumerate(tier_traffic()):
+                if i == 7:
+                    eng._tier.drain()
+                out[f"tier:out{i}"] = eng.infer(p, max_new_tokens=4)
+            eng._tier.drain()
+            s = eng.stats()["tier"]
+            out["tier:counts"] = np.array([s["tier_demotes"],
+                                           s["tier_promotes"],
+                                           s["tier_hits"]])
+            seeds = eng.export_prefix_seeds(limit=1)
+            out["tier:seed_shapes"] = np.array([a.shape for a in
+                                                seeds[0].arrays])
 
 
 def _beat_fault(out, net):
