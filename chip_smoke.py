@@ -419,7 +419,23 @@ Phases (any failure exits non-zero and prints no result line):
    traffic); ``scale_down`` of the replica most families route to (its
    seeds planted, each of its families' next requests a hit on a
    survivor).
-24. A ``{"kernels": [...]}`` line, the card line again, and the last
+24. The chaos sweep on the card: ``tools/chaos_sweep_torch.py --device
+   cuda --corroborate --kills 2 --steps 6`` in a subprocess (so the lock
+   witness is on before the port's first import; ``CHAOS_TIMEOUT``).
+   Its serving nets are GPT-2 124M at full width cut to 2 layers, at 32
+   times the CPU sweep's lengths (256-token seq bucket and pages, 1024
+   positions); its training scenarios train GPT-2 at full width (one
+   layer, vocab 512) over 256-token sequences; the engines' programs are
+   eager.  Gates: every scenario passed (``training/
+   kill_resume_determinism`` bit-identical on the card),
+   ``raceguard_corroboration`` with no ``unexercised`` or ``unmapped``
+   site, B1 and B4 launched by the serving scenarios' served traffic
+   (the fault-free references and the engines' warm-ups counted apart)
+   and B1-B3 by the training ones (``launches_by_path["chaos_serve"]``,
+   ``["chaos_train"]``).  Printed: each scenario's verdict and seconds,
+   the phase's seconds; the report goes to
+   ``chiprun_out/chaos_report.json``.
+25. A ``{"kernels": [...]}`` line, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.  ``launches_by_path`` holds
    every phase's launches (``bert``, ``bert_amp``, ``nmt``, ``lstm``,
    ``ops``, phase 16's graphed arms ``hybrid_bert_amp``,
@@ -430,7 +446,7 @@ Phases (any failure exits non-zero and prints no result line):
    / ``parallel_pp``, phase 22's ``sharded_serve`` /
    ``parallel_bert`` / ``parallel_nmt``, rank 0's over its steps, and
    phase 23's ``disagg_prefill``, ``disagg_decode``, ``tiered`` and
-   ``fleet``); the
+   ``fleet``, phase 24's ``chaos_serve`` and ``chaos_train``); the
    seconds of every phase are printed and written to
    ``chiprun_out/chip_smoke_phases.json``; the flash kernels carry
    their numbers at phases 11-12's shapes and phase 21's tp shape
@@ -7351,6 +7367,80 @@ def a7_path(torch, card, prompts):
     return by_path
 
 
+CHAOS_ARGS = ("--device", "cuda", "--corroborate", "--kills", "2",
+              "--steps", "6")
+CHAOS_TIMEOUT = 600
+
+
+def chaos_path(torch, card):
+    """Phase 24.  Returns the sweep's launches: its serving scenarios'
+    and its training scenarios'."""
+    import os
+    t_phase = time.monotonic()
+    print(f"phase 24: the chaos sweep on the card "
+          f"(tools/chaos_sweep_torch.py {' '.join(CHAOS_ARGS)}) [{card}]",
+          flush=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, "chaos_report.json")
+    if os.path.exists(out):
+        os.remove(out)
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "tools", "chaos_sweep_torch.py"),
+         *CHAOS_ARGS, "--out", out], cwd=root, capture_output=True,
+        text=True, timeout=CHAOS_TIMEOUT)
+    for line in proc.stdout.splitlines():
+        if line.startswith(("[PASS]", "[FAIL]", "chaos_sweep_torch:")):
+            print(f"  {line}", flush=True)
+    if not os.path.exists(out):
+        raise AssertionError(f"the chaos sweep wrote no report (exit "
+                             f"{proc.returncode}):\n{proc.stderr[-4000:]}")
+    with open(out) as f:
+        rep = json.load(f)
+    print(f"  sweep config: {json.dumps(rep['config'])}", flush=True)
+    failed = [s["name"] for s in rep["scenarios"] if not s["passed"]]
+    if failed or proc.returncode:
+        detail = {s["name"]: s["detail"] for s in rep["scenarios"]
+                  if not s["passed"]}
+        raise AssertionError(
+            f"chaos sweep: {failed} failed (exit {proc.returncode}): "
+            f"{json.dumps(detail, default=str)[:6000]}\n"
+            f"{proc.stderr[-2000:]}")
+    names = {s["name"] for s in rep["scenarios"]}
+    for want in ("training/kill_resume_determinism", "lockwitness",
+                 "raceguard_corroboration", "forensics"):
+        if want not in names:
+            raise AssertionError(f"chaos sweep: no {want} scenario")
+    corr = [s for s in rep["scenarios"]
+            if s["name"] == "raceguard_corroboration"][0]["detail"]
+    if corr["unexercised"] or corr["unmapped"]:
+        raise AssertionError(f"corroboration: {corr['unexercised']} "
+                             f"unexercised, {corr['unmapped']} unmapped")
+    kr = [s for s in rep["scenarios"]
+          if s["name"] == "training/kill_resume_determinism"][0]["detail"]
+    if not kr["params_bit_identical"]:
+        raise AssertionError("kill/resume is not bit-identical on the card")
+    serve, train = rep["launches"]["serve"], rep["launches"]["train"]
+    for group, got, want in (("serving", serve, ("flash_fwd",
+                                                  "paged_attention")),
+                             ("training", train, ("flash_fwd", "flash_dq",
+                                                  "flash_dkv"))):
+        for k in want:
+            if not got.get(k):
+                raise AssertionError(f"the chaos sweep's {group} scenarios "
+                                     f"never launched {k}: {got}")
+    print(f"  launches: serving {json.dumps(serve)} (references and "
+          f"warm-ups apart: {json.dumps(rep['launches']['serve_aside'])}),"
+          f" training {json.dumps(train)}; corroboration: {corr['mapped_sites']} "
+          f"sites mapped, {corr['witnessed_sites']} witnessed, exempt "
+          f"{sorted(corr['exempt'])}", flush=True)
+    print(f"phase 24: {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return {"chaos_serve": {k: serve.get(k, 0) for k in KERNELS},
+            "chaos_train": {k: train.get(k, 0) for k in KERNELS}}
+
+
 def write_phase_seconds(seconds):
     """Print the seconds of every phase and write them to
     ``chiprun_out/chip_smoke_phases.json`` beside this script."""
@@ -7500,6 +7590,9 @@ def main() -> int:
     free(torch)
     with phase("23"):
         by_path.update(a7_path(torch, card, prompts))
+    free(torch)
+    with phase("24"):
+        by_path.update(chaos_path(torch, card))
     write_phase_seconds(seconds)
     # each kernel's launches on the path that is its own: the training
     # path for the flash kernels, the serving path for paged attention;

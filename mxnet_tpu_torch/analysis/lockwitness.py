@@ -265,7 +265,7 @@ class _WitnessedLock:
     def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
         # the wrapper IS the lock implementation; callers still go
         # through `with`
-        ok = self._raw.acquire(blocking, timeout)
+        ok = self._raw.acquire(blocking, timeout)  # mxlint: disable=naked-acquire
         if ok:
             w = _ACTIVE
             if w is not None:
@@ -292,7 +292,7 @@ class _WitnessedLock:
         return self._raw.locked()
 
     def __enter__(self):
-        self.acquire()
+        self.acquire()  # mxlint: disable=naked-acquire
         return self
 
     def __exit__(self, *exc):

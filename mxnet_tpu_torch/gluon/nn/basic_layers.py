@@ -164,6 +164,38 @@ class Embedding(HybridBlock):
         return f"Embedding({self._input_dim} -> {self._output_dim})"
 
 
+def _data_group():
+    """The process group over the ambient mesh's data axes (dp and sp),
+    or None: no mesh, or those axes are this rank alone."""
+    from ...parallel.mesh import current_mesh
+    mesh = current_mesh()
+    group = None if mesh is None else mesh.group(("dp", "sp"))
+    if group is None:
+        return None
+    import torch.distributed as dist
+    return group if dist.get_world_size(group) > 1 else None
+
+
+def _global_batch_norm(x, gamma, beta, eps, fix_gamma, axis, group):
+    """``ops.batch_norm`` in training mode over the global batch: each
+    rank holds its rows, and the count, sum and centred sum of squares
+    are summed over ``group`` by ``psum``, whose backward sums the
+    cotangents too, so the gradients are those of the global batch's
+    statistics (the reference's BatchNorm under a sharded batch)."""
+    from ...parallel.collectives import psum
+    xc = x.movedim(axis % x.dim(), 1)
+    dims = [i for i in range(xc.dim()) if i != 1]
+    count = torch.full((1,), float(xc.numel() // xc.shape[1]),
+                       dtype=xc.dtype, device=xc.device)
+    sums = psum(torch.cat([xc.sum(dims), count]), group)
+    mean = sums[:-1] / sums[-1]
+    xm = xc - mean.reshape((-1,) + (1,) * (xc.dim() - 2))
+    var = psum((xm * xm).sum(dims), group) / sums[-1]
+    # normalized by the given (global) statistics, through them too
+    return ops.batch_norm(x, gamma, beta, mean, var, eps, fix_gamma,
+                          False, axis)
+
+
 class BatchNorm(HybridBlock):
     """Normalize along channel axis ``axis`` (-1 for channels-last) by
     the batch's mean and biased variance in training mode, by the moving
@@ -172,7 +204,10 @@ class BatchNorm(HybridBlock):
     graph: ``m * old + (1 - m) * batch`` with the biased batch variance,
     as the reference's layer does (torch's own ``F.batch_norm`` update
     would take the unbiased one).  ``scale``/``center`` False freeze
-    ``gamma``/``beta`` (``scale=False`` also fixes gamma at 1)."""
+    ``gamma``/``beta`` (``scale=False`` also fixes gamma at 1).  Under a
+    mesh whose data axes span several ranks (``ShardedTrainer``'s
+    forward runs under ``use_mesh``) the batch is the global one: its
+    statistics are summed over those ranks."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, beta_initializer="zeros",
@@ -204,9 +239,14 @@ class BatchNorm(HybridBlock):
     def forward(self, x):
         training = _base.is_training() and not self._use_global_stats
         x, g, b = _amp.cast("BatchNorm", x, self.gamma, self.beta)
-        out, mean, var = ops.batch_norm(
-            x, g, b, self.running_mean, self.running_var, self._eps,
-            not self._scale, training, self._axis)
+        group = _data_group() if training else None
+        if group is not None:
+            out, mean, var = _global_batch_norm(
+                x, g, b, self._eps, not self._scale, self._axis, group)
+        else:
+            out, mean, var = ops.batch_norm(
+                x, g, b, self.running_mean, self.running_var, self._eps,
+                not self._scale, training, self._axis)
         if training:
             m = self._momentum
             with torch.no_grad():
@@ -220,8 +260,9 @@ class BatchNorm(HybridBlock):
 
 
 class SyncBatchNorm(BatchNorm):
-    """BatchNorm over the batch of every device; on the port's one
-    device it is BatchNorm (as the reference's is eagerly)."""
+    """BatchNorm over the batch of every device: under a mesh the
+    statistics are the data axes' (as BatchNorm's are); on one device it
+    is BatchNorm (as the reference's is eagerly)."""
 
     def __init__(self, in_channels=0, num_devices=None, **kwargs):
         super().__init__(in_channels=in_channels, **kwargs)

@@ -311,7 +311,7 @@ class FlightRecorder:
             "kind": BUNDLE_KIND,
             # epoch stamp for the operator reading the bundle off disk;
             # ordering inside the bundle rides monotonic `t` fields
-            "written_at": time.time(),
+            "written_at": time.time(),  # mxlint: disable=wall-clock
             "monotonic_now": now,
             "trigger": {"name": name, "attrs": {k: repr(v) if not
                         isinstance(v, (str, int, float, bool, type(None)))
@@ -325,9 +325,9 @@ class FlightRecorder:
             "fault_plan": _safe(self._fault_plan_section, "fault_plan"),
             "lockwitness": _safe(self._lockwitness_section, "lockwitness"),
             "recorder": {"capacity": self.capacity,
-                         "dropped": self.dropped,
-                         "bundles_written": self.bundles_written,
-                         "bundle_errors": self.bundle_errors},
+                         "dropped": self.dropped,  # raceguard: unguarded(bundle metadata snapshot: atomic int read, momentary staleness is harmless)
+                         "bundles_written": self.bundles_written,  # raceguard: unguarded(bundle metadata snapshot: atomic int read, momentary staleness is harmless)
+                         "bundle_errors": self.bundle_errors},  # raceguard: unguarded(bundle metadata snapshot: atomic int read, momentary staleness is harmless)
             "versions": _safe(self._versions_section, "versions"),
         }
 
@@ -451,7 +451,7 @@ class FlightRecorder:
 
     def __repr__(self):
         return (f"FlightRecorder(events={len(self)}, "
-                f"bundles={self.bundles_written}, "
+                f"bundles={self.bundles_written}, "  # raceguard: unguarded(repr diagnostic: atomic int read, momentary staleness is harmless)
                 f"dir={self.bundle_dir!r})")
 
 

@@ -295,7 +295,7 @@ class MetricsRegistry:
                 # epoch timestamp for external consumers — never used
                 # for ordering, so the monotonic-clock convention does
                 # not apply
-                "collected_at": time.time(),
+                "collected_at": time.time(),  # mxlint: disable=wall-clock
                 "samples": samples}
 
 

@@ -128,11 +128,11 @@ class DynamicBatcher:
 
     def __len__(self):
         # an atomic int read: probes must not contend with admission
-        return self._n
+        return self._n  # raceguard: unguarded(atomic int read; gauge/idle probes must not contend with admission)
 
     def empty(self) -> bool:
         # the scheduler re-checks under the shared cond before waiting
-        return self._n == 0
+        return self._n == 0  # raceguard: unguarded(atomic int read; the scheduler re-checks under the shared cond before waiting)
 
     def depth_at_or_above(self, ordinal: int) -> int:
         """Queued requests at class ``ordinal`` or higher — the queue a
@@ -295,4 +295,4 @@ class DynamicBatcher:
     @property
     def closed(self) -> bool:
         # close is one-way: a stale False only delays one probe
-        return self._closed
+        return self._closed  # raceguard: unguarded(atomic bool read; close is one-way so a stale False only delays one probe)

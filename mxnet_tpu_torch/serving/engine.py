@@ -1089,13 +1089,13 @@ class InferenceEngine:
             return None
         if not t.is_alive():
             # after a requested stop a dead thread is a normal exit
-            return None if self._stopping else "scheduler thread died"
+            return None if self._stopping else "scheduler thread died"  # raceguard: unguarded(watchdog heuristic: atomic bool read, stale value only delays one poll)
         if self.hang_timeout is not None and self._heartbeat is not None \
                 and not self._compiling:
             age = time.monotonic() - self._heartbeat
             # _cycle_busy covers a popped forward batch, which lives in
             # neither the queue nor the slot allocator
-            busy = (not self._batcher.empty() or self._cycle_busy
+            busy = (not self._batcher.empty() or self._cycle_busy  # raceguard: unguarded(watchdog heuristic: atomic bool read, stale value only delays one poll)
                     or self._alloc.active_count > 0)
             if busy and age > self.hang_timeout:
                 return (f"scheduler heartbeat stale for {age:.2f}s "
@@ -1157,7 +1157,7 @@ class InferenceEngine:
         return {
             "name": self.name,
             "live": live,
-            "ready": live and not self._stopping
+            "ready": live and not self._stopping  # raceguard: unguarded(health probe: atomic bool read, a stale ready flag is corrected next probe)
             and not self._batcher.closed,
             "crashed": None if self._crashed is None else str(self._crashed),
             "heartbeat_age_s": hb_age,
@@ -1578,7 +1578,7 @@ class InferenceEngine:
                                "rank 0 schedules the engine")
         if self._crashed is not None:
             raise EngineCrashedError(str(self._crashed), engine=self.name)
-        if self._stopping or self._batcher.closed:
+        if self._stopping or self._batcher.closed:  # raceguard: unguarded(advisory early refusal: atomic bool read; a stop racing past it just means the adopted rider is swept typed at the drain like any in-flight request — failed over by a fleet, never lost)
             raise EngineStoppedError(
                 f"engine {self.name!r} is stopping — cannot adopt")
         # the digest first: a torn transfer is refused before any claim
@@ -2083,6 +2083,17 @@ class InferenceEngine:
         return s
 
     # ------------------------------------------------------------- programs
+    def _graph_target(self):  # guarded-by: _step_lock
+        """The one memory pool and capture stream the engine's graphs
+        share, made at the first capture.  Every program call runs
+        under the step lock (the scheduler's cycle, ``warmup``,
+        ``adopt`` and a mesh follower's plan), which also orders this
+        against ``stop()`` dropping them."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._graph_stream = torch.cuda.Stream(self.device)
+        return self._graph_pool, self._graph_stream
+
     def _call(self, key, fn, *args, count: bool = True):
         """Run program ``key`` (``fn`` over static buffers shaped by
         ``args``): its first call compiles it (a capture on the card),
@@ -2111,11 +2122,9 @@ class InferenceEngine:
             self.metrics.count("compiles")
             graph = self._graphs and self.device.type == "cuda" and \
                 not (m is not None and m.staged)
-            if graph and self._graph_pool is None:
-                self._graph_pool = torch.cuda.graph_pool_handle()
-                self._graph_stream = torch.cuda.Stream(self.device)
+            pool, stream = self._graph_target() if graph else (None, None)
             prog = Program(key, fn, args, self.device, graph=graph,
-                           pool=self._graph_pool, stream=self._graph_stream)
+                           pool=pool, stream=stream)
             self._programs[key] = prog
             self._compiling = True
         elif count:
@@ -2899,7 +2908,7 @@ class InferenceEngine:
         """Free the slots of requests cancelled mid-decode; a cancelled
         request preempted since is dequeued; anything unmatched carries
         over to the next sweep."""
-        if not self._cancels:
+        if not self._cancels:  # raceguard: unguarded(lock-free emptiness fast path; the swap below re-checks under _cond)
             return
         with self._cond:
             cancels, self._cancels = self._cancels, set()

@@ -313,7 +313,7 @@ class RetryBudget:
     def __repr__(self):
         return (f"RetryBudget(rate={self.rate}, burst={self.burst}, "
                 f"available={self.available:.2f}, "
-                f"denied={self.denied})")
+                f"denied={self.denied})")  # raceguard: unguarded(repr diagnostic: atomic int read, momentary staleness is harmless)
 
 
 class CircuitBreaker:
@@ -387,4 +387,4 @@ class CircuitBreaker:
 
     def __repr__(self):
         return (f"CircuitBreaker(state={self.state}, "
-                f"opens={self.opens})")
+                f"opens={self.opens})")  # raceguard: unguarded(repr diagnostic: atomic int read, momentary staleness is harmless)

@@ -2291,3 +2291,70 @@ def test_adopted_and_promoted_slots_decode_through_replayed_programs(dev):
     for a, b, c in zip(want, got, promoted):
         onp.testing.assert_array_equal(a, b)
         onp.testing.assert_array_equal(a, c)
+
+
+def test_bn_dp2_on_two_gloo_ranks_equals_one_process_on_the_card(
+        no_tf32, tmp_path, monkeypatch):
+    """BatchNorm under dp = 2 on the card: the conv + BatchNorm net of
+    ``tests/test_torch_parallel_bn.py`` (its two halves' statistics far
+    apart) trained for 3 SGD steps by two gloo ranks on this card equals
+    one process training on the whole batch: losses relative 1e-5,
+    parameters and moving statistics max-abs 1e-4."""
+    import os
+    import torch_dist_worker as W
+    from mxnet_tpu_torch.gluon import nn
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        import mxnet_tpu_torch as mx
+        with mx.cpu():
+            shapes = {k: tuple(p.shape)
+                      for k, p in W.bn_net(nn).initialize()
+                      .named_parameters()}
+        rs = onp.random.RandomState(7)
+        params = {k: (rs.uniform(0.5, 1.5, s) if k.endswith(
+            ("gamma", "running_var")) else rs.uniform(-0.1, 0.1, s)
+            if len(s) == 1 else rs.randn(*s) * (2.0 / onp.prod(s[1:]))
+            ** 0.5).astype("float32") for k, s in shapes.items()}
+        onp.savez(os.path.join(tmp_path, "params.npz"), **params)
+        monkeypatch.setenv("BN_DEVICE", "cuda")
+        ranks = W.launch(2, "bn", tmp_path)
+        losses, state = W.bn_train(params, None, "cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert sum(k.startswith("aux:") for k in state) == 2
+    for out in ranks:
+        onp.testing.assert_allclose(out["bn:losses"], losses, rtol=1e-5)
+        for k, v in state.items():
+            if k.startswith(("param:", "aux:")):
+                onp.testing.assert_allclose(out[f"bn:{k}"], v, rtol=0,
+                                            atol=1e-4, err_msg=k)
+
+
+def test_chaos_serving_scenarios_at_full_width_launch_b1_and_b4(no_tf32):
+    """The port's chaos sweep's serving scenarios on the card at full
+    width (GPT-2 124M's 768 units and 12 heads, 2 layers, the card's
+    256-token buckets and pages): every scenario passes, and B1 and B4
+    launch (prefill through the flash kernel, paged decode through the
+    paged-attention kernel) in the served traffic itself, apart from the
+    scenarios' fault-free references and warm-ups."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    import chaos_sweep_torch as sweep
+    saved = torch.backends.cuda.matmul.allow_tf32
+    sweep.configure("cuda", layers=2)
+    try:
+        net = sweep._tiny_gpt2()
+        recs = {}
+        served, aside = sweep.counted(lambda: recs.update(
+            (name, thunk()) for name, thunk in
+            sweep.serving_scenarios(net)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    failed = {n: r["detail"] for n, r in recs.items() if not r["passed"]}
+    assert not failed, failed
+    assert len(recs) == 23
+    for k in ("flash_fwd", "paged_attention"):
+        assert served[k] > 0, (k, served, aside)

@@ -270,14 +270,18 @@ def test_submit_rejects_what_it_cannot_serve(setup):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port leaves jax and mxnet_tpu out
-    of sys.modules, and chip_smoke.py imports neither."""
+    """Importing every module of the port, and the port's tools
+    (``tools/mxlint_torch.py``, ``tools/chaos_sweep_torch.py``), leaves
+    jax and mxnet_tpu out of sys.modules, and chip_smoke.py and those
+    tools import neither."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import mxnet_tpu_torch as m\n"
         "for i in pkgutil.walk_packages(m.__path__, 'mxnet_tpu_torch.'):\n"
         "    importlib.import_module(i.name)\n"
         "import chip_smoke\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import mxlint_torch, chaos_sweep_torch, obs_bundle, loadgen\n"
         "bad = [k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'mxnet_tpu' or "
         "k.startswith('mxnet_tpu.')]\n"
@@ -287,14 +291,17 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and "clean" in out.stdout, out.stderr
-    tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
-    names = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names.update(a.name.split(".")[0] for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.module:
-            names.add(node.module.split(".")[0])
-    assert not names & {"jax", "jaxlib", "mxnet_tpu"}, names
+    for path in ("chip_smoke.py", "tools/mxlint_torch.py",
+                 "tools/chaos_sweep_torch.py", "tools/obs_bundle.py",
+                 "tools/loadgen.py"):
+        tree = ast.parse(open(os.path.join(ROOT, path)).read())
+        names = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names.update(a.name.split(".")[0] for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names.add(node.module.split(".")[0])
+        assert not names & {"jax", "jaxlib", "mxnet_tpu"}, (path, names)
 
 
 def test_entry_points_refuse_a_missing_card():

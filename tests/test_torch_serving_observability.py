@@ -38,6 +38,8 @@ from mxnet_tpu_torch.models import get_gpt2 as tget_gpt2
 from mxnet_tpu_torch.serving import InferenceEngine
 from mxnet_tpu_torch.utils.convert import load_numpy_params
 
+from torch_ref_nets import preserved, seeded
+
 CFG = dict(vocab_size=97, units=32, num_layers=2, num_heads=4,
            max_length=64, dropout=0.0)
 
@@ -48,11 +50,19 @@ PORT_EXTRAS = {"": {"counters", "rates"}, "engine": {"device"},
                "latency": {"ttft", "request"}}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _random_states_as_found():
+    """The module leaves numpy's, torch's and both ``mx.random`` states
+    as it found them (its reference engines draw keys)."""
+    with preserved():
+        yield
+
+
 @pytest.fixture(scope="module")
 def nets():
-    onp.random.seed(0)
-    jn = jget_gpt2("gpt2_124m", **CFG)
-    jn.initialize()
+    with seeded(0):
+        jn = jget_gpt2("gpt2_124m", **CFG)
+        jn.initialize()
     params = {k: p.data().asnumpy()
               for k, p in jn._collect_params_with_prefix().items()}
     tn = load_numpy_params(tget_gpt2("gpt2_124m", device="cpu", **CFG),

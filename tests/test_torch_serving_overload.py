@@ -42,15 +42,25 @@ from mxnet_tpu_torch.serving import overload as toverload
 from mxnet_tpu_torch.serving.engine import Request as TRequest
 from mxnet_tpu_torch.utils.convert import load_numpy_params
 
+from torch_ref_nets import preserved, seeded
+
 CFG = dict(vocab_size=97, units=32, num_layers=2, num_heads=4,
            max_length=64, dropout=0.0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _random_states_as_found():
+    """The module leaves numpy's, torch's and both ``mx.random`` states
+    as it found them (its reference engines draw keys)."""
+    with preserved():
+        yield
+
+
 @pytest.fixture(scope="module")
 def nets():
-    onp.random.seed(0)
-    jn = jget_gpt2("gpt2_124m", **CFG)
-    jn.initialize()
+    with seeded(0):
+        jn = jget_gpt2("gpt2_124m", **CFG)
+        jn.initialize()
     params = {k: p.data().asnumpy()
               for k, p in jn._collect_params_with_prefix().items()}
     tn = load_numpy_params(tget_gpt2("gpt2_124m", device="cpu", **CFG),

@@ -29,21 +29,29 @@ from mxnet_tpu.parallel import make_mesh
 from mxnet_tpu.serving import InferenceEngine, ServingError
 
 import torch_dist_worker as W
+from torch_ref_nets import preserved, seeded
 
 VOCAB = 97
 
 
 def _ref_net(vocab=VOCAB):
-    onp.random.seed(0)
-    n = get_gpt2("gpt2_124m", **dict(W.SERVE_CFG, vocab_size=vocab))
-    mx.random.seed(0)
-    n.initialize()
+    with seeded(0):
+        n = get_gpt2("gpt2_124m", **dict(W.SERVE_CFG, vocab_size=vocab))
+        n.initialize()
     return n
 
 
 def _params(net):
     return {k: p.data().asnumpy()
             for k, p in net._collect_params_with_prefix().items()}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _random_states_as_found():
+    """The module leaves numpy's, torch's and both ``mx.random`` states
+    as it found them (its reference engines draw keys)."""
+    with preserved():
+        yield
 
 
 @pytest.fixture(scope="module")

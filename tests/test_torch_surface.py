@@ -35,12 +35,10 @@ import mxnet_tpu_torch
 _JAX = "the reference's jax machinery; the port's counterpart is torch's"
 _KEYS = ("jax's functional PRNG keys; the port draws from per-device "
          "torch generators (random.generator, GraphDraws) and Philox")
-_A8 = "queue A8 (tools and analysis)"
 _A9 = "queue A9 (the long tail)"
 
 # reference modules with no port counterpart
 MODULES = {
-    "analysis.lint": _A8, "analysis.raceguard": _A8,
     "autograd.tape": "by design: torch's autograd records the tape",
     "ops._smap": "by design: jax's shard_map",
     "utils.platform": "by design: the TPU plugin's platform forcing",
@@ -113,9 +111,6 @@ GAPS = {
     **{f"profiler:{n}": _A9 for n in (
         "Frame", "Task", "dump", "dumps", "pause", "resume", "set_config",
         "set_state")},
-    **{f"analysis:{n}": _A8 for n in (
-        "Finding", "RULES", "build_guard_map", "corroborate", "raceguard",
-        "run_lint")},
     # jax's own mesh and sharding classes: the port's Mesh is a grid of
     # ranks with process groups, its NamedSharding a mesh and a spec that
     # compute a rank's block

@@ -4,8 +4,8 @@ Started by ``tools/launch.py -n N`` from a module-scoped fixture of
 ``tests/test_torch_parallel.py``, ``test_torch_ring_ulysses.py``,
 ``test_torch_kvstore.py``, ``test_torch_distributed.py``,
 ``test_torch_tensor_parallel.py``, ``test_torch_expert_parallel.py``,
-``test_torch_pipeline.py``, ``test_torch_parallel_lang.py`` or
-``test_torch_sharded_serving.py``:
+``test_torch_pipeline.py``, ``test_torch_parallel_lang.py``,
+``test_torch_sharded_serving.py`` or ``test_torch_parallel_bn.py``:
 
     python tools/launch.py -n 4 python tests/torch_dist_worker.py SCENARIO DIR
 
@@ -1083,6 +1083,69 @@ def scenario_serving2d(out, d):
     mesh = par.make_mesh(dp=2, tp=2)
     _serve(out, "2d", _engine(net, mesh=mesh, mesh_axes=("tp", "dp"),
                               name="shard_2x2", **kw), prompts, samp)
+
+
+BN_B, BN_STEPS, BN_LR, BN_SHIFT = 8, 3, 0.1, 3.0
+
+
+def bn_batches(n=BN_STEPS, b=BN_B, seed=31):
+    """(images (b, 3, 8, 8), labels): the second half of each batch (rank
+    1's rows at dp 2) is shifted by ``BN_SHIFT``, so each rank's own
+    statistics differ from the batch's."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        x = rs.uniform(-1, 1, (b, 3, 8, 8)).astype("float32")
+        x[b // 2:] += BN_SHIFT
+        out.append((x, rs.randint(0, 10, (b,)).astype("int32")))
+    return out
+
+
+def bn_net(nn):
+    """Conv 3->8, BatchNorm, ReLU, Dense 10 over ``nn`` (either
+    package's ``gluon.nn``), every shape given."""
+    net = nn.HybridSequential()
+    net.add(nn.Conv2D(8, 3, padding=1, in_channels=3),
+            nn.BatchNorm(in_channels=8), nn.Activation("relu"),
+            nn.Flatten(), nn.Dense(10, in_units=8 * 8 * 8))
+    return net
+
+
+def bn_ce(logits, labels):
+    return torch.logsumexp(logits, -1) - logits.gather(
+        -1, labels.long()[:, None])[:, 0]
+
+
+def bn_train(params, mesh, device="cpu"):
+    """BN_STEPS SGD steps of :func:`bn_net` from ``params`` on ``mesh``
+    (None: this process alone); (losses, the trainer's state dict as
+    numpy)."""
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.utils.convert import load_numpy_params
+    with mx.Context(torch.device(device)):
+        net = bn_net(nn)
+        net.initialize()
+    load_numpy_params(net, params)
+    tr = par.ShardedTrainer(net, "sgd", loss=bn_ce, mesh=mesh,
+                            optimizer_params={"learning_rate": BN_LR})
+    losses = [float(tr.step(x, (y,))) for x, y in bn_batches()]
+    return np.array(losses), {k: v.cpu().numpy()
+                              for k, v in tr.state_dict().items()}
+
+
+def scenario_bn(out, d):
+    """The BatchNorm net at dp 2: its statistics are the global batch's
+    (the ranks' rows differ by ``BN_SHIFT``)."""
+    params = dict(np.load(os.path.join(d, "params.npz")))
+    device = os.environ.get("BN_DEVICE", "cpu")
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    losses, state = bn_train(params, par.make_mesh(dp=2), device)
+    out["bn:losses"] = losses
+    for k, v in state.items():
+        out[f"bn:{k}"] = v
 
 
 def launch(n, scenario, d, timeout=300, dist_timeout=120):

@@ -5,7 +5,9 @@ state, whose counters every earlier test on a worker has advanced.  A
 fixture that reseeds or advances that state (or numpy's global
 generator) changes the draws of every test that runs after it on the
 same worker.  ``seeded`` runs its body with numpy's, torch's and both
-packages' generators seeded, and puts each of them back as it found it.
+packages' generators seeded, and puts each of them back as it found it;
+``preserved`` only puts them back (a module's autouse fixture, around
+tests whose reference engines draw keys).
 """
 import contextlib
 
@@ -19,19 +21,32 @@ def seeded(seed=0):
     restore all of them afterwards."""
     import mxnet_tpu.random as jrandom
     import mxnet_tpu_torch.random as trandom
+    with preserved():
+        onp.random.seed(seed)
+        torch.manual_seed(seed)
+        jrandom.seed(seed)
+        trandom.seed(seed)
+        yield
+
+
+@contextlib.contextmanager
+def preserved():
+    """Put numpy's, torch's and both packages' ``mx.random`` states back
+    as they were before the body."""
+    import mxnet_tpu.random as jrandom
+    import mxnet_tpu_torch.random as trandom
     np_state = onp.random.get_state()
     torch_state = torch.random.get_rng_state()
     js = jrandom.get_state()
-    # seed() rebinds these, so the objects held here stay as they were
-    j_saved = (js._keys, js._counters, js._base_seed, js._host_rng)
+    # seed() rebinds these and a draw updates them in place: keep copies
+    j_saved = (dict(js._keys), dict(js._counters), js._base_seed,
+               js._host_rng)
+    j_host = js._host_rng.get_state()
     with trandom._LOCK:
         t_base, t_twins = trandom._BASE[0], dict(trandom._TWINS)
         t_gens = {d: g.get_state() for d, g in trandom._GENS.items()}
     t_host = trandom.get_state()._host_rng
-    onp.random.seed(seed)
-    torch.manual_seed(seed)
-    jrandom.seed(seed)
-    trandom.seed(seed)
+    t_host_state = t_host.get_state()
     try:
         yield
     finally:
@@ -39,6 +54,7 @@ def seeded(seed=0):
         torch.random.set_rng_state(torch_state)
         with js._lock:
             js._keys, js._counters, js._base_seed, js._host_rng = j_saved
+            js._host_rng.set_state(j_host)
         with trandom._LOCK:
             trandom._BASE[0] = t_base
             trandom._TWINS.clear()
@@ -48,6 +64,7 @@ def seeded(seed=0):
                     g.set_state(t_gens[d])
                 else:
                     g.manual_seed(trandom._device_seed(d, t_base))
+        t_host.set_state(t_host_state)
         trandom.get_state()._host_rng = t_host
 
 
