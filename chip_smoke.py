@@ -435,7 +435,31 @@ Phases (any failure exits non-zero and prints no result line):
    ``["chaos_train"]``).  Printed: each scenario's verdict and seconds,
    the phase's seconds; the report goes to
    ``chiprun_out/chaos_report.json``.
-25. A ``{"kernels": [...]}`` line, the card line again, and the last
+25. The symbolic surface (``symbolic_path``), float32, TF32 off.  (a)
+   GPT-2 124M at full width (``get_gpt2("gpt2_124m")``, seed 0, dropout
+   0), hybridized, is called at B2 and B4 x T1024, then exported
+   (``HybridBlock.export``: ``torch.export`` with a symbolic batch, its
+   attention the custom op ``mxnet_tpu_torch::flash_fwd``) and reloaded
+   (``SymbolBlock.imports``, no model class).  Gates: the imported
+   block's logits at B2 and B4 within ``TOL_SYMBOL`` of the hybridized
+   net's, and B1 launched 12 times per call and no other kernel
+   (``launches_by_path["symbol_block"]``, both calls).  Printed: export
+   and import seconds, the imported block's ms against the net's graphed
+   ms at B2.  (b) ``Module.fit`` of the classic MLP symbol
+   (``example/train_mnist_module.py``'s) on the synthetic MNIST of
+   ``mx.io.MNISTIter`` for ``MODULE_EPOCHS`` epochs on the card: the
+   validation accuracy above ``MODULE_ACC``; samples/s printed over
+   every epoch after the first (which binds and warms up).  (c)
+   ``optimize_for(backend="FUSE_BN")`` of phase 10's ResNet-50 v1 (NHWC,
+   BatchNorm statistics drawn from the seed) at B``FUSE_B``: the fused
+   net's outputs within ``TOL_FUSE`` of the unfused net's, every
+   BatchNorm folded, ms of both (hybridized) printed.  (d) ONNX:
+   ``export_model`` and ``import_model`` of ResNet-18 v1 at
+   B``ONNX_B`` x 224² on the card, the imported outputs within
+   ``TOL_ONNX`` of the net's; the GPT-2 of (a) refused with the typed
+   error naming ``mxnet_tpu_torch::flash_fwd``.  (b) to (d) launch no
+   kernel of the port.
+26. A ``{"kernels": [...]}`` line, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.  ``launches_by_path`` holds
    every phase's launches (``bert``, ``bert_amp``, ``nmt``, ``lstm``,
    ``ops``, phase 16's graphed arms ``hybrid_bert_amp``,
@@ -446,7 +470,8 @@ Phases (any failure exits non-zero and prints no result line):
    / ``parallel_pp``, phase 22's ``sharded_serve`` /
    ``parallel_bert`` / ``parallel_nmt``, rank 0's over its steps, and
    phase 23's ``disagg_prefill``, ``disagg_decode``, ``tiered`` and
-   ``fleet``, phase 24's ``chaos_serve`` and ``chaos_train``); the
+   ``fleet``, phase 24's ``chaos_serve`` and ``chaos_train``, phase
+   25's ``symbol_block``, ``module_fit`` and ``fuse_bn``); the
    seconds of every phase are printed and written to
    ``chiprun_out/chip_smoke_phases.json``; the flash kernels carry
    their numbers at phases 11-12's shapes and phase 21's tp shape
@@ -473,6 +498,7 @@ import contextlib
 import functools
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -506,6 +532,26 @@ TOL_LOSS = 1e-5
 # the canonical MLP program, card vs CPU from the same weights: float32
 # on both (TF32 off), sums taken in another order over 20 SGD steps
 TOL_MLP_LOSS = 1e-5
+# phase 25.  The imported GPT-2 against the hybridized net: the same ops
+# and kernels, B1 included, replayed eagerly from the program instead of
+# from a CUDA graph; float32 logits at T 1024 (max-abs, the port's
+# float32 parity bound)
+TOL_SYMBOL = 1e-4
+SYMBOL_T = 1024
+SYMBOL_BATCHES = (2, 4)
+# Module.fit of the classic MLP symbol: the reference's known-good bar
+# for it (tests/test_symbol_autovar.py:143, example/train_mnist_module.py)
+MODULE_B = 100
+MODULE_EPOCHS = 6
+MODULE_ACC = 0.95
+# FUSE_BN (max-abs error over max-abs, float32): the fold rounds each
+# folded weight once more and reorders the BatchNorm arithmetic
+FUSE_B = 32
+TOL_FUSE = 1e-4
+# the ONNX program against the net (max-abs error over max-abs): the
+# same convolutions, BatchNorm as its formula
+ONNX_B = 8
+TOL_ONNX = 1e-4
 # step 1 under amp (bf16 products) against phase 5's float32 step 1 on
 # the same weights and batch.  The loss, relative: the sound policy
 # reads 1.084e-05 on an H100, the loss computed in bf16 (a control)
@@ -7441,6 +7487,216 @@ def chaos_path(torch, card):
             "chaos_train": {k: train.get(k, 0) for k in KERNELS}}
 
 
+def host_ms(torch, fn, n=5) -> float:
+    """Mean wall milliseconds of ``fn`` over ``n`` calls after one
+    warm-up, each run ending in a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def symbol_block_arm(torch, mx, card, d):
+    """25a.  Returns the imported block's launches over its two gated
+    calls, and the exported GPT-2 (for 25d)."""
+    from mxnet_tpu_torch.gluon.block import SymbolBlock
+    from mxnet_tpu_torch.models import get_gpt2
+    net = get_gpt2("gpt2_124m", dropout=0.0).initialize(seed=SEED)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    toks = {b: torch.randint(0, VOCAB, (b, SYMBOL_T), generator=g,
+                             device="cuda") for b in SYMBOL_BATCHES}
+    net.hybridize(static_alloc=True)
+    with torch.no_grad():
+        want = {b: net(toks[b]) for b in SYMBOL_BATCHES}
+        net_ms = host_ms(torch, lambda: net(toks[SYMBOL_BATCHES[0]]))
+    t0 = time.monotonic()
+    sym_f, par_f = net.export(f"{d}/gpt2")
+    export_s = time.monotonic() - t0
+    with open(sym_f) as f:
+        meta = json.load(f)
+    if not meta["symbolic_batch"]:
+        raise AssertionError("25a: GPT-2 exported with a static batch")
+    t0 = time.monotonic()
+    blk = SymbolBlock.imports(sym_f, ["data"], par_f)
+    torch.cuda.synchronize()
+    import_s = time.monotonic() - t0
+    total = {k: 0 for k in KERNELS}
+    for b in SYMBOL_BATCHES:
+        reset_launches()
+        with torch.no_grad():
+            out = blk(toks[b])
+        torch.cuda.synchronize()
+        got = read_launches()
+        if got != {k: 12 if k == "flash_fwd" else 0 for k in KERNELS}:
+            raise AssertionError(f"25a: the imported block at B{b} "
+                                 f"launched {got}, not B1 12 times")
+        for k, n in got.items():
+            total[k] += n
+        check(f"25a imported GPT-2 logits at B{b} x T{SYMBOL_T} vs the "
+              "hybridized net's", maxabs(out, want[b]), TOL_SYMBOL)
+    del want, out
+    with torch.no_grad():
+        blk_ms = host_ms(torch, lambda: blk(toks[SYMBOL_BATCHES[0]]))
+    sizes = {k: os.path.getsize(meta[k]) / 2 ** 20
+             for k in ("graph_file", "params_file")}
+    print(f"  25a GPT-2 124M: export {export_s:.2f} s (program "
+          f"{sizes['graph_file']:.2f} MiB, params "
+          f"{sizes['params_file']:.1f} MiB), import {import_s:.2f} s; "
+          f"B{SYMBOL_BATCHES[0]} x T{SYMBOL_T}: imported block "
+          f"{blk_ms:.2f} ms against the hybridized net's graphed "
+          f"{net_ms:.2f} ms; B1 {total['flash_fwd']} launches over "
+          f"{len(SYMBOL_BATCHES)} calls [{card}]", flush=True)
+    del blk
+    return total, net
+
+
+def module_arm(torch, mx, card):
+    """25b: Module.fit of the classic MLP symbol on the card."""
+    data = mx.sym.Variable("data")
+    flat = mx.sym.reshape(data, shape=(-1, 784), name="flatten")
+    h = mx.sym.Activation(mx.sym.FullyConnected(flat, num_hidden=128,
+                                                name="fc1"),
+                          act_type="relu", name="relu1")
+    h = mx.sym.Activation(mx.sym.FullyConnected(h, num_hidden=64,
+                                                name="fc2"),
+                          act_type="relu", name="relu2")
+    sym = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(h, num_hidden=10,
+                                                     name="fc3"),
+                               name="softmax")
+    train = mx.io.MNISTIter(batch_size=MODULE_B, shuffle=True, seed=SEED)
+    val = mx.io.MNISTIter(batch_size=MODULE_B, shuffle=False, seed=SEED + 1)
+    n = sum(b.data[0].shape[0] for b in train)
+    mx.random.seed(SEED)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    ends = []               # each epoch's end, the card drained
+
+    def stamp(*_):
+        torch.cuda.synchronize()
+        ends.append(time.monotonic())
+
+    mod.fit(train, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+            initializer=mx.init.Xavier(), eval_metric="acc",
+            num_epoch=MODULE_EPOCHS, epoch_end_callback=stamp,
+            batch_end_callback=mx.callback.Speedometer(MODULE_B, 10))
+    # the first epoch binds and warms up: the rate is the later ones'
+    timed = MODULE_EPOCHS - 1
+    wall = ends[-1] - ends[0]
+    acc = dict(mod.score(val, mx.metric.Accuracy()))["accuracy"]
+    where = mod._exec.arg_dict["fc1_weight"].context
+    print(f"  25b Module.fit on {where} (synthetic MNIST "
+          f"{train.synthetic}): {MODULE_EPOCHS} epochs of {n} samples; "
+          f"epochs 2-{MODULE_EPOCHS} in {wall:.3f} s = "
+          f"{timed * n / wall:.1f} samples/s, validation accuracy "
+          f"{acc:.4f} [{card}]", flush=True)
+    if where.device_type != "gpu" or not acc > MODULE_ACC:
+        raise AssertionError(f"25b: accuracy {acc} on {where}, not above "
+                             f"{MODULE_ACC} on the card")
+
+
+def fuse_bn_arm(torch, mx, card):
+    """25c: FUSE_BN on ResNet-50 v1 inference."""
+    from mxnet_tpu_torch.gluon import nn
+    net = resnet50()
+    net.initialize(seed=SEED)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.rand((FUSE_B, VISION_SIZE, VISION_SIZE, 3), generator=g,
+                   device="cuda") * 2 - 1
+    with torch.no_grad():
+        net(x)
+        bns = [m for m in net.modules() if isinstance(m, nn.BatchNorm)]
+        for m in bns:           # statistics a trained net would carry
+            c = m.running_mean.shape[0]
+            m.running_mean.copy_(torch.randn(c, generator=g,
+                                             device="cuda") * 0.1)
+            m.running_var.copy_(torch.rand(c, generator=g,
+                                           device="cuda") + 0.5)
+            m.gamma.copy_(torch.rand(c, generator=g, device="cuda") + 0.5)
+            m.beta.copy_(torch.randn(c, generator=g, device="cuda") * 0.1)
+        net.hybridize(static_alloc=True)
+        ref = net(x)
+        before = host_ms(torch, lambda: net(x))
+        out = net.optimize_for(x, backend="FUSE_BN")
+        after = host_ms(torch, lambda: net(x))
+    left = sum(isinstance(m, nn.BatchNorm) for m in net.modules())
+    print(f"  25c ResNet-50 v1 NHWC B{FUSE_B}: {len(bns)} BatchNorms, "
+          f"{left} left after FUSE_BN; {before:.2f} ms unfused, "
+          f"{after:.2f} ms fused (hybridized, graphed) [{card}]",
+          flush=True)
+    if left:
+        raise AssertionError(f"25c: {left} BatchNorms not folded")
+    check("25c FUSE_BN outputs vs the unfused net's (relative)",
+          relerr(out, ref), TOL_FUSE)
+
+
+def onnx_arm(torch, mx, card, d, gpt2):
+    """25d: ResNet-18 v1 through ONNX on the card; the flash-route GPT-2
+    refused by name."""
+    from mxnet_tpu_torch.models.vision import get_model
+    net = get_model("resnet18_v1", classes=1000)
+    net.initialize(seed=SEED)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    shape = (ONNX_B, 3, VISION_SIZE, VISION_SIZE)
+    x = torch.rand(shape, generator=g, device="cuda") * 2 - 1
+    with torch.no_grad():
+        want = net(x)
+    t0 = time.monotonic()
+    path = mx.onnx.export_model(net, f"{d}/r18.onnx", shape)
+    export_s = time.monotonic() - t0
+    blk, args, _aux = mx.onnx.import_model(path)
+    out = blk(x)
+    print(f"  25d ResNet-18 v1 B{ONNX_B}: ONNX export {export_s:.2f} s, "
+          f"{os.path.getsize(path) / 2 ** 20:.1f} MiB, {len(args)} "
+          f"initializers on {out.context} [{card}]", flush=True)
+    check("25d ONNX ResNet-18 outputs vs the net's (relative)",
+          relerr(out.tensor, want), TOL_ONNX)
+    t0 = time.monotonic()
+    try:
+        mx.onnx.export_model(gpt2, f"{d}/gpt2.onnx",
+                             (SYMBOL_BATCHES[0], SYMBOL_T),
+                             input_dtype="int64")
+    except mx.MXNetError as e:
+        if "mxnet_tpu_torch::flash_fwd" not in str(e):
+            raise
+        print(f"  25d GPT-2 on the flash route refused in "
+              f"{time.monotonic() - t0:.2f} s: {e} [{card}]", flush=True)
+    else:
+        raise AssertionError("25d: the flash-route GPT-2 exported to ONNX")
+
+
+def symbolic_path(torch, card):
+    """Phase 25.  Returns its launches by path."""
+    import tempfile
+    import mxnet_tpu_torch as mx
+    t_phase = time.monotonic()
+    print(f"phase 25: the symbolic surface (export/SymbolBlock, Module, "
+          f"FUSE_BN, ONNX) [{card}]", flush=True)
+    by_path = {}
+    with tempfile.TemporaryDirectory(prefix="mxtpu-phase25-") as d:
+        by_path["symbol_block"], gpt2 = symbol_block_arm(torch, mx, card, d)
+        free(torch)
+        for name, arm in (("module_fit", lambda: module_arm(torch, mx,
+                                                            card)),
+                          ("fuse_bn", lambda: fuse_bn_arm(torch, mx,
+                                                          card))):
+            reset_launches()
+            arm()
+            by_path[name] = read_launches()
+            if any(by_path[name].values()):
+                raise AssertionError(f"25 {name} launched a kernel of the "
+                                     f"port: {by_path[name]}")
+            free(torch)
+        onnx_arm(torch, mx, card, d, gpt2)
+        del gpt2
+    free(torch)
+    print(f"phase 25: {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return by_path
+
+
 def write_phase_seconds(seconds):
     """Print the seconds of every phase and write them to
     ``chiprun_out/chip_smoke_phases.json`` beside this script."""
@@ -7593,6 +7849,9 @@ def main() -> int:
     free(torch)
     with phase("24"):
         by_path.update(chaos_path(torch, card))
+    free(torch)
+    with phase("25"):
+        by_path.update(symbolic_path(torch, card))
     write_phase_seconds(seconds)
     # each kernel's launches on the path that is its own: the training
     # path for the flash kernels, the serving path for paged attention;

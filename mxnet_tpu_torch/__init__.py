@@ -9,7 +9,10 @@ training path (GPT-2 through ``gluon.Trainer`` or
 hand-written CUDA kernels for flash attention forward and backward and
 for paged attention.  Entry points run on the current CUDA device unless
 the caller asks for the CPU (``device="cpu"``, ``ctx=mx.cpu()`` or
-``with mx.cpu():``); without a card they raise.
+``with mx.cpu():``); without a card they raise.  The symbolic surface
+(``mx.sym``, ``mx.mod`` with ``metric``/``callback``/``model``/
+``monitor``/``viz``, ``subgraph``, ``onnx``, ``name``, ``attribute``)
+is imported at first use, as in the reference.
 """
 from . import (amp, analysis, autograd, base, context, gluon, initializer,
                lr_scheduler, models, ndarray, observability, ops, optimizer,
@@ -30,3 +33,24 @@ __all__ = ["MXNetError", "Context", "Device", "cpu", "gpu", "cpu_pinned",
            "models", "nd",
            "ndarray", "observability", "ops", "optimizer", "parallel",
            "profiler", "random", "recordio", "resilience", "serving"]
+
+# the symbolic surface, imported at first use (the reference's lazy
+# names, ``mxnet_tpu/__init__.py``)
+_LAZY = {
+    "sym": ".symbol", "symbol": ".symbol", "mod": ".module",
+    "module": ".module", "metric": ".metric", "callback": ".callback",
+    "model": ".model", "monitor": ".monitor", "mon": ".monitor",
+    "viz": ".visualization", "visualization": ".visualization",
+    "subgraph": ".subgraph", "onnx": ".onnx", "name": ".name",
+    "attribute": ".attribute",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        mod = importlib.import_module(_LAZY[name], __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module 'mxnet_tpu_torch' has no attribute "
+                         f"{name!r}")

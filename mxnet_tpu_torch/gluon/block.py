@@ -35,6 +35,13 @@ recorded hints, as in the reference, which compiles whatever they say.
 A block whose parameters wait for their first input settles them with
 one imperative call and calls its CachedOp again (the reference's
 deferred-initialization retry).
+
+``HybridBlock.export`` serializes the block's plain forward, traced by
+``torch.export`` with its parameters as inputs, beside a parameter file
+either package reads; :class:`SymbolBlock` runs it again without the
+Python model class.  A transformer traced on the card carries its flash
+attention as the custom op ``mxnet_tpu_torch::flash_fwd``, so the
+reloaded program launches B1 (``ops/flash.py``).
 """
 from __future__ import annotations
 
@@ -56,7 +63,7 @@ from .parameter import (DeferredInitializationError, Parameter,
                         new_parameter, replace_parameter, set_shape,
                         shape_known)
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
 _block_counters: Dict[str, int] = {}
 
@@ -349,6 +356,8 @@ class HybridBlock(Block):
         self._cached_op = None
         # False runs the CachedOp's functions without graphs on the card
         self._graphs = True
+        # the last call's input signature, for export
+        self._export_args = None
 
     def hybridize(self, active=True, static_alloc=False, static_shape=False,
                   inline_limit=2, forward_bulk_size=None,
@@ -362,11 +371,37 @@ class HybridBlock(Block):
         self._cached_op = None
         super().hybridize(active=False)
 
+    def _clear_cached_op(self):
+        self._cached_op = None
+
+    def optimize_for(self, x, *args, backend=None, static_alloc=False,
+                     static_shape=False, **kwargs):
+        """Rewrite by a registered subgraph backend (``'FUSE_BN'``, or one
+        registered with ``mxnet_tpu_torch.subgraph.register_backend``),
+        then hybridize and run one forward on ``x``."""
+        if backend is not None:
+            from .. import subgraph as _subgraph
+            result = _subgraph.optimize_for(self, backend, **kwargs)
+            if result is not self:
+                raise MXNetError(
+                    f"backend {backend!r} returned a new block; the "
+                    "in-place method API cannot adopt it — call "
+                    "mxnet_tpu_torch.subgraph.optimize_for(net, backend) "
+                    "and use its return value instead")
+        self.hybridize(True, static_alloc=static_alloc,
+                       static_shape=static_shape)
+        return self(x, *args)
+
     def __call__(self, *args, **kwargs):
         # inside another program (a ShardedTrainer step, a serving
-        # program) the block runs inline, as jax inlines a jitted call
-        # into an enclosing trace
-        if not self._active or in_program():
+        # program, an export's trace) the block runs inline, as jax
+        # inlines a jitted call into an enclosing trace, and records no
+        # input signature
+        inline = in_program()
+        if not inline and args and isinstance(
+                args[0], (torch.Tensor, NDArray, list, tuple)):
+            self._export_args = _signature(args)
+        if not self._active or inline:
             return super().__call__(*args, **kwargs)
         for _ in range(2):
             try:
@@ -400,6 +435,259 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+    # -------------------------------------------------------------- export
+    def export(self, path, epoch=0, remove_amp_cast=True):
+        """Write ``path-symbol.json`` (the reference's meta keys, format
+        ``torch.export``), ``path-symbol.pt2`` (the program) and
+        ``path-NNNN.params`` (``MXTPU1``, either package reads it).
+
+        The program is this block's plain forward in inference mode, on
+        the last call's input signature (export needs a prior call),
+        traced by ``torch.export`` with hybridization bypassed and the
+        parameters as its leading inputs in ``param_order``, so the
+        params file supplies the weights.  The batch dimension is
+        symbolic where the trace allows it (``symbolic_batch``).
+        Returns (symbol file, params file)."""
+        import json
+        if self._export_args is None:
+            raise MXNetError(
+                "export requires a prior forward call (to fix the input "
+                "signature) — run net(x) once first")
+        args = _example_args(self._export_args)
+        flat, spec, _static = _flatten_in_args(args)
+        named = dict(self.named_parameters())
+        order = list(named)
+        params = [named[n].detach() for n in order]
+        fn = _Exported(self, order, spec)
+        traced = fn.traced
+        try:                 # symbolic batch, so any batch size reloads
+            ep = _trace(fn, params, flat, dynamic=True)
+            symbolic = True
+        except Exception:    # a trace that pins the batch: static shapes
+            ep = _trace(fn, params, flat, dynamic=False)
+            symbolic = False
+        params_file = f"{path}-{epoch:04d}.params"
+        self.save_parameters(params_file)
+        graph_file = f"{path}-symbol.pt2"
+        ep.example_inputs = None      # they hold the weights: not saved
+        torch.export.save(ep, graph_file)
+        meta = {
+            "framework": "mxnet_tpu_torch",
+            "format": "torch.export",
+            "graph_file": graph_file,
+            "params_file": params_file,
+            "param_order": order,
+            "n_inputs": len(flat),
+            "out_tree": traced["out_tree"],
+            "symbolic_batch": symbolic,
+            "device": str(params[0].device if params else flat[0].device),
+        }
+        sym_file = f"{path}-symbol.json"
+        with open(sym_file, "w") as f:
+            json.dump(meta, f)
+        return sym_file, params_file
+
+
+class SymbolBlock(HybridBlock):
+    """Runs a program written by :meth:`HybridBlock.export` without the
+    Python model class (MXNet's ``gluon.SymbolBlock.imports``).  Its
+    parameters are those of the params file, under their structural
+    names with ``.`` as ``_``, frozen: the exported program is
+    inference only, as the reference's is."""
+
+    def __init__(self, outputs=None, inputs=None, params=None):
+        super().__init__()
+        if outputs is not None or inputs is not None:
+            raise MXNetError("a SymbolBlock over a Symbol is not ported; "
+                             "load an exported block with "
+                             "SymbolBlock.imports")
+        self._program = None
+        self._meta = None
+        self._param_attrs = []
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """Load ``symbol_file`` (from :meth:`HybridBlock.export`) and its
+        params onto ``ctx`` (default: the current context, the card
+        unless the caller asks for the CPU).  A program traced on
+        another kind of device is refused, as the reference refuses a
+        program exported for another platform."""
+        import json
+        import os
+
+        from ..ops import flash  # noqa: F401  (registers the B1 op)
+        from ..utils.serialization import load as _load
+        with open(symbol_file) as f:
+            meta = json.load(f)
+        if meta.get("format") != "torch.export":
+            raise MXNetError(
+                f"{symbol_file}: format {meta.get('format')!r} from "
+                f"framework {meta.get('framework')!r}; this package runs "
+                "the 'torch.export' programs its own HybridBlock.export "
+                "writes, not the reference's 'stablehlo' ones (the "
+                "-NNNN.params files do cross between the packages)")
+        dev = resolve_device(ctx)
+        here = os.path.dirname(os.path.abspath(symbol_file))
+
+        def local(fname):
+            return fname if os.path.exists(fname) else \
+                os.path.join(here, os.path.basename(fname))
+
+        if torch.device(meta["device"]).type != dev.type:
+            raise MXNetError(
+                f"{symbol_file}: exported on {meta['device']}, imported "
+                f"on {dev}; a program runs on the device it was traced "
+                "on (its attention is B1's op only when traced on the "
+                f"card), so export the block on {dev.type}")
+        ep = torch.export.load(local(meta["graph_file"]))
+        block = SymbolBlock()
+        block._meta = meta
+        block._program = ep.module()
+        loaded = _load(local(param_file or meta["params_file"]))
+        for name in meta["param_order"]:
+            attr = name.replace(".", "_")
+            block.register_parameter(attr, torch.nn.Parameter(
+                torch.as_tensor(loaded[name]).to(dev), requires_grad=False))
+            block._param_attrs.append(attr)
+        block._device = dev
+        return block
+
+    def forward(self, *args):
+        flat, _spec, _static = _flatten_in_args(args)
+        params = [self._parameters[a] for a in self._param_attrs]
+        outs = self._program(*params, *flat)
+        return _unflatten_out(list(outs), _json_tree(self._meta["out_tree"]))
+
+
+class _Exported(torch.nn.Module):
+    """``block``'s forward as a function of (parameters..., inputs...),
+    recording its output tree in the reference's form."""
+
+    def __init__(self, block, order, spec):
+        super().__init__()
+        # not a submodule: the trace must not lift the block's own
+        # tensors as the program's state
+        self.__dict__["block"] = block
+        self.order, self.spec = order, spec
+        # written by the traced forward (export restores copies of the
+        # module's attributes after tracing: read it through a reference
+        # taken before)
+        self.traced = {}
+
+    def forward(self, *flat):
+        from .cached_op import _unflatten_in
+        n = len(self.order)
+        args, kwargs = _unflatten_in(self.spec, list(flat[n:]))
+        out = torch.func.functional_call(
+            self.block, dict(zip(self.order, flat[:n])), tuple(args), kwargs)
+        vals, self.traced["out_tree"] = _flatten_out(out)
+        return tuple(vals)
+
+
+def _trace(fn, params, flat, dynamic):
+    """``torch.export`` of ``fn`` over (params, inputs) in inference mode
+    with hybridized blocks inline and aux losses off; ``dynamic`` makes
+    each input's leading dimension one symbolic batch."""
+    from ..utils.graphs import inside
+    shapes = None
+    if dynamic:
+        b = torch.export.Dim("b")
+        # one entry: forward takes its inputs as *flat
+        shapes = (tuple([None] * len(params) +
+                        [{0: b} if x.dim() >= 1 and x.shape[0] > 0 else None
+                         for x in flat]),)
+        flat = [_widen(x) for x in flat]
+    prev_rec = _base.set_recording(False)
+    prev_aux = _base.set_aux_collection(False)
+    try:
+        with torch.no_grad(), _base.training_mode(False), inside():
+            return torch.export.export(fn, tuple(params) + tuple(flat),
+                                       dynamic_shapes=shapes, strict=False)
+    finally:
+        _base.set_aux_collection(prev_aux)
+        _base.set_recording(prev_rec)
+
+
+def _widen(x):
+    """An example input with a batch of at least 2 (a batch of 1 would
+    pin the symbolic dimension)."""
+    if x.dim() == 0 or x.shape[0] >= 2:
+        return x
+    return x.expand(2, *x.shape[1:]).clone()
+
+
+def _signature(args):
+    """(shape, dtype, device) of each array of ``args`` (alone or in a
+    list or tuple), other arguments as they are."""
+    def one(a):
+        if isinstance(a, NDArray):
+            a = a._t
+        if isinstance(a, torch.Tensor):
+            return ("arr", (tuple(a.shape), a.dtype, a.device))
+        if isinstance(a, (list, tuple)):
+            return ("seq", (type(a), [one(x) for x in a]))
+        return ("static", a)
+    return [one(a) for a in args]
+
+
+def _example_args(sig):
+    """Zero tensors of a recorded signature."""
+    def one(kind, meta):
+        if kind == "arr":
+            shape, dtype, device = meta
+            return torch.zeros(shape, dtype=dtype, device=device)
+        if kind == "seq":
+            typ, items = meta
+            return typ(one(*x) for x in items)
+        return meta
+    return [one(*x) for x in sig]
+
+
+def _flatten_in_args(args):
+    from .cached_op import _flatten_in
+    return _flatten_in(args, {})
+
+
+def _flatten_out(out):
+    """(tensors, tree): the tree in the reference's form, ``("nd",
+    None)`` for one array, ``("seq", (name, [(n, subtree), ...]))`` for
+    a tuple or list."""
+    if isinstance(out, NDArray):
+        out = out._t
+    if isinstance(out, torch.Tensor):
+        return [out], ("nd", None)
+    if isinstance(out, (tuple, list)):
+        vals, subs = [], []
+        for o in out:
+            v, t = _flatten_out(o)
+            vals.extend(v)
+            subs.append((len(v), t))
+        return vals, ("seq", ("tuple" if isinstance(out, tuple) else "list",
+                              subs))
+    raise MXNetError(f"export: output of type {type(out).__name__} is not "
+                     "an array or a tuple/list of them")
+
+
+def _unflatten_out(flat, tree):
+    kind, meta = tree
+    if kind == "nd":
+        return flat[0]
+    name, subtrees = meta
+    out, i = [], 0
+    for n, t in subtrees:
+        out.append(_unflatten_out(flat[i:i + n], t))
+        i += n
+    return tuple(out) if name == "tuple" else out
+
+
+def _json_tree(t):
+    """JSON turns the out_tree tuples into lists; normalize."""
+    kind, meta = t
+    if kind == "nd":
+        return ("nd", None)
+    name, subtrees = meta
+    return ("seq", (name, [(n, _json_tree(sub)) for n, sub in subtrees]))
 
 
 def _run_nd(fn, args, kwargs):

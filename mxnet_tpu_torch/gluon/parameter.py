@@ -301,6 +301,12 @@ class Parameter:
     def list_data(self):
         return [self.data()]
 
+    @property
+    def var(self):
+        """The symbol-API hook: the parameter itself, as the
+        reference's ``Parameter.var`` gives."""
+        return self
+
     def grad(self, ctx=None) -> NDArray:
         """The gradient buffer as an NDArray sharing its storage (zeros
         until a backward writes it)."""

@@ -56,6 +56,11 @@ def _whole(tensors):
             for t in tensors]
 
 
+# observers of every dispatched op: ``hook(name, outputs)`` after each
+# op (``mx.monitor.Monitor`` installs one)
+_invoke_hooks = []
+
+
 def invoke(name, fn, nd_inputs, nout=1, ctx=None, differentiable=True,
            vocab_blocks=False):
     """Run ``fn`` over the tensors of ``nd_inputs`` and wrap what it
@@ -64,13 +69,20 @@ def invoke(name, fn, nd_inputs, nout=1, ctx=None, differentiable=True,
     ``amp.init()`` the inputs are first cast as the policy casts op
     ``name``'s.  A vocabulary block among the inputs is gathered whole
     first (:func:`_whole`) unless ``vocab_blocks`` says ``fn`` takes
-    blocks (the vocab-parallel losses)."""
+    blocks (the vocab-parallel losses).  Each hook of
+    ``_invoke_hooks`` then sees ``(name, outputs)``."""
     with torch.set_grad_enabled(_base.is_recording() and differentiable):
         ts = [x._t for x in nd_inputs]
         out = fn(*_amp.cast(name, *(ts if vocab_blocks else _whole(ts))))
     if isinstance(out, (tuple, list)):
-        return [NDArray(o) for o in out]
-    return NDArray(out)
+        res = [NDArray(o) for o in out]
+    else:
+        res = NDArray(out)
+    if _invoke_hooks:
+        seen = res if isinstance(res, list) else [res]
+        for h in tuple(_invoke_hooks):
+            h(name, seen)
+    return res
 
 
 def _as_nd(x, like=None):

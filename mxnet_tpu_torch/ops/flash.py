@@ -13,7 +13,17 @@ reference takes rowsum(dO * O): equal in exact arithmetic).
 :func:`flash_fwd` returns O and the per-row logsumexp, (B*H, 1, T)
 float32 as the reference lays it out.  Each wrapper launches its kernel
 for CUDA tensors (or raises) and takes the plain version for CPU
-tensors, the analogue of Pallas interpret mode.  The kernels read and
+tensors, the analogue of Pallas interpret mode.
+
+B1 is reached through one route, the ``torch.library`` custom op
+``mxnet_tpu_torch::flash_fwd`` (``(q, k, v, q_seg?, kv_seg?, causal,
+scale) -> (out, lse)``, registered once when this module is first
+imported): :func:`flash_fwd` calls it, and so do ``_FlashAttention``
+and every caller of :func:`flash_fwd`.  Its implementation launches B1
+and counts the launch (or takes the plain version for CPU tensors); its
+fake implementation gives the outputs' shapes, so ``torch.export`` of
+a net whose attention takes the flash route traces the op as one node,
+and the exported program launches B1 when it runs on the card.  The kernels read and
 write the (B, T, H, D) layout in place through its strides, so no
 transpose is made here.
 
@@ -29,6 +39,7 @@ before dQ = dS.K and to q's dtype before dK = dS^T.Q.
 from __future__ import annotations
 
 import ctypes
+import sys
 from typing import Optional
 
 import torch
@@ -73,7 +84,7 @@ def _fwd_plain(q, k, v, q_seg, kv_seg, causal, scale):
     lse = torch.where(empty, torch.full_like(l, _MASK),
                       m + torch.log(torch.where(empty, torch.ones_like(l),
                                                 l)))
-    return (out.permute(0, 2, 1, 3).to(q.dtype),
+    return (out.permute(0, 2, 1, 3).to(q.dtype).contiguous(),
             lse.reshape(b * h, 1, tq))
 
 
@@ -216,10 +227,18 @@ def _device_type(name, q):
 
 def flash_fwd(q, k, v, q_seg=None, kv_seg=None, *, causal: bool,
               scale: float):
-    """(O, lse) of self-attention over (B, T, H, D) inputs.  CUDA tensors
-    launch ``csrc/flash_fwd.cu`` (counted by q's dtype in
+    """(O, lse) of self-attention over (B, T, H, D) inputs, through the
+    custom op ``mxnet_tpu_torch::flash_fwd``: CUDA tensors launch
+    ``csrc/flash_fwd.cu`` (counted by q's dtype in
     ``flash_fwd.launches_by_dtype``); CPU tensors take the plain
     version."""
+    _device_type("flash_fwd", q)    # a meta tensor would get the fake
+    return _FLASH_FWD_OP(q, k, v, q_seg, kv_seg, bool(causal), float(scale))
+
+
+def _flash_fwd_impl(q, k, v, q_seg, kv_seg, causal, scale):
+    """The op's implementation: B1 and its count for CUDA tensors, the
+    plain version for CPU tensors."""
     if _device_type("flash_fwd", q) == "cpu":
         return _fwd_plain(q, k, v, q_seg, kv_seg, causal, scale)
     _check_cuda("flash_fwd", q, k, v, q_seg, kv_seg)
@@ -239,6 +258,44 @@ def flash_fwd(q, k, v, q_seg=None, kv_seg=None, *, causal: bool,
 
 _launches.register(flash_fwd,
                   launches_by_dtype=dict.fromkeys(_DTYPE_CODE, 0))
+
+
+def _flash_fwd_op():
+    """``torch.ops.mxnet_tpu_torch.flash_fwd.default``, defined on the
+    first import: the schema, one implementation for every device
+    (``CompositeExplicitAutograd``) and a fake one for tracing.  Not
+    ``torch.library.custom_op``, whose kernel wrapper imports
+    ``torch._dynamo`` at a process's first call (seconds on the card's
+    host, in every rank and subprocess).  The registered functions look
+    up this module's current ones, so a reload of the module reuses the
+    registration and counts on the reloaded wrapper."""
+    global _LIB
+    try:
+        return torch.ops.mxnet_tpu_torch.flash_fwd.default
+    except AttributeError:
+        pass
+
+    def impl(q, k, v, q_seg, kv_seg, causal, scale):
+        return sys.modules[__name__]._flash_fwd_impl(
+            q, k, v, q_seg, kv_seg, causal, scale)
+
+    def fake(q, k, v, q_seg, kv_seg, causal, scale):
+        b, t, h, _d = q.shape
+        return (q.new_empty(q.shape),
+                q.new_empty((b * h, 1, t), dtype=torch.float32))
+
+    # the registrations live as long as this object
+    _LIB = torch.library.Library("mxnet_tpu_torch", "DEF")
+    _LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, Tensor? q_seg, "
+                "Tensor? kv_seg, bool causal, float scale) -> "
+                "(Tensor, Tensor)")
+    _LIB.impl("flash_fwd", impl, "CompositeExplicitAutograd")
+    torch.library.register_fake("mxnet_tpu_torch::flash_fwd", fake,
+                                lib=_LIB)
+    return torch.ops.mxnet_tpu_torch.flash_fwd.default
+
+
+_FLASH_FWD_OP = _flash_fwd_op()
 
 
 _DQ_MODES = {"own": 0, "partial": 1, "given": 2}

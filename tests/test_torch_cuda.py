@@ -2358,3 +2358,64 @@ def test_chaos_serving_scenarios_at_full_width_launch_b1_and_b4(no_tf32):
     assert len(recs) == 23
     for k in ("flash_fwd", "paged_attention"):
         assert served[k] > 0, (k, served, aside)
+
+
+def test_flash_op_on_the_card_is_the_wrapper_bit_for_bit(dev):
+    """``mxnet_tpu_torch::flash_fwd`` on CUDA tensors launches B1 (one
+    count) and equals a direct ``flash_fwd`` bit for bit, with and
+    without segment ids, and passes ``torch.library.opcheck``."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    q, k, v = (torch.randn((2, 256, 2, 64), generator=g, device=dev)
+               for _ in range(3))
+    seg = (torch.arange(256, device=dev) >= 128).to(torch.int32)
+    seg = seg[None].expand(2, 256).contiguous()
+    op = torch.ops.mxnet_tpu_torch.flash_fwd.default
+    for s in (None, seg):
+        n0 = _launches(flash.flash_fwd)
+        o, lse = op(q, k, v, s, s, True, 0.125)
+        torch.cuda.synchronize()
+        assert _launches(flash.flash_fwd) == n0 + 1
+        o2, lse2 = flash.flash_fwd(q, k, v, s, s, causal=True, scale=0.125)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        torch.library.opcheck(op, (q, k, v, s, s, True, 0.125))
+
+
+def test_exported_gpt2_reloads_and_launches_b1(dev, tmp_path):
+    """A 2-layer GPT-2 at full width, exported at T 256 on the card,
+    carries B1 as the custom op: the imported block launches it once per
+    layer per call, at the export batch and another, and equals the
+    net's logits within the float32 bound (1e-4)."""
+    from mxnet_tpu_torch.gluon.block import SymbolBlock
+    from mxnet_tpu_torch.models import get_gpt2
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        torch.manual_seed(0)
+        net = get_gpt2("gpt2_124m", num_layers=2, max_length=256,
+                       dropout=0.0, device=dev)
+        net.initialize(seed=0)
+        g = torch.Generator(device=dev).manual_seed(3)
+        toks = torch.randint(0, 50257, (2, 256), generator=g, device=dev)
+        with torch.no_grad():
+            ref = net(toks)
+        sym_f, par_f = net.export(str(tmp_path / "gpt2"))
+        assert json_load(sym_f)["symbolic_batch"]
+        blk = SymbolBlock.imports(sym_f, ["data"], par_f)
+        for batch in (2, 3):
+            x = toks if batch == 2 else torch.randint(
+                0, 50257, (batch, 256), generator=g, device=dev)
+            with torch.no_grad():
+                want = ref if batch == 2 else net(x)
+                n0 = _launches(flash.flash_fwd)
+                out = blk(x)
+                torch.cuda.synchronize()
+            assert _launches(flash.flash_fwd) - n0 == 2
+            assert _maxabs(out, want) <= 1e-4
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def json_load(path):
+    import json
+    with open(path) as f:
+        return json.load(f)

@@ -35,24 +35,23 @@ import mxnet_tpu_torch
 _JAX = "the reference's jax machinery; the port's counterpart is torch's"
 _KEYS = ("jax's functional PRNG keys; the port draws from per-device "
          "torch generators (random.generator, GraphDraws) and Philox")
-_A9 = "queue A9 (the long tail)"
+_A92 = "queue A9.2 (sparse storage, numpy, numpy_extension, image)"
+_A93 = ("queue A9.3 (contrib with quantization, gluon.contrib, "
+        "operator, the rest of profiler, the small modules)")
 
 # reference modules with no port counterpart
 MODULES = {
     "autograd.tape": "by design: torch's autograd records the tape",
     "ops._smap": "by design: jax's shard_map",
     "utils.platform": "by design: the TPU plugin's platform forcing",
-    **{m: _A9 for m in (
-        "attribute", "callback", "contrib", "contrib.quantization",
-        "engine", "gluon.contrib", "gluon.contrib.estimator",
-        "gluon.contrib.estimator.estimator",
+    **{m: _A92 for m in (
+        "image", "image.detection", "ndarray.sparse", "numpy",
+        "numpy.linalg", "numpy.random", "numpy_extension")},
+    **{m: _A93 for m in (
+        "contrib", "contrib.quantization", "engine", "gluon.contrib",
+        "gluon.contrib.estimator", "gluon.contrib.estimator.estimator",
         "gluon.contrib.estimator.event_handler", "gluon.contrib.nn",
-        "image", "image.detection", "library", "metric", "model", "module",
-        "monitor", "name", "ndarray.sparse", "numpy", "numpy.linalg",
-        "numpy.random", "numpy_extension", "onnx", "onnx.mx2onnx",
-        "onnx.onnx2mx", "onnx.proto", "operator", "rtc", "runtime",
-        "subgraph", "symbol", "symbol.passes", "test_utils", "util",
-        "visualization")},
+        "library", "operator", "rtc", "runtime", "test_utils", "util")},
 }
 
 # the port module that holds a reference module's names, where it differs
@@ -101,14 +100,10 @@ GAPS = {
     "models.transformer.*.forward_step_window(page_table)": "by design: "
         "as forward_step_window(cache)",
     # queued
-    "*.export": _A9, "*.optimize_for": _A9,
-    "gluon.block:SymbolBlock": _A9,
-    "gluon.parameter.Parameter.var": _A9,
-    "ndarray.ndarray.NDArray.stype": _A9 + " (sparse storage)",
-    "ndarray.ndarray.NDArray.tostype": _A9 + " (sparse storage)",
-    "ndarray:Custom": _A9 + " (operator.py)",
-    "gluon.parameter.Constant.var": _A9,
-    **{f"profiler:{n}": _A9 for n in (
+    "ndarray.ndarray.NDArray.stype": _A92,
+    "ndarray.ndarray.NDArray.tostype": _A92,
+    "ndarray:Custom": _A93,
+    **{f"profiler:{n}": _A93 for n in (
         "Frame", "Task", "dump", "dumps", "pause", "resume", "set_config",
         "set_state")},
     # jax's own mesh and sharding classes: the port's Mesh is a grid of
@@ -116,7 +111,7 @@ GAPS = {
     # compute a rank's block
     "_src.mesh.Mesh.*": _JAX, "sharding.NamedSharding.*": _JAX,
     "sharding.PartitionSpec.*": _JAX,
-    "kvstore.KVStore.row_sparse_pull": _A9 + " (sparse storage)",
+    "kvstore.KVStore.row_sparse_pull": _A92,
     "serving:request_key": _KEYS,
 }
 
