@@ -91,7 +91,7 @@ Phases (any failure exits non-zero and prints no result line):
 9. The serving engine's features at phase 3's width, paged KV with
    16-position pages, 8 slots, buckets 64-512 and chunks of 256
    (``FEATURES``), kernel arm in float32 unless named, graphed as
-   phase 3.  (a) Chunked
+   phase 3 at one batch bucket (8).  (a) Chunked
    prefill: 8 prompts of 600-1000 tokens, 16 new each; every request
    completes and B4 runs with ``Tq`` the chunk bucket; a 1000-token
    prompt's last logits after 4 chunks through B4 are held within
@@ -208,7 +208,8 @@ Phases (any failure exits non-zero and prints no result line):
    kernel of the port launches (``launches_by_path["ops"]``).
 15. The serving engine's compiled programs.  (a) Phase 3's engine at
    full width, eager (``_graphs = False``) and graphed arms in turns,
-   ``GRAPH_ROUNDS`` rounds, each arm a fresh engine serving phase 3's
+   ``GRAPH_ROUNDS`` rounds (one batch bucket, 8), each arm a fresh
+   engine serving phase 3's
    prompts with 32 then 256 new tokens: warm-up seconds and program
    count, tokens/s, TTFT p50 by wave and peak memory above the model
    for each; greedy streams identical across every arm, kernel launches
@@ -232,7 +233,8 @@ Phases (any failure exits non-zero and prints no result line):
    (forward and backward graphs replayed as one autograd node) and
    ``ShardedTrainer``'s step as one CUDA graph, each against its eager
    arm (not hybridized; the trainer's private ``_graphs = False``), the
-   arms in turns over ``GRAPH_ROUNDS`` rounds.  (a) Phase 11 (b)'s
+   arms in turns over ``GRAPH_ROUNDS`` rounds (16c over
+   ``VISION_GRAPH_ROUNDS``).  (a) Phase 11 (b)'s
    BERT-large loop (amp, ``remat='dots'``, dropout 0.1, B8 x T512), the
    net hybridized in the graphed arm: ms/step, samples/s, host CPU ms a
    step, the idle share of a profiled step, peak memory, and B1/B2/B3
@@ -459,7 +461,38 @@ Phases (any failure exits non-zero and prints no result line):
    ``TOL_ONNX`` of the net's; the GPT-2 of (a) refused with the typed
    error naming ``mxnet_tpu_torch::flash_fwd``.  (b) to (d) launch no
    kernel of the port.
-26. A ``{"kernels": [...]}`` line, the card line again, and the last
+26. Queue A9.2 (``a92_path``), float32 with TF32 off but (c)'s amp.
+   (a) ``example/train_sparse_embedding.py``'s BowClassifier at its
+   width (``Embedding(1_000_000, 64, sparse_grad=True)`` and a
+   ``Dense(2)``, batch 64 x 16 tokens, the example's task from the
+   seed) through ``gluon.Trainer`` in arms one after another: Adam with
+   the lazy row update, Adam with ``sparse_grad=False``, SGD on the
+   sparse and on the dense gradient, ``BOW_WARM`` + ``BOW_STEPS`` steps
+   each from one set of weights.  Gates: the SGD arms' weights within
+   ``TOL_BOW_SGD``; the lazy Adam arm's within ``TOL_BOW_ADAM`` of a
+   plain numpy lazy Adam on the CPU (float64 forward and backward) from
+   the same weights and batches, untouched rows bit-identical; every
+   gradient compact (never densified), at most 1024 rows; the sparse
+   arm's peak allocated memory at least the dense gradient's
+   256,000,000 bytes below the dense arm's; ``row_sparse_pull`` of
+   1024 ids from the 1M-row table exactly those rows; ``sparse.dot`` of
+   the batch's bag of words (64 x 1M CSR, 16 a row) within
+   ``TOL_BOW_DOT`` of the gather-and-sum.  Printed: each arm's ms/step
+   and peak MiB, the rows touched a step.  (b) ``mx.np`` on the card:
+   every float op of ``tools/np_cases.py`` (the reference's tables) on
+   a CUDA array and on the CPU, at each case's tolerance (eigen and QR
+   results by absolute value), and the gradients of its sample of
+   differentiable ops (``TOL_NP_GRAD``); printed: the count checked.
+   (c) ``mx.image`` feeding phase 10's ResNet-50 v1 (NHWC, B128 x 224²,
+   amp, ``ShardedTrainer`` SGD): ``IMG_N`` seeded 256² images packed as
+   JPEG into a ``.rec`` (``recordio.pack_img``), read by ``ImageIter``
+   with ``CreateAugmenter(**IMG_AUG)`` through ``DevicePrefetcher`` for
+   8 steps.  Gates: every loss finite, and the prefetched batches equal
+   a second ``ImageIter``'s from the same seeds, bit for bit.  Printed:
+   ``ImageIter``'s host images/s alone, input wait p50 and max, ms/step
+   fed against the same step on the batches resident.  No kernel of the
+   port launches in phase 26 (``launches_by_path["a92"]``).
+27. A ``{"kernels": [...]}`` line, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.  ``launches_by_path`` holds
    every phase's launches (``bert``, ``bert_amp``, ``nmt``, ``lstm``,
    ``ops``, phase 16's graphed arms ``hybrid_bert_amp``,
@@ -471,7 +504,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``parallel_bert`` / ``parallel_nmt``, rank 0's over its steps, and
    phase 23's ``disagg_prefill``, ``disagg_decode``, ``tiered`` and
    ``fleet``, phase 24's ``chaos_serve`` and ``chaos_train``, phase
-   25's ``symbol_block``, ``module_fit`` and ``fuse_bn``); the
+   25's ``symbol_block``, ``module_fit`` and ``fuse_bn``, phase 26's
+   ``a92``); the
    seconds of every phase are printed and written to
    ``chiprun_out/chip_smoke_phases.json``; the flash kernels carry
    their numbers at phases 11-12's shapes and phase 21's tp shape
@@ -552,6 +586,36 @@ TOL_FUSE = 1e-4
 # same convolutions, BatchNorm as its formula
 ONNX_B = 8
 TOL_ONNX = 1e-4
+# phase 26.  (a) example/train_sparse_embedding.py's BowClassifier at its
+# own width: a 1M x 64 embedding with sparse gradients and a Dense(2),
+# batch 64 x 16 tokens (each class's tokens from its own 1000-row
+# region, the example's task), BOW_STEPS steps a Trainer arm after
+# BOW_WARM; Adam at the example's 0.02, SGD at BOW_SGD_LR
+BOW_VOCAB, BOW_DIM, BOW_B, BOW_T = 1_000_000, 64, 64, 16
+BOW_STEPS, BOW_WARM, BOW_ADAM_LR, BOW_SGD_LR = 20, 2, 0.02, 0.5
+# the sparse and the dense SGD arm's weights after BOW_STEPS steps, and
+# the card's lazy Adam against a plain numpy lazy Adam on the CPU from
+# the same initial values and batches (max-abs error over max-abs:
+# float32 sums in another order, the sparse gradient's coalesce against
+# the dense scatter; Adam's m / sqrt(v) damps them)
+TOL_BOW_SGD, TOL_BOW_ADAM = 1e-5, 1e-4
+# the dense gradient the sparse arm never allocates (1M x 64 float32)
+BOW_DENSE_GRAD_BYTES = BOW_VOCAB * BOW_DIM * 4
+# row_sparse_pull's ids; sparse.dot against the gather-and-sum (relative,
+# float32 sums of 16 rows in another order)
+BOW_PULL_IDS, TOL_BOW_DOT = 1024, 1e-5
+# (b) mx.np on the card against the CPU: each case's own tolerance
+# (tools/np_cases.py; float32 1e-5 to 1e-4 relative, decompositions
+# 1e-4 to 1e-3), eigen and QR results by absolute value (their signs
+# are a solver's choice); gradients (max-abs) at TOL_NP_GRAD
+TOL_NP_GRAD = 1e-4
+NP_SIGN_FREE = ("linalg.eigh[vals]", "linalg.eig", "linalg.qr")
+# (c) mx.image feeding phase 10's ResNet-50 v1 (NHWC, B128 x 224^2, amp)
+# through DevicePrefetcher: IMG_N seeded IMG_SRC^2 images packed as JPEG
+# (recordio.pack_img, quality IMG_QUALITY), IMG_N / VISION_B steps
+IMG_N, IMG_SRC, IMG_QUALITY, IMG_DEPTH = 1024, 256, 90, 2
+IMG_AUG = dict(rand_crop=True, rand_mirror=True, mean=True, std=True,
+               brightness=0.4, contrast=0.4, saturation=0.4, pca_noise=0.1)
 # step 1 under amp (bf16 products) against phase 5's float32 step 1 on
 # the same weights and batch.  The loss, relative: the sound policy
 # reads 1.084e-05 on an H100, the loss computed in bf16 (a control)
@@ -723,9 +787,14 @@ TOL_LINALG = {"potrf": 1e-5, "trsm": 1e-5, "inverse": 1e-5,
 SIGMAS = 6.0
 
 # phase 15: the compiled programs.  (a) phase 3's engine, the eager and
-# the graphed arm in turns, 2 rounds, each arm serving phase 3's prompts
-# with 32 then 128 new tokens (decode dominates)
-GRAPH_ROUNDS, GRAPH_NEW = 2, (32, 128)
+# the graphed arm in turns, GRAPH_ROUNDS rounds, each arm serving phase
+# 3's prompts with 32 then 128 new tokens (decode dominates), at one
+# batch bucket (8: the prompts come 8 at a time); one round since the
+# script outgrew its time, the eager arm first.  16c keeps
+# VISION_GRAPH_ROUNDS for its eager-vs-eager control of cuDNN's
+# algorithms
+GRAPH_ROUNDS, GRAPH_NEW, GRAPH_BATCH_BUCKETS = 1, (32, 128), (8,)
+VISION_GRAPH_ROUNDS = 2
 # (b) a replay against the eager call from the same inputs: the same
 # kernels in the same order, so tokens are identical and the caches the
 # programs wrote agree but for a float32 GEMM whose cuBLAS algorithm
@@ -1716,7 +1785,8 @@ def main_path(torch, card, prompts):
 
 # phase 9's engines: phase 3's, with prompts chunked at the 256 bucket
 FEATURES = dict(num_slots=8, max_batch=8, page_size=16,
-                seq_buckets=(64, 128, 256, 512), prefill_chunk=256)
+                seq_buckets=(64, 128, 256, 512), prefill_chunk=256,
+                batch_buckets=GRAPH_BATCH_BUCKETS)
 
 
 def drive(torch, eng, waves, max_new):
@@ -4029,7 +4099,8 @@ def graph_arm(torch, net, prompts, graphs, card, rnd):
     free(torch)
     base = torch.cuda.memory_allocated()
     base_reserved = torch.cuda.memory_reserved()
-    eng = serving_engine(torch, net, graphs)
+    eng = serving_engine(torch, net, graphs,
+                         batch_buckets=GRAPH_BATCH_BUCKETS)
     t0 = time.monotonic()
     n_warm = eng.warmup()
     warm_s = time.monotonic() - t0
@@ -4273,7 +4344,8 @@ def forward_serving(torch, card):
     del engs, eng
     free(torch)
     out = {}
-    for rnd, order in enumerate(((False, True), (True, False)), 1):
+    for rnd, order in enumerate(((False, True), (True, False))
+                                [:GRAPH_ROUNDS], 1):
         for graphs in order:
             free(torch)
             eng = forward_engine(torch, net, graphs)
@@ -4339,12 +4411,12 @@ def programs_path(torch, card, prompts):
     return launches, fwd_launches
 
 
-def in_turns(torch, run, what):
-    """``run(graphed, rnd)`` for both arms, ``GRAPH_ROUNDS`` rounds, the
-    eager arm first in odd rounds: {True: [results], False: [...]}."""
-    print(f"{what}, {GRAPH_ROUNDS} rounds in turns:", flush=True)
+def in_turns(torch, run, what, rounds=GRAPH_ROUNDS):
+    """``run(graphed, rnd)`` for both arms, ``rounds`` rounds, the eager
+    arm first in odd rounds: {True: [results], False: [...]}."""
+    print(f"{what}, {rounds} round(s) in turns:", flush=True)
     runs = {True: [], False: []}
-    for rnd in range(1, GRAPH_ROUNDS + 1):
+    for rnd in range(1, rounds + 1):
         for graphed in ((False, True) if rnd % 2 else (True, False)):
             runs[graphed].append(run(graphed, rnd))
             free(torch)
@@ -4674,7 +4746,8 @@ def training_programs_path(torch, card):
     vision_graph_gate(torch, card)
     runs = in_turns(torch,
                     lambda g, r: vision_graph_arm(torch, card, g, r),
-                    "16c ResNet-50 v1 NHWC, cuDNN's default algorithms")
+                    "16c ResNet-50 v1 NHWC, cuDNN's default algorithms",
+                    rounds=VISION_GRAPH_ROUNDS)
     e1, e2, g1 = runs[False][0], runs[False][1], runs[True][0]
     print(f"  16c control: moving statistics after 3 steps, eager round 1 "
           f"vs round 2 {worst_relerr(e1['stats'], e2['stats']):.3e}, "
@@ -7697,6 +7770,425 @@ def symbolic_path(torch, card):
     return by_path
 
 
+# ------------------ phase 26: sparse storage, mx.np and mx.image (A9.2)
+
+def bow_net(sparse_grad):
+    """``example/train_sparse_embedding.py``'s BowClassifier on the port:
+    a BOW_VOCAB x BOW_DIM embedding (``sparse_grad`` as given) averaged
+    over the tokens, then a Dense(2)."""
+    from mxnet_tpu_torch.gluon import nn
+
+    class BowClassifier(nn.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(BOW_VOCAB, BOW_DIM,
+                                      sparse_grad=sparse_grad)
+            self.out = nn.Dense(2)
+
+        def forward(self, toks):
+            return self.out(self.embed(toks).mean(axis=1))
+
+    return BowClassifier()
+
+
+def bow_batches():
+    """The example's task from the seed: each class's tokens from its own
+    1000-row region.  BOW_WARM + BOW_STEPS (tokens, labels) batches."""
+    rs = np.random.RandomState(SEED)
+    out = []
+    for _ in range(BOW_WARM + BOW_STEPS):
+        y = rs.randint(0, 2, (BOW_B,)).astype(np.int32)
+        toks = (rs.randint(0, 1000, (BOW_B, BOW_T))
+                + y[:, None] * 1000).astype(np.int32)
+        out.append((toks, y))
+    return out
+
+
+def bow_arm(torch, mx, init, batches, sparse_grad, opt):
+    """One Trainer arm from the weights ``init``: BOW_WARM steps, then
+    BOW_STEPS timed.  Returns its ms/step, the peak MiB it allocated
+    above what was allocated before it, the rows each sparse gradient
+    held, its losses and its final weights (host)."""
+    free(torch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    net = bow_net(sparse_grad)
+    net.initialize()
+    with mx.autograd.pause():
+        net(mx.nd.array(batches[0][0], dtype="int32"))   # settle Dense
+    params = net.collect_params()
+    for k, p in params.items():
+        p.set_data(init[k])
+    lr = BOW_ADAM_LR if opt == "adam" else BOW_SGD_LR
+    tr = mx.gluon.Trainer(params, opt, {"learning_rate": lr})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    emb = params["embed.weight"]
+    rows, losses = [], []
+
+    def step(i):
+        toks, y = batches[i]
+        with mx.autograd.record():
+            loss = loss_fn(net(mx.nd.array(toks, dtype="int32")),
+                           mx.nd.array(y, dtype="int32"))
+        loss.backward()
+        if sparse_grad:
+            g = emb.grad()
+            if g.stype != "row_sparse" or g._data is not None:
+                raise AssertionError("26a the sparse gradient densified")
+            rows.append(int(g._sp_indices.numel()))
+        tr.step(BOW_B)
+        losses.append(loss.mean().tensor)
+
+    for i in range(BOW_WARM):
+        step(i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(BOW_WARM, BOW_WARM + BOW_STEPS):
+        step(i)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / BOW_STEPS
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    weights = {k: p.data().asnumpy() for k, p in params.items()}
+    out = dict(ms=ms, peak=peak, rows=rows, weights=weights,
+               losses=[float(x) for x in losses])
+    del net, tr, params, emb
+    free(torch)
+    return out
+
+
+def bow_plain_adam(init, batches):
+    """A plain numpy (float64) forward, backward and lazy Adam of the
+    BowClassifier over ``batches``: the gradient of the summed
+    cross-entropy over the batch, rescaled by 1 / BOW_B as
+    ``Trainer.step`` does; the embedding's rows updated only where a
+    batch looks them up, with their own step counts' bias correction
+    (every row shares the count, as the lazy update keeps one count a
+    parameter).  Returns the final weights."""
+    w = {k: v.astype(np.float64) for k, v in init.items()}
+    m = {k: np.zeros_like(v) for k, v in w.items()}
+    v2 = {k: np.zeros_like(v) for k, v in w.items()}
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    for t, (toks, y) in enumerate(batches, start=1):
+        e = w["embed.weight"][toks]                        # (B, T, D)
+        h = e.mean(axis=1)
+        logits = h @ w["out.weight"].T + w["out.bias"]
+        p = np.exp(logits - logits.max(1, keepdims=True))
+        p /= p.sum(1, keepdims=True)
+        p[np.arange(len(y)), y] -= 1.0
+        d = p / BOW_B                                      # rescale_grad
+        grads = {"out.weight": d.T @ h, "out.bias": d.sum(0)}
+        dh = d @ w["out.weight"]
+        uniq, inv = np.unique(toks.ravel(), return_inverse=True)
+        rows = np.zeros((len(uniq), BOW_DIM))
+        np.add.at(rows, inv, np.repeat(dh / BOW_T, BOW_T, axis=0))
+        coef = BOW_ADAM_LR * np.sqrt(1 - b2 ** t) / (1 - b1 ** t)
+        for k, g in grads.items():
+            m[k] = b1 * m[k] + (1 - b1) * g
+            v2[k] = b2 * v2[k] + (1 - b2) * g * g
+            w[k] = w[k] - coef * m[k] / (np.sqrt(v2[k]) + eps)
+        k = "embed.weight"
+        m[k][uniq] = b1 * m[k][uniq] + (1 - b1) * rows
+        v2[k][uniq] = b2 * v2[k][uniq] + (1 - b2) * rows * rows
+        w[k][uniq] = w[k][uniq] - coef * m[k][uniq] / (
+            np.sqrt(v2[k][uniq]) + eps)
+    return w
+
+
+def rel_maxabs(got, want) -> float:
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def sparse_part(torch, mx, card):
+    """26a: the sparse embedding trained at its width, in three Trainer
+    arms one after another (lazy Adam on the sparse gradient, Adam with
+    sparse_grad=False, plain SGD on the sparse and on the dense
+    gradient), row_sparse_pull and sparse.dot at the batch's size."""
+    from mxnet_tpu_torch.ndarray import sparse
+    batches = bow_batches()
+    mx.random.seed(SEED)
+    net = bow_net(True)
+    net.initialize(mx.init.Xavier())
+    with mx.autograd.pause():
+        net(mx.nd.array(batches[0][0], dtype="int32"))
+    init = {k: p.data().tensor.detach().clone()
+            for k, p in net.collect_params().items()}
+    init_host = {k: t.cpu().numpy() for k, t in init.items()}
+    del net
+    print(f"26a BowClassifier: Embedding({BOW_VOCAB}, {BOW_DIM}) and "
+          f"Dense(2), batch {BOW_B} x {BOW_T} tokens, {BOW_WARM} warm-up "
+          f"and {BOW_STEPS} timed steps an arm [{card}]", flush=True)
+    arms = {}
+    for name, sg, opt in (("adam sparse", True, "adam"),
+                          ("adam dense", False, "adam"),
+                          ("sgd sparse", True, "sgd"),
+                          ("sgd dense", False, "sgd")):
+        arms[name] = a = bow_arm(torch, mx, init, batches, sg, opt)
+        if not all(np.isfinite(a["losses"])):
+            raise AssertionError(f"26a {name} losses not finite")
+        print(f"  {name}: {a['ms']:.3f} ms/step, peak {a['peak']:.1f} MiB "
+              f"above the arm's start, loss {a['losses'][0]:.4f} -> "
+              f"{a['losses'][-1]:.4f}"
+              + (f", rows touched a step {min(a['rows'])}-{max(a['rows'])}"
+                 if a["rows"] else "") + f" [{card}]", flush=True)
+    rows = arms["adam sparse"]["rows"] + arms["sgd sparse"]["rows"]
+    if max(rows) > BOW_B * BOW_T:
+        raise AssertionError(f"26a a sparse gradient held {max(rows)} rows")
+    saved = arms["adam dense"]["peak"] - arms["adam sparse"]["peak"]
+    print(f"  26a the sparse arm's peak is {saved:.1f} MiB below the dense "
+          f"arm's; the dense gradient is "
+          f"{BOW_DENSE_GRAD_BYTES / 2 ** 20:.1f} MiB [{card}]", flush=True)
+    if saved * 2 ** 20 < BOW_DENSE_GRAD_BYTES:
+        raise AssertionError("26a the sparse arm's peak is not a dense "
+                             "gradient below the dense arm's")
+    for k in init_host:
+        n = BOW_STEPS + BOW_WARM
+        check(f"26a SGD sparse vs dense gradient, {k} after {n} steps "
+              f"(max-abs over max-abs) [{card}]",
+              rel_maxabs(arms["sgd sparse"]["weights"][k],
+                         arms["sgd dense"]["weights"][k]), TOL_BOW_SGD)
+    plain = bow_plain_adam(init_host, batches)
+    for k in init_host:
+        check(f"26a lazy Adam on the card vs a plain numpy lazy Adam on the "
+              f"CPU, {k} (max-abs over max-abs) [{card}]",
+              rel_maxabs(arms["adam sparse"]["weights"][k], plain[k]),
+              TOL_BOW_ADAM)
+    untouched = np.setdiff1d(np.arange(BOW_VOCAB),
+                             np.unique(np.concatenate(
+                                 [t.ravel() for t, _ in batches])))
+    if not np.array_equal(arms["adam sparse"]["weights"]["embed.weight"]
+                          [untouched], init_host["embed.weight"][untouched]):
+        raise AssertionError("26a lazy Adam moved a row no batch touched")
+    del arms
+    table = init["embed.weight"]
+    kv = mx.kv.create("device")
+    kv.init("embed", mx.nd.NDArray(table))
+    ids = np.random.RandomState(SEED + 1).randint(0, BOW_VOCAB,
+                                                  BOW_PULL_IDS)
+    out = sparse.zeros("row_sparse", (BOW_VOCAB, BOW_DIM))
+    t0 = time.perf_counter()
+    kv.row_sparse_pull("embed", out=out, row_ids=mx.nd.array(
+        ids, dtype="int64"))
+    torch.cuda.synchronize()
+    pull_ms = (time.perf_counter() - t0) * 1e3
+    want = np.unique(ids)
+    if out._data is not None or \
+            out._sp_indices.cpu().numpy().tolist() != want.tolist() or \
+            not torch.equal(out._sp_data, table[torch.from_numpy(
+                want).to(table.device)]):
+        raise AssertionError("26a row_sparse_pull did not return exactly "
+                             "the rows asked for")
+    print(f"  26a row_sparse_pull of {BOW_PULL_IDS} ids ({len(want)} "
+          f"unique) from a {BOW_VOCAB}-row key: exact, {pull_ms:.3f} ms "
+          f"[{card}]", flush=True)
+    del kv
+    toks = batches[0][0]
+    indptr = np.arange(0, BOW_B * BOW_T + 1, BOW_T)
+    csr = sparse.csr_matrix((np.ones(BOW_B * BOW_T, np.float32),
+                             toks.ravel(), indptr),
+                            shape=(BOW_B, BOW_VOCAB))
+    got = sparse.dot(csr, mx.nd.NDArray(table)).tensor
+    want_t = table[torch.from_numpy(toks).to(table.device).long()].sum(1)
+    check(f"26a sparse.dot of the batch's bag of words ({BOW_B} x "
+          f"{BOW_VOCAB}, {BOW_T} a row) vs the gather-and-sum (max-abs "
+          f"over max-abs) [{card}]",
+          float((got - want_t).abs().max() / want_t.abs().max()),
+          TOL_BOW_DOT)
+    return dict(rows=[min(rows), max(rows)], saved_mib=saved)
+
+
+def np_card_part(torch, mx, card):
+    """26b: every float op of the reference's mx.np table once on a CUDA
+    array and once on the CPU (tools/np_cases.py), and the gradients of
+    its sample of differentiable ops."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "tools"))
+    import np_cases as C
+    np_mod = mx.np
+
+    def on(ctx):
+        return lambda a: np_mod.array(a, dtype=a.dtype, ctx=ctx)
+
+    def unsign(r):
+        return [unsign(x) for x in r] if isinstance(r, list) else (
+            np.abs(r) if isinstance(r, np.ndarray) else r)
+
+    cases = [c for c in C.cases() if c.floating()]
+    checked, failed = 0, []
+    for c in cases:
+        with mx.gpu(0):
+            got = C.run(c, np_mod, on(mx.gpu(0)))
+        with mx.cpu():
+            want = C.run(c, np_mod, on(mx.cpu()))
+        if got[0] != "ok":
+            failed.append(f"{c.id}: raised {got[1]} on the card")
+            continue
+        if c.id in NP_SIGN_FREE:
+            got, want = ("ok", unsign(got[1])), ("ok", unsign(want[1]))
+        diff = C.agree(c, want, got)
+        if diff:
+            failed.append(diff)
+        checked += 1
+    grads, worst = 0, 0.0
+    for c in (c for c in C.cases() if c.grad):
+        res = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            with ctx:
+                xs = []
+
+                def make(a):
+                    x = on(ctx)(a)
+                    if a.dtype.kind == "f":
+                        x.attach_grad()
+                        xs.append(x)
+                    return x
+                args = C._args(c.args, np_mod, make)
+                kw = C._args(c.kwargs, np_mod, make)
+                with mx.autograd.record():
+                    out = C.resolve(c.name, np_mod)(*args, **kw)
+                    out = out[0] if isinstance(out, list) else out
+                    (out * out).sum().backward()
+                res.append([x.grad.asnumpy() for x in xs])
+        for g, w in zip(*res):
+            err = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+            worst = max(worst, err)
+            if err > TOL_NP_GRAD:
+                failed.append(f"{c.id} gradient: {err:.3e}")
+        grads += 1
+    print(f"  26b mx.np on the card vs the CPU: {checked} float ops of "
+          f"{len(cases)} checked at their tolerances, {grads} gradients "
+          f"(worst {worst:.3e}, tol {TOL_NP_GRAD:g}); {len(failed)} "
+          f"failed [{card}]", flush=True)
+    if failed:
+        raise AssertionError(f"26b mx.np disagrees on the card: {failed}")
+    return dict(ops=checked, grads=grads, worst_grad=worst)
+
+
+def image_rec(root):
+    """IMG_N seeded IMG_SRC^2 RGB images (smooth: seeded 32^2 noise
+    resized bilinear), JPEG-packed with their labels into one .rec."""
+    from PIL import Image
+    from mxnet_tpu_torch import recordio
+    path = os.path.join(root, "images.rec")
+    rs = np.random.RandomState(SEED)
+    w = recordio.MXRecordIO(path, "w")
+    for i in range(IMG_N):
+        small = rs.randint(0, 256, (32, 32, 3)).astype(np.uint8)
+        img = np.asarray(Image.fromarray(small).resize(
+            (IMG_SRC, IMG_SRC), Image.BILINEAR))
+        w.write(recordio.pack_img(recordio.IRHeader(
+            0, float(rs.randint(0, 100)), i, 0), img, quality=IMG_QUALITY))
+    w.close()
+    return path
+
+
+def image_iter(mx, path):
+    """An ImageIter over ``path`` with IMG_AUG's augmenters, shuffled,
+    from the seeds (Python's ``random`` and numpy's, which it draws
+    from)."""
+    import random
+    random.seed(SEED)
+    np.random.seed(SEED)
+    augs = mx.image.CreateAugmenter(
+        data_shape=(3, VISION_SIZE, VISION_SIZE), **IMG_AUG)
+    return mx.image.ImageIter(batch_size=VISION_B,
+                              data_shape=(3, VISION_SIZE, VISION_SIZE),
+                              path_imgrec=path, aug_list=augs, shuffle=True)
+
+
+def image_part(torch, mx, card, root):
+    """26c: mx.image feeding ResNet-50 v1 NHWC amp through
+    DevicePrefetcher, against the same step on resident batches."""
+    from mxnet_tpu_torch.data import DevicePrefetcher
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    t0 = time.perf_counter()
+    path = image_rec(root)
+    print(f"26c {IMG_N} seeded {IMG_SRC}x{IMG_SRC} JPEG records "
+          f"({os.path.getsize(path) / 2 ** 20:.1f} MiB) written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    want = [(b.data[0].asnumpy(), b.label[0].asnumpy())
+            for b in image_iter(mx, path)]
+    host_s = time.perf_counter() - t0
+    n_steps = len(want)
+    print(f"  26c ImageIter alone (PIL decode, {len(IMG_AUG)} augmenter "
+          f"settings, one host thread): {n_steps * VISION_B / host_s:.1f} "
+          f"images/s [{card}]", flush=True)
+    resident = [(torch.from_numpy(d).cuda().permute(0, 2, 3, 1)
+                 .contiguous(), torch.from_numpy(l).cuda())
+                for d, l in want]
+    mx.amp.init("bfloat16")
+    try:
+        net = resnet50()
+        net.initialize(seed=SEED)
+        tr = ShardedTrainer(net, "sgd", loss=vision_ce,
+                            optimizer_params=VISION_OPT)
+        first = float(tr.step(resident[0][0], (resident[0][1],)))
+        torch.cuda.synchronize()
+        pf = tr.attach_data_source(DevicePrefetcher(image_iter(mx, path),
+                                                    depth=IMG_DEPTH))
+        waits, losses, fed = [], [first], []
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            b = pf.next()
+            waits.append(pf.last_wait_seconds)
+            d, l = b.data[0].tensor, b.label[0].tensor
+            fed.append((d, l))
+            losses.append(tr.step(d.permute(0, 2, 3, 1).contiguous(),
+                                  (l,)))
+        torch.cuda.synchronize()
+        fed_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        pf.close()
+        same = len(fed) == n_steps and all(
+            np.array_equal(d.cpu().numpy(), w[0])
+            and np.array_equal(l.cpu().numpy(), w[1])
+            for (d, l), w in zip(fed, want))
+        del fed
+        t0 = time.perf_counter()
+        for d, l in resident:
+            losses.append(tr.step(d, (l,)))
+        torch.cuda.synchronize()
+        res_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    finally:
+        mx.amp.reset()
+    losses = [float(x) for x in losses]
+    p50, mx_ = quantiles(waits)
+    print(f"  26c ResNet-50 v1 NHWC amp B{VISION_B}: fed by ImageIter -> "
+          f"DevicePrefetcher {fed_ms:.1f} ms/step, input wait p50 "
+          f"{p50:.1f} ms, max {mx_:.1f} ms; resident {res_ms:.1f} ms/step; "
+          f"losses {[round(x, 4) for x in losses]} [{card}]", flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError("26c losses not finite")
+    if not same:
+        raise AssertionError("26c the prefetched batches differ from a "
+                             "second ImageIter's from the same seeds")
+    print(f"  26c the {n_steps} fed batches equal a second ImageIter's from "
+          f"the same seeds, bit for bit", flush=True)
+    del tr, net, resident
+    free(torch)
+    return dict(host_images_per_s=n_steps * VISION_B / host_s,
+                fed_ms=fed_ms, resident_ms=res_ms, wait_p50_ms=p50,
+                wait_max_ms=mx_)
+
+
+def a92_path(torch, card):
+    """Phase 26: queue A9.2 on the card, float32 (TF32 off) but 26c's
+    amp.  Launches none of the port's kernels (gated by the caller)."""
+    import tempfile
+    import mxnet_tpu_torch as mx
+    t_phase = time.monotonic()
+    out = {"a": sparse_part(torch, mx, card)}
+    free(torch)
+    print("26b mx.np on the card:", flush=True)
+    out["b"] = np_card_part(torch, mx, card)
+    free(torch)
+    with tempfile.TemporaryDirectory() as d:
+        out["c"] = image_part(torch, mx, card, d)
+    print(json.dumps({"a92": out}), flush=True)
+    print(f"phase 26: {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+
+
 def write_phase_seconds(seconds):
     """Print the seconds of every phase and write them to
     ``chiprun_out/chip_smoke_phases.json`` beside this script."""
@@ -7852,6 +8344,14 @@ def main() -> int:
     free(torch)
     with phase("25"):
         by_path.update(symbolic_path(torch, card))
+    free(torch)
+    reset_launches()
+    with phase("26"):
+        a92_path(torch, card)
+    by_path["a92"] = read_launches()
+    if any(by_path["a92"].values()):
+        raise AssertionError(f"phase 26 launched a kernel of the port: "
+                             f"{by_path['a92']}")
     write_phase_seconds(seconds)
     # each kernel's launches on the path that is its own: the training
     # path for the flash kernels, the serving path for paged attention;

@@ -11,8 +11,9 @@ for paged attention.  Entry points run on the current CUDA device unless
 the caller asks for the CPU (``device="cpu"``, ``ctx=mx.cpu()`` or
 ``with mx.cpu():``); without a card they raise.  The symbolic surface
 (``mx.sym``, ``mx.mod`` with ``metric``/``callback``/``model``/
-``monitor``/``viz``, ``subgraph``, ``onnx``, ``name``, ``attribute``)
-is imported at first use, as in the reference.
+``monitor``/``viz``, ``subgraph``, ``onnx``, ``name``, ``attribute``),
+``np`` / ``npx``, ``image``, ``util``, ``test_utils``, ``runtime``,
+``engine`` and ``rtc`` are imported at first use, as in the reference.
 """
 from . import (amp, analysis, autograd, base, context, gluon, initializer,
                lr_scheduler, models, ndarray, observability, ops, optimizer,
@@ -42,7 +43,10 @@ _LAZY = {
     "model": ".model", "monitor": ".monitor", "mon": ".monitor",
     "viz": ".visualization", "visualization": ".visualization",
     "subgraph": ".subgraph", "onnx": ".onnx", "name": ".name",
-    "attribute": ".attribute",
+    "attribute": ".attribute", "np": ".numpy", "npx": ".numpy_extension",
+    "numpy": ".numpy", "numpy_extension": ".numpy_extension",
+    "image": ".image", "util": ".util", "test_utils": ".test_utils",
+    "runtime": ".runtime", "engine": ".engine", "rtc": ".rtc",
 }
 
 

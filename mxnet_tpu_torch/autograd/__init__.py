@@ -128,12 +128,50 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     reached leaf's buffer: written for ``grad_req='write'``, added for
     ``'add'``.  A leaf with no buffer gets one."""
     ts, gs = _head_tensors(heads, head_grads)
+    sparse = []
     with torch.no_grad():
         for leaf in _graph_leaves(ts):
-            if getattr(leaf, "_mx_grad_req", "write") == "write" and \
-                    leaf.grad is not None:
+            write = getattr(leaf, "_mx_grad_req", "write") == "write"
+            if getattr(leaf, "_mx_grad_stype", "default") == "row_sparse":
+                sparse.append(leaf)
+                leaf.grad = None if write else _sparse_prior(leaf)
+            elif write and leaf.grad is not None:
                 leaf.grad.zero_()
-    torch.autograd.backward(ts, gs, retain_graph=retain_graph)
+    try:
+        torch.autograd.backward(ts, gs, retain_graph=retain_graph)
+    finally:
+        for leaf in sparse:
+            _absorb_sparse(leaf)
+
+
+def _sparse_prior(leaf):
+    """What a row-sparse ``'add'`` buffer holds, as the ``.grad`` torch
+    adds onto: a sparse COO tensor while compact, its dense form once a
+    dense gradient landed, None while empty."""
+    from ..ndarray.ndarray import sparse_grad_buffer
+    from ..ndarray.sparse import to_torch_grad
+    h = sparse_grad_buffer(leaf)
+    if h._data is not None and h._sp_data is h._data:     # made dense
+        return h._data.clone()
+    return to_torch_grad(h) if h._sp_indices.numel() else None
+
+
+def _absorb_sparse(leaf):
+    """Move what torch accumulated in a row-sparse leaf's ``.grad`` into
+    its buffer, in place: a sparse gradient (one or more sparse lookups)
+    stays compact, coalesced into unique rows; a dense one (a dense op on
+    the weight, a hybridized call) makes the buffer dense with every row
+    present, as the reference's tape adds sparse and dense cotangents."""
+    from ..ndarray.ndarray import sparse_grad_buffer
+    from ..ndarray.sparse import from_torch_grad
+    g, leaf.grad = leaf.grad, None
+    h = sparse_grad_buffer(leaf)
+    if g is None:
+        h._set_components(h._sp_data[:0], h._sp_indices[:0])
+    elif g.is_sparse:
+        h._set_components(*from_torch_grad(g.detach()))
+    else:
+        h._set_dense(g.detach())
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
@@ -147,8 +185,19 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     vs = [v._t for v in variables]
     out = torch.autograd.grad(ts, vs, gs, retain_graph=retain_graph,
                               create_graph=create_graph, allow_unused=True)
-    return [NDArray(torch.zeros_like(v) if g is None else g)
-            for v, g in zip(vs, out)]
+    return [_grad_array(v, g) for v, g in zip(vs, out)]
+
+
+def _grad_array(v, g):
+    """A gradient of ``autograd.grad`` as an array: zeros where none
+    reached ``v``, a ``RowSparseNDArray`` for a sparse lookup's."""
+    if g is None:
+        return NDArray(torch.zeros_like(v))
+    if g.is_sparse:
+        from ..ndarray.sparse import RowSparseNDArray, from_torch_grad
+        data, idx = from_torch_grad(g)
+        return RowSparseNDArray.from_components(data, idx, tuple(v.shape))
+    return NDArray(g)
 
 
 class _Bridge(torch.autograd.Function):

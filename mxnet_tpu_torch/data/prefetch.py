@@ -489,7 +489,10 @@ class DevicePrefetcher:
         """Feeder died (killed/crashed): the consumer now owns the
         source and degrades to synchronous pulls at the feeder's last
         clean offset — batches keep flowing, each one counted as a
-        fallback, sequence unchanged."""
+        fallback, sequence unchanged.  The dead feeder is joined first:
+        it set ``_crashed`` as its last act, so the join is short, and
+        once the consumer owns the source no feeder is alive."""
+        self._join_feeder()
         try:
             if self._skip:  # raceguard: unguarded(takeover runs only after the feeder died — the consumer inherited sole ownership of the source state)
                 for _ in range(self._skip):  # raceguard: unguarded(post-crash consumer ownership: see above)

@@ -56,7 +56,7 @@ from .. import initializer as init_mod
 from ..base import MXNetError, torch_dtype
 from ..context import resolve_device
 from ..ndarray.ndarray import NDArray
-from ..utils.graphs import in_program
+from ..utils.graphs import compile_enabled, in_program
 from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict, SeededDraws, defer, deferred_device,
                         finish_deferred, is_initialized, materialize,
@@ -112,12 +112,14 @@ class Block(torch.nn.Module):
 
     def _new_param(self, attr: str, shape, dtype="float32", init=None,
                    allow_deferred_init=False, grad_req="write",
-                   differentiable=True, lr_mult=1.0, wd_mult=1.0):
+                   differentiable=True, lr_mult=1.0, wd_mult=1.0,
+                   grad_stype="default"):
         """Register a new uninitialized parameter ``attr``; a 0 in
         ``shape`` is inferred at the first call."""
         p = new_parameter(shape, dtype, init=init,
                           allow_deferred_init=allow_deferred_init,
-                          grad_req=grad_req if differentiable else "null")
+                          grad_req=grad_req if differentiable else "null",
+                          grad_stype=grad_stype)
         if lr_mult != 1.0:
             p._mx_lr_mult = lr_mult
         if wd_mult != 1.0:
@@ -401,7 +403,7 @@ class HybridBlock(Block):
         if not inline and args and isinstance(
                 args[0], (torch.Tensor, NDArray, list, tuple)):
             self._export_args = _signature(args)
-        if not self._active or inline:
+        if not self._active or inline or not compile_enabled():
             return super().__call__(*args, **kwargs)
         for _ in range(2):
             try:

@@ -28,6 +28,7 @@ from ... import random as _random
 from ...ndarray import ops
 from ...ndarray.ops import ACTIVATION_FNS
 from ...ops import dots as _dots
+from ...utils.graphs import in_program
 from ..block import Block, HybridBlock, _run_nd
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "Embedding",
@@ -144,21 +145,30 @@ class Dropout(HybridBlock):
 
 class Embedding(HybridBlock):
     """Row lookup; out-of-range ids clamp to the table, as the
-    reference's ``take(mode='clip')`` does."""
+    reference's ``take(mode='clip')`` does.  With ``sparse_grad`` the
+    weight's gradient is a compact ``RowSparseNDArray`` (the unique rows
+    looked up, each with its summed gradient: torch's sparse embedding
+    gradient, coalesced by ``autograd.backward``).  Inside a compiled
+    program (``hybridize``, a ``ShardedTrainer`` step) the lookup's
+    gradient is dense, as the reference's is under a trace."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, prefix=None,
                  params=None):
         super().__init__(prefix=prefix, params=params)
-        if sparse_grad:
-            raise _base.MXNetError("sparse_grad is not ported (ROADMAP A9)")
         self._input_dim = input_dim
         self._output_dim = output_dim
+        self._sparse_grad = sparse_grad
         self._new_param("weight", (input_dim, output_dim), dtype,
-                        init=weight_initializer, allow_deferred_init=True)
+                        init=weight_initializer, allow_deferred_init=True,
+                        grad_stype="row_sparse" if sparse_grad
+                        else "default")
 
     def forward(self, x):
-        return F.embedding(x.clamp(0, self._input_dim - 1), self.weight)
+        sparse = self._sparse_grad and torch.is_grad_enabled() and \
+            not in_program()
+        return F.embedding(x.clamp(0, self._input_dim - 1), self.weight,
+                           sparse=sparse)
 
     def __repr__(self):
         return f"Embedding({self._input_dim} -> {self._output_dim})"

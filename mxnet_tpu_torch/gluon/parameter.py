@@ -34,7 +34,7 @@ from .. import initializer as init_mod
 from .. import random as _random
 from ..base import MXNetError, torch_dtype
 from ..context import Context, _scope, resolve_device
-from ..ndarray.ndarray import NDArray, _numpy_dtype
+from ..ndarray.ndarray import NDArray, _numpy_dtype, sparse_grad_buffer
 
 __all__ = ["DeferredInitializationError", "new_parameter", "is_initialized",
            "shape_known", "replace_parameter", "Parameter", "Constant",
@@ -42,7 +42,9 @@ __all__ = ["DeferredInitializationError", "new_parameter", "is_initialized",
 
 # the tensor attributes a parameter keeps its settings in
 CARRIED_ATTRS = ("_mx_grad_req", "_mx_lr_mult", "_mx_wd_mult", "_mx_init",
-                 "_mx_allow_deferred", "_logical_axes")
+                 "_mx_allow_deferred", "_logical_axes", "_mx_stype",
+                 "_mx_grad_stype")
+STYPES = ("default", "row_sparse", "csr")
 
 
 class DeferredInitializationError(MXNetError):
@@ -80,12 +82,18 @@ class SeededDraws:
 
 
 def new_parameter(shape, dtype=torch.float32, *, init=None,
-                  allow_deferred_init=False,
-                  grad_req="write") -> torch.nn.Parameter:
+                  allow_deferred_init=False, grad_req="write",
+                  stype="default",
+                  grad_stype="default") -> torch.nn.Parameter:
     """An uninitialized (meta-device) parameter of ``shape``/``dtype``;
     a dimension of 0 is unknown until the first forward.  ``init`` (an
     initializer or its name) is attached to the parameter and wins over
-    the name rule."""
+    the name rule.  ``grad_stype='row_sparse'`` gives it a compact
+    gradient buffer (``RowSparseNDArray``); ``stype`` is recorded, the
+    weight itself stays dense (as the reference's)."""
+    for st in (stype, grad_stype):
+        if st not in STYPES:
+            raise MXNetError(f"unknown storage type {st!r}")
     p = torch.nn.Parameter(
         torch.empty(tuple(int(s) for s in shape), dtype=torch_dtype(dtype),
                     device="meta"), requires_grad=grad_req != "null")
@@ -95,6 +103,10 @@ def new_parameter(shape, dtype=torch.float32, *, init=None,
         p._mx_init = init_mod.create(init)
     if allow_deferred_init:
         p._mx_allow_deferred = True
+    if stype != "default":
+        p._mx_stype = stype
+    if grad_stype != "default":
+        p._mx_grad_stype = grad_stype
     return p
 
 
@@ -209,13 +221,11 @@ class Parameter:
                  dtype="float32", lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
-        if stype != "default" or grad_stype != "default":
-            raise MXNetError("sparse parameters are not ported "
-                             "(ROADMAP A9)")
         holder = torch.nn.Module()
         p = new_parameter(() if shape is None else shape, dtype, init=init,
                           allow_deferred_init=allow_deferred_init,
-                          grad_req=grad_req if differentiable else "null")
+                          grad_req=grad_req if differentiable else "null",
+                          stype=stype, grad_stype=grad_stype)
         if shape is None:
             p._mx_shape_unset = True
         holder.register_parameter("value", p)
@@ -276,6 +286,14 @@ class Parameter:
     def _setting(self, key):
         return getattr(self.tensor, key, 1.0)
 
+    @property
+    def stype(self) -> str:
+        return getattr(self.tensor, "_mx_stype", "default")
+
+    @property
+    def grad_stype(self) -> str:
+        return getattr(self.tensor, "_mx_grad_stype", "default")
+
     lr_mult = property(lambda self: self._setting("_mx_lr_mult"),
                        lambda self, v: setattr(self.tensor, "_mx_lr_mult", v))
     wd_mult = property(lambda self: self._setting("_mx_wd_mult"),
@@ -314,6 +332,8 @@ class Parameter:
         if not t.requires_grad:
             raise MXNetError(f"Parameter '{self._name}' has grad_req='null'"
                              " — no gradient buffer")
+        if self.grad_stype == "row_sparse":
+            return sparse_grad_buffer(t)
         if t.grad is None:
             t.grad = torch.zeros_like(t)
         return NDArray(t.grad, alias=True)
@@ -326,7 +346,16 @@ class Parameter:
         return [Context(t.device)] if is_initialized(t) else []
 
     def zero_grad(self):
+        """Zero the gradient buffer; a row-sparse one keeps no rows (it
+        stays compact)."""
         t = self.tensor
+        h = getattr(t, "_mx_rsp_grad", None)
+        if h is not None:
+            h._set_components(
+                torch.zeros((0,) + tuple(t.shape[1:]), dtype=t.dtype,
+                            device=t.device),
+                torch.zeros((0,), dtype=torch.int64, device=t.device))
+            h._sp_shape = tuple(t.shape)
         if t.grad is not None:
             t.grad.zero_()
 

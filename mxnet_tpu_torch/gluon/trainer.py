@@ -155,8 +155,9 @@ class Trainer:
     def _update(self, ignore_stale_grad=False):
         """One list-wise optimizer step over every parameter with a
         gradient (``Optimizer.update_multi``), as the reference's
-        ``update`` compiles into one program; nothing when the kvstore
-        updated the weights."""
+        ``update`` compiles into one program; a row-sparse gradient goes
+        to the updater's lazy row update (``Updater``), not through the
+        list; nothing when the kvstore updated the weights."""
         if self._update_on_kvstore:
             return
         indices, grads, datas = [], [], []

@@ -13,6 +13,15 @@ runs the optimizer on the aggregated gradient inside the store; 2-bit
 gradient compression with per-(key, value) error feedback applies to
 each pushed value before the reduction, as ``gradient_compression.cc``.
 The ``KVStoreBase`` plugin registry is kept.
+
+Row-sparse values: in one process, pushing ``RowSparseNDArray``
+gradients to a store with an optimizer merges them compactly (their
+unique rows) into the updater's lazy row update, as the reference's
+``kvstore_local`` sparse push; ``row_sparse_pull`` gathers only the
+rows asked for into a row-sparse ``out``.  Every other path reads a
+row-sparse value's dense form, as the reference's ``_reduce`` does, and
+so does a push that must sum over the processes of a ``dist_*`` job
+(the reference's push never crosses processes there).
 """
 from __future__ import annotations
 
@@ -63,6 +72,17 @@ class KVStoreBase:
 
 def _t(x) -> torch.Tensor:
     return x.tensor if isinstance(x, NDArray) else x
+
+
+def _write(target, value: torch.Tensor):
+    """``value`` into ``target`` in place: a row-sparse target becomes
+    dense (every row present), keeping its handle."""
+    from ..ndarray.sparse import RowSparseNDArray
+    if isinstance(target, RowSparseNDArray):
+        target._set_dense(value.detach().to(target._sp_data.device,
+                                            copy=True))
+    else:
+        _t(target).copy_(value)
 
 
 class KVStore(KVStoreBase):
@@ -157,6 +177,7 @@ class KVStore(KVStoreBase):
                 self._updater(k, NDArray(g), self._store[k])
 
     def push(self, key, value, priority=0):
+        from ..ndarray.sparse import RowSparseNDArray, merge_rows
         _inject("kvstore.push")
         self._obs_push.inc()
         keys, values = _normalize(key, value)
@@ -167,6 +188,20 @@ class KVStore(KVStoreBase):
             if self._updater is not None and not self._compression and \
                     self._type.startswith("dist_async"):
                 self._apply_async(k, vals)
+                continue
+            if self._updater is not None and not self._compression and \
+                    self._dist_group() is None and \
+                    all(isinstance(x, RowSparseNDArray) for x in vals):
+                # compact into the updater's lazy row update
+                agg_rs = vals[0]
+                if len(vals) > 1:
+                    dev = vals[0]._sp_data.device
+                    data, idx = merge_rows(
+                        [x._sp_data.to(dev) for x in vals],
+                        [x._sp_indices.to(dev) for x in vals])
+                    agg_rs = RowSparseNDArray.from_components(
+                        data, idx, vals[0].shape)
+                self._updater(k, agg_rs, self._store[k])
                 continue
             agg = self._reduce(k, vals)
             if self._updater is not None:
@@ -184,7 +219,7 @@ class KVStore(KVStoreBase):
             src = _t(self._store[k])
             with torch.no_grad():
                 for t in targets:
-                    _t(t).copy_(src)
+                    _write(t, src)
 
     def pushpull(self, key, value, out=None, priority=0):
         """Fused push+pull: ONE reduce per key (upstream
@@ -207,7 +242,7 @@ class KVStore(KVStoreBase):
                 targets = o if isinstance(o, list) else [o]
                 with torch.no_grad():
                     for t in targets:
-                        _t(t).copy_(agg)
+                        _write(t, agg)
 
     def broadcast(self, key, value, out, priority=0):
         """``value`` of the job's rank 0 into the store and ``out`` on
@@ -220,6 +255,45 @@ class KVStore(KVStoreBase):
             collectives.broadcast_([t], 0, self._dist_group())
             self._store[k] = NDArray(t)
         self.pull(key, out=out, priority=priority)
+
+    def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
+        """Pull only the requested rows of a key (parity: MXNet's
+        ``KVStore::PullRowSparse``, the unique-key gather of
+        ``kvstore_local.cc``): a ``RowSparseNDArray`` ``out`` receives
+        the unique ids, ascending, and their rows, gathered on the store
+        with ``index_select``; its dense form is never built.  An id out
+        of range raises.  A dense ``out`` (or no ``row_ids``) takes a
+        whole pull."""
+        from ..ndarray.sparse import RowSparseNDArray
+        if row_ids is None:
+            self.pull(key, out=out, priority=priority)
+            return
+        keys, outs = _normalize(key, out)
+        rows_list = row_ids if isinstance(row_ids, list) else \
+            [row_ids] * len(keys)
+        for k, o, rids in zip(keys, outs, rows_list):
+            targets = o if isinstance(o, list) else [o]
+            src = _t(self._store[k])
+            ids = _t(rids) if isinstance(rids, (NDArray, torch.Tensor)) \
+                else torch.as_tensor(rids)
+            uniq = torch.unique(ids.detach().reshape(-1).to(
+                device=src.device, dtype=torch.int64), sorted=True)
+            if uniq.numel():
+                lo, hi = int(uniq[0]), int(uniq[-1])
+                if lo < 0 or hi >= src.shape[0]:
+                    raise _base.MXNetError(
+                        f"row_sparse_pull row_ids out of range for key "
+                        f"{k}: [{lo}, {hi}] vs {src.shape[0]} rows")
+            rows = src.index_select(0, uniq)
+            for t in targets:
+                if isinstance(t, RowSparseNDArray):
+                    dev = t._sp_data.device
+                    t._sp_shape = tuple(src.shape)
+                    t._set_components(rows.to(dev, copy=True),
+                                      uniq.to(dev))
+                else:
+                    with torch.no_grad():
+                        _write(t, src)
 
     # -- optimizer --------------------------------------------------------
     def set_optimizer(self, optimizer):

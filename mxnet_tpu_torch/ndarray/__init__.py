@@ -30,3 +30,19 @@ def load(fname, ctx=None):
     (default: the current context)."""
     from ..utils.serialization import load as _load
     return {k: array(v, ctx=ctx) for k, v in _load(fname).items()}
+
+
+def __getattr__(name):
+    # mx.nd.sparse and mx.nd.cast_storage resolve at first use, as the
+    # reference's do
+    if name == "sparse":
+        import importlib
+        mod = importlib.import_module(".sparse", __name__)
+        globals()["sparse"] = mod
+        return mod
+    if name == "cast_storage":
+        from .sparse import cast_storage
+        globals()["cast_storage"] = cast_storage
+        return cast_storage
+    raise AttributeError(f"module 'mxnet_tpu_torch.ndarray' has no "
+                         f"attribute {name!r}")

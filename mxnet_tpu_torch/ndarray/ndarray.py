@@ -87,6 +87,20 @@ class NDArray:
     device = context
 
     @property
+    def stype(self) -> str:
+        """The storage type: ``'default'`` (dense); the sparse types are
+        :mod:`.sparse`'s classes."""
+        return "default"
+
+    def tostype(self, stype):
+        """This array in storage type ``stype`` (``'default'``,
+        ``'row_sparse'`` or ``'csr'``)."""
+        if stype == "default":
+            return self
+        from .sparse import cast_storage
+        return cast_storage(self, stype)
+
+    @property
     def itemsize(self) -> int:
         return self._t.element_size()
 
@@ -169,22 +183,37 @@ class NDArray:
     def attach_grad(self, grad_req: str = "write", stype=None):
         """Make the array a leaf of the next recorded graph with a zeroed
         gradient buffer; ``backward`` writes (``'write'``) or adds
-        (``'add'``) into it, or gives it none (``'null'``)."""
+        (``'add'``) into it, or gives it none (``'null'``).  With
+        ``stype='row_sparse'`` the buffer is a compact
+        ``RowSparseNDArray`` (no rows until a backward writes some)."""
         if grad_req not in ("write", "add", "null"):
             raise _base.MXNetError(f"grad_req must be 'write', 'add' or "
                                    f"'null', not {grad_req!r}")
         t = self._t if self._t.is_leaf else self._t.detach()
         t.requires_grad_(grad_req != "null")
-        t.grad = None if grad_req == "null" else torch.zeros_like(t)
         t._mx_grad_req = grad_req
+        if stype == "row_sparse" and grad_req != "null":
+            t.grad = None
+            t._mx_grad_stype = "row_sparse"
+            t._mx_rsp_grad = None
+            sparse_grad_buffer(t)
+        else:
+            t.grad = None if grad_req == "null" else torch.zeros_like(t)
         self._t = t
 
     @property
     def grad(self) -> "Optional[NDArray]":
-        """The gradient buffer (aliasing it), None until ``attach_grad``."""
-        if not self._t.is_leaf or self._t.grad is None:
+        """The gradient buffer (aliasing it), None until ``attach_grad``;
+        a ``RowSparseNDArray`` for a row-sparse gradient."""
+        t = self._t
+        if not t.is_leaf:
             return None
-        return NDArray(self._t.grad, alias=True)
+        if getattr(t, "_mx_grad_stype", "default") == "row_sparse" and \
+                t.requires_grad:
+            return sparse_grad_buffer(t)
+        if t.grad is None:
+            return None
+        return NDArray(t.grad, alias=True)
 
     def detach(self) -> "NDArray":
         return NDArray(self._t.detach())
@@ -445,6 +474,22 @@ class NDArray:
     def __array__(self, dtype=None, copy=None):
         a = self.asnumpy()
         return a.astype(dtype) if dtype is not None else a
+
+
+def sparse_grad_buffer(t: torch.Tensor):
+    """The row-sparse gradient buffer of leaf ``t`` (one handle for the
+    tensor's life, so every holder sees what ``backward`` writes),
+    created empty."""
+    h = getattr(t, "_mx_rsp_grad", None)
+    if h is None:
+        from .sparse import RowSparseNDArray
+        h = RowSparseNDArray.from_components(
+            torch.zeros((0,) + tuple(t.shape[1:]), dtype=t.dtype,
+                        device=t.device),
+            torch.zeros((0,), dtype=torch.int64, device=t.device),
+            tuple(t.shape))
+        t._mx_rsp_grad = h
+    return h
 
 
 def _dims(axis):

@@ -1169,10 +1169,21 @@ def FullyConnected(data, weight, bias=None, num_hidden=None,
 def Embedding(data, weight, input_dim=None, output_dim=None,
               dtype="float32", sparse_grad=False, **kw):
     like = _first_nd(data, weight)
+    weight = _as_nd(weight, like)
+    # a recorded lookup of a leaf weight outside a compiled program
+    # gives a sparse gradient (compact in a row-sparse buffer, added
+    # into a dense one), as the reference's eager sparse_grad path
+    sparse = bool(sparse_grad) and _base.is_recording() and \
+        weight._t.is_leaf and weight._t.requires_grad and not _in_program()
 
     def f(idx, w):
-        return Fn.embedding(_clip_index(idx, w.shape[0]), w)
-    return invoke("Embedding", f, [_as_nd(data, like), _as_nd(weight, like)])
+        return Fn.embedding(_clip_index(idx, w.shape[0]), w, sparse=sparse)
+    return invoke("Embedding", f, [_as_nd(data, like), weight])
+
+
+def _in_program():
+    from ..utils.graphs import in_program
+    return in_program()
 
 
 @_export

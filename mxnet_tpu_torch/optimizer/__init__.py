@@ -835,13 +835,27 @@ def _map_state(state, fn):
     return state
 
 
+def _put_rows(full, sub, rows, shape):
+    """Write the gathered rows ``sub`` of each state shaped ``shape``
+    back into ``full``, in place."""
+    if isinstance(full, (tuple, list)):
+        for f, s in zip(full, sub):
+            _put_rows(f, s, rows, shape)
+    elif isinstance(full, torch.Tensor) and tuple(full.shape) == shape:
+        full.index_copy_(0, rows, sub)
+
+
 class Updater:
     """Keeps one optimizer state per index and applies the optimizer to
     ``(index, grad, weight)``, NDArrays or tensors; the weight is updated
     in place.  ``index``, ``grad`` and ``weight`` may be lists, as in
     MXNet's aggregated update: the optimizer then takes one list-wise
-    step (:meth:`Optimizer.update_multi`).  The row-sparse lazy update is
-    not ported (the port has no sparse NDArray yet)."""
+    step (:meth:`Optimizer.update_multi`).  A ``RowSparseNDArray``
+    gradient takes the lazy row update instead (unless the optimizer's
+    ``lazy_update`` is False, which reads its dense form): only the rows
+    it holds touch the weight and the state, so the other rows skip
+    even the decay of their state (the reference's ``_lazy_row_update``,
+    MXNet's ``lazy_update=True`` on row-sparse gradients)."""
 
     def __init__(self, optimizer: Optimizer):
         self.optimizer = optimizer
@@ -861,12 +875,41 @@ class Updater:
         return self.states[index]
 
     def __call__(self, index, grad, weight):
+        from ..ndarray.sparse import RowSparseNDArray
         if not isinstance(index, (list, tuple)):
             index, grad, weight = [index], [grad], [weight]
-        ws = [getattr(w, "_t", w).detach() for w in weight]
-        gs = [getattr(g, "_t", g) for g in grad]
-        states = [self._state(i, w) for i, w in zip(index, ws)]
-        self.optimizer.update_multi(list(index), ws, gs, states)
+        lazy = getattr(self.optimizer, "lazy_update", True)
+        dense = []
+        for i, g, w in zip(index, grad, weight):
+            w = getattr(w, "_t", w).detach()
+            if isinstance(g, RowSparseNDArray) and lazy:
+                self._lazy_row_update(i, g, w)
+            else:
+                dense.append((i, w, getattr(g, "_t", g)))
+        if dense:
+            ids, ws, gs = (list(x) for x in zip(*dense))
+            states = [self._state(i, w) for i, w in zip(ids, ws)]
+            self.optimizer.update_multi(ids, ws, gs, states)
+
+    @torch.no_grad()
+    def _lazy_row_update(self, index, grad, w):
+        """The step on the rows of ``grad`` alone: they are gathered from
+        the weight and from every state shaped like it
+        (``index_select``), updated by the optimizer's own rule, and
+        written back in place (``index_copy_``)."""
+        rows = grad._sp_indices
+        state = self._state(index, w)
+
+        def take(s):
+            return s.index_select(0, rows) if tuple(s.shape) == \
+                tuple(w.shape) else s
+
+        sub_w = w.index_select(0, rows)
+        sub_state = _map_state(state, take)
+        self.optimizer.update_multi_precision(index, sub_w, grad._sp_data,
+                                              sub_state)
+        w.index_copy_(0, rows, sub_w)
+        _put_rows(state, sub_state, rows, tuple(w.shape))
 
     def get_states(self, dump_optimizer=False) -> bytes:
         """The states and update counts as the reference's bytes (a

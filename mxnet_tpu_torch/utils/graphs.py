@@ -55,10 +55,25 @@ import torch
 from ..ops import launches as _launches
 
 __all__ = ["StaticInputs", "Graph", "Program", "on_stream", "inside",
-           "in_program"]
+           "in_program", "compile_enabled", "set_compile"]
 
 _ALIGN = 16
 _RUNNING = threading.local()
+# the process-wide switch ``mx.util.disable_jit`` turns: while off, a
+# hybridized block runs its forward imperatively (the reference's
+# ``jax_disable_jit``, under which a jitted call runs op by op)
+_COMPILE = [True]
+
+
+def compile_enabled() -> bool:
+    return _COMPILE[0]
+
+
+def set_compile(flag: bool) -> bool:
+    """Turn hybridize's compiled programs on or off; returns the
+    previous setting."""
+    prev, _COMPILE[0] = _COMPILE[0], bool(flag)
+    return prev
 
 
 @contextlib.contextmanager

@@ -354,6 +354,37 @@ def test_feeder_kill_takeover_loses_nothing():
     assert "data.feeder_crash" in events
 
 
+def test_takeover_joins_the_dead_feeder(monkeypatch):
+    """The consumer takes over only after the killed feeder has exited:
+    a feeder slowed in its last act (the flight-recorder record after
+    ``_crashed``) is still joined, so ``feeder_alive`` is False and its
+    record is there once the batches are consumed."""
+    import threading
+    from mxnet_tpu_torch.data import prefetch as pmod
+    from mxnet_tpu_torch.observability import flightrecorder as frmod
+    real = pmod._fr_active
+
+    def slow_on_the_feeder():
+        if threading.current_thread() is not threading.main_thread():
+            time.sleep(0.5)
+        return real()
+
+    monkeypatch.setattr(pmod, "_fr_active", slow_on_the_feeder)
+    fr = frmod.enable(capacity=64)
+    try:
+        with FaultPlan().kill_at("data.prefetch", at=1):
+            pf = DevicePrefetcher(_batches(4), depth=2)
+            got = list(pf)
+            st = pf.stats()
+            events = [e.name for e in fr.events()]
+            pf.close()
+    finally:
+        frmod.disable()
+    assert len(got) == 4 and st["batches_fallback"] >= 3
+    assert st["feeder_alive"] is False
+    assert "data.feeder_crash" in events
+
+
 def test_stall_event_recorded():
     from mxnet_tpu_torch.observability import flightrecorder as frmod
 

@@ -150,11 +150,15 @@ def _ref_mlp_params():
                  for k, p in net._collect_params_with_prefix().items()}
 
 
+EMB_TABLE = onp.random.RandomState(12).randn(40, 4).astype("float32")
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     d = tmp_path_factory.mktemp("kvstore")
     _net, params = _ref_mlp_params()
     onp.savez(os.path.join(d, "mlp.npz"), **params)
+    onp.savez(os.path.join(d, "emb.npz"), table=EMB_TABLE)
     return params, W.launch(2, "kvstore", d)
 
 
@@ -188,6 +192,26 @@ def test_dist_sync_gluon_training_matches_the_whole_batch(run, ref_mlp,
     for k, v in ref_mlp[uok].items():
         onp.testing.assert_allclose(out[f"{tag}:param:{k}"], v,
                                     atol=MLP_TOL, rtol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+@pytest.mark.parametrize("tag", ["sparse", "sparse_uok"])
+def test_dist_sync_sparse_embedding_matches_the_whole_batch(run, rank, tag):
+    """Row-sparse gradients under ``dist_sync`` on two gloo ranks (each
+    rank half the batch, summed over the ranks in their dense form)
+    train the table as the reference's sparse embedding does on the
+    whole batch in one process (SGD)."""
+    net = jnn.Embedding(*EMB_TABLE.shape, sparse_grad=True)
+    net.initialize()
+    net.weight.set_data(mx.nd.array(EMB_TABLE))
+    tr = jgluon.Trainer(net.collect_params(), "sgd", {"learning_rate": 0.5})
+    for ids in W.emb_batches():
+        with jag.record():
+            (net(mx.nd.array(ids, dtype="int32")) ** 2).sum().backward()
+        tr.step(len(ids))
+    onp.testing.assert_allclose(run[1][rank][f"{tag}:table"],
+                                net.weight.data().asnumpy(), atol=MLP_TOL,
+                                rtol=0)
 
 
 def test_compressed_and_async_stores_agree_across_ranks(run, ref_mlp):

@@ -279,15 +279,17 @@ def test_full_depth_drafter_samples_what_decode_samples(setup):
 
 def _forward_both(jblock, tblock, example_shape, xs, max_batch=4):
     """Serve ``xs`` one example a request through both engines in
-    forward mode: (warmup counts, outputs, stats) of each."""
+    forward mode: (warmup counts, outputs, stats) of each.  Every
+    request is queued before the engine starts, so both engines batch
+    them alike whatever their scheduler threads' timing."""
     out = []
     for eng in (JEngine(jblock, max_batch=max_batch),
                 InferenceEngine(tblock, max_batch=max_batch, device="cpu")):
         assert eng.mode == "forward"
         n = eng.warmup(example_shape=example_shape)
+        futs = [eng.submit(x) for x in xs]
         with eng:
-            res = [f.result(timeout=120) for f in
-                   [eng.submit(x) for x in xs]]
+            res = [f.result(timeout=120) for f in futs]
         out.append((n, res, eng.stats()))
     return out
 

@@ -53,6 +53,11 @@ def qkv(seed=0, b=QKV["b"], t=QKV["t"], h=QKV["h"], d=QKV["d"]):
     return arrs, seg
 
 
+def emb_batches(n=3, b=8, vocab=40, seed=6):
+    rs = np.random.RandomState(seed)
+    return [rs.randint(0, vocab, (b, 3)).astype("int32") for _ in range(n)]
+
+
 def mlp_batches(n=MLP_STEPS, b=MLP_B, seed=5):
     rs = np.random.RandomState(seed)
     return [(rs.randn(b, 16).astype("float32"),
@@ -241,6 +246,27 @@ def scenario_kvstore(out, d):
                 tr.step(MLP_B)
             for nm, p in net.named_parameters():
                 out[f"{tag}:param:{nm}"] = p.detach().numpy()
+    # a sparse-grad embedding under dist_sync: each rank's row-sparse
+    # gradient is summed over the ranks in its dense form (as the
+    # reference's _reduce reads every pushed value's dense form)
+    table = np.load(os.path.join(d, "emb.npz"))["table"]
+    for tag, kw in [("sparse", dict(kvstore="dist_sync")),
+                    ("sparse_uok", dict(kvstore="dist_sync",
+                                        update_on_kvstore=True))]:
+        with mx.cpu():
+            emb = nn.Embedding(*table.shape, sparse_grad=True)
+            emb.initialize()
+            w = emb.collect_params()["weight"]
+            w.set_data(mx.nd.array(table if r == 0 else table * 0))
+            tr = gluon.Trainer(emb.collect_params(), "sgd",
+                               {"learning_rate": 0.5}, **kw)
+            for ids in emb_batches():
+                part = ids[r * len(ids) // n:(r + 1) * len(ids) // n]
+                with autograd.record():
+                    (emb(mx.nd.array(part, dtype="int32")) ** 2).sum()\
+                        .backward()
+                tr.step(len(ids))
+            out[f"{tag}:table"] = w.data().asnumpy()
     # dist_async: every worker's pushes applied one by one, in rank order
     kv = mx.kv.create("dist_async")
     from mxnet_tpu_torch import optimizer as opt
