@@ -382,9 +382,11 @@ Phases (any failure exits non-zero and prints no result line):
    synchronized on rank 0, its tokens/s, bytes staged and the
    collectives' share (the layers' and the plans') over the decode
    steps.  Then a one-rank NCCL mesh engine, graphed, against
-   ``mesh=None``: streams bit-identical.  (b) BERT-large at tp = 2,
+   ``mesh=None``: streams bit-identical.  (b) BERT-large's widths at
+   ``SHARD_BERT_LAYERS`` layers at tp = 2,
    phase 11's batch without ``valid_length``, dropout 0, Adam at
-   ``SHARD_BERT_LR``; (c) Transformer-big with one shared vocabulary of
+   ``SHARD_BERT_LR``; (c) Transformer-big's widths at
+   ``SHARD_NMT_LAYERS`` layers a stack with one shared vocabulary of
    ``NMT_VOCAB`` at tp = 2, phase 12's batch, Adam at ``NMT_LR``; each
    ``DP_STEPS`` steps against one process from rank 0's weights (rank 1
    seeded apart): losses (``TOL_LOSS``), every rank's blocks
@@ -422,7 +424,7 @@ Phases (any failure exits non-zero and prints no result line):
    seeds planted, each of its families' next requests a hit on a
    survivor).
 24. The chaos sweep on the card: ``tools/chaos_sweep_torch.py --device
-   cuda --corroborate --kills 2 --steps 6`` in a subprocess (so the lock
+   cuda --corroborate --kills 1 --steps 6`` in a subprocess (so the lock
    witness is on before the port's first import; ``CHAOS_TIMEOUT``).
    Its serving nets are GPT-2 124M at full width cut to 2 layers, at 32
    times the CPU sweep's lengths (256-token seq bucket and pages, 1024
@@ -492,7 +494,44 @@ Phases (any failure exits non-zero and prints no result line):
    ``ImageIter``'s host images/s alone, input wait p50 and max, ms/step
    fed against the same step on the batches resident.  No kernel of the
    port launches in phase 26 (``launches_by_path["a92"]``).
-27. A ``{"kernels": [...]}`` line, the card line again, and the last
+27. Queue A9.3 (``a93_path``), float32 with TF32 off but (a)'s amp arm.
+   (a) The main path: GPT-2 124M at full width (seeded weights)
+   quantized by ``optimize_for(x, backend='INT8', calib_data=[one B2 x
+   T1024 batch], calib_mode='naive')``, which hybridizes it and runs one
+   forward.  Gates: 72 ``QuantizedDense`` layers and no ``Dense``; an
+   eager int8 forward makes 72 ``_int_mm`` calls on the card and 12 B1
+   launches; at B8 x T1024 the replay's logits equal the eager
+   quantized net's bit for bit, and a second input of the signature
+   gives its own eager result; at B2 x ``A93_CPU_T`` the card's logits
+   against the same quantized net on the CPU (``TOL_A93_CPU`` of the
+   max-abs); top-1 agreement with the float32 net of at least
+   ``A93_CONFIDENT`` on the positions whose float32 top-2 margin is
+   above twice the largest logit difference (the reference's
+   criterion); greedy ``generate`` of ``A93_GEN_NEW`` tokens at B4 (4-row
+   products, padded for ``_int_mm``), each step's logits within
+   ``TOL_A93_STEP`` of one forward over the same tokens.  Printed: the
+   calibration seconds, ms per B8 x T1024 forward of the int8 (graphed),
+   float32 and amp bf16 nets, peak MiB, and (f)'s int8 GEMM share.  (b)
+   ResNet-50 v1 (NCHW, 1000 classes) at B32 x 224², quantized the same
+   way on a B8 calibration batch: 53 ``QuantizedConv2D`` and one
+   ``QuantizedDense``, 54 ``_int_mm`` calls a forward, the replay equal
+   to the eager net, card against CPU at B2, the confident top-1; ms per
+   B32 forward int8 and float32.  (c) Hybridized ``foreach``,
+   ``while_loop`` and ``cond``, each replayed with an input that takes
+   the other path, values and gradients equal to the eager run's.  (d)
+   ``nd.Custom`` with a backward on CUDA tensors under ``record``; an
+   extension written to a temporary ``.py`` and loaded by
+   ``library.load``; a host-reading custom op in a hybridized block
+   refused by the capture with the typed error naming the block.  (e)
+   ``Estimator.fit`` of ``example/train_mnist_gluon.py``'s network on the
+   synthetic MNIST surrogate, 2 epochs, with ``CheckpointHandler`` and
+   ``EarlyStoppingHandler``: the loss falls and the last checkpoint
+   reloads to identical outputs.  (f) ``mx.profiler`` around two
+   replays of (a)'s net in a ``Task``: the dumped Chrome trace names
+   ``flash_fwd_tc_kernel``, an int8 GEMM and the Task.  B1 launches 12
+   times a forward at T1024 (``launches_by_path["a93"]``), and no other
+   kernel of the port.
+28. A ``{"kernels": [...]}`` line, the card line again, and the last
    line ``{"ok": true, "device": {...}}``.  ``launches_by_path`` holds
    every phase's launches (``bert``, ``bert_amp``, ``nmt``, ``lstm``,
    ``ops``, phase 16's graphed arms ``hybrid_bert_amp``,
@@ -505,7 +544,7 @@ Phases (any failure exits non-zero and prints no result line):
    phase 23's ``disagg_prefill``, ``disagg_decode``, ``tiered`` and
    ``fleet``, phase 24's ``chaos_serve`` and ``chaos_train``, phase
    25's ``symbol_block``, ``module_fit`` and ``fuse_bn``, phase 26's
-   ``a92``); the
+   ``a92``, phase 27's ``a93``); the
    seconds of every phase are printed and written to
    ``chiprun_out/chip_smoke_phases.json``; the flash kernels carry
    their numbers at phases 11-12's shapes and phase 21's tp shape
@@ -827,9 +866,9 @@ GUARD_B, DROP_B = 4, 4
 # RES_SAVE (each 1.49 GB commit costs 3-5 s)
 RES_STEPS, RES_SAVE, RES_SEED, RES_DROPOUT = 8, 4, 7, 0.1
 # GPT-2 124M's widths at RES_LAYERS of its 12 layers: a commit of its
-# state (0.81 GB against 1.49) and a capture each fresh trainer makes
+# state (0.64 GB against 1.49) and a capture each fresh trainer makes
 # cost less, and the phase keeps every part
-RES_LAYERS = 4
+RES_LAYERS = 2
 RES_SCALE = 2.0 ** 16
 # (a)'s timing: the bare trainer and the loop with tracing off and on,
 # RES_TIMED steps each, in turns over RES_ROUNDS rounds; a timed loop's
@@ -880,21 +919,26 @@ TOL_PAR_LOGITS = 1e-5
 # the cut keeps the script inside its time.  Phase 21 keeps the 12: at 6
 # its routed part split one token's route at step 3 (a near-tie of
 # float32 rounding under an exact gate on the dropped shares; PERF.md)
-PAR_LAYERS = 6
+PAR_LAYERS = 3
 # B1, B2, B3 a rank a step: (a) 12 layers of 6 heads; (b) 12 layers;
 # (c) 6 layers x 4 microbatches, B1 again in remat's recomputation
 PAR_LAUNCHES = {"tp2": [12, 12, 12], "ep2": [12, 12, 12],
                 "pp2": [48, 24, 24]}
 # phase 22: (a)'s layouts, new tokens and the sampled request; (c)'s
 # translate: sources of SHARD_SRC_T tokens, at most SHARD_MAX_LEN out;
-# B1, B2, B3 a rank a step of (b) (24 layers, no remat) and (c) (6
-# encoder, 6 decoder self- and 6 cross-attention layers); parameters
-# held as phase 20 holds them, at (b)'s and (c)'s learning rate
+# (b) and (c) at BERT-large's and Transformer-big's widths cut to
+# SHARD_BERT_LAYERS of 24 and SHARD_NMT_LAYERS of 6 a stack (gloo's
+# host staging, most of their time, grows with depth); B1, B2, B3 a
+# rank a step of (b) (one a layer, no remat) and (c) (encoder, decoder
+# self- and cross-attention layers); parameters held as phase 20 holds
+# them, at (b)'s and (c)'s learning rate
 SHARD_LAYOUTS = ("paged", "dense")
 SHARD_NEW = 32
 SHARD_SAMPLED_ROW, SHARD_SAMPLED = 1, dict(temperature=0.8, top_k=50, seed=5)
 SHARD_SOURCES, SHARD_SRC_T, SHARD_MAX_LEN = 4, 64, 16
-SHARD_LAUNCHES = {"bert": [24, 24, 24], "nmt": [18, 18, 18]}
+SHARD_BERT_LAYERS, SHARD_NMT_LAYERS = 8, 2
+SHARD_LAUNCHES = {"bert": [SHARD_BERT_LAYERS] * 3,
+                  "nmt": [3 * SHARD_NMT_LAYERS] * 3}
 # (b)'s learning rate: at phase 11's 1e-4, Adam's sign-like first steps
 # turn float32's rounding into a loss that is 4.3e-05 from float64 after
 # 3 steps on one process (tools/tp_loss_noise.py), above TOL_LOSS, so no
@@ -6675,19 +6719,21 @@ def shard_requests(eng, prompts):
 def shard_lang_net(kind):
     """(b)'s BERT-large with the pretraining heads, taking no
     ``valid_length`` (every row full: the flash path), or (c)'s
-    Transformer-big with one shared vocabulary; not initialized."""
+    Transformer-big with one shared vocabulary, at their depths cut to
+    ``SHARD_BERT_LAYERS`` and ``SHARD_NMT_LAYERS``; not initialized."""
     from mxnet_tpu_torch.gluon.block import HybridBlock
     from mxnet_tpu_torch.models import BERTForPretrain, get_bert, get_nmt
     if kind == "nmt":
         return get_nmt("transformer_big", src_vocab_size=NMT_VOCAB,
-                       shared_embed=True, dropout=0.0)
+                       shared_embed=True, dropout=0.0,
+                       num_layers=SHARD_NMT_LAYERS)
 
     class FullRows(HybridBlock):
         def __init__(self):
             super().__init__()
             self.bert = BERTForPretrain(get_bert(
                 "bert_large", vocab_size=BERT_VOCAB, max_length=BERT_T,
-                dropout=0.0))
+                dropout=0.0, num_layers=SHARD_BERT_LAYERS))
 
         def forward(self, tokens, types, positions):
             return self.bert(tokens, types, None, positions)
@@ -7486,7 +7532,7 @@ def a7_path(torch, card, prompts):
     return by_path
 
 
-CHAOS_ARGS = ("--device", "cuda", "--corroborate", "--kills", "2",
+CHAOS_ARGS = ("--device", "cuda", "--corroborate", "--kills", "1",
               "--steps", "6")
 CHAOS_TIMEOUT = 600
 
@@ -8189,6 +8235,549 @@ def a92_path(torch, card):
           flush=True)
 
 
+# ---------------------------------------------------------------- phase 27
+
+A93_B, A93_T = 8, 1024          # the timed forwards
+A93_CALIB_B = 2                 # GPT-2's calibration batch
+A93_CPU_T = 128                 # card against CPU, B2
+A93_GEN_B, A93_GEN_PROMPT, A93_GEN_NEW = 4, 48, 16
+A93_TIMED = 5
+A93_RES_B, A93_RES_CALIB_B = 32, 8
+A93_CONFIDENT = 0.99            # the reference's confident top-1 floor
+# int8 logits card vs CPU, and a decode step's against one forward's,
+# over their max-abs: re-quantization is discontinuous, so a float32
+# difference of ~1e-7 in an activation (LayerNorm, GELU, the attention's
+# sums on another device or in another order) moves an int8 value by a
+# whole step, 1/127 of its layer's range, here and there, and 72 layers
+# compound it (3.0e-02 card vs CPU in AJ1); a fault in a product or a
+# scale is a step in every value
+TOL_A93_CPU = 1e-1
+TOL_A93_STEP = 1e-1
+# one int8 layer, card vs CPU on the same input: the int32 products are
+# exact, the float32 epilogue the same few operations
+TOL_A93_LAYER = 1e-6
+# an int8 GEMM: a GEMM kernel whose name names 8-bit integer operands
+INT8_MARKS = ("s8", "i8", "imma", "int8")
+
+
+def is_int8_gemm(name) -> bool:
+    low = name.lower()
+    return any(g in low for g in GEMM_MARKS) and \
+        any(m in low for m in INT8_MARKS)
+
+
+def fwd_ms(torch, fn, n=None):
+    """Mean host ms of ``n`` (default ``A93_TIMED``) calls of ``fn``, one
+    more before them untimed, synchronized at both ends."""
+    n = A93_TIMED if n is None else n
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def confident_top1(q, f):
+    """The reference's criterion (``tests/test_quantization.py``): top-1
+    agreement of ``q`` with ``f`` on the rows whose ``f`` top-2 margin
+    is above twice the largest logit difference.  Returns (agreement,
+    confident rows, rows, overall agreement, the difference)."""
+    q, f = q.reshape(-1, q.shape[-1]), f.reshape(-1, f.shape[-1])
+    noise = float((q - f).abs().max())
+    top2 = f.topk(2, dim=-1).values
+    conf = (top2[:, 0] - top2[:, 1]) > 2 * noise
+    same = q.argmax(-1) == f.argmax(-1)
+    n = int(conf.sum())
+    agree = float(same[conf].float().mean()) if n else 1.0
+    return agree, n, same.numel(), float(same.float().mean()), noise
+
+
+def count_layers(net):
+    kinds = {}
+    for m in net.modules():
+        kinds[type(m).__name__] = kinds.get(type(m).__name__, 0) + 1
+    return kinds
+
+
+def host_params(net):
+    return {k: p.detach().cpu().numpy() for k, p in net.named_parameters()}
+
+
+def cpu_twin(make, float_params, quantized):
+    """The same quantized net on the CPU: built from the card's float
+    weights, quantized there (numpy, as on the card), then given the
+    card's quantized parameters (the calibrated ranges among them)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib.quantization import quantize_net
+    from mxnet_tpu_torch.utils.convert import load_numpy_params
+    with mx.cpu():
+        net = load_numpy_params(make(), float_params)
+        quantize_net(net, calib_mode="none")
+        mine = host_params(net)
+        for k, v in quantized.items():
+            if k.endswith("qweight") and not np.array_equal(mine[k], v):
+                raise AssertionError(f"{k}: the CPU's int8 weights differ "
+                                     "from the card's")
+        return load_numpy_params(net, quantized)
+
+
+def card_vs_cpu(tag, net, twin, card_out, x):
+    """The quantized net's output on the card (``card_out``, from ``x``)
+    against its CPU twin's (``TOL_A93_CPU``), and each int8 layer of the
+    card's on the very input its CPU twin saw (``TOL_A93_LAYER``)."""
+    layers, inputs = dict(net.named_modules()), {}
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, a, n=n: inputs.__setitem__(n, a[0].detach()))
+        for n, m in twin.named_modules()
+        if type(m).__name__ in ("QuantizedDense", "QuantizedConv2D")]
+    cpu_out = twin(x.cpu())
+    for h in hooks:
+        h.remove()
+    check(f"{tag} int8 output card vs CPU at {tuple(x.shape)} (over "
+          "max-abs)", relerr(card_out.cpu(), cpu_out), TOL_A93_CPU)
+    twin_layers = dict(twin.named_modules())
+    dev = card_out.device
+    check(f"{tag} each of the {len(inputs)} int8 layers on the card vs "
+          "the CPU's, on the CPU's inputs (over max-abs)",
+          max(relerr(layers[n](a.to(dev)).cpu(), twin_layers[n](a))
+              for n, a in inputs.items()), TOL_A93_LAYER)
+
+
+def a93_gpt2(torch, mx, card):
+    """27 (a): int8 GPT-2 124M at full width (the main path)."""
+    from mxnet_tpu_torch.contrib.quantization import int8_matmul
+    from mxnet_tpu_torch.models import get_gpt2
+    rs = np.random.RandomState(SEED + 27)
+    net = get_gpt2("gpt2_124m", dropout=0.0)
+    net.initialize(seed=SEED)
+    dev = net.device
+
+    def toks(b, t):
+        return torch.from_numpy(rs.randint(0, VOCAB, (b, t)).astype(
+            np.int32)).to(dev)
+
+    x, x2, calib = toks(A93_B, A93_T), toks(A93_B, A93_T), \
+        toks(A93_CALIB_B, A93_T)
+    small = toks(2, A93_CPU_T)
+    prompt = toks(A93_GEN_B, A93_GEN_PROMPT)
+    floats = host_params(net)
+    forwards = 0                 # forwards at T1024: 12 B1 launches each
+
+    def b1():
+        return read_launches()["flash_fwd"]
+
+    with torch.no_grad():
+        f32 = net(x)
+        forwards += 1
+        f32_ms = fwd_ms(torch, lambda: net(x))
+        mx.amp.init("bfloat16")
+        try:
+            amp_ms = fwd_ms(torch, lambda: net(x))
+        finally:
+            mx.amp.reset()
+        forwards += 2 * (A93_TIMED + 1)
+        t0 = time.monotonic()
+        net.optimize_for(calib, backend="INT8", calib_data=[calib],
+                         calib_mode="naive")
+        torch.cuda.synchronize()
+        calib_s = time.monotonic() - t0
+        forwards += 3       # calibration; the program's warm-up and replay
+        kinds = count_layers(net)
+        print(f"  int8 GPT-2: {kinds.get('QuantizedDense', 0)} "
+              f"QuantizedDense, {kinds.get('Dense', 0)} Dense; calibration "
+              f"(naive, B{A93_CALIB_B} x T{A93_T}) and the first program "
+              f"{calib_s:.2f} s [{card}]", flush=True)
+        if kinds.get("QuantizedDense") != 6 * len(net.blocks) or \
+                kinds.get("Dense"):
+            raise AssertionError(f"27a: quantized layers {kinds}")
+        calls = int8_matmul.calls
+        n0 = b1()
+        with mx.util.disable_jit():
+            eager = net(x)
+        forwards += 1
+        per = (6 * len(net.blocks), len(net.blocks))
+        if (int8_matmul.calls - calls, b1() - n0) != per:
+            raise AssertionError(
+                f"27a: an eager int8 forward made {int8_matmul.calls - calls}"
+                f" _int_mm calls on the card and {b1() - n0} B1 launches, "
+                f"not {per}")
+        net(x)               # the B8 signature's warm-up, capture, replay
+        forwards += 2
+        torch.cuda.reset_peak_memory_stats()
+        n0 = b1()
+        replay = net(x)
+        forwards += 1
+        if b1() - n0 != len(net.blocks):
+            raise AssertionError(f"27a: a replay credited {b1() - n0} B1 "
+                                 "launches, not one a layer")
+        check("27a int8 replay vs eager at B8 x T1024 (bit for bit)",
+              maxabs(replay, eager), 0.0)
+        other = net(x2)
+        with mx.util.disable_jit():
+            other_eager = net(x2)
+        forwards += 2
+        check("27a a second input of the signature vs its eager result",
+              maxabs(other, other_eager), 0.0)
+        if maxabs(other, replay) == 0.0:
+            raise AssertionError("27a: two inputs replayed to one result")
+        int8_ms = fwd_ms(torch, lambda: net(x))
+        forwards += A93_TIMED + 1
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        reserved = torch.cuda.memory_reserved() / 2 ** 20
+        agree, n_conf, rows, overall, noise = confident_top1(eager, f32)
+        print(f"  int8 vs float32 at B{A93_B} x T{A93_T}: top-1 {agree:.4f} "
+              f"on {n_conf} of {rows} confident positions (margin > 2 x "
+              f"{noise:.4f}), {overall:.4f} overall", flush=True)
+        if agree < A93_CONFIDENT:
+            raise AssertionError(f"27a: confident top-1 {agree}")
+        del f32, other, other_eager, replay
+        print(f"  forward B{A93_B} x T{A93_T}: int8 (graphed) {int8_ms:.3f} "
+              f"ms, float32 {f32_ms:.3f}, amp bf16 {amp_ms:.3f}; peak "
+              f"{peak:.0f} MiB allocated, {reserved:.0f} reserved [{card}]",
+              flush=True)
+        # the card against the same quantized net on the CPU
+        with mx.util.disable_jit():
+            card_small = net(small)
+        twin = cpu_twin(lambda: get_gpt2("gpt2_124m", dropout=0.0,
+                                         device="cpu"),
+                        floats, host_params(net))
+        card_vs_cpu("27a", net, twin, card_small, small)
+        del twin, floats
+        # greedy decode: 4-row steps through the padded _int_mm
+        gen = net.generate(prompt, A93_GEN_NEW, temperature=0.0)
+        b, tp = prompt.shape
+        caches = net.init_slot_cache(b, tp + A93_GEN_NEW)
+        lg, caches = net.prefill_slots(
+            prompt, torch.full((b,), tp, dtype=torch.int32, device=dev),
+            caches, torch.arange(b, dtype=torch.int32, device=dev))
+        steps = [lg]
+        for t in range(tp, tp + A93_GEN_NEW - 1):
+            lg, caches = net.decode_step(
+                gen[:, t], caches,
+                torch.full((b,), t, dtype=torch.int32, device=dev))
+            steps.append(lg)
+        steps = torch.stack(steps, 1)
+        if not torch.equal(steps.argmax(-1).to(torch.int32), gen[:, tp:]):
+            raise AssertionError("27a: generate's tokens are not its steps'")
+        with mx.util.disable_jit():
+            full = net(gen[:, :-1])[:, tp - 1:]
+        check(f"27a {A93_GEN_NEW} greedy steps at B{A93_GEN_B} vs one "
+              "forward over their tokens (over max-abs)",
+              relerr(steps, full), TOL_A93_STEP)
+        # mx.profiler around a replayed forward
+        prof_s, share = a93_profile(torch, mx, net, x, card)
+        forwards += 2
+    return dict(calib_s=round(calib_s, 2), int8_ms=round(int8_ms, 3),
+                float32_ms=round(f32_ms, 3), amp_ms=round(amp_ms, 3),
+                peak_mib=round(peak), reserved_mib=round(reserved),
+                top1_confident=agree, confident=n_conf,
+                int8_gemm_share=share, profile_s=prof_s), forwards
+
+
+def a93_profile(torch, mx, net, x, card):
+    """27 (f): ``mx.profiler`` around two replays of the int8 GPT-2 in a
+    ``Task``; the dumped Chrome trace must name B1's kernel, an int8
+    GEMM and the Task.  Returns (seconds, the int8 GEMMs' share of the
+    traced kernel time)."""
+    import tempfile
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as d:
+        mx.profiler.set_config(filename=os.path.join(d, "a93.json"))
+        mx.profiler.set_state("run")
+        time.sleep(0.1)             # tracing on before the first launch
+        with mx.profiler.Task("a93_int8_forward"):
+            net(x)
+            net(x)
+            torch.cuda.synchronize()
+        out = mx.profiler.dump()
+        files = os.listdir(out)
+        with open(os.path.join(out, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    busy = sum(e.get("dur", 0) for e in kernels)
+    int8 = sum(e.get("dur", 0) for e in kernels if is_int8_gemm(e["name"]))
+    names = {e["name"] for e in kernels}
+    top = {}
+    for e in kernels:
+        top[e["name"][:70]] = top.get(e["name"][:70], 0) + e.get("dur", 0)
+    print(f"  mx.profiler: {len(kernels)} kernels, {busy / 1e3:.3f} ms "
+          f"busy over 2 forwards; int8 GEMMs {int8 / 1e3:.3f} ms "
+          f"({int8 / max(busy, 1):.1%}) [{card}]", flush=True)
+    for name, us in sorted(top.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    {us / 1e3:9.3f} ms {us / max(busy, 1):6.1%}  {name}",
+              flush=True)
+    missing = [what for what, ok in (
+        ("flash_fwd_tc_kernel", any("flash_fwd_tc_kernel" in n
+                                    for n in names)),
+        ("an int8 GEMM", any(is_int8_gemm(n) for n in names)),
+        ("the Task", any(e.get("name") == "a93_int8_forward"
+                         for e in events))) if not ok]
+    if missing:
+        raise AssertionError(f"27f: the dumped trace lacks {missing}")
+    return round(time.monotonic() - t0, 2), round(int8 / max(busy, 1), 4)
+
+
+def a93_resnet(torch, mx, card):
+    """27 (b): int8 ResNet-50 v1 (NCHW, 1000 classes) at B32 x 224²."""
+    from mxnet_tpu_torch.contrib.quantization import int8_matmul
+    rs = np.random.RandomState(SEED + 28)
+    net = resnet50("NCHW")
+    net.initialize(seed=SEED)
+    x = torch.from_numpy(rs.uniform(-1, 1, (A93_RES_B, 3, VISION_SIZE,
+                                            VISION_SIZE)).astype(
+        np.float32)).to(net.device)
+    with torch.no_grad():
+        f32 = net(x)                  # settles the deferred shapes
+        floats = host_params(net)
+        f32_ms = fwd_ms(torch, lambda: net(x), n=3)
+        net.optimize_for(x, backend="INT8", calib_data=[x[:A93_RES_CALIB_B]],
+                         calib_mode="naive")
+        kinds = count_layers(net)
+        print(f"  int8 ResNet-50: {kinds.get('QuantizedConv2D', 0)} "
+              f"QuantizedConv2D, {kinds.get('QuantizedDense', 0)} "
+              f"QuantizedDense, {kinds.get('Conv2D', 0)} Conv2D, "
+              f"{kinds.get('Dense', 0)} Dense", flush=True)
+        if (kinds.get("QuantizedConv2D"), kinds.get("QuantizedDense"),
+                kinds.get("Conv2D"), kinds.get("Dense")) != (53, 1, None,
+                                                             None):
+            raise AssertionError(f"27b: quantized layers {kinds}")
+        calls = int8_matmul.calls
+        with mx.util.disable_jit():
+            eager = net(x)
+        if int8_matmul.calls - calls != 54:
+            raise AssertionError(f"27b: {int8_matmul.calls - calls} _int_mm "
+                                 "calls on the card a forward, not 54")
+        check("27b int8 replay vs eager at B32 (bit for bit)",
+              maxabs(net(x), eager), 0.0)
+        int8_ms = fwd_ms(torch, lambda: net(x), n=3)
+        agree, n_conf, rows, overall, noise = confident_top1(eager, f32)
+        print(f"  int8 vs float32 at B{A93_RES_B}: top-1 {agree:.4f} on "
+              f"{n_conf} of {rows} confident images (margin > 2 x "
+              f"{noise:.4f}), {overall:.4f} overall; forward int8 "
+              f"(graphed) {int8_ms:.3f} ms, float32 {f32_ms:.3f} [{card}]",
+              flush=True)
+        if agree < A93_CONFIDENT:
+            raise AssertionError(f"27b: confident top-1 {agree}")
+        twin = cpu_twin(lambda: resnet50("NCHW"), floats, host_params(net))
+        with mx.util.disable_jit():
+            card2 = net(x[:2])
+        card_vs_cpu("27b", net, twin, card2, x[:2])
+    return dict(int8_ms=round(int8_ms, 3), float32_ms=round(f32_ms, 3),
+                top1_confident=agree, confident=n_conf)
+
+
+def a93_control_flow(torch, mx, card):
+    """27 (c): hybridized ``foreach``, ``while_loop`` and ``cond`` on the
+    card, each replayed with an input down the other path and held to
+    its eager result; ``foreach``'s gradient to its eager one."""
+    from mxnet_tpu_torch import contrib, nd
+    from mxnet_tpu_torch.gluon import HybridBlock
+
+    class Foreach(HybridBlock):
+        def hybrid_forward(self, F, x):
+            outs, final = contrib.foreach(
+                lambda item, st: (F.relu(st) * item, st + item), x,
+                F.zeros((x.shape[1],)))
+            return outs
+
+    class While(HybridBlock):
+        def hybrid_forward(self, F, x):
+            outs, (i, s) = contrib.while_loop(
+                lambda i, s: F.sum(i) < 4, lambda i, s: (s * i, (
+                    i + 1.0, s + i * x)), (F.zeros((1,)), x),
+                max_iterations=8)
+            return [outs, s]
+
+    class Cond(HybridBlock):
+        def hybrid_forward(self, F, x):
+            return contrib.cond(F.sum(x) > 1.0, lambda: F.sqrt(x - 1.0),
+                                lambda: F.sqrt(1.0 - x) * 10.0)
+
+    rs = np.random.RandomState(SEED + 29)
+    cases = [(Foreach(), [rs.randn(6, 4), -rs.rand(6, 4)]),
+             (While(), [np.array([0.5]), np.array([-2.0])]),
+             (Cond(), [np.array([2.0, 1.5]), np.array([0.5, -0.5])])]
+    worst = 0.0
+    for net, inputs in cases:
+        net.hybridize()
+        for v in inputs:
+            got = []
+            for graphed in (True, False):
+                a = nd.array(v.astype(np.float32))
+                a.attach_grad()
+                with mx.autograd.record():
+                    if graphed:
+                        y = net(a)
+                    else:
+                        with mx.util.disable_jit():
+                            y = net(a)
+                    ys = y if isinstance(y, (list, tuple)) else [y]
+                    head = sum(nd.sum(t) for t in ys)
+                head.backward()
+                got.append([t.asnumpy() for t in ys] + [a.grad.asnumpy()])
+            for g, e in zip(*got):
+                if not np.isfinite(g).all():
+                    raise AssertionError(f"27c {type(net).__name__}: "
+                                         "non-finite result")
+                worst = max(worst, float(np.abs(g - e).max()))
+        if len(net._cached_op._jit_cache) != 1:
+            raise AssertionError(f"27c {type(net).__name__}: "
+                                 f"{len(net._cached_op._jit_cache)} programs")
+    check("27c foreach / while_loop / cond (values and gradients), one "
+          "program each, both paths, vs eager", worst, 0.0)
+    return worst
+
+
+def a93_custom(torch, mx, card):
+    """27 (d): ``nd.Custom`` with a backward on CUDA tensors under
+    ``record``; an extension loaded by ``library.load``; a custom op in
+    a hybridized block refused by the capture with the typed error."""
+    import tempfile
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch import operator as mo
+
+    class Cube(mo.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0],
+                        nd.array(in_data[0].asnumpy() ** 3))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            self.assign(in_grad[0], req[0],
+                        out_grad[0] * 3 * in_data[0] * in_data[0])
+
+    @mo.register("a93_cube")
+    class CubeProp(mo.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return Cube()
+
+    v = np.random.RandomState(SEED + 30).randn(1000).astype(np.float32)
+    a = nd.array(v)
+    a.attach_grad()
+    with mx.autograd.record():
+        y = nd.Custom(a, op_type="a93_cube")
+        (y * 2.0).sum().backward()
+    if a.context.device_type != "gpu" or y.context != a.context:
+        raise AssertionError("27d: the custom op left the card")
+    check("27d nd.Custom forward and backward on the card",
+          float(np.abs(y.asnumpy() - v ** 3).max() +
+                np.abs(a.grad.asnumpy() - 6 * v ** 2).max()), 1e-4)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "a93_ext.py")
+        with open(path, "w") as f:
+            f.write("import mxnet_tpu_torch.operator as mo\n\n\n"
+                    "class Neg(mo.CustomOp):\n"
+                    "    def forward(self, is_train, req, in_data, out_data,"
+                    " aux):\n"
+                    "        self.assign(out_data[0], req[0], -in_data[0])\n\n"
+                    "    def backward(self, req, out_grad, in_data, out_data,"
+                    " in_grad, aux):\n"
+                    "        self.assign(in_grad[0], req[0], -out_grad[0])\n\n\n"
+                    "@mo.register('a93_neg')\n"
+                    "class NegProp(mo.CustomOpProp):\n"
+                    "    def create_operator(self, ctx, shapes, dtypes):\n"
+                    "        return Neg()\n")
+        mx.library.load(path)
+    if not np.array_equal(nd.Custom(a, op_type="a93_neg").asnumpy(), -v):
+        raise AssertionError("27d: the loaded extension's op")
+
+    class Net(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, x):
+            return F.Custom(x, op_type="a93_cube")
+
+    net = Net()
+    net.hybridize()
+    try:
+        net(a)
+    except mx.MXNetError as e:
+        if "CachedOp(Net)" not in str(e):
+            raise
+        print(f"  a host-reading custom op in a hybridized block: "
+              f"{str(e)[:150]}...", flush=True)
+    else:
+        raise AssertionError("27d: a host read was captured")
+
+
+def a93_estimator(torch, mx, card):
+    """27 (e): ``Estimator.fit`` of ``example/train_mnist_gluon.py``'s
+    network on the synthetic MNIST surrogate, 2 epochs, with
+    ``CheckpointHandler`` and ``EarlyStoppingHandler``; the loss falls
+    and the last checkpoint reloads to identical outputs."""
+    import tempfile
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.contrib import estimator as E
+
+    def build_net():
+        net = nn.HybridSequential()
+        net.add(nn.Flatten(), nn.Dense(128, activation="relu"),
+                nn.Dense(64, activation="relu"), nn.Dense(10))
+        return net
+
+    mnist = mx.test_utils.get_mnist()
+    with mx.cpu():
+        train, val = (gluon.data.DataLoader(gluon.data.ArrayDataset(
+            mx.nd.array(mnist[f"{s}_data"]), mx.nd.array(mnist[f"{s}_label"])),
+            batch_size=100) for s in ("train", "test"))
+    net = build_net()
+    net.initialize(mx.init.Xavier())
+    net.hybridize(static_alloc=True)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1, "momentum": 0.9})
+    est = E.Estimator(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                      trainer=trainer)
+    losses = []
+
+    class Losses(E.EpochEnd):
+        def epoch_end(self, estimator, *args, **kwargs):
+            losses.append(estimator.train_loss_metric.get()[1])
+
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as d:
+        est.fit(train, val_data=val, epochs=2, event_handlers=[
+            E.CheckpointHandler(d, model_prefix="mnist", epoch_period=1),
+            E.EarlyStoppingHandler(monitor=est.val_metrics[0], patience=2,
+                                   mode="max"), Losses()])
+        fit_s = time.monotonic() - t0
+        back = build_net()
+        back.load_parameters(os.path.join(d, "mnist-epoch2.params"))
+    xb = mx.nd.array(mnist["test_data"][:100])
+    with mx.util.disable_jit():
+        same = np.array_equal(net(xb).asnumpy(), back(xb).asnumpy())
+    print(f"  estimator: {len(mnist['train_label'])} synthetic MNIST "
+          f"samples x 2 epochs in {fit_s:.2f} s, train loss {losses}, val "
+          f"accuracy {est.val_metrics[0].get()[1]:.4f} [{card}]", flush=True)
+    on_card = net[1].weight.device.type == "cuda"
+    if len(losses) != 2 or not losses[1] < losses[0] or not same or \
+            not on_card:
+        raise AssertionError(f"27e: losses {losses}, reloaded equal {same}"
+                             f", trained on the card {on_card}")
+    return dict(losses=losses, val_acc=est.val_metrics[0].get()[1],
+                fit_s=round(fit_s, 2))
+
+
+def a93_path(torch, card):
+    """Phase 27: queue A9.3 on the card, float32 with TF32 off but (a)'s
+    amp arm.  Returns the forwards at T1024 that ran B1 (12 launches
+    each), for the caller's gate on ``launches_by_path["a93"]``."""
+    import mxnet_tpu_torch as mx
+    t_phase = time.monotonic()
+    print("27a int8 GPT-2 124M:", flush=True)
+    out, forwards = {}, 0
+    out["a"], forwards = a93_gpt2(torch, mx, card)
+    free(torch)
+    print("27b int8 ResNet-50 v1:", flush=True)
+    out["b"] = a93_resnet(torch, mx, card)
+    free(torch)
+    out["c"] = a93_control_flow(torch, mx, card)
+    a93_custom(torch, mx, card)
+    out["e"] = a93_estimator(torch, mx, card)
+    print(json.dumps({"a93": out}), flush=True)
+    print(f"phase 27: {time.monotonic() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return forwards
+
 def write_phase_seconds(seconds):
     """Print the seconds of every phase and write them to
     ``chiprun_out/chip_smoke_phases.json`` beside this script."""
@@ -8352,6 +8941,15 @@ def main() -> int:
     if any(by_path["a92"].values()):
         raise AssertionError(f"phase 26 launched a kernel of the port: "
                              f"{by_path['a92']}")
+    free(torch)
+    reset_launches()
+    with phase("27"):
+        forwards = a93_path(torch, card)
+    by_path["a93"] = read_launches()
+    if by_path["a93"]["flash_fwd"] != 12 * forwards or any(
+            n for k, n in by_path["a93"].items() if k != "flash_fwd"):
+        raise AssertionError(f"phase 27 launched {by_path['a93']}, not "
+                             f"B1 12 times for each of {forwards} forwards")
     write_phase_seconds(seconds)
     # each kernel's launches on the path that is its own: the training
     # path for the flash kernels, the serving path for paged attention;

@@ -13,7 +13,9 @@ the caller asks for the CPU (``device="cpu"``, ``ctx=mx.cpu()`` or
 (``mx.sym``, ``mx.mod`` with ``metric``/``callback``/``model``/
 ``monitor``/``viz``, ``subgraph``, ``onnx``, ``name``, ``attribute``),
 ``np`` / ``npx``, ``image``, ``util``, ``test_utils``, ``runtime``,
-``engine`` and ``rtc`` are imported at first use, as in the reference.
+``engine``, ``rtc``, ``contrib`` (control flow, int8 quantization),
+``operator`` and ``library`` are imported at first use, as in the
+reference.
 """
 from . import (amp, analysis, autograd, base, context, gluon, initializer,
                lr_scheduler, models, ndarray, observability, ops, optimizer,
@@ -47,6 +49,7 @@ _LAZY = {
     "numpy": ".numpy", "numpy_extension": ".numpy_extension",
     "image": ".image", "util": ".util", "test_utils": ".test_utils",
     "runtime": ".runtime", "engine": ".engine", "rtc": ".rtc",
+    "contrib": ".contrib", "operator": ".operator", "library": ".library",
 }
 
 

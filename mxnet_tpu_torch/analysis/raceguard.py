@@ -76,6 +76,7 @@ and ``generated_by`` differ.
 from __future__ import annotations
 
 import ast
+import collections
 import os
 import re
 from typing import Dict, FrozenSet, List, Optional, Sequence, Set, Tuple
@@ -330,24 +331,21 @@ class _ClassAnalyzer:
         self._in_init = False
 
     # ---- pass 1: bind guards + attach declarations
-    def bind(self) -> None:
-        for meth in self._methods():
-            for stmt in ast.walk(meth):
-                if not isinstance(stmt, (ast.Assign, ast.AnnAssign)):
-                    continue
-                targets = stmt.targets if isinstance(stmt, ast.Assign) \
-                    else [stmt.target]
-                if stmt.value is None:
-                    continue
-                found = _named_ctor_site(stmt.value)
-                if found is None:
-                    continue
-                site, kind = found
-                for t in targets:
-                    attr = _self_attr(t)
-                    if attr is not None and attr not in self.guards:
-                        self.guards[attr] = GuardBinding(
-                            site, kind, attr, self.cls.name, stmt.lineno)
+    def bind(self, assigns: Sequence[ast.stmt]) -> None:
+        """``assigns``: the assignments of this class's methods, method
+        by method, each method's in ``ast.walk`` order."""
+        for stmt in assigns:
+            if stmt.value is None:
+                continue
+            found = _named_ctor_site(stmt.value)
+            if found is None:
+                continue
+            site, kind = found
+            for t in _targets(stmt):
+                attr = _self_attr(t)
+                if attr is not None and attr not in self.guards:
+                    self.guards[attr] = GuardBinding(
+                        site, kind, attr, self.cls.name, stmt.lineno)
 
     def _methods(self):
         for node in self.cls.body:
@@ -649,6 +647,48 @@ def _module_pass(tree: ast.Module, out: ModuleGuards) -> None:
     out.bindings.extend(guards.values())
 
 
+def _targets(stmt: ast.stmt) -> List[ast.expr]:
+    return stmt.targets if isinstance(stmt, ast.Assign) else [stmt.target]
+
+
+_BODY_FIELDS = ("body", "handlers", "orelse", "finalbody", "cases")
+
+
+def _class_assignments(tree: ast.Module):
+    """[(ClassDef, assignments)] for every class of ``tree`` in
+    ``ast.walk`` order; a class's assignments are those of its methods
+    (nested functions and classes included), method by method, each in
+    ``ast.walk`` order.  One breadth-first walk over the statements
+    alone: classes and assignments are statements, whose ancestors are
+    statements, handlers and match cases only, so this walk keeps
+    ``ast.walk``'s relative order without visiting an expression."""
+    classes = []
+    queue = collections.deque([(tree, ())])
+    while queue:
+        node, owners = queue.popleft()
+        if isinstance(node, (ast.Assign, ast.AnnAssign)):
+            for per_method in owners:
+                per_method.append(node)
+        methods = None
+        if isinstance(node, ast.ClassDef):
+            methods = []
+            classes.append((node, methods))
+        for field in _BODY_FIELDS:
+            block = getattr(node, field, None)
+            if not block:
+                continue
+            for child in block:
+                if methods is not None and field == "body" \
+                        and isinstance(child, (ast.FunctionDef,
+                                               ast.AsyncFunctionDef)):
+                    methods.append([])
+                    queue.append((child, owners + (methods[-1],)))
+                else:
+                    queue.append((child, owners))
+    return [(cls, [a for m in methods for a in m])
+            for cls, methods in classes]
+
+
 def analyze_module(path: str, tree: ast.Module,
                    source: str) -> ModuleGuards:
     """Run the whole raceguard pass over one already-parsed module.
@@ -657,29 +697,29 @@ def analyze_module(path: str, tree: ast.Module,
     out = ModuleGuards(path)
     decls, pragmas, raw = _source_annotations(source)
     out.findings.extend(raw)
+    # every guard comes from a named_* constructor: a module that names
+    # none and declares nothing has no guard, access or finding to find
+    if not decls and "named_" not in source:
+        return out
 
     decl_lines_used: Set[int] = set()
-    for node in ast.walk(tree):
-        if not isinstance(node, ast.ClassDef):
-            continue
+    for node, assigns in _class_assignments(tree):
         ca = _ClassAnalyzer(node, decls, out.findings)
-        ca.bind()
+        ca.bind(assigns)
+        if not ca.guards and not decls:
+            continue            # nothing can be held, inferred or declared
         ca.record()
         # attribute-level declarations: a `# guarded-by:` on a
         # `self.attr = ...` line inside this class
         attr_decls: Dict[str, Tuple[str, int]] = {}
-        for meth in ca._methods():
-            for stmt in ast.walk(meth):
-                if isinstance(stmt, (ast.Assign, ast.AnnAssign)) \
-                        and stmt.lineno in decls:
-                    targets = stmt.targets \
-                        if isinstance(stmt, ast.Assign) else [stmt.target]
-                    for t in targets:
-                        attr = _self_attr(t)
-                        if attr is not None:
-                            attr_decls[attr] = (decls[stmt.lineno],
-                                                stmt.lineno)
-                            decl_lines_used.add(stmt.lineno)
+        for stmt in assigns:
+            if stmt.lineno in decls:
+                for t in _targets(stmt):
+                    attr = _self_attr(t)
+                    if attr is not None:
+                        attr_decls[attr] = (decls[stmt.lineno],
+                                            stmt.lineno)
+                        decl_lines_used.add(stmt.lineno)
         decl_lines_used.update(ca.decl_used)
         ca.infer(attr_decls)
         ca.check()

@@ -136,8 +136,7 @@ class GPT2Model(HybridBlock):
         """(num_heads, head_dim) of the serving KV caches: this rank's
         heads where the projections are blocks split over ``tp``."""
         attn = self.blocks[0].attn
-        d = attn._head_dim
-        return attn.q_proj.weight.shape[0] // d, d
+        return attn.local_heads(), attn._head_dim
 
     def _cache_dtype(self):
         """Caches follow the parameter dtype (bf16 parameters → bf16

@@ -75,7 +75,8 @@ from ..parallel.sharding import annotate, block_mesh
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN", "TransformerBlock",
            "TransformerEncoderLayer", "run_blocks", "copy_cache_rows",
-           "seq_offset", "tp_group", "row_parallel", "no_seq_parallel",
+           "seq_offset", "tp_group", "layer_tp_group", "row_parallel",
+           "no_seq_parallel",
            "seq_first"]
 
 _NEG = -1e30
@@ -133,6 +134,13 @@ def tp_group(weight):
     block (raises outside its mesh), or None where it is whole."""
     mesh = block_mesh(weight, "tp")
     return mesh.group("tp") if mesh is not None else None
+
+
+def layer_tp_group(layer):
+    """:func:`tp_group` of ``layer``'s float weight, or None where it has
+    none (an int8 ``QuantizedDense``, which is never split)."""
+    weight = layer._parameters.get("weight")
+    return None if weight is None else tp_group(weight)
 
 
 def row_parallel(dense, x, group):
@@ -194,14 +202,22 @@ class MultiHeadAttention(HybridBlock):
             setattr(self, name, d)
         self.dropout = Dropout(dropout) if dropout else None
 
+    def local_heads(self) -> int:
+        """This rank's heads: all of them, or H/tp of a split projection
+        (the rows of ``q_proj``'s float or int8 weight over the head
+        dimension; read without a mesh, as the serving caches are
+        sized)."""
+        w = self.q_proj._parameters.get("weight")
+        if w is None:
+            w = self.q_proj.qweight
+        return w.shape[0] // self._head_dim
+
     def _qkv(self, x, memory=None):
-        group = tp_group(self.q_proj.weight)
+        group = layer_tp_group(self.q_proj)
         x = _coll.copy_to(x, group)
         kv = x if memory is None else _coll.copy_to(memory, group)
         b, t, tk = x.shape[0], x.shape[1], kv.shape[1]
-        # this rank's heads: all of them, or H/tp of a split projection
-        d = self._head_dim
-        h = self.q_proj.weight.shape[0] // d
+        d, h = self._head_dim, self.local_heads()
         return (self.q_proj(x).reshape(b, t, h, d),
                 self.k_proj(kv).reshape(b, tk, h, d),
                 self.v_proj(kv).reshape(b, tk, h, d))
@@ -209,7 +225,7 @@ class MultiHeadAttention(HybridBlock):
     def _out(self, out):
         b, t = out.shape[0], out.shape[1]
         out = out.reshape(b, t, -1)
-        group = tp_group(self.out_proj.weight)
+        group = layer_tp_group(self.out_proj)
         if group is None:
             return self.out_proj(out)
         return row_parallel(self.out_proj, out, group)
@@ -573,7 +589,7 @@ class PositionwiseFFN(HybridBlock):
         self.dropout = Dropout(dropout) if dropout else None
 
     def forward(self, x):
-        group = tp_group(self.fc1.weight)
+        group = layer_tp_group(self.fc1)
         h = self.fc1(_coll.copy_to(x, group))
         h = self.act(h) if self.act is not None else \
             _ACTIVATIONS[self._activation](h)

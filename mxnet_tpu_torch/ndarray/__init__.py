@@ -32,9 +32,20 @@ def load(fname, ctx=None):
     return {k: array(v, ctx=ctx) for k, v in _load(fname).items()}
 
 
+def Custom(*data, op_type, **kwargs):
+    """Invoke a registered Python custom op (``mx.nd.Custom``; see
+    :mod:`mxnet_tpu_torch.operator`)."""
+    from ..operator import Custom as _custom
+    return _custom(*data, op_type=op_type, **kwargs)
+
+
 def __getattr__(name):
-    # mx.nd.sparse and mx.nd.cast_storage resolve at first use, as the
-    # reference's do
+    # mx.nd.contrib, mx.nd.sparse and mx.nd.cast_storage resolve at first
+    # use, as the reference's do
+    if name == "contrib":
+        from .. import contrib
+        globals()["contrib"] = contrib
+        return contrib
     if name == "sparse":
         import importlib
         mod = importlib.import_module(".sparse", __name__)

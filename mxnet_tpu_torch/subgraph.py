@@ -9,9 +9,8 @@ block-tree (and Symbol-DAG) rewriters.  Built-in backends:
 
 - ``"FUSE_BN"``: fold inference-mode BatchNorm into the preceding
   Conv2D/Dense inside HybridSequential chains, as weight algebra.
-- ``"INT8"``: the quantization backend, registered under the
-  reference's name and signature; it raises until ``contrib.
-  quantization`` is ported (ROADMAP A9.3).
+- ``"INT8"``: swap Dense/Conv2D layers for int8 ones
+  (``contrib.quantization.quantize_net``), calibrating on ``calib_data``.
 """
 from __future__ import annotations
 
@@ -156,18 +155,17 @@ register_backend(FuseBNProperty())
 # --------------------------------------------------------------- INT8
 
 class Int8Property(SubgraphProperty):
-    """Quantization as a subgraph backend (the quantization pass run
-    through optimize_for).  Its pass, ``contrib.quantization.
-    quantize_net``, is not ported yet (ROADMAP A9.3)."""
+    """Quantization as a subgraph backend: ``contrib.quantization.
+    quantize_net`` run through ``optimize_for``, as the reference's."""
 
     name = "INT8"
 
     def apply_block(self, net, calib_data=None, calib_mode="naive",
                     exclude_layers=None, **kwargs):
-        raise _base.MXNetError(
-            "optimize_for backend 'INT8' needs contrib.quantization."
-            "quantize_net, which the port does not have yet (ROADMAP "
-            "A9.3, contrib.quantization)")
+        from .contrib.quantization import quantize_net
+        return quantize_net(net, calib_data=calib_data,
+                            calib_mode=calib_mode,
+                            exclude_layers=exclude_layers)
 
 
 register_backend(Int8Property())

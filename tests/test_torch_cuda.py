@@ -2511,3 +2511,154 @@ def test_embedding_sparse_grad_on_the_card_stays_compact(dev):
                                    table[onp.unique(ids)])
     assert onp.array_equal(grads[0][0], grads[1][0])
     assert onp.abs(grads[0][1] - grads[1][1]).max() < 1e-5
+
+
+def _quantized_pair(dev, make, seed):
+    """A float layer on the card and its copy on the CPU, both quantized
+    (``QuantizedDense`` / ``QuantizedConv2D`` from the same weights)."""
+    from mxnet_tpu_torch import cpu, gpu
+    from mxnet_tpu_torch.contrib import quantization as Q
+    from mxnet_tpu_torch.utils.convert import load_numpy_params
+    with cpu():
+        host = make()
+        host.initialize(seed=seed)
+    params = {k: p.detach().numpy() for k, p in host.named_parameters()}
+    with gpu(0):
+        card = load_numpy_params(make(), params)
+    cls = Q.QuantizedDense if hasattr(host, "_units") else Q.QuantizedConv2D
+    return cls(card), cls(host)
+
+
+@pytest.mark.parametrize("rows", [4, 64])
+def test_int_mm_quantized_dense_on_the_card_equals_the_cpu(dev, rows):
+    """QuantizedDense through torch._int_mm on the card at 4 rows (padded
+    past the CUDA check's 16) and 64, K = 76 and N = 36 padded to
+    multiples of 8: equal to the CPU's (the int32 products are exact;
+    the float32 epilogue at 1e-6 relative)."""
+    from mxnet_tpu_torch.contrib import quantization as Q
+    from mxnet_tpu_torch.gluon import nn
+    card, host = _quantized_pair(
+        dev, lambda: nn.Dense(36, in_units=76, activation="relu"), 3)
+    assert torch.equal(card.qweight.cpu(), host.qweight)
+    x = torch.randn(rows, 76, generator=torch.Generator().manual_seed(rows))
+    calls = Q.int8_matmul.calls
+    got = card(x.to(dev))
+    assert Q.int8_matmul.calls == calls + 1 and got.is_cuda
+    assert _relerr(got.cpu(), host(x)) < 1e-6
+
+
+@pytest.mark.parametrize("case", ["stem_k147", "grouped_strided"])
+def test_int_mm_quantized_conv_on_the_card_equals_the_cpu(dev, case):
+    """QuantizedConv2D on the card: ResNet's stem (K = 3·7·7 = 147,
+    padded to 152) and a grouped, strided 3x3 (one _int_mm a group),
+    against the CPU at 1e-6 relative."""
+    from mxnet_tpu_torch.contrib import quantization as Q
+    from mxnet_tpu_torch.gluon import nn
+    make, cin, groups = {
+        "stem_k147": (lambda: nn.Conv2D(64, 7, strides=2, padding=3,
+                                        in_channels=3), 3, 1),
+        "grouped_strided": (lambda: nn.Conv2D(32, 3, strides=2, padding=1,
+                                              groups=4, in_channels=16,
+                                              activation="relu"), 16, 4)}[
+        case]
+    card, host = _quantized_pair(dev, make, 5)
+    x = torch.rand(2, cin, 33, 33, generator=torch.Generator().manual_seed(1))
+    calls = Q.int8_matmul.calls
+    got = card(x.to(dev))
+    assert Q.int8_matmul.calls == calls + groups
+    assert _relerr(got.cpu(), host(x)) < 1e-6
+
+
+def test_hybridized_control_flow_on_the_card_replays_down_the_other_path(
+        dev):
+    """A hybridized ``cond`` and ``while_loop`` on the card: one CUDA
+    graph per signature, replayed with an input that takes the other
+    path, each equal to its eager result (the reference's 20.0 then
+    -0.5 for ``cond``)."""
+    from mxnet_tpu_torch import contrib, gpu, nd
+    from mxnet_tpu_torch.gluon import HybridBlock
+
+    class Cond(HybridBlock):
+        def hybrid_forward(self, F, x):
+            return contrib.cond(F.sum(x) > 1.0, lambda: x * 10.0,
+                                lambda: x - 1.0)
+
+    class While(HybridBlock):
+        def hybrid_forward(self, F, x):
+            outs, (i, s) = contrib.while_loop(
+                lambda i, s: F.sum(i) < 4, lambda i, s: (s + i, (i + 1.0,
+                                                                  s + i * x)),
+                (F.zeros(x.shape), x), max_iterations=8)
+            return s
+
+    with gpu(0):
+        c = Cond()
+        c.hybridize()
+        assert float(c(nd.array([2.0])).asscalar()) == 20.0
+        assert float(c(nd.array([0.5])).asscalar()) == -0.5
+        w = While()
+        w.hybridize()
+        for v in (0.5, -3.0):
+            got = w(nd.array([v])).asnumpy()
+            w._active = False
+            want = w(nd.array([v])).asnumpy()
+            w._active = True
+            onp.testing.assert_array_equal(got, want)
+        assert len(c._cached_op._jit_cache) == 1
+
+
+def test_profiler_dump_names_a_cuda_kernel(dev, tmp_path):
+    """``mx.profiler`` on the card: the Chrome trace that ``dump`` leaves
+    names a CUDA kernel and the ``Task`` range."""
+    import json
+    import os
+
+    import mxnet_tpu_torch as mx
+    mx.profiler.set_config(filename=str(tmp_path / "p.json"))
+    mx.profiler.set_state("run")
+    with mx.profiler.Task("card_range"):
+        a = torch.randn(256, 256, device=dev)
+        (a @ a).sum().item()
+    d = mx.profiler.dump()
+    with open(os.path.join(d, os.listdir(d)[0])) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
+    assert any(e.get("name") == "card_range" for e in events)
+
+
+def test_custom_op_reading_the_host_is_refused_by_the_capture(dev):
+    """A custom op whose body reads the host runs eagerly on CUDA
+    tensors, with its gradient; inside a hybridized block the capture
+    raises MXNetError naming the block."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gpu, nd, operator as mo
+
+    class Square(mo.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0],
+                        nd.array(in_data[0].asnumpy() ** 2))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            self.assign(in_grad[0], req[0], out_grad[0] * 2 * in_data[0])
+
+    @mo.register("card_square")
+    class SquareProp(mo.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return Square()
+
+    class Net(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, x):
+            return F.Custom(x, op_type="card_square")
+
+    with gpu(0):
+        x = nd.array([1.0, -2.0, 3.0])
+        x.attach_grad()
+        with autograd.record():
+            y = nd.Custom(x, op_type="card_square")
+        y.backward()
+        assert y.context == gpu(0)
+        onp.testing.assert_array_equal(x.grad.asnumpy(), [2.0, -4.0, 6.0])
+        net = Net()
+        net.hybridize()
+        with pytest.raises(mx.MXNetError, match="Net"):
+            net(nd.array([1.0, 2.0]))

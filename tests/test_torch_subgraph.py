@@ -6,8 +6,8 @@ the Conv2D or Dense before it and the fused net's outputs equal the
 reference's fused net's from the same parameters and running
 statistics (copied across with ``save_parameters`` /
 ``load_parameters``); the ``optimize_for`` block API; a custom backend;
-a rewrite that drops a hybridized net's cached program; and the typed
-refusal of ``INT8`` until ``contrib.quantization`` is ported.
+a rewrite that drops a hybridized net's cached program; and ``INT8``
+(``contrib.quantization.quantize_net``) against the reference's.
 Tolerance: the reference's 1e-4 relative, 1e-5 absolute.
 """
 import numpy as onp
@@ -140,13 +140,30 @@ def test_builtin_and_custom_backends():
         P.sym.Variable("data").optimize_for("FUSE_BN")
 
 
-def test_int8_is_refused_until_quantization_is_ported():
-    """INT8 keeps the reference's name and signature and raises a typed
-    error naming the queue that ports its pass."""
+def test_int8_backend_matches_the_reference(tmp_path):
+    """INT8 through ``optimize_for`` with naive calibration swaps every
+    Conv2D and Dense for its int8 layer, as the reference's does, with
+    the reference's calibrated ranges and outputs (the int8 products are
+    exact; the float32 epilogue at the file's tolerance)."""
+    rs = onp.random.RandomState(5)
+    x = rs.uniform(-1, 1, (2, 3, 8, 8)).astype("f")
+    calib = [rs.uniform(-1, 1, (4, 3, 8, 8)).astype("f") for _ in range(2)]
+    rnet, pnet = _pair(_conv_bn_net, x, tmp_path)
+    want = rnet.optimize_for(R.nd.array(x), backend="INT8",
+                             calib_data=[R.nd.array(c) for c in calib],
+                             calib_mode="naive").asnumpy()
     with P.cpu():
-        net = _conv_bn_net(P)
-        net.initialize()
-        x = P.nd.array(onp.zeros((1, 3, 8, 8), "f"))
-        net(x)
-    with pytest.raises(P.MXNetError, match="A9.3"):
-        optimize_for(net, "INT8", calib_data=[x])
+        got = pnet.optimize_for(P.nd.array(x), backend="INT8",
+                                calib_data=[P.nd.array(c) for c in calib],
+                                calib_mode="naive").asnumpy()
+        again = pnet(P.nd.array(x)).asnumpy()
+    kinds = [type(c).__name__ for c in pnet.children()]
+    assert kinds == [type(c).__name__ for c in rnet._children.values()]
+    assert kinds.count("QuantizedConv2D") == 2 and "Dense" not in kinds
+    for pc, rc in zip(pnet.children(), rnet._children.values()):
+        if hasattr(rc, "acts_range"):
+            onp.testing.assert_array_equal(pc.acts_range.numpy(),
+                                           rc.acts_range.data().asnumpy())
+    assert pnet._active
+    onp.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    onp.testing.assert_array_equal(again, got)

@@ -35,19 +35,12 @@ import mxnet_tpu_torch
 _JAX = "the reference's jax machinery; the port's counterpart is torch's"
 _KEYS = ("jax's functional PRNG keys; the port draws from per-device "
          "torch generators (random.generator, GraphDraws) and Philox")
-_A93 = ("queue A9.3 (contrib with quantization, gluon.contrib, "
-        "operator with library, the rest of profiler)")
 
 # reference modules with no port counterpart
 MODULES = {
     "autograd.tape": "by design: torch's autograd records the tape",
     "ops._smap": "by design: jax's shard_map",
     "utils.platform": "by design: the TPU plugin's platform forcing",
-    **{m: _A93 for m in (
-        "contrib", "contrib.quantization", "gluon.contrib",
-        "gluon.contrib.estimator", "gluon.contrib.estimator.estimator",
-        "gluon.contrib.estimator.event_handler", "gluon.contrib.nn",
-        "library", "operator")},
 }
 
 # the port module that holds a reference module's names, where it differs
@@ -107,11 +100,6 @@ GAPS = {
            "inv", "lstsq", "matrix_power", "matrix_rank", "multi_dot",
            "norm", "pinv", "qr", "slogdet", "solve", "svd", "svdvals",
            "tensorinv", "tensorsolve")},
-    # queued
-    "ndarray:Custom": _A93,
-    **{f"profiler:{n}": _A93 for n in (
-        "Frame", "Task", "dump", "dumps", "pause", "resume", "set_config",
-        "set_state")},
     # jax's own mesh and sharding classes: the port's Mesh is a grid of
     # ranks with process groups, its NamedSharding a mesh and a spec that
     # compute a rank's block

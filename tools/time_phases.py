@@ -1,7 +1,9 @@
 """Time some of ``chip_smoke.py``'s phases of the tree at ROOT, in one
 process, on the card (default: 9, the serving features, and 16, the
-compiled training programs; also 22, sharded serving with BERT and NMT
-under tp, and 24, the chaos sweep):
+compiled training programs; also 17, resilient training, 20, data and
+sequence parallel training, 22, sharded serving with BERT and NMT under
+tp, 24, the chaos sweep, and 27, queue A9.3's int8 models, control flow,
+custom ops and estimator):
 
     python3 tools/time_phases.py ROOT [PHASE ...]
 
@@ -27,8 +29,11 @@ card = cs.card_line()
 print("build", native.build(), flush=True)
 run = {9: lambda: cs.features_path(torch, card, cs.make_prompts()),
        16: lambda: cs.training_programs_path(torch, card),
+       17: lambda: cs.resilient_path(torch, card),
+       20: lambda: cs.parallel_path(torch, card),
        22: lambda: cs.shard_path(torch, card),
-       24: lambda: cs.chaos_path(torch, card)}
+       24: lambda: cs.chaos_path(torch, card),
+       27: lambda: cs.a93_path(torch, card)}
 times = []
 for p in phases:
     t0 = time.monotonic()
