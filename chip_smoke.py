@@ -16,7 +16,9 @@ Phases (any failure exits non-zero and prints no result line):
    flash backward (dQ; dK and dV), B4 paged attention (its split walk and
    merge), each kernel also held to repeat bit for bit.  B4's main-path
    case is also timed by torch.profiler's device time, since the events
-   there read the wrapper's host work.
+   there read the wrapper's host work; so is B1 in bf16 at D 64 and 128,
+   whose profiler record must name ``flash_fwd_wgmma_kernel`` (wgmma fed
+   by TMA; phase 1 prints its ptxas lines).
 3. The serving path at full width: GPT-2 124M (12 layers, 768 units, 12
    heads, vocab 50257, 1024 positions; random weights from a seed)
    served by ``InferenceEngine`` with paged KV and the paged-attention
@@ -1038,6 +1040,13 @@ class Timer:
         """Mean device milliseconds per call of the kernels whose names
         hold ``mark``, from torch.profiler's trace of ``iters`` calls, L2
         flushed before each; None if the profiler saw no such kernel."""
+        ms = sum(t for k, t in self.rows(fn, iters, warm) if mark in k)
+        return ms / iters if ms > 0 else None
+
+    def rows(self, fn, iters=20, warm=3):
+        """(kernel name, device ms over all calls) of torch.profiler's
+        trace of ``iters`` calls, L2 flushed before each (the flush's own
+        kernel among them); [] if the profiler kept no record."""
         from torch.profiler import ProfilerActivity, profile
         torch = self.torch
         for _ in range(warm):
@@ -1048,8 +1057,7 @@ class Timer:
                 self.flush_buf.zero_()
                 fn()
             torch.cuda.synchronize()
-        ms = sum(t for k, t in _device_rows(torch, prof) if mark in k)
-        return ms / iters if ms > 0 else None
+        return _device_rows(torch, prof)
 
 
 def fmt_ms(ms) -> str:
@@ -1130,8 +1138,28 @@ def flash_cases(torch, dev, timer, card):
         print(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib}, "
               f"bound {b_ms:.4f} ms ({b_by} at {rate(b_by, dname)}) "
               f"[{card}]", flush=True)
-        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        kernel = fwd_kernel(dtype, d)
+        out = dict(kernel=kernel, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        if kernel == "flash_fwd_wgmma_kernel":
+            # the profiler names the kernel that ran and reads its device
+            # time apart from the wrapper's host work (it sometimes keeps
+            # no record: read again, up to three times)
+            for _ in range(3):
+                rows = timer.rows(lambda: F.flash_fwd(
+                    q, k, v, qseg, qseg, causal=causal, scale=scale))
+                if rows:
+                    break
+            ran = [name for name, _ms in rows if "flash_fwd" in name]
+            if rows and not (ran and all(kernel in name for name in ran)):
+                raise AssertionError(f"flash_fwd {tag}: ran {ran}, not "
+                                     f"{kernel}")
+            dev_ms = sum(t for name, t in rows if kernel in name) / 20
+            out["device_ms"] = dev_ms if dev_ms > 0 else None
+            print(f"    {kernel} device {fmt_ms(out['device_ms'])}"
+                  + ("" if rows else " (the profiler kept no record)"),
+                  flush=True)
+        return out
 
     print("B1 flash_fwd vs plain:", flush=True)
     run("causal B4 T512 H12 D64 f32", 4, 512, 12, 64, torch.float32, True)
@@ -1140,6 +1168,10 @@ def flash_cases(torch, dev, timer, card):
     run("causal+segments B2 T512 H4 D64 f32", 2, 512, 4, 64, torch.float32,
         True, seg=True)
     run("full B2 T256 H4 D128 f32", 2, 256, 4, 128, torch.float32, False)
+    run("full B4 T512 H8 D128 bf16", 4, 512, 8, 128, torch.bfloat16, False,
+        tol=TOL_BF16)
+    run("causal+segments B2 T300 H4 D64 bf16", 2, 300, 4, 64, torch.bfloat16,
+        True, seg=True, tol=TOL_BF16)
     run("causal B1 T256 H2 D256 bf16", 1, 256, 2, 256, torch.bfloat16, True,
         tol=TOL_BF16)
     # the serving path's prefill shape: 8 prompts in the 512 bucket, f32
@@ -1156,6 +1188,31 @@ def flash_cases(torch, dev, timer, card):
             for tag, shape, dt in language_shapes(torch)
             + parallel_shapes(torch)}
     return f32, bf16, lang
+
+
+def fwd_kernel(dtype, d):
+    """The name of B1's kernel for ``dtype`` at head dim ``d``
+    (``csrc/flash_fwd.cu``)."""
+    if d == 256:
+        return "flash_fwd_kernel"
+    return ("flash_fwd_tc_kernel" if str(dtype) == "torch.float32"
+            else "flash_fwd_wgmma_kernel")
+
+
+def ptxas_lines(log, mark):
+    """ptxas's lines (registers, spills, notes) for the kernels whose
+    mangled names hold ``mark``."""
+    out, on = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            on = mark in line
+            if on:
+                out.append(line.strip())
+        elif on and ("Used" in line or "spill" in line):
+            out.append(line.strip())
+        elif mark in line and "(C75" in line:
+            out.append(line.strip())
+    return out
 
 
 def language_shapes(torch):
@@ -8820,6 +8877,11 @@ def main() -> int:
     print(f"kernel build: {secs:.1f} s", flush=True)
     for name in native.KERNELS:
         print(f"--- ptxas {name}:\n{native.build_log(name).strip()}")
+    wgmma = ptxas_lines(native.build_log("flash_fwd"), "flash_fwd_wgmma")
+    if not wgmma:
+        raise AssertionError("ptxas printed nothing for flash_fwd_wgmma_kernel")
+    print("--- ptxas flash_fwd_wgmma_kernel (B1 bf16, D 64 and 128):\n"
+          + "\n".join(wgmma), flush=True)
     timer = Timer(torch, dev)
     prompts = make_prompts()
     with phase("2"):

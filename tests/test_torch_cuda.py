@@ -95,6 +95,69 @@ def _segments(dev, b, t):
     return qseg[None].expand(b, t).contiguous()
 
 
+@pytest.mark.parametrize("case", ["training", "full_d128", "segments_t300",
+                                  "one_partial_tile"])
+def test_flash_wgmma_bf16_matches_plain_and_repeats(dev, case):
+    """B1 in bf16 (``flash_fwd_wgmma_kernel``: wgmma fed by TMA) at the
+    training path's shape (causal B16 T1024 H12 D64), full attention at D =
+    128, causal packed segments at T = 300 (not a multiple of the 128-key
+    tile or item), and one partial tile (B1 T64 H1): one launch, within
+    the bf16 tolerance of the plain version, bit-identical on a second
+    launch."""
+    b, t, h, d, causal, seg = {
+        "training": (16, 1024, 12, 64, True, False),
+        "full_d128": (4, 512, 8, 128, False, False),
+        "segments_t300": (2, 300, 3, 64, True, True),
+        "one_partial_tile": (1, 64, 1, 64, True, False),
+    }[case]
+    g = torch.Generator(device=dev).manual_seed(t + d)
+    q, k, v = (torch.randn((b, t, h, d), generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    qseg = _segments(dev, b, t) if seg else None
+    scale = d ** -0.5
+    n0 = flash.flash_fwd.launches_by_dtype[torch.bfloat16]
+    o, lse = flash.flash_fwd(q, k, v, qseg, qseg, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert flash.flash_fwd.launches_by_dtype[torch.bfloat16] == n0 + 1
+    o_ref, lse_ref = flash._fwd_plain(q, k, v, qseg, qseg, causal, scale)
+    assert _maxabs(o, o_ref) <= TOL[torch.bfloat16]
+    assert _maxabs(lse, lse_ref) <= TOL[torch.bfloat16]
+    o2, lse2 = flash.flash_fwd(q, k, v, qseg, qseg, causal=causal,
+                               scale=scale)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def test_flash_wgmma_graph_replay_after_in_place_writes_equals_eager(dev):
+    """B1 in bf16 captured in a CUDA graph (its tensor maps are encoded on
+    the host at capture and hold the inputs' addresses): after new values
+    are written into the captured inputs in place, a replay gives the
+    eager call's bits."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    b, t, h, d = 2, 512, 4, 64
+    scale = d ** -0.5
+
+    def draw():
+        return [torch.randn((b, t, h, d), generator=g, device=dev)
+                .to(torch.bfloat16) for _ in range(3)]
+
+    q, k, v = draw()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash.flash_fwd(q, k, v, causal=True, scale=scale)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o, lse = flash.flash_fwd(q, k, v, causal=True, scale=scale)
+    for _ in range(2):
+        for dst, src in zip((q, k, v), draw()):
+            dst.copy_(src)
+        graph.replay()
+        o_e, lse_e = flash.flash_fwd(q, k, v, causal=True, scale=scale)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o_e) and torch.equal(lse, lse_e)
+
+
 def _check_bwd(args, dtype, causal, scale):
     """B2 then B3 on ``args`` (q, k, v, dO, lse, segment ids): one launch
     each; B2's dQ and the delta it computes, and B3's dK and dV fed that
